@@ -1,4 +1,5 @@
-"""Drive the PyTorch port's sampling and serving path once on one CUDA GPU.
+"""Drive the PyTorch port's sampling, serving and training paths once on one
+CUDA GPU.
 
     python3 chip_smoke.py
 
@@ -27,17 +28,40 @@ first use) and exits non-zero without one. Phases, each fatal on failure:
          finite motions of the right shapes, finite recover_from_ric; both
          kernels launched exactly 32 x (forwards) times. Then one ddim50 and
          one dpm20 generate of 16 prompts at 196 frames, timed.
+  D      training. D1: the two backward kernels against their plain versions
+         at the training shapes (B = 32, T = 196 and 98, H = 4, D = m = 128,
+         ragged mask; favor_qkv_bwd in bf16 and f32, with and without
+         d(proj); performer_epilogue_bwd in bf16 at width 512), max errors
+         against stated tolerances, kernel and plain times. D2: one
+         full-width train step in f32 compute (dropout 0, no stochastic
+         depth) through the kernels and with use_kernels=False on the same
+         batch, noise and t: equal losses, a finite gradient for every
+         trainable parameter, per-parameter gradient rel RMS within a stated
+         tolerance. D3: tools/train.py main() on the synthetic dataset at the
+         flagship defaults (dropout 0.1, the uncond double step), 64 samples
+         at batch 32 = 4 optimizer steps: finite losses, a checkpoint, a
+         second main() that resumes at step 4, epoch 1; favor_qkv and its
+         backward launched 32 x forwards and 32 x backwards, the epilogue
+         and its backward never (dropout takes the unfused path); ms per
+         optimizer step. D4: two steps through Trainer at dropout 0, where
+         the epilogue and its backward run 32 times per step each.
 
 The last line is {"ok": true, "device": {...}}, printed only when every
-phase passed; the line before it lists the kernels of the path.
+phase passed; the line before it lists the kernels of the paths.
 """
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
+import io
 import json
 import math
+import os
+import re
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
@@ -60,6 +84,17 @@ DENOISER_BF16_FACTOR, DENOISER_BF16_FLOOR = 1.5, 5e-3
 # 3 sampler steps in f32: the denoiser's ~1e-6 carried through guidance 7.5
 # and the eps -> x0 factor sqrt(1/abar - 1) (~1.6e2 at t = 999)
 SAMPLE_F32_REL = 1e-4
+# backward kernels vs their plain versions: f32 outputs are sums over T (and
+# over B*H for the shared parameters) in another order -> 1e-3 of the
+# output's largest value; bf16 gradients are that result rounded once ->
+# one bf16 ulp plus the same floor
+BWD_FLOOR = 1e-3
+# one f32 train step, kernels vs use_kernels=False: the loss is the same
+# math in another order; each parameter's gradient RMS error relative to
+# its own RMS, floored at 1e-3 of the RMS of all gradients (some gradients,
+# e.g. the key biases of a softmax over keys, are zero up to rounding)
+STEP_LOSS_REL = 1e-5
+STEP_GRAD_REL_RMS = 1e-3
 
 
 def check(cond: bool, msg: str) -> None:
@@ -90,32 +125,52 @@ def time_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-def paired_ms(kernel_fn, plain_fn):
+def paired_ms(kernel_fn, plain_fn, iters: int = 20):
     """(kernel ms, plain ms) timed in turns: plain, kernel, kernel, plain."""
-    p1, k1, k2, p2 = (time_ms(plain_fn), time_ms(kernel_fn),
-                      time_ms(kernel_fn), time_ms(plain_fn))
+    p1, k1, k2, p2 = (time_ms(plain_fn, iters), time_ms(kernel_fn, iters),
+                      time_ms(kernel_fn, iters), time_ms(plain_fn, iters))
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
-def device_ms(fn, iters: int = 20) -> float:
+def device_ms(fn, iters: int = 20) -> str:
     """Device time of one call: the sum of the CUDA kernels' own times
     that torch.profiler records over ``iters`` calls, divided by
     ``iters``. Unlike back-to-back CUDA events it leaves out the host's
-    launch cost, which exceeds a short kernel's run time."""
+    launch cost, which exceeds a short kernel's run time.
+
+    The profiler loses the first kernels of a session now and then, or
+    all of them (seen on an H100 under torch 2.11 for calls that it had
+    timed earlier in the same process). So each session traces a warm-up
+    cycle of ``iters`` calls that it discards before the cycle it keeps;
+    and, as every call launches the same kernels, a session counts only if
+    its kernel count is a positive multiple of ``iters``. It is asked up
+    to three times; if no session counts, the result is "not measured",
+    and the CUDA-event times printed beside it are the only ones for that
+    call. This number is printed and nothing else: no check and no line
+    of JSON reads it."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA)
-    check(us > 0, "torch.profiler recorded no device time")
-    return us / iters / 1e3
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            for _ in range(2):  # the warm-up cycle, then the kept one
+                for _ in range(iters):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA]
+        n = sum(e.count for e in events)
+        if n and n % iters == 0:
+            us = sum(e.self_device_time_total for e in events)
+            return f"{us / iters / 1e3:.4f} ms"
+    return ("not measured (torch.profiler recorded no whole set of CUDA "
+            "kernels)")
 
 
 def ragged_mask(rng, B, T, dev):
@@ -173,8 +228,8 @@ def phase_a(dev, card):
             k_ms, p_ms = paired_ms(kernel, plain)
             print(f"[A] favor_qkv {str(dtype)[6:]} B={B} T={T}: kernel "
                   f"{k_ms:.4f} ms, plain {p_ms:.4f} ms per call (CUDA "
-                  f"events); device time kernel {device_ms(kernel):.4f} ms, "
-                  f"plain {device_ms(plain):.4f} ms (torch.profiler) "
+                  f"events); device time kernel {device_ms(kernel)}, "
+                  f"plain {device_ms(plain)} (torch.profiler) "
                   f"({card})")
             results[("favor_qkv", dtype, T)] = (err, k_ms, p_ms)
 
@@ -192,8 +247,8 @@ def phase_a(dev, card):
         k_ms, p_ms = paired_ms(kernel, plain)
         print(f"[A] performer_epilogue bfloat16 B={B} T={T}: kernel "
               f"{k_ms:.4f} ms, plain {p_ms:.4f} ms per call (CUDA events); "
-              f"device time kernel {device_ms(kernel):.4f} ms, plain "
-              f"{device_ms(plain):.4f} ms (torch.profiler) ({card})")
+              f"device time kernel {device_ms(kernel)}, plain "
+              f"{device_ms(plain)} (torch.profiler) ({card})")
         results[("performer_epilogue", torch.bfloat16, T)] = (err, k_ms, p_ms)
     return results
 
@@ -467,6 +522,306 @@ def phase_c(cfg, model, dev, card):
     return launches, timings
 
 
+def phase_d1(dev, card):
+    """The backward kernels against their plain versions at the training
+    shapes."""
+    import torch
+    from motiondiffusion_moe_tpu_torch.ops import performer as P
+
+    rng = np.random.default_rng(SEED + 10)
+    B, H, D, m, latent = 32, 4, 128, 128, 512
+    results = {}
+
+    def t(*shape, s=1.0, off=0.0):
+        return torch.from_numpy((off + s * rng.standard_normal(shape))
+                                .astype(np.float32)).to(dev)
+
+    def compare(name, outs, refs, dtypes):
+        worst = 0.0
+        for i, (o, r, dt) in enumerate(zip(outs, refs, dtypes)):
+            if r is None:
+                check(o is None, f"{name} output {i} should be None")
+                continue
+            o, r = o.float(), r.float()
+            check(bool(torch.isfinite(o).all()), f"{name} output {i} "
+                                                 "non-finite")
+            err = (o - r).abs()
+            floor = BWD_FLOOR * r.abs().max().item()
+            if dt == torch.float32:
+                ok = err.max().item() <= floor
+            else:
+                ok = bool((err <= 2 ** -7 * r.abs() + floor).all())
+            print(f"[D1]   {name} output {i} {str(dt)[6:]}: max_abs_err="
+                  f"{err.max().item():.3e} (max|plain| "
+                  f"{r.abs().max().item():.3e}) -> {'ok' if ok else 'FAIL'}")
+            check(ok, f"{name} output {i} outside tolerance")
+            worst = max(worst, err.max().item())
+        return worst
+
+    tol = (f"f32: max_abs <= {BWD_FLOOR:g} max|plain|; bf16: |err| <= 2^-7 "
+           f"|plain| + {BWD_FLOOR:g} max|plain|")
+    print(f"[D1] tolerance {tol}")
+    for T in (196, 98):
+        mask = ragged_mask(rng, B, T, dev)
+        scale, bias = t(D, s=0.1, off=1.0), t(D, s=0.1)
+        proj = t(D, m, s=D ** -0.25)
+        for dtype in (torch.bfloat16, torch.float32):
+            qkv = t(B, T, 3 * H * D).to(dtype)
+            g = t(B, T, H * D).to(dtype)
+            for need in (False, True):
+                name = (f"favor_qkv_bwd {str(dtype)[6:]} T={T} "
+                        f"d(proj)={'yes' if need else 'no'}")
+                out = P.favor_qkv_bwd(qkv, scale, bias, proj, mask, g,
+                                      need_dproj=need)
+                torch.cuda.synchronize()
+                ref = P.favor_qkv_bwd_plain(qkv, scale, bias, proj, mask, g,
+                                            need_dproj=need)
+                err = compare(name, out, ref, (dtype, torch.float32,
+                                               torch.float32, torch.float32))
+                if dtype == torch.bfloat16 and not need:  # the train path
+                    kernel = lambda: P.favor_qkv_bwd(  # noqa: E731
+                        qkv, scale, bias, proj, mask, g, need_dproj=False)
+                    plain = lambda: P.favor_qkv_bwd_plain(  # noqa: E731
+                        qkv, scale, bias, proj, mask, g, need_dproj=False)
+                    k_ms, p_ms = paired_ms(kernel, plain, iters=10)
+                    print(f"[D1] {name}: kernel {k_ms:.4f} ms, plain "
+                          f"{p_ms:.4f} ms per call (CUDA events); device "
+                          f"time kernel {device_ms(kernel, 10)}, plain "
+                          f"{device_ms(plain, 10)} (torch.profiler) "
+                          f"({card})")
+                    results[("favor_qkv_bwd", T)] = (err, k_ms, p_ms)
+
+        y, g = t(B, T, latent).to(torch.bfloat16), t(B, T, latent).to(
+            torch.bfloat16)
+        sc = t(B, latent, s=0.3).to(torch.bfloat16)
+        sh = t(B, latent, s=0.3).to(torch.bfloat16)
+        vecs = [t(latent, s=0.1, off=1.0), t(latent, s=0.1),
+                t(latent, s=0.1, off=1.0), t(latent, s=0.1)]
+        name = f"performer_epilogue_bwd bfloat16 T={T}"
+        out = P.performer_epilogue_bwd(y, sc, sh, *vecs, g)
+        torch.cuda.synchronize()
+        ref = P.performer_epilogue_bwd_plain(y, sc, sh, *vecs, g)
+        err = compare(name, out, ref, [torch.bfloat16] * 3
+                      + [torch.float32] * 4)
+        kernel = lambda: P.performer_epilogue_bwd(  # noqa: E731
+            y, sc, sh, *vecs, g)
+        plain = lambda: P.performer_epilogue_bwd_plain(  # noqa: E731
+            y, sc, sh, *vecs, g)
+        k_ms, p_ms = paired_ms(kernel, plain, iters=10)
+        print(f"[D1] {name}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms per "
+              f"call (CUDA events); device time kernel "
+              f"{device_ms(kernel, 10)}, plain "
+              f"{device_ms(plain, 10)} (torch.profiler) ({card})")
+        results[("performer_epilogue_bwd", T)] = (err, k_ms, p_ms)
+    return results
+
+
+def synthetic_batch(cfg, dev, B=32, seed=SEED + 20):
+    """One training batch from the synthetic dataset, tokenized, with
+    seeded t and importance weights of 1, on ``dev``; and seeded noise."""
+    import torch
+    from motiondiffusion_moe_tpu_torch.data.dataset import (
+        SyntheticText2MotionDataset)
+    from motiondiffusion_moe_tpu_torch.data.loader import collate
+    from motiondiffusion_moe_tpu_torch.models.text_encoder import (
+        hash_tokenize)
+
+    ds = SyntheticText2MotionDataset(cfg.data, size=B, seed=seed)
+    captions, motions, lengths = collate([ds[i] for i in range(B)])
+    rng = np.random.default_rng(seed)
+    batch = {"motion": torch.from_numpy(motions),
+             "length": torch.from_numpy(lengths).long(),
+             "text_ids": torch.from_numpy(hash_tokenize(
+                 captions, cfg.model.text_max_tokens)).long(),
+             "t": torch.from_numpy(rng.integers(
+                 0, cfg.diffusion.num_timesteps, size=B)).long(),
+             "t_weight": torch.ones(B)}
+    noise = torch.from_numpy(rng.standard_normal(motions.shape).astype(
+        np.float32))
+    return {k: v.to(dev) for k, v in batch.items()}, noise.to(dev)
+
+
+def phase_d2(cfg, dev):
+    """One f32 train step through the kernels and with use_kernels=False:
+    equal losses; every trainable parameter gets a finite gradient through
+    the kernels (the autograd Functions carry it); gradients agree."""
+    import torch
+    from motiondiffusion_moe_tpu_torch.diffusion.gaussian import (
+        make_schedule)
+    from motiondiffusion_moe_tpu_torch.training.train_state import (
+        TrainStep, create_train_state)
+
+    cfg32 = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, dtype="float32", dropout=0.0, stochastic_depth_min=1.0))
+    model = build_flagship(cfg32).to(dev)
+    state = create_train_state(model, cfg32)
+    step = TrainStep(make_schedule(num_timesteps=1000, device=dev), cfg32)
+    batch, noise = synthetic_batch(cfg32, dev)
+    trainable = [(n, p) for n, p in model.named_parameters()
+                 if p.requires_grad]
+    runs = {}
+    for flag in (True, False):
+        model.set_use_kernels(flag)
+        metrics = step.backward(state, batch, None, noise=noise)
+        torch.cuda.synchronize()
+        runs[flag] = (metrics["loss_total"].item(),
+                      {n: None if p.grad is None else p.grad.detach().clone()
+                       for n, p in trainable})
+        state.optimizer.zero_grad()
+    model.set_use_kernels(True)
+    (lk, gk), (lp, gp) = runs[True], runs[False]
+    missing = [n for n, g in gk.items() if g is None
+               or not bool(torch.isfinite(g).all())]
+    B, T = batch["motion"].shape[:2]
+    print(f"[D2] flagship train step f32, B={B} T={T}: {len(trainable)} "
+          f"trainable parameters, {len(missing)} without a finite gradient "
+          f"through the kernels {missing[:5]}")
+    check(not missing, "parameters without a finite gradient through the "
+                       "kernels")
+    rel = abs(lk - lp) / abs(lp)
+    ok = rel <= STEP_LOSS_REL
+    print(f"[D2] loss kernels {lk:.8f} vs use_kernels=False {lp:.8f}: rel "
+          f"{rel:.3e}; tol {STEP_LOSS_REL:g} -> {'ok' if ok else 'FAIL'}")
+    check(ok, "train-step loss kernels vs plain")
+    rms_all = torch.sqrt(torch.stack([g.pow(2).mean() for g in gp.values()])
+                         .mean()).item()
+    rels = {}
+    for n in gk:
+        rms = gp[n].pow(2).mean().sqrt().item()
+        err = (gk[n] - gp[n]).pow(2).mean().sqrt().item()
+        rels[n] = err / max(rms, 1e-3 * rms_all)
+    worst = sorted(rels.items(), key=lambda kv: -kv[1])[:3]
+    ok = worst[0][1] <= STEP_GRAD_REL_RMS
+    print(f"[D2] gradient rel RMS, kernels vs use_kernels=False, worst: "
+          + ", ".join(f"{n} {r:.3e}" for n, r in worst)
+          + f"; median {np.median(list(rels.values())):.3e}; tol "
+          f"{STEP_GRAD_REL_RMS:g} (floor 1e-3 x RMS of all gradients "
+          f"{rms_all:.3e}) -> {'ok' if ok else 'FAIL'}")
+    check(ok, "train-step gradients kernels vs plain")
+    del model, state, runs, gk, gp
+    torch.cuda.empty_cache()
+
+
+def run_train_cli(argv):
+    """tools/train.py main(), its stdout kept and echoed; returns (final
+    state, stdout, per-step ms)."""
+    import torch
+    from motiondiffusion_moe_tpu_torch.tools import train as train_cli
+    from motiondiffusion_moe_tpu_torch.training import train_state as TS
+
+    times = []
+    call = TS.TrainStep.__call__
+
+    def timed(self, *a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = call(self, *a, **k)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    buf = io.StringIO()
+    TS.TrainStep.__call__ = timed
+    try:
+        with contextlib.redirect_stdout(buf):
+            state = train_cli.main(argv)
+    finally:
+        TS.TrainStep.__call__ = call
+        print(buf.getvalue(), end="")
+    return state, buf.getvalue(), times
+
+
+def phase_d3(dev, card):
+    """The port's training CLI at the flagship defaults: 4 optimizer steps,
+    a checkpoint, a resume; launch counts of the Performer kernels."""
+    import torch
+    from motiondiffusion_moe_tpu_torch.ops import performer as P
+
+    counts = (P.favor_qkv, P.favor_qkv_bwd, P.performer_epilogue,
+              P.performer_epilogue_bwd)
+    with tempfile.TemporaryDirectory() as ckdir:
+        argv = ["--dataset", "synthetic", "--synthetic_size", "64",
+                "--batch_size", "32", "--device", "cuda", "--log_every", "1",
+                "--checkpoint_dir", ckdir]
+        for c in counts:
+            c.launches = 0
+        state, out, times = run_train_cli(argv + ["--num_epochs", "1"])
+        launches = {c.__name__: c.launches for c in counts}
+        losses = [float(v) for v in re.findall(r"loss_total: (\S+)", out)]
+        check(state.step == 4, f"trained {state.step} steps, expected 4")
+        check(len(losses) == 4 and all(math.isfinite(v) for v in losses),
+              f"losses {losses}")
+        steps = 4
+        n_perf = 2 * 2 * state.model.config.num_layers
+        print(f"[D3] 4 optimizer steps, losses (cond, uncond per batch) "
+              f"{losses}; launches {launches}; expected favor_qkv and "
+              f"favor_qkv_bwd {n_perf} x {steps} = {n_perf * steps}, "
+              f"the epilogue and its backward 0 (dropout 0.1)")
+        check(launches["favor_qkv"] == n_perf * steps
+              and launches["favor_qkv_bwd"] == n_perf * steps,
+              "favor_qkv launch counts")
+        check(launches["performer_epilogue"] == 0
+              and launches["performer_epilogue_bwd"] == 0,
+              "the epilogue ran under dropout")
+        ckpt = os.path.join(ckdir, "t2m_moe_small", "ckpt")
+        check(sorted(os.listdir(ckpt)) == ["step_4.pt"],
+              f"checkpoints {os.listdir(ckpt)}")
+        del state
+        torch.cuda.empty_cache()
+        state, out2, times2 = run_train_cli(argv + ["--num_epochs", "2"])
+        check("resumed from step 4 (epoch 1)" in out2,
+              "second main() did not resume at step 4, epoch 1")
+        check(state.step == 8, f"resumed run ended at step {state.step}")
+        del state
+        torch.cuda.empty_cache()
+    steady = times[1:] + times2[1:]
+    ms = float(np.median(steady))
+    print(f"[D3] resumed at step 4, epoch 1, ran to step 8. ms per optimizer "
+          f"step (B=32, bf16 compute, host clock around each synchronised "
+          f"step): first {times[0]:.1f} / {times2[0]:.1f}, then "
+          f"{', '.join(f'{x:.1f}' for x in steady)}; median {ms:.1f} ms "
+          f"({card})")
+    return launches, ms
+
+
+def phase_d4(cfg, dev):
+    """Two steps through Trainer at dropout 0: the fused epilogue and its
+    backward run in training too."""
+    import torch
+    from motiondiffusion_moe_tpu_torch.data.dataset import (
+        SyntheticText2MotionDataset)
+    from motiondiffusion_moe_tpu_torch.data.loader import DataLoader
+    from motiondiffusion_moe_tpu_torch.ops import performer as P
+    from motiondiffusion_moe_tpu_torch.training.trainer import Trainer
+
+    cfg0 = dataclasses.replace(
+        cfg, model=dataclasses.replace(cfg.model, dropout=0.0),
+        train=dataclasses.replace(cfg.train, num_epochs=1))
+    trainer = Trainer(cfg0, device=dev)
+    state = trainer.init_state()
+    loader = DataLoader(SyntheticText2MotionDataset(cfg0.data, size=32),
+                        batch_size=32)
+    counts = (P.favor_qkv, P.favor_qkv_bwd, P.performer_epilogue,
+              P.performer_epilogue_bwd)
+    for c in counts:
+        c.launches = 0
+    state = trainer.fit(state, loader)
+    torch.cuda.synchronize()
+    launches = {c.__name__: c.launches for c in counts}
+    n_perf = 2 * 2 * cfg0.model.num_layers
+    print(f"[D4] Trainer, dropout 0: {state.step} steps; launches "
+          f"{launches}; expected {n_perf} x {state.step} = "
+          f"{n_perf * state.step} each")
+    check(state.step == 2, f"{state.step} steps, expected 2")
+    check(all(v == n_perf * state.step for v in launches.values()),
+          "launch counts at dropout 0")
+    check(all(bool(torch.isfinite(p).all())
+              for p in state.model.parameters()), "non-finite parameters")
+    del trainer, state
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -509,21 +864,35 @@ def main() -> int:
     phase_b(cfg, model, dev)
 
     launches, _ = phase_c(cfg, model, dev, card)
+    del model
+    torch.cuda.empty_cache()
 
-    replaces = {
-        "favor_qkv": ("motiondiffusion_moe_tpu_torch/csrc/favor_qkv.cu",
-                      "motiondiffusion_moe_tpu/ops/performer_pallas.py:358"),
-        "performer_epilogue": (
-            "motiondiffusion_moe_tpu_torch/csrc/performer_epilogue.cu",
-            "motiondiffusion_moe_tpu/ops/performer_pallas.py:657"),
-    }
+    d1 = phase_d1(dev, card)
+    phase_d2(cfg, dev)
+    d3_launches, _ = phase_d3(dev, card)
+    d4_launches = phase_d4(cfg, dev)
+
+    csrc = "motiondiffusion_moe_tpu_torch/csrc/"
+    rows = (  # name, source, TPU kernel, launches on its main path, numbers
+        ("favor_qkv", "favor_qkv.cu", "performer_pallas.py:358",
+         launches["favor_qkv"], a[("favor_qkv", torch.bfloat16, 196)]),
+        ("performer_epilogue", "performer_epilogue.cu",
+         "performer_pallas.py:657", launches["performer_epilogue"],
+         a[("performer_epilogue", torch.bfloat16, 196)]),
+        ("favor_qkv_bwd", "favor_qkv_bwd.cu", "performer_pallas_bwd.py:70",
+         d3_launches["favor_qkv_bwd"], d1[("favor_qkv_bwd", 196)]),
+        ("performer_epilogue_bwd", "performer_epilogue_bwd.cu",
+         "performer_pallas_bwd.py:272", d4_launches["performer_epilogue_bwd"],
+         d1[("performer_epilogue_bwd", 196)]),
+    )
     kernels = []
-    for kname, (src, rep) in replaces.items():
-        err, k_ms, p_ms = a[(kname, torch.bfloat16, 196)]
-        kernels.append({"name": kname, "route": "cuda", "source": src,
-                        "replaces": rep, "launches": launches[kname],
-                        "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms})
-    check(all(math.isfinite(k["ms"]) for k in kernels), "kernel times")
+    for kname, src, rep, n, (err, k_ms, p_ms) in rows:
+        kernels.append({"name": kname, "route": "cuda", "source": csrc + src,
+                        "replaces": "motiondiffusion_moe_tpu/ops/" + rep,
+                        "launches": n, "max_abs_err": err, "ms": k_ms,
+                        "plain_ms": p_ms})
+    check(all(math.isfinite(k["ms"]) and k["launches"] > 0 for k in kernels),
+          "kernel times and launches")
     print(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -10,8 +10,10 @@ no JAX). This package imports ``torch`` and never ``jax`` or ``flax``.
 
 Covered so far: the sampling and serving path (text -> hash tokenizer ->
 text encoder -> CFG-doubled denoiser inside DDPM / DDIM / DPM-Solver++ ->
-denormalize -> ``recover_from_ric``), with hand-written CUDA kernels for the
-two Performer kernels it runs (``ops/performer.py``).
+denormalize -> ``recover_from_ric``) and the training path (``training/``,
+``tools/train.py`` on the synthetic dataset, one device), with hand-written
+CUDA kernels for the two Performer kernels and their backward kernels
+(``ops/performer.py``).
 """
 
 __version__ = "0.1.0"

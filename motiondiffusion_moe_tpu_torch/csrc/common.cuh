@@ -61,4 +61,93 @@ __device__ __forceinline__ void load_vec(const float* p, float (&v)[N]) {
   }
 }
 
+// The FAVOR+ feature map exp(clip(logit, -15, 15)) * 0.1.
+__device__ __forceinline__ float feature(float logit) {
+  return expf(fminf(fmaxf(logit, -15.f), 15.f)) * 0.1f;
+}
+
+// Statistics of one normalize_row call: LayerNorm mean and 1/std, the L2
+// sum of squares n2 and factor r = 1/sqrt(max(n2, 1e-24)) (r = 1 without
+// L2). All zero for a row past the sequence end.
+struct RowStats {
+  float mu, inv, n2, r;
+};
+
+// One warp normalizes one D-wide row: x * pre_scale -> LayerNorm(g, beta),
+// then L2 when `l2`. Lane l holds columns [l*C, l*C + C). A row past the
+// sequence end (`valid` false) is written as zeros. `valid` is the same for
+// all lanes, so the early return keeps the shuffles convergent.
+//
+// The forward kernel (favor_qkv.cu) and its backward (favor_qkv_bwd.cu)
+// both normalize through this one function, so the backward recomputes the
+// forward's rows, and from them its feature logits, bit for bit: the clip
+// pass-through masks of the backward agree with the loss that was computed.
+template <typename T, int C>
+__device__ __forceinline__ RowStats normalize_row(
+    const T* __restrict__ src, bool valid, const float (&g)[C],
+    const float (&beta)[C], float pre_scale, bool l2, float* dst, int lane) {
+  constexpr float kInvD = 1.0f / float(C * 32);
+  if (!valid) {
+#pragma unroll
+    for (int c = 0; c < C; ++c) dst[lane * C + c] = 0.f;
+    return RowStats{0.f, 0.f, 0.f, 0.f};
+  }
+  float x[C];
+  float s = 0.f;
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    x[c] = to_f32(src[lane * C + c]) * pre_scale;
+    s += x[c];
+  }
+  const float mu = warp_sum(s) * kInvD;
+  float v = 0.f;
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const float d = x[c] - mu;
+    v = fmaf(d, d, v);
+  }
+  const float inv = 1.0f / sqrtf(warp_sum(v) * kInvD + kLnEps);
+#pragma unroll
+  for (int c = 0; c < C; ++c) x[c] = (x[c] - mu) * inv * g[c] + beta[c];
+  float n2 = 0.f, r = 1.f;
+  if (l2) {
+    float ss = 0.f;
+#pragma unroll
+    for (int c = 0; c < C; ++c) ss = fmaf(x[c], x[c], ss);
+    n2 = warp_sum(ss);
+    r = 1.0f / sqrtf(fmaxf(n2, 1e-24f));
+#pragma unroll
+    for (int c = 0; c < C; ++c) x[c] *= r;
+  }
+#pragma unroll
+  for (int c = 0; c < C; ++c) dst[lane * C + c] = x[c];
+  return RowStats{mu, inv, n2, r};
+}
+
+// LayerNorm backward of one row held lane-strided (C values per lane):
+// dx = inv * (s*g - mean(s*g) - z * mean(s*g*z)) for z the normalized
+// input, s the LayerNorm scale, g the gradient of the LayerNorm output.
+// Adds g*z and g to the scale and bias gradient accumulators.
+template <int C>
+__device__ __forceinline__ void layer_norm_bwd_row(
+    const float (&g)[C], const float (&z)[C], const float (&s)[C], float inv,
+    float (&dx)[C], float (&ds)[C], float (&dc)[C]) {
+  constexpr float kInvD = 1.0f / float(C * 32);
+  float a1 = 0.f, a2 = 0.f;
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const float sg = s[c] * g[c];
+    a1 += sg;
+    a2 = fmaf(sg, z[c], a2);
+  }
+  a1 = warp_sum(a1) * kInvD;
+  a2 = warp_sum(a2) * kInvD;
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    dx[c] = inv * (s[c] * g[c] - a1 - z[c] * a2);
+    ds[c] = fmaf(g[c], z[c], ds[c]);
+    dc[c] += g[c];
+  }
+}
+
 }  // namespace mdm

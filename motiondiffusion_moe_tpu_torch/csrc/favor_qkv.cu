@@ -28,7 +28,8 @@
 // denominator and finishes every row. The projection and kv (64 KB each at
 // the flagship shape) stay in shared memory. Each row-wise step (LayerNorm,
 // L2, denominator, output LayerNorm) is one warp per row, reduced with
-// shuffles; pass 2 needs no block barrier because a warp only reads the rows
+// shuffles (the normalisation is common.cuh::normalize_row, shared with the
+// backward); pass 2 needs no block barrier because a warp only reads the rows
 // it wrote. No atomics, so the output is deterministic.
 
 #include <cstddef>
@@ -48,55 +49,6 @@ constexpr size_t favor_smem_bytes() {
   return sizeof(float) *
          (size_t(D) * M + size_t(M) * D + 2 * size_t(kTile) * D +
           size_t(kTile) * M);
-}
-
-__device__ __forceinline__ float feature(float logit) {
-  return expf(fminf(fmaxf(logit, -15.f), 15.f)) * 0.1f;
-}
-
-// One warp normalizes one D-wide row: x * pre_scale -> LayerNorm(g, beta),
-// then L2 when `l2`. Lane l holds columns [l*C, l*C + C). A row past the
-// sequence end (`valid` false) is written as zeros. `valid` is the same for
-// all lanes, so the early return keeps the shuffles convergent.
-template <typename T, int C>
-__device__ __forceinline__ void norm_row(const T* __restrict__ src, bool valid,
-                                         const float (&g)[C],
-                                         const float (&beta)[C],
-                                         float pre_scale, bool l2, float* dst,
-                                         int lane) {
-  constexpr float kInvD = 1.0f / float(C * 32);
-  if (!valid) {
-#pragma unroll
-    for (int c = 0; c < C; ++c) dst[lane * C + c] = 0.f;
-    return;
-  }
-  float x[C];
-  float s = 0.f;
-#pragma unroll
-  for (int c = 0; c < C; ++c) {
-    x[c] = to_f32(src[lane * C + c]) * pre_scale;
-    s += x[c];
-  }
-  const float mu = warp_sum(s) * kInvD;
-  float v = 0.f;
-#pragma unroll
-  for (int c = 0; c < C; ++c) {
-    const float d = x[c] - mu;
-    v = fmaf(d, d, v);
-  }
-  const float inv = 1.0f / sqrtf(warp_sum(v) * kInvD + kLnEps);
-#pragma unroll
-  for (int c = 0; c < C; ++c) x[c] = (x[c] - mu) * inv * g[c] + beta[c];
-  if (l2) {
-    float ss = 0.f;
-#pragma unroll
-    for (int c = 0; c < C; ++c) ss = fmaf(x[c], x[c], ss);
-    const float r = 1.0f / sqrtf(fmaxf(warp_sum(ss), 1e-24f));
-#pragma unroll
-    for (int c = 0; c < C; ++c) x[c] *= r;
-  }
-#pragma unroll
-  for (int c = 0; c < C; ++c) dst[lane * C + c] = x[c];
 }
 
 // acc[r][c] = rows[r] . proj[:, lane*CM + c] for the warp's kRowsPerWarp
@@ -185,10 +137,10 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int r = 0; r < kRowsPerWarp; ++r) {
       const int t = t0 + warp * kRowsPerWarp + r;
       const bool valid = t < seq_len;
-      norm_row<T, CD>(k_base + size_t(t) * row_stride, valid, g, beta,
-                      pre_scale, true, my_a + r * D, lane);
-      norm_row<T, CD>(v_base + size_t(t) * row_stride, valid, g, beta,
-                      pre_scale, false, my_b + r * D, lane);
+      normalize_row<T, CD>(k_base + size_t(t) * row_stride, valid, g, beta,
+                           pre_scale, true, my_a + r * D, lane);
+      normalize_row<T, CD>(v_base + size_t(t) * row_stride, valid, g, beta,
+                           pre_scale, false, my_b + r * D, lane);
     }
     __syncwarp();
     float acc[kRowsPerWarp][CM];
@@ -231,10 +183,10 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int r = 0; r < kRowsPerWarp; ++r) {
       const int t = t0 + warp * kRowsPerWarp + r;
       const bool valid = t < seq_len;
-      norm_row<T, CD>(q_base + size_t(t) * row_stride, valid, g, beta,
-                      pre_scale, true, my_b + r * D, lane);
-      norm_row<T, CD>(k_base + size_t(t) * row_stride, valid, g, beta,
-                      pre_scale, true, my_a + r * D, lane);
+      normalize_row<T, CD>(q_base + size_t(t) * row_stride, valid, g, beta,
+                           pre_scale, true, my_b + r * D, lane);
+      normalize_row<T, CD>(k_base + size_t(t) * row_stride, valid, g, beta,
+                           pre_scale, true, my_a + r * D, lane);
     }
     __syncwarp();
     float aq[kRowsPerWarp][CM], ak[kRowsPerWarp][CM];

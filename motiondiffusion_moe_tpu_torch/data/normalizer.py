@@ -8,6 +8,8 @@ act on tensors (on their device), the ``*_np`` forms on numpy arrays.
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
@@ -57,6 +59,18 @@ class MotionNormalizer:
 
     def denormalize_np(self, motion: np.ndarray) -> np.ndarray:
         return motion * self.std + self.mean
+
+    def save(self, meta_dir: str) -> None:
+        """``meta/mean.npy`` and ``meta/std.npy``, the JAX package's
+        layout."""
+        os.makedirs(meta_dir, exist_ok=True)
+        np.save(os.path.join(meta_dir, "mean.npy"), self.mean)
+        np.save(os.path.join(meta_dir, "std.npy"), self.std)
+
+    @staticmethod
+    def load(meta_dir: str) -> "MotionNormalizer":
+        return MotionNormalizer(np.load(os.path.join(meta_dir, "mean.npy")),
+                                np.load(os.path.join(meta_dir, "std.npy")))
 
     @staticmethod
     def identity(dim: int) -> "MotionNormalizer":

@@ -1,11 +1,15 @@
 """Attention suite: Performer (FAVOR+) self-attention, linear and exact text
 cross-attention.
 
-Port of ``motiondiffusion_moe_tpu/models/attention.py`` for sampling: the
-fused Performer form only (merged ``[D, 3D]`` qkv Dense, the FAVOR+ core
-and the epilogue as the two kernels of ``ops/performer.py``), no dropout.
-``use_kernels=False`` keeps the same parameters and computes the FAVOR+ core
-and the epilogue with plain PyTorch, as the JAX field does.
+Port of ``motiondiffusion_moe_tpu/models/attention.py``: the fused
+Performer form only (merged ``[D, 3D]`` qkv Dense, the FAVOR+ core and the
+epilogue as the two kernels of ``ops/performer.py``, differentiable through
+their backward kernels). ``use_kernels=False`` keeps the same parameters and
+computes the FAVOR+ core and the epilogue with plain PyTorch, as the JAX
+field does. In training mode (``module.train()``, the JAX
+``deterministic=False``) the dropout sites of the JAX modules are live, with
+masks drawn from the forward's :class:`TrainContext`, and the Performer
+takes the unfused epilogue whenever dropout is active, as JAX does.
 """
 
 from __future__ import annotations
@@ -16,11 +20,16 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from motiondiffusion_moe_tpu_torch.models.embeddings import StylizationBlock
+from motiondiffusion_moe_tpu_torch.models.embeddings import (
+    StylizationBlock,
+    grad_clamp,
+)
 from motiondiffusion_moe_tpu_torch.models.layers import (
     LN_EPS,
     Dense,
     LayerNorm,
+    TrainContext,
+    dropout,
     gelu,
 )
 from motiondiffusion_moe_tpu_torch.ops.performer import (
@@ -48,13 +57,14 @@ class PerformerSelfAttention(nn.Module):
 
     def __init__(self, latent_dim: int, num_heads: int, time_embed_dim: int,
                  num_features: int = 256, use_kernels: bool = True,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, dropout: float = 0.0):
         super().__init__()
         D = latent_dim
         self.head_dim = D // num_heads
         self.num_features = num_features
         self.use_kernels = use_kernels
         self.dtype = dtype
+        self.dropout = dropout
         xav = ("xavier", 0.1)  # fast_attention.py:155-158
         self.pre_norm = LayerNorm(D, dtype)
         # per-block torch xavier(0.1) statistics: std 0.1*sqrt(2/(D+D))
@@ -68,7 +78,8 @@ class PerformerSelfAttention(nn.Module):
         self.post_norm_scale = nn.Parameter(torch.ones(D))
         self.post_norm_bias = nn.Parameter(torch.zeros(D))
         self.style_block = StylizationBlock(D, time_embed_dim, D, dtype,
-                                            out_init=xav, emb_init=xav)
+                                            out_init=xav, emb_init=xav,
+                                            dropout=dropout)
 
     @torch.no_grad()
     def _init_own(self, g: torch.Generator) -> None:
@@ -80,16 +91,20 @@ class PerformerSelfAttention(nn.Module):
         self.post_norm_bias.zero_()
 
     def forward(self, x: torch.Tensor, emb: torch.Tensor,
-                src_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                src_mask: Optional[torch.Tensor] = None,
+                ctx: Optional[TrainContext] = None) -> torch.Tensor:
         """x: [B, T, D]; emb: [B, D_emb]; src_mask: [B, T] float or None."""
         D = x.shape[-1]
-        qkv = self.qkv(self.pre_norm(x))
+        p, training = self.dropout, self.training
+        qkv = grad_clamp(self.qkv(self.pre_norm(x)))
         favor = favor_qkv if self.use_kernels else favor_qkv_plain
         attn = favor(qkv, self.fa_norm_scale.float(),
                      self.fa_norm_bias.float(), self.fa_projection.float(),
                      src_mask)
-        attn = self.proj_out_1(gelu(self.proj_out_0(attn)))
-        if self.use_kernels:
+        attn = dropout(attn, p, training, ctx)
+        attn = dropout(gelu(self.proj_out_0(attn)), p, training, ctx)
+        attn = dropout(self.proj_out_1(attn), p, training, ctx)
+        if self.use_kernels and not (training and p > 0):
             style_out = self.style_block(
                 attn, emb, pre_ln=(self.post_norm_scale, self.post_norm_bias))
         else:
@@ -97,7 +112,7 @@ class PerformerSelfAttention(nn.Module):
                               self.post_norm_bias.float(), LN_EPS)
             hf = hf / torch.linalg.vector_norm(
                 hf, dim=-1, keepdim=True).clamp_min(1e-12) * (D ** 0.5)
-            style_out = self.style_block(hf.to(self.dtype), emb)
+            style_out = self.style_block(hf.to(self.dtype), emb, ctx=ctx)
         return x + 0.1 * style_out
 
 
@@ -106,23 +121,27 @@ class DualSelfAttentionBlock(nn.Module):
 
     def __init__(self, latent_dim: int, num_heads: int, time_embed_dim: int,
                  num_features: int = 256, use_kernels: bool = True,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, dropout: float = 0.0):
         super().__init__()
         D = latent_dim
+        self.dropout = dropout
         self.pre_norm = LayerNorm(D, dtype)
         self.local_attn = PerformerSelfAttention(
-            D, num_heads, time_embed_dim, num_features, use_kernels, dtype)
+            D, num_heads, time_embed_dim, num_features, use_kernels, dtype,
+            dropout)
         self.global_attn = PerformerSelfAttention(
-            D, num_heads, time_embed_dim, num_features, use_kernels, dtype)
+            D, num_heads, time_embed_dim, num_features, use_kernels, dtype,
+            dropout)
         self.skip_proj = Dense(D, D, dtype)
         self.post_norm = LayerNorm(D, dtype)
 
     def forward(self, x: torch.Tensor, emb: torch.Tensor,
-                src_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        local_out = self.local_attn(self.pre_norm(x), emb, src_mask)
-        global_out = self.global_attn(local_out, emb, src_mask)
-        skip = gelu(self.skip_proj(x))
-        return self.post_norm(skip + 0.1 * global_out)
+                src_mask: Optional[torch.Tensor] = None,
+                ctx: Optional[TrainContext] = None) -> torch.Tensor:
+        local_out = self.local_attn(self.pre_norm(x), emb, src_mask, ctx)
+        global_out = self.global_attn(local_out, emb, src_mask, ctx)
+        skip = dropout(self.skip_proj(x), self.dropout, self.training, ctx)
+        return self.post_norm(gelu(skip) + 0.1 * global_out)
 
 
 class LinearTemporalCrossAttention(nn.Module):
@@ -131,7 +150,8 @@ class LinearTemporalCrossAttention(nn.Module):
     per-head slicing of ``:302-321`` is a TPU layout trick, same math)."""
 
     def __init__(self, latent_dim: int, text_latent_dim: int, num_heads: int,
-                 time_embed_dim: int, dtype: torch.dtype = torch.float32):
+                 time_embed_dim: int, dtype: torch.dtype = torch.float32,
+                 dropout: float = 0.0):
         super().__init__()
         D = latent_dim
         self.num_heads = num_heads
@@ -141,15 +161,16 @@ class LinearTemporalCrossAttention(nn.Module):
         self.key = Dense(text_latent_dim, D, dtype)
         self.value = Dense(text_latent_dim, D, dtype)
         self.adaptive_gate = nn.Parameter(torch.zeros(1))
-        self.proj_out = StylizationBlock(D, time_embed_dim, D, dtype)
+        self.proj_out = StylizationBlock(D, time_embed_dim, D, dtype,
+                                         dropout=dropout)
         self.dtype = dtype
 
     @torch.no_grad()
     def _init_own(self, g: torch.Generator) -> None:
         self.adaptive_gate.zero_()
 
-    def forward(self, x: torch.Tensor, xf: torch.Tensor,
-                emb: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, xf: torch.Tensor, emb: torch.Tensor,
+                ctx: Optional[TrainContext] = None) -> torch.Tensor:
         B, T, D = x.shape
         N = xf.shape[1]
         H = self.num_heads
@@ -160,17 +181,19 @@ class LinearTemporalCrossAttention(nn.Module):
         attention = torch.einsum("bnhd,bnhl->bhdl", k, v)
         y = torch.einsum("bnhd,bhdl->bnhl", q, attention).reshape(B, T, D)
         alpha = torch.sigmoid(self.adaptive_gate.to(self.dtype))
-        return x + alpha * self.proj_out(y, emb)
+        return x + alpha * self.proj_out(y, emb, ctx=ctx)
 
 
 class GatedCrossAttention(nn.Module):
     """Per-channel gated wrapper around LinearTemporalCrossAttention."""
 
     def __init__(self, latent_dim: int, text_latent_dim: int, num_heads: int,
-                 time_embed_dim: int, dtype: torch.dtype = torch.float32):
+                 time_embed_dim: int, dtype: torch.dtype = torch.float32,
+                 dropout: float = 0.0):
         super().__init__()
         self.base_ca = LinearTemporalCrossAttention(
-            latent_dim, text_latent_dim, num_heads, time_embed_dim, dtype)
+            latent_dim, text_latent_dim, num_heads, time_embed_dim, dtype,
+            dropout)
         self.gate = nn.Parameter(torch.zeros(latent_dim))
         self.dtype = dtype
 
@@ -178,9 +201,9 @@ class GatedCrossAttention(nn.Module):
     def _init_own(self, g: torch.Generator) -> None:
         self.gate.zero_()
 
-    def forward(self, x: torch.Tensor, xf: torch.Tensor,
-                emb: torch.Tensor) -> torch.Tensor:
-        ca_out = self.base_ca(x, xf, emb)
+    def forward(self, x: torch.Tensor, xf: torch.Tensor, emb: torch.Tensor,
+                ctx: Optional[TrainContext] = None) -> torch.Tensor:
+        ca_out = self.base_ca(x, xf, emb, ctx)
         alpha = torch.sigmoid(self.gate.to(self.dtype)).view(1, 1, -1)
         return x + alpha * (ca_out - x)
 
@@ -190,10 +213,11 @@ class CrossAttentionBlock(nn.Module):
     einsum form with no key mask (``attention.py:417-438``)."""
 
     def __init__(self, latent_dim: int, text_latent_dim: int, num_heads: int,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, dropout: float = 0.0):
         super().__init__()
         D = latent_dim
         self.num_heads = num_heads
+        self.dropout = dropout
         self.query = Dense(D, D, dtype)
         self.key = Dense(text_latent_dim, D, dtype)
         self.value = Dense(text_latent_dim, D, dtype)
@@ -203,7 +227,8 @@ class CrossAttentionBlock(nn.Module):
         self.ffn_1 = Dense(4 * D, D, dtype)
         self.dtype = dtype
 
-    def forward(self, x: torch.Tensor, xf: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, xf: torch.Tensor,
+                ctx: Optional[TrainContext] = None) -> torch.Tensor:
         B, T, D = x.shape
         N = xf.shape[1]
         H = self.num_heads
@@ -213,7 +238,9 @@ class CrossAttentionBlock(nn.Module):
         v = self.value(xf).view(B, N, H, -1)
         scores = torch.einsum("bqhd,bkhd->bhqk", q * scale, k)
         probs = torch.softmax(scores.float(), dim=-1).to(self.dtype)
+        probs = dropout(probs, self.dropout, self.training, ctx)
         out = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(B, T, D)
         out = self.out(out)
         h = self.ffn_1(gelu(self.ffn_0(self.ffn_norm(out))))
+        h = dropout(h, self.dropout, self.training, ctx)
         return x + (out + h)

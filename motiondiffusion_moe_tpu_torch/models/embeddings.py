@@ -1,9 +1,9 @@
 """Conditioning modules: time embedding, time-text fusion, AdaLN.
 
-Port of ``motiondiffusion_moe_tpu/models/embeddings.py``. ``grad_clamp`` (an
-identity forward whose backward clamps the cotangent) is the identity here:
-the sampling path never differentiates; its ``autograd.Function`` comes with
-the training port.
+Port of ``motiondiffusion_moe_tpu/models/embeddings.py``: ``grad_clamp``
+(an identity forward whose backward clamps the cotangent), the time
+embedding, the time-text fusion, ``StylizationBlock`` (with its dropout on
+the unfused path) and ``stochastic_depth``.
 """
 
 from __future__ import annotations
@@ -18,9 +18,47 @@ from torch import nn
 from motiondiffusion_moe_tpu_torch.models.layers import (
     LN_EPS,
     Dense,
+    TrainContext,
+    dropout,
     xavier_normal_,
 )
 from motiondiffusion_moe_tpu_torch.ops.performer import performer_epilogue
+
+
+class _GradClamp(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, limit):
+        ctx.limit = limit
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.clamp(-ctx.limit, ctx.limit), None
+
+
+def grad_clamp(x: torch.Tensor, limit: float = 1.0) -> torch.Tensor:
+    """Identity forward; the backward clamps the cotangent to [-limit,
+    limit] (``embeddings.py:17-36``, the reference's per-tensor
+    ``register_hook`` on q/k/v)."""
+    return _GradClamp.apply(x, limit)
+
+
+def stochastic_depth(block_fn, x: torch.Tensor, survival_prob: float,
+                     training: bool,
+                     ctx: Optional[TrainContext]) -> torch.Tensor:
+    """Drop a whole residual block with probability 1 - p in training
+    (``embeddings.py:192-206``): ONE coin for the whole batch, the input
+    returned unchanged when dropped, no rescaling. Branchless, as in JAX:
+    the block always runs (so its MoE aux losses always count) and the coin
+    selects on the device, with no host sync."""
+    if not training or survival_prob >= 1.0:
+        return block_fn(x)
+    if ctx is None or ctx.generator is None:
+        raise ValueError("stochastic depth in training mode needs a "
+                         "TrainContext with a torch.Generator")
+    keep = torch.rand((), device=x.device,
+                      generator=ctx.generator) < survival_prob
+    return torch.where(keep, block_fn(x), x)
 
 
 def timestep_sinusoidal(timesteps: torch.Tensor, dim: int,
@@ -81,15 +119,19 @@ class StylizationBlock(nn.Module):
     ``emb_kernel_init``: the output kernel starts at zero except inside the
     Performer, whose module-wide xavier(0.1) re-init overrides it.
     ``pre_ln`` (the Performer's post-LN parameters) routes the whole
-    normalisation chain through the fused :func:`performer_epilogue`.
+    normalisation chain through the fused :func:`performer_epilogue`; the
+    caller takes that path only when no dropout is active. Dropout (rate
+    ``dropout``, training mode only) acts on the modulated activations of
+    the unfused path.
     """
 
     def __init__(self, latent_dim: int, time_embed_dim: int, emb_dim: int,
                  dtype: torch.dtype = torch.float32, out_init="zeros",
-                 emb_init="lecun"):
+                 emb_init="lecun", dropout: float = 0.0):
         super().__init__()
         D = latent_dim
         self.dtype = dtype
+        self.dropout = dropout
         self.out_init = out_init
         self.emb_proj = (Dense(emb_dim, time_embed_dim, dtype, emb_init)
                          if emb_dim != time_embed_dim else None)
@@ -111,14 +153,16 @@ class StylizationBlock(nn.Module):
         self.out_bias.zero_()
 
     def forward(self, h: torch.Tensor, emb: torch.Tensor,
-                pre_ln: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
-                ) -> torch.Tensor:
+                pre_ln: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                ctx: Optional[TrainContext] = None) -> torch.Tensor:
         dt = self.dtype
         if self.emb_proj is not None:
             emb = self.emb_proj(emb)
         scale, shift = self.emb_layers(F.silu(emb)).chunk(2, dim=-1)
         w, b = self.out_kernel.to(dt), self.out_bias.to(dt)
         if pre_ln is not None:
+            if self.training and self.dropout > 0:
+                raise ValueError("the fused epilogue path takes no dropout")
             hmod = performer_epilogue(
                 h, scale.to(h.dtype).contiguous(),
                 shift.to(h.dtype).contiguous(), pre_ln[0].float(),
@@ -129,4 +173,5 @@ class StylizationBlock(nn.Module):
                               self.norm_scale.float(), self.norm_bias.float(),
                               LN_EPS).to(dt)
         hmod = F.silu(normed * (1 + scale[:, None, :]) + shift[:, None, :])
+        hmod = dropout(hmod, self.dropout, self.training, ctx)
         return hmod @ w + b

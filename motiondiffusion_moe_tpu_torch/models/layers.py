@@ -9,17 +9,52 @@
 - Parameters are created as zeros; :func:`init_weights` fills them from one
   ``torch.Generator``, mirroring the flax initialisers module by module
   (each module that owns parameters defines ``_init_own(g)``).
+- Training: a module in ``train()`` mode is the JAX ``deterministic=False``.
+  A training forward threads one :class:`TrainContext` through the modules:
+  every random draw (:func:`dropout`, stochastic depth) comes from its
+  ``torch.Generator``, never from torch's global RNG, and the MoE layers
+  append their aux losses to it (the JAX ``sow`` into ``moe_losses``).
 """
 
 from __future__ import annotations
 
 import math
+from dataclasses import dataclass, field
+from typing import List, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 LN_EPS = 1e-6
+
+
+@dataclass
+class TrainContext:
+    """What one training forward threads through the modules: the generator
+    every random draw comes from (on the activations' device), and the MoE
+    aux losses the forward collected."""
+
+    generator: Optional[torch.Generator] = None
+    aux_losses: List[torch.Tensor] = field(default_factory=list)
+
+
+def dropout(x: torch.Tensor, rate: float, training: bool,
+            ctx: Optional[TrainContext]) -> torch.Tensor:
+    """``flax.linen.Dropout(rate)(x, deterministic=not training)``: keep
+    each element with probability 1 - rate and scale the kept ones by
+    1 / (1 - rate). The mask is drawn from ``ctx.generator``; a training
+    forward with dropout and no generator raises."""
+    if not training or rate <= 0.0:
+        return x
+    if ctx is None or ctx.generator is None:
+        raise ValueError("dropout in training mode needs a TrainContext "
+                         "with a torch.Generator")
+    if rate >= 1.0:
+        return torch.zeros_like(x)
+    keep = torch.empty(x.shape, device=x.device).bernoulli_(
+        1.0 - rate, generator=ctx.generator)
+    return torch.where(keep.bool(), x / (1.0 - rate), torch.zeros_like(x))
 
 
 def lecun_normal_(t: torch.Tensor, fan_in: int,

@@ -6,12 +6,14 @@ lowest expert index (what ``jax.lax.top_k`` does; ``torch.topk`` promises no
 order, and at init the zero gate makes every probability equal), all
 experts as two stacked matmuls with the combine weights applied to the
 hidden activations. The ``dense`` and ``dispatch`` paths come with the
-expert-parallel port.
+expert-parallel port. A training forward appends each layer's Switch aux
+loss to its :class:`TrainContext` (the JAX ``sow`` into ``moe_losses``,
+``moe.py:105-109``).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -21,6 +23,8 @@ from motiondiffusion_moe_tpu_torch.models.embeddings import StylizationBlock
 from motiondiffusion_moe_tpu_torch.models.layers import (
     Dense,
     LayerNorm,
+    TrainContext,
+    dropout,
     gelu,
     lecun_normal_,
 )
@@ -78,9 +82,11 @@ class SwitchMoELayer(nn.Module):
         self.b1.zero_()
         self.b2.zero_()
 
-    def forward(self, x: torch.Tensor, with_metrics: bool = False):
+    def forward(self, x: torch.Tensor, with_metrics: bool = False,
+                ctx: Optional[TrainContext] = None):
         """x: [..., D] -> same shape; with ``with_metrics`` also returns
-        :func:`moe_metrics` of this call's routing."""
+        :func:`moe_metrics` of this call's routing. With a ``ctx`` the
+        layer's aux loss is appended to ``ctx.aux_losses``."""
         dt = self.dtype
         shape = x.shape
         x_flat = x.reshape(-1, shape[-1]).to(dt)
@@ -88,6 +94,8 @@ class SwitchMoELayer(nn.Module):
         E, _, hid = self.w1.shape
         probs = torch.softmax(self.gate(x_flat).float(), dim=-1)
         top_vals, top_idx = top_k_lowest_index(probs, self.top_k)
+        if ctx is not None:
+            ctx.aux_losses.append(switch_aux_loss(probs, top_idx[:, 0], E))
         combine = torch.zeros(S, E, dtype=dt, device=x.device).scatter_add_(
             1, top_idx, top_vals.to(dt))
         w1m = self.w1.to(dt).permute(1, 0, 2).reshape(D, E * hid)
@@ -108,22 +116,25 @@ class MoEMultiBranchFFN(nn.Module):
     def __init__(self, latent_dim: int, ffn_dim: int, num_experts: int = 8,
                  num_branches: int = 2, top_k: int = 2,
                  time_embed_dim: int = 512,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, dropout: float = 0.0):
         super().__init__()
         self.num_branches = num_branches
+        self.dropout = dropout
         for i in range(num_branches):
             self.add_module(f"branch_{i}_norm", LayerNorm(latent_dim, dtype))
             self.add_module(f"branch_{i}_moe", SwitchMoELayer(
                 latent_dim, ffn_dim, num_experts, top_k, dtype))
         self.proj_out = StylizationBlock(latent_dim, time_embed_dim,
-                                         latent_dim, dtype)
+                                         latent_dim, dtype, dropout=dropout)
 
-    def forward(self, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, emb: torch.Tensor,
+                ctx: Optional[TrainContext] = None) -> torch.Tensor:
         out = 0.0
         for i in range(self.num_branches):
             norm = getattr(self, f"branch_{i}_norm")
-            out = out + getattr(self, f"branch_{i}_moe")(norm(x))
-        return x + self.proj_out(out / self.num_branches, emb)
+            h = getattr(self, f"branch_{i}_moe")(norm(x), ctx=ctx)
+            out = out + dropout(h, self.dropout, self.training, ctx)
+        return x + self.proj_out(out / self.num_branches, emb, ctx=ctx)
 
 
 class DenseFFN(nn.Module):
@@ -131,9 +142,10 @@ class DenseFFN(nn.Module):
 
     def __init__(self, latent_dim: int, ffn_dim: int, num_branches: int = 2,
                  time_embed_dim: int = 512,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, dropout: float = 0.0):
         super().__init__()
         self.num_branches = num_branches
+        self.dropout = dropout
         for i in range(num_branches):
             self.add_module(f"branch_{i}_norm", LayerNorm(latent_dim, dtype))
             self.add_module(f"branch_{i}_fc1",
@@ -141,12 +153,14 @@ class DenseFFN(nn.Module):
             self.add_module(f"branch_{i}_fc2",
                             Dense(ffn_dim, latent_dim, dtype))
         self.proj_out = StylizationBlock(latent_dim, time_embed_dim,
-                                         latent_dim, dtype)
+                                         latent_dim, dtype, dropout=dropout)
 
-    def forward(self, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, emb: torch.Tensor,
+                ctx: Optional[TrainContext] = None) -> torch.Tensor:
         out = 0.0
         for i in range(self.num_branches):
             h = getattr(self, f"branch_{i}_norm")(x)
             h = gelu(getattr(self, f"branch_{i}_fc1")(h))
+            h = dropout(h, self.dropout, self.training, ctx)
             out = out + getattr(self, f"branch_{i}_fc2")(h)
-        return x + self.proj_out(out / self.num_branches, emb)
+        return x + self.proj_out(out / self.num_branches, emb, ctx=ctx)

@@ -5,12 +5,15 @@ Port of ``motiondiffusion_moe_tpu/models/text_encoder.py``:
 flax), :class:`HashTextEncoder` mirrors the flax module, including three
 quirks: the attention mask covers keys only, the sentence embedding is the
 mean over all ``prompt + N`` positions (pads included), and every GELU is the
-tanh form. The encoder always runs in f32, as in the JAX package.
+tanh form. The encoder always runs in f32, as in the JAX package. In
+training mode its two dropout sites are live (``text_encoder.py:84, :104``):
+flax's attention-weight dropout, one mask broadcast over batch and heads,
+and the dropout after the projection head.
 """
 
 from __future__ import annotations
 
-from typing import List, NamedTuple
+from typing import List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -19,6 +22,8 @@ from torch import nn
 from motiondiffusion_moe_tpu_torch.models.layers import (
     Dense,
     LayerNorm,
+    TrainContext,
+    dropout,
     gelu,
 )
 
@@ -52,15 +57,17 @@ class MultiHeadDotProductAttention(nn.Module):
     [H, dh, D]) are stored flattened as torch Linear weights; flax draws
     them with fan_in D and H*dh, which is the Dense default here."""
 
-    def __init__(self, dim: int, num_heads: int):
+    def __init__(self, dim: int, num_heads: int, dropout: float = 0.0):
         super().__init__()
         self.num_heads = num_heads
+        self.dropout = dropout
         self.query = Dense(dim, dim)
         self.key = Dense(dim, dim)
         self.value = Dense(dim, dim)
         self.out = Dense(dim, dim)
 
-    def forward(self, x: torch.Tensor, key_mask: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, key_mask: torch.Tensor,
+                ctx: Optional[TrainContext] = None) -> torch.Tensor:
         B, N, D = x.shape
         H = self.num_heads
         q = self.query(x).view(B, N, H, -1)
@@ -71,6 +78,13 @@ class MultiHeadDotProductAttention(nn.Module):
         logits = logits.masked_fill(~key_mask[:, None, None, :],
                                     torch.finfo(logits.dtype).min)
         w = torch.softmax(logits, dim=-1)
+        if self.training and self.dropout > 0:
+            # flax's broadcast_dropout: one [1, 1, N, N] mask for every batch
+            # row and head, applied as w * keep / keep_prob
+            keep = dropout(torch.ones((1, 1, N, N), device=w.device,
+                                      dtype=w.dtype),
+                           self.dropout, True, ctx)
+            w = w * keep
         return self.out(torch.einsum("bhqk,bkhd->bqhd", w, v).reshape(B, N, D))
 
 
@@ -82,16 +96,18 @@ class HashTextEncoder(nn.Module):
     def __init__(self, output_dim: int, max_tokens: int,
                  hidden_size: int = 256, vocab_size: int = 8192,
                  num_prompt_tokens: int = 8, num_layers: int = 2,
-                 num_heads: int = 4):
+                 num_heads: int = 4, dropout: float = 0.0):
         super().__init__()
         C = hidden_size
         self.num_layers = num_layers
+        self.dropout = dropout
         self.embed = nn.Embedding(vocab_size, C)
         self.pos_embed = nn.Parameter(torch.zeros(max_tokens, C))
         for i in range(num_layers):
             self.add_module(f"ln1_{i}", LayerNorm(C))
             self.add_module(f"attn_{i}",
-                            MultiHeadDotProductAttention(C, num_heads))
+                            MultiHeadDotProductAttention(C, num_heads,
+                                                         dropout))
             self.add_module(f"ln2_{i}", LayerNorm(C))
             self.add_module(f"mlp_{i}_0", Dense(C, 4 * C))
             self.add_module(f"mlp_{i}_1", Dense(4 * C, C))
@@ -108,16 +124,18 @@ class HashTextEncoder(nn.Module):
         nn.init.normal_(self.pos_embed, 0.0, 0.02, generator=g)
         nn.init.normal_(self.prompt_tokens, 0.0, 1.0, generator=g)
 
-    def forward(self, ids: torch.Tensor) -> TextEncoding:
+    def forward(self, ids: torch.Tensor,
+                ctx: Optional[TrainContext] = None) -> TextEncoding:
         B, N = ids.shape
         ids = ids.long()
         h = self.embed(ids) + self.pos_embed[None, :N]
         key_mask = ids != 0
         for i in range(self.num_layers):
             h = h + getattr(self, f"attn_{i}")(getattr(self, f"ln1_{i}")(h),
-                                               key_mask)
+                                               key_mask, ctx)
             f = getattr(self, f"mlp_{i}_0")(getattr(self, f"ln2_{i}")(h))
             h = h + getattr(self, f"mlp_{i}_1")(gelu(f))
         h = torch.cat([self.prompt_tokens.expand(B, -1, -1), h], dim=1)
-        p = gelu(self.proj_dense(self.proj_norm(h)))
+        p = self.proj_dense(self.proj_norm(h))
+        p = gelu(dropout(p, self.dropout, self.training, ctx))
         return TextEncoding(pooled=p.mean(dim=1), tokens=p)

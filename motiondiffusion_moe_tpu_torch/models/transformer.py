@@ -1,17 +1,25 @@
 """The MoE motion-diffusion denoiser: a 2-scale U-Net transformer.
 
 Port of ``motiondiffusion_moe_tpu/models/transformer.py`` (``MoEDecoderLayer``
-and ``MotionTransformer``, named layout) for sampling: no dropout and no
-stochastic depth (both are training-only), and none of the JAX-only
-machinery (``scan_blocks``, remat policies, the GPipe runner, sequence-
-parallel constraints). Block ``i`` of a scale is ``blocks_low[i]`` /
+and ``MotionTransformer``, named layout), without the JAX-only machinery
+(``scan_blocks``, remat policies, the GPipe runner, sequence-parallel
+constraints). Block ``i`` of a scale is ``blocks_low[i]`` /
 ``blocks_high[i]`` (flax ``block_low_i`` / ``block_high_i``).
+
+Training: ``model.train()`` is the JAX ``deterministic=False``. A training
+forward takes a :class:`TrainContext` whose generator drives every dropout
+mask and the per-block stochastic-depth coin (survival probabilities
+``linspace(1, stochastic_depth_min, L)``, ``transformer.py:316-317,
+392-406``), and collects the MoE aux losses: ``forward(..., ctx=ctx)``
+leaves their terms in ``ctx.aux_losses`` and :func:`sum_moe_aux_losses`
+adds them up.
 """
 
 from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -26,8 +34,13 @@ from motiondiffusion_moe_tpu_torch.models.attention import (
 from motiondiffusion_moe_tpu_torch.models.embeddings import (
     GatedFusion,
     TimestepEmbedding,
+    stochastic_depth,
 )
-from motiondiffusion_moe_tpu_torch.models.layers import Dense, lecun_normal_
+from motiondiffusion_moe_tpu_torch.models.layers import (
+    Dense,
+    TrainContext,
+    lecun_normal_,
+)
 from motiondiffusion_moe_tpu_torch.models.moe import DenseFFN, MoEMultiBranchFFN
 from motiondiffusion_moe_tpu_torch.models.text_encoder import (
     HashTextEncoder,
@@ -37,6 +50,15 @@ from motiondiffusion_moe_tpu_torch.models.text_encoder import (
 
 def compute_dtype(cfg: ModelConfig) -> torch.dtype:
     return {"bfloat16": torch.bfloat16, "float32": torch.float32}[cfg.dtype]
+
+
+def sum_moe_aux_losses(ctx: TrainContext) -> torch.Tensor:
+    """Sum of the MoE aux losses a training forward collected (the
+    counterpart of ``sum_moe_aux_losses``, ``transformer.py:498-506``);
+    0 when it collected none."""
+    if not ctx.aux_losses:
+        return torch.zeros(())
+    return torch.stack(ctx.aux_losses).sum()
 
 
 def generate_src_mask(T: int, length: torch.Tensor) -> torch.Tensor:
@@ -54,24 +76,28 @@ class MoEDecoderLayer(nn.Module):
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         D, tl, H = cfg.latent_dim, cfg.text_latent_dim, cfg.num_heads
+        p = cfg.dropout
         self.dual_self_attn = DualSelfAttentionBlock(
-            D, H, time_embed_dim, cfg.num_random_features, use_kernels, dtype)
-        self.cross_attn = GatedCrossAttention(D, tl, H, time_embed_dim, dtype)
+            D, H, time_embed_dim, cfg.num_random_features, use_kernels, dtype,
+            p)
+        self.cross_attn = GatedCrossAttention(D, tl, H, time_embed_dim, dtype,
+                                              p)
         if cfg.use_moe:
             self.ffn = MoEMultiBranchFFN(
                 D, cfg.ff_size, cfg.num_experts, cfg.moe_num_branches,
-                cfg.moe_top_k, time_embed_dim, dtype)
+                cfg.moe_top_k, time_embed_dim, dtype, p)
         else:
             self.ffn = DenseFFN(D, cfg.ff_size, cfg.moe_num_branches,
-                                time_embed_dim, dtype)
-        self.sd_cross_attn = CrossAttentionBlock(D, tl, H, dtype)
+                                time_embed_dim, dtype, p)
+        self.sd_cross_attn = CrossAttentionBlock(D, tl, H, dtype, p)
 
     def forward(self, x: torch.Tensor, xf: torch.Tensor, emb: torch.Tensor,
-                src_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        x = self.dual_self_attn(x, emb, src_mask)
-        x = self.cross_attn(x, xf, emb)
-        x = self.ffn(x, emb)
-        return self.sd_cross_attn(x, xf)
+                src_mask: Optional[torch.Tensor] = None,
+                ctx: Optional[TrainContext] = None) -> torch.Tensor:
+        x = self.dual_self_attn(x, emb, src_mask, ctx)
+        x = self.cross_attn(x, xf, emb, ctx)
+        x = self.ffn(x, emb, ctx)
+        return self.sd_cross_attn(x, xf, ctx)
 
 
 class MotionTransformer(nn.Module):
@@ -101,7 +127,8 @@ class MotionTransformer(nn.Module):
         self.text_encoder = HashTextEncoder(cfg.text_latent_dim,
                                             cfg.text_max_tokens,
                                             num_prompt_tokens=
-                                            cfg.text_num_prompt_tokens)
+                                            cfg.text_num_prompt_tokens,
+                                            dropout=cfg.dropout)
         self.time_embed_0 = Dense(D, ted, dtype)
         self.time_embed_1 = Dense(ted, ted, dtype)
         self.time_proj = Dense(ted, D, dtype)
@@ -118,6 +145,8 @@ class MotionTransformer(nn.Module):
             MoEDecoderLayer(cfg, ted, use_kernels, dtype)
             for _ in range(cfg.num_layers))
         self.out = Dense(D, cfg.input_feats, dtype, init="zeros")
+        self.survival_probs = [float(p) for p in np.linspace(
+            1.0, cfg.stochastic_depth_min, cfg.num_layers)]
 
     @torch.no_grad()
     def _init_own(self, g: torch.Generator) -> None:
@@ -135,8 +164,9 @@ class MotionTransformer(nn.Module):
             if isinstance(m, PerformerSelfAttention):
                 m.use_kernels = flag
 
-    def encode_text(self, text_ids: torch.Tensor) -> TextEncoding:
-        return self.text_encoder(text_ids)
+    def encode_text(self, text_ids: torch.Tensor,
+                    ctx: Optional[TrainContext] = None) -> TextEncoding:
+        return self.text_encoder(text_ids, ctx)
 
     def _conv(self, conv: nn.Module, h: torch.Tensor) -> torch.Tensor:
         """[B, T, D] -> conv over T (channels-last in, channels-last out)."""
@@ -154,11 +184,14 @@ class MotionTransformer(nn.Module):
     def forward(self, x: torch.Tensor, timesteps: torch.Tensor,
                 length: torch.Tensor, text_ids: Optional[torch.Tensor] = None,
                 xf_proj: Optional[torch.Tensor] = None,
-                xf_out: Optional[torch.Tensor] = None) -> torch.Tensor:
+                xf_out: Optional[torch.Tensor] = None,
+                ctx: Optional[TrainContext] = None) -> torch.Tensor:
+        """In training mode ``ctx`` supplies the generator of every random
+        draw and collects the MoE aux losses (see the module doc)."""
         dt = self.dtype
         B, T, _ = x.shape
         if xf_proj is None or xf_out is None:
-            xf_proj, xf_out = self.encode_text(text_ids)
+            xf_proj, xf_out = self.encode_text(text_ids, ctx)
         xf_proj = self.text_proj(xf_proj.to(dt))
         xf_out = xf_out.to(dt)
 
@@ -171,10 +204,16 @@ class MotionTransformer(nn.Module):
 
         h_low = self._conv(self.downsample, h)
         mask_low = generate_src_mask(h_low.shape[1], length // 2)
-        for block in self.blocks_low:
-            h_low = block(h_low, xf_out, fused_emb, mask_low)
-
+        h_low = self._run_blocks(self.blocks_low, h_low, xf_out, fused_emb,
+                                 mask_low, ctx)
         h = self._conv(self.upsample, h_low)[:, :T] + h
-        for block in self.blocks_high:
-            h = block(h, xf_out, fused_emb, src_mask)
+        h = self._run_blocks(self.blocks_high, h, xf_out, fused_emb, src_mask,
+                             ctx)
         return self.out(h).float()
+
+    def _run_blocks(self, blocks, h, xf, emb, mask, ctx):
+        for block, p in zip(blocks, self.survival_probs):
+            h = stochastic_depth(
+                lambda x, block=block: block(x, xf, emb, mask, ctx), h, p,
+                self.training, ctx)
+        return h

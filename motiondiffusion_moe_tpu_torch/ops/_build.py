@@ -28,8 +28,11 @@ PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "build")
 
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+COMPILE_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                 "-Xptxas", "-v"]
+LINK_FLAGS = [*ARCH_FLAGS, "-shared"]
+NVCC_FLAGS = COMPILE_FLAGS + LINK_FLAGS  # what the library's hash covers
 
 _LOCK = threading.Lock()
 _LIB: Optional[ctypes.CDLL] = None
@@ -63,28 +66,47 @@ def library_path() -> str:
 
 def build() -> str:
     """Compile the library unless an up-to-date one exists; return its
-    path. Raises with the compiler's output when nvcc fails."""
+    path. Raises with the compiler's output when nvcc fails.
+
+    Each ``.cu`` source is compiled to an object file by its own ``nvcc``,
+    all started together, and the objects are linked into the shared
+    library: the build takes as long as the slowest source."""
     path = library_path()
     if os.path.isfile(path):
         build_info.update(seconds=0.0, cached=True, ptxas=[])
         return path
     os.makedirs(BUILD_DIR, exist_ok=True)
     nvcc = find_nvcc()
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp,
-           *[s for s in sources() if s.endswith(".cu")]]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): "
-                           f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
-    # atomic install: concurrent builds each write their own temp file
-    os.replace(tmp, path)
-    log = (proc.stdout + proc.stderr).splitlines()
-    build_info.update(seconds=seconds, cached=False,
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
+        objs, procs = [], []
+        for src in (s for s in sources() if s.endswith(".cu")):
+            obj = os.path.join(work, os.path.basename(src) + ".o")
+            cmd = [nvcc, *COMPILE_FLAGS, "-c", "-o", obj, src]
+            objs.append(obj)
+            procs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        log = []
+        failed = []
+        for cmd, proc in procs:
+            out, _ = proc.communicate()
+            log += out.splitlines()
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed ({proc.returncode}): "
+                              f"{' '.join(cmd)}\n{out}")
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        tmp = os.path.join(work, "lib.so")
+        cmd = [nvcc, *LINK_FLAGS, "-o", tmp, *objs]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}): "
+                               f"{' '.join(cmd)}\n{proc.stdout}\n"
+                               f"{proc.stderr}")
+        # atomic install: concurrent builds each write their own work dir
+        os.replace(tmp, path)
+    build_info.update(seconds=time.perf_counter() - t0, cached=False,
                       ptxas=[l for l in log if "ptxas info" in l])
     return path
 
@@ -97,6 +119,18 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.mdm_favor_qkv.restype = i
     lib.mdm_performer_epilogue.argtypes = [vp] * 8 + [i, i, i, i, vp]
     lib.mdm_performer_epilogue.restype = i
+    lib.mdm_favor_qkv_bwd.argtypes = ([vp] * 11      # tensors, scratch
+                                      + [i] * 6      # B T H D M bf16
+                                      + [f, f, vp])  # eps pre stream
+    lib.mdm_favor_qkv_bwd.restype = i
+    lib.mdm_favor_qkv_bwd_scratch_floats.argtypes = [i] * 6
+    lib.mdm_favor_qkv_bwd_scratch_floats.restype = ctypes.c_longlong
+    lib.mdm_performer_epilogue_bwd.argtypes = ([vp] * 16    # tensors, scratch
+                                               + [i] * 4    # B T D bf16
+                                               + [vp])      # stream
+    lib.mdm_performer_epilogue_bwd.restype = i
+    lib.mdm_performer_epilogue_bwd_scratch_floats.argtypes = [i] * 3
+    lib.mdm_performer_epilogue_bwd_scratch_floats.restype = ctypes.c_longlong
     return lib
 
 

@@ -1,4 +1,4 @@
-"""The two Performer kernels of the sampling path, with their plain versions.
+"""The two Performer kernels and their backward kernels, with plain versions.
 
 Counterpart of ``motiondiffusion_moe_tpu/ops/performer_pallas.py``:
 
@@ -9,15 +9,21 @@ Counterpart of ``motiondiffusion_moe_tpu/ops/performer_pallas.py``:
   ``_epilogue_kernel``): post-LN -> L2*sqrt(D) -> style-LN -> modulate ->
   SiLU in one read and one write. CUDA C++ in ``csrc/performer_epilogue.cu``.
 
-Each wrapper runs its plain PyTorch version (``*_plain``, mirroring
-``favor_qkv_reference`` / ``performer_epilogue_reference``) only for tensors
-on the CPU. For a CUDA tensor it launches the kernel or raises: there is no
-fallback. Each wrapper counts its launches in ``<wrapper>.launches``; a run
-can reset the count and read it to show that the main path went through the
-kernel. The source notes in ``csrc/`` say what bounds each kernel on the card
-and what its design does about it.
+Both are ``torch.autograd.Function``s on every device. Their backward is
+:func:`favor_qkv_bwd` (Pallas ``_favor_qkv_bwd_kernel``, CUDA C++ in
+``csrc/favor_qkv_bwd.cu``) and :func:`performer_epilogue_bwd` (Pallas
+``_epilogue_bwd_kernel``, ``csrc/performer_epilogue_bwd.cu``); like the JAX
+``custom_vjp``s they save only the inputs and recompute the rest.
 
-Forward only: the backward kernels come with the training port.
+Each wrapper runs its plain PyTorch version (``*_plain``, mirroring
+``favor_qkv_reference`` / ``performer_epilogue_reference``, and autograd
+through them for the backward, mirroring ``_favor_qkv_bwd_reference`` /
+``_epilogue_bwd_reference``) only for tensors on the CPU. For a CUDA tensor
+it launches the kernel or raises: there is no fallback. Each of the four
+wrappers counts its launches in ``<wrapper>.launches``; a run can reset the
+counts and read them to show that the main path went through the kernels.
+The source notes in ``csrc/`` say what bounds each kernel on the card and
+what its design does about it.
 """
 
 from __future__ import annotations
@@ -100,8 +106,41 @@ def performer_epilogue_plain(y: torch.Tensor, scale: torch.Tensor,
     return (h * torch.sigmoid(h)).to(y.dtype)
 
 
+
+
+def favor_qkv_bwd_plain(qkv: torch.Tensor, ln_scale: torch.Tensor,
+                        ln_bias: torch.Tensor, projection: torch.Tensor,
+                        mask: Optional[torch.Tensor], g: torch.Tensor,
+                        eps: float = 1e-6, pre_scale: float = 0.1,
+                        need_dproj: bool = True):
+    """Backward of :func:`favor_qkv_plain` by autograd through it (the
+    counterpart of ``_favor_qkv_bwd_reference``): (d qkv in qkv's dtype,
+    d ln_scale, d ln_bias, d projection or None). The mask gets none."""
+    with torch.enable_grad():
+        xs = [t.detach().requires_grad_() for t in (qkv, ln_scale, ln_bias)]
+        proj = projection.detach().requires_grad_(need_dproj)
+        out = favor_qkv_plain(*xs, proj, mask, eps, pre_scale)
+        grads = torch.autograd.grad(out, xs + ([proj] if need_dproj else []),
+                                    g)
+    return (*grads[:3], grads[3] if need_dproj else None)
+
+
+def performer_epilogue_bwd_plain(y: torch.Tensor, scale: torch.Tensor,
+                                 shift: torch.Tensor, post_scale: torch.Tensor,
+                                 post_bias: torch.Tensor,
+                                 style_scale: torch.Tensor,
+                                 style_bias: torch.Tensor, g: torch.Tensor):
+    """Backward of :func:`performer_epilogue_plain` by autograd through it
+    (the counterpart of ``_epilogue_bwd_reference``): the gradients of all
+    seven inputs, each in its input's dtype."""
+    with torch.enable_grad():
+        xs = [t.detach().requires_grad_() for t in (
+            y, scale, shift, post_scale, post_bias, style_scale, style_bias)]
+        return torch.autograd.grad(performer_epilogue_plain(*xs), xs, g)
+
+
 # ---------------------------------------------------------------------------
-# kernel wrappers
+# kernel wrappers: CPU tensors take the plain version, CUDA tensors launch
 # ---------------------------------------------------------------------------
 
 def _require(cond: bool, msg: str) -> None:
@@ -117,114 +156,280 @@ def _check_f32_vec(name: str, t: torch.Tensor, n: int,
              f"{device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
 
 
-def favor_qkv(qkv: torch.Tensor, ln_scale: torch.Tensor,
-              ln_bias: torch.Tensor, projection: torch.Tensor,
-              mask: Optional[torch.Tensor] = None, eps: float = 1e-6,
-              pre_scale: float = 0.1) -> torch.Tensor:
-    """Fused merged-QKV Performer core (see module doc). CPU tensors take
-    :func:`favor_qkv_plain`; CUDA tensors launch ``csrc/favor_qkv.cu``.
-
-    On CUDA: qkv contiguous f32 or bf16; ln_scale, ln_bias, projection and
-    mask contiguous f32; (D, m) one of :data:`FAVOR_SHAPES`."""
-    if qkv.device.type == "cpu":
-        return favor_qkv_plain(qkv, ln_scale, ln_bias, projection, mask,
-                               eps, pre_scale)
-    _require(qkv.device.type == "cuda",
-             f"favor_qkv: unsupported device {qkv.device}")
+def _check_favor(op: str, qkv, ln_scale, ln_bias, projection, mask):
+    """Validate the inputs of the favor kernels; returns (B, T, H, D, m)."""
+    _require(qkv.device.type == "cuda", f"{op}: unsupported device "
+                                        f"{qkv.device}")
     _require(qkv.dim() == 3 and qkv.dtype in _KERNEL_DTYPES
              and qkv.is_contiguous(),
-             f"favor_qkv: qkv must be a contiguous [B, T, 3*H*D] float32 or "
+             f"{op}: qkv must be a contiguous [B, T, 3*H*D] float32 or "
              f"bfloat16 tensor, got {qkv.dtype} {tuple(qkv.shape)}")
     B, T, HD3 = qkv.shape
-    _require(projection.dim() == 2, "favor_qkv: projection must be [D, m]")
+    _require(projection.dim() == 2, f"{op}: projection must be [D, m]")
     D, m = projection.shape
     _require((D, m) in FAVOR_SHAPES,
-             f"favor_qkv: (D, m)=({D}, {m}) not in {sorted(FAVOR_SHAPES)}")
+             f"{op}: (D, m)=({D}, {m}) not in {sorted(FAVOR_SHAPES)}")
     _require(HD3 % (3 * D) == 0 and B > 0 and T > 0,
-             f"favor_qkv: qkv width {HD3} is not 3*H*{D}")
-    H = HD3 // (3 * D)
+             f"{op}: qkv width {HD3} is not 3*H*{D}")
     dev = qkv.device
     _check_f32_vec("ln_scale", ln_scale, D, dev)
     _check_f32_vec("ln_bias", ln_bias, D, dev)
     _require(projection.device == dev and projection.dtype == torch.float32
              and projection.is_contiguous(),
-             "favor_qkv: projection must be contiguous float32 on "
-             f"{dev}")
+             f"{op}: projection must be contiguous float32 on {dev}")
     if mask is not None:
         _require(mask.device == dev and mask.dtype == torch.float32
                  and mask.shape == (B, T) and mask.is_contiguous(),
-                 f"favor_qkv: mask must be a contiguous float32 [{B}, {T}] "
+                 f"{op}: mask must be a contiguous float32 [{B}, {T}] "
                  f"tensor on {dev}, got {mask.dtype} {tuple(mask.shape)}")
+    return B, T, HD3 // (3 * D), D, m
+
+
+def _check_epilogue(op: str, y, scale, shift, vecs):
+    """Validate the inputs of the epilogue kernels; returns (B, T, D)."""
+    _require(y.device.type == "cuda", f"{op}: unsupported device {y.device}")
+    _require(y.dim() == 3 and y.dtype in _KERNEL_DTYPES
+             and y.is_contiguous(),
+             f"{op}: y must be a contiguous [B, T, D] float32 or bfloat16 "
+             f"tensor, got {y.dtype} {tuple(y.shape)}")
+    B, T, D = y.shape
+    _require(D in EPILOGUE_DIMS and B > 0 and T > 0,
+             f"{op}: D={D} not in {sorted(EPILOGUE_DIMS)}")
+    dev = y.device
+    for name, t in (("scale", scale), ("shift", shift)):
+        _require(t.device == dev and t.dtype == y.dtype
+                 and t.shape == (B, D) and t.is_contiguous(),
+                 f"{op}: {name} must be a contiguous {y.dtype} [{B}, {D}] "
+                 f"tensor on {dev}, got {t.dtype} {tuple(t.shape)} on "
+                 f"{t.device}")
+    for name, t in zip(("post_scale", "post_bias", "style_scale",
+                        "style_bias"), vecs):
+        _check_f32_vec(name, t, D, dev)
+    return B, T, D
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _stream(dev: torch.device) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _launch_favor_qkv(qkv, ln_scale, ln_bias, projection, mask, eps,
+                      pre_scale) -> torch.Tensor:
+    B, T, H, D, m = _check_favor("favor_qkv", qkv, ln_scale, ln_bias,
+                                 projection, mask)
     from motiondiffusion_moe_tpu_torch.ops._build import library
 
     lib = library()
-    out = torch.empty((B, T, H * D), dtype=qkv.dtype, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    out = torch.empty((B, T, H * D), dtype=qkv.dtype, device=qkv.device)
+    with torch.cuda.device(qkv.device):
         rc = lib.mdm_favor_qkv(
             qkv.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(),
-            projection.data_ptr(),
-            None if mask is None else mask.data_ptr(), out.data_ptr(),
-            B, T, H, D, m, _KERNEL_DTYPES[qkv.dtype], eps, pre_scale, stream)
+            projection.data_ptr(), _ptr(mask), out.data_ptr(),
+            B, T, H, D, m, _KERNEL_DTYPES[qkv.dtype], eps, pre_scale,
+            _stream(qkv.device))
     if rc != 0:
         raise RuntimeError(f"favor_qkv kernel launch failed: CUDA error {rc}")
     favor_qkv.launches += 1
     return out
 
 
+def favor_qkv_bwd(qkv: torch.Tensor, ln_scale: torch.Tensor,
+                  ln_bias: torch.Tensor, projection: torch.Tensor,
+                  mask: Optional[torch.Tensor], g: torch.Tensor,
+                  eps: float = 1e-6, pre_scale: float = 0.1,
+                  need_dproj: bool = True):
+    """Backward of :func:`favor_qkv` from the inputs and the output's
+    gradient ``g`` [B, T, H*D]: (d qkv, d ln_scale, d ln_bias, d projection
+    or None when ``need_dproj`` is False). CPU tensors take
+    :func:`favor_qkv_bwd_plain`; CUDA tensors launch
+    ``csrc/favor_qkv_bwd.cu`` (g contiguous, in qkv's dtype)."""
+    if qkv.device.type == "cpu":
+        return favor_qkv_bwd_plain(qkv, ln_scale, ln_bias, projection, mask,
+                                   g, eps, pre_scale, need_dproj)
+    B, T, H, D, m = _check_favor("favor_qkv_bwd", qkv, ln_scale, ln_bias,
+                                 projection, mask)
+    dev = qkv.device
+    _require(g.device == dev and g.dtype == qkv.dtype
+             and g.shape == (B, T, H * D) and g.is_contiguous(),
+             f"favor_qkv_bwd: g must be a contiguous {qkv.dtype} "
+             f"[{B}, {T}, {H * D}] tensor on {dev}, got {g.dtype} "
+             f"{tuple(g.shape)} on {g.device}")
+    from motiondiffusion_moe_tpu_torch.ops._build import library
+
+    lib = library()
+    f32 = dict(dtype=torch.float32, device=dev)
+    dqkv = torch.empty_like(qkv)
+    ds, dc = torch.empty(D, **f32), torch.empty(D, **f32)
+    dp = torch.empty((D, m), **f32) if need_dproj else None
+    scratch = torch.empty(lib.mdm_favor_qkv_bwd_scratch_floats(
+        B, T, H, D, m, int(need_dproj)), **f32)
+    with torch.cuda.device(dev):
+        rc = lib.mdm_favor_qkv_bwd(
+            qkv.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(),
+            projection.data_ptr(), _ptr(mask), g.data_ptr(), dqkv.data_ptr(),
+            ds.data_ptr(), dc.data_ptr(), _ptr(dp), scratch.data_ptr(),
+            B, T, H, D, m, _KERNEL_DTYPES[qkv.dtype], eps, pre_scale,
+            _stream(dev))
+    if rc != 0:
+        raise RuntimeError(
+            f"favor_qkv_bwd kernel launch failed: CUDA error {rc}")
+    favor_qkv_bwd.launches += 1
+    return dqkv, ds, dc, dp
+
+
+favor_qkv_bwd.launches = 0
+
+
+class _FavorQKV(torch.autograd.Function):
+    """favor_qkv with its backward kernel. Saves only the inputs, as the
+    JAX custom_vjp does; the backward recomputes the rest."""
+
+    @staticmethod
+    def forward(ctx, qkv, ln_scale, ln_bias, projection, mask, eps,
+                pre_scale):
+        ctx.save_for_backward(qkv, ln_scale, ln_bias, projection, mask)
+        ctx.eps, ctx.pre_scale = eps, pre_scale
+        if qkv.device.type == "cpu":
+            return favor_qkv_plain(qkv, ln_scale, ln_bias, projection, mask,
+                                   eps, pre_scale)
+        return _launch_favor_qkv(qkv, ln_scale, ln_bias, projection, mask,
+                                 eps, pre_scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        qkv, ln_scale, ln_bias, projection, mask = ctx.saved_tensors
+        dq, ds, dc, dp = favor_qkv_bwd(
+            qkv, ln_scale, ln_bias, projection, mask, g.contiguous(),
+            ctx.eps, ctx.pre_scale, need_dproj=ctx.needs_input_grad[3])
+        return dq, ds, dc, dp, None, None, None
+
+
+def favor_qkv(qkv: torch.Tensor, ln_scale: torch.Tensor,
+              ln_bias: torch.Tensor, projection: torch.Tensor,
+              mask: Optional[torch.Tensor] = None, eps: float = 1e-6,
+              pre_scale: float = 0.1) -> torch.Tensor:
+    """Fused merged-QKV Performer core (see module doc), differentiable on
+    every device. CPU tensors take :func:`favor_qkv_plain` and its autograd
+    backward; CUDA tensors launch ``csrc/favor_qkv.cu`` forward and
+    ``csrc/favor_qkv_bwd.cu`` backward (the projection's gradient only when
+    it requires one).
+
+    On CUDA: qkv contiguous f32 or bf16; ln_scale, ln_bias, projection and
+    mask contiguous f32; (D, m) one of :data:`FAVOR_SHAPES`."""
+    if qkv.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"favor_qkv: unsupported device {qkv.device}")
+    return _FavorQKV.apply(qkv, ln_scale, ln_bias, projection, mask, eps,
+                           pre_scale)
+
+
 favor_qkv.launches = 0
+
+
+def _launch_performer_epilogue(y, scale, shift, post_scale, post_bias,
+                               style_scale, style_bias) -> torch.Tensor:
+    vecs = (post_scale, post_bias, style_scale, style_bias)
+    B, T, D = _check_epilogue("performer_epilogue", y, scale, shift, vecs)
+    from motiondiffusion_moe_tpu_torch.ops._build import library
+
+    lib = library()
+    out = torch.empty_like(y)
+    with torch.cuda.device(y.device):
+        rc = lib.mdm_performer_epilogue(
+            y.data_ptr(), scale.data_ptr(), shift.data_ptr(),
+            *[v.data_ptr() for v in vecs], out.data_ptr(),
+            B * T, T, D, _KERNEL_DTYPES[y.dtype], _stream(y.device))
+    if rc != 0:
+        raise RuntimeError(
+            f"performer_epilogue kernel launch failed: CUDA error {rc}")
+    performer_epilogue.launches += 1
+    return out
+
+
+def performer_epilogue_bwd(y: torch.Tensor, scale: torch.Tensor,
+                           shift: torch.Tensor, post_scale: torch.Tensor,
+                           post_bias: torch.Tensor, style_scale: torch.Tensor,
+                           style_bias: torch.Tensor, g: torch.Tensor):
+    """Backward of :func:`performer_epilogue` from the inputs and the
+    output's gradient ``g`` [B, T, D]: (dy, d scale, d shift, d post_scale,
+    d post_bias, d style_scale, d style_bias). CPU tensors take
+    :func:`performer_epilogue_bwd_plain`; CUDA tensors launch
+    ``csrc/performer_epilogue_bwd.cu`` (g contiguous, in y's dtype)."""
+    if y.device.type == "cpu":
+        return performer_epilogue_bwd_plain(y, scale, shift, post_scale,
+                                            post_bias, style_scale,
+                                            style_bias, g)
+    vecs = (post_scale, post_bias, style_scale, style_bias)
+    B, T, D = _check_epilogue("performer_epilogue_bwd", y, scale, shift,
+                              vecs)
+    _require(g.device == y.device and g.dtype == y.dtype
+             and g.shape == y.shape and g.is_contiguous(),
+             f"performer_epilogue_bwd: g must be a contiguous {y.dtype} "
+             f"{tuple(y.shape)} tensor on {y.device}, got {g.dtype} "
+             f"{tuple(g.shape)} on {g.device}")
+    from motiondiffusion_moe_tpu_torch.ops._build import library
+
+    lib = library()
+    dy = torch.empty_like(y)
+    dscale, dshift = torch.empty_like(scale), torch.empty_like(shift)
+    dvecs = [torch.empty_like(v) for v in vecs]
+    scratch = torch.empty(
+        lib.mdm_performer_epilogue_bwd_scratch_floats(B, T, D),
+        dtype=torch.float32, device=y.device)
+    with torch.cuda.device(y.device):
+        rc = lib.mdm_performer_epilogue_bwd(
+            y.data_ptr(), scale.data_ptr(), shift.data_ptr(),
+            *[v.data_ptr() for v in vecs], g.data_ptr(), dy.data_ptr(),
+            dscale.data_ptr(), dshift.data_ptr(),
+            *[v.data_ptr() for v in dvecs], scratch.data_ptr(),
+            B, T, D, _KERNEL_DTYPES[y.dtype], _stream(y.device))
+    if rc != 0:
+        raise RuntimeError(
+            f"performer_epilogue_bwd kernel launch failed: CUDA error {rc}")
+    performer_epilogue_bwd.launches += 1
+    return (dy, dscale, dshift, *dvecs)
+
+
+performer_epilogue_bwd.launches = 0
+
+
+class _PerformerEpilogue(torch.autograd.Function):
+    """performer_epilogue with its backward kernel; saves only the
+    inputs."""
+
+    @staticmethod
+    def forward(ctx, y, scale, shift, post_scale, post_bias, style_scale,
+                style_bias):
+        args = (y, scale, shift, post_scale, post_bias, style_scale,
+                style_bias)
+        ctx.save_for_backward(*args)
+        if y.device.type == "cpu":
+            return performer_epilogue_plain(*args)
+        return _launch_performer_epilogue(*args)
+
+    @staticmethod
+    def backward(ctx, g):
+        return performer_epilogue_bwd(*ctx.saved_tensors, g.contiguous())
 
 
 def performer_epilogue(y: torch.Tensor, scale: torch.Tensor,
                        shift: torch.Tensor, post_scale: torch.Tensor,
                        post_bias: torch.Tensor, style_scale: torch.Tensor,
                        style_bias: torch.Tensor) -> torch.Tensor:
-    """Fused Performer epilogue (see module doc). CPU tensors take
-    :func:`performer_epilogue_plain`; CUDA tensors launch
-    ``csrc/performer_epilogue.cu``.
+    """Fused Performer epilogue (see module doc), differentiable on every
+    device. CPU tensors take :func:`performer_epilogue_plain` and its
+    autograd backward; CUDA tensors launch ``csrc/performer_epilogue.cu``
+    forward and ``csrc/performer_epilogue_bwd.cu`` backward.
 
     On CUDA: y contiguous f32 or bf16 with D in :data:`EPILOGUE_DIMS`;
     scale and shift contiguous [B, D] in y's dtype; the four LN vectors
     contiguous f32 [D]."""
-    if y.device.type == "cpu":
-        return performer_epilogue_plain(y, scale, shift, post_scale,
-                                        post_bias, style_scale, style_bias)
-    _require(y.device.type == "cuda",
-             f"performer_epilogue: unsupported device {y.device}")
-    _require(y.dim() == 3 and y.dtype in _KERNEL_DTYPES
-             and y.is_contiguous(),
-             f"performer_epilogue: y must be a contiguous [B, T, D] float32 "
-             f"or bfloat16 tensor, got {y.dtype} {tuple(y.shape)}")
-    B, T, D = y.shape
-    _require(D in EPILOGUE_DIMS and B > 0 and T > 0,
-             f"performer_epilogue: D={D} not in {sorted(EPILOGUE_DIMS)}")
-    dev = y.device
-    for name, t in (("scale", scale), ("shift", shift)):
-        _require(t.device == dev and t.dtype == y.dtype
-                 and t.shape == (B, D) and t.is_contiguous(),
-                 f"performer_epilogue: {name} must be a contiguous "
-                 f"{y.dtype} [{B}, {D}] tensor on {dev}, got {t.dtype} "
-                 f"{tuple(t.shape)} on {t.device}")
-    for name, t in (("post_scale", post_scale), ("post_bias", post_bias),
-                    ("style_scale", style_scale),
-                    ("style_bias", style_bias)):
-        _check_f32_vec(name, t, D, dev)
-    from motiondiffusion_moe_tpu_torch.ops._build import library
-
-    lib = library()
-    out = torch.empty_like(y)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.mdm_performer_epilogue(
-            y.data_ptr(), scale.data_ptr(), shift.data_ptr(),
-            post_scale.data_ptr(), post_bias.data_ptr(),
-            style_scale.data_ptr(), style_bias.data_ptr(), out.data_ptr(),
-            B * T, T, D, _KERNEL_DTYPES[y.dtype], stream)
-    if rc != 0:
-        raise RuntimeError(
-            f"performer_epilogue kernel launch failed: CUDA error {rc}")
-    performer_epilogue.launches += 1
-    return out
+    if y.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"performer_epilogue: unsupported device {y.device}")
+    return _PerformerEpilogue.apply(y, scale, shift, post_scale, post_bias,
+                                    style_scale, style_bias)
 
 
 performer_epilogue.launches = 0

@@ -1,0 +1,254 @@
+"""Training CLI of the PyTorch port.
+
+The counterpart of ``python -m motiondiffusion_moe_tpu.tools.train``, with
+the same flags plus ``--device``::
+
+    python -m motiondiffusion_moe_tpu_torch.tools.train --dataset synthetic \\
+        --device cuda
+
+The config is written to ``<checkpoint_dir>/<name>/config.json`` (the JAX
+package's format) and the normalizer to ``meta/``; checkpoints go to
+``ckpt/`` and a rerun resumes from the newest. What the port does not run
+yet raises: the real datasets (``t2m``, ``kit``) and DeBERTa until the data
+port, the multi-device flags until the parallel port, and ``--scan_blocks``
+/ ``--remat_blocks``, which exist for JAX compilation and are not ported.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+
+
+def build_argparser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        description="Train the MoE motion diffusion model (PyTorch port)")
+    p.add_argument("--device", default="cuda",
+                   help="torch device to train on (default cuda; raises when "
+                        "it is not available, never moves to the CPU on its "
+                        "own)")
+    p.add_argument("--name", default="t2m_moe_small")
+    p.add_argument("--dataset", default="t2m",
+                   choices=["t2m", "kit", "synthetic"],
+                   help="t2m and kit are not ported yet and raise")
+    p.add_argument("--data_root", default="./data/HumanML3D")
+    p.add_argument("--checkpoint_dir", default="./checkpoints")
+    p.add_argument("--batch_size", type=int, default=32)
+    p.add_argument("--num_epochs", type=int, default=50)
+    p.add_argument("--lr", type=float, default=2e-4)
+    p.add_argument("--diffusion_steps", type=int, default=1000)
+    p.add_argument("--beta_schedule", default="linear",
+                   choices=["linear", "cosine", "sqrt"])
+    p.add_argument("--schedule_sampler", default="uniform",
+                   choices=["uniform", "loss-second-moment", "adaptive-loss"])
+    p.add_argument("--num_layers", type=int, default=8)
+    p.add_argument("--latent_dim", type=int, default=512)
+    p.add_argument("--ff_size", type=int, default=256)
+    p.add_argument("--num_heads", type=int, default=4)
+    p.add_argument("--num_experts", type=int, default=4)
+    p.add_argument("--no_moe", action="store_true")
+    p.add_argument("--model_size", default="small", choices=["small", "big"])
+    p.add_argument("--text_encoder", default="hash",
+                   choices=["hash", "deberta-v3-large", "deberta-tiny"],
+                   help="only hash is ported; the DeBERTa encoders raise")
+    p.add_argument("--deberta_ckpt", default="",
+                   help="DeBERTa checkpoint (not ported; must stay empty)")
+    p.add_argument("--text_latent_dim", type=int, default=128)
+    p.add_argument("--times", type=int, default=1)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--log_every", type=int, default=50)
+    p.add_argument("--save_latest", type=int, default=500)
+    p.add_argument("--save_every_e", type=int, default=5)
+    p.add_argument("--no_uncond_step", action="store_true")
+    p.add_argument("--steps_per_call", type=int, default=1,
+                   help="optimizer steps per compiled call in the JAX "
+                        "package; the port runs every step as its own call, "
+                        "with the same semantics")
+    p.add_argument("--grad_accum", type=int, default=1,
+                   help="gradient-accumulation microbatches per optimizer "
+                        "update (batch_size must divide evenly)")
+    p.add_argument("--rng_impl", default="rbg", choices=["rbg", "threefry"],
+                   help="accepted for the JAX CLI's sake and has NO effect "
+                        "here: every draw comes from one torch.Generator")
+    p.add_argument("--adam_mu_dtype", default="float32",
+                   choices=["float32", "bfloat16"],
+                   help="Adam first-moment storage dtype")
+    p.add_argument("--adam_nu_dtype", default="float32",
+                   choices=["float32", "bfloat16"],
+                   help="Adam second-moment storage dtype")
+    p.add_argument("--remat_blocks", default="",
+                   choices=["", "dots", "dots_named", "all"],
+                   help="JAX rematerialisation policy: not ported, raises "
+                        "unless empty")
+    p.add_argument("--scan_blocks", action="store_true",
+                   help="JAX stacked-block layout: not ported, raises")
+    p.add_argument("--ema_decay", type=float, default=0.0,
+                   help="weight-EMA decay (0 = off; e.g. 0.9999)")
+    p.add_argument("--lr_schedule", default="constant",
+                   choices=["constant", "cosine"])
+    p.add_argument("--lr_warmup_steps", type=int, default=0,
+                   help="linear 0 -> lr warmup steps")
+    p.add_argument("--lr_decay_steps", type=int, default=0,
+                   help="total steps for the cosine decay (incl. warmup)")
+    p.add_argument("--caption_dropout", type=float, default=0.0)
+    p.add_argument("--w_velocity", type=float, default=0.0)
+    p.add_argument("--w_acceleration", type=float, default=0.0)
+    p.add_argument("--w_structure", type=float, default=0.0)
+    p.add_argument("--w_progressive", type=float, default=0.0)
+    for flag in ("expert_parallel", "tensor_parallel", "seq_parallel",
+                 "pipeline_parallel"):
+        p.add_argument(f"--{flag}", type=int, default=1,
+                       help="multi-device: raises above 1 until the "
+                            "parallel port")
+    p.add_argument("--data_parallel", type=int, default=0,
+                   help="multi-device: raises above 1 until the parallel "
+                        "port")
+    p.add_argument("--pp_microbatches", type=int, default=0,
+                   help="pipeline microbatches (read only with "
+                        "--pipeline_parallel)")
+    p.add_argument("--zero1", action="store_true",
+                   help="multi-device: raises until the parallel port")
+    p.add_argument("--synthetic_size", type=int, default=256,
+                   help="synthetic dataset size (dataset=synthetic)")
+    p.add_argument("--no_native_io", action="store_true",
+                   help="accepted for the JAX CLI's sake; the port has no "
+                        "native data plane yet")
+    p.add_argument("--coordinator_address", default="",
+                   help="multi-host: raises until the parallel port")
+    p.add_argument("--num_processes", type=int, default=0,
+                   help="multi-host: raises above 1 until the parallel port")
+    p.add_argument("--process_id", type=int, default=-1,
+                   help="multi-host: raises until the parallel port")
+    return p
+
+
+def check_supported(args: argparse.Namespace) -> None:
+    """Raise for what the port does not run yet (see the module doc)."""
+    if args.dataset != "synthetic":
+        raise NotImplementedError(
+            f"--dataset {args.dataset}: the HumanML3D / KIT-ML readers are "
+            "not ported yet; use --dataset synthetic")
+    if args.text_encoder != "hash" or args.deberta_ckpt:
+        raise NotImplementedError(
+            f"--text_encoder {args.text_encoder}: only the hash encoder is "
+            "ported")
+    if args.scan_blocks or args.remat_blocks:
+        raise NotImplementedError(
+            "--scan_blocks / --remat_blocks exist for JAX compilation and "
+            "are not ported")
+    if (args.num_processes > 1 or args.coordinator_address
+            or args.process_id >= 0):
+        raise NotImplementedError(
+            "multi-host flags: the port trains on one device until the "
+            "parallel port")
+
+
+def config_from_args(args: argparse.Namespace):
+    """The JAX CLI's ``config_from_args`` (same flags, same config)."""
+    from motiondiffusion_moe_tpu.config import (
+        DataConfig, DiffusionConfig, ExperimentConfig, ModelConfig,
+        ParallelConfig, TrainConfig)
+
+    if args.dataset == "kit":
+        data = DataConfig.kit(data_root=args.data_root, times=args.times,
+                              use_native_io=not args.no_native_io)
+    else:
+        data = DataConfig.humanml3d(data_root=args.data_root,
+                                    times=args.times,
+                                    use_native_io=not args.no_native_io)
+    mult = 2 if args.model_size == "big" else 1
+    model = ModelConfig(
+        input_feats=data.dim_pose, max_frames=data.max_motion_length,
+        latent_dim=args.latent_dim * mult, ff_size=args.ff_size * mult,
+        num_layers=args.num_layers, num_heads=args.num_heads,
+        use_moe=not args.no_moe, num_experts=args.num_experts,
+        text_encoder=args.text_encoder, text_encoder_ckpt=args.deberta_ckpt,
+        text_latent_dim=args.text_latent_dim * mult,
+        remat_blocks=args.remat_blocks, scan_blocks=args.scan_blocks,
+        pipeline_microbatches=args.pp_microbatches)
+    return ExperimentConfig(
+        name=args.name,
+        checkpoint_dir=args.checkpoint_dir,
+        data=data,
+        diffusion=DiffusionConfig(num_timesteps=args.diffusion_steps,
+                                  beta_schedule=args.beta_schedule,
+                                  schedule_sampler=args.schedule_sampler),
+        model=model,
+        parallel=ParallelConfig(num_expert_partitions=args.expert_parallel,
+                                num_model_partitions=args.tensor_parallel,
+                                num_data_partitions=args.data_parallel,
+                                num_seq_partitions=args.seq_parallel,
+                                num_pipeline_stages=args.pipeline_parallel,
+                                zero1=args.zero1),
+        train=TrainConfig(batch_size=args.batch_size,
+                          num_epochs=args.num_epochs, lr=args.lr,
+                          seed=args.seed,
+                          steps_per_call=args.steps_per_call,
+                          grad_accum_steps=args.grad_accum,
+                          rng_impl=args.rng_impl,
+                          adam_mu_dtype=args.adam_mu_dtype,
+                          adam_nu_dtype=args.adam_nu_dtype,
+                          uncond_step=not args.no_uncond_step,
+                          caption_dropout=args.caption_dropout,
+                          ema_decay=args.ema_decay,
+                          lr_schedule=args.lr_schedule,
+                          lr_warmup_steps=args.lr_warmup_steps,
+                          lr_decay_steps=args.lr_decay_steps,
+                          log_every=args.log_every,
+                          save_latest_every=args.save_latest,
+                          save_every_epochs=args.save_every_e,
+                          w_velocity=args.w_velocity,
+                          w_acceleration=args.w_acceleration,
+                          w_structure=args.w_structure,
+                          w_progressive=args.w_progressive))
+
+
+def main(argv=None):
+    """Train; returns the final :class:`TrainState`."""
+    args = build_argparser().parse_args(argv)
+    check_supported(args)
+    cfg = config_from_args(args)
+
+    import torch
+
+    from motiondiffusion_moe_tpu_torch.data.dataset import (
+        SyntheticText2MotionDataset)
+    from motiondiffusion_moe_tpu_torch.data.loader import (
+        DataLoader, DistributedSampler)
+    from motiondiffusion_moe_tpu_torch.training.checkpoint import (
+        CheckpointManager)
+    from motiondiffusion_moe_tpu_torch.training.trainer import (
+        Trainer, check_single_device)
+
+    check_single_device(cfg)  # the multi-device flags
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"--device {args.device}: no CUDA device is "
+                           "available (pass --device cpu to train on the "
+                           "CPU)")
+    run_dir = os.path.join(cfg.checkpoint_dir, cfg.name)
+    os.makedirs(run_dir, exist_ok=True)
+    cfg.save(os.path.join(run_dir, "config.json"))
+    print(f"[train] config -> {run_dir}/config.json")
+    print(f"[train] device: {device}"
+          + (f" ({torch.cuda.get_device_name(device)})"
+             if device.type == "cuda" else ""))
+
+    dataset = SyntheticText2MotionDataset(cfg.data, size=args.synthetic_size,
+                                          seed=cfg.train.seed)
+    dataset.normalizer.save(os.path.join(run_dir, "meta"))
+    sampler = DistributedSampler(len(dataset), seed=cfg.train.seed)
+    loader = DataLoader(dataset, batch_size=cfg.train.batch_size,
+                        sampler=sampler, seed=cfg.train.seed)
+    norm = dataset.normalizer
+    trainer = Trainer(cfg, normalizer_stats=(norm.mean, norm.std),
+                      device=device)
+    state = trainer.init_state()
+    ckpt = CheckpointManager(os.path.join(run_dir, "ckpt"))
+    state = trainer.fit(state, loader, checkpoints=ckpt)
+    print("[train] done")
+    return state
+
+
+if __name__ == "__main__":
+    main()

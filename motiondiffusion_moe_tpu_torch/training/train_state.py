@@ -1,0 +1,388 @@
+"""Optimizer, learning rate, EMA and the train step.
+
+Port of ``motiondiffusion_moe_tpu/training/train_state.py``: global-norm
+clipping at ``grad_clip_norm`` with the grouped norm (``:66-106``), Adam with
+optax's semantics (``:109-156, :180-200``), ``make_lr`` (``:159-177``), the
+EMA of the weights (``:368-374``), gradient accumulation as the mean of the
+microbatch gradients (``:385-417``), and the train step, whose loss is the
+JAX ``loss_fn`` (``:290-356``): masked eps-MSE (importance-weighted) plus
+the MoE balance term and the optional losses on the predicted x0.
+
+PyTorch runs eagerly, so the step is a Python function: forward in training
+mode, ``backward``, then :meth:`Optimizer.step`. ``steps_per_call`` needs
+no counterpart: the JAX package scans K steps in one compiled call to
+amortise dispatch, with the same per-step semantics as K single steps,
+which is what the eager loop runs. Random draws (the noise, dropout masks,
+stochastic-depth coins) come from the ``torch.Generator`` the caller
+passes, never from torch's global RNG.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+from torch import nn
+
+from motiondiffusion_moe_tpu.config import ExperimentConfig
+from motiondiffusion_moe_tpu_torch.diffusion.gaussian import (
+    DiffusionSchedule,
+    LossType,
+    ModelMeanType,
+    ModelVarType,
+    pred_xstart_from_eps,
+    q_sample,
+    training_loss_terms,
+)
+from motiondiffusion_moe_tpu_torch.models.layers import TrainContext
+from motiondiffusion_moe_tpu_torch.models.transformer import (
+    generate_src_mask,
+    sum_moe_aux_losses,
+)
+from motiondiffusion_moe_tpu_torch.training import losses as L
+
+Batch = Dict[str, torch.Tensor]
+
+# Leaves below this element count are concatenated into ONE vector for the
+# global-norm reduction, as in the JAX package (fewer, larger reduces).
+_NORM_GROUP_MAX_ELEMS = 262144
+
+
+def grouped_global_norm(tensors: Sequence[torch.Tensor],
+                        small_leaf_elems: int = _NORM_GROUP_MAX_ELEMS
+                        ) -> torch.Tensor:
+    """The global L2 norm of ``tensors``, in f32, with the small ones
+    concatenated into one reduce (``grouped_global_norm``)."""
+    leaves = [t for t in tensors if t.numel()]
+    small = [t.float().reshape(-1) for t in leaves
+             if t.numel() < small_leaf_elems]
+    parts = [torch.cat(small).square().sum()] if small else []
+    parts += [t.float().square().sum() for t in leaves
+              if t.numel() >= small_leaf_elems]
+    return torch.stack(parts).sum().sqrt()
+
+
+def clip_by_grouped_global_norm_(grads: List[torch.Tensor],
+                                 max_norm: float) -> torch.Tensor:
+    """optax ``clip_by_global_norm`` in place: every gradient becomes
+    ``(g / norm) * max_norm`` unless ``norm < max_norm``. Decided on the
+    device (no host sync); returns the norm."""
+    norm = grouped_global_norm(grads)
+    keep = norm < max_norm
+    one = torch.ones((), device=norm.device)
+    torch._foreach_div_(grads, torch.where(keep, one, norm))
+    torch._foreach_mul_(grads, torch.where(keep, one, one * max_norm))
+    return norm
+
+
+# ---------------------------------------------------------------------------
+# learning rate
+# ---------------------------------------------------------------------------
+
+def _linear(init: float, end: float, steps: int) -> Callable[[int], float]:
+    """optax ``linear_schedule`` (called only for count < steps)."""
+    return lambda count: (init - end) * (1 - min(max(count, 0), steps)
+                                         / steps) + end
+
+
+def _join(schedules, boundaries) -> Callable[[int], float]:
+    """optax ``join_schedules``: each schedule counts from its boundary."""
+    def lr(count: int) -> float:
+        start = 0
+        for fn, b in zip(schedules, boundaries):
+            if count < b:
+                return fn(count - start)
+            start = b
+        return schedules[-1](count - start)
+    return lr
+
+
+def make_lr(cfg: ExperimentConfig) -> Union[float, Callable[[int], float]]:
+    """The learning rate: a float (the reference's fixed Adam lr) or a
+    function of the update count when warmup or cosine decay is set
+    (optax ``warmup_cosine_decay_schedule`` / a linear warmup joined to a
+    constant)."""
+    tc = cfg.train
+    if tc.lr_schedule == "cosine":
+        if tc.lr_decay_steps <= 0:
+            raise ValueError("lr_schedule='cosine' needs lr_decay_steps "
+                             "(total steps incl. warmup)")
+        warm = tc.lr_warmup_steps
+        decay = max(tc.lr_decay_steps - warm, 1)
+
+        def cosine(count: int) -> float:
+            c = min(count, decay)
+            return tc.lr * 0.5 * (1 + math.cos(math.pi * c / decay))
+
+        return _join([_linear(0.0, tc.lr, warm), cosine], [warm])
+    if tc.lr_schedule != "constant":
+        raise ValueError(f"unknown lr_schedule {tc.lr_schedule!r} "
+                         "(constant | cosine)")
+    if tc.lr_warmup_steps > 0:
+        return _join([_linear(0.0, tc.lr, tc.lr_warmup_steps),
+                      lambda count: tc.lr], [tc.lr_warmup_steps])
+    return tc.lr
+
+
+# ---------------------------------------------------------------------------
+# the optimizer: clip -> Adam, optax's chain
+# ---------------------------------------------------------------------------
+
+_DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
+
+
+class Optimizer:
+    """``make_optimizer``: grouped global-norm clip, then Adam.
+
+    Adam follows optax: mu = (1 - b1) g + b1 mu, nu = (1 - b2) g^2 + b2 nu,
+    update = -lr * (mu / (1 - b1^t)) / (sqrt(nu / (1 - b2^t)) + eps), eps
+    outside the sqrt. ``adam_mu_dtype="bfloat16"`` alone is ``optax.adam``
+    with ``mu_dtype``: the update uses the f32 moment, which is stored
+    rounded. ``adam_nu_dtype="bfloat16"`` is ``scale_by_adam_compact``: both
+    moments accumulate in f32, are stored rounded, and the update reads the
+    stored ones. Parameters without a gradient take a zero gradient, as in
+    a JAX gradient tree."""
+
+    def __init__(self, params: Sequence[nn.Parameter], cfg: ExperimentConfig,
+                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
+        tc = cfg.train
+        self.params = list(params)
+        self.max_norm = tc.grad_clip_norm
+        self.lr = make_lr(cfg)
+        self.b1, self.b2, self.eps = b1, b2, eps
+        self.mu_dtype = _DTYPES[tc.adam_mu_dtype]
+        self.nu_dtype = _DTYPES[tc.adam_nu_dtype]
+        self.compact = self.nu_dtype is not None
+        self.count = 0
+        self.mu = [torch.zeros_like(p, dtype=self.mu_dtype or p.dtype)
+                   for p in self.params]
+        self.nu = [torch.zeros_like(p, dtype=self.nu_dtype or p.dtype)
+                   for p in self.params]
+
+    def zero_grad(self) -> None:
+        for p in self.params:
+            p.grad = None
+
+    @torch.no_grad()
+    def step(self) -> torch.Tensor:
+        """Clip the parameters' gradients and apply one Adam update;
+        returns the gradient norm before clipping."""
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+                 for p in self.params]
+        norm = clip_by_grouped_global_norm_(grads, self.max_norm)
+        lr = self.lr(self.count) if callable(self.lr) else self.lr
+        self.count += 1
+        b1, b2 = self.b1, self.b2
+        c1 = 1.0 - b1 ** self.count
+        c2 = 1.0 - b2 ** self.count
+        f32 = self.mu_dtype is None and self.nu_dtype is None
+        mu = self.mu if f32 else [m.float() for m in self.mu]
+        nu = self.nu if f32 else [v.float() for v in self.nu]
+        torch._foreach_mul_(mu, b1)
+        torch._foreach_add_(mu, grads, alpha=1 - b1)
+        torch._foreach_mul_(nu, b2)
+        torch._foreach_addcmul_(nu, grads, grads, value=1 - b2)
+        if not f32:
+            for dst, src in ((self.mu, mu), (self.nu, nu)):
+                for d, s in zip(dst, src):
+                    d.copy_(s)
+            if self.compact:  # the update reads the stored moments
+                mu = [m.float() for m in self.mu]
+                nu = [v.float() for v in self.nu]
+        denom = torch._foreach_div(nu, c2)
+        torch._foreach_sqrt_(denom)
+        torch._foreach_add_(denom, self.eps)
+        upd = torch._foreach_div(mu, c1)
+        torch._foreach_div_(upd, denom)
+        torch._foreach_mul_(upd, -lr)
+        torch._foreach_add_(self.params, upd)
+        return norm
+
+    def state_dict(self) -> dict:
+        return {"count": self.count, "mu": self.mu, "nu": self.nu}
+
+    def load_state_dict(self, state: dict) -> None:
+        self.count = int(state["count"])
+        for dst, src in ((self.mu, state["mu"]), (self.nu, state["nu"])):
+            if len(dst) != len(src):
+                raise ValueError(f"optimizer state has {len(src)} moments, "
+                                 f"the model {len(dst)} parameters")
+            for d, s in zip(dst, src):
+                d.copy_(s)
+
+
+class EMA:
+    """Exponential moving average of every parameter (``:368-374``):
+    ema = d * ema + (1 - d) * p after each update, starting from a copy of
+    the weights (no bias correction)."""
+
+    def __init__(self, model: nn.Module, decay: float):
+        self.decay = decay
+        self.params = [p.detach().clone() for p in model.parameters()]
+
+    @torch.no_grad()
+    def update(self, model: nn.Module) -> None:
+        torch._foreach_mul_(self.params, self.decay)
+        torch._foreach_add_(self.params, [p.detach() for p in
+                                          model.parameters()],
+                            alpha=1.0 - self.decay)
+
+    def state_dict(self) -> dict:
+        return {"params": self.params}
+
+    def load_state_dict(self, state: dict) -> None:
+        for d, s in zip(self.params, state["params"]):
+            d.copy_(s)
+
+
+@dataclass
+class TrainState:
+    """The model (parameters live in it), the optimizer, the EMA (when
+    ``ema_decay > 0``) and the update count."""
+
+    model: nn.Module
+    optimizer: Optimizer
+    ema: Optional[EMA] = None
+    step: int = 0
+
+
+def create_train_state(model: nn.Module, cfg: ExperimentConfig) -> TrainState:
+    """Optimizer over the trainable parameters (the frozen FAVOR
+    projections carry ``requires_grad=False``; in JAX their gradient is an
+    exact zero, so Adam leaves them unchanged either way) and the EMA."""
+    opt = Optimizer([p for p in model.parameters() if p.requires_grad], cfg)
+    ema = EMA(model, cfg.train.ema_decay) if cfg.train.ema_decay > 0 else None
+    return TrainState(model=model, optimizer=opt, ema=ema)
+
+
+# ---------------------------------------------------------------------------
+# the train step
+# ---------------------------------------------------------------------------
+
+class TrainStep:
+    """``make_train_step``: ``step(state, batch, generator)`` runs one
+    optimizer update and returns the metrics (``loss_total``,
+    ``loss_mot_rec``, ``loss_moe``, the optional losses, ``grad_norm`` as
+    0-dim tensors; ``per_sample_mse`` [B]).
+
+    Batch: ``motion`` [B, T, F] (normalized), ``length`` [B], ``text_ids``
+    [B, N], ``t`` [B], ``t_weight`` [B], all on the model's device. With
+    ``grad_accum_steps = A > 1`` the batch is split into A contiguous
+    microbatches, each drawing its own noise, and the update uses the mean
+    of their gradients."""
+
+    def __init__(self, sched: DiffusionSchedule, cfg: ExperimentConfig,
+                 normalizer_stats: Optional[Tuple[np.ndarray,
+                                                  np.ndarray]] = None):
+        dc, tc = cfg.diffusion, cfg.train
+        self.sched = sched
+        self.cfg = cfg
+        self.mean_type = ModelMeanType(dc.model_mean_type)
+        self.var_type = ModelVarType(dc.model_var_type)
+        self.loss_type = LossType(dc.loss_type)
+        self.accum = max(1, tc.grad_accum_steps)
+        self.norm_stats = normalizer_stats
+        if tc.w_structure > 0 and normalizer_stats is None:
+            raise ValueError("the structure loss needs normalizer stats "
+                             "(joint-space decode)")
+
+    def loss(self, model: nn.Module, batch: Batch, noise: torch.Tensor,
+             generator: Optional[torch.Generator] = None
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """(total loss, metrics) of one forward in training mode on the
+        given noise: the JAX ``loss_fn``."""
+        tc = self.cfg.train
+        ctx = TrainContext(generator=generator)
+        x_start, t = batch["motion"], batch["t"]
+        x_t = q_sample(self.sched, x_start, t, noise)
+        out = model(x_t, t, batch["length"], text_ids=batch["text_ids"],
+                    ctx=ctx)
+        terms = training_loss_terms(self.sched, out, x_start, x_t, t, noise,
+                                    mean_type=self.mean_type,
+                                    var_type=self.var_type,
+                                    loss_type=self.loss_type)
+        src_mask = generate_src_mask(x_start.shape[1], batch["length"])
+        loss_rec = L.masked_frame_mse(terms["pred"], terms["target"],
+                                      src_mask, batch.get("t_weight"))
+        moe_loss = (sum_moe_aux_losses(ctx).to(loss_rec.device)
+                    * self.cfg.model.moe_aux_loss_weight)
+        total = loss_rec + moe_loss
+        metrics = {"loss_mot_rec": loss_rec, "loss_moe": moe_loss}
+        if (tc.w_velocity > 0 or tc.w_acceleration > 0 or tc.w_structure > 0
+                or tc.w_progressive > 0):
+            pred_x0 = (pred_xstart_from_eps(self.sched, x_t, t, terms["pred"])
+                       if self.mean_type == ModelMeanType.EPSILON
+                       else terms["pred"])
+            extra = []
+            if tc.w_velocity > 0:
+                extra.append(("loss_velocity", tc.w_velocity,
+                              L.velocity_loss(pred_x0, x_start, src_mask)))
+            if tc.w_acceleration > 0:
+                extra.append(("loss_acceleration", tc.w_acceleration,
+                              L.acceleration_loss(pred_x0, x_start,
+                                                  src_mask)))
+            if tc.w_progressive > 0:
+                extra.append(("loss_progressive", tc.w_progressive,
+                              L.progressive_loss(pred_x0, x_start, src_mask)))
+            if tc.w_structure > 0:
+                mean, std = (torch.as_tensor(a, device=x_start.device)
+                             for a in self.norm_stats)
+                extra.append(("loss_structure", tc.w_structure,
+                              L.structure_loss(pred_x0 * std + mean,
+                                               x_start * std + mean, src_mask,
+                                               self.cfg.data.num_joints)))
+            for name, w, value in extra:
+                total = total + w * value
+                metrics[name] = value
+        metrics["loss_total"] = total
+        per_frame = ((terms["pred"] - terms["target"]) ** 2).mean(-1)
+        metrics["per_sample_mse"] = ((per_frame * src_mask).sum(1)
+                                     / src_mask.sum(1).clamp(min=1.0))
+        return total, {k: v.detach() for k, v in metrics.items()}
+
+    def backward(self, state: TrainState, batch: Batch,
+                 generator: Optional[torch.Generator],
+                 noise: Optional[torch.Tensor] = None
+                 ) -> Dict[str, torch.Tensor]:
+        """Forward and backward of one (possibly accumulated) batch; the
+        gradients are left in the parameters' ``.grad``. ``noise`` (same
+        shape as the motion) replaces the generator's draw."""
+        model = state.model
+        model.train()
+        state.optimizer.zero_grad()
+        B = batch["motion"].shape[0]
+        A = self.accum if B % self.accum == 0 else 1
+        parts = []
+        for i in range(A):
+            sl = slice(i * B // A, (i + 1) * B // A)
+            chunk = {k: v[sl] for k, v in batch.items()}
+            eps = (noise[sl] if noise is not None else torch.randn(
+                chunk["motion"].shape, generator=generator,
+                device=chunk["motion"].device))
+            total, metrics = self.loss(model, chunk, eps, generator)
+            (total / A).backward()
+            parts.append(metrics)
+        if A == 1:
+            return parts[0]
+        return {k: (torch.cat([m[k] for m in parts]) if k == "per_sample_mse"
+                    else torch.stack([m[k] for m in parts]).mean())
+                for k in parts[0]}
+
+    def apply_update(self, state: TrainState,
+                     metrics: Dict[str, torch.Tensor]
+                     ) -> Dict[str, torch.Tensor]:
+        """Clip + Adam from the gradients in ``.grad``, then the EMA."""
+        metrics["grad_norm"] = state.optimizer.step()
+        if state.ema is not None:
+            state.ema.update(state.model)
+        state.step += 1
+        return metrics
+
+    def __call__(self, state: TrainState, batch: Batch,
+                 generator: Optional[torch.Generator]
+                 ) -> Dict[str, torch.Tensor]:
+        return self.apply_update(state, self.backward(state, batch,
+                                                      generator))

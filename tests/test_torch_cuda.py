@@ -14,7 +14,11 @@ another summation order -> 1e-4 relative to the output's scale. bf16
 outputs are the same f32 result rounded once to bf16 -> one bf16 ulp
 (2**-7 relative) plus a small absolute floor. The pipeline: f32 compute
 through 3 DPM-Solver++ steps -> 1e-4 of the sample's largest value (the
-eps -> x0 factor reaches ~1e2 at t = T-1).
+eps -> x0 factor reaches ~1e2 at t = T-1). The backward kernels: their f32
+outputs are sums over T (and over B*H for the parameter gradients) taken in
+another order than autograd's -> 1e-3 of the output's largest value; bf16
+gradients (d qkv, dy, d scale, d shift) are that result rounded once ->
+one bf16 ulp plus the same floor.
 """
 
 import numpy as np
@@ -169,3 +173,117 @@ def test_pipeline_on_the_card_matches_the_cpu(dev):
     ref, out = outs["cpu"], outs[str(dev)]
     assert torch.isfinite(out).all()
     assert (out - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
+
+
+def _assert_close(out, ref, dtype):
+    out, ref = out.float(), ref.float()
+    assert torch.isfinite(out).all()
+    floor = 1e-3 * ref.abs().max().item()
+    if dtype == torch.float32:
+        assert (out - ref).abs().max().item() <= floor
+    else:
+        assert ((out - ref).abs() <= 2 ** -7 * ref.abs() + floor).all()
+
+
+@pytest.mark.parametrize("need_dproj", [True, False])
+@pytest.mark.parametrize("shape", [(3, 37, 2, 64, 128), (4, 196, 4, 128, 128),
+                                   (2, 98, 8, 96, 128)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_favor_qkv_bwd_kernel_matches_plain(dev, shape, dtype, need_dproj):
+    B, T, H, D, m = shape
+    qkv, scale, bias, proj, mask = _favor_inputs(dev, B, T, H, D, m, dtype)
+    g = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (B, T, H * D)).astype(np.float32)).to(dev, dtype)
+    n0 = P.favor_qkv_bwd.launches
+    out = P.favor_qkv_bwd(qkv, scale, bias, proj, mask, g,
+                          need_dproj=need_dproj)
+    torch.cuda.synchronize()
+    assert P.favor_qkv_bwd.launches == n0 + 1
+    ref = P.favor_qkv_bwd_plain(qkv, scale, bias, proj, mask, g,
+                                need_dproj=need_dproj)
+    assert out[0].dtype == dtype and out[0].shape == qkv.shape
+    for o, r, dt in zip(out[:3], ref[:3], (dtype, torch.float32,
+                                           torch.float32)):
+        _assert_close(o, r, dt)
+    if need_dproj:
+        _assert_close(out[3], ref[3], torch.float32)
+    else:
+        assert out[3] is None
+    again = P.favor_qkv_bwd(qkv, scale, bias, proj, mask, g,
+                            need_dproj=need_dproj)
+    for a, o in zip(again, out):  # no atomics: identical bits
+        assert (a is None and o is None) or torch.equal(a, o)
+
+
+@pytest.mark.parametrize("D", [256, 512])
+@pytest.mark.parametrize("T", [37, 196])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_epilogue_bwd_kernel_matches_plain(dev, D, T, dtype):
+    rng = np.random.default_rng(3)
+    B = 5
+
+    def t(*shape, s=1.0, off=0.0):
+        return torch.from_numpy((off + s * rng.standard_normal(shape))
+                                .astype(np.float32)).to(dev)
+
+    y, g = t(B, T, D).to(dtype), t(B, T, D).to(dtype)
+    scale, shift = t(B, D, s=0.3).to(dtype), t(B, D, s=0.3).to(dtype)
+    vecs = [t(D, s=0.1, off=1.0), t(D, s=0.1), t(D, s=0.1, off=1.0),
+            t(D, s=0.1)]
+    n0 = P.performer_epilogue_bwd.launches
+    out = P.performer_epilogue_bwd(y, scale, shift, *vecs, g)
+    torch.cuda.synchronize()
+    assert P.performer_epilogue_bwd.launches == n0 + 1
+    ref = P.performer_epilogue_bwd_plain(y, scale, shift, *vecs, g)
+    for i, (o, r) in enumerate(zip(out, ref)):
+        assert o.dtype == r.dtype and o.shape == r.shape
+        _assert_close(o, r, dtype if i < 3 else torch.float32)
+    again = P.performer_epilogue_bwd(y, scale, shift, *vecs, g)
+    assert all(torch.equal(a, o) for a, o in zip(again, out))
+
+
+def test_autograd_functions_take_the_backward_kernels(dev):
+    """The wrappers are autograd Functions on the card: backward launches
+    the backward kernels and returns what they return; the frozen
+    projection gets no gradient and costs none."""
+    qkv, scale, bias, proj, mask = _favor_inputs(dev, 2, 50, 4, 128, 128,
+                                                 torch.bfloat16, seed=4)
+    qkv.requires_grad_()
+    scale.requires_grad_()
+    bias.requires_grad_()
+    out = P.favor_qkv(qkv, scale, bias, proj, mask)
+    g = torch.randn_like(out)
+    n0 = P.favor_qkv_bwd.launches
+    out.backward(g)
+    assert P.favor_qkv_bwd.launches == n0 + 1 and proj.grad is None
+    ref = P.favor_qkv_bwd(qkv.detach(), scale.detach(), bias.detach(), proj,
+                          mask, g, need_dproj=False)
+    assert torch.equal(qkv.grad, ref[0]) and torch.equal(scale.grad, ref[1])
+
+    rng = np.random.default_rng(6)
+    y = torch.from_numpy(rng.standard_normal((2, 30, 512)).astype(
+        np.float32)).to(dev, torch.bfloat16).requires_grad_()
+    sc = torch.zeros(2, 512, device=dev, dtype=torch.bfloat16,
+                     requires_grad=True)
+    vecs = [torch.ones(512, device=dev, requires_grad=True) for _ in range(4)]
+    out = P.performer_epilogue(y, sc, sc, *vecs)
+    n0 = P.performer_epilogue_bwd.launches
+    out.float().sum().backward()
+    assert P.performer_epilogue_bwd.launches == n0 + 1
+    assert all(v.grad is not None and torch.isfinite(v.grad).all()
+               for v in [y, sc] + vecs)
+
+
+def test_backward_wrappers_raise_on_what_the_kernels_do_not_take(dev):
+    qkv, scale, bias, proj, mask = _favor_inputs(dev, 2, 16, 2, 64, 128,
+                                                 torch.float32)
+    g = torch.zeros(2, 16, 128, device=dev)
+    with pytest.raises(ValueError):
+        P.favor_qkv_bwd(qkv, scale, bias, proj, mask, g.bfloat16())
+    with pytest.raises(ValueError):
+        P.favor_qkv_bwd(qkv, scale, bias, proj, mask, g[:, :8])
+    y = torch.zeros(2, 4, 256, device=dev)
+    v = torch.ones(256, device=dev)
+    with pytest.raises(ValueError):
+        P.performer_epilogue_bwd(y, y[:, 0], y[:, 0], v, v, v, v,
+                                 y.transpose(0, 1))
