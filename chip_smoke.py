@@ -45,9 +45,30 @@ first use) and exits non-zero without one. Phases, each fatal on failure:
          and its backward never (dropout takes the unfused path); ms per
          optimizer step. D4: two steps through Trainer at dropout 0, where
          the epilogue and its backward run 32 times per step each.
+  E      this slice's two switches, ModelConfig.use_fast_xattn and
+         MOE_FUSED_KERNEL=1. E1: the fused-MoE and fast cross-attention
+         kernels against their plain versions on the card, in bf16 and f32
+         (MoE at the flagship shape, at S = 600 and at the moe_big shape;
+         cross-attention at the flagship shape and at H = 8, D = 96), with
+         kernel, plain and device times, the bound, scaled_dot_product_attention
+         as the cross-attention's library yardstick, and each gradient
+         through its autograd Function against autograd of the plain
+         version. E2: the full flagship denoiser with both switches on vs
+         both off and use_kernels=False, in f32 (tight) and in bf16 (each
+         against the f32 result, phase B's rule). E3: a dpm20 request of 16
+         prompts x 196 frames through make_server with both switches on:
+         favor_qkv, performer_epilogue and moe_dense_fused launched exactly
+         32 and xattn_fastlayout 16 times per forward; device kernels per
+         forward and s/motion with the switches off and on, in turns. E4:
+         two Trainer steps at dropout 0 with use_fast_xattn (16
+         xattn_fastlayout launches per forward, none of moe_dense_fused in
+         training), every trainable parameter with a finite gradient.
 
 The last line is {"ok": true, "device": {...}}, printed only when every
-phase passed; the line before it lists the kernels of the paths.
+phase passed; the line before it lists the kernels of the paths, each with
+its launches on its path, its error against its plain version, its time,
+the plain version's, the least time the card could take (bound) and,
+where one PyTorch call computes the same function, that call's time.
 """
 
 from __future__ import annotations
@@ -95,6 +116,16 @@ BWD_FLOOR = 1e-3
 # e.g. the key biases of a softmax over keys, are zero up to rounding)
 STEP_LOSS_REL = 1e-5
 STEP_GRAD_REL_RMS = 1e-3
+# fused MoE in bf16 vs its plain version: the final rounding (one ulp) plus
+# the rare one-ulp flips of a rounded hidden activation, each worth one ulp
+# of one term of the second product -> 2^-7 |plain| + 1e-3 max|plain|
+MOE_BF16_FLOOR = 1e-3
+# the fused ops' gradients on the card: autograd of the plain version in
+# both cases, the same computation -> 1e-5 of the largest gradient
+GRAD_REL = 1e-5
+# the least time the card could take: published H100 SXM peaks (dense)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -108,6 +139,15 @@ def card_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()
     return out[0].strip()
+
+
+def bound(nbytes: float, flops: float, kind: str):
+    """(ms, "bytes" or "operations"): the larger of the bytes the function
+    must move over the memory rate and its operations over the peak rate
+    of their type (``PEAK_FLOPS``)."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[kind] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def time_ms(fn, iters: int = 20) -> float:
@@ -226,12 +266,18 @@ def phase_a(dev, card):
             kernel = lambda: P.favor_qkv(qkv, scale, bias, proj, mask)
             plain = lambda: P.favor_qkv_plain(qkv, scale, bias, proj, mask)
             k_ms, p_ms = paired_ms(kernel, plain)
+            # inputs read once, output written once; the four [T, D] x
+            # [D, m]-sized products of every (b, h) in f32
+            el = qkv.element_size()
+            b_ms, b_by = bound(
+                B * T * 4 * H * D * el + (2 * D + D * m + B * T) * 4,
+                4 * 2 * B * H * T * D * m, "f32")
             print(f"[A] favor_qkv {str(dtype)[6:]} B={B} T={T}: kernel "
                   f"{k_ms:.4f} ms, plain {p_ms:.4f} ms per call (CUDA "
                   f"events); device time kernel {device_ms(kernel)}, "
-                  f"plain {device_ms(plain)} (torch.profiler) "
-                  f"({card})")
-            results[("favor_qkv", dtype, T)] = (err, k_ms, p_ms)
+                  f"plain {device_ms(plain)} (torch.profiler); bound "
+                  f"{b_ms:.4f} ms ({b_by}) ({card})")
+            results[("favor_qkv", dtype, T)] = (err, k_ms, p_ms, b_ms, b_by)
 
         y = t(B, T, latent).to(torch.bfloat16)
         sc = t(B, latent, s=0.3).to(torch.bfloat16)
@@ -245,11 +291,17 @@ def phase_a(dev, card):
         kernel = lambda: P.performer_epilogue(y, sc, sh, *vecs)
         plain = lambda: P.performer_epilogue_plain(y, sc, sh, *vecs)
         k_ms, p_ms = paired_ms(kernel, plain)
+        # y, scale, shift and the four LN vectors read, out written; ~20 f32
+        # operations per element (two LayerNorms, L2, modulate, SiLU)
+        b_ms, b_by = bound(2 * B * T * latent * 2 + 2 * B * latent * 2
+                           + 4 * latent * 4, 20 * B * T * latent, "f32")
         print(f"[A] performer_epilogue bfloat16 B={B} T={T}: kernel "
               f"{k_ms:.4f} ms, plain {p_ms:.4f} ms per call (CUDA events); "
               f"device time kernel {device_ms(kernel)}, plain "
-              f"{device_ms(plain)} (torch.profiler) ({card})")
-        results[("performer_epilogue", torch.bfloat16, T)] = (err, k_ms, p_ms)
+              f"{device_ms(plain)} (torch.profiler); bound {b_ms:.4f} ms "
+              f"({b_by}) ({card})")
+        results[("performer_epilogue", torch.bfloat16, T)] = (
+            err, k_ms, p_ms, b_ms, b_by)
     return results
 
 
@@ -274,6 +326,29 @@ def build_flagship(cfg):
     return model
 
 
+def denoiser_inputs(cfg, dev, B=32):
+    """One denoiser batch of the CFG-doubled flagship micro-batch: x, t and
+    lengths on the card, and the token ids of 16 prompts and 16 empty ones."""
+    import torch
+    from motiondiffusion_moe_tpu_torch.models.text_encoder import (
+        hash_tokenize)
+
+    rng = np.random.default_rng(SEED + 2)
+    T, F = cfg.model.max_frames, cfg.model.input_feats
+    x = torch.from_numpy(rng.standard_normal((B, T, F)).astype(np.float32))
+    t = torch.from_numpy(rng.integers(0, 1000, size=B))
+    length = torch.from_numpy(rng.integers(1, T + 1, size=B))
+    length[0] = T
+    prompts = [f"a person walks forward and turns {i}" for i in range(B // 2)]
+    ids = torch.from_numpy(hash_tokenize(prompts + [""] * (B // 2),
+                                         cfg.model.text_max_tokens))
+    return [a.to(dev) for a in (x, t, length)], ids.to(dev)
+
+
+def rel_rms(a, b) -> float:
+    return ((a - b).pow(2).mean().sqrt() / b.pow(2).mean().sqrt()).item()
+
+
 def phase_b(cfg, model, dev):
     """One full-width forward through the kernels and one with
     use_kernels=False, in f32 compute (the kernels' own precision: tight)
@@ -282,37 +357,25 @@ def phase_b(cfg, model, dev):
     import dataclasses
 
     import torch
-    from motiondiffusion_moe_tpu_torch.models.text_encoder import (
-        hash_tokenize)
     from motiondiffusion_moe_tpu_torch.models.transformer import (
         MotionTransformer)
 
     rng = np.random.default_rng(SEED + 2)
-    B, T, F = 32, cfg.model.max_frames, cfg.model.input_feats
-    x = torch.from_numpy(rng.standard_normal((B, T, F)).astype(np.float32))
-    t = torch.from_numpy(rng.integers(0, 1000, size=B))
-    length = torch.from_numpy(rng.integers(1, T + 1, size=B))
-    length[0] = T
-    prompts = [f"a person walks forward and turns {i}" for i in range(B // 2)]
-    ids = torch.from_numpy(hash_tokenize(prompts + [""] * (B // 2),
-                                         cfg.model.text_max_tokens))
-    args = [a.to(dev) for a in (x, t, length)]
+    args, ids = denoiser_inputs(cfg, dev)
+    B, T, F = args[0].shape
 
     def both(m):
         with torch.inference_mode():
             m.set_use_kernels(True)
-            out_k = m(*args, text_ids=ids.to(dev))
+            out_k = m(*args, text_ids=ids)
             m.set_use_kernels(False)
-            out_p = m(*args, text_ids=ids.to(dev))
+            out_p = m(*args, text_ids=ids)
             m.set_use_kernels(True)
         torch.cuda.synchronize()
         for out in (out_k, out_p):
             check(out.shape == (B, T, F), f"denoiser output {out.shape}")
             check(bool(torch.isfinite(out).all()), "denoiser non-finite")
         return out_k, out_p
-
-    def rel_rms(a, b):
-        return ((a - b).pow(2).mean().sqrt() / b.pow(2).mean().sqrt()).item()
 
     cfg32 = dataclasses.replace(cfg.model, dtype="float32")
     m32 = MotionTransformer(cfg32).to(dev).eval()
@@ -584,12 +647,19 @@ def phase_d1(dev, card):
                     plain = lambda: P.favor_qkv_bwd_plain(  # noqa: E731
                         qkv, scale, bias, proj, mask, g, need_dproj=False)
                     k_ms, p_ms = paired_ms(kernel, plain, iters=10)
+                    # qkv and g read, d qkv and d(LN) written; the forward's
+                    # four [T, D] x [D, m]-sized products recomputed and six
+                    # in the backward, f32
+                    b_ms, b_by = bound(
+                        B * T * 7 * H * D * 2 + (4 * D + D * m + B * T) * 4,
+                        10 * 2 * B * H * T * D * m, "f32")
                     print(f"[D1] {name}: kernel {k_ms:.4f} ms, plain "
                           f"{p_ms:.4f} ms per call (CUDA events); device "
                           f"time kernel {device_ms(kernel, 10)}, plain "
-                          f"{device_ms(plain, 10)} (torch.profiler) "
-                          f"({card})")
-                    results[("favor_qkv_bwd", T)] = (err, k_ms, p_ms)
+                          f"{device_ms(plain, 10)} (torch.profiler); bound "
+                          f"{b_ms:.4f} ms ({b_by}) ({card})")
+                    results[("favor_qkv_bwd", T)] = (err, k_ms, p_ms, b_ms,
+                                                     b_by)
 
         y, g = t(B, T, latent).to(torch.bfloat16), t(B, T, latent).to(
             torch.bfloat16)
@@ -608,11 +678,17 @@ def phase_d1(dev, card):
         plain = lambda: P.performer_epilogue_bwd_plain(  # noqa: E731
             y, sc, sh, *vecs, g)
         k_ms, p_ms = paired_ms(kernel, plain, iters=10)
+        # y and g read, dy written; scale, shift, their gradients and the
+        # eight LN vectors; ~50 f32 operations per element
+        b_ms, b_by = bound(3 * B * T * latent * 2 + 4 * B * latent * 2
+                           + 8 * latent * 4, 50 * B * T * latent, "f32")
         print(f"[D1] {name}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms per "
               f"call (CUDA events); device time kernel "
               f"{device_ms(kernel, 10)}, plain "
-              f"{device_ms(plain, 10)} (torch.profiler) ({card})")
-        results[("performer_epilogue_bwd", T)] = (err, k_ms, p_ms)
+              f"{device_ms(plain, 10)} (torch.profiler); bound {b_ms:.4f} "
+              f"ms ({b_by}) ({card})")
+        results[("performer_epilogue_bwd", T)] = (err, k_ms, p_ms, b_ms,
+                                                  b_by)
     return results
 
 
@@ -822,6 +898,385 @@ def phase_d4(cfg, dev):
     return launches
 
 
+def set_fused_paths(model, on: bool) -> None:
+    """This slice's two switches: MOE_FUSED_KERNEL (set to 1, or unset) and
+    use_fast_xattn on every exact cross-attention. The Performer kernels
+    are left as they are."""
+    from motiondiffusion_moe_tpu_torch.models.attention import (
+        CrossAttentionBlock)
+
+    if on:
+        os.environ["MOE_FUSED_KERNEL"] = "1"
+    else:
+        os.environ.pop("MOE_FUSED_KERNEL", None)
+    for m in model.modules():
+        if isinstance(m, CrossAttentionBlock):
+            m.use_fast_xattn = on
+
+
+def kernels_per_call(fn) -> str:
+    """The CUDA kernels one call of ``fn`` launches and their summed device
+    time, from torch.profiler (a discarded warm-up cycle first, as in
+    device_ms); printed only."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            for _ in range(2):
+                fn()
+                torch.cuda.synchronize()
+                prof.step()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA]
+        n = sum(e.count for e in events)
+        if n:
+            us = sum(e.self_device_time_total for e in events)
+            return f"{n} kernels, {us / 1e3:.3f} ms of device time"
+    return "not measured"
+
+
+def _top2_combine(rng, S, E):
+    """Routing weights as the MoE layer makes them: the top-2 of a softmax
+    over E experts per token, zero elsewhere."""
+    p = np.exp(rng.standard_normal((S, E)))
+    p /= p.sum(-1, keepdims=True)
+    idx = np.argsort(-p, -1, kind="stable")[:, :2]
+    combine = np.zeros((S, E), np.float32)
+    np.put_along_axis(combine, idx, np.take_along_axis(p, idx, -1), -1)
+    return combine
+
+
+def phase_e1(dev, card):
+    """The fused-MoE and fast cross-attention kernels against their plain
+    versions, with times, bounds, the library yardstick and gradients."""
+    import torch
+    import torch.nn.functional as F
+    from motiondiffusion_moe_tpu_torch.ops import flash_attention as XA
+    from motiondiffusion_moe_tpu_torch.ops import moe as MOE
+
+    rng = np.random.default_rng(SEED + 30)
+    results = {}
+
+    def t(*shape, s=1.0):
+        return torch.from_numpy((s * rng.standard_normal(shape))
+                                .astype(np.float32)).to(dev)
+
+    def compare(name, out, ref, dtype, floor):
+        out, ref = out.float(), ref.float()
+        check(bool(torch.isfinite(out).all()), f"{name} non-finite output")
+        err = (out - ref).abs()
+        max_abs, top = err.max().item(), ref.abs().max().item()
+        if dtype == torch.float32:
+            ok = max_abs <= F32_REL * top
+            tol_s = (f"max_abs <= {F32_REL:g} * max|plain| = "
+                     f"{F32_REL * top:.3e} (f32 sums in another order)")
+        else:
+            ok = bool((err <= BF16_REL * ref.abs() + floor).all())
+            tol_s = (f"|err| <= 2^-7 |plain| + {floor:.3e} elementwise "
+                     "(one bf16 rounding of the same f32 result)")
+        print(f"[E1] {name}: max_abs_err={max_abs:.3e} (max|plain| "
+              f"{top:.3e}); tol {tol_s} -> {'ok' if ok else 'FAIL'}")
+        check(ok, f"{name} outside tolerance")
+        return max_abs
+
+    def grad_check(name, fn, plain, args, g):
+        xs = [a.detach().float().requires_grad_() for a in args]
+        ys = [a.detach().float().requires_grad_() for a in args]
+        (fn(xs) * g).sum().backward()
+        (plain(ys) * g).sum().backward()
+        torch.cuda.synchronize()
+        worst = max(((x.grad - y.grad).abs().max()
+                     / y.grad.abs().max().clamp_min(1e-30)).item()
+                    for x, y in zip(xs, ys))
+        ok = worst <= GRAD_REL
+        print(f"[E1] {name} gradient through the autograd Function vs "
+              f"autograd of the plain version, f32: worst max_abs / "
+              f"max|grad| {worst:.3e}; tol {GRAD_REL:g} -> "
+              f"{'ok' if ok else 'FAIL'}")
+        check(ok, f"{name} gradient")
+
+    moe_shapes = (("flagship", 6272, 512, 4, 256), ("S=600", 600, 512, 4, 256),
+                  ("moe_big", 6272, 768, 16, 1024))
+    for label, S, D, E, hid in moe_shapes:
+        base = [t(S, D), torch.from_numpy(_top2_combine(rng, S, E)).to(dev),
+                t(E, D, hid, s=D ** -0.5), t(E, hid, s=0.1),
+                t(E, hid, D, s=hid ** -0.5), t(E, D, s=0.1)]
+        for dtype in (torch.bfloat16, torch.float32):
+            args = [a.to(dtype) for a in base]
+            name = (f"moe_dense_fused {label} {str(dtype)[6:]} S={S} D={D} "
+                    f"E={E} hid={hid}")
+            out = MOE.moe_dense_fused(*args)
+            torch.cuda.synchronize()
+            ref = MOE.moe_dense_fused_plain(*args)
+            err = compare(name, out, ref, dtype,
+                          MOE_BF16_FLOOR * ref.float().abs().max().item())
+            if label != "flagship" or dtype != torch.bfloat16:
+                continue
+            kernel = lambda: MOE.moe_dense_fused(*args)  # noqa: E731
+            plain = lambda: MOE.moe_dense_fused_plain(*args)  # noqa: E731
+            k_ms, p_ms = paired_ms(kernel, plain)
+            # x, combine, the weights and biases read, out written; the two
+            # products and combine . b2, bf16 products on the tensor cores
+            b_ms, b_by = bound(
+                2 * (2 * S * D + S * E + 2 * E * D * hid + E * hid + E * D),
+                4 * S * D * E * hid + 2 * S * E * D, "bf16")
+            print(f"[E1] {name}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms "
+                  f"per call (CUDA events); device time kernel "
+                  f"{device_ms(kernel)}, plain {device_ms(plain)} "
+                  f"(torch.profiler); bound {b_ms:.4f} ms ({b_by}); no "
+                  f"single PyTorch call computes it ({card})")
+            results["moe_dense_fused"] = (err, k_ms, p_ms, b_ms, b_by, None)
+            grad_check("moe_dense_fused flagship", lambda a:
+                       MOE.moe_dense_fused(*a), lambda a:
+                       MOE.moe_dense_fused_plain(*a), args, t(S, D))
+
+    xattn_shapes = (("flagship", 32, 196, 85, 4, 128),
+                    ("H=8 D=96", 32, 196, 85, 8, 96))
+    for label, B, T, N, H, D in xattn_shapes:
+        base = [t(B, T, H * D), t(B, N, H * D), t(B, N, H * D)]
+        scale = D ** -0.5
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = (a.to(dtype) for a in base)
+            name = (f"xattn_fastlayout {label} {str(dtype)[6:]} B={B} T={T} "
+                    f"N={N} H={H} D={D}")
+            out = XA.xattn_fastlayout(q, k, v, H, scale)
+            torch.cuda.synchronize()
+            ref = XA.xattn_fastlayout_plain(q, k, v, H, scale)
+            err = compare(name, out, ref, dtype, BF16_ABS)
+            if label != "flagship" or dtype != torch.bfloat16:
+                continue
+            kernel = lambda: XA.xattn_fastlayout(  # noqa: E731
+                q, k, v, H, scale)
+            plain = lambda: XA.xattn_fastlayout_plain(  # noqa: E731
+                q, k, v, H, scale)
+            heads = [a.view(B, -1, H, D).transpose(1, 2) for a in (q, k, v)]
+            library = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                *heads, scale=scale)
+            k_ms, p_ms = paired_ms(kernel, plain)
+            l_ms = time_ms(library)
+            lib_err = (library().transpose(1, 2).reshape(B, T, H * D).float()
+                       - ref.float()).abs().max().item()
+            # q, k, v read, out written; the two products in f32, as the
+            # reference computes them
+            b_ms, b_by = bound(2 * (2 * B * T * H * D + 2 * B * N * H * D),
+                               4 * B * T * N * H * D, "f32")
+            print(f"[E1] {name}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+                  f"scaled_dot_product_attention {l_ms:.4f} ms per call "
+                  f"(CUDA events; its bf16 probabilities are {lib_err:.3e} "
+                  f"from the plain version at most); device time kernel "
+                  f"{device_ms(kernel)}, plain {device_ms(plain)}, library "
+                  f"{device_ms(library)} (torch.profiler); bound "
+                  f"{b_ms:.4f} ms ({b_by}) ({card})")
+            results["xattn_fastlayout"] = (err, k_ms, p_ms, b_ms, b_by, l_ms)
+            grad_check("xattn_fastlayout flagship", lambda a:
+                       XA.xattn_fastlayout(*a, H, scale), lambda a:
+                       XA.xattn_fastlayout_plain(*a, H, scale),
+                       [q, k, v], t(B, T, H * D))
+    return results
+
+
+def phase_e2(cfg, model, dev):
+    """The flagship denoiser with both switches on (and the Performer
+    kernels) against both off and use_kernels=False: f32 compute tight,
+    bf16 compute each against the f32 result. Returns the bf16-compute
+    model, configured with use_fast_xattn, for E3."""
+    import torch
+    from motiondiffusion_moe_tpu_torch.models.transformer import (
+        MotionTransformer)
+    from motiondiffusion_moe_tpu_torch.ops import flash_attention as XA
+    from motiondiffusion_moe_tpu_torch.ops import moe as MOE
+
+    args, ids = denoiser_inputs(cfg, dev)
+    B, T, F = args[0].shape
+    n_moe = 2 * cfg.model.num_layers * cfg.model.moe_num_branches
+    n_xattn = 2 * cfg.model.num_layers
+
+    def run(m, on):
+        m.set_use_kernels(on)
+        set_fused_paths(m, on)
+        before = (MOE.moe_dense_fused.launches, XA.xattn_fastlayout.launches)
+        with torch.inference_mode():
+            out = m(*args, text_ids=ids)
+        torch.cuda.synchronize()
+        made = (MOE.moe_dense_fused.launches - before[0],
+                XA.xattn_fastlayout.launches - before[1])
+        check(made == ((n_moe, n_xattn) if on else (0, 0)),
+              f"one forward launched (moe, xattn) {made}")
+        check(out.shape == (B, T, F) and bool(torch.isfinite(out).all()),
+              "denoiser output shape or non-finite")
+        return out
+
+    outs = {}
+    for dt in ("float32", "bfloat16"):
+        m = MotionTransformer(dataclasses.replace(
+            cfg.model, dtype=dt, use_fast_xattn=True))
+        m.load_state_dict(model.state_dict())
+        m.to(dev).eval()
+        outs[dt] = (run(m, True), run(m, False))
+        if dt == "float32":
+            del m
+    (k32, ref), (k16, p16) = outs["float32"], outs["bfloat16"]
+    rel = rel_rms(k32, ref)
+    ok = rel <= DENOISER_F32_REL_RMS
+    print(f"[E2] flagship denoiser float32 compute B={B} T={T}, "
+          f"use_fast_xattn + MOE_FUSED_KERNEL=1 + the Performer kernels vs "
+          f"all off: rel_rms={rel:.3e} max_abs="
+          f"{(k32 - ref).abs().max().item():.3e}; {n_moe} moe_dense_fused "
+          f"and {n_xattn} xattn_fastlayout launches per forward; tol rel_rms "
+          f"<= {DENOISER_F32_REL_RMS:g} -> {'ok' if ok else 'FAIL'}")
+    check(ok, "denoiser (float32) with both switches vs plain")
+    err_k, err_p = rel_rms(k16, ref), rel_rms(p16, ref)
+    tol = DENOISER_BF16_FACTOR * err_p + DENOISER_BF16_FLOOR
+    ok = err_k <= tol
+    print(f"[E2] flagship denoiser bfloat16 compute: rel_rms to the f32 "
+          f"result: switches and kernels on {err_k:.3e}, all off "
+          f"{err_p:.3e}; on vs off {rel_rms(k16, p16):.3e}; tol on <= "
+          f"{DENOISER_BF16_FACTOR:g} x off + {DENOISER_BF16_FLOOR:g} = "
+          f"{tol:.3e} -> {'ok' if ok else 'FAIL'}")
+    check(ok, "denoiser (bfloat16) with both switches vs plain")
+    m.set_use_kernels(True)
+    return m
+
+
+def phase_e3(cfg, model, dev, card, c_timings):
+    """dpm20 through make_server with both switches on: exact launch counts
+    of the four kernels of the path; kernels per forward and s/motion with
+    the switches off and on."""
+    import torch
+    from motiondiffusion_moe_tpu_torch.ops import flash_attention as XA
+    from motiondiffusion_moe_tpu_torch.ops import moe as MOE
+    from motiondiffusion_moe_tpu_torch.ops import performer as P
+    from motiondiffusion_moe_tpu_torch.pipeline import GenerationPipeline
+    from motiondiffusion_moe_tpu_torch.tools.serve import make_server
+
+    cfg_fast = dataclasses.replace(cfg, model=model.config)
+    pipe = GenerationPipeline(cfg_fast, model, sampler="dpm",
+                              num_inference_steps=20, micro_batch=16,
+                              param_dtype="bfloat16", device=dev)
+    T, F = cfg.model.max_frames, cfg.model.input_feats
+    set_fused_paths(model, True)
+    pipe.generate(["warm up"], [T])  # cuBLAS handles, allocator
+    counts = (P.favor_qkv, P.performer_epilogue, MOE.moe_dense_fused,
+              XA.xattn_fastlayout)
+    prompts = [f"a person performs action number {i}" for i in range(16)]
+    srv = make_server(pipe, port=0, max_batch=64)
+    th = threading.Thread(target=srv.serve_forever, daemon=True)
+    th.start()
+    url = f"http://127.0.0.1:{srv.server_address[1]}"
+    try:
+        for c in counts:
+            c.launches = 0
+        t0 = time.perf_counter()
+        status, body = _post(url + "/generate", {
+            "texts": prompts, "lengths": [T] * 16, "seed": 11})
+        wall = time.perf_counter() - t0
+        launches = {c.__name__: c.launches for c in counts}
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    check(status == 200, f"E3 request: HTTP {status}")
+    motions = [np.asarray(mo, dtype=np.float32) for mo in body["motions"]]
+    check([mo.shape for mo in motions] == [(T, F)] * 16
+          and all(np.isfinite(mo).all() for mo in motions),
+          "E3 motions: shapes or non-finite")
+    fwd = pipe.forwards_per_sample  # one micro-batch of 16
+    L = cfg.model.num_layers
+    per_fwd = {"favor_qkv": 4 * L, "performer_epilogue": 4 * L,
+               "moe_dense_fused": 2 * L * cfg.model.moe_num_branches,
+               "xattn_fastlayout": 2 * L}
+    print(f"[E3] dpm20 request, 16 prompts x {T} frames, both switches on: "
+          f"HTTP 200 in {wall:.3f} s (JSON included), batched="
+          f"{body['batched']}; {fwd} forwards; launches {launches}; "
+          f"expected per forward {per_fwd}")
+    for name, n in launches.items():
+        check(n == per_fwd[name] * fwd, f"{name} launched {n} times, "
+                                        f"expected {per_fwd[name] * fwd}")
+
+    args, ids = denoiser_inputs(cfg, dev)
+    seen = {}
+    for on in (False, True):
+        set_fused_paths(model, on)
+
+        def forward():
+            with torch.inference_mode():
+                model(*args, text_ids=ids)
+
+        seen[on] = kernels_per_call(forward)
+    gen = {False: [], True: []}
+    for on in (False, True, True, False) * 2:
+        set_fused_paths(model, on)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = pipe.generate(prompts, [T] * 16,
+                            generator=torch.Generator(dev).manual_seed(7))
+        torch.cuda.synchronize()
+        gen[on].append(time.perf_counter() - t0)
+        check(all(np.isfinite(o).all() for o in out), "E3 generate")
+    set_fused_paths(model, True)
+    print(f"[E3] one denoiser forward (B=32, bf16, torch.profiler): switches "
+          f"off {seen[False]}; on {seen[True]}")
+    print(f"[E3] dpm20 generate 16 prompts x {T} frames, in turns (off, on, "
+          f"on, off) x 2: off {', '.join(f'{s:.3f}' for s in gen[False])} s, on "
+          f"{', '.join(f'{s:.3f}' for s in gen[True])} s; s/motion off "
+          f"{np.mean(gen[False]) / 16:.4f}, on {np.mean(gen[True]) / 16:.4f}"
+          f" (phase C dpm20: {c_timings['dpm20'] / 16:.4f}) ({card})")
+    return launches
+
+
+def phase_e4(cfg, dev):
+    """Two Trainer steps at dropout 0 with use_fast_xattn: the fast
+    cross-attention runs in training (its backward is autograd of the
+    plain version), the MoE kernel does not (eval only)."""
+    import torch
+    from motiondiffusion_moe_tpu_torch.data.dataset import (
+        SyntheticText2MotionDataset)
+    from motiondiffusion_moe_tpu_torch.data.loader import DataLoader
+    from motiondiffusion_moe_tpu_torch.ops import flash_attention as XA
+    from motiondiffusion_moe_tpu_torch.ops import moe as MOE
+    from motiondiffusion_moe_tpu_torch.training.trainer import Trainer
+
+    cfg0 = dataclasses.replace(
+        cfg, model=dataclasses.replace(cfg.model, dropout=0.0,
+                                       use_fast_xattn=True),
+        train=dataclasses.replace(cfg.train, num_epochs=1))
+    os.environ["MOE_FUSED_KERNEL"] = "1"
+    trainer = Trainer(cfg0, device=dev)
+    state = trainer.init_state()
+    loader = DataLoader(SyntheticText2MotionDataset(cfg0.data, size=32),
+                        batch_size=32)
+    XA.xattn_fastlayout.launches = 0
+    MOE.moe_dense_fused.launches = 0
+    state = trainer.fit(state, loader)
+    torch.cuda.synchronize()
+    launches = {"xattn_fastlayout": XA.xattn_fastlayout.launches,
+                "moe_dense_fused": MOE.moe_dense_fused.launches}
+    os.environ.pop("MOE_FUSED_KERNEL", None)
+    n_x = 2 * cfg0.model.num_layers
+    trainable = [(n, p) for n, p in state.model.named_parameters()
+                 if p.requires_grad]
+    missing = [n for n, p in trainable if p.grad is None
+               or not bool(torch.isfinite(p.grad).all())]
+    print(f"[E4] Trainer, dropout 0, use_fast_xattn, MOE_FUSED_KERNEL=1: "
+          f"{state.step} steps; launches {launches}; expected "
+          f"xattn_fastlayout {n_x} x {state.step} = {n_x * state.step}, "
+          f"moe_dense_fused 0 (training); {len(trainable)} trainable "
+          f"parameters, {len(missing)} without a finite gradient "
+          f"{missing[:5]}")
+    check(state.step == 2, f"{state.step} steps, expected 2")
+    check(launches == {"xattn_fastlayout": n_x * state.step,
+                       "moe_dense_fused": 0}, "E4 launch counts")
+    check(not missing, "E4 parameters without a finite gradient")
+    check(all(bool(torch.isfinite(p).all())
+              for p in state.model.parameters()), "non-finite parameters")
+    del trainer, state
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -829,7 +1284,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
               file=sys.stderr)
         return 1
-    from motiondiffusion_moe_tpu.config import ExperimentConfig
+    from motiondiffusion_moe_tpu_torch.config import ExperimentConfig
     from motiondiffusion_moe_tpu_torch.ops import _build
 
     t_start = time.perf_counter()
@@ -863,8 +1318,8 @@ def main() -> int:
           f"perturbed zero-init leaves in {time.perf_counter() - t0:.1f} s")
     phase_b(cfg, model, dev)
 
-    launches, _ = phase_c(cfg, model, dev, card)
-    del model
+    launches, c_timings = phase_c(cfg, model, dev, card)
+    model.cpu()  # its bf16 weights come back in phase E
     torch.cuda.empty_cache()
 
     d1 = phase_d1(dev, card)
@@ -872,25 +1327,39 @@ def main() -> int:
     d3_launches, _ = phase_d3(dev, card)
     d4_launches = phase_d4(cfg, dev)
 
+    e1 = phase_e1(dev, card)
+    fast = phase_e2(cfg, model, dev)
+    del model
+    e3_launches = phase_e3(cfg, fast, dev, card, c_timings)
+    del fast
+    torch.cuda.empty_cache()
+    phase_e4(cfg, dev)
+
     csrc = "motiondiffusion_moe_tpu_torch/csrc/"
     rows = (  # name, source, TPU kernel, launches on its main path, numbers
         ("favor_qkv", "favor_qkv.cu", "performer_pallas.py:358",
-         launches["favor_qkv"], a[("favor_qkv", torch.bfloat16, 196)]),
+         launches["favor_qkv"],
+         a[("favor_qkv", torch.bfloat16, 196)] + (None,)),
         ("performer_epilogue", "performer_epilogue.cu",
          "performer_pallas.py:657", launches["performer_epilogue"],
-         a[("performer_epilogue", torch.bfloat16, 196)]),
+         a[("performer_epilogue", torch.bfloat16, 196)] + (None,)),
         ("favor_qkv_bwd", "favor_qkv_bwd.cu", "performer_pallas_bwd.py:70",
-         d3_launches["favor_qkv_bwd"], d1[("favor_qkv_bwd", 196)]),
+         d3_launches["favor_qkv_bwd"], d1[("favor_qkv_bwd", 196)] + (None,)),
         ("performer_epilogue_bwd", "performer_epilogue_bwd.cu",
          "performer_pallas_bwd.py:272", d4_launches["performer_epilogue_bwd"],
-         d1[("performer_epilogue_bwd", 196)]),
+         d1[("performer_epilogue_bwd", 196)] + (None,)),
+        ("moe_dense_fused", "moe_dense_fused.cu", "moe_pallas.py:64",
+         e3_launches["moe_dense_fused"], e1["moe_dense_fused"]),
+        ("xattn_fastlayout", "xattn_fastlayout.cu", "flash_attention.py:169",
+         e3_launches["xattn_fastlayout"], e1["xattn_fastlayout"]),
     )
     kernels = []
-    for kname, src, rep, n, (err, k_ms, p_ms) in rows:
+    for kname, src, tpu, n, (err, k_ms, p_ms, b_ms, b_by, l_ms) in rows:
         kernels.append({"name": kname, "route": "cuda", "source": csrc + src,
-                        "replaces": "motiondiffusion_moe_tpu/ops/" + rep,
+                        "replaces": "motiondiffusion_moe_tpu/ops/" + tpu,
                         "launches": n, "max_abs_err": err, "ms": k_ms,
-                        "plain_ms": p_ms})
+                        "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+                        "library_ms": l_ms})
     check(all(math.isfinite(k["ms"]) and k["launches"] > 0 for k in kernels),
           "kernel times and launches")
     print(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")

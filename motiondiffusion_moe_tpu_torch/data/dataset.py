@@ -13,7 +13,7 @@ from typing import Tuple
 
 import numpy as np
 
-from motiondiffusion_moe_tpu.config import DataConfig
+from motiondiffusion_moe_tpu_torch.config import DataConfig
 from motiondiffusion_moe_tpu_torch.data.normalizer import MotionNormalizer
 
 _VERBS = ["walks", "runs", "jumps", "turns", "waves", "sits", "kicks",

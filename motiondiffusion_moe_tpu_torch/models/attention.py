@@ -10,6 +10,9 @@ field does. In training mode (``module.train()``, the JAX
 ``deterministic=False``) the dropout sites of the JAX modules are live, with
 masks drawn from the forward's :class:`TrainContext`, and the Performer
 takes the unfused epilogue whenever dropout is active, as JAX does.
+``CrossAttentionBlock(use_fast_xattn=True)`` runs its attention through
+``ops/flash_attention.py::xattn_fastlayout`` whenever dropout is inactive
+(the JAX ``use_fast_xattn`` path).
 """
 
 from __future__ import annotations
@@ -31,6 +34,9 @@ from motiondiffusion_moe_tpu_torch.models.layers import (
     TrainContext,
     dropout,
     gelu,
+)
+from motiondiffusion_moe_tpu_torch.ops.flash_attention import (
+    xattn_fastlayout,
 )
 from motiondiffusion_moe_tpu_torch.ops.performer import (
     favor_qkv,
@@ -209,15 +215,21 @@ class GatedCrossAttention(nn.Module):
 
 
 class CrossAttentionBlock(nn.Module):
-    """Exact softmax cross-attention + small residual FFN, whole-sequence
-    einsum form with no key mask (``attention.py:417-438``)."""
+    """Exact softmax cross-attention + small residual FFN with no key mask
+    (``attention.py:394-438``). With ``use_fast_xattn`` and dropout
+    inactive, the attention is the fast-layout kernel on the Dense outputs
+    (f32 probabilities and product, one rounding); otherwise the
+    whole-sequence einsum form (probabilities rounded to the compute dtype
+    before ``probs @ v``)."""
 
     def __init__(self, latent_dim: int, text_latent_dim: int, num_heads: int,
-                 dtype: torch.dtype = torch.float32, dropout: float = 0.0):
+                 dtype: torch.dtype = torch.float32, dropout: float = 0.0,
+                 use_fast_xattn: bool = False):
         super().__init__()
         D = latent_dim
         self.num_heads = num_heads
         self.dropout = dropout
+        self.use_fast_xattn = use_fast_xattn
         self.query = Dense(D, D, dtype)
         self.key = Dense(text_latent_dim, D, dtype)
         self.value = Dense(text_latent_dim, D, dtype)
@@ -233,13 +245,17 @@ class CrossAttentionBlock(nn.Module):
         N = xf.shape[1]
         H = self.num_heads
         scale = (D // H) ** -0.5
-        q = self.query(x).view(B, T, H, -1)
-        k = self.key(xf).view(B, N, H, -1)
-        v = self.value(xf).view(B, N, H, -1)
-        scores = torch.einsum("bqhd,bkhd->bhqk", q * scale, k)
-        probs = torch.softmax(scores.float(), dim=-1).to(self.dtype)
-        probs = dropout(probs, self.dropout, self.training, ctx)
-        out = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(B, T, D)
+        q, k, v = self.query(x), self.key(xf), self.value(xf)
+        if self.use_fast_xattn and not (self.training and self.dropout > 0):
+            out = xattn_fastlayout(q, k, v, H, scale)
+        else:
+            scores = torch.einsum("bqhd,bkhd->bhqk",
+                                  q.view(B, T, H, -1) * scale,
+                                  k.view(B, N, H, -1))
+            probs = torch.softmax(scores.float(), dim=-1).to(self.dtype)
+            probs = dropout(probs, self.dropout, self.training, ctx)
+            out = torch.einsum("bhqk,bkhd->bqhd", probs,
+                               v.view(B, N, H, -1)).reshape(B, T, D)
         out = self.out(out)
         h = self.ffn_1(gelu(self.ffn_0(self.ffn_norm(out))))
         h = dropout(h, self.dropout, self.training, ctx)

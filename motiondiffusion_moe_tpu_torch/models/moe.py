@@ -9,10 +9,19 @@ hidden activations. The ``dense`` and ``dispatch`` paths come with the
 expert-parallel port. A training forward appends each layer's Switch aux
 loss to its :class:`TrainContext` (the JAX ``sow`` into ``moe_losses``,
 ``moe.py:105-109``).
+
+With ``MOE_FUSED_KERNEL`` set to anything but ``0``, an eval-mode layer
+whose widths are multiples of 128 runs the expert chain through
+:func:`ops.moe.moe_dense_fused` (the fused kernel on the card): the JAX
+package's own switch and condition (``moe.py:144-162``), read at every
+forward. That form keeps the bias, gelu and combine weighting in f32 and
+rounds once, where the inline chain rounds to the compute dtype after each
+step; in f32 the two agree.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -28,6 +37,7 @@ from motiondiffusion_moe_tpu_torch.models.layers import (
     gelu,
     lecun_normal_,
 )
+from motiondiffusion_moe_tpu_torch.ops.moe import moe_dense_fused
 
 
 def top_k_lowest_index(probs: torch.Tensor,
@@ -98,11 +108,16 @@ class SwitchMoELayer(nn.Module):
             ctx.aux_losses.append(switch_aux_loss(probs, top_idx[:, 0], E))
         combine = torch.zeros(S, E, dtype=dt, device=x.device).scatter_add_(
             1, top_idx, top_vals.to(dt))
-        w1m = self.w1.to(dt).permute(1, 0, 2).reshape(D, E * hid)
-        h = (x_flat @ w1m).view(S, E, hid) + self.b1.to(dt)
-        h = gelu(h) * combine[:, :, None]
-        out = (h.reshape(S, E * hid) @ self.w2.to(dt).reshape(E * hid, D)
-               + combine @ self.b2.to(dt))
+        w1, b1, w2, b2 = (p.to(dt) for p in (self.w1, self.b1, self.w2,
+                                              self.b2))
+        if (not self.training and hid % 128 == 0 and D % 128 == 0
+                and os.environ.get("MOE_FUSED_KERNEL", "0") != "0"):
+            out = moe_dense_fused(x_flat, combine, w1, b1, w2, b2)
+        else:
+            w1m = w1.permute(1, 0, 2).reshape(D, E * hid)
+            h = (x_flat @ w1m).view(S, E, hid) + b1
+            h = gelu(h) * combine[:, :, None]
+            out = h.reshape(S, E * hid) @ w2.reshape(E * hid, D) + combine @ b2
         out = out.reshape(shape)
         if with_metrics:
             return out, moe_metrics(probs, top_vals, top_idx)

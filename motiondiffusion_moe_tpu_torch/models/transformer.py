@@ -24,7 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from motiondiffusion_moe_tpu.config import ModelConfig
+from motiondiffusion_moe_tpu_torch.config import ModelConfig
 from motiondiffusion_moe_tpu_torch.models.attention import (
     CrossAttentionBlock,
     DualSelfAttentionBlock,
@@ -89,7 +89,10 @@ class MoEDecoderLayer(nn.Module):
         else:
             self.ffn = DenseFFN(D, cfg.ff_size, cfg.moe_num_branches,
                                 time_embed_dim, dtype, p)
-        self.sd_cross_attn = CrossAttentionBlock(D, tl, H, dtype, p)
+        # the fast-layout kernel goes on and off with the Performer kernels,
+        # as in JAX (transformer.py:71)
+        self.sd_cross_attn = CrossAttentionBlock(
+            D, tl, H, dtype, p, cfg.use_fast_xattn and use_kernels)
 
     def forward(self, x: torch.Tensor, xf: torch.Tensor, emb: torch.Tensor,
                 src_mask: Optional[torch.Tensor] = None,
@@ -158,11 +161,15 @@ class MotionTransformer(nn.Module):
             conv.bias.zero_()
 
     def set_use_kernels(self, flag: bool) -> None:
-        """Route every Performer through the CUDA kernels (True) or their
-        plain PyTorch versions (False); parameters are unchanged."""
+        """Route every Performer, and with ``use_fast_xattn`` every exact
+        cross-attention, through the CUDA kernels (True) or their plain
+        PyTorch forms (False); parameters are unchanged. The MoE kernel
+        follows ``MOE_FUSED_KERNEL`` alone, as in JAX."""
         for m in self.modules():
             if isinstance(m, PerformerSelfAttention):
                 m.use_kernels = flag
+            elif isinstance(m, CrossAttentionBlock):
+                m.use_fast_xattn = flag and self.config.use_fast_xattn
 
     def encode_text(self, text_ids: torch.Tensor,
                     ctx: Optional[TrainContext] = None) -> TextEncoding:

@@ -131,6 +131,16 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.mdm_performer_epilogue_bwd.restype = i
     lib.mdm_performer_epilogue_bwd_scratch_floats.argtypes = [i] * 3
     lib.mdm_performer_epilogue_bwd_scratch_floats.restype = ctypes.c_longlong
+    lib.mdm_moe_dense_fused.argtypes = ([vp] * 7     # tensors
+                                        + [i] * 5    # S D E hid bf16
+                                        + [vp])      # stream
+    lib.mdm_moe_dense_fused.restype = i
+    lib.mdm_xattn_fastlayout.argtypes = ([vp] * 4        # q k v out
+                                         + [i] * 5       # B T N H D
+                                         + [f, i, vp])   # scale bf16 stream
+    lib.mdm_xattn_fastlayout.restype = i
+    lib.mdm_xattn_fastlayout_smem_bytes.argtypes = [i] * 3  # N D bf16
+    lib.mdm_xattn_fastlayout_smem_bytes.restype = ctypes.c_longlong
     return lib
 
 

@@ -1,0 +1,150 @@
+"""Fast-layout exact cross-attention as one kernel, with its plain version.
+
+Counterpart of the fast-layout part of
+``motiondiffusion_moe_tpu/ops/flash_attention.py``: :func:`xattn_fastlayout`
+replaces ``xattn_fastlayout`` (Pallas kernel ``_xattn_fast_kernel``). It
+reads q ``[B, T, H*D]`` and k, v ``[B, N, H*D]`` straight in the Dense
+output layout, heads as column slices, and computes per head an exact
+softmax attention with no key mask (the reference leaves padded text keys
+unmasked): inputs widened to f32, f32 scores, softmax and ``probs @ v``,
+one rounding to q's dtype. The scores and probabilities never reach device
+memory. CUDA C++ in ``csrc/xattn_fastlayout.cu``.
+
+The wrapper is a ``torch.autograd.Function`` whose backward is autograd
+through the plain version, as the JAX ``custom_vjp`` differentiates the
+reference (``flash_attention.py:234-242``). It runs
+:func:`xattn_fastlayout_plain` only for tensors on the CPU; for a CUDA tensor
+it launches the kernel or raises. ``xattn_fastlayout.launches`` counts the
+launches.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from motiondiffusion_moe_tpu_torch.ops.performer import (
+    _KERNEL_DTYPES,
+    _require,
+    _stream,
+)
+
+# head dims the CUDA library is instantiated for (small_dense 64, moe_big
+# 96, moe_small 128)
+XATTN_HEAD_DIMS = {64, 96, 128}
+# shared memory one block of an sm_90 card may opt into
+MAX_SMEM_PER_BLOCK = 232448
+
+
+def xattn_fastlayout_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           num_heads: int,
+                           scale: Optional[float] = None) -> torch.Tensor:
+    """The kernel's math in plain PyTorch (``xattn_fastlayout_reference``).
+    q: [B, T, H*D]; k, v: [B, N, H*D]. Returns [B, T, H*D] in q's dtype."""
+    B, T, HD = q.shape
+    N = k.shape[1]
+    D = HD // num_heads
+    s = scale if scale is not None else D ** -0.5
+    qh = q.reshape(B, T, num_heads, D).float() * s
+    kh = k.reshape(B, N, num_heads, D).float()
+    vh = v.reshape(B, N, num_heads, D).float()
+    probs = torch.softmax(torch.einsum("bthd,bnhd->bhtn", qh, kh), dim=-1)
+    out = torch.einsum("bhtn,bnhd->bthd", probs, vh)
+    return out.reshape(B, T, HD).to(q.dtype)
+
+
+def _check(q, k, v, num_heads):
+    """Validate the kernel's inputs; returns (B, T, N, H, D)."""
+    _require(q.device.type == "cuda", f"xattn_fastlayout: unsupported "
+                                      f"device {q.device}")
+    _require(q.dim() == 3 and q.dtype in _KERNEL_DTYPES,
+             f"xattn_fastlayout: q must be a [B, T, H*D] float32 or bfloat16 "
+             f"tensor, got {q.dtype} {tuple(q.shape)}")
+    B, T, HD = q.shape
+    H = num_heads
+    _require(H > 0 and HD % H == 0 and HD // H in XATTN_HEAD_DIMS,
+             f"xattn_fastlayout: head dim {HD}/{H} not in "
+             f"{sorted(XATTN_HEAD_DIMS)}")
+    _require(k.dim() == 3 and k.shape[0] == B and k.shape[2] == HD,
+             f"xattn_fastlayout: k must be [{B}, N, {HD}], got "
+             f"{tuple(k.shape)}")
+    N = k.shape[1]
+    _require(B > 0 and T > 0 and N > 0, "xattn_fastlayout: empty input")
+    for name, t, shape in (("q", q, (B, T, HD)), ("k", k, (B, N, HD)),
+                           ("v", v, (B, N, HD))):
+        _require(t.device == q.device and t.dtype == q.dtype
+                 and tuple(t.shape) == shape and t.is_contiguous()
+                 and t.data_ptr() % 16 == 0,
+                 f"xattn_fastlayout: {name} must be a contiguous, 16-byte "
+                 f"aligned {q.dtype} {list(shape)} tensor on {q.device}, "
+                 f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+    return B, T, N, H, HD // H
+
+
+def _launch(q, k, v, num_heads, scale) -> torch.Tensor:
+    B, T, N, H, D = _check(q, k, v, num_heads)
+    from motiondiffusion_moe_tpu_torch.ops._build import library
+
+    lib = library()
+    is_bf16 = _KERNEL_DTYPES[q.dtype]
+    smem = lib.mdm_xattn_fastlayout_smem_bytes(N, D, is_bf16)
+    _require(smem <= MAX_SMEM_PER_BLOCK,
+             f"xattn_fastlayout: N={N} keys of head dim {D} need {smem} "
+             f"bytes of shared memory, more than {MAX_SMEM_PER_BLOCK}")
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        rc = lib.mdm_xattn_fastlayout(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, T,
+            N, H, D, scale, is_bf16, _stream(q.device))
+    if rc != 0:
+        raise RuntimeError(
+            f"xattn_fastlayout kernel launch failed: CUDA error {rc}")
+    xattn_fastlayout.launches += 1
+    return out
+
+
+class _XAttnFastLayout(torch.autograd.Function):
+    """The kernel forward; the backward is autograd through the plain
+    version, from the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, num_heads, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.num_heads, ctx.scale = num_heads, scale
+        if q.device.type == "cpu":
+            return xattn_fastlayout_plain(q, k, v, num_heads, scale)
+        return _launch(q, k, v, num_heads, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        with torch.enable_grad():
+            xs = [t.detach().requires_grad_(need) for t, need in
+                  zip(ctx.saved_tensors, ctx.needs_input_grad)]
+            out = xattn_fastlayout_plain(*xs, ctx.num_heads, ctx.scale)
+            wanted = [t for t in xs if t.requires_grad]
+            grads = iter(torch.autograd.grad(out, wanted, g))
+        return (*(next(grads) if t.requires_grad else None for t in xs),
+                None, None)
+
+
+def xattn_fastlayout(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     num_heads: int,
+                     scale: Optional[float] = None) -> torch.Tensor:
+    """Fast-layout exact cross-attention (see the module doc),
+    differentiable on every device. CPU tensors take
+    :func:`xattn_fastlayout_plain`; CUDA tensors launch
+    ``csrc/xattn_fastlayout.cu``.
+
+    On CUDA: q, k, v contiguous, 16-byte aligned, one dtype (f32 or bf16);
+    head dim in :data:`XATTN_HEAD_DIMS`; N small enough for k and v of one
+    head to fit in shared memory (about 180 keys in f32, 320 in bf16, at
+    head dim 128)."""
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"xattn_fastlayout: unsupported device {q.device}")
+    D = q.shape[-1] // num_heads
+    s = float(scale) if scale is not None else D ** -0.5
+    return _XAttnFastLayout.apply(q, k, v, num_heads, s)
+
+
+xattn_fastlayout.launches = 0

@@ -12,7 +12,8 @@ without a mesh):
   ``projection`` (which defines the attention kernel's feature map), as the
   JAX pipeline does;
 - the weights move to ``device`` once, at construction (the JAX pipeline
-  without a mesh re-uploads host params on every call).
+  without a mesh re-uploads host params on every call); ``device`` is the
+  card unless the caller asks for the CPU (``device="cpu"``).
 
 Randomness comes from ``torch.Generator``s on ``device``; the micro-batch
 sampler :meth:`GenerationPipeline.sample` also takes injected ``noise`` (and
@@ -27,7 +28,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-from motiondiffusion_moe_tpu.config import ExperimentConfig
+from motiondiffusion_moe_tpu_torch.config import ExperimentConfig
 from motiondiffusion_moe_tpu_torch.diffusion.dpm_solver import dpm_solver_pp_2m
 from motiondiffusion_moe_tpu_torch.diffusion.gaussian import (
     ModelMeanType,
@@ -62,7 +63,7 @@ class GenerationPipeline:
     def __init__(self, cfg: ExperimentConfig, model: MotionTransformer, *,
                  sampler: str = "ddpm", num_inference_steps: Optional[int] = None,
                  eta: float = 0.0, micro_batch: int = 8,
-                 param_dtype: Optional[str] = None, device="cpu"):
+                 param_dtype: Optional[str] = None, device="cuda"):
         if sampler not in ("ddpm", "ddim", "dpm"):
             raise ValueError(f"unknown sampler {sampler!r}")
         if param_dtype not in (None, "bfloat16"):

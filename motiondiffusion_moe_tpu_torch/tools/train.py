@@ -145,7 +145,7 @@ def check_supported(args: argparse.Namespace) -> None:
 
 def config_from_args(args: argparse.Namespace):
     """The JAX CLI's ``config_from_args`` (same flags, same config)."""
-    from motiondiffusion_moe_tpu.config import (
+    from motiondiffusion_moe_tpu_torch.config import (
         DataConfig, DiffusionConfig, ExperimentConfig, ModelConfig,
         ParallelConfig, TrainConfig)
 

@@ -27,7 +27,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from motiondiffusion_moe_tpu.config import ExperimentConfig
+from motiondiffusion_moe_tpu_torch.config import ExperimentConfig
 from motiondiffusion_moe_tpu_torch.diffusion.gaussian import (
     DiffusionSchedule,
     LossType,

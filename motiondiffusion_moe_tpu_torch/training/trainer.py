@@ -25,7 +25,7 @@ from typing import Dict, Iterable, Optional
 import numpy as np
 import torch
 
-from motiondiffusion_moe_tpu.config import ExperimentConfig
+from motiondiffusion_moe_tpu_torch.config import ExperimentConfig
 from motiondiffusion_moe_tpu_torch.diffusion.gaussian import make_schedule
 from motiondiffusion_moe_tpu_torch.diffusion.samplers import (
     LossAwareSampler,

@@ -2,8 +2,12 @@
 
 The same numpy inputs (from a seed) go through the JAX package and the
 PyTorch port; JAX stays on the CPU (tests/conftest.py). Flax parameters
-reach the port through ``models/bridge.py``.
+reach the port through ``models/bridge.py``. Each package gets its own
+config object: the JAX package the one these helpers build, the port
+:func:`to_port` of it.
 """
+
+import dataclasses
 
 import jax
 import numpy as np
@@ -15,6 +19,7 @@ from motiondiffusion_moe_tpu.config import (
     ExperimentConfig,
     ModelConfig,
 )
+from motiondiffusion_moe_tpu_torch import config as port_config
 from motiondiffusion_moe_tpu_torch.models.bridge import jax_to_state_dict
 
 # one intra-op thread per worker: the suite runs under pytest-xdist
@@ -38,6 +43,14 @@ def tiny_config(dtype: str = "float32", **kw) -> ExperimentConfig:
         # >= ~100 steps: the scaled-linear schedule degenerates at tiny T
         diffusion=DiffusionConfig(num_timesteps=100),
         model=tiny_model_config(dtype, **kw))
+
+
+def to_port(cfg):
+    """The port's config object equal to a JAX ``ExperimentConfig`` (through
+    the JSON form both packages share) or ``ModelConfig``."""
+    if isinstance(cfg, ModelConfig):
+        return port_config.ModelConfig(**dataclasses.asdict(cfg))
+    return port_config.ExperimentConfig.from_dict(cfg.to_dict())
 
 
 def random_params(module, *args, seed: int = 0, **kwargs):

@@ -33,6 +33,7 @@ from tests._torch_parity import (
     random_params,
     t,
     tiny_model_config,
+    to_port,
 )
 
 ATOL = 1e-5
@@ -86,7 +87,7 @@ def _load_as(module, name, params):
 
 def _port_unet(D=8):
     cfg = tiny_model_config(latent_dim=D, num_heads=1, num_random_features=32)
-    return MotionTransformer(cfg)
+    return MotionTransformer(to_port(cfg))
 
 
 @pytest.mark.parametrize("T", [16, 15])
@@ -170,7 +171,7 @@ def test_block_names_and_strict_load_of_the_whole_tree():
     np.testing.assert_array_equal(
         sd[k].numpy(),
         np.asarray(params["block_low_0"]["ffn"]["proj_out"]["out_kernel"]))
-    MotionTransformer(cfg).load_state_dict(sd, strict=True)
+    MotionTransformer(to_port(cfg)).load_state_dict(sd, strict=True)
 
 
 def test_stacked_scan_layout_is_unstacked():

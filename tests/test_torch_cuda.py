@@ -1,5 +1,5 @@
 """Card-only tests: each hand-written CUDA kernel against its plain version,
-and a small sampling pipeline on the card against the same on the CPU.
+and small sampling pipelines on the card against the same on the CPU.
 
 Marked ``cuda``; without a CUDA device they skip. On a machine with an H100
 and nvcc run them with::
@@ -18,13 +18,18 @@ eps -> x0 factor reaches ~1e2 at t = T-1). The backward kernels: their f32
 outputs are sums over T (and over B*H for the parameter gradients) taken in
 another order than autograd's -> 1e-3 of the output's largest value; bf16
 gradients (d qkv, dy, d scale, d shift) are that result rounded once ->
-one bf16 ulp plus the same floor.
+one bf16 ulp plus the same floor. The fused MoE in bf16: the final
+rounding (one ulp) plus the rare one-ulp flips of the rounded hidden
+activations, each worth one ulp of one term of the second product -> one
+bf16 ulp plus 1e-3 of the output's largest value.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from motiondiffusion_moe_tpu_torch.ops import flash_attention as XA
+from motiondiffusion_moe_tpu_torch.ops import moe as MOE
 from motiondiffusion_moe_tpu_torch.ops import performer as P
 
 pytestmark = pytest.mark.cuda
@@ -134,8 +139,8 @@ def test_pipeline_on_the_card_matches_the_cpu(dev):
     """One layer per scale at the small_dense preset's attention shape
     (head 64, 128 features, width 256): kernels on the card vs the plain
     versions on the CPU, same weights and injected noise."""
-    from motiondiffusion_moe_tpu.config import (DataConfig, DiffusionConfig,
-                                                ExperimentConfig, ModelConfig)
+    from motiondiffusion_moe_tpu_torch.config import (
+        DataConfig, DiffusionConfig, ExperimentConfig, ModelConfig)
     from motiondiffusion_moe_tpu_torch.models.layers import init_weights
     from motiondiffusion_moe_tpu_torch.models.text_encoder import (
         hash_tokenize)
@@ -287,3 +292,148 @@ def test_backward_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError):
         P.performer_epilogue_bwd(y, y[:, 0], y[:, 0], v, v, v, v,
                                  y.transpose(0, 1))
+
+
+def _moe_inputs(dev, S, D, E, hid, dtype, seed=7):
+    """x, top-2 combine weights and the stored expert weights."""
+    rng = np.random.default_rng(seed)
+    p = np.exp(rng.standard_normal((S, E)))
+    p /= p.sum(-1, keepdims=True)
+    idx = np.argsort(-p, -1, kind="stable")[:, :2]
+    combine = np.zeros((S, E), np.float32)
+    np.put_along_axis(combine, idx, np.take_along_axis(p, idx, -1), -1)
+    arrays = (rng.standard_normal((S, D)), combine,
+              rng.standard_normal((E, D, hid)) * D ** -0.5,
+              0.1 * rng.standard_normal((E, hid)),
+              rng.standard_normal((E, hid, D)) * hid ** -0.5,
+              0.1 * rng.standard_normal((E, D)))
+    return [torch.from_numpy(np.asarray(a, np.float32)).to(dev, dtype)
+            for a in arrays]
+
+
+@pytest.mark.parametrize("shape", [(6272, 512, 4, 256), (600, 128, 4, 128),
+                                   (1000, 768, 16, 1024), (37, 256, 2, 128)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_dense_fused_kernel_matches_plain(dev, shape, dtype):
+    S, D, E, hid = shape
+    args = _moe_inputs(dev, S, D, E, hid, dtype)
+    n0 = MOE.moe_dense_fused.launches
+    out = MOE.moe_dense_fused(*args)
+    torch.cuda.synchronize()
+    assert MOE.moe_dense_fused.launches == n0 + 1
+    ref = MOE.moe_dense_fused_plain(*args)
+    assert out.dtype == dtype and out.shape == (S, D)
+    _assert_close(out, ref, dtype)
+    assert torch.equal(MOE.moe_dense_fused(*args), out)  # no atomics
+
+
+@pytest.mark.parametrize("shape", [(32, 196, 85, 4, 128), (3, 37, 20, 8, 96),
+                                   (2, 50, 7, 2, 64), (2, 40, 160, 4, 128)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_xattn_fastlayout_kernel_matches_plain(dev, shape, dtype):
+    B, T, N, H, D = shape
+    rng = np.random.default_rng(8)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               .to(dev, dtype) for s in ((B, T, H * D), (B, N, H * D),
+                                         (B, N, H * D)))
+    n0 = XA.xattn_fastlayout.launches
+    out = XA.xattn_fastlayout(q, k, v, H, D ** -0.5)
+    torch.cuda.synchronize()
+    assert XA.xattn_fastlayout.launches == n0 + 1
+    ref = XA.xattn_fastlayout_plain(q, k, v, H, D ** -0.5)
+    assert out.dtype == dtype and out.shape == q.shape
+    err = (out.float() - ref.float()).abs()
+    if dtype == torch.float32:
+        assert err.max().item() <= 1e-4 * ref.abs().max().item()
+    else:
+        assert (err <= 2 ** -7 * ref.float().abs() + 1e-3).all()
+
+
+def test_fused_wrappers_differentiate_through_the_plain_versions(dev):
+    """On the card the two new wrappers' gradients are autograd of their
+    plain versions on the same inputs."""
+    args = _moe_inputs(dev, 300, 256, 4, 128, torch.float32, seed=9)
+    xs = [a.clone().requires_grad_() for a in args]
+    g = torch.randn(300, 256, device=dev)
+    (MOE.moe_dense_fused(*xs) * g).sum().backward()
+    ys = [a.clone().requires_grad_() for a in args]
+    (MOE.moe_dense_fused_plain(*ys) * g).sum().backward()
+    for x, y in zip(xs, ys):
+        torch.testing.assert_close(x.grad, y.grad, rtol=1e-5, atol=1e-6)
+    q, k, v = (torch.randn(2, 30, 4 * 128, device=dev) for _ in range(3))
+    qs = [a.clone().requires_grad_() for a in (q, k, v)]
+    ps = [a.clone().requires_grad_() for a in (q, k, v)]
+    g = torch.randn(2, 30, 512, device=dev)
+    (XA.xattn_fastlayout(*qs, 4) * g).sum().backward()
+    (XA.xattn_fastlayout_plain(*ps, 4) * g).sum().backward()
+    for a, b in zip(qs, ps):
+        torch.testing.assert_close(a.grad, b.grad, rtol=1e-5, atol=1e-6)
+
+
+def test_fused_wrappers_raise_on_what_the_kernels_do_not_take(dev):
+    args = _moe_inputs(dev, 64, 128, 4, 128, torch.float32)
+    with pytest.raises(ValueError):  # D not instantiated
+        MOE.moe_dense_fused(*_moe_inputs(dev, 64, 96, 4, 128, torch.float32))
+    with pytest.raises(ValueError):  # hid not a multiple of 128
+        MOE.moe_dense_fused(*_moe_inputs(dev, 64, 128, 4, 96, torch.float32))
+    with pytest.raises(ValueError):  # mixed dtypes
+        MOE.moe_dense_fused(args[0].bfloat16(), *args[1:])
+    with pytest.raises(ValueError):  # not contiguous
+        MOE.moe_dense_fused(args[0].t().contiguous().t(), *args[1:])
+    q = torch.zeros(2, 8, 4 * 80, device=dev)
+    with pytest.raises(ValueError):  # head dim 80
+        XA.xattn_fastlayout(q, q, q, 4)
+    q = torch.zeros(1, 8, 128, device=dev)
+    kv = torch.zeros(1, 1000, 128, device=dev)
+    with pytest.raises(ValueError):  # k and v past shared memory
+        XA.xattn_fastlayout(q, kv, kv, 1)
+
+
+def test_pipeline_with_both_fused_paths_on_the_card_matches_the_cpu(
+        dev, monkeypatch):
+    """use_fast_xattn and MOE_FUSED_KERNEL=1 at widths that qualify (latent
+    256, expert hidden 128): kernels on the card vs the plain versions on
+    the CPU, same weights and injected noise; both new kernels launch."""
+    from motiondiffusion_moe_tpu_torch.config import (
+        DataConfig, DiffusionConfig, ExperimentConfig, ModelConfig)
+    from motiondiffusion_moe_tpu_torch.models.layers import init_weights
+    from motiondiffusion_moe_tpu_torch.models.text_encoder import (
+        hash_tokenize)
+    from motiondiffusion_moe_tpu_torch.models.transformer import (
+        MotionTransformer)
+    from motiondiffusion_moe_tpu_torch.pipeline import GenerationPipeline
+
+    monkeypatch.setenv("MOE_FUSED_KERNEL", "1")
+    cfg = ExperimentConfig(
+        data=DataConfig(dim_pose=26, max_motion_length=40, num_joints=4),
+        diffusion=DiffusionConfig(num_timesteps=100),
+        model=ModelConfig(input_feats=26, max_frames=40, latent_dim=256,
+                          ff_size=128, num_layers=1, num_heads=4,
+                          num_experts=4, text_latent_dim=32,
+                          text_max_tokens=12, dtype="float32",
+                          use_fast_xattn=True))
+    model = init_weights(MotionTransformer(cfg.model), 0)
+    g = torch.Generator().manual_seed(1)
+    with torch.no_grad():  # the zero-init leaves, or the output is zero
+        for name, p in model.named_parameters():
+            if not p.any():
+                p.normal_(0.0, 0.02, generator=g)
+    noise = torch.randn(2, 40, 26, generator=g)
+    tok = cfg.model.text_max_tokens
+    ids_c = torch.from_numpy(hash_tokenize(["walk", "jump twice"], tok))
+    ids_u = torch.from_numpy(hash_tokenize(["", ""], tok))
+    lengths = torch.tensor([40, 17])
+    outs = {}
+    for d in ("cpu", dev):
+        pipe = GenerationPipeline(cfg, model, sampler="dpm",
+                                  num_inference_steps=3, micro_batch=2,
+                                  device=d)
+        n_moe, n_xa = MOE.moe_dense_fused.launches, XA.xattn_fastlayout.launches
+        outs[str(d)] = pipe.sample(ids_c, ids_u, lengths,
+                                   noise=noise).cpu()
+    # 4 forwards x (2 blocks x 2 branches) and x 2 blocks
+    assert MOE.moe_dense_fused.launches - n_moe == 4 * 4
+    assert XA.xattn_fastlayout.launches - n_xa == 4 * 2
+    ref, out = outs["cpu"], outs[str(dev)]
+    assert torch.isfinite(out).all()
+    assert (out - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()

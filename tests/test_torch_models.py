@@ -47,6 +47,7 @@ from tests._torch_parity import (
     rel_rms,
     t,
     tiny_model_config,
+    to_port,
 )
 
 ATOL = 1e-5
@@ -241,7 +242,7 @@ def test_decoder_layer():
                         _mask())
     jmod = JaxMoEDecoderLayer(**_block_kwargs(cfg, TED, None, True,
                                               jnp.float32))
-    _compare(jmod, MoEDecoderLayer(cfg, TED), [x, xf, emb, mask[..., None]],
+    _compare(jmod, MoEDecoderLayer(to_port(cfg), TED), [x, xf, emb, mask[..., None]],
              port_args=[t(x), t(xf), t(emb), t(mask)], mutable=True,
              atol=1e-4)
 
@@ -271,7 +272,7 @@ def _denoise_both(dtype, Tn, params):
     ref = jax.jit(lambda p, *a: jm.apply(
         {"params": p}, *a[:3], text_ids=a[3],
         mutable=["moe_losses", "moe_metrics"])[0])(params, x, ts, lengths, ids)
-    port = load_into(MotionTransformer(cfg), params)
+    port = load_into(MotionTransformer(to_port(cfg)), params)
     with torch.no_grad():
         out = port(t(x), t(ts), t(lengths), text_ids=t(ids))
     assert out.dtype == torch.float32 and out.shape == (3, Tn, 26)
@@ -299,6 +300,7 @@ def test_motion_transformer_bf16(denoiser_params):
 
 def test_seeded_init_mirrors_the_flax_initialisers():
     cfg = tiny_model_config(num_layers=1)
+    cfg = to_port(cfg)
     a = init_weights(MotionTransformer(cfg), 3)
     b = init_weights(MotionTransformer(cfg), 3)
     c = init_weights(MotionTransformer(cfg), 4)
@@ -325,3 +327,57 @@ def test_seeded_init_mirrors_the_flax_initialisers():
                                                dtype=torch.float64),
                                atol=1e-5, rtol=0)
     assert sa[perf + "pre_norm.weight"].eq(1).all()
+
+
+# ---------------------------------------------------------------- fast paths
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_motion_transformer_with_both_fused_paths(dtype, monkeypatch):
+    """``use_fast_xattn=True`` and ``MOE_FUSED_KERNEL=1`` (widths that are
+    multiples of 128, as the MoE condition asks) in both packages: the
+    tiny denoiser through the fused forms, against the JAX one. The port
+    must take both fused ops in every block.
+
+    bf16: at this width bf16 compute alone moves the JAX denoiser ~4e-2
+    (relative RMS) from its f32 result, and a near-tied top-2 routing can
+    flip in either package, so the port's bf16 output is held to the JAX
+    f32 result: no further from it than 1.5x the JAX bf16 output is."""
+    monkeypatch.setenv("MOE_FUSED_KERNEL", "1")
+    x, ts, lengths, ids = _denoiser_inputs(16)
+
+    def jax_out(dt):
+        jm = JaxMotionTransformer(tiny_model_config(
+            dt, num_layers=1, latent_dim=128, ff_size=128,
+            use_fast_xattn=True))
+        return np.asarray(jax.jit(lambda p, *a: jm.apply(
+            {"params": p}, *a[:3], text_ids=a[3],
+            mutable=["moe_losses", "moe_metrics"])[0])(params, x, ts,
+                                                       lengths, ids))
+
+    cfg = tiny_model_config(dtype, num_layers=1, latent_dim=128,
+                            ff_size=128, use_fast_xattn=True)
+    params = random_params(JaxMotionTransformer(cfg), x, ts, lengths,
+                           text_ids=ids, seed=4)
+    ref = jax_out(dtype)
+    calls = {"moe": 0, "xattn": 0}
+
+    def counted(key, fn):
+        def wrapped(*a, **k):
+            calls[key] += 1
+            return fn(*a, **k)
+        return wrapped
+
+    monkeypatch.setattr(TM, "moe_dense_fused",
+                        counted("moe", TM.moe_dense_fused))
+    monkeypatch.setattr(TA, "xattn_fastlayout",
+                        counted("xattn", TA.xattn_fastlayout))
+    port = load_into(MotionTransformer(to_port(cfg)), params)
+    with torch.no_grad():
+        out = port(t(x), t(ts), t(lengths), text_ids=t(ids))
+    # 2 blocks x 2 MoE branches; one exact cross-attention per block
+    assert calls == {"moe": 4, "xattn": 2}
+    if dtype == "float32":
+        np.testing.assert_allclose(out.numpy(), ref, atol=1e-4)
+    else:
+        ref32 = jax_out("float32")
+        assert rel_rms(out.numpy(), ref32) <= 1.5 * rel_rms(ref, ref32)

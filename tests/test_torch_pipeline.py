@@ -48,7 +48,13 @@ from motiondiffusion_moe_tpu_torch.ops import performer as P
 from motiondiffusion_moe_tpu_torch.pipeline import GenerationPipeline
 from motiondiffusion_moe_tpu_torch.tools.serve import make_server
 
-from tests._torch_parity import load_into, random_params, rel_rms, tiny_config
+from tests._torch_parity import (
+    load_into,
+    random_params,
+    rel_rms,
+    tiny_config,
+    to_port,
+)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MB = 3  # micro-batch
@@ -116,9 +122,11 @@ def _jax_sample(cfg, params, sampler, noise, loop_key):
 
 
 def _port_pipeline(cfg, params, sampler, **kw):
+    cfg = to_port(cfg)
     model = load_into(MotionTransformer(cfg.model), params)
     return GenerationPipeline(cfg, model, sampler=sampler,
-                              num_inference_steps=STEPS, micro_batch=MB, **kw)
+                              num_inference_steps=STEPS, micro_batch=MB,
+                              device="cpu", **kw)
 
 
 def _port_sample(pipe, noise, step_noise=None):
@@ -160,18 +168,41 @@ def test_slice_matches_jax_bf16(flax_params):
     assert rel_rms(out, ref) < 3e-2
 
 
+def test_slice_with_both_fused_paths_matches_jax_f32(monkeypatch):
+    """dpm3 with ``use_fast_xattn=True`` and ``MOE_FUSED_KERNEL=1`` in both
+    packages (widths that are multiples of 128), same weights and noise."""
+    monkeypatch.setenv("MOE_FUSED_KERNEL", "1")
+    cfg = tiny_config(num_layers=1, latent_dim=128, ff_size=128,
+                      use_fast_xattn=True)
+    T, F = cfg.model.max_frames, cfg.model.input_feats
+    params = random_params(
+        JaxMotionTransformer(cfg.model), np.zeros((MB, T, F), np.float32),
+        np.zeros(MB, np.int32), np.full(MB, T, np.int32),
+        text_ids=hash_tokenize(PROMPTS, cfg.model.text_max_tokens), seed=3)
+    params["out"] = {k: 0.1 * v for k, v in params["out"].items()}
+    noise = np.random.default_rng(6).standard_normal((MB, T, F)).astype(
+        np.float32)
+    ref, _ = _jax_sample(cfg, params, "dpm", noise, jax.random.key(0))
+    pipe = _port_pipeline(cfg, params, "dpm")
+    assert all(m.use_fast_xattn for m in pipe.model.modules()
+               if type(m).__name__ == "CrossAttentionBlock")
+    out = _port_sample(pipe, noise)
+    assert out.shape == (MB, T, F) and np.isfinite(out).all()
+    assert np.abs(out - ref).max() <= 1e-5 * np.abs(ref).max()
+
+
 # ---------------------------------------------------------------- pipeline
 
 @pytest.fixture(scope="module")
 def seeded_pipe():
-    cfg = tiny_config(num_layers=1)
+    cfg = to_port(tiny_config(num_layers=1))
     model = init_weights(MotionTransformer(cfg.model), 0)
     with torch.no_grad():  # or the zero-init head returns exactly zero
         model.out.weight.normal_(0.0, 0.05,
                                  generator=torch.Generator().manual_seed(1))
     pipe = GenerationPipeline(cfg, model, sampler="dpm",
                               num_inference_steps=2, micro_batch=2,
-                              param_dtype="bfloat16")
+                              param_dtype="bfloat16", device="cpu")
     pipe.normalizer = MotionNormalizer.identity(cfg.data.dim_pose)
     return pipe
 
@@ -221,7 +252,8 @@ def test_generate_rejects_bad_inputs(seeded_pipe):
     with pytest.raises(ValueError, match="captions"):
         seeded_pipe.generate(["a", "b"], [4])
     with pytest.raises(ValueError):
-        GenerationPipeline(tiny_config(), seeded_pipe.model, sampler="euler")
+        GenerationPipeline(to_port(tiny_config()), seeded_pipe.model,
+                           sampler="euler", device="cpu")
 
 
 # ---------------------------------------------------------------- serving
@@ -270,8 +302,8 @@ def test_port_never_imports_jax_or_flax():
     code = """
 import sys
 import torch
-from motiondiffusion_moe_tpu.config import (DataConfig, DiffusionConfig,
-                                            ExperimentConfig, ModelConfig)
+from motiondiffusion_moe_tpu_torch.config import (
+    DataConfig, DiffusionConfig, ExperimentConfig, ModelConfig)
 import motiondiffusion_moe_tpu_torch.tools.serve
 import motiondiffusion_moe_tpu_torch.models.bridge
 import motiondiffusion_moe_tpu_torch.motion.recover
@@ -287,10 +319,11 @@ cfg = ExperimentConfig(
                       text_latent_dim=8, num_random_features=16,
                       text_max_tokens=6))
 pipe = GenerationPipeline(cfg, init_weights(MotionTransformer(cfg.model), 0),
-                          sampler="ddim", num_inference_steps=2, micro_batch=1)
+                          sampler="ddim", num_inference_steps=2, micro_batch=1,
+                          device="cpu")
 assert pipe.generate(["walk"], [5])[0].shape == (5, 26)
-bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax"))
+bad = sorted(m for m in sys.modules if m.split(".")[0] in (
+    "jax", "jaxlib", "flax", "motiondiffusion_moe_tpu"))
 print("LOADED", bad)
 sys.exit(1 if bad else 0)
 """

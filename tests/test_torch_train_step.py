@@ -48,7 +48,13 @@ from motiondiffusion_moe_tpu_torch.training.train_state import (
     create_train_state,
 )
 
-from tests._torch_parity import load_into, random_params, t, tiny_config
+from tests._torch_parity import (
+    load_into,
+    random_params,
+    t,
+    tiny_config,
+    to_port,
+)
 
 B, T = 2, 16  # one microbatch; the accumulation test takes two
 
@@ -115,6 +121,7 @@ def setup():
 
 
 def _port(cfg, params):
+    cfg = to_port(cfg)
     model = load_into(MotionTransformer(cfg.model), params)
     state = create_train_state(model, cfg)
     sched = make_schedule(schedule_name=cfg.diffusion.beta_schedule,
@@ -169,6 +176,34 @@ def test_loss_gradients_and_update_match_jax(setup):
                   jgrads, cfg.train.lr)
 
 
+def test_loss_and_gradients_match_jax_with_fast_xattn(monkeypatch):
+    """The dropout-0 train step with ``use_fast_xattn=True`` (widths that
+    are multiples of 128): the port's exact cross-attention goes through
+    ``xattn_fastlayout`` and autograd of its plain version, JAX through its
+    ``custom_vjp``; same loss and gradients, same tolerances as above."""
+    from motiondiffusion_moe_tpu_torch.models import attention as TA
+
+    cfg = tiny_config(num_layers=1, latent_dim=128, ff_size=128,
+                      use_fast_xattn=True)
+    model, vg = _jax_loss_fn(cfg)
+    batch, noise = _half(*_batch(), 0)
+    params = random_params(model, batch["motion"], batch["t"],
+                           batch["length"], text_ids=batch["text_ids"],
+                           seed=5)
+    jloss, jgrads = vg(params, {k: jnp.asarray(v) for k, v in batch.items()},
+                       jnp.asarray(noise))
+    calls = []
+    fast = TA.xattn_fastlayout
+    monkeypatch.setattr(TA, "xattn_fastlayout",
+                        lambda *a: calls.append(1) or fast(*a))
+    state, step = _port(cfg, params)
+    metrics = step.backward(state, _port_batch(batch), None, noise=t(noise))
+    assert len(calls) == 2  # one exact cross-attention per block
+    np.testing.assert_allclose(metrics["loss_total"].item(), float(jloss),
+                               rtol=1e-5)
+    _check_grads(state.model, jgrads)
+
+
 def test_gradient_accumulation_is_the_mean_of_microbatch_grads(setup):
     cfg, params, batch, noise, halves = setup
     cfg2 = dataclasses.replace(cfg, train=dataclasses.replace(
@@ -196,7 +231,7 @@ def test_train_mode_dropout_differs_and_eval_equals_deterministic(setup):
         mutable=["moe_losses", "moe_metrics"])[0])(
             params, *(jnp.asarray(batch[k]) for k in
                       ("motion", "t", "length", "text_ids")))
-    model = load_into(MotionTransformer(cfg.model), params)
+    model = load_into(MotionTransformer(to_port(cfg.model)), params)
     pb = _port_batch(batch)
     args = (pb["motion"], pb["t"], pb["length"])
     with torch.no_grad():

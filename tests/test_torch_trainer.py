@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from motiondiffusion_moe_tpu.config import ParallelConfig
+from motiondiffusion_moe_tpu_torch.config import ParallelConfig
 from motiondiffusion_moe_tpu_torch.data.dataset import (
     SyntheticText2MotionDataset,
     Text2MotionDataset,
@@ -23,11 +23,11 @@ from motiondiffusion_moe_tpu_torch.training.checkpoint import (
 )
 from motiondiffusion_moe_tpu_torch.training.trainer import Trainer
 
-from tests._torch_parity import tiny_config
+from tests._torch_parity import tiny_config, to_port
 
 
 def _cfg(**train):
-    cfg = tiny_config(num_layers=1)
+    cfg = to_port(tiny_config(num_layers=1))
     base = dict(num_epochs=1, batch_size=4, log_every=1,
                 save_latest_every=1000)
     base.update(train)
@@ -136,7 +136,7 @@ def test_loss_aware_sampler_sees_every_step_and_grad_accum_runs():
 
 
 def test_what_the_port_does_not_run_yet_raises():
-    cfg = tiny_config()
+    cfg = to_port(tiny_config())
     with pytest.raises(NotImplementedError):
         Trainer(dataclasses.replace(
             cfg, parallel=ParallelConfig(num_data_partitions=2)),

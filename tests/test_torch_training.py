@@ -33,7 +33,7 @@ from motiondiffusion_moe_tpu_torch.models.embeddings import grad_clamp
 from motiondiffusion_moe_tpu_torch.training import losses as TL
 from motiondiffusion_moe_tpu_torch.training import train_state as TT
 
-from tests._torch_parity import t
+from tests._torch_parity import t, to_port
 
 B, T, F = 3, 6, 5
 
@@ -191,7 +191,7 @@ def test_clip_and_adam_match_make_optimizer(steps, moments):
     jp = {k: jnp.asarray(v) for k, v in params.items()}
     state = tx.init(jp)
     tp = [torch.nn.Parameter(t(params[k])) for k in sorted(SHAPES)]
-    opt = TT.Optimizer(tp, cfg)
+    opt = TT.Optimizer(tp, to_port(cfg))
     for i in range(steps):
         # step 0: global norm ~0.3, under the clip; later steps ~3x over it
         g = _tree(200 + 10 * i, 0.001 if i == 0 else 0.01)
@@ -225,7 +225,7 @@ def test_grouped_global_norm_matches_optax():
     dict(lr_schedule="cosine", lr_warmup_steps=4, lr_decay_steps=20)])
 def test_make_lr_matches(train):
     cfg = _cfg(**train)
-    jl, tl = JT.make_lr(cfg), TT.make_lr(cfg)
+    jl, tl = JT.make_lr(cfg), TT.make_lr(to_port(cfg))
     if not callable(jl):
         assert tl == jl
         return
@@ -236,9 +236,9 @@ def test_make_lr_matches(train):
 
 def test_make_lr_rejects_bad_settings():
     with pytest.raises(ValueError):
-        TT.make_lr(_cfg(lr_schedule="cosine"))
+        TT.make_lr(to_port(_cfg(lr_schedule="cosine")))
     with pytest.raises(ValueError):
-        TT.make_lr(_cfg(lr_schedule="step"))
+        TT.make_lr(to_port(_cfg(lr_schedule="step")))
 
 
 def test_ema_tracks_params():
