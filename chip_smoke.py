@@ -63,6 +63,27 @@ first use) and exits non-zero without one. Phases, each fatal on failure:
          two Trainer steps at dropout 0 with use_fast_xattn (16
          xattn_fastlayout launches per forward, none of moe_dense_fused in
          training), every trainable parameter with a finite gradient.
+  F      the module attributes that no config sets, and the last four
+         kernels. F1: adaln_dense, favor_attention, flash_cross_attention
+         and favor_attention_full against their plain versions at the
+         flagship shapes, in f32 and (all but favor_attention, which takes
+         f32) bf16; flash_cross_attention also at N = 1024 keys and at a T
+         that is no multiple of its 32-row tile; favor_attention_full bit
+         for bit against favor_qkv on the merged panel; kernel, plain and
+         device times, the bound, scaled_dot_product_attention as the
+         flash kernel's library yardstick, and each gradient through its
+         autograd Function. F2: at the flagship width in f32,
+         StylizationBlock(fused=True) against fused=False,
+         PerformerSelfAttention(fused=False), grafted from a fused one by
+         models/bridge.py, against it, FastAttention use_pallas on against
+         off, and one backward through the unfused Performer. F3: the
+         flagship denoiser with every style block fused and every Performer
+         unfused (the same weights), one forward at B = 32: adaln_dense,
+         favor_attention and performer_epilogue launched exactly 32 times,
+         favor_qkv never; against the standard flagship and against itself
+         with use_pallas=False and use_kernels=False in f32; in bf16 compute
+         both paths against the f32 result (phase B's rule); CUDA kernels
+         and device time per forward against the standard flagship.
 
 The last line is {"ok": true, "device": {...}}, printed only when every
 phase passed; the line before it lists the kernels of the paths, each with
@@ -123,6 +144,11 @@ MOE_BF16_FLOOR = 1e-3
 # the fused ops' gradients on the card: autograd of the plain version in
 # both cases, the same computation -> 1e-5 of the largest gradient
 GRAD_REL = 1e-5
+# phase F, f32: a module form against the one it replaces (the same math,
+# another order of the f32 sums) and the flagship with every style block
+# fused and every Performer unfused against itself on the plain paths
+MODULE_F32_REL_RMS = 1e-5
+FORMS_F32_REL_RMS = 1e-5
 # the least time the card could take: published H100 SXM peaks (dense)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
@@ -148,6 +174,21 @@ def bound(nbytes: float, flops: float, kind: str):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[kind] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def attention_bound(heads: int, T: int, N: int, D: int):
+    """Exact bf16 attention of ``heads`` heads, T queries over N keys of
+    width D: (bound ms, its "by", the f32-FMA floor ms). q, k, v are read
+    and the output written once in bf16; the two products run at the bf16
+    tensor-core rate, which is what the card offers for bf16 operands (q . k
+    of bf16 values is exact in f32 accumulation). The kernels that hold both
+    products in IEEE f32 FMAs, as the reference computes them, cannot go
+    below the same operations at the f32 rate: that floor is printed beside
+    the bound, never in its place."""
+    nbytes = 2 * heads * (2 * T * D + 2 * N * D)
+    flops = 4 * heads * T * N * D
+    b_ms, b_by = bound(nbytes, flops, "bf16")
+    return b_ms, b_by, flops / PEAK_FLOPS["f32"] * 1e3
 
 
 def time_ms(fn, iters: int = 20) -> float:
@@ -950,6 +991,55 @@ def _top2_combine(rng, S, E):
     return combine
 
 
+def compare_to_plain(tag, name, out, ref, dtype, floor):
+    """A kernel's output against its plain version's: f32 to F32_REL of
+    the largest value; bf16 to one rounding plus ``floor``. Returns the
+    largest absolute error."""
+    import torch
+
+    out, ref = out.float(), ref.float()
+    check(bool(torch.isfinite(out).all()), f"{name} non-finite output")
+    err = (out - ref).abs()
+    max_abs, top = err.max().item(), ref.abs().max().item()
+    if dtype == torch.float32:
+        ok = max_abs <= F32_REL * top
+        tol_s = (f"max_abs <= {F32_REL:g} * max|plain| = "
+                 f"{F32_REL * top:.3e} (f32 sums in another order)")
+    else:
+        ok = bool((err <= BF16_REL * ref.abs() + floor).all())
+        tol_s = (f"|err| <= 2^-7 |plain| + {floor:.3e} elementwise "
+                 "(one bf16 rounding of the same f32 result)")
+    print(f"[{tag}] {name}: max_abs_err={max_abs:.3e} (max|plain| "
+          f"{top:.3e}); tol {tol_s} -> {'ok' if ok else 'FAIL'}")
+    check(ok, f"{name} outside tolerance")
+    return max_abs
+
+
+def grad_vs_plain(tag, name, fn, plain, args, g, wanted=None):
+    """Gradients through a wrapper's autograd Function against autograd of
+    its plain version, in f32, for the inputs numbered in ``wanted`` (all
+    by default)."""
+    import torch
+
+    wanted = range(len(args)) if wanted is None else wanted
+    xs = [a.detach().float().requires_grad_(i in wanted)
+          for i, a in enumerate(args)]
+    ys = [a.detach().float().requires_grad_(i in wanted)
+          for i, a in enumerate(args)]
+    (fn(xs) * g).sum().backward()
+    (plain(ys) * g).sum().backward()
+    torch.cuda.synchronize()
+    worst = max(((xs[i].grad - ys[i].grad).abs().max()
+                 / ys[i].grad.abs().max().clamp_min(1e-30)).item()
+                for i in wanted)
+    ok = worst <= GRAD_REL
+    print(f"[{tag}] {name} gradient through the autograd Function vs "
+          f"autograd of the plain version, f32: worst max_abs / "
+          f"max|grad| {worst:.3e}; tol {GRAD_REL:g} -> "
+          f"{'ok' if ok else 'FAIL'}")
+    check(ok, f"{name} gradient")
+
+
 def phase_e1(dev, card):
     """The fused-MoE and fast cross-attention kernels against their plain
     versions, with times, bounds, the library yardstick and gradients."""
@@ -965,40 +1055,6 @@ def phase_e1(dev, card):
         return torch.from_numpy((s * rng.standard_normal(shape))
                                 .astype(np.float32)).to(dev)
 
-    def compare(name, out, ref, dtype, floor):
-        out, ref = out.float(), ref.float()
-        check(bool(torch.isfinite(out).all()), f"{name} non-finite output")
-        err = (out - ref).abs()
-        max_abs, top = err.max().item(), ref.abs().max().item()
-        if dtype == torch.float32:
-            ok = max_abs <= F32_REL * top
-            tol_s = (f"max_abs <= {F32_REL:g} * max|plain| = "
-                     f"{F32_REL * top:.3e} (f32 sums in another order)")
-        else:
-            ok = bool((err <= BF16_REL * ref.abs() + floor).all())
-            tol_s = (f"|err| <= 2^-7 |plain| + {floor:.3e} elementwise "
-                     "(one bf16 rounding of the same f32 result)")
-        print(f"[E1] {name}: max_abs_err={max_abs:.3e} (max|plain| "
-              f"{top:.3e}); tol {tol_s} -> {'ok' if ok else 'FAIL'}")
-        check(ok, f"{name} outside tolerance")
-        return max_abs
-
-    def grad_check(name, fn, plain, args, g):
-        xs = [a.detach().float().requires_grad_() for a in args]
-        ys = [a.detach().float().requires_grad_() for a in args]
-        (fn(xs) * g).sum().backward()
-        (plain(ys) * g).sum().backward()
-        torch.cuda.synchronize()
-        worst = max(((x.grad - y.grad).abs().max()
-                     / y.grad.abs().max().clamp_min(1e-30)).item()
-                    for x, y in zip(xs, ys))
-        ok = worst <= GRAD_REL
-        print(f"[E1] {name} gradient through the autograd Function vs "
-              f"autograd of the plain version, f32: worst max_abs / "
-              f"max|grad| {worst:.3e}; tol {GRAD_REL:g} -> "
-              f"{'ok' if ok else 'FAIL'}")
-        check(ok, f"{name} gradient")
-
     moe_shapes = (("flagship", 6272, 512, 4, 256), ("S=600", 600, 512, 4, 256),
                   ("moe_big", 6272, 768, 16, 1024))
     for label, S, D, E, hid in moe_shapes:
@@ -1012,8 +1068,9 @@ def phase_e1(dev, card):
             out = MOE.moe_dense_fused(*args)
             torch.cuda.synchronize()
             ref = MOE.moe_dense_fused_plain(*args)
-            err = compare(name, out, ref, dtype,
-                          MOE_BF16_FLOOR * ref.float().abs().max().item())
+            err = compare_to_plain(
+                "E1", name, out, ref, dtype,
+                MOE_BF16_FLOOR * ref.float().abs().max().item())
             if label != "flagship" or dtype != torch.bfloat16:
                 continue
             kernel = lambda: MOE.moe_dense_fused(*args)  # noqa: E731
@@ -1030,9 +1087,10 @@ def phase_e1(dev, card):
                   f"(torch.profiler); bound {b_ms:.4f} ms ({b_by}); no "
                   f"single PyTorch call computes it ({card})")
             results["moe_dense_fused"] = (err, k_ms, p_ms, b_ms, b_by, None)
-            grad_check("moe_dense_fused flagship", lambda a:
-                       MOE.moe_dense_fused(*a), lambda a:
-                       MOE.moe_dense_fused_plain(*a), args, t(S, D))
+            grad_vs_plain("E1", "moe_dense_fused flagship",
+                          lambda a: MOE.moe_dense_fused(*a),
+                          lambda a: MOE.moe_dense_fused_plain(*a), args,
+                          t(S, D))
 
     xattn_shapes = (("flagship", 32, 196, 85, 4, 128),
                     ("H=8 D=96", 32, 196, 85, 8, 96))
@@ -1046,7 +1104,7 @@ def phase_e1(dev, card):
             out = XA.xattn_fastlayout(q, k, v, H, scale)
             torch.cuda.synchronize()
             ref = XA.xattn_fastlayout_plain(q, k, v, H, scale)
-            err = compare(name, out, ref, dtype, BF16_ABS)
+            err = compare_to_plain("E1", name, out, ref, dtype, BF16_ABS)
             if label != "flagship" or dtype != torch.bfloat16:
                 continue
             kernel = lambda: XA.xattn_fastlayout(  # noqa: E731
@@ -1060,22 +1118,20 @@ def phase_e1(dev, card):
             l_ms = time_ms(library)
             lib_err = (library().transpose(1, 2).reshape(B, T, H * D).float()
                        - ref.float()).abs().max().item()
-            # q, k, v read, out written; the two products in f32, as the
-            # reference computes them
-            b_ms, b_by = bound(2 * (2 * B * T * H * D + 2 * B * N * H * D),
-                               4 * B * T * N * H * D, "f32")
+            b_ms, b_by, floor_ms = attention_bound(B * H, T, N, D)
             print(f"[E1] {name}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
                   f"scaled_dot_product_attention {l_ms:.4f} ms per call "
                   f"(CUDA events; its bf16 probabilities are {lib_err:.3e} "
                   f"from the plain version at most); device time kernel "
                   f"{device_ms(kernel)}, plain {device_ms(plain)}, library "
                   f"{device_ms(library)} (torch.profiler); bound "
-                  f"{b_ms:.4f} ms ({b_by}) ({card})")
+                  f"{b_ms:.4f} ms ({b_by}); this design's floor, both "
+                  f"products on IEEE f32 FMAs, {floor_ms:.4f} ms ({card})")
             results["xattn_fastlayout"] = (err, k_ms, p_ms, b_ms, b_by, l_ms)
-            grad_check("xattn_fastlayout flagship", lambda a:
-                       XA.xattn_fastlayout(*a, H, scale), lambda a:
-                       XA.xattn_fastlayout_plain(*a, H, scale),
-                       [q, k, v], t(B, T, H * D))
+            grad_vs_plain("E1", "xattn_fastlayout flagship",
+                          lambda a: XA.xattn_fastlayout(*a, H, scale),
+                          lambda a: XA.xattn_fastlayout_plain(*a, H, scale),
+                          [q, k, v], t(B, T, H * D))
     return results
 
 
@@ -1277,6 +1333,344 @@ def phase_e4(cfg, dev):
     return launches
 
 
+def phase_f1(dev, card):
+    """Kernels 7-10 against their plain versions at the flagship shapes
+    (f32 and, where the op takes it, bf16), with times, bounds,
+    scaled_dot_product_attention as kernel 9's library yardstick, and the
+    gradients through each autograd Function. Kernels 9 and 10 are on no
+    model's path: each is driven once through its public op at the
+    flagship shapes, with its count set to 0 just before."""
+    import torch
+    import torch.nn.functional as F
+    from motiondiffusion_moe_tpu_torch.ops import adaln as AD
+    from motiondiffusion_moe_tpu_torch.ops import flash_attention as XA
+    from motiondiffusion_moe_tpu_torch.ops import performer as P
+
+    rng = np.random.default_rng(SEED + 40)
+    B, T, H, Dh, m, D = 32, 196, 4, 128, 128, 512
+    results = {}
+
+    def t(*shape, s=1.0, off=0.0):
+        return torch.from_numpy((off + s * rng.standard_normal(shape))
+                                .astype(np.float32)).to(dev)
+
+    def timed(name, kernel, plain, b, library=None, floor_ms=None):
+        """Times and the bound ``b`` = (ms, by) of one kernel; ``floor_ms``
+        is its design's own floor, printed beside the bound."""
+        k_ms, p_ms = paired_ms(kernel, plain)
+        b_ms, b_by = b
+        l_ms = time_ms(library) if library is not None else None
+        lib_s = (f", scaled_dot_product_attention {l_ms:.4f} ms" if library
+                 is not None else "; no single PyTorch call computes it")
+        floor_s = ("" if floor_ms is None else f"; this design's floor, both "
+                   f"products on IEEE f32 FMAs, {floor_ms:.4f} ms")
+        print(f"[F1] {name}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms per "
+              f"call (CUDA events){lib_s}; device time kernel "
+              f"{device_ms(kernel)}, plain {device_ms(plain)}"
+              + (f", library {device_ms(library)}" if library is not None
+                 else "")
+              + f" (torch.profiler); bound {b_ms:.4f} ms ({b_by}){floor_s} "
+              f"({card})")
+        return k_ms, p_ms, b_ms, b_by, l_ms
+
+    # ---- kernel 7: adaln_dense, a StylizationBlock body at the flagship
+    base = [t(B, T, D), t(B, D, s=0.3), t(B, D, s=0.3),
+            t(D, s=0.1, off=1.0), t(D, s=0.1), t(D, D, s=D ** -0.5),
+            t(D, s=0.1)]
+    for dtype in (torch.bfloat16, torch.float32):
+        args = [a if i in (3, 4) else a.to(dtype) for i, a in enumerate(base)]
+        name = f"adaln_dense {str(dtype)[6:]} B={B} T={T} D=Dout={D}"
+        out = AD.adaln_dense(*args)
+        torch.cuda.synchronize()
+        ref = AD.adaln_dense_plain(*args)
+        # bf16: the activations are rounded before the product; a rare
+        # one-ulp flip of one moves the output by one ulp of one term
+        err = compare_to_plain("F1", name, out, ref, dtype, MOE_BF16_FLOOR
+                               * ref.float().abs().max().item())
+        if dtype != torch.bfloat16:
+            continue
+        # h read and out written, scale, shift, w, b in bf16, the LN
+        # vectors in f32; the product on the tensor cores
+        numbers = timed(name, lambda: AD.adaln_dense(*args),
+                        lambda: AD.adaln_dense_plain(*args),
+                        bound(2 * (2 * B * T * D + 2 * B * D + D * D + D)
+                              + 4 * 2 * D, 2 * B * T * D * D, "bf16"))
+        results["adaln_dense"] = (err,) + numbers
+    grad_vs_plain("F1", "adaln_dense", lambda a: AD.adaln_dense(*a),
+                  lambda a: AD.adaln_dense_plain(*a), base, t(B, T, D))
+
+    # ---- kernel 8: favor_attention on normalised heads, f32 only
+    def unit_rows(x):
+        return x / x.norm(dim=-1, keepdim=True)
+
+    q, k, v = unit_rows(t(B, H, T, Dh)), unit_rows(t(B, H, T, Dh)), t(
+        B, H, T, Dh)
+    proj = t(Dh, m, s=Dh ** -0.25)
+    mask = ragged_mask(rng, B, T, dev)
+    hmask = mask[:, None, :].contiguous()
+    name = f"favor_attention float32 B={B} H={H} T={T} D=m={Dh}"
+    out = P.favor_attention(q, k, v, proj, hmask)
+    torch.cuda.synchronize()
+    ref = P.favor_attention_plain(q, k, v, proj, hmask)
+    # a masked frame's denominator is the eps floor (the reference's
+    # same-position quirk), so its row is ~1e5 larger: each kind of row is
+    # held to its own scale
+    valid = (hmask[:, :, :, None] > 0).expand(B, H, T, Dh)
+    err = max(compare_to_plain("F1", f"{name}, {kind} frames", out[sel],
+                               ref[sel], torch.float32, 0.0)
+              for kind, sel in (("valid", valid), ("masked", ~valid)))
+    # q, k, v read and out written in f32; the four [T, D] x [D, m]-sized
+    # products of every (b, h) in f32
+    numbers = timed(name, lambda: P.favor_attention(q, k, v, proj, hmask),
+                    lambda: P.favor_attention_plain(q, k, v, proj, hmask),
+                    bound(4 * (4 * B * H * T * Dh + Dh * m + B * T),
+                          4 * 2 * B * H * T * Dh * m, "f32"))
+    results["favor_attention"] = (err,) + numbers
+    grad_vs_plain("F1", "favor_attention", lambda a: P.favor_attention(*a),
+                  lambda a: P.favor_attention_plain(*a),
+                  [q, k, v, proj, hmask], t(B, H, T, Dh), wanted=(0, 1, 2))
+
+    # ---- kernel 10: favor_attention_full on separate q, k, v
+    qkv32 = t(B, T, 3 * H * Dh)
+    scale, bias = t(Dh, s=0.1, off=1.0), t(Dh, s=0.1)
+    for dtype in (torch.bfloat16, torch.float32):
+        qkv = qkv32.to(dtype)
+        q3, k3, v3 = (x.contiguous() for x in qkv.split(H * Dh, dim=-1))
+        name = f"favor_attention_full {str(dtype)[6:]} B={B} T={T} H={H}"
+        out = P.favor_attention_full(q3, k3, v3, scale, bias, proj, mask)
+        torch.cuda.synchronize()
+        err = compare_to_plain("F1", name, out, P.favor_full_plain(
+            q3, k3, v3, scale, bias, proj, mask), dtype, BF16_ABS)
+        same = torch.equal(out, P.favor_qkv(qkv, scale, bias, proj, mask))
+        print(f"[F1] {name}: bit for bit kernel 1's output on the same "
+              f"q, k, v merged into one panel: {same}")
+        check(same, "favor_attention_full differs from favor_qkv")
+        if dtype != torch.bfloat16:
+            continue
+        el = qkv.element_size()
+        numbers = timed(
+            name, lambda: P.favor_attention_full(q3, k3, v3, scale, bias,
+                                                 proj, mask),
+            lambda: P.favor_full_plain(q3, k3, v3, scale, bias, proj, mask),
+            bound(B * T * 4 * H * Dh * el + (2 * Dh + Dh * m + B * T) * 4,
+                  4 * 2 * B * H * T * Dh * m, "f32"))
+        results["favor_attention_full"] = (err,) + numbers
+        P.favor_attention_full.launches = 0
+        P.favor_attention_full(q3, k3, v3, scale, bias, proj, mask)
+        torch.cuda.synchronize()
+        results["favor_attention_full_launches"] = (
+            P.favor_attention_full.launches)
+    grad_vs_plain("F1", "favor_attention_full",
+                  lambda a: P.favor_attention_full(*a),
+                  lambda a: P.favor_full_plain(*a),
+                  [q3, k3, v3, scale, bias, proj, mask], t(B, T, H * Dh),
+                  wanted=range(5))
+
+    # ---- kernel 9: flash_cross_attention, head-major, any N
+    shapes = (("flagship", B, T, 85), ("long N", B, T, 1024),
+              ("T=100, not a multiple of the 32-row tile", 8, 100, 85))
+    for label, Bx, Tx, N in shapes:
+        base = [t(Bx, H, Tx, Dh), t(Bx, H, N, Dh), t(Bx, H, N, Dh)]
+        for dtype in (torch.bfloat16, torch.float32):
+            q9, k9, v9 = (a.to(dtype) for a in base)
+            name = (f"flash_cross_attention {label} {str(dtype)[6:]} "
+                    f"B={Bx} H={H} T={Tx} N={N} D={Dh}")
+            out = XA.flash_cross_attention(q9, k9, v9)
+            torch.cuda.synchronize()
+            ref = XA.flash_cross_attention_plain(q9, k9, v9)
+            err = compare_to_plain("F1", name, out, ref, dtype, BF16_ABS)
+            if label != "flagship" or dtype != torch.bfloat16:
+                continue
+            library = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                q9, k9, v9)
+            lib_err = (library().float() - ref.float()).abs().max().item()
+            print(f"[F1] {name}: scaled_dot_product_attention is "
+                  f"{lib_err:.3e} from the plain version at most (bf16 "
+                  f"probabilities)")
+            b_ms, b_by, floor_ms = attention_bound(Bx * H, Tx, N, Dh)
+            numbers = timed(name, lambda: XA.flash_cross_attention(
+                q9, k9, v9), lambda: XA.flash_cross_attention_plain(
+                q9, k9, v9), (b_ms, b_by), library, floor_ms)
+            results["flash_cross_attention"] = (err,) + numbers
+            XA.flash_cross_attention.launches = 0
+            XA.flash_cross_attention(q9, k9, v9)
+            torch.cuda.synchronize()
+            results["flash_cross_attention_launches"] = (
+                XA.flash_cross_attention.launches)
+            grad_vs_plain("F1", "flash_cross_attention",
+                          lambda a: XA.flash_cross_attention(*a),
+                          lambda a: XA.flash_cross_attention_plain(*a),
+                          [q9, k9, v9], t(Bx, H, Tx, Dh))
+    return results
+
+
+def _unfused_forms(model) -> None:
+    """Every StylizationBlock fused and every PerformerSelfAttention
+    replaced by its unfused twin with the same parameters."""
+    from motiondiffusion_moe_tpu_torch.models.bridge import unfuse_performers
+    from motiondiffusion_moe_tpu_torch.models.embeddings import (
+        StylizationBlock)
+
+    unfuse_performers(model)
+    for mod in model.modules():
+        if isinstance(mod, StylizationBlock):
+            mod.fused = True
+
+
+def phase_f2(dev):
+    """The two module forms at the flagship width (latent 512, 4 heads of
+    128, 128 features, time embedding 2048), in f32: each against the form
+    it replaces, and one backward through an unfused Performer."""
+    import torch
+    from motiondiffusion_moe_tpu_torch.models.attention import (
+        PerformerSelfAttention)
+    from motiondiffusion_moe_tpu_torch.models.embeddings import (
+        StylizationBlock)
+    from motiondiffusion_moe_tpu_torch.models.layers import init_weights
+    from motiondiffusion_moe_tpu_torch.ops import adaln as AD
+    from motiondiffusion_moe_tpu_torch.ops import performer as P
+
+    rng = np.random.default_rng(SEED + 50)
+    B, T, D, H, m, ted = 32, 196, 512, 4, 128, 2048
+
+    def t(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(dev)
+
+    x, emb, g = t(B, T, D), t(B, D), t(B, T, D)
+    mask = ragged_mask(rng, B, T, dev)
+
+    def report(name, out, ref, launched):
+        rel = rel_rms(out, ref)
+        ok = rel <= MODULE_F32_REL_RMS and launched
+        print(f"[F2] {name}, float32 B={B} T={T} D={D}: rel_rms="
+              f"{rel:.3e}; tol {MODULE_F32_REL_RMS:g}; kernels launched: "
+              f"{launched} -> {'ok' if ok else 'FAIL'}")
+        check(ok, name)
+
+    block = init_weights(StylizationBlock(D, ted, D), SEED).to(dev).eval()
+    with torch.no_grad():
+        block.out_kernel.normal_(0.0, 0.02)  # zero-init: perturbed
+        ref = block(x, emb)
+        block.fused = True
+        n0 = AD.adaln_dense.launches
+        out = block(x, emb)
+    report("StylizationBlock(fused=True) vs fused=False", out, ref,
+           AD.adaln_dense.launches == n0 + 1)
+
+    class Holder(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.attn = PerformerSelfAttention(D, H, ted, m)
+
+    holder = init_weights(Holder(), SEED).to(dev).eval()
+    with torch.no_grad():
+        fused = holder.attn(x, emb, mask)
+        _unfused_forms(holder)
+        n0 = (P.favor_attention.launches, P.performer_epilogue.launches)
+        unfused = holder.attn(x, emb, mask)
+        made = (P.favor_attention.launches - n0[0],
+                P.performer_epilogue.launches - n0[1])
+        holder.attn.fast_attention.use_pallas = False
+        plain = holder.attn(x, emb, mask)
+        holder.attn.fast_attention.use_pallas = True
+    report("PerformerSelfAttention(fused=False, grafted by "
+           "models/bridge.py) vs the fused form", unfused, fused,
+           made == (1, 1))
+    report("PerformerSelfAttention(fused=False): FastAttention use_pallas "
+           "on vs off", unfused, plain, True)
+
+    n0 = P.favor_attention.launches
+    (holder.attn(x, emb, mask) * g).sum().backward()
+    torch.cuda.synchronize()
+    trainable = [(n, p) for n, p in holder.attn.named_parameters()
+                 if p.requires_grad]
+    missing = [n for n, p in trainable if p.grad is None
+               or not bool(torch.isfinite(p.grad).all())]
+    print(f"[F2] one backward through the unfused Performer "
+          f"({P.favor_attention.launches - n0} favor_attention launch): "
+          f"{len(trainable)} trainable parameters, {len(missing)} without a "
+          f"finite gradient {missing[:5]}")
+    check(not missing, "unfused Performer: parameters without a gradient")
+    del block, holder
+    torch.cuda.empty_cache()
+
+
+def phase_f3(cfg, model, dev, card):
+    """The flagship denoiser with every style block fused and every
+    Performer unfused (grafted from the same weights): one forward at
+    B = 32 through kernels 2, 7 and 8 with exact launch counts, held
+    against the standard flagship and against itself on the plain paths,
+    in f32; then in bf16 compute, each path against the f32 result."""
+    import torch
+    from motiondiffusion_moe_tpu_torch.models.transformer import (
+        MotionTransformer)
+    from motiondiffusion_moe_tpu_torch.ops import adaln as AD
+    from motiondiffusion_moe_tpu_torch.ops import performer as P
+
+    args, ids = denoiser_inputs(cfg, dev)
+    B, T, F = args[0].shape
+    L = cfg.model.num_layers
+    expect = {"adaln_dense": 4 * L, "favor_attention": 4 * L,
+              "performer_epilogue": 4 * L, "favor_qkv": 0}
+    counts = (AD.adaln_dense, P.favor_attention, P.performer_epilogue,
+              P.favor_qkv)
+
+    def forward(m):
+        with torch.inference_mode():
+            out = m(*args, text_ids=ids)
+        torch.cuda.synchronize()
+        check(out.shape == (B, T, F) and bool(torch.isfinite(out).all()),
+              "F3 denoiser output shape or non-finite")
+        return out
+
+    outs, seen = {}, {}
+    for dt in ("float32", "bfloat16"):
+        m = MotionTransformer(dataclasses.replace(cfg.model, dtype=dt))
+        m.load_state_dict(model.state_dict())
+        m.to(dev).eval()
+        if dt == "float32":
+            std = forward(m)
+            seen["standard"] = kernels_per_call(lambda: forward(m))
+        _unfused_forms(m)
+        for c in counts:
+            c.launches = 0
+        out = forward(m)
+        launches = {c.__name__: c.launches for c in counts}
+        if dt == "float32":
+            seen["forms"] = kernels_per_call(lambda: forward(m))
+            main_launches = launches
+        m.set_use_kernels(False)
+        outs[dt] = (out, forward(m))
+        del m
+        torch.cuda.empty_cache()
+        print(f"[F3] {dt} compute, every style block fused, every Performer "
+              f"unfused: launches in one forward {launches}; expected "
+              f"{expect}")
+        check(launches == expect, "F3 launch counts")
+    (k32, p32), (k16, p16) = outs["float32"], outs["bfloat16"]
+    rel_std, rel_plain = rel_rms(k32, std), rel_rms(k32, p32)
+    ok = rel_std <= DENOISER_F32_REL_RMS and rel_plain <= FORMS_F32_REL_RMS
+    print(f"[F3] flagship denoiser float32 compute B={B} T={T}, the module "
+          f"forms through the kernels: vs the standard flagship (same "
+          f"weights) rel_rms={rel_std:.3e} (tol {DENOISER_F32_REL_RMS:g}); "
+          f"vs use_pallas=False and use_kernels=False rel_rms="
+          f"{rel_plain:.3e} (tol {FORMS_F32_REL_RMS:g}) -> "
+          f"{'ok' if ok else 'FAIL'}")
+    check(ok, "F3 float32 denoiser")
+    err_k, err_p = rel_rms(k16, k32), rel_rms(p16, k32)
+    tol = DENOISER_BF16_FACTOR * err_p + DENOISER_BF16_FLOOR
+    ok = err_k <= tol
+    print(f"[F3] bfloat16 compute: rel_rms to the f32 result: kernels "
+          f"{err_k:.3e}, use_pallas=False and use_kernels=False {err_p:.3e};"
+          f" tol kernels <= {DENOISER_BF16_FACTOR:g} x plain + "
+          f"{DENOISER_BF16_FLOOR:g} = {tol:.3e} -> {'ok' if ok else 'FAIL'}")
+    check(ok, "F3 bfloat16 denoiser")
+    print(f"[F3] one forward (B={B}, f32, torch.profiler): standard flagship "
+          f"{seen['standard']}; module forms {seen['forms']} ({card})")
+    return main_launches
+
+
 def main() -> int:
     import torch
 
@@ -1329,11 +1723,15 @@ def main() -> int:
 
     e1 = phase_e1(dev, card)
     fast = phase_e2(cfg, model, dev)
-    del model
     e3_launches = phase_e3(cfg, fast, dev, card, c_timings)
     del fast
     torch.cuda.empty_cache()
     phase_e4(cfg, dev)
+
+    f1 = phase_f1(dev, card)
+    phase_f2(dev)
+    f3_launches = phase_f3(cfg, model, dev, card)
+    del model
 
     csrc = "motiondiffusion_moe_tpu_torch/csrc/"
     rows = (  # name, source, TPU kernel, launches on its main path, numbers
@@ -1352,6 +1750,15 @@ def main() -> int:
          e3_launches["moe_dense_fused"], e1["moe_dense_fused"]),
         ("xattn_fastlayout", "xattn_fastlayout.cu", "flash_attention.py:169",
          e3_launches["xattn_fastlayout"], e1["xattn_fastlayout"]),
+        ("adaln_dense", "adaln_dense.cu", "adaln_pallas.py:46",
+         f3_launches["adaln_dense"], f1["adaln_dense"]),
+        ("favor_attention", "favor_qkv.cu", "performer_pallas.py:50",
+         f3_launches["favor_attention"], f1["favor_attention"]),
+        ("flash_cross_attention", "flash_cross_attention.cu",
+         "flash_attention.py:40", f1["flash_cross_attention_launches"],
+         f1["flash_cross_attention"]),
+        ("favor_attention_full", "favor_qkv.cu", "performer_pallas.py:208",
+         f1["favor_attention_full_launches"], f1["favor_attention_full"]),
     )
     kernels = []
     for kname, src, tpu, n, (err, k_ms, p_ms, b_ms, b_by, l_ms) in rows:

@@ -4,6 +4,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 namespace mdm {
 
 // LayerNorm epsilon of the JAX reference (flax.linen.LayerNorm default).
@@ -59,6 +61,37 @@ __device__ __forceinline__ void load_vec(const float* p, float (&v)[N]) {
 #pragma unroll
     for (int i = 0; i < N; ++i) v[i] = p[i];
   }
+}
+
+// ---- bf16 tensor-core products (mma.sync m16n8k16), shared by the kernels
+// that stage a bf16 operand in shared memory as 32-bit words, each holding
+// two neighbours along the contracted axis (the lower k in the low half).
+
+// Two rows of 4 bf16 each (lo: row k, hi: row k + 1, columns n .. n+3) ->
+// the 4 words {row k, row k + 1} of columns n .. n+3.
+__device__ __forceinline__ uint4 interleave_rows(uint2 lo, uint2 hi) {
+  return make_uint4(__byte_perm(lo.x, hi.x, 0x5410),
+                    __byte_perm(lo.x, hi.x, 0x7632),
+                    __byte_perm(lo.y, hi.y, 0x5410),
+                    __byte_perm(lo.y, hi.y, 0x7632));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// D (16x8, f32) += A (16x16, bf16, row-major) . B (16x8, bf16, col-major).
+// a[0..3]: rows g / g+8, k 2t..2t+1 and 2t+8..2t+9; b0 / b1: k 2t..2t+1 and
+// 2t+8..2t+9 of column g; c: rows g / g+8, columns 2t..2t+1 (g = lane / 4,
+// t = lane % 4). Each 32-bit register holds the lower k in its low half.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // The FAVOR+ feature map exp(clip(logit, -15, 15)) * 0.1.

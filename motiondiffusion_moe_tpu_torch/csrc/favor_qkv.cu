@@ -1,17 +1,33 @@
-// Merged-QKV Performer (FAVOR+) attention core, hand-written for Hopper.
+// Performer (FAVOR+) attention core, hand-written for Hopper: one kernel,
+// three TPU kernels.
 //
-// Replaces the Pallas TPU kernel
-// motiondiffusion_moe_tpu/ops/performer_pallas.py::_favor_qkv_kernel_v2
-// (public entry favor_attention_qkv). For each (batch row, head) of the
-// merged [B, T, 3*H*D] qkv panel (column order q|k|v):
+// Replaces the Pallas TPU kernels of motiondiffusion_moe_tpu/ops/
+// performer_pallas.py:
 //
-//   x * pre_scale -> one shared LayerNorm for q, k and v -> L2 of q and k
+// - _favor_qkv_kernel_v2 (kernel 1, public entry favor_attention_qkv): q, k
+//   and v are column blocks of the merged [B, T, 3*H*D] qkv panel (column
+//   order q|k|v);
+// - _favor_full_kernel (kernel 10, favor_attention_full): the same math on
+//   three separate [B, T, H*D] tensors;
+// - _favor_kernel (kernel 8, favor_attention): the core alone, on q, k and v
+//   [B, H, T, D] that the caller has already normalised, f32 in and out.
+//
+// For each (batch row, head):
+//
+//   [normalised kernels] x * pre_scale -> one shared LayerNorm for q, k and v
+//   -> L2 of q and k
 //   -> phi(x) = exp(clip(x @ proj, -15, 15)) * 0.1, in f32
 //   -> phi(k) rows multiplied by the frame mask
 //   -> kv = phi(k)^T v * 0.1
 //   -> phi(q) kv * 0.1 / max(sum_m phi(q)_t phi(k)_t, eps)  (the reference's
 //      same-position denominator)
-//   -> output LayerNorm with the same LayerNorm parameters -> [B, T, H*D].
+//   -> [normalised kernels] output LayerNorm with the same parameters.
+//
+// The kernels differ only in where a head's rows lie (FavorLayout: the
+// element strides of a batch row, a head and a sequence step, and the three
+// base pointers) and in whether the normalisation steps are compiled in
+// (kNorm). Kernel 1's instantiation does the same arithmetic, in the same
+// order, as before kernels 8 and 10 joined it.
 //
 // What bounds it on the card: f32 FMA throughput. At the flagship shape
 // (T = 196, D = m = 128) one (b, h) pair does five [T, 128] x [128, 128]
@@ -51,6 +67,32 @@ constexpr size_t favor_smem_bytes() {
           size_t(kTile) * M);
 }
 
+// Element strides of one batch row, one head and one sequence step, for
+// the inputs (q, k and v alike) and for the output.
+struct FavorLayout {
+  long long in_batch, in_head, in_row;
+  long long out_batch, out_head, out_row;
+};
+
+// One warp stages one D-wide row: normalised (common.cuh::normalize_row)
+// when kNorm, else widened to f32 as it is. A row past the sequence end is
+// zeros.
+template <typename T, int CD, bool kNorm>
+__device__ __forceinline__ void stage_row(const T* __restrict__ src,
+                                          bool valid, const float (&g)[CD],
+                                          const float (&beta)[CD],
+                                          float pre_scale, bool l2, float* dst,
+                                          int lane) {
+  if constexpr (kNorm) {
+    normalize_row<T, CD>(src, valid, g, beta, pre_scale, l2, dst, lane);
+  } else {
+#pragma unroll
+    for (int c = 0; c < CD; ++c) {
+      dst[lane * CD + c] = valid ? to_f32(src[lane * CD + c]) : 0.f;
+    }
+  }
+}
+
 // acc[r][c] = rows[r] . proj[:, lane*CM + c] for the warp's kRowsPerWarp
 // rows (rows: [kRowsPerWarp][D] in shared memory; proj: [D][M]).
 template <int D, int M>
@@ -76,14 +118,15 @@ __device__ __forceinline__ void feature_logits(
   }
 }
 
-template <typename T, int D, int M>
+template <typename T, int D, int M, bool kNorm>
 __global__ void __launch_bounds__(kThreads, 1)
-    favor_qkv_kernel(const T* __restrict__ qkv,
-                     const float* __restrict__ ln_scale,
-                     const float* __restrict__ ln_bias,
-                     const float* __restrict__ proj,
-                     const float* __restrict__ mask, T* __restrict__ out,
-                     int seq_len, int num_heads, float eps, float pre_scale) {
+    favor_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, const float* __restrict__ ln_scale,
+                 const float* __restrict__ ln_bias,
+                 const float* __restrict__ proj,
+                 const float* __restrict__ mask, T* __restrict__ out,
+                 FavorLayout lay, int seq_len, int num_heads, float eps,
+                 float pre_scale) {
   static_assert(D % 32 == 0 && M % 32 == 0, "D and M must be multiples of 32");
   constexpr int CD = D / 32;  // columns of a D-row held by one lane
   constexpr int CM = M / 32;  // columns of an M-row held by one lane
@@ -102,19 +145,22 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int h = blockIdx.x % num_heads;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const int hd = num_heads * D;
-  const size_t row_stride = 3 * size_t(hd);
-  const T* q_base = qkv + size_t(b) * seq_len * row_stride + size_t(h) * D;
-  const T* k_base = q_base + hd;
-  const T* v_base = q_base + 2 * hd;
+  const long long in_off = b * lay.in_batch + h * lay.in_head;
+  const size_t row_stride = size_t(lay.in_row);
+  const T* q_base = q + in_off;
+  const T* k_base = k + in_off;
+  const T* v_base = v + in_off;
+  T* out_base = out + b * lay.out_batch + h * lay.out_head;
   const float* mask_row =
       mask == nullptr ? nullptr : mask + size_t(b) * seq_len;
 
-  float g[CD], beta[CD];
+  float g[CD] = {}, beta[CD] = {};
+  if constexpr (kNorm) {
 #pragma unroll
-  for (int c = 0; c < CD; ++c) {
-    g[c] = ln_scale[lane * CD + c];
-    beta[c] = ln_bias[lane * CD + c];
+    for (int c = 0; c < CD; ++c) {
+      g[c] = ln_scale[lane * CD + c];
+      beta[c] = ln_bias[lane * CD + c];
+    }
   }
   for (int i = threadIdx.x; i < D * M; i += kThreads) s_proj[i] = proj[i];
   __syncthreads();
@@ -137,10 +183,10 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int r = 0; r < kRowsPerWarp; ++r) {
       const int t = t0 + warp * kRowsPerWarp + r;
       const bool valid = t < seq_len;
-      normalize_row<T, CD>(k_base + size_t(t) * row_stride, valid, g, beta,
-                           pre_scale, true, my_a + r * D, lane);
-      normalize_row<T, CD>(v_base + size_t(t) * row_stride, valid, g, beta,
-                           pre_scale, false, my_b + r * D, lane);
+      stage_row<T, CD, kNorm>(k_base + size_t(t) * row_stride, valid, g,
+                              beta, pre_scale, true, my_a + r * D, lane);
+      stage_row<T, CD, kNorm>(v_base + size_t(t) * row_stride, valid, g,
+                              beta, pre_scale, false, my_b + r * D, lane);
     }
     __syncwarp();
     float acc[kRowsPerWarp][CM];
@@ -183,10 +229,10 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int r = 0; r < kRowsPerWarp; ++r) {
       const int t = t0 + warp * kRowsPerWarp + r;
       const bool valid = t < seq_len;
-      normalize_row<T, CD>(q_base + size_t(t) * row_stride, valid, g, beta,
-                           pre_scale, true, my_b + r * D, lane);
-      normalize_row<T, CD>(k_base + size_t(t) * row_stride, valid, g, beta,
-                           pre_scale, true, my_a + r * D, lane);
+      stage_row<T, CD, kNorm>(q_base + size_t(t) * row_stride, valid, g,
+                              beta, pre_scale, true, my_b + r * D, lane);
+      stage_row<T, CD, kNorm>(k_base + size_t(t) * row_stride, valid, g,
+                              beta, pre_scale, true, my_a + r * D, lane);
     }
     __syncwarp();
     float aq[kRowsPerWarp][CM], ak[kRowsPerWarp][CM];
@@ -247,6 +293,14 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int r = 0; r < kRowsPerWarp; ++r) {
       const int t = t0 + warp * kRowsPerWarp + r;
       if (t >= seq_len) continue;  // the same for all lanes of the warp
+      T* dst = out_base + t * lay.out_row + lane * CD;
+      if constexpr (!kNorm) {
+#pragma unroll
+        for (int c = 0; c < CD; ++c) {
+          dst[c] = from_f32<T>(o[r][c] * 0.1f / den[r]);
+        }
+        continue;
+      }
       float s = 0.f;
 #pragma unroll
       for (int c = 0; c < CD; ++c) {
@@ -261,7 +315,6 @@ __global__ void __launch_bounds__(kThreads, 1)
         v = fmaf(d, d, v);
       }
       const float inv = 1.0f / sqrtf(warp_sum(v) * kInvD + kLnEps);
-      T* dst = out + (size_t(b) * seq_len + t) * hd + size_t(h) * D + lane * CD;
 #pragma unroll
       for (int c = 0; c < CD; ++c) {
         dst[c] = from_f32<T>((o[r][c] - mu) * inv * g[c] + beta[c]);
@@ -271,53 +324,129 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-template <typename T, int D, int M>
-cudaError_t launch_favor_qkv(const void* qkv, const void* ln_scale,
-                             const void* ln_bias, const void* proj,
-                             const void* mask, void* out, int batch,
-                             int seq_len, int num_heads, float eps,
-                             float pre_scale, cudaStream_t stream) {
+template <typename T, int D, int M, bool kNorm>
+cudaError_t launch_favor(const void* q, const void* k, const void* v,
+                         const void* ln_scale, const void* ln_bias,
+                         const void* proj, const void* mask, void* out,
+                         const FavorLayout& lay, int batch, int seq_len,
+                         int num_heads, float eps, float pre_scale,
+                         cudaStream_t stream) {
   constexpr size_t smem = favor_smem_bytes<D, M>();
-  auto kernel = favor_qkv_kernel<T, D, M>;
+  auto kernel = favor_kernel<T, D, M, kNorm>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return err;
   kernel<<<batch * num_heads, kThreads, smem, stream>>>(
-      static_cast<const T*>(qkv), static_cast<const float*>(ln_scale),
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const float*>(ln_scale),
       static_cast<const float*>(ln_bias), static_cast<const float*>(proj),
-      static_cast<const float*>(mask), static_cast<T*>(out), seq_len,
+      static_cast<const float*>(mask), static_cast<T*>(out), lay, seq_len,
       num_heads, eps, pre_scale);
   return cudaGetLastError();
+}
+
+// (q, k, v) of the merged panel (merged = true) or of three [B, T, H*D]
+// tensors, normalised, in f32 or bf16; the output [B, T, H*D].
+template <int D, int M>
+cudaError_t launch_favor_rows(const void* q, const void* k, const void* v,
+                              const void* ln_scale, const void* ln_bias,
+                              const void* proj, const void* mask, void* out,
+                              bool merged, int batch, int seq_len,
+                              int num_heads, int is_bf16, float eps,
+                              float pre_scale, cudaStream_t stream) {
+  const long long hd = (long long)num_heads * D;
+  const long long in_row = merged ? 3 * hd : hd;
+  const FavorLayout lay{seq_len * in_row, D, in_row, seq_len * hd, D, hd};
+  if (is_bf16) {
+    const __nv_bfloat16* base = static_cast<const __nv_bfloat16*>(q);
+    return launch_favor<__nv_bfloat16, D, M, true>(
+        q, merged ? base + hd : k, merged ? base + 2 * hd : v, ln_scale,
+        ln_bias, proj, mask, out, lay, batch, seq_len, num_heads, eps,
+        pre_scale, stream);
+  }
+  const float* base = static_cast<const float*>(q);
+  return launch_favor<float, D, M, true>(
+      q, merged ? base + hd : k, merged ? base + 2 * hd : v, ln_scale,
+      ln_bias, proj, mask, out, lay, batch, seq_len, num_heads, eps,
+      pre_scale, stream);
 }
 
 }  // namespace
 }  // namespace mdm
 
-// C entry for ctypes. qkv/out: [B, T, 3*H*D] / [B, T, H*D], contiguous, f32
-// (is_bf16 = 0) or bf16 (is_bf16 = 1); ln_scale, ln_bias: [D] f32; proj:
-// [D, M] f32; mask: [B, T] f32 or null (all frames valid). Returns the CUDA
-// error code of the launch (0 on success); (head_dim, num_features) pairs
-// other than the instantiated ones return cudaErrorInvalidValue.
+// The (head_dim, num_features) pairs instantiated: those of the config
+// presets small_dense (64, 128), moe_big (96, 128) and moe_small (128, 128).
+#define MDM_FAVOR_SHAPES(X) X(64, 128) X(96, 128) X(128, 128)
+
+// C entry for ctypes, kernel 1. qkv/out: [B, T, 3*H*D] / [B, T, H*D],
+// contiguous, f32 (is_bf16 = 0) or bf16 (is_bf16 = 1); ln_scale, ln_bias:
+// [D] f32; proj: [D, M] f32; mask: [B, T] f32 or null (all frames valid).
+// Returns the CUDA error code of the launch (0 on success); (head_dim,
+// num_features) pairs other than the instantiated ones return
+// cudaErrorInvalidValue.
 extern "C" int mdm_favor_qkv(const void* qkv, const void* ln_scale,
                              const void* ln_bias, const void* proj,
                              const void* mask, void* out, int batch,
                              int seq_len, int num_heads, int head_dim,
                              int num_features, int is_bf16, float eps,
                              float pre_scale, void* stream) {
-  using mdm::launch_favor_qkv;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define MDM_FAVOR_CASE(D_, M_)                                              \
   if (head_dim == D_ && num_features == M_) {                               \
-    return int(is_bf16 ? launch_favor_qkv<__nv_bfloat16, D_, M_>(           \
-                             qkv, ln_scale, ln_bias, proj, mask, out, batch, \
-                             seq_len, num_heads, eps, pre_scale, s)          \
-                       : launch_favor_qkv<float, D_, M_>(                   \
-                             qkv, ln_scale, ln_bias, proj, mask, out, batch, \
-                             seq_len, num_heads, eps, pre_scale, s));        \
+    return int(mdm::launch_favor_rows<D_, M_>(                              \
+        qkv, nullptr, nullptr, ln_scale, ln_bias, proj, mask, out, true,    \
+        batch, seq_len, num_heads, is_bf16, eps, pre_scale, s));            \
   }
-  MDM_FAVOR_CASE(64, 128)
-  MDM_FAVOR_CASE(96, 128)
-  MDM_FAVOR_CASE(128, 128)
+  MDM_FAVOR_SHAPES(MDM_FAVOR_CASE)
 #undef MDM_FAVOR_CASE
   return int(cudaErrorInvalidValue);
 }
+
+// C entry for ctypes, kernel 10. q, k, v, out: [B, T, H*D], contiguous, one
+// dtype, f32 (is_bf16 = 0) or bf16 (is_bf16 = 1); the rest as for
+// mdm_favor_qkv.
+extern "C" int mdm_favor_attention_full(const void* q, const void* k,
+                                        const void* v, const void* ln_scale,
+                                        const void* ln_bias, const void* proj,
+                                        const void* mask, void* out,
+                                        int batch, int seq_len, int num_heads,
+                                        int head_dim, int num_features,
+                                        int is_bf16, float eps,
+                                        float pre_scale, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define MDM_FAVOR_CASE(D_, M_)                                              \
+  if (head_dim == D_ && num_features == M_) {                               \
+    return int(mdm::launch_favor_rows<D_, M_>(                              \
+        q, k, v, ln_scale, ln_bias, proj, mask, out, false, batch, seq_len, \
+        num_heads, is_bf16, eps, pre_scale, s));                            \
+  }
+  MDM_FAVOR_SHAPES(MDM_FAVOR_CASE)
+#undef MDM_FAVOR_CASE
+  return int(cudaErrorInvalidValue);
+}
+
+// C entry for ctypes, kernel 8. q, k, v, out: [B, H, T, D] f32, contiguous
+// (q and k already L2-normalised by the caller, no normalisation inside);
+// proj: [D, M] f32; mask: [B, 1, T] f32 or null. Returns as mdm_favor_qkv.
+extern "C" int mdm_favor_attention(const void* q, const void* k,
+                                   const void* v, const void* proj,
+                                   const void* mask, void* out, int batch,
+                                   int num_heads, int seq_len, int head_dim,
+                                   int num_features, float eps,
+                                   void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long td = (long long)seq_len * head_dim;
+  const mdm::FavorLayout lay{num_heads * td, td, head_dim,
+                             num_heads * td, td, head_dim};
+#define MDM_FAVOR_CASE(D_, M_)                                              \
+  if (head_dim == D_ && num_features == M_) {                               \
+    return int(mdm::launch_favor<float, D_, M_, false>(                     \
+        q, k, v, nullptr, nullptr, proj, mask, out, lay, batch, seq_len,    \
+        num_heads, eps, 1.f, s));                                           \
+  }
+  MDM_FAVOR_SHAPES(MDM_FAVOR_CASE)
+#undef MDM_FAVOR_CASE
+  return int(cudaErrorInvalidValue);
+}
+
+#undef MDM_FAVOR_SHAPES

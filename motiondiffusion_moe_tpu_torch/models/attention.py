@@ -1,15 +1,20 @@
 """Attention suite: Performer (FAVOR+) self-attention, linear and exact text
 cross-attention.
 
-Port of ``motiondiffusion_moe_tpu/models/attention.py``: the fused
-Performer form only (merged ``[D, 3D]`` qkv Dense, the FAVOR+ core and the
-epilogue as the two kernels of ``ops/performer.py``, differentiable through
-their backward kernels). ``use_kernels=False`` keeps the same parameters and
-computes the FAVOR+ core and the epilogue with plain PyTorch, as the JAX
-field does. In training mode (``module.train()``, the JAX
-``deterministic=False``) the dropout sites of the JAX modules are live, with
-masks drawn from the forward's :class:`TrainContext`, and the Performer
-takes the unfused epilogue whenever dropout is active, as JAX does.
+Port of ``motiondiffusion_moe_tpu/models/attention.py``. The Performer has
+both JAX forms. The fused one (``fused=True``, the default): a merged
+``[D, 3D]`` qkv Dense and the FAVOR+ core as one kernel of
+``ops/performer.py``, differentiable through its backward kernel. The
+unfused one (``fused=False``): three ``query``/``key``/``value`` Dense
+layers, head transposes and :class:`FastAttention`, whose core is
+``ops/performer.py::favor_attention``. Both share the MLP and the epilogue
+kernel. ``use_kernels=False`` keeps the same parameters and computes the
+fused FAVOR+ core and the epilogue with plain PyTorch, as the JAX field
+does; ``FastAttention(use_pallas=False)`` does the same for its core. In
+training mode (``module.train()``, the JAX ``deterministic=False``) the
+dropout sites of the JAX modules are live, with masks drawn from the
+forward's :class:`TrainContext`, and the Performer takes the unfused
+epilogue whenever dropout is active, as JAX does.
 ``CrossAttentionBlock(use_fast_xattn=True)`` runs its attention through
 ``ops/flash_attention.py::xattn_fastlayout`` whenever dropout is inactive
 (the JAX ``use_fast_xattn`` path).
@@ -39,6 +44,8 @@ from motiondiffusion_moe_tpu_torch.ops.flash_attention import (
     xattn_fastlayout,
 )
 from motiondiffusion_moe_tpu_torch.ops.performer import (
+    favor_attention,
+    favor_attention_plain,
     favor_qkv,
     favor_qkv_plain,
 )
@@ -57,28 +64,99 @@ def orthogonal_feature_init(d: int, m: int,
     return (w * d ** -0.25).float()
 
 
+def _l2_compute_dtype(x: torch.Tensor) -> torch.Tensor:
+    """``x / max(jnp.linalg.norm(x), 1e-12)`` in x's dtype, rounded where
+    XLA rounds it (``attention.py:83-84``): the squares and their sum in f32
+    (the compiler fuses the compute-dtype square into the f32 reduction),
+    the sum rounded to x's dtype, then the square root and the division in
+    x's dtype."""
+    xf = x.float()
+    n = torch.sqrt((xf * xf).sum(-1, keepdim=True).to(x.dtype))
+    return x / n.clamp_min(1e-12)
+
+
+class FastAttention(nn.Module):
+    """FAVOR+ linear attention core of the unfused Performer
+    (``attention.py:55-104``). q, k, v: [B, H, T, D] in the compute dtype;
+    mask [B, T, 1], [B, 1, T] or [B, T]. One LayerNorm (``norm``: f32
+    statistics, compute-dtype result) normalises q, k, v and the output;
+    q and k are L2-normalised in the compute dtype; the core runs in f32
+    through :func:`favor_attention` (``use_pallas``) or its plain version.
+    ``projection`` [D, m] is fixed: it gets no gradient."""
+
+    def __init__(self, head_dim: int, num_features: int = 256,
+                 eps: float = 1e-6, use_pallas: bool = True,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.eps = eps
+        self.use_pallas = use_pallas
+        self.norm = LayerNorm(head_dim, dtype)
+        self.projection = nn.Parameter(torch.zeros(head_dim, num_features),
+                                       requires_grad=False)
+        self.dtype = dtype
+
+    @torch.no_grad()
+    def _init_own(self, g: torch.Generator) -> None:
+        self.projection.copy_(orthogonal_feature_init(
+            *self.projection.shape, g))
+
+    def forward(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        q, k, v = self.norm(q), self.norm(k), self.norm(v)
+        q, k = _l2_compute_dtype(q), _l2_compute_dtype(k)
+        if mask is not None:
+            mask = mask.float()
+            if mask.dim() == 3 and mask.shape[-1] == 1:  # [B, T, 1]
+                mask = mask.transpose(1, 2)
+            elif mask.dim() == 2:                         # [B, T]
+                mask = mask[:, None, :]
+            mask = mask.contiguous()
+        fn = favor_attention if self.use_pallas else favor_attention_plain
+        out = fn(q.float().contiguous(), k.float().contiguous(),
+                 v.float().contiguous(), self.projection.float(), mask,
+                 self.eps)
+        return self.norm(out.to(self.dtype))
+
+
 class PerformerSelfAttention(nn.Module):
-    """Performer self-attention block, fused form
-    (``attention.py:107-238``): x + 0.1 * style(epilogue(MLP(favor(qkv))))."""
+    """Performer self-attention block (``attention.py:107-238``):
+    x + 0.1 * style(epilogue(MLP(favor(q, k, v)))). ``fused`` picks the
+    JAX form (see the module doc); the two have different parameters, and
+    ``models/bridge.py::unfuse_performers`` carries a fused block's
+    parameters to an unfused twin."""
 
     def __init__(self, latent_dim: int, num_heads: int, time_embed_dim: int,
                  num_features: int = 256, use_kernels: bool = True,
-                 dtype: torch.dtype = torch.float32, dropout: float = 0.0):
+                 dtype: torch.dtype = torch.float32, dropout: float = 0.0,
+                 fused: bool = True):
         super().__init__()
         D = latent_dim
+        self.num_heads = num_heads
         self.head_dim = D // num_heads
         self.num_features = num_features
+        self.time_embed_dim = time_embed_dim
         self.use_kernels = use_kernels
         self.dtype = dtype
         self.dropout = dropout
+        self.fused = fused
         xav = ("xavier", 0.1)  # fast_attention.py:155-158
         self.pre_norm = LayerNorm(D, dtype)
-        # per-block torch xavier(0.1) statistics: std 0.1*sqrt(2/(D+D))
-        self.qkv = Dense(D, 3 * D, dtype, ("normal", 0.1 * (1.0 / D) ** 0.5))
-        self.fa_norm_scale = nn.Parameter(torch.ones(self.head_dim))
-        self.fa_norm_bias = nn.Parameter(torch.zeros(self.head_dim))
-        self.fa_projection = nn.Parameter(
-            torch.zeros(self.head_dim, num_features), requires_grad=False)
+        if fused:
+            # per-block torch xavier(0.1) statistics: std 0.1*sqrt(2/(D+D))
+            self.qkv = Dense(D, 3 * D, dtype,
+                             ("normal", 0.1 * (1.0 / D) ** 0.5))
+            self.fa_norm_scale = nn.Parameter(torch.ones(self.head_dim))
+            self.fa_norm_bias = nn.Parameter(torch.zeros(self.head_dim))
+            self.fa_projection = nn.Parameter(
+                torch.zeros(self.head_dim, num_features), requires_grad=False)
+        else:
+            self.query = Dense(D, D, dtype, xav)
+            self.key = Dense(D, D, dtype, xav)
+            self.value = Dense(D, D, dtype, xav)
+            # always the kernel, as JAX builds it; use_kernels governs only
+            # the epilogue in this form
+            self.fast_attention = FastAttention(self.head_dim, num_features,
+                                                dtype=dtype)
         self.proj_out_0 = Dense(D, D, dtype, xav)
         self.proj_out_1 = Dense(D, D, dtype, xav)
         self.post_norm_scale = nn.Parameter(torch.ones(D))
@@ -89,12 +167,29 @@ class PerformerSelfAttention(nn.Module):
 
     @torch.no_grad()
     def _init_own(self, g: torch.Generator) -> None:
-        self.fa_norm_scale.fill_(1.0)
-        self.fa_norm_bias.zero_()
-        self.fa_projection.copy_(orthogonal_feature_init(
-            self.head_dim, self.num_features, g))
+        if self.fused:
+            self.fa_norm_scale.fill_(1.0)
+            self.fa_norm_bias.zero_()
+            self.fa_projection.copy_(orthogonal_feature_init(
+                self.head_dim, self.num_features, g))
         self.post_norm_scale.fill_(1.0)
         self.post_norm_bias.zero_()
+
+    def _unfused_attention(self, h, src_mask, ctx):
+        """``attention.py:181-198``: three Dense layers, heads scaled by
+        0.1 in the compute dtype, FastAttention, dropout, heads back."""
+        B, T, D = h.shape
+        H = self.num_heads
+        # JAX multiplies by the weakly typed 0.1 rounded to the compute dtype
+        tenth = torch.tensor(0.1, dtype=self.dtype).item()
+
+        def heads(t):
+            return grad_clamp(t).view(B, T, H, -1).transpose(1, 2) * tenth
+
+        attn = self.fast_attention(heads(self.query(h)), heads(self.key(h)),
+                                   heads(self.value(h)), src_mask)
+        attn = dropout(attn, self.dropout, self.training, ctx)
+        return attn.transpose(1, 2).reshape(B, T, D)
 
     def forward(self, x: torch.Tensor, emb: torch.Tensor,
                 src_mask: Optional[torch.Tensor] = None,
@@ -102,12 +197,16 @@ class PerformerSelfAttention(nn.Module):
         """x: [B, T, D]; emb: [B, D_emb]; src_mask: [B, T] float or None."""
         D = x.shape[-1]
         p, training = self.dropout, self.training
-        qkv = grad_clamp(self.qkv(self.pre_norm(x)))
-        favor = favor_qkv if self.use_kernels else favor_qkv_plain
-        attn = favor(qkv, self.fa_norm_scale.float(),
-                     self.fa_norm_bias.float(), self.fa_projection.float(),
-                     src_mask)
-        attn = dropout(attn, p, training, ctx)
+        h = self.pre_norm(x)
+        if self.fused:
+            qkv = grad_clamp(self.qkv(h))
+            favor = favor_qkv if self.use_kernels else favor_qkv_plain
+            attn = favor(qkv, self.fa_norm_scale.float(),
+                         self.fa_norm_bias.float(),
+                         self.fa_projection.float(), src_mask)
+            attn = dropout(attn, p, training, ctx)
+        else:
+            attn = self._unfused_attention(h, src_mask, ctx)
         attn = dropout(gelu(self.proj_out_0(attn)), p, training, ctx)
         attn = dropout(self.proj_out_1(attn), p, training, ctx)
         if self.use_kernels and not (training and p > 0):

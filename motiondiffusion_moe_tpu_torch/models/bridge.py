@@ -24,7 +24,16 @@ Mapping rules (each one is pinned by ``tests/test_torch_bridge.py``):
 - ``block_low_i`` / ``block_high_i`` -> ``blocks_low.i`` / ``blocks_high.i``;
 - every other leaf (raw ``self.param`` arrays such as
   ``sequence_embedding``, ``fa_projection``, the MoE ``w1``/``w2``, the
-  style blocks' ``out_kernel``) keeps its name and layout.
+  style blocks' ``out_kernel``) keeps its name and layout. An unfused
+  Performer's tree (``query``/``key``/``value`` Dense kernels,
+  ``fast_attention/norm/{scale,bias}``, ``fast_attention/projection``)
+  follows the same rules.
+
+:func:`unfuse_performers` carries a fused Performer's parameters to an
+unfused twin, as ``tests/test_ops.py`` grafts them in the JAX package: the
+merged qkv weight and bias split into their q|k|v blocks, ``fa_norm_*``
+becomes the shared ``fast_attention.norm``, ``fa_projection`` its
+``projection``, and the rest is copied.
 """
 
 from __future__ import annotations
@@ -34,6 +43,7 @@ from typing import Dict, Mapping
 
 import numpy as np
 import torch
+from torch import nn
 
 _MHA_PARTS = ("query", "key", "value", "out")
 
@@ -126,3 +136,61 @@ def jax_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
         key, x = convert_leaf(path, leaf)
         sd[key] = torch.from_numpy(np.array(x, dtype=np.float32))
     return sd
+
+
+# fused Performer leaf -> its place in the unfused twin
+_FA_PARAMS = {"fa_norm_scale": "fast_attention.norm.weight",
+              "fa_norm_bias": "fast_attention.norm.bias",
+              "fa_projection": "fast_attention.projection"}
+
+
+def unfuse_performer_state(sd: Mapping[str, torch.Tensor]
+                           ) -> Dict[str, torch.Tensor]:
+    """The state_dict of the unfused twin of every fused Performer in
+    ``sd`` (one Performer's state_dict or a whole model's): each
+    ``<p>qkv.weight`` [3D, D] / ``<p>qkv.bias`` [3D] becomes
+    ``<p>query``/``key``/``value`` (row blocks q|k|v); ``<p>fa_norm_scale``,
+    ``fa_norm_bias`` and ``fa_projection`` move under
+    ``<p>fast_attention``; every other key is kept."""
+    out = {}
+    for key, x in sd.items():
+        head, sep, last = key.rpartition(".")
+        parent = head.rpartition(".")[2]
+        if parent == "qkv" and last in ("weight", "bias"):
+            base = head[:len(head) - len("qkv")]
+            for part, block in zip(("query", "key", "value"),
+                                   x.chunk(3, dim=0)):
+                out[f"{base}{part}.{last}"] = block.clone()
+        elif last in _FA_PARAMS:
+            out[f"{head}{sep}{_FA_PARAMS[last]}"] = x
+        else:
+            out[key] = x
+    return out
+
+
+def unfuse_performers(model: nn.Module) -> nn.Module:
+    """Replace, in place, every fused ``PerformerSelfAttention`` inside
+    ``model`` by its unfused twin (``fused=False``) holding the same
+    parameters (:func:`unfuse_performer_state`), on the same device, with
+    each parameter in its source's dtype and the same mode and switches.
+    Returns ``model``."""
+    from motiondiffusion_moe_tpu_torch.models.attention import (
+        PerformerSelfAttention)
+
+    for parent in list(model.modules()):
+        for name, child in list(parent.named_children()):
+            if not (isinstance(child, PerformerSelfAttention) and child.fused):
+                continue
+            sd = unfuse_performer_state(child.state_dict())
+            twin = PerformerSelfAttention(
+                child.pre_norm.weight.shape[0], child.num_heads,
+                child.time_embed_dim, child.num_features, child.use_kernels,
+                child.dtype, child.dropout, fused=False)
+            twin.style_block.fused = child.style_block.fused
+            twin.load_state_dict(sd, strict=True)
+            twin.to(child.pre_norm.weight.device).train(child.training)
+            with torch.no_grad():
+                for key, p in twin.named_parameters():
+                    p.data = p.data.to(sd[key].dtype)
+            setattr(parent, name, twin)
+    return model

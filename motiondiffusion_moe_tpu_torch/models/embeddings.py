@@ -3,7 +3,7 @@
 Port of ``motiondiffusion_moe_tpu/models/embeddings.py``: ``grad_clamp``
 (an identity forward whose backward clamps the cotangent), the time
 embedding, the time-text fusion, ``StylizationBlock`` (with its dropout on
-the unfused path) and ``stochastic_depth``.
+the unfused path and its ``fused`` attribute) and ``stochastic_depth``.
 """
 
 from __future__ import annotations
@@ -22,6 +22,7 @@ from motiondiffusion_moe_tpu_torch.models.layers import (
     dropout,
     xavier_normal_,
 )
+from motiondiffusion_moe_tpu_torch.ops.adaln import adaln_dense
 from motiondiffusion_moe_tpu_torch.ops.performer import performer_epilogue
 
 
@@ -120,18 +121,22 @@ class StylizationBlock(nn.Module):
     Performer, whose module-wide xavier(0.1) re-init overrides it.
     ``pre_ln`` (the Performer's post-LN parameters) routes the whole
     normalisation chain through the fused :func:`performer_epilogue`; the
-    caller takes that path only when no dropout is active. Dropout (rate
-    ``dropout``, training mode only) acts on the modulated activations of
-    the unfused path.
+    caller takes that path only when no dropout is active. Otherwise, with
+    ``fused`` set and no dropout active, the body is one
+    :func:`adaln_dense` (LayerNorm, modulation and SiLU in f32, one rounding
+    before the product and one after), the JAX ``fused`` attribute that no
+    config sets. Dropout (rate ``dropout``, training mode only) acts on the
+    modulated activations of the unfused path.
     """
 
     def __init__(self, latent_dim: int, time_embed_dim: int, emb_dim: int,
                  dtype: torch.dtype = torch.float32, out_init="zeros",
-                 emb_init="lecun", dropout: float = 0.0):
+                 emb_init="lecun", dropout: float = 0.0, fused: bool = False):
         super().__init__()
         D = latent_dim
         self.dtype = dtype
         self.dropout = dropout
+        self.fused = fused
         self.out_init = out_init
         self.emb_proj = (Dense(emb_dim, time_embed_dim, dtype, emb_init)
                          if emb_dim != time_embed_dim else None)
@@ -169,6 +174,10 @@ class StylizationBlock(nn.Module):
                 pre_ln[1].float(), self.norm_scale.float(),
                 self.norm_bias.float())
             return hmod @ w + b
+        if self.fused and not (self.training and self.dropout > 0):
+            return adaln_dense(h, scale.contiguous(), shift.contiguous(),
+                               self.norm_scale.float(),
+                               self.norm_bias.float(), w, b)
         normed = F.layer_norm(h.float(), (h.shape[-1],),
                               self.norm_scale.float(), self.norm_bias.float(),
                               LN_EPS).to(dt)

@@ -28,6 +28,7 @@ from motiondiffusion_moe_tpu_torch.config import ModelConfig
 from motiondiffusion_moe_tpu_torch.models.attention import (
     CrossAttentionBlock,
     DualSelfAttentionBlock,
+    FastAttention,
     GatedCrossAttention,
     PerformerSelfAttention,
 )
@@ -161,13 +162,17 @@ class MotionTransformer(nn.Module):
             conv.bias.zero_()
 
     def set_use_kernels(self, flag: bool) -> None:
-        """Route every Performer, and with ``use_fast_xattn`` every exact
-        cross-attention, through the CUDA kernels (True) or their plain
-        PyTorch forms (False); parameters are unchanged. The MoE kernel
-        follows ``MOE_FUSED_KERNEL`` alone, as in JAX."""
+        """Route every Performer (``use_kernels``, and the FAVOR+ core of
+        an unfused one, ``use_pallas``), and with ``use_fast_xattn`` every
+        exact cross-attention, through the CUDA kernels (True) or their
+        plain PyTorch forms (False); parameters are unchanged. The MoE
+        kernel follows ``MOE_FUSED_KERNEL`` alone, as in JAX, and a
+        ``StylizationBlock`` its ``fused`` attribute alone."""
         for m in self.modules():
             if isinstance(m, PerformerSelfAttention):
                 m.use_kernels = flag
+            elif isinstance(m, FastAttention):
+                m.use_pallas = flag
             elif isinstance(m, CrossAttentionBlock):
                 m.use_fast_xattn = flag and self.config.use_fast_xattn
 

@@ -141,6 +141,24 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.mdm_xattn_fastlayout.restype = i
     lib.mdm_xattn_fastlayout_smem_bytes.argtypes = [i] * 3  # N D bf16
     lib.mdm_xattn_fastlayout_smem_bytes.restype = ctypes.c_longlong
+    lib.mdm_adaln_dense.argtypes = ([vp] * 8         # tensors
+                                    + [i] * 5        # rows T D Dout bf16
+                                    + [vp])          # stream
+    lib.mdm_adaln_dense.restype = i
+    lib.mdm_favor_attention.argtypes = ([vp] * 6     # q k v proj mask out
+                                        + [i] * 5    # B H T D M
+                                        + [f, vp])   # eps stream
+    lib.mdm_favor_attention.restype = i
+    lib.mdm_favor_attention_full.argtypes = ([vp] * 8    # tensors
+                                             + [i] * 6   # B T H D M bf16
+                                             + [f, f, vp])  # eps pre stream
+    lib.mdm_favor_attention_full.restype = i
+    lib.mdm_flash_cross_attention.argtypes = ([vp] * 4      # q k v out
+                                              + [i] * 5     # BH T N D bn
+                                              + [f, i, vp])  # scale bf16 s
+    lib.mdm_flash_cross_attention.restype = i
+    lib.mdm_flash_cross_attention_smem_bytes.argtypes = [i] * 3  # bn D bf16
+    lib.mdm_flash_cross_attention_smem_bytes.restype = ctypes.c_longlong
     return lib
 
 

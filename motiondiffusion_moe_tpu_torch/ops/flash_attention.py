@@ -1,21 +1,29 @@
-"""Fast-layout exact cross-attention as one kernel, with its plain version.
+"""Exact cross-attention kernels, with their plain versions.
 
-Counterpart of the fast-layout part of
-``motiondiffusion_moe_tpu/ops/flash_attention.py``: :func:`xattn_fastlayout`
-replaces ``xattn_fastlayout`` (Pallas kernel ``_xattn_fast_kernel``). It
-reads q ``[B, T, H*D]`` and k, v ``[B, N, H*D]`` straight in the Dense
-output layout, heads as column slices, and computes per head an exact
-softmax attention with no key mask (the reference leaves padded text keys
-unmasked): inputs widened to f32, f32 scores, softmax and ``probs @ v``,
-one rounding to q's dtype. The scores and probabilities never reach device
-memory. CUDA C++ in ``csrc/xattn_fastlayout.cu``.
+Counterpart of ``motiondiffusion_moe_tpu/ops/flash_attention.py``:
 
-The wrapper is a ``torch.autograd.Function`` whose backward is autograd
-through the plain version, as the JAX ``custom_vjp`` differentiates the
-reference (``flash_attention.py:234-242``). It runs
-:func:`xattn_fastlayout_plain` only for tensors on the CPU; for a CUDA tensor
-it launches the kernel or raises. ``xattn_fastlayout.launches`` counts the
-launches.
+- :func:`xattn_fastlayout` replaces ``xattn_fastlayout`` (Pallas kernel
+  ``_xattn_fast_kernel``). It reads q ``[B, T, H*D]`` and k, v
+  ``[B, N, H*D]`` straight in the Dense output layout, heads as column
+  slices, and computes per head an exact softmax attention with no key mask
+  (the reference leaves padded text keys unmasked). CUDA C++ in
+  ``csrc/xattn_fastlayout.cu``; a whole head's k and v sit in shared memory,
+  which bounds N.
+- :func:`flash_cross_attention` replaces ``flash_cross_attention`` (Pallas
+  kernel ``_flash_kernel``): the same function on head-major q
+  ``[B, H, T, D]`` and k, v ``[B, H, N, D]``, for any N, with an online
+  softmax over blocks of ``block_n`` keys. CUDA C++ in
+  ``csrc/flash_cross_attention.cu``.
+
+Both widen the inputs to f32 and keep the scores, the softmax and
+``probs @ v`` in f32, with one rounding to q's dtype; the scores and
+probabilities never reach device memory.
+
+Each wrapper is a ``torch.autograd.Function`` whose backward is autograd
+through the plain version, as the JAX ``custom_vjp``s differentiate their
+references (``flash_attention.py:122-129, 234-242``). It runs the plain
+version only for tensors on the CPU; for a CUDA tensor it launches the
+kernel or raises. ``<wrapper>.launches`` counts the launches.
 """
 
 from __future__ import annotations
@@ -28,6 +36,7 @@ from motiondiffusion_moe_tpu_torch.ops.performer import (
     _KERNEL_DTYPES,
     _require,
     _stream,
+    plain_vjp,
 )
 
 # head dims the CUDA library is instantiated for (small_dense 64, moe_big
@@ -118,14 +127,9 @@ class _XAttnFastLayout(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        with torch.enable_grad():
-            xs = [t.detach().requires_grad_(need) for t, need in
-                  zip(ctx.saved_tensors, ctx.needs_input_grad)]
-            out = xattn_fastlayout_plain(*xs, ctx.num_heads, ctx.scale)
-            wanted = [t for t in xs if t.requires_grad]
-            grads = iter(torch.autograd.grad(out, wanted, g))
-        return (*(next(grads) if t.requires_grad else None for t in xs),
-                None, None)
+        return (*plain_vjp(xattn_fastlayout_plain, ctx.saved_tensors,
+                           ctx.needs_input_grad, g, ctx.num_heads,
+                           ctx.scale), None, None)
 
 
 def xattn_fastlayout(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -148,3 +152,107 @@ def xattn_fastlayout(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 xattn_fastlayout.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# kernel 9: flash_cross_attention
+# ---------------------------------------------------------------------------
+
+def flash_cross_attention_plain(q: torch.Tensor, k: torch.Tensor,
+                                v: torch.Tensor,
+                                scale: Optional[float] = None
+                                ) -> torch.Tensor:
+    """The Pallas ``_flash_kernel``'s function in plain PyTorch. q:
+    [B, H, T, D]; k, v: [B, H, N, D]; no mask. Inputs widened to f32;
+    scores, softmax and ``probs @ v`` in f32; one rounding to q's dtype.
+    (The JAX CPU default, ``cross_attention_reference``, rounds the
+    probabilities to q's dtype; in f32 the two agree.)"""
+    s = scale if scale is not None else q.shape[-1] ** -0.5
+    scores = torch.einsum("bhtd,bhnd->bhtn", q.float() * s, k.float())
+    probs = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhtn,bhnd->bhtd", probs, v.float()).to(q.dtype)
+
+
+def _launch_flash(q, k, v, scale, block_n) -> torch.Tensor:
+    op = "flash_cross_attention"
+    _require(q.device.type == "cuda", f"{op}: unsupported device {q.device}")
+    _require(q.dim() == 4 and q.dtype in _KERNEL_DTYPES,
+             f"{op}: q must be a [B, H, T, D] float32 or bfloat16 tensor, "
+             f"got {q.dtype} {tuple(q.shape)}")
+    B, H, T, D = q.shape
+    _require(D in XATTN_HEAD_DIMS,
+             f"{op}: head dim {D} not in {sorted(XATTN_HEAD_DIMS)}")
+    _require(k.dim() == 4 and k.shape[:2] == (B, H) and k.shape[3] == D,
+             f"{op}: k must be [{B}, {H}, N, {D}], got {tuple(k.shape)}")
+    N = k.shape[2]
+    _require(B > 0 and H > 0 and T > 0 and N > 0, f"{op}: empty input")
+    for name, t, shape in (("q", q, (B, H, T, D)), ("k", k, (B, H, N, D)),
+                           ("v", v, (B, H, N, D))):
+        _require(t.device == q.device and t.dtype == q.dtype
+                 and tuple(t.shape) == shape and t.is_contiguous()
+                 and t.data_ptr() % 16 == 0,
+                 f"{op}: {name} must be a contiguous, 16-byte aligned "
+                 f"{q.dtype} {list(shape)} tensor on {q.device}, got "
+                 f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    from motiondiffusion_moe_tpu_torch.ops._build import library
+
+    lib = library()
+    is_bf16 = _KERNEL_DTYPES[q.dtype]
+    bn = min(block_n, N)
+    smem = lib.mdm_flash_cross_attention_smem_bytes(bn, D, is_bf16)
+    _require(smem <= MAX_SMEM_PER_BLOCK,
+             f"{op}: key blocks of {bn} rows at head dim {D} need {smem} "
+             f"bytes of shared memory, more than {MAX_SMEM_PER_BLOCK}")
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        rc = lib.mdm_flash_cross_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B * H,
+            T, N, D, bn, scale, is_bf16, _stream(q.device))
+    if rc != 0:
+        raise RuntimeError(f"{op} kernel launch failed: CUDA error {rc}")
+    flash_cross_attention.launches += 1
+    return out
+
+
+class _FlashCrossAttention(torch.autograd.Function):
+    """Kernel 9 forward; the backward is autograd through the plain
+    version, as ``_flash_bwd`` differentiates the reference."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, block_n):
+        ctx.save_for_backward(q, k, v)
+        ctx.scale = scale
+        if q.device.type == "cpu":
+            return flash_cross_attention_plain(q, k, v, scale)
+        return _launch_flash(q, k, v, scale, block_n)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (*plain_vjp(flash_cross_attention_plain, ctx.saved_tensors,
+                           ctx.needs_input_grad, g, ctx.scale), None, None)
+
+
+def flash_cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          scale: Optional[float] = None, block_q: int = 128,
+                          block_n: int = 128) -> torch.Tensor:
+    """Exact cross-attention with an online softmax (see the module doc),
+    differentiable on every device; the JAX signature. CPU tensors take
+    :func:`flash_cross_attention_plain`; CUDA tensors launch
+    ``csrc/flash_cross_attention.cu``, whose keys pass through shared
+    memory ``block_n`` rows at a time. ``block_q`` is accepted only for
+    parity with the JAX signature and is ignored: a block always takes 32
+    query rows.
+
+    On CUDA: q, k, v contiguous, 16-byte aligned, one dtype (f32 or bf16);
+    head dim in :data:`XATTN_HEAD_DIMS`; any number of keys."""
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(
+            f"flash_cross_attention: unsupported device {q.device}")
+    if block_n <= 0:
+        raise ValueError(
+            f"flash_cross_attention: block_n={block_n} must be positive")
+    s = float(scale) if scale is not None else q.shape[-1] ** -0.5
+    return _FlashCrossAttention.apply(q, k, v, s, int(block_n))
+
+
+flash_cross_attention.launches = 0

@@ -32,6 +32,7 @@ from motiondiffusion_moe_tpu_torch.ops.performer import (
     _KERNEL_DTYPES,
     _require,
     _stream,
+    plain_vjp,
 )
 
 # latent widths the CUDA library is instantiated for (multiples of 128 up
@@ -123,13 +124,8 @@ class _MoEDenseFused(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        with torch.enable_grad():
-            xs = [t.detach().requires_grad_(need) for t, need in
-                  zip(ctx.saved_tensors, ctx.needs_input_grad)]
-            out = moe_dense_fused_plain(*xs)
-            wanted = [t for t in xs if t.requires_grad]
-            grads = iter(torch.autograd.grad(out, wanted, g))
-        return tuple(next(grads) if t.requires_grad else None for t in xs)
+        return plain_vjp(moe_dense_fused_plain, ctx.saved_tensors,
+                         ctx.needs_input_grad, g)
 
 
 def moe_dense_fused(x: torch.Tensor, combine: torch.Tensor, w1: torch.Tensor,

@@ -1,29 +1,38 @@
-"""The two Performer kernels and their backward kernels, with plain versions.
+"""The Performer kernels and their backward kernels, with plain versions.
 
 Counterpart of ``motiondiffusion_moe_tpu/ops/performer_pallas.py``:
 
 - :func:`favor_qkv` replaces ``favor_attention_qkv`` (Pallas kernel
   ``_favor_qkv_kernel_v2``): the whole FastAttention body on the merged
   ``[B, T, 3*H*D]`` qkv panel. CUDA C++ in ``csrc/favor_qkv.cu``.
+- :func:`favor_attention_full` replaces ``favor_attention_full`` (Pallas
+  kernel ``_favor_full_kernel``): the same body on separate q, k, v
+  ``[B, T, H*D]``; :func:`favor_attention` replaces ``favor_attention``
+  (Pallas kernel ``_favor_kernel``): the FAVOR+ core alone, on normalised
+  q, k, v ``[B, H, T, D]``, f32 out. Both launch the kernel of
+  ``csrc/favor_qkv.cu`` in another layout (the second with the
+  normalisation compiled out).
 - :func:`performer_epilogue` replaces ``performer_epilogue`` (Pallas kernel
   ``_epilogue_kernel``): post-LN -> L2*sqrt(D) -> style-LN -> modulate ->
   SiLU in one read and one write. CUDA C++ in ``csrc/performer_epilogue.cu``.
 
-Both are ``torch.autograd.Function``s on every device. Their backward is
-:func:`favor_qkv_bwd` (Pallas ``_favor_qkv_bwd_kernel``, CUDA C++ in
-``csrc/favor_qkv_bwd.cu``) and :func:`performer_epilogue_bwd` (Pallas
-``_epilogue_bwd_kernel``, ``csrc/performer_epilogue_bwd.cu``); like the JAX
-``custom_vjp``s they save only the inputs and recompute the rest.
+All are ``torch.autograd.Function``s on every device. The backward of
+:func:`favor_qkv` and :func:`performer_epilogue` is :func:`favor_qkv_bwd`
+(Pallas ``_favor_qkv_bwd_kernel``, CUDA C++ in ``csrc/favor_qkv_bwd.cu``)
+and :func:`performer_epilogue_bwd` (Pallas ``_epilogue_bwd_kernel``,
+``csrc/performer_epilogue_bwd.cu``); like the JAX ``custom_vjp``s they save
+only the inputs and recompute the rest. The TPU kernels behind
+:func:`favor_attention` and :func:`favor_attention_full` have no backward
+kernel: their backward is autograd through the plain version.
 
-Each wrapper runs its plain PyTorch version (``*_plain``, mirroring
-``favor_qkv_reference`` / ``performer_epilogue_reference``, and autograd
-through them for the backward, mirroring ``_favor_qkv_bwd_reference`` /
-``_epilogue_bwd_reference``) only for tensors on the CPU. For a CUDA tensor
-it launches the kernel or raises: there is no fallback. Each of the four
-wrappers counts its launches in ``<wrapper>.launches``; a run can reset the
-counts and read them to show that the main path went through the kernels.
-The source notes in ``csrc/`` say what bounds each kernel on the card and
-what its design does about it.
+Each wrapper runs its plain PyTorch version (``*_plain``, mirroring the JAX
+``*_reference`` functions, and autograd through them for the backward)
+only for tensors on the CPU. For a CUDA tensor it launches the kernel or
+raises: there is no fallback. Each wrapper counts its launches in
+``<wrapper>.launches``; a run can reset the counts and read them to show
+that the main path went through the kernels. The source notes in
+``csrc/`` say what bounds each kernel on the card and what its design does
+about it.
 """
 
 from __future__ import annotations
@@ -58,22 +67,22 @@ def _l2(x: torch.Tensor) -> torch.Tensor:
 # plain versions
 # ---------------------------------------------------------------------------
 
-def favor_qkv_plain(qkv: torch.Tensor, ln_scale: torch.Tensor,
-                    ln_bias: torch.Tensor, projection: torch.Tensor,
-                    mask: Optional[torch.Tensor] = None, eps: float = 1e-6,
-                    pre_scale: float = 0.1) -> torch.Tensor:
-    """qkv: [B, T, 3*H*D] (column order q|k|v); ln_scale/ln_bias: [D];
-    projection: [D, m]; mask: [B, T] or None. Returns [B, T, H*D] in qkv's
-    dtype; everything inside runs in f32."""
-    B, T, HD3 = qkv.shape
-    HD = HD3 // 3
+def favor_full_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     ln_scale: torch.Tensor, ln_bias: torch.Tensor,
+                     projection: torch.Tensor,
+                     mask: Optional[torch.Tensor] = None, eps: float = 1e-6,
+                     pre_scale: float = 0.1) -> torch.Tensor:
+    """The kernels' normalised FAVOR+ math (``favor_full_reference``). q, k,
+    v: [B, T, H*D]; ln_scale/ln_bias: [D]; projection: [D, m]; mask: [B, T]
+    or None. Returns [B, T, H*D] in q's dtype; everything inside runs in
+    f32."""
+    B, T, HD = q.shape
     D = projection.shape[0]
     H = HD // D
 
     def heads(x):
         return x.reshape(B, T, H, D).float() * pre_scale
 
-    q, k, v = qkv.split(HD, dim=-1)
     qh = _l2(_ln(heads(q), ln_scale, ln_bias))
     kh = _l2(_ln(heads(k), ln_scale, ln_bias))
     vh = _ln(heads(v), ln_scale, ln_bias)
@@ -88,7 +97,38 @@ def favor_qkv_plain(qkv: torch.Tensor, ln_scale: torch.Tensor,
     out = torch.einsum("bthm,bhmd->bthd", q_proj, kv) * 0.1
     den = (q_proj * k_proj).sum(-1, keepdim=True).clamp_min(eps)
     out = _ln(out / den, ln_scale, ln_bias)
-    return out.reshape(B, T, HD).to(qkv.dtype)
+    return out.reshape(B, T, HD).to(q.dtype)
+
+
+def favor_qkv_plain(qkv: torch.Tensor, ln_scale: torch.Tensor,
+                    ln_bias: torch.Tensor, projection: torch.Tensor,
+                    mask: Optional[torch.Tensor] = None, eps: float = 1e-6,
+                    pre_scale: float = 0.1) -> torch.Tensor:
+    """qkv: [B, T, 3*H*D] (column order q|k|v); the rest as
+    :func:`favor_full_plain`. Returns [B, T, H*D] in qkv's dtype."""
+    return favor_full_plain(*qkv.split(qkv.shape[-1] // 3, dim=-1), ln_scale,
+                            ln_bias, projection, mask, eps, pre_scale)
+
+
+def favor_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          projection: torch.Tensor,
+                          mask: Optional[torch.Tensor] = None,
+                          eps: float = 1e-6) -> torch.Tensor:
+    """The FAVOR+ core alone (``favor_attention_reference``, the Pallas
+    ``_favor_kernel``) on q, k, v [B, H, T, D] that the caller normalised,
+    widened to f32; projection [D, m]; mask [B, 1, T] or None. Returns f32
+    [B, H, T, D]."""
+    proj = projection.float()
+    q_proj = torch.exp(torch.clamp(
+        torch.einsum("bhtd,dm->bhtm", q.float(), proj), -15, 15)) * 0.1
+    k_proj = torch.exp(torch.clamp(
+        torch.einsum("bhtd,dm->bhtm", k.float(), proj), -15, 15)) * 0.1
+    if mask is not None:
+        k_proj = k_proj * mask.float()[..., None]
+    kv = torch.einsum("bhtm,bhtd->bhmd", k_proj, v.float()) * 0.1
+    out = torch.einsum("bhtm,bhmd->bhtd", q_proj, kv) * 0.1
+    den = (q_proj * k_proj).sum(-1, keepdim=True)
+    return out / den.clamp_min(eps)
 
 
 def performer_epilogue_plain(y: torch.Tensor, scale: torch.Tensor,
@@ -156,33 +196,43 @@ def _check_f32_vec(name: str, t: torch.Tensor, n: int,
              f"{device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
 
 
-def _check_favor(op: str, qkv, ln_scale, ln_bias, projection, mask):
-    """Validate the inputs of the favor kernels; returns (B, T, H, D, m)."""
-    _require(qkv.device.type == "cuda", f"{op}: unsupported device "
-                                        f"{qkv.device}")
-    _require(qkv.dim() == 3 and qkv.dtype in _KERNEL_DTYPES
-             and qkv.is_contiguous(),
-             f"{op}: qkv must be a contiguous [B, T, 3*H*D] float32 or "
-             f"bfloat16 tensor, got {qkv.dtype} {tuple(qkv.shape)}")
-    B, T, HD3 = qkv.shape
+def _check_projection(op: str, projection, dev):
+    """Validate the random-feature projection; returns (D, m)."""
     _require(projection.dim() == 2, f"{op}: projection must be [D, m]")
     D, m = projection.shape
     _require((D, m) in FAVOR_SHAPES,
              f"{op}: (D, m)=({D}, {m}) not in {sorted(FAVOR_SHAPES)}")
-    _require(HD3 % (3 * D) == 0 and B > 0 and T > 0,
-             f"{op}: qkv width {HD3} is not 3*H*{D}")
-    dev = qkv.device
-    _check_f32_vec("ln_scale", ln_scale, D, dev)
-    _check_f32_vec("ln_bias", ln_bias, D, dev)
     _require(projection.device == dev and projection.dtype == torch.float32
              and projection.is_contiguous(),
              f"{op}: projection must be contiguous float32 on {dev}")
+    return D, m
+
+
+def _check_favor(op: str, qkv, ln_scale, ln_bias, projection, mask,
+                 parts: int = 3):
+    """Validate the inputs of the normalised favor kernels, ``qkv`` being
+    the merged panel (``parts`` 3) or q (``parts`` 1); returns (B, T, H, D,
+    m)."""
+    _require(qkv.device.type == "cuda", f"{op}: unsupported device "
+                                        f"{qkv.device}")
+    name = "qkv" if parts == 3 else "q"
+    _require(qkv.dim() == 3 and qkv.dtype in _KERNEL_DTYPES
+             and qkv.is_contiguous(),
+             f"{op}: {name} must be a contiguous [B, T, {parts}*H*D] float32 "
+             f"or bfloat16 tensor, got {qkv.dtype} {tuple(qkv.shape)}")
+    B, T, HD3 = qkv.shape
+    D, m = _check_projection(op, projection, qkv.device)
+    _require(HD3 % (parts * D) == 0 and B > 0 and T > 0,
+             f"{op}: {name} width {HD3} is not {parts}*H*{D}")
+    dev = qkv.device
+    _check_f32_vec("ln_scale", ln_scale, D, dev)
+    _check_f32_vec("ln_bias", ln_bias, D, dev)
     if mask is not None:
         _require(mask.device == dev and mask.dtype == torch.float32
                  and mask.shape == (B, T) and mask.is_contiguous(),
                  f"{op}: mask must be a contiguous float32 [{B}, {T}] "
                  f"tensor on {dev}, got {mask.dtype} {tuple(mask.shape)}")
-    return B, T, HD3 // (3 * D), D, m
+    return B, T, HD3 // (parts * D), D, m
 
 
 def _check_epilogue(op: str, y, scale, shift, vecs):
@@ -206,6 +256,21 @@ def _check_epilogue(op: str, y, scale, shift, vecs):
                         "style_bias"), vecs):
         _check_f32_vec(name, t, D, dev)
     return B, T, D
+
+
+def plain_vjp(plain, saved, needs_input_grad, g, *static):
+    """The backward of a kernel wrapper whose TPU kernel has no backward
+    kernel: autograd through its plain version ``plain(*saved, *static)``
+    from the saved inputs, as the JAX ``custom_vjp``s differentiate their
+    references. Returns one gradient (or None) per saved input."""
+    with torch.enable_grad():
+        xs = [None if t is None else t.detach().requires_grad_(need)
+              for t, need in zip(saved, needs_input_grad)]
+        out = plain(*xs, *static)
+        wanted = [t for t in xs if t is not None and t.requires_grad]
+        grads = iter(torch.autograd.grad(out, wanted, g) if wanted else ())
+    return tuple(next(grads) if t is not None and t.requires_grad else None
+                 for t in xs)
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -433,3 +498,157 @@ def performer_epilogue(y: torch.Tensor, scale: torch.Tensor,
 
 
 performer_epilogue.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# kernels 8 and 10: the same CUDA kernel, other layouts; their backward is
+# autograd through the plain version (the TPU kernels have no backward
+# kernel either)
+# ---------------------------------------------------------------------------
+
+def _launch_favor_attention(q, k, v, projection, mask, eps) -> torch.Tensor:
+    op = "favor_attention"
+    _require(q.device.type == "cuda", f"{op}: unsupported device {q.device}")
+    _require(q.dim() == 4, f"{op}: q must be [B, H, T, D], got "
+                           f"{tuple(q.shape)}")
+    B, H, T, D = q.shape
+    dev = q.device
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _require(t.device == dev and t.dtype == torch.float32
+                 and t.shape == q.shape and t.is_contiguous(),
+                 f"{op}: {name} must be a contiguous float32 "
+                 f"{list(q.shape)} tensor on {dev}, got {t.dtype} "
+                 f"{tuple(t.shape)} on {t.device}")
+    _require(B > 0 and H > 0 and T > 0, f"{op}: empty input")
+    Dp, m = _check_projection(op, projection, dev)
+    _require(Dp == D, f"{op}: projection is [{Dp}, {m}] for head dim {D}")
+    if mask is not None:
+        _require(mask.device == dev and mask.dtype == torch.float32
+                 and mask.shape == (B, 1, T) and mask.is_contiguous(),
+                 f"{op}: mask must be a contiguous float32 [{B}, 1, {T}] "
+                 f"tensor on {dev}, got {mask.dtype} {tuple(mask.shape)}")
+    from motiondiffusion_moe_tpu_torch.ops._build import library
+
+    lib = library()
+    out = torch.empty_like(q)
+    with torch.cuda.device(dev):
+        rc = lib.mdm_favor_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), projection.data_ptr(),
+            _ptr(mask), out.data_ptr(), B, H, T, D, m, eps, _stream(dev))
+    if rc != 0:
+        raise RuntimeError(
+            f"favor_attention kernel launch failed: CUDA error {rc}")
+    favor_attention.launches += 1
+    return out
+
+
+class _FavorAttention(torch.autograd.Function):
+    """Kernel 8 forward; the backward is autograd through the plain
+    version, as ``_favor_bwd`` differentiates the reference."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, projection, mask, eps):
+        ctx.save_for_backward(q, k, v, projection, mask)
+        ctx.eps = eps
+        if q.device.type == "cpu":
+            return favor_attention_plain(q, k, v, projection, mask, eps)
+        return _launch_favor_attention(q, k, v, projection, mask, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (*plain_vjp(favor_attention_plain, ctx.saved_tensors,
+                           ctx.needs_input_grad, g, ctx.eps), None)
+
+
+def favor_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    projection: torch.Tensor,
+                    mask: Optional[torch.Tensor] = None,
+                    eps: float = 1e-6) -> torch.Tensor:
+    """The FAVOR+ core on normalised q, k, v [B, H, T, D] (the counterpart
+    of ``favor_attention``, Pallas kernel ``_favor_kernel``): f32 out,
+    differentiable on every device. CPU tensors take
+    :func:`favor_attention_plain`; CUDA tensors launch the kernel of
+    ``csrc/favor_qkv.cu`` with the normalisation compiled out.
+
+    On CUDA: q, k, v contiguous float32 [B, H, T, D]; projection contiguous
+    float32 with (D, m) one of :data:`FAVOR_SHAPES`; mask contiguous float32
+    [B, 1, T] or None."""
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"favor_attention: unsupported device {q.device}")
+    return _FavorAttention.apply(q, k, v, projection, mask, eps)
+
+
+favor_attention.launches = 0
+
+
+def _launch_favor_full(q, k, v, ln_scale, ln_bias, projection, mask, eps,
+                       pre_scale) -> torch.Tensor:
+    op = "favor_attention_full"
+    B, T, H, D, m = _check_favor(op, q, ln_scale, ln_bias, projection, mask,
+                                 parts=1)
+    for name, t in (("k", k), ("v", v)):
+        _require(t.device == q.device and t.dtype == q.dtype
+                 and t.shape == q.shape and t.is_contiguous(),
+                 f"{op}: {name} must be a contiguous {q.dtype} "
+                 f"{list(q.shape)} tensor on {q.device}, got {t.dtype} "
+                 f"{tuple(t.shape)} on {t.device}")
+    from motiondiffusion_moe_tpu_torch.ops._build import library
+
+    lib = library()
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        rc = lib.mdm_favor_attention_full(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), ln_scale.data_ptr(),
+            ln_bias.data_ptr(), projection.data_ptr(), _ptr(mask),
+            out.data_ptr(), B, T, H, D, m, _KERNEL_DTYPES[q.dtype], eps,
+            pre_scale, _stream(q.device))
+    if rc != 0:
+        raise RuntimeError(
+            f"favor_attention_full kernel launch failed: CUDA error {rc}")
+    favor_attention_full.launches += 1
+    return out
+
+
+class _FavorFull(torch.autograd.Function):
+    """Kernel 10 forward; the backward is autograd through the plain
+    version, as ``_favor_full_bwd`` differentiates the reference."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, ln_scale, ln_bias, projection, mask, eps,
+                pre_scale):
+        args = (q, k, v, ln_scale, ln_bias, projection, mask)
+        ctx.save_for_backward(*args)
+        ctx.eps, ctx.pre_scale = eps, pre_scale
+        if q.device.type == "cpu":
+            return favor_full_plain(*args, eps, pre_scale)
+        return _launch_favor_full(*args, eps, pre_scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (*plain_vjp(favor_full_plain, ctx.saved_tensors,
+                           ctx.needs_input_grad, g, ctx.eps, ctx.pre_scale),
+                None, None)
+
+
+def favor_attention_full(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         ln_scale: torch.Tensor, ln_bias: torch.Tensor,
+                         projection: torch.Tensor,
+                         mask: Optional[torch.Tensor] = None,
+                         eps: float = 1e-6,
+                         pre_scale: float = 0.1) -> torch.Tensor:
+    """Kernel 1's whole FastAttention body on separate q, k, v [B, T, H*D]
+    (the counterpart of ``favor_attention_full``, Pallas kernel
+    ``_favor_full_kernel``), differentiable on every device. CPU tensors
+    take :func:`favor_full_plain`; CUDA tensors launch the kernel of
+    ``csrc/favor_qkv.cu`` with three base pointers.
+
+    On CUDA: q, k, v contiguous, one dtype (f32 or bf16); ln_scale,
+    ln_bias, projection and mask as for :func:`favor_qkv`."""
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(
+            f"favor_attention_full: unsupported device {q.device}")
+    return _FavorFull.apply(q, k, v, ln_scale, ln_bias, projection, mask, eps,
+                            pre_scale)
+
+
+favor_attention_full.launches = 0

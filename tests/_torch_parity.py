@@ -107,3 +107,14 @@ def rel_rms(a, b) -> float:
     a = np.asarray(a, np.float64)
     b = np.asarray(b, np.float64)
     return float(np.sqrt(np.mean((a - b) ** 2) / np.mean(b ** 2)))
+
+
+def assert_bf16_close(out: np.ndarray, ref: np.ndarray, ulps: int = 1) -> None:
+    """Within ``ulps`` bf16 ulps of ``ref`` plus 2^-12 of max|ref|: both
+    sides round the same f32 values, and a value whose f32 sums land on
+    either side of a rounding boundary differs by one ulp."""
+    ulp = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(ref), 2.0 ** -126)))
+                  - 7)
+    err = np.abs(out - ref)
+    assert (err <= ulps * ulp + 2.0 ** -12 * np.abs(ref).max()).all(), (
+        err.max())

@@ -183,3 +183,105 @@ def test_stacked_scan_layout_is_unstacked():
     assert a.keys() == b.keys()
     for k in a:
         np.testing.assert_array_equal(a[k].numpy(), b[k].numpy())
+
+
+def _performer_trees():
+    """Seeded flax trees of an unfused Performer and of the fused one
+    grafted from it as ``tests/test_ops.py`` grafts them (q|k|v
+    concatenated, the FastAttention norm and projection moved to the
+    ``fa_*`` leaves)."""
+    from motiondiffusion_moe_tpu.models.attention import (
+        PerformerSelfAttention)
+
+    kw = dict(latent_dim=16, num_heads=2, dropout=0.0, time_embed_dim=64,
+              num_features=32)
+    args = (_x(2, 6, 16), _x(2, 16, seed=1),
+            (np.arange(6)[None] < np.array([6, 4])[:, None]).astype(
+                np.float32)[..., None])
+    pu = perturb_zero_leaves(random_params(
+        PerformerSelfAttention(**kw, fused=False), *args))
+    pf = {k: v for k, v in pu.items() if k not in (
+        "query", "key", "value", "fast_attention")}
+    pf["qkv"] = {n: np.concatenate([pu[p][n] for p in ("query", "key",
+                                                       "value")], axis=-1)
+                 for n in ("kernel", "bias")}
+    pf["fa_norm_scale"] = pu["fast_attention"]["norm"]["scale"]
+    pf["fa_norm_bias"] = pu["fast_attention"]["norm"]["bias"]
+    pf["fa_projection"] = pu["fast_attention"]["projection"]
+    return kw, args, pu, pf
+
+
+def test_unfused_performer_tree_keys_and_layouts():
+    from motiondiffusion_moe_tpu.models.attention import (
+        PerformerSelfAttention)
+    from motiondiffusion_moe_tpu_torch.models.attention import (
+        PerformerSelfAttention as PortPerformer)
+
+    kw, args, pu, _ = _performer_trees()
+    sd = jax_to_state_dict(pu)
+    np.testing.assert_array_equal(sd["query.weight"].numpy(),
+                                  np.asarray(pu["query"]["kernel"]).T)
+    np.testing.assert_array_equal(sd["fast_attention.norm.weight"].numpy(),
+                                  pu["fast_attention"]["norm"]["scale"])
+    np.testing.assert_array_equal(  # a raw param keeps its [D, m] layout
+        sd["fast_attention.projection"].numpy(),
+        pu["fast_attention"]["projection"])
+    assert not any(k.startswith(("qkv", "fa_")) for k in sd)
+    port = PortPerformer(16, 2, 64, 32, fused=False)
+    load_into(port, pu)  # strict
+    assert not port.fast_attention.projection.requires_grad
+    ref = PerformerSelfAttention(**kw, fused=False).apply({"params": pu},
+                                                          *args)
+    out = port(t(args[0]), t(args[1]), t(args[2][..., 0]))
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref),
+                               atol=ATOL)
+
+
+def test_fused_to_unfused_graft():
+    """unfuse_performer_state inverts the JAX graft leaf for leaf, and
+    unfuse_performers gives a twin with the same parameters, dtypes and
+    outputs."""
+    from motiondiffusion_moe_tpu_torch.models.attention import (
+        PerformerSelfAttention as PortPerformer)
+    from motiondiffusion_moe_tpu_torch.models.bridge import (
+        unfuse_performer_state,
+        unfuse_performers,
+    )
+    from motiondiffusion_moe_tpu_torch.pipeline import cast_params_
+
+    _, args, pu, pf = _performer_trees()
+    expect = jax_to_state_dict(pu)
+    got = unfuse_performer_state(jax_to_state_dict(pf))
+    assert got.keys() == expect.keys()
+    for k in got:
+        np.testing.assert_array_equal(got[k].numpy(), expect[k].numpy())
+    # whole-model keys keep their prefix
+    prefixed = unfuse_performer_state(
+        {"blocks_low.0.dual_self_attn.local_attn.qkv.bias": torch.arange(6.),
+         "blocks_low.0.dual_self_attn.local_attn.fa_norm_bias": torch.ones(2)})
+    assert sorted(prefixed) == [
+        "blocks_low.0.dual_self_attn.local_attn.fast_attention.norm.bias",
+        "blocks_low.0.dual_self_attn.local_attn.key.bias",
+        "blocks_low.0.dual_self_attn.local_attn.query.bias",
+        "blocks_low.0.dual_self_attn.local_attn.value.bias"]
+
+    class Holder(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.attn = PortPerformer(16, 2, 64, 32)
+
+    x, emb, mask = t(args[0]), t(args[1]), t(args[2][..., 0])
+    holder = Holder()
+    load_into(holder.attn, pf)
+    with torch.no_grad():
+        ref = holder.attn(x, emb, mask)
+        unfuse_performers(holder)
+        out = holder.attn(x, emb, mask)
+    assert not holder.attn.fused and not holder.attn.training
+    np.testing.assert_allclose(out.numpy(), ref.numpy(), atol=ATOL)
+    # bf16 weights stay bf16, the projection f32 (as the pipeline keeps it)
+    holder = Holder()
+    cast_params_(holder, torch.bfloat16)
+    unfuse_performers(holder)
+    assert holder.attn.query.weight.dtype == torch.bfloat16
+    assert holder.attn.fast_attention.projection.dtype == torch.float32

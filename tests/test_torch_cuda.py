@@ -28,6 +28,7 @@ import numpy as np
 import pytest
 import torch
 
+from motiondiffusion_moe_tpu_torch.ops import adaln as AD
 from motiondiffusion_moe_tpu_torch.ops import flash_attention as XA
 from motiondiffusion_moe_tpu_torch.ops import moe as MOE
 from motiondiffusion_moe_tpu_torch.ops import performer as P
@@ -436,4 +437,261 @@ def test_pipeline_with_both_fused_paths_on_the_card_matches_the_cpu(
     assert XA.xattn_fastlayout.launches - n_xa == 4 * 2
     ref, out = outs["cpu"], outs[str(dev)]
     assert torch.isfinite(out).all()
+    assert (out - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
+
+
+# ------------------------------------------------------- kernels 7 to 10
+
+def _adaln_inputs(dev, B, T, D, Dout, dtype, seed=11):
+    rng = np.random.default_rng(seed)
+    arrays = (rng.standard_normal((B, T, D)),
+              0.3 * rng.standard_normal((B, D)),
+              0.3 * rng.standard_normal((B, D)),
+              1 + 0.1 * rng.standard_normal(D), 0.1 * rng.standard_normal(D),
+              rng.standard_normal((D, Dout)) * D ** -0.5,
+              0.1 * rng.standard_normal(Dout))
+    ts = [torch.from_numpy(np.asarray(a, np.float32)).to(dev) for a in arrays]
+    return [t if i in (3, 4) else t.to(dtype) for i, t in enumerate(ts)]
+
+
+@pytest.mark.parametrize("shape", [(32, 196, 512, 512), (3, 37, 256, 256),
+                                   (2, 50, 768, 768), (2, 13, 512, 128)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_adaln_dense_kernel_matches_plain(dev, shape, dtype):
+    B, T, D, Dout = shape
+    args = _adaln_inputs(dev, B, T, D, Dout, dtype)
+    n0 = AD.adaln_dense.launches
+    out = AD.adaln_dense(*args)
+    torch.cuda.synchronize()
+    assert AD.adaln_dense.launches == n0 + 1
+    ref = AD.adaln_dense_plain(*args)
+    assert out.dtype == dtype and out.shape == (B, T, Dout)
+    _assert_close(out, ref, dtype)
+    assert torch.equal(AD.adaln_dense(*args), out)  # no atomics
+
+
+def _normalised_heads(dev, B, H, T, D, seed):
+    """q, k, v [B, H, T, D] as FastAttention hands them over: q and k rows
+    of unit length."""
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.from_numpy(rng.standard_normal((B, H, T, D)).astype(
+        np.float32)).to(dev) for _ in range(3))
+    q = q / q.norm(dim=-1, keepdim=True)
+    k = k / k.norm(dim=-1, keepdim=True)
+    return q, k, v
+
+
+@pytest.mark.parametrize("masked", [True, False])
+@pytest.mark.parametrize("shape", [(4, 4, 196, 128, 128), (3, 2, 37, 64, 128),
+                                   (2, 8, 98, 96, 128)])
+def test_favor_attention_kernel_matches_plain(dev, shape, masked):
+    B, H, T, D, m = shape
+    _, _, _, proj, mask = _favor_inputs(dev, B, T, H, D, m, torch.float32)
+    q, k, v = _normalised_heads(dev, B, H, T, D, seed=12)
+    mask = mask[:, None, :].contiguous() if masked else None
+    n0 = P.favor_attention.launches
+    out = P.favor_attention(q, k, v, proj, mask)
+    torch.cuda.synchronize()
+    assert P.favor_attention.launches == n0 + 1
+    ref = P.favor_attention_plain(q, k, v, proj, mask)
+    assert out.dtype == torch.float32 and out.shape == q.shape
+    if not masked:
+        _assert_close_f32(out, ref)
+        return
+    # a masked frame's denominator is the eps floor, so its row is ~1e5
+    # larger: each kind of row is held to its own scale
+    valid = (mask[:, :, :, None] > 0).expand(B, H, T, D)
+    _assert_close_f32(out[valid], ref[valid])
+    _assert_close_f32(out[~valid], ref[~valid])
+
+
+def _assert_close_f32(out, ref):
+    assert torch.isfinite(out).all()
+    assert (out - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
+
+
+@pytest.mark.parametrize("shape", [(3, 37, 2, 64, 128), (4, 196, 4, 128, 128),
+                                   (2, 98, 8, 96, 128)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_favor_attention_full_kernel_matches_plain(dev, shape, dtype):
+    """Three pointers into kernel 1's kernel: against the plain version, and
+    bit for bit against kernel 1 on the same q, k, v merged into one
+    panel."""
+    B, T, H, D, m = shape
+    qkv, scale, bias, proj, mask = _favor_inputs(dev, B, T, H, D, m, dtype,
+                                                 seed=13)
+    q, k, v = (x.contiguous() for x in qkv.split(H * D, dim=-1))
+    n0 = P.favor_attention_full.launches
+    out = P.favor_attention_full(q, k, v, scale, bias, proj, mask)
+    torch.cuda.synchronize()
+    assert P.favor_attention_full.launches == n0 + 1
+    ref = P.favor_full_plain(q, k, v, scale, bias, proj, mask)
+    assert out.dtype == dtype and out.shape == q.shape
+    err = (out.float() - ref.float()).abs()
+    if dtype == torch.float32:
+        assert err.max().item() <= 1e-4 * ref.abs().max().item()
+    else:
+        assert (err <= 2 ** -7 * ref.float().abs() + 1e-3).all()
+    assert torch.equal(out, P.favor_qkv(qkv, scale, bias, proj, mask))
+
+
+@pytest.mark.parametrize("shape", [(32, 4, 196, 85, 128, 128),
+                                   (2, 4, 50, 1024, 128, 128),
+                                   (3, 8, 37, 20, 96, 128),
+                                   (2, 2, 33, 300, 64, 64),
+                                   (1, 2, 7, 5, 128, 128)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_cross_attention_kernel_matches_plain(dev, shape, dtype):
+    B, H, T, N, D, block_n = shape
+    rng = np.random.default_rng(14)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               .to(dev, dtype) for s in ((B, H, T, D), (B, H, N, D),
+                                         (B, H, N, D)))
+    n0 = XA.flash_cross_attention.launches
+    out = XA.flash_cross_attention(q, k, v, block_n=block_n)
+    torch.cuda.synchronize()
+    assert XA.flash_cross_attention.launches == n0 + 1
+    ref = XA.flash_cross_attention_plain(q, k, v)
+    assert out.dtype == dtype and out.shape == q.shape
+    err = (out.float() - ref.float()).abs()
+    if dtype == torch.float32:
+        assert err.max().item() <= 1e-4 * ref.abs().max().item()
+    else:
+        assert (err <= 2 ** -7 * ref.float().abs() + 1e-3).all()
+
+
+def test_new_wrappers_never_run_their_plain_versions_on_the_card(
+        dev, monkeypatch):
+    """The plain versions made to raise: the four wrappers still give
+    their results on CUDA tensors (they launch), and only on the CPU reach
+    the plain version."""
+    def boom(*a, **k):
+        raise AssertionError("plain version called")
+
+    for mod, name in ((AD, "adaln_dense_plain"),
+                      (P, "favor_attention_plain"),
+                      (P, "favor_full_plain"),
+                      (XA, "flash_cross_attention_plain")):
+        monkeypatch.setattr(mod, name, boom)
+    args = _adaln_inputs(dev, 2, 9, 256, 256, torch.float32)
+    AD.adaln_dense(*args)
+    qkv, scale, bias, proj, mask = _favor_inputs(dev, 2, 9, 2, 64, 128,
+                                                 torch.float32)
+    q, k, v = (x.contiguous() for x in qkv.split(128, dim=-1))
+    P.favor_attention_full(q, k, v, scale, bias, proj, mask)
+    qh, kh, vh = _normalised_heads(dev, 2, 2, 9, 64, seed=15)
+    P.favor_attention(qh, kh, vh, proj, mask[:, None, :].contiguous())
+    XA.flash_cross_attention(qh, kh, vh)
+    torch.cuda.synchronize()
+    with pytest.raises(AssertionError):
+        AD.adaln_dense(*[a.cpu() for a in args])
+
+
+def test_new_wrappers_raise_on_what_the_kernels_do_not_take(dev):
+    args = _adaln_inputs(dev, 2, 9, 256, 256, torch.float32)
+    with pytest.raises(ValueError):  # D not instantiated
+        AD.adaln_dense(*_adaln_inputs(dev, 2, 9, 384, 384, torch.float32))
+    with pytest.raises(ValueError):  # Dout not a multiple of 64
+        AD.adaln_dense(*_adaln_inputs(dev, 2, 9, 256, 100, torch.float32))
+    with pytest.raises(ValueError):  # mixed dtypes
+        AD.adaln_dense(args[0].bfloat16(), *args[1:])
+    with pytest.raises(ValueError):  # ln vectors not f32
+        AD.adaln_dense(*args[:3], args[3].double(), *args[4:])
+    qkv, scale, bias, proj, mask = _favor_inputs(dev, 2, 9, 2, 64, 128,
+                                                 torch.float32)
+    q, k, v = (x.contiguous() for x in qkv.split(128, dim=-1))
+    with pytest.raises(ValueError):  # mixed dtypes
+        P.favor_attention_full(q, k.bfloat16(), v, scale, bias, proj, mask)
+    with pytest.raises(ValueError):  # (D, m) not instantiated
+        P.favor_attention_full(q, k, v, scale, bias,
+                               proj[:, :64].contiguous(), mask)
+    qh, kh, vh = _normalised_heads(dev, 2, 2, 9, 64, seed=16)
+    with pytest.raises(ValueError):  # bf16: the core takes f32
+        P.favor_attention(qh.bfloat16(), kh, vh, proj)
+    with pytest.raises(ValueError):  # mask [B, T], not [B, 1, T]
+        P.favor_attention(qh, kh, vh, proj, mask)
+    with pytest.raises(ValueError):  # not contiguous
+        P.favor_attention(qh.transpose(1, 2).contiguous().transpose(1, 2),
+                          kh, vh, proj)
+    x = torch.zeros(1, 2, 8, 80, device=dev)
+    with pytest.raises(ValueError):  # head dim 80
+        XA.flash_cross_attention(x, x, x)
+    with pytest.raises(ValueError):  # k of another batch
+        XA.flash_cross_attention(qh, kh[:1].contiguous(), vh[:1].contiguous())
+
+
+def test_new_wrappers_differentiate_through_the_plain_versions(dev):
+    """On the card the four wrappers' gradients are autograd of their plain
+    versions on the same inputs."""
+    def check(fn, plain, args, wanted):
+        xs = [a.clone().requires_grad_(i in wanted) for i, a in
+              enumerate(args)]
+        ys = [a.clone().requires_grad_(i in wanted) for i, a in
+              enumerate(args)]
+        out = fn(*xs)
+        g = torch.randn_like(out)
+        (out * g).sum().backward()
+        (plain(*ys) * g).sum().backward()
+        for i in wanted:
+            torch.testing.assert_close(xs[i].grad, ys[i].grad, rtol=1e-5,
+                                       atol=1e-6)
+
+    check(AD.adaln_dense, AD.adaln_dense_plain,
+          _adaln_inputs(dev, 2, 30, 512, 512, torch.float32), range(7))
+    qkv, scale, bias, proj, mask = _favor_inputs(dev, 2, 30, 4, 128, 128,
+                                                 torch.float32, seed=17)
+    q, k, v = (x.contiguous() for x in qkv.split(512, dim=-1))
+    check(P.favor_attention_full, P.favor_full_plain,
+          [q, k, v, scale, bias, proj, mask], range(5))
+    qh, kh, vh = _normalised_heads(dev, 2, 4, 30, 128, seed=18)
+    check(P.favor_attention, P.favor_attention_plain,
+          [qh, kh, vh, proj, mask[:, None, :].contiguous()], range(3))
+    kv = torch.randn(2, 4, 200, 128, device=dev)
+    check(XA.flash_cross_attention, XA.flash_cross_attention_plain,
+          [qh, kv, kv.flip(2).contiguous()], range(3))
+
+
+def test_module_forms_on_the_card_match_the_cpu(dev):
+    """A small denoiser (latent 256, head 64, 128 features) with every
+    style block fused and every Performer unfused: on the card through
+    kernels 2, 7 and 8 against the same on the CPU; exact launch counts."""
+    from motiondiffusion_moe_tpu_torch.config import ModelConfig
+    from motiondiffusion_moe_tpu_torch.models.bridge import (
+        unfuse_performers)
+    from motiondiffusion_moe_tpu_torch.models.embeddings import (
+        StylizationBlock)
+    from motiondiffusion_moe_tpu_torch.models.layers import init_weights
+    from motiondiffusion_moe_tpu_torch.models.transformer import (
+        MotionTransformer)
+
+    cfg = ModelConfig(input_feats=26, max_frames=40, latent_dim=256,
+                      ff_size=64, num_layers=1, num_heads=4, num_experts=4,
+                      text_latent_dim=32, text_max_tokens=12,
+                      dtype="float32")
+    model = init_weights(MotionTransformer(cfg), 0)
+    g = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for p in model.parameters():
+            if not p.any():
+                p.normal_(0.0, 0.02, generator=g)
+    unfuse_performers(model)
+    for m in model.modules():
+        if isinstance(m, StylizationBlock):
+            m.fused = True
+    model.eval()
+    x = torch.randn(2, 40, 26, generator=g)
+    t = torch.tensor([5, 90])
+    length = torch.tensor([40, 17])
+    ids = torch.randint(1, 100, (2, 12), generator=g)
+    with torch.no_grad():
+        ref = model(x, t, length, text_ids=ids)
+        model.to(dev)
+        counts = (AD.adaln_dense, P.favor_attention, P.performer_epilogue,
+                  P.favor_qkv)
+        n0 = [c.launches for c in counts]
+        out = model(*(a.to(dev) for a in (x, t, length)),
+                    text_ids=ids.to(dev)).cpu()
+    made = [c.launches - n for c, n in zip(counts, n0)]
+    # 2 blocks: 4 Performers, 4 non-Performer style blocks
+    assert made == [4, 4, 4, 0]
     assert (out - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()

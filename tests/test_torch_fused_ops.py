@@ -54,7 +54,13 @@ from motiondiffusion_moe_tpu_torch.ops.moe import (
     moe_dense_fused_plain,
 )
 
-from tests._torch_parity import load_into, random_params, rel_rms, t
+from tests._torch_parity import (
+    assert_bf16_close,
+    load_into,
+    random_params,
+    rel_rms,
+    t,
+)
 
 F32_TOL = 1e-5
 MODULE_BF16_REL_RMS = 5e-4
@@ -64,14 +70,6 @@ DTYPES = {"float32": (jnp.float32, torch.float32),
 
 def _f32(a) -> np.ndarray:
     return np.asarray(jnp.asarray(a).astype(jnp.float32))
-
-
-def _assert_bf16_close(out: np.ndarray, ref: np.ndarray) -> None:
-    """Within one bf16 ulp of ``ref`` plus 2^-12 of max|ref|."""
-    ulp = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(ref), 2.0 ** -126)))
-                  - 7)
-    err = np.abs(out - ref)
-    assert (err <= ulp + 2.0 ** -12 * np.abs(ref).max()).all(), err.max()
 
 
 # ---------------------------------------------------------------- MoE op
@@ -120,7 +118,7 @@ def test_moe_dense_fused_plain_matches_jax(S, dtype):
         if dtype == "float32":
             np.testing.assert_allclose(out, r, atol=F32_TOL, rtol=F32_TOL)
         else:
-            _assert_bf16_close(out, r)
+            assert_bf16_close(out, r)
 
 
 def test_moe_dense_fused_grad_matches_jax():
@@ -165,7 +163,7 @@ def test_xattn_fastlayout_plain_matches_jax(dtype):
     if dtype == "float32":
         np.testing.assert_allclose(out.numpy(), ref, atol=F32_TOL)
     else:
-        _assert_bf16_close(out.float().numpy(), ref)
+        assert_bf16_close(out.float().numpy(), ref)
 
 
 def test_xattn_fastlayout_grad_matches_jax():
