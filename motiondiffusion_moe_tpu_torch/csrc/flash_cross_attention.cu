@@ -1,27 +1,26 @@
-// Exact attention with an online softmax over blocks of keys, hand-written for
-// Hopper.
+// Exact attention of f32 inputs with an online softmax over blocks of keys,
+// hand-written for Hopper.
 //
-// Replaces the Pallas TPU kernel
+// Replaces, for f32 inputs, the Pallas TPU kernel
 // motiondiffusion_moe_tpu/ops/flash_attention.py::_flash_kernel (public entry
-// flash_cross_attention). For q [B, H, T, D] and k, v [B, H, N, D], any N,
-// no mask, per (batch row, head):
+// flash_cross_attention); bf16 inputs take csrc/cross_attention_mma.cu. For
+// q [B, H, T, D] and k, v [B, H, N, D], any N, no mask, per (batch row,
+// head):
 //
-//   scores = (q_f32 * scale) . k_f32^T     f32, one block of keys at a time
+//   scores = (q * scale) . k^T     f32, one block of keys at a time
 //   running max m, running sum l, f32 accumulator acc (online softmax)
-//   out    = acc / max(l, 1e-20)            rounded once to q's dtype
+//   out    = acc / max(l, 1e-20)
 //
-// What bounds it on the card: for bf16 inputs, memory. At the flagship text
-// length (B = 32, H = 4, T = 196, N = 85, D = 128) the 18.4 MB of bf16 inputs
-// and output take 5.5 us at 3.35 TB/s; the 1.09 GFLOP take 1.1 us on the bf16
-// tensor cores, where q . k of bf16 values is exact in f32 accumulation (the
-// scale applied after the dot) and p . v needs a split of p into bf16 terms.
-// This kernel keeps both products in IEEE f32 FMAs, as the TPU kernel computes
-// them, so its own floor is the f32 FMA rate: 16.3 us at 67 TFLOP/s.
+// What bounds it on the card: f32 FMA throughput. The kernel keeps both
+// products in IEEE f32 FMAs, as the TPU kernel computes them: at the
+// flagship text length (B = 32, H = 4, T = 196, N = 85, D = 128) 1.09 GFLOP,
+// 16.3 us at 67 TFLOP/s, against 36.8 MB of f32 inputs and output, 11 us at
+// 3.35 TB/s.
 //
 // Design: one block of 8 warps per (batch row, head, 32-row tile of T). The
-// keys and values pass through shared memory in blocks of block_n rows (in
-// the input dtype, widened to f32 on read; k rows padded by 16 bytes so that
-// the lanes' 16-byte row reads hit distinct banks), so any N fits, where
+// keys and values pass through shared memory in blocks of block_n rows (k
+// rows padded by 16 bytes so that the lanes' 16-byte row reads hit distinct
+// banks), so any N fits, where
 // xattn_fastlayout.cu keeps a whole head's k and v in shared memory and stops
 // near 180 keys in f32. Each warp carries 4 query rows together, so every k
 // and v value read from shared memory feeds 4 rows: lane l scores keys l,
@@ -51,7 +50,7 @@ __device__ __forceinline__ float fl_warp_max(float v) {
   return v;
 }
 
-// Widen the 16 bytes at p (4 floats or 8 bf16) to f32.
+// The 16 bytes at p as 4 floats.
 __device__ __forceinline__ void fl_load16(const float* p, float (&v)[4]) {
   const float4 t = *reinterpret_cast<const float4*>(p);
   v[0] = t.x;
@@ -59,48 +58,39 @@ __device__ __forceinline__ void fl_load16(const float* p, float (&v)[4]) {
   v[2] = t.z;
   v[3] = t.w;
 }
-__device__ __forceinline__ void fl_load16(const __nv_bfloat16* p,
-                                          float (&v)[8]) {
-  const uint4 t = *reinterpret_cast<const uint4*>(p);
-  const uint32_t w[4] = {t.x, t.y, t.z, t.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    v[2 * i] = __uint_as_float(w[i] << 16);
-    v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-  }
-}
 
-// Shared memory: q rows [32][D] f32, probabilities [32][bn] f32, then k
-// [bn][D + pad] and v [bn][D] in the input dtype.
-template <typename T, int D>
+// Shared memory: q rows [32][D], probabilities [32][bn], then k
+// [bn][D + pad] and v [bn][D], all f32.
+template <int D>
 struct FlashLayout {
-  static constexpr int kVec = 16 / int(sizeof(T));  // elements per 16 bytes
-  static constexpr int kKs = D + kVec;              // padded k row
+  static constexpr int kVec = 4;        // floats per 16 bytes
+  static constexpr int kKs = D + kVec;  // padded k row
   static size_t bytes(int bn) {
-    return 4 * (size_t(kFlTile) * D + size_t(kFlTile) * bn) +
-           sizeof(T) * size_t(bn) * (kKs + D);
+    return 4 * (size_t(kFlTile) * D + size_t(kFlTile) * bn +
+                size_t(bn) * (kKs + D));
   }
 };
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kFlThreads) flash_xattn_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    T* __restrict__ out, int seq_len, int num_keys, int bn, float scale) {
-  using L = FlashLayout<T, D>;
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, float* __restrict__ out, int seq_len,
+    int num_keys, int bn, float scale) {
+  using L = FlashLayout<D>;
   constexpr int kVec = L::kVec;
   constexpr int R = kFlRowsPerWarp;
   constexpr int C = D / 32;  // output columns per lane
   extern __shared__ __align__(16) unsigned char fl_smem[];
   float* qs = reinterpret_cast<float*>(fl_smem);
   float* ps = qs + kFlTile * D;
-  T* ks = reinterpret_cast<T*>(ps + size_t(kFlTile) * bn);
-  T* vs = ks + size_t(bn) * L::kKs;
+  float* ks = ps + size_t(kFlTile) * bn;
+  float* vs = ks + size_t(bn) * L::kKs;
 
   const int tiles = (seq_len + kFlTile - 1) / kFlTile;
   const int bh = blockIdx.x / tiles, tile = blockIdx.x % tiles;
-  const T* qh = q + size_t(bh) * seq_len * D;
-  const T* kh = k + size_t(bh) * num_keys * D;
-  const T* vh = v + size_t(bh) * num_keys * D;
+  const float* qh = q + size_t(bh) * seq_len * D;
+  const float* kh = k + size_t(bh) * num_keys * D;
+  const float* vh = v + size_t(bh) * num_keys * D;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
 
   // this warp's rows times scale; rows past the sequence end are zeros (the
@@ -114,8 +104,7 @@ __global__ void __launch_bounds__(kFlThreads) flash_xattn_kernel(
 #pragma unroll
     for (int c = 0; c < C; ++c) {
       qw[r * D + lane + 32 * c] =
-          t < seq_len ? to_f32(qh[size_t(t) * D + lane + 32 * c]) * scale
-                      : 0.f;
+          t < seq_len ? qh[size_t(t) * D + lane + 32 * c] * scale : 0.f;
     }
   }
 
@@ -147,7 +136,7 @@ __global__ void __launch_bounds__(kFlThreads) flash_xattn_kernel(
 #pragma unroll
     for (int r = 0; r < R; ++r) bmax[r] = __int_as_float(0xff800000);
     for (int n = lane; n < nb; n += 32) {
-      const T* kr = ks + size_t(n) * L::kKs;
+      const float* kr = ks + size_t(n) * L::kKs;
       float s[R];
 #pragma unroll
       for (int r = 0; r < R; ++r) s[r] = 0.f;
@@ -204,13 +193,11 @@ __global__ void __launch_bounds__(kFlThreads) flash_xattn_kernel(
 #pragma unroll 2
     for (int n = 0; n < nb; ++n) {
       float vv[C];
-      if constexpr (C == 4 && sizeof(T) == 4) {
-        fl_load16(reinterpret_cast<const float*>(vs) + size_t(n) * D +
-                      lane * C,
-                  vv);
+      if constexpr (C == 4) {
+        fl_load16(vs + size_t(n) * D + lane * C, vv);
       } else {
 #pragma unroll
-        for (int c = 0; c < C; ++c) vv[c] = to_f32(vs[size_t(n) * D + lane * C + c]);
+        for (int c = 0; c < C; ++c) vv[c] = vs[size_t(n) * D + lane * C + c];
       }
 #pragma unroll
       for (int r = 0; r < R; ++r) {
@@ -227,26 +214,26 @@ __global__ void __launch_bounds__(kFlThreads) flash_xattn_kernel(
     const int t = t0 + r;
     if (t >= seq_len) continue;
     const float inv = 1.f / fmaxf(l[r], 1e-20f);
-    T* dst = out + (size_t(bh) * seq_len + t) * D + lane * C;
+    float* dst = out + (size_t(bh) * seq_len + t) * D + lane * C;
 #pragma unroll
-    for (int c = 0; c < C; ++c) dst[c] = from_f32<T>(o[r][c] * inv);
+    for (int c = 0; c < C; ++c) dst[c] = o[r][c] * inv;
   }
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t launch_flash(const void* q, const void* k, const void* v,
                          void* out, int bh, int seq_len, int num_keys, int bn,
                          float scale, cudaStream_t stream) {
-  const size_t smem = FlashLayout<T, D>::bytes(bn);
+  const size_t smem = FlashLayout<D>::bytes(bn);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_xattn_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_xattn_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       int(smem));
   if (err != cudaSuccess) return err;
   const int tiles = (seq_len + kFlTile - 1) / kFlTile;
-  flash_xattn_kernel<T, D><<<bh * tiles, kFlThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), seq_len, num_keys, bn,
-      scale);
+  flash_xattn_kernel<D><<<bh * tiles, kFlThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), seq_len,
+      num_keys, bn, scale);
   return cudaGetLastError();
 }
 
@@ -254,50 +241,46 @@ cudaError_t launch_flash(const void* q, const void* k, const void* v,
 }  // namespace mdm
 
 // Shared memory one launch needs for key blocks of block_n rows at head_dim
-// (64, 96 or 128), f32 (is_bf16 = 0) or bf16 (1); 0 for another head dim.
+// (64, 96 or 128); 0 for another head dim.
 extern "C" long long mdm_flash_cross_attention_smem_bytes(int block_n,
-                                                          int head_dim,
-                                                          int is_bf16) {
-#define MDM_FLASH_BYTES(D_)                                               \
-  if (head_dim == D_) {                                                   \
-    return static_cast<long long>(                                        \
-        is_bf16 ? mdm::FlashLayout<__nv_bfloat16, D_>::bytes(block_n)     \
-                : mdm::FlashLayout<float, D_>::bytes(block_n));           \
+                                                          int head_dim) {
+  switch (head_dim) {
+    case 64:
+      return static_cast<long long>(mdm::FlashLayout<64>::bytes(block_n));
+    case 96:
+      return static_cast<long long>(mdm::FlashLayout<96>::bytes(block_n));
+    case 128:
+      return static_cast<long long>(mdm::FlashLayout<128>::bytes(block_n));
+    default:
+      return 0;
   }
-  MDM_FLASH_BYTES(64)
-  MDM_FLASH_BYTES(96)
-  MDM_FLASH_BYTES(128)
-#undef MDM_FLASH_BYTES
-  return 0;
 }
 
 // C entry for ctypes. q, out: [B, H, T, D]; k, v: [B, H, N, D]; contiguous,
-// 16-byte aligned, f32 (is_bf16 = 0) or bf16 (1); bh = B*H; keys pass through
-// shared memory block_n rows at a time. Returns the CUDA error code of the
-// launch (0 on success); a head dim other than 64, 96 or 128 or an empty
-// input returns cudaErrorInvalidValue.
+// 16-byte aligned, f32; bh = B*H; keys pass through shared memory block_n
+// rows at a time. Returns the CUDA error code of the launch (0 on success);
+// a head dim other than 64, 96 or 128 or an empty input returns
+// cudaErrorInvalidValue.
 extern "C" int mdm_flash_cross_attention(const void* q, const void* k,
                                          const void* v, void* out, int bh,
                                          int seq_len, int num_keys,
                                          int head_dim, int block_n,
-                                         float scale, int is_bf16,
-                                         void* stream) {
+                                         float scale, void* stream) {
   if (bh <= 0 || seq_len <= 0 || num_keys <= 0 || block_n <= 0) {
     return int(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define MDM_FLASH_CASE(D_)                                                  \
-  if (head_dim == D_) {                                                     \
-    return int(is_bf16 ? mdm::launch_flash<__nv_bfloat16, D_>(              \
-                             q, k, v, out, bh, seq_len, num_keys, block_n,  \
-                             scale, s)                                      \
-                       : mdm::launch_flash<float, D_>(q, k, v, out, bh,     \
-                                                      seq_len, num_keys,    \
-                                                      block_n, scale, s));  \
+  switch (head_dim) {
+    case 64:
+      return int(mdm::launch_flash<64>(q, k, v, out, bh, seq_len, num_keys,
+                                       block_n, scale, s));
+    case 96:
+      return int(mdm::launch_flash<96>(q, k, v, out, bh, seq_len, num_keys,
+                                       block_n, scale, s));
+    case 128:
+      return int(mdm::launch_flash<128>(q, k, v, out, bh, seq_len, num_keys,
+                                        block_n, scale, s));
+    default:
+      return int(cudaErrorInvalidValue);
   }
-  MDM_FLASH_CASE(64)
-  MDM_FLASH_CASE(96)
-  MDM_FLASH_CASE(128)
-#undef MDM_FLASH_CASE
-  return int(cudaErrorInvalidValue);
 }

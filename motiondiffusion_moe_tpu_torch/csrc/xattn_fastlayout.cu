@@ -1,33 +1,32 @@
-// Fast-layout exact cross-attention, hand-written for Hopper.
+// Fast-layout exact cross-attention of f32 inputs, hand-written for Hopper.
 //
-// Replaces the Pallas TPU kernel
+// Replaces, for f32 inputs, the Pallas TPU kernel
 // motiondiffusion_moe_tpu/ops/flash_attention.py::_xattn_fast_kernel (public
-// entry xattn_fastlayout). q [B, T, H*D] and k, v [B, N, H*D] are read in the
-// Dense output layout, heads as column slices; per (batch row, head):
+// entry xattn_fastlayout); bf16 inputs take csrc/cross_attention_mma.cu.
+// q [B, T, H*D] and k, v [B, N, H*D] are read in the Dense output layout,
+// heads as column slices; per (batch row, head):
 //
-//   scores = (q_f32 * scale) . k_f32^T      [T, N], f32
-//   probs  = softmax(scores)                 f32, no key mask
-//   out    = probs . v_f32                   f32, rounded once to q's dtype
+//   scores = (q * scale) . k^T      [T, N], f32
+//   probs  = softmax(scores)         f32, no key mask
+//   out    = probs . v               f32
 //
-// What bounds it on the card: f32 FMA throughput, by choice of precision.
-// The reference keeps both products in f32 (no rounding of the
-// probabilities), and the kernel does too, with IEEE f32 FMAs: at the
-// flagship shape (B = 32, T = 196, N = 85, H = 4, D = 128) that is 1.09
-// GFLOP, 16.3 us at 67 TFLOP/s, against 18.4 MB of bf16 inputs and output,
-// 5.5 us at 3.35 TB/s. On the tensor cores the same work would be
-// memory-bound, at the cost of rounding q, k and the probabilities.
+// What bounds it on the card: f32 FMA throughput. The reference keeps both
+// products in f32, and so does the kernel, with IEEE f32 FMAs: at the
+// flagship shape (B = 32, T = 196, N = 85, H = 4, D = 128) 1.09 GFLOP,
+// 16.3 us at 67 TFLOP/s, against 36.8 MB of f32 inputs and output, 11 us at
+// 3.35 TB/s.
 //
 // Design: one block of 8 warps per (batch row, head, 32-row tile of T): 896
 // blocks at the flagship for 132 SMs. The block stages k_h and v_h [N, D]
-// in shared memory in the input dtype (widened to f32 exactly on read; the
-// k rows padded by 16 bytes so that 16-byte reads of different rows by the
-// lanes of a warp hit distinct banks). Each warp owns 4 query rows and
-// carries them together, so that every k and v value read from shared
-// memory feeds 4 rows: the rows (times scale) go to shared memory; lane l
-// scores keys l, l + 32, ... for all 4 rows with whole dot products; row max
-// and sum are warp shuffles; the normalized probabilities go to shared
-// memory; then lane l accumulates its D/32 adjacent output columns of the 4
-// rows over all N keys (one vector read of v per key) and stores them once.
+// in shared memory (the k rows padded by 16 bytes so that 16-byte reads of
+// different rows by the lanes of a warp hit distinct banks). Each warp owns
+// 4 query rows and carries them together, so that every k and v value read
+// from shared memory feeds 4 rows: the rows (times scale) go to shared
+// memory; lane l scores keys l, l + 32, ... for all 4 rows with whole dot
+// products; row max and sum are warp shuffles; the normalized probabilities
+// go to shared memory; then lane l accumulates its D/32 adjacent output
+// columns of the 4 rows over all N keys (one vector read of v per key) and
+// stores them once.
 // Each dot product is summed in order, one FMA at a time. Scores and
 // probabilities never reach device memory.
 
@@ -52,7 +51,7 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// Widen the 16 bytes at p (4 floats or 8 bf16) to f32.
+// The 16 bytes at p as 4 floats.
 __device__ __forceinline__ void load16(const float* p, float (&v)[4]) {
   const float4 t = *reinterpret_cast<const float4*>(p);
   v[0] = t.x;
@@ -60,26 +59,13 @@ __device__ __forceinline__ void load16(const float* p, float (&v)[4]) {
   v[2] = t.z;
   v[3] = t.w;
 }
-__device__ __forceinline__ void load16(const __nv_bfloat16* p, float (&v)[8]) {
-  const uint4 t = *reinterpret_cast<const uint4*>(p);
-  const uint32_t w[4] = {t.x, t.y, t.z, t.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    v[2 * i] = __uint_as_float(w[i] << 16);
-    v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-  }
-}
 
 // C adjacent values at p (C = 2 or 4 in one vector access, else one by one),
-// widened to f32; and C f32 values rounded to T and stored at p.
+// and C values stored at p.
 template <int C>
 __device__ __forceinline__ void load_cols(const float* p, float (&v)[C]) {
   if constexpr (C == 4) {
-    const float4 t = *reinterpret_cast<const float4*>(p);
-    v[0] = t.x;
-    v[1] = t.y;
-    v[2] = t.z;
-    v[3] = t.w;
+    load16(p, v);
   } else if constexpr (C == 2) {
     const float2 t = *reinterpret_cast<const float2*>(p);
     v[0] = t.x;
@@ -87,28 +73,6 @@ __device__ __forceinline__ void load_cols(const float* p, float (&v)[C]) {
   } else {
 #pragma unroll
     for (int c = 0; c < C; ++c) v[c] = p[c];
-  }
-}
-template <int C>
-__device__ __forceinline__ void load_cols(const __nv_bfloat16* p,
-                                          float (&v)[C]) {
-  if constexpr (C == 4 || C == 2) {
-    uint32_t w[C / 2];
-    if constexpr (C == 4) {
-      const uint2 t = *reinterpret_cast<const uint2*>(p);
-      w[0] = t.x;
-      w[1] = t.y;
-    } else {
-      w[0] = *reinterpret_cast<const uint32_t*>(p);
-    }
-#pragma unroll
-    for (int i = 0; i < C / 2; ++i) {
-      v[2 * i] = __uint_as_float(w[i] << 16);
-      v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-    }
-  } else {
-#pragma unroll
-    for (int c = 0; c < C; ++c) v[c] = __bfloat162float(p[c]);
   }
 }
 template <int C>
@@ -120,43 +84,29 @@ __device__ __forceinline__ void store_cols(float* p, const float (&v)[C]) {
     for (int c = 0; c < C; ++c) p[c] = v[c];
   }
 }
-template <int C>
-__device__ __forceinline__ void store_cols(__nv_bfloat16* p,
-                                           const float (&v)[C]) {
-  if constexpr (C == 4) {
-    const __nv_bfloat162 a = __floats2bfloat162_rn(v[0], v[1]);
-    const __nv_bfloat162 b = __floats2bfloat162_rn(v[2], v[3]);
-    *reinterpret_cast<uint2*>(p) =
-        make_uint2(*reinterpret_cast<const uint32_t*>(&a),
-                   *reinterpret_cast<const uint32_t*>(&b));
-  } else {
-#pragma unroll
-    for (int c = 0; c < C; ++c) p[c] = __float2bfloat16_rn(v[c]);
-  }
-}
 
-// Shared memory: q rows [8][4][D] f32, probabilities [8][4][Np] f32, then k
-// [N][D + pad] and v [N][D] in the input dtype.
-template <typename T, int D>
+// Shared memory: q rows [8][4][D], probabilities [8][4][Np], then k
+// [N][D + pad] and v [N][D], all f32.
+template <int D>
 struct XattnLayout {
-  static constexpr int kVec = 16 / int(sizeof(T));  // elements per 16 bytes
-  static constexpr int kKs = D + kVec;              // padded k row
+  static constexpr int kVec = 4;            // floats per 16 bytes
+  static constexpr int kKs = D + kVec;      // padded k row
   static constexpr int kRows = kXaWarps * kXaRowsPerWarp;
   static __host__ __device__ size_t padded_n(int n) {
     return (size_t(n) + 3) / 4 * 4;
   }
   static size_t bytes(int n) {
     return 4 * (size_t(kRows) * D + size_t(kRows) * padded_n(n)) +
-           sizeof(T) * size_t(n) * (kKs + D);
+           4 * size_t(n) * (kKs + D);
   }
 };
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kXaThreads) xattn_fastlayout_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    T* __restrict__ out, int seq_len, int num_keys, int num_heads,
-    float scale) {
-  using L = XattnLayout<T, D>;
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, float* __restrict__ out, int seq_len,
+    int num_keys, int num_heads, float scale) {
+  using L = XattnLayout<D>;
   constexpr int kVec = L::kVec;
   constexpr int R = kXaRowsPerWarp;
   constexpr int C = D / 32;  // output columns per lane
@@ -165,8 +115,8 @@ __global__ void __launch_bounds__(kXaThreads) xattn_fastlayout_kernel(
   const size_t np = L::padded_n(N);
   float* qs = reinterpret_cast<float*>(xa_smem);
   float* ps = qs + L::kRows * D;
-  T* ks = reinterpret_cast<T*>(ps + L::kRows * np);
-  T* vs = ks + size_t(N) * L::kKs;
+  float* ks = ps + L::kRows * np;
+  float* vs = ks + size_t(N) * L::kKs;
 
   const int tiles = (seq_len + kXaTile - 1) / kXaTile;
   const int bh = blockIdx.x / tiles, tile = blockIdx.x % tiles;
@@ -194,11 +144,11 @@ __global__ void __launch_bounds__(kXaThreads) xattn_fastlayout_kernel(
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     const int t = t0 + r;
-    const T* qrow = q + (size_t(b) * seq_len + t) * HD + size_t(h) * D;
+    const float* qrow = q + (size_t(b) * seq_len + t) * HD + size_t(h) * D;
 #pragma unroll
     for (int c = 0; c < C; ++c) {
       qw[r * D + lane + 32 * c] =
-          t < seq_len ? to_f32(qrow[lane + 32 * c]) * scale : 0.f;
+          t < seq_len ? qrow[lane + 32 * c] * scale : 0.f;
     }
   }
   __syncwarp();
@@ -208,7 +158,7 @@ __global__ void __launch_bounds__(kXaThreads) xattn_fastlayout_kernel(
 #pragma unroll
   for (int r = 0; r < R; ++r) m[r] = __int_as_float(0xff800000);  // -inf
   for (int n = lane; n < N; n += 32) {
-    const T* kr = ks + size_t(n) * L::kKs;
+    const float* kr = ks + size_t(n) * L::kKs;
     float s[R];
 #pragma unroll
     for (int r = 0; r < R; ++r) s[r] = 0.f;
@@ -286,21 +236,21 @@ __global__ void __launch_bounds__(kXaThreads) xattn_fastlayout_kernel(
   }
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t launch_xattn(const void* q, const void* k, const void* v,
                          void* out, int batch, int seq_len, int num_keys,
                          int num_heads, float scale, cudaStream_t stream) {
-  const size_t smem = XattnLayout<T, D>::bytes(num_keys);
+  const size_t smem = XattnLayout<D>::bytes(num_keys);
   cudaError_t err = cudaFuncSetAttribute(
-      xattn_fastlayout_kernel<T, D>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+      xattn_fastlayout_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      int(smem));
   if (err != cudaSuccess) return err;
   const int tiles = (seq_len + kXaTile - 1) / kXaTile;
-  xattn_fastlayout_kernel<T, D>
+  xattn_fastlayout_kernel<D>
       <<<batch * num_heads * tiles, kXaThreads, smem, stream>>>(
-          static_cast<const T*>(q), static_cast<const T*>(k),
-          static_cast<const T*>(v), static_cast<T*>(out), seq_len, num_keys,
-          num_heads, scale);
+          static_cast<const float*>(q), static_cast<const float*>(k),
+          static_cast<const float*>(v), static_cast<float*>(out), seq_len,
+          num_keys, num_heads, scale);
   return cudaGetLastError();
 }
 
@@ -308,49 +258,45 @@ cudaError_t launch_xattn(const void* q, const void* k, const void* v,
 }  // namespace mdm
 
 // Shared memory one launch needs for num_keys keys of head_dim (64, 96 or
-// 128), f32 (is_bf16 = 0) or bf16 (1); 0 for another head dim.
+// 128); 0 for another head dim.
 extern "C" long long mdm_xattn_fastlayout_smem_bytes(int num_keys,
-                                                     int head_dim,
-                                                     int is_bf16) {
-#define MDM_XATTN_BYTES(D_)                                               \
-  if (head_dim == D_) {                                                   \
-    return static_cast<long long>(                                        \
-        is_bf16 ? mdm::XattnLayout<__nv_bfloat16, D_>::bytes(num_keys)    \
-                : mdm::XattnLayout<float, D_>::bytes(num_keys));          \
+                                                     int head_dim) {
+  switch (head_dim) {
+    case 64:
+      return static_cast<long long>(mdm::XattnLayout<64>::bytes(num_keys));
+    case 96:
+      return static_cast<long long>(mdm::XattnLayout<96>::bytes(num_keys));
+    case 128:
+      return static_cast<long long>(mdm::XattnLayout<128>::bytes(num_keys));
+    default:
+      return 0;
   }
-  MDM_XATTN_BYTES(64)
-  MDM_XATTN_BYTES(96)
-  MDM_XATTN_BYTES(128)
-#undef MDM_XATTN_BYTES
-  return 0;
 }
 
 // C entry for ctypes. q, out: [B, T, H*D]; k, v: [B, N, H*D]; contiguous,
-// 16-byte aligned, f32 (is_bf16 = 0) or bf16 (1). Returns the CUDA error code
-// of the launch (0 on success); a head dim other than 64, 96 or 128 returns
+// 16-byte aligned, f32. Returns the CUDA error code of the launch (0 on
+// success); a head dim other than 64, 96 or 128 returns
 // cudaErrorInvalidValue, and an N whose k and v do not fit in shared memory
 // the error of the shared-memory request.
 extern "C" int mdm_xattn_fastlayout(const void* q, const void* k,
                                     const void* v, void* out, int batch,
                                     int seq_len, int num_keys, int num_heads,
-                                    int head_dim, float scale, int is_bf16,
-                                    void* stream) {
+                                    int head_dim, float scale, void* stream) {
   if (batch <= 0 || seq_len <= 0 || num_keys <= 0 || num_heads <= 0) {
     return int(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define MDM_XATTN_CASE(D_)                                                   \
-  if (head_dim == D_) {                                                      \
-    return int(is_bf16 ? mdm::launch_xattn<__nv_bfloat16, D_>(               \
-                             q, k, v, out, batch, seq_len, num_keys,         \
-                             num_heads, scale, s)                            \
-                       : mdm::launch_xattn<float, D_>(q, k, v, out, batch,   \
-                                                      seq_len, num_keys,     \
-                                                      num_heads, scale, s)); \
+  switch (head_dim) {
+    case 64:
+      return int(mdm::launch_xattn<64>(q, k, v, out, batch, seq_len,
+                                       num_keys, num_heads, scale, s));
+    case 96:
+      return int(mdm::launch_xattn<96>(q, k, v, out, batch, seq_len,
+                                       num_keys, num_heads, scale, s));
+    case 128:
+      return int(mdm::launch_xattn<128>(q, k, v, out, batch, seq_len,
+                                        num_keys, num_heads, scale, s));
+    default:
+      return int(cudaErrorInvalidValue);
   }
-  MDM_XATTN_CASE(64)
-  MDM_XATTN_CASE(96)
-  MDM_XATTN_CASE(128)
-#undef MDM_XATTN_CASE
-  return int(cudaErrorInvalidValue);
 }

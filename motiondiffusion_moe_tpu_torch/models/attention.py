@@ -38,8 +38,9 @@ from motiondiffusion_moe_tpu_torch.models.layers import (
     LayerNorm,
     TrainContext,
     dropout,
-    gelu,
+    weak_scalar,
 )
+from motiondiffusion_moe_tpu_torch.ops.activations import gelu, sigmoid
 from motiondiffusion_moe_tpu_torch.ops.flash_attention import (
     xattn_fastlayout,
 )
@@ -180,8 +181,7 @@ class PerformerSelfAttention(nn.Module):
         0.1 in the compute dtype, FastAttention, dropout, heads back."""
         B, T, D = h.shape
         H = self.num_heads
-        # JAX multiplies by the weakly typed 0.1 rounded to the compute dtype
-        tenth = torch.tensor(0.1, dtype=self.dtype).item()
+        tenth = weak_scalar(0.1, self.dtype)
 
         def heads(t):
             return grad_clamp(t).view(B, T, H, -1).transpose(1, 2) * tenth
@@ -207,7 +207,7 @@ class PerformerSelfAttention(nn.Module):
             attn = dropout(attn, p, training, ctx)
         else:
             attn = self._unfused_attention(h, src_mask, ctx)
-        attn = dropout(gelu(self.proj_out_0(attn)), p, training, ctx)
+        attn = dropout(self.proj_out_0(attn, "gelu"), p, training, ctx)
         attn = dropout(self.proj_out_1(attn), p, training, ctx)
         if self.use_kernels and not (training and p > 0):
             style_out = self.style_block(
@@ -218,7 +218,7 @@ class PerformerSelfAttention(nn.Module):
             hf = hf / torch.linalg.vector_norm(
                 hf, dim=-1, keepdim=True).clamp_min(1e-12) * (D ** 0.5)
             style_out = self.style_block(hf.to(self.dtype), emb, ctx=ctx)
-        return x + 0.1 * style_out
+        return x + weak_scalar(0.1, style_out.dtype) * style_out
 
 
 class DualSelfAttentionBlock(nn.Module):
@@ -245,8 +245,12 @@ class DualSelfAttentionBlock(nn.Module):
                 ctx: Optional[TrainContext] = None) -> torch.Tensor:
         local_out = self.local_attn(self.pre_norm(x), emb, src_mask, ctx)
         global_out = self.global_attn(local_out, emb, src_mask, ctx)
-        skip = dropout(self.skip_proj(x), self.dropout, self.training, ctx)
-        return self.post_norm(gelu(skip) + 0.1 * global_out)
+        if self.training and self.dropout > 0:
+            skip = gelu(dropout(self.skip_proj(x), self.dropout, True, ctx))
+        else:
+            skip = self.skip_proj(x, "gelu")
+        return self.post_norm(
+            skip + weak_scalar(0.1, global_out.dtype) * global_out)
 
 
 class LinearTemporalCrossAttention(nn.Module):
@@ -285,7 +289,7 @@ class LinearTemporalCrossAttention(nn.Module):
         v = self.value(tn).view(B, N, H, -1)
         attention = torch.einsum("bnhd,bnhl->bhdl", k, v)
         y = torch.einsum("bnhd,bhdl->bnhl", q, attention).reshape(B, T, D)
-        alpha = torch.sigmoid(self.adaptive_gate.to(self.dtype))
+        alpha = sigmoid(self.adaptive_gate.to(self.dtype))
         return x + alpha * self.proj_out(y, emb, ctx=ctx)
 
 
@@ -309,7 +313,7 @@ class GatedCrossAttention(nn.Module):
     def forward(self, x: torch.Tensor, xf: torch.Tensor, emb: torch.Tensor,
                 ctx: Optional[TrainContext] = None) -> torch.Tensor:
         ca_out = self.base_ca(x, xf, emb, ctx)
-        alpha = torch.sigmoid(self.gate.to(self.dtype)).view(1, 1, -1)
+        alpha = sigmoid(self.gate.to(self.dtype)).view(1, 1, -1)
         return x + alpha * (ca_out - x)
 
 
@@ -349,13 +353,14 @@ class CrossAttentionBlock(nn.Module):
             out = xattn_fastlayout(q, k, v, H, scale)
         else:
             scores = torch.einsum("bqhd,bkhd->bhqk",
-                                  q.view(B, T, H, -1) * scale,
+                                  q.view(B, T, H, -1)
+                                  * weak_scalar(scale, q.dtype),
                                   k.view(B, N, H, -1))
             probs = torch.softmax(scores.float(), dim=-1).to(self.dtype)
             probs = dropout(probs, self.dropout, self.training, ctx)
             out = torch.einsum("bhqk,bkhd->bqhd", probs,
                                v.view(B, N, H, -1)).reshape(B, T, D)
         out = self.out(out)
-        h = self.ffn_1(gelu(self.ffn_0(self.ffn_norm(out))))
+        h = self.ffn_1(self.ffn_0(self.ffn_norm(out), "gelu"))
         h = dropout(h, self.dropout, self.training, ctx)
         return x + (out + h)

@@ -22,6 +22,7 @@ from motiondiffusion_moe_tpu_torch.models.layers import (
     dropout,
     xavier_normal_,
 )
+from motiondiffusion_moe_tpu_torch.ops.activations import sigmoid, silu
 from motiondiffusion_moe_tpu_torch.ops.adaln import adaln_dense
 from motiondiffusion_moe_tpu_torch.ops.performer import performer_epilogue
 
@@ -89,7 +90,7 @@ class TimestepEmbedding(nn.Module):
 
     def forward(self, timesteps: torch.Tensor) -> torch.Tensor:
         h = timestep_sinusoidal(timesteps, self.embed_dim, self.max_period)
-        return self.mlp_1(F.silu(self.mlp_0(h.to(self.dtype))))
+        return self.mlp_1(self.mlp_0(h.to(self.dtype), "silu"))
 
 
 class GatedFusion(nn.Module):
@@ -106,9 +107,9 @@ class GatedFusion(nn.Module):
                 text_emb: torch.Tensor) -> torch.Tensor:
         t = self.proj_time(time_emb)
         x = self.proj_text(text_emb)
-        gating = torch.sigmoid(t + x)
+        gating = sigmoid(t + x)
         fused = gating * t + (1 - gating) * x
-        return self.post_mlp_1(F.silu(self.post_mlp_0(fused)))
+        return self.post_mlp_1(self.post_mlp_0(fused, "silu"))
 
 
 class StylizationBlock(nn.Module):
@@ -161,9 +162,9 @@ class StylizationBlock(nn.Module):
                 pre_ln: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                 ctx: Optional[TrainContext] = None) -> torch.Tensor:
         dt = self.dtype
-        if self.emb_proj is not None:
-            emb = self.emb_proj(emb)
-        scale, shift = self.emb_layers(F.silu(emb)).chunk(2, dim=-1)
+        emb = (silu(emb) if self.emb_proj is None
+               else self.emb_proj(emb, "silu"))
+        scale, shift = self.emb_layers(emb).chunk(2, dim=-1)
         w, b = self.out_kernel.to(dt), self.out_bias.to(dt)
         if pre_ln is not None:
             if self.training and self.dropout > 0:
@@ -181,6 +182,6 @@ class StylizationBlock(nn.Module):
         normed = F.layer_norm(h.float(), (h.shape[-1],),
                               self.norm_scale.float(), self.norm_bias.float(),
                               LN_EPS).to(dt)
-        hmod = F.silu(normed * (1 + scale[:, None, :]) + shift[:, None, :])
+        hmod = silu(normed * (1 + scale[:, None, :]) + shift[:, None, :])
         hmod = dropout(hmod, self.dropout, self.training, ctx)
         return hmod @ w + b

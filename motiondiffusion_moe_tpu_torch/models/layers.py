@@ -2,7 +2,12 @@
 
 - :class:`Dense` is ``flax.linen.Dense(dtype=...)``: input, weight and bias
   cast to the compute dtype, weight stored ``[out, in]`` (torch layout; the
-  bridge transposes flax's ``[in, out]`` kernel).
+  bridge transposes flax's ``[in, out]`` kernel). In bf16, as in flax, the
+  product is rounded before the bias is added; an activation that follows
+  (``forward(x, "gelu")``) takes that add into its own pass
+  (``ops/activations.py``).
+- :func:`weak_scalar` is a Python float as JAX multiplies a compute-dtype
+  array by it: rounded to that dtype first.
 - :class:`LayerNorm` is the hot-path ``nn.LayerNorm``: statistics and the
   affine step in f32, eps 1e-6 (not torch's 1e-5), result in the compute
   dtype.
@@ -18,6 +23,7 @@
 
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass, field
 from typing import List, Optional
@@ -25,6 +31,8 @@ from typing import List, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from motiondiffusion_moe_tpu_torch.ops import activations
 
 LN_EPS = 1e-6
 
@@ -76,7 +84,9 @@ def xavier_normal_(t: torch.Tensor, fan_in: int, fan_out: int, gain: float,
 class Dense(nn.Module):
     """``flax.linen.Dense`` in a compute dtype. ``init`` mirrors its
     ``kernel_init``: "lecun" (flax default), "zeros", ("xavier", gain) or
-    ("normal", std); the bias starts at zero."""
+    ("normal", std); the bias starts at zero. ``forward(x, activation)``
+    applies "silu", "gelu" or "sigmoid" of ``ops/activations.py`` to the
+    output."""
 
     def __init__(self, in_features: int, out_features: int,
                  dtype: torch.dtype = torch.float32, init="lecun"):
@@ -86,9 +96,18 @@ class Dense(nn.Module):
         self.dtype = dtype
         self.init = init
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                activation: Optional[str] = None) -> torch.Tensor:
         dt = self.dtype
-        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+        x, w, b = x.to(dt), self.weight.to(dt), self.bias.to(dt)
+        if dt == torch.float32:  # one f32 rounding apart from flax's two
+            y = F.linear(x, w, b)
+            return y if activation is None else getattr(activations,
+                                                        activation)(y)
+        y = F.linear(x, w)  # rounded to dt, then the bias added in dt
+        if activation is None:
+            return y + b
+        return getattr(activations, activation)(y, b)
 
     @torch.no_grad()
     def _init_own(self, g: torch.Generator) -> None:
@@ -129,9 +148,13 @@ class LayerNorm(nn.Module):
         self.bias.zero_()
 
 
-def gelu(x: torch.Tensor) -> torch.Tensor:
-    """flax ``nn.gelu``: the tanh approximation."""
-    return F.gelu(x, approximate="tanh")
+@functools.lru_cache(maxsize=None)
+def weak_scalar(value: float, dtype: torch.dtype) -> float:
+    """``value`` as JAX multiplies an array of ``dtype`` by a weakly typed
+    Python scalar: rounded to ``dtype`` first (0.1 is 0.10009765625 in
+    bf16). Cached: the forward calls it per module with a few fixed
+    values."""
+    return torch.tensor(value, dtype=dtype).item()
 
 
 def init_weights(module: nn.Module, seed: int) -> nn.Module:

@@ -34,9 +34,9 @@ from motiondiffusion_moe_tpu_torch.models.layers import (
     LayerNorm,
     TrainContext,
     dropout,
-    gelu,
     lecun_normal_,
 )
+from motiondiffusion_moe_tpu_torch.ops.activations import gelu
 from motiondiffusion_moe_tpu_torch.ops.moe import moe_dense_fused
 
 
@@ -115,8 +115,9 @@ class SwitchMoELayer(nn.Module):
             out = moe_dense_fused(x_flat, combine, w1, b1, w2, b2)
         else:
             w1m = w1.permute(1, 0, 2).reshape(D, E * hid)
-            h = (x_flat @ w1m).view(S, E, hid) + b1
-            h = gelu(h) * combine[:, :, None]
+            # the bias add in the compute dtype, then gelu: one pass
+            h = gelu(x_flat @ w1m, b1.reshape(E * hid)).view(S, E, hid)
+            h = h * combine[:, :, None]
             out = h.reshape(S, E * hid) @ w2.reshape(E * hid, D) + combine @ b2
         out = out.reshape(shape)
         if with_metrics:
@@ -175,7 +176,7 @@ class DenseFFN(nn.Module):
         out = 0.0
         for i in range(self.num_branches):
             h = getattr(self, f"branch_{i}_norm")(x)
-            h = gelu(getattr(self, f"branch_{i}_fc1")(h))
+            h = getattr(self, f"branch_{i}_fc1")(h, "gelu")
             h = dropout(h, self.dropout, self.training, ctx)
             out = out + getattr(self, f"branch_{i}_fc2")(h)
         return x + self.proj_out(out / self.num_branches, emb, ctx=ctx)

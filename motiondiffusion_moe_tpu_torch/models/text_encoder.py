@@ -24,8 +24,8 @@ from motiondiffusion_moe_tpu_torch.models.layers import (
     LayerNorm,
     TrainContext,
     dropout,
-    gelu,
 )
+from motiondiffusion_moe_tpu_torch.ops.activations import gelu
 
 
 class TextEncoding(NamedTuple):

@@ -181,17 +181,21 @@ class MotionTransformer(nn.Module):
         return self.text_encoder(text_ids, ctx)
 
     def _conv(self, conv: nn.Module, h: torch.Tensor) -> torch.Tensor:
-        """[B, T, D] -> conv over T (channels-last in, channels-last out)."""
+        """[B, T, D] -> conv over T (channels-last in, channels-last out).
+        In bf16, as flax does, the convolution is rounded before its bias
+        is added."""
         dt = self.dtype
         y = h.transpose(1, 2)
+        fused_bias = conv.bias.to(dt) if dt == torch.float32 else None
         if isinstance(conv, nn.Conv1d):
             if y.shape[-1] % 2:  # 'SAME' pads the odd tail on the right
                 y = F.pad(y, (0, 1))
-            y = F.conv1d(y, conv.weight.to(dt), conv.bias.to(dt), stride=2)
+            y = F.conv1d(y, conv.weight.to(dt), fused_bias, stride=2)
         else:
-            y = F.conv_transpose1d(y, conv.weight.to(dt), conv.bias.to(dt),
+            y = F.conv_transpose1d(y, conv.weight.to(dt), fused_bias,
                                    stride=2)
-        return y.transpose(1, 2)
+        y = y.transpose(1, 2)
+        return y if fused_bias is not None else y + conv.bias.to(dt)
 
     def forward(self, x: torch.Tensor, timesteps: torch.Tensor,
                 length: torch.Tensor, text_ids: Optional[torch.Tensor] = None,
@@ -208,7 +212,7 @@ class MotionTransformer(nn.Module):
         xf_out = xf_out.to(dt)
 
         time_emb = self.learnable_time_embed(timesteps)
-        t_h = self.time_embed_1(F.silu(self.time_embed_0(time_emb)))
+        t_h = self.time_embed_1(self.time_embed_0(time_emb, "silu"))
         fused_emb = self.gated_fusion(self.time_proj(t_h), xf_proj)
 
         h = self.joint_embed(x.to(dt)) + self.sequence_embedding[None, :T].to(dt)

@@ -135,11 +135,12 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
                                         + [i] * 5    # S D E hid bf16
                                         + [vp])      # stream
     lib.mdm_moe_dense_fused.restype = i
-    lib.mdm_xattn_fastlayout.argtypes = ([vp] * 4        # q k v out
-                                         + [i] * 5       # B T N H D
-                                         + [f, i, vp])   # scale bf16 stream
-    lib.mdm_xattn_fastlayout.restype = i
-    lib.mdm_xattn_fastlayout_smem_bytes.argtypes = [i] * 3  # N D bf16
+    for fn in (lib.mdm_xattn_fastlayout, lib.mdm_xattn_fastlayout_bf16):
+        fn.argtypes = ([vp] * 4      # q k v out
+                       + [i] * 5     # B T N H D
+                       + [f, vp])    # scale stream
+        fn.restype = i
+    lib.mdm_xattn_fastlayout_smem_bytes.argtypes = [i] * 2  # N D (f32)
     lib.mdm_xattn_fastlayout_smem_bytes.restype = ctypes.c_longlong
     lib.mdm_adaln_dense.argtypes = ([vp] * 8         # tensors
                                     + [i] * 5        # rows T D Dout bf16
@@ -155,10 +156,22 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.mdm_favor_attention_full.restype = i
     lib.mdm_flash_cross_attention.argtypes = ([vp] * 4      # q k v out
                                               + [i] * 5     # BH T N D bn
-                                              + [f, i, vp])  # scale bf16 s
+                                              + [f, vp])    # scale stream
     lib.mdm_flash_cross_attention.restype = i
-    lib.mdm_flash_cross_attention_smem_bytes.argtypes = [i] * 3  # bn D bf16
+    lib.mdm_flash_cross_attention_smem_bytes.argtypes = [i] * 2  # bn D (f32)
     lib.mdm_flash_cross_attention_smem_bytes.restype = ctypes.c_longlong
+    lib.mdm_flash_cross_attention_bf16.argtypes = ([vp] * 4     # q k v out
+                                                   + [i] * 4    # BH T N D
+                                                   + [f, vp])   # scale s
+    lib.mdm_flash_cross_attention_bf16.restype = i
+    lib.mdm_activation.argtypes = [vp, vp, vp,              # x bias y
+                                   ctypes.c_longlong, i, i,  # n C op
+                                   vp]                       # stream
+    lib.mdm_activation.restype = i
+    lib.mdm_activation_grad.argtypes = [vp, vp, vp, vp,         # x bias g dx
+                                        ctypes.c_longlong, i, i,  # n C op
+                                        vp]                       # stream
+    lib.mdm_activation_grad.restype = i
     return lib
 
 

@@ -6,18 +6,22 @@ Counterpart of ``motiondiffusion_moe_tpu/ops/flash_attention.py``:
   ``_xattn_fast_kernel``). It reads q ``[B, T, H*D]`` and k, v
   ``[B, N, H*D]`` straight in the Dense output layout, heads as column
   slices, and computes per head an exact softmax attention with no key mask
-  (the reference leaves padded text keys unmasked). CUDA C++ in
-  ``csrc/xattn_fastlayout.cu``; a whole head's k and v sit in shared memory,
-  which bounds N.
+  (the reference leaves padded text keys unmasked).
 - :func:`flash_cross_attention` replaces ``flash_cross_attention`` (Pallas
   kernel ``_flash_kernel``): the same function on head-major q
-  ``[B, H, T, D]`` and k, v ``[B, H, N, D]``, for any N, with an online
-  softmax over blocks of ``block_n`` keys. CUDA C++ in
-  ``csrc/flash_cross_attention.cu``.
+  ``[B, H, T, D]`` and k, v ``[B, H, N, D]``, for any N.
 
-Both widen the inputs to f32 and keep the scores, the softmax and
-``probs @ v`` in f32, with one rounding to q's dtype; the scores and
-probabilities never reach device memory.
+Both keep the scores, the softmax and ``probs @ v`` in f32, with one
+rounding to q's dtype; the scores and probabilities never reach device
+memory. bf16 inputs run on the tensor cores (``csrc/cross_attention_mma.cu``,
+one kernel for both layouts, any N): q . k of bf16 values is exact in f32
+sums, and the probabilities go through the second product as two bf16
+terms, p = p_hi + p_lo, so they keep ~16 bits (rounding them to bf16, as
+``scaled_dot_product_attention`` does, moves about a third of the outputs,
+by up to tens of ulps near zero). f32 inputs keep IEEE f32 FMAs
+(``csrc/xattn_fastlayout.cu``, where a whole head's k and v sit in shared
+memory, which bounds N; ``csrc/flash_cross_attention.cu``, keys in blocks
+of ``block_n``).
 
 Each wrapper is a ``torch.autograd.Function`` whose backward is autograd
 through the plain version, as the JAX ``custom_vjp``s differentiate their
@@ -96,16 +100,21 @@ def _launch(q, k, v, num_heads, scale) -> torch.Tensor:
     from motiondiffusion_moe_tpu_torch.ops._build import library
 
     lib = library()
-    is_bf16 = _KERNEL_DTYPES[q.dtype]
-    smem = lib.mdm_xattn_fastlayout_smem_bytes(N, D, is_bf16)
-    _require(smem <= MAX_SMEM_PER_BLOCK,
-             f"xattn_fastlayout: N={N} keys of head dim {D} need {smem} "
-             f"bytes of shared memory, more than {MAX_SMEM_PER_BLOCK}")
     out = torch.empty_like(q)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+    if q.dtype == torch.bfloat16:
+        launch = lambda: lib.mdm_xattn_fastlayout_bf16(  # noqa: E731
+            *ptrs, B, T, N, H, D, scale, _stream(q.device))
+    else:
+        smem = lib.mdm_xattn_fastlayout_smem_bytes(N, D)
+        _require(smem <= MAX_SMEM_PER_BLOCK,
+                 f"xattn_fastlayout: N={N} f32 keys of head dim {D} need "
+                 f"{smem} bytes of shared memory, more than "
+                 f"{MAX_SMEM_PER_BLOCK}")
+        launch = lambda: lib.mdm_xattn_fastlayout(  # noqa: E731
+            *ptrs, B, T, N, H, D, scale, _stream(q.device))
     with torch.cuda.device(q.device):
-        rc = lib.mdm_xattn_fastlayout(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, T,
-            N, H, D, scale, is_bf16, _stream(q.device))
+        rc = launch()
     if rc != 0:
         raise RuntimeError(
             f"xattn_fastlayout kernel launch failed: CUDA error {rc}")
@@ -141,9 +150,9 @@ def xattn_fastlayout(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``csrc/xattn_fastlayout.cu``.
 
     On CUDA: q, k, v contiguous, 16-byte aligned, one dtype (f32 or bf16);
-    head dim in :data:`XATTN_HEAD_DIMS`; N small enough for k and v of one
-    head to fit in shared memory (about 180 keys in f32, 320 in bf16, at
-    head dim 128)."""
+    head dim in :data:`XATTN_HEAD_DIMS`; any N in bf16; in f32, N small
+    enough for k and v of one head to fit in shared memory (about 180 keys
+    at head dim 128)."""
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"xattn_fastlayout: unsupported device {q.device}")
     D = q.shape[-1] // num_heads
@@ -197,17 +206,22 @@ def _launch_flash(q, k, v, scale, block_n) -> torch.Tensor:
     from motiondiffusion_moe_tpu_torch.ops._build import library
 
     lib = library()
-    is_bf16 = _KERNEL_DTYPES[q.dtype]
-    bn = min(block_n, N)
-    smem = lib.mdm_flash_cross_attention_smem_bytes(bn, D, is_bf16)
-    _require(smem <= MAX_SMEM_PER_BLOCK,
-             f"{op}: key blocks of {bn} rows at head dim {D} need {smem} "
-             f"bytes of shared memory, more than {MAX_SMEM_PER_BLOCK}")
     out = torch.empty_like(q)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+    if q.dtype == torch.bfloat16:
+        launch = lambda: lib.mdm_flash_cross_attention_bf16(  # noqa: E731
+            *ptrs, B * H, T, N, D, scale, _stream(q.device))
+    else:
+        bn = min(block_n, N)
+        smem = lib.mdm_flash_cross_attention_smem_bytes(bn, D)
+        _require(smem <= MAX_SMEM_PER_BLOCK,
+                 f"{op}: f32 key blocks of {bn} rows at head dim {D} need "
+                 f"{smem} bytes of shared memory, more than "
+                 f"{MAX_SMEM_PER_BLOCK}")
+        launch = lambda: lib.mdm_flash_cross_attention(  # noqa: E731
+            *ptrs, B * H, T, N, D, bn, scale, _stream(q.device))
     with torch.cuda.device(q.device):
-        rc = lib.mdm_flash_cross_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B * H,
-            T, N, D, bn, scale, is_bf16, _stream(q.device))
+        rc = launch()
     if rc != 0:
         raise RuntimeError(f"{op} kernel launch failed: CUDA error {rc}")
     flash_cross_attention.launches += 1
@@ -238,10 +252,11 @@ def flash_cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Exact cross-attention with an online softmax (see the module doc),
     differentiable on every device; the JAX signature. CPU tensors take
     :func:`flash_cross_attention_plain`; CUDA tensors launch
-    ``csrc/flash_cross_attention.cu``, whose keys pass through shared
-    memory ``block_n`` rows at a time. ``block_q`` is accepted only for
-    parity with the JAX signature and is ignored: a block always takes 32
-    query rows.
+    ``csrc/cross_attention_mma.cu`` (bf16) or
+    ``csrc/flash_cross_attention.cu`` (f32, keys through shared memory
+    ``block_n`` rows at a time). ``block_q``, and in bf16 ``block_n``, are
+    kept for the JAX signature and set no tile: the bf16 kernel takes 128
+    query rows and 32 keys at a time, the f32 one 32 query rows.
 
     On CUDA: q, k, v contiguous, 16-byte aligned, one dtype (f32 or bf16);
     head dim in :data:`XATTN_HEAD_DIMS`; any number of keys."""

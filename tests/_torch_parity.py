@@ -12,6 +12,7 @@ import dataclasses
 import jax
 import numpy as np
 import torch
+from jax.experimental.pallas import tpu as pltpu
 
 from motiondiffusion_moe_tpu.config import (
     DataConfig,
@@ -19,8 +20,10 @@ from motiondiffusion_moe_tpu.config import (
     ExperimentConfig,
     ModelConfig,
 )
+from motiondiffusion_moe_tpu.ops import adaln_pallas
 from motiondiffusion_moe_tpu_torch import config as port_config
 from motiondiffusion_moe_tpu_torch.models.bridge import jax_to_state_dict
+from tests._bf16 import assert_bf16_flips, bf16_flips  # noqa: F401
 
 # one intra-op thread per worker: the suite runs under pytest-xdist
 torch.set_num_threads(1)
@@ -97,6 +100,14 @@ def load_into(module: torch.nn.Module, params) -> torch.nn.Module:
     bridge; returns the module in eval mode."""
     module.load_state_dict(jax_to_state_dict(params), strict=True)
     return module.eval()
+
+
+def adaln_as_the_tpu_kernel(*args):
+    """The JAX package's adaln_dense as the TPU runs it: its Pallas kernel,
+    in interpret mode (its CPU default is the reference, which rounds once
+    more)."""
+    with pltpu.force_tpu_interpret_mode():
+        return adaln_pallas._adaln_pallas(*args)
 
 
 def t(x) -> torch.Tensor:

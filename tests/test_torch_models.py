@@ -6,8 +6,14 @@ port. Inputs: numpy from a seed. JAX runs on the CPU.
 
 Tolerances: f32 modules, the same math in another summation order ->
 atol 1e-5 (1e-4 for a decoder layer and the whole denoiser). bf16 compute:
-both frameworks round to bf16 at (nearly) the same places but accumulate
-differently -> relative RMS <= 3e-2 over the whole denoiser.
+the port rounds where the JAX package's modules round (its Dense adds the
+bias after rounding the product; silu, gelu and sigmoid round after each
+step; weakly typed scalars are rounded first; ``ops/activations.py``), and
+the two accumulate in another order. What is left comes from roundings that
+XLA's compiled program leaves out where a bf16 value is widened to f32 next
+(LayerNorm inputs, the router logits, softmax sums) and from near-tied MoE
+routings -> relative RMS <= 1.2e-2 over the whole denoiser (2.07e-2 with
+PyTorch's own bf16 silu, gelu, sigmoid and fused Dense bias; 1.11e-2 now).
 """
 
 import jax
@@ -293,7 +299,10 @@ def test_motion_transformer_f32(Tn, denoiser_params):
 
 def test_motion_transformer_bf16(denoiser_params):
     _, _, ref, out = _denoise_both("bfloat16", 16, denoiser_params)
-    assert rel_rms(out.numpy(), ref) < 3e-2
+    dist = rel_rms(out.numpy(), ref)
+    print(f"tiny bf16 denoiser: relative RMS to the JAX bf16 output {dist:.3e}"
+          " (2.07e-2 before the port rounded where JAX rounds)")
+    assert dist < 1.2e-2
 
 
 # ---------------------------------------------------------------- init
@@ -340,8 +349,11 @@ def test_motion_transformer_with_both_fused_paths(dtype, monkeypatch):
 
     bf16: at this width bf16 compute alone moves the JAX denoiser ~4e-2
     (relative RMS) from its f32 result, and a near-tied top-2 routing can
-    flip in either package, so the port's bf16 output is held to the JAX
-    f32 result: no further from it than 1.5x the JAX bf16 output is."""
+    flip in either package. The port rounds where the JAX modules round,
+    so its bf16 output is held to the JAX bf16 output: no further from it
+    than 1.5x the distance bf16 compute alone puts between the JAX bf16 and
+    f32 outputs (4.30e-2 against 3.62e-2 here; 5.53e-2 with PyTorch's own
+    bf16 roundings of the activations, the Dense bias and the scalars)."""
     monkeypatch.setenv("MOE_FUSED_KERNEL", "1")
     x, ts, lengths, ids = _denoiser_inputs(16)
 
@@ -380,4 +392,4 @@ def test_motion_transformer_with_both_fused_paths(dtype, monkeypatch):
         np.testing.assert_allclose(out.numpy(), ref, atol=1e-4)
     else:
         ref32 = jax_out("float32")
-        assert rel_rms(out.numpy(), ref32) <= 1.5 * rel_rms(ref, ref32)
+        assert rel_rms(out.numpy(), ref) <= 1.5 * rel_rms(ref, ref32)

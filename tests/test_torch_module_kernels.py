@@ -33,21 +33,29 @@ for flips from the f32 order of the LayerNorm and norm sums, each moving a
 row by up to two ulps: at most 1% of the outputs may differ (without the
 rounding at ``:104`` ~30% do; with the L2 in f32 ~5%), and the L2 alone is
 held to JAX's row by row. bf16 style
-block and Performer with every leaf drawn: the JAX module rounds where the
-port does not (the adaln reference's second rounding; flax adds a Dense bias
-after rounding the product, ``F.linear`` before; flax's bf16 ``silu`` and
-``gelu`` round between their steps, PyTorch's once), so each is held to the
-JAX f32 result: no farther from it than 1.5x the JAX bf16 module is. Each is
-also held to the JAX bf16 module itself where those extra roundings are
-taken out of the way: the style block with its modulation given by the
-``emb_layers`` bias alone and a zero ``out_bias`` (5e-4 relative RMS), the
-unfused Performer's attention output, the input of ``proj_out_0``, with zero
-``query``/``key``/``value`` biases (as bf16 ``FastAttention`` above). That
-pins the unfused form's own rounding points: the port's output equals
-JAX's bit for bit, while running the unfused form through the fused one
-(kernel 1 on the three weights concatenated) changes 38-54% of those values
-and scaling the heads by 0.1 unrounded (JAX multiplies by the weakly typed
-0.1 in bf16) 58%.
+block and Performer with every leaf drawn, nonzero biases included: the
+port rounds where the JAX modules round (``tests/test_torch_rounding.py``),
+so each is held to the JAX f32 result (no farther from it than 1.5x the
+JAX bf16 module is) and to the JAX bf16 module itself. The fused style
+block, whose JAX CPU reference rounds once more than its TPU kernel (the
+product before ``+ b``), is compared with the JAX module running that
+Pallas kernel in interpret mode: at most 1% of the values one ulp apart,
+none further (all equal here), given h in bf16; given h in f32 the output
+is f32, the same sums at 1e-5. The unfused
+Performer: its attention output, the input of ``proj_out_0``, as bf16
+``FastAttention`` above (the port's equals JAX's but for the rare flips of
+the f32 sums, while running the unfused form through the fused one, kernel 1
+on the three weights concatenated, changes 38-54% of those values, and
+scaling the heads by 0.1 unrounded, where JAX multiplies by the weakly
+typed 0.1 in bf16, 58%); past it those flips feed the next products and
+spread to ~13% of the block's output, so the whole block is held to JAX's
+bf16 result by relative RMS (6.5e-3 here; 9.8e-3 with PyTorch's own bf16
+activations, Dense bias and scalars). That RMS margin lets one wrong
+rounding past the attention through (F.silu or F.gelu alone pass it), so
+the part past it is held by flips: fed the JAX module's attention output,
+with x in bf16, the port's block gives JAX's bf16 output under the rule of
+the other modules (all equal here), and fails it with PyTorch's silu (8.7%
+of the values, up to 16 ulp), gelu (8.0%) or fused Dense bias.
 """
 
 import jax
@@ -56,12 +64,14 @@ import numpy as np
 import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
+from torch.nn.functional import linear as F_linear
 
 from motiondiffusion_moe_tpu.models import attention as JA
 from motiondiffusion_moe_tpu.models import embeddings as JE
 from motiondiffusion_moe_tpu.models.transformer import (
     MotionTransformer as JaxMotionTransformer,
 )
+from motiondiffusion_moe_tpu.ops import adaln_pallas
 from motiondiffusion_moe_tpu.ops.adaln_pallas import (
     _adaln_pallas,
     adaln_dense as jax_adaln,
@@ -100,7 +110,10 @@ from motiondiffusion_moe_tpu_torch.ops.performer import (
 )
 
 from tests._torch_parity import (
+    adaln_as_the_tpu_kernel,
     assert_bf16_close,
+    assert_bf16_flips,
+    bf16_flips,
     load_into,
     perturb_zero_leaves,
     random_params,
@@ -115,6 +128,7 @@ BF16_FLIP_SHARE = 0.01
 BF16_L2_ROW_SHARE = 0.01
 BF16_MODULE_FACTOR = 1.5
 BF16_MODULE_REL_RMS = 5e-4
+BF16_PERFORMER_REL_RMS = 7.5e-3
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 
@@ -382,44 +396,48 @@ def _both(jmod, port_cls, jax_args, port_args, dtype, adjust=None,
     return outs
 
 
-def _check_module(ref32, ref, out, dtype, residual=0.0):
+def _check_module(ref32, ref, out, dtype, residual=0.0, held="bits"):
+    """f32: the JAX f32 output at 1e-5. bf16 compute: no farther from the
+    JAX f32 result than 1.5x the JAX bf16 module is, and held to the JAX
+    bf16 module's output itself (see the module doc): "bits", a bf16 output,
+    at most 1% of the values one ulp apart and none further; "f32", an f32
+    output of the same bf16 operands, at 1e-5; "rel_rms", the residual
+    branch by relative RMS."""
     if dtype == "float32":
         np.testing.assert_allclose(out, ref32, atol=F32_TOL)
+        return
+    far = rel_rms(ref - residual, ref32 - residual)
+    assert rel_rms(out - residual, ref32 - residual) <= (
+        BF16_MODULE_FACTOR * far)
+    if held == "bits":
+        assert_bf16_flips(out, ref)
+    elif held == "f32":
+        np.testing.assert_allclose(out, ref, atol=F32_TOL, rtol=F32_TOL)
     else:
-        far = rel_rms(ref - residual, ref32 - residual)
-        assert rel_rms(out - residual, ref32 - residual) <= (
-            BF16_MODULE_FACTOR * far)
+        assert rel_rms(out - residual, ref - residual) <= (
+            BF16_PERFORMER_REL_RMS)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_stylization_block_fused(dtype):
+def test_stylization_block_fused(dtype, monkeypatch):
+    monkeypatch.setattr(adaln_pallas, "adaln_dense", adaln_as_the_tpu_kernel)
     h, emb = _n(B, T, D), _n(B, D, seed=1)
     ref32, ref, out = _both(
         lambda dt: JE.StylizationBlock(latent_dim=D, time_embed_dim=TED,
                                        dropout=0.0, dtype=dt, fused=True),
         lambda dt: TE.StylizationBlock(D, TED, D, dt, fused=True),
         [h, emb], [t(h), t(emb)], dtype)
-    _check_module(ref32, ref, out, dtype)
+    _check_module(ref32, ref, out, dtype, held="f32")  # out in h's dtype
     if dtype == "float32":
         return
-
-    def exact_modulation(params):
-        """scale and shift are the emb_layers bias on both sides; the JAX
-        reference's rounding after ``+ b`` is exact for a zero b."""
-        params["emb_layers"]["kernel"] = np.zeros_like(
-            params["emb_layers"]["kernel"])
-        params["out_bias"] = np.zeros_like(params["out_bias"])
-        return params
-
-    # h in bf16, as a bf16 denoiser hands it over: the JAX reference rounds
-    # the activations to h's dtype, the kernels to w's
+    # h in bf16, as a bf16 denoiser hands it over
     _, ref, out = _both(
         lambda dt: JE.StylizationBlock(latent_dim=D, time_embed_dim=TED,
                                        dropout=0.0, dtype=dt, fused=True),
         lambda dt: TE.StylizationBlock(D, TED, D, dt, fused=True),
         [jnp.asarray(h).astype(jnp.bfloat16), emb],
-        [t(h).bfloat16(), t(emb)], dtype, exact_modulation)
-    assert rel_rms(out, ref) <= BF16_MODULE_REL_RMS
+        [t(h).bfloat16(), t(emb)], dtype)
+    assert_bf16_flips(out, ref)
 
 
 def test_stylization_block_fused_takes_the_kernel_only_without_dropout(
@@ -487,6 +505,50 @@ def test_fast_attention_l2_rounds_like_jax():
     assert (out != ref).any(-1).mean() <= BF16_L2_ROW_SHARE
 
 
+def _performer_kw():
+    return dict(latent_dim=D, num_heads=H, dropout=0.0, time_embed_dim=TED,
+                num_features=M, fused=False)
+
+
+def _performer_params(x, emb, mask, qkv_scale):
+    """A seeded flax tree of the unfused Performer, every leaf drawn, the
+    query, key and value kernels and biases scaled by ``qkv_scale``."""
+    params = jax.tree_util.tree_map(np.asarray, random_params(
+        JA.PerformerSelfAttention(**_performer_kw()), x, emb,
+        mask[..., None]))
+    for name in ("query", "key", "value"):
+        params[name]["kernel"] = params[name]["kernel"] * qkv_scale
+        params[name]["bias"] = params[name]["bias"] * qkv_scale
+    return params
+
+
+def _jax_attention_output(state) -> np.ndarray:
+    """proj_out_0's input, [B, T, D], from captured JAX intermediates."""
+    return _f32(state["intermediates"]["fast_attention"]["__call__"][0]
+                .transpose(0, 2, 1, 3).reshape(B, T, D))
+
+
+def _performer_tail(qkv_scale):
+    """The bf16 unfused Performer past its attention output, x in bf16 (as
+    a bf16 denoiser hands it over): (the port's output with the JAX
+    module's attention output fed to proj_out_0, the JAX module's
+    output)."""
+    x, emb, mask = _n(B, T, D), _n(B, D, seed=1), _mask()
+    params = _performer_params(x, emb, mask, qkv_scale)
+    jmod = JA.PerformerSelfAttention(**_performer_kw(), dtype=jnp.bfloat16)
+    ref, state = jmod.apply({"params": params}, jnp.asarray(x, jnp.bfloat16),
+                            emb, mask[..., None], capture_intermediates=True)
+    attn = t(_jax_attention_output(state)).bfloat16()
+    port = load_into(TA.PerformerSelfAttention(
+        D, H, TED, M, dtype=torch.bfloat16, fused=False), params)
+    port.proj_out_0.register_forward_pre_hook(
+        lambda mod, args: (attn,) + args[1:])
+    with torch.no_grad():
+        out = port(t(x).bfloat16(), t(emb), t(mask))
+    assert out.dtype == torch.bfloat16
+    return out.float().numpy(), _f32(ref)
+
+
 @pytest.mark.parametrize("qkv_scale", [1.0, 1e-3])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_performer_unfused(dtype, qkv_scale):
@@ -503,35 +565,21 @@ def test_performer_unfused(dtype, qkv_scale):
         return params
 
     ref32, ref, out = _both(
-        lambda dt: JA.PerformerSelfAttention(
-            latent_dim=D, num_heads=H, dropout=0.0, time_embed_dim=TED,
-            num_features=M, fused=False, dtype=dt),
+        lambda dt: JA.PerformerSelfAttention(**_performer_kw(), dtype=dt),
         lambda dt: TA.PerformerSelfAttention(D, H, TED, M, dtype=dt,
                                              fused=False),
         [x, emb, mask[..., None]], [t(x), t(emb), t(mask)], dtype, adjust)
-    _check_module(ref32, ref, out, dtype, residual=x)
+    _check_module(ref32, ref, out, dtype, residual=x, held="rel_rms")
     if dtype == "float32":
         return
 
     # the attention output (proj_out_0's input) against the JAX bf16
-    # module's, with the q/k/v Dense biases zero (see the module doc)
-    def zero_qkv_bias(params):
-        params = adjust(params)
-        for name in ("query", "key", "value"):
-            params[name]["bias"] = np.zeros_like(params[name]["bias"])
-        return params
-
-    params = zero_qkv_bias(jax.tree_util.tree_map(np.asarray, random_params(
-        JA.PerformerSelfAttention(latent_dim=D, num_heads=H, dropout=0.0,
-                                  time_embed_dim=TED, num_features=M,
-                                  fused=False), x, emb, mask[..., None])))
-    jmod = JA.PerformerSelfAttention(
-        latent_dim=D, num_heads=H, dropout=0.0, time_embed_dim=TED,
-        num_features=M, fused=False, dtype=jnp.bfloat16)
+    # module's, every leaf drawn (see the module doc)
+    params = _performer_params(x, emb, mask, qkv_scale)
+    jmod = JA.PerformerSelfAttention(**_performer_kw(), dtype=jnp.bfloat16)
     _, state = jmod.apply({"params": params}, x, emb, mask[..., None],
                           capture_intermediates=True)
-    ref = _f32(state["intermediates"]["fast_attention"]["__call__"][0]
-               .transpose(0, 2, 1, 3).reshape(B, T, D))
+    ref = _jax_attention_output(state)
     port = load_into(TA.PerformerSelfAttention(
         D, H, TED, M, dtype=torch.bfloat16, fused=False), params)
     seen = []
@@ -543,6 +591,38 @@ def test_performer_unfused(dtype, qkv_scale):
     assert_bf16_close(out, ref, ulps=2)
     assert (out != ref).mean() <= BF16_FLIP_SHARE
     assert rel_rms(out, ref) <= BF16_MODULE_REL_RMS
+    # past it, given JAX's attention output: the rule of the other modules
+    assert_bf16_flips(*_performer_tail(qkv_scale))
+
+
+@pytest.mark.parametrize("mutation", ["F.silu", "F.gelu", "fused Dense bias"])
+def test_performer_tail_fails_with_pytorchs_roundings(mutation, monkeypatch):
+    """The mutations the Performer's bf16 check must catch past the
+    attention output (the relative RMS of the whole block lets F.silu and
+    F.gelu through): the style block's silu, proj_out_0's gelu and the
+    Dense bias, each as PyTorch rounds it."""
+    from motiondiffusion_moe_tpu_torch.models import layers as TL
+    from motiondiffusion_moe_tpu_torch.ops import activations as ACT
+
+    def plus(x, bias):
+        return x if bias is None else x + bias.to(x.dtype)
+
+    if mutation == "F.silu":
+        silu = lambda x, bias=None: torch.nn.functional.silu(  # noqa: E731
+            plus(x, bias))
+        monkeypatch.setattr(ACT, "silu", silu)
+        monkeypatch.setattr(TE, "silu", silu)
+    elif mutation == "F.gelu":
+        monkeypatch.setattr(ACT, "gelu", lambda x, bias=None: (
+            torch.nn.functional.gelu(plus(x, bias), approximate="tanh")))
+    else:
+        monkeypatch.setattr(TL.Dense, "forward", lambda self, x, act=None: (
+            lambda y: y if act is None else getattr(ACT, act)(y))(F_linear(
+                x.to(self.dtype), self.weight.to(self.dtype),
+                self.bias.to(self.dtype))))
+    out, ref = _performer_tail(1.0)
+    flipped, worst = bf16_flips(out, ref)
+    assert flipped > BF16_FLIP_SHARE or worst > 1.0
 
 
 def test_port_graft_fused_equals_unfused():
