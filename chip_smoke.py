@@ -18,7 +18,12 @@ first use) and exits non-zero without one. Phases, each fatal on failure:
          versions' bits;
          max errors against the stated tolerances; kernel and plain times
          per call (CUDA events over back-to-back calls) and device times
-         (torch.profiler).
+         (torch.profiler). favor_qkv (the tensor cores, 3xTF32, rows split
+         over a thread-block cluster) also: the same bits on a second
+         call, its bound at three TF32 passes beside the IEEE-FMA floor of
+         PRs 1-5's design, its time at 1, 2, 4 and 8 CTAs per (b, h) at
+         B*H = 128 and at a serving batch of B*H = 8, and under
+         FAVOR_MXU_BF16=1 against the plain version with bf16 operands.
   B      the full-width flagship denoiser (ExperimentConfig.moe_small(),
          seeded init, zero-init leaves perturbed) forward once through the
          kernels and once with use_kernels=False, in f32 compute (tight
@@ -38,7 +43,9 @@ first use) and exits non-zero without one. Phases, each fatal on failure:
          at the training shapes (B = 32, T = 196 and 98, H = 4, D = m = 128,
          ragged mask; favor_qkv_bwd in bf16 and f32, with and without
          d(proj); performer_epilogue_bwd in bf16 at width 512), max errors
-         against stated tolerances, kernel and plain times. D2: one
+         against stated tolerances, kernel and plain times; favor_qkv_bwd
+         as favor_qkv in A (repeated bits, the 3xTF32 bound and the
+         IEEE-FMA floor, the cluster sweep). D2: one
          full-width train step in f32 compute (dropout 0, no stochastic
          depth) through the kernels and with use_kernels=False on the same
          batch, noise and t: equal losses, a finite gradient for every
@@ -175,7 +182,7 @@ MODULE_F32_REL_RMS = 1e-5
 FORMS_F32_REL_RMS = 1e-5
 # the least time the card could take: published H100 SXM peaks (dense)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
+PEAK_FLOPS = {"bf16": 989e12, "tf32": 495e12, "f32": 67e12}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -213,6 +220,50 @@ def attention_bound(heads: int, T: int, N: int, D: int):
     flops = 4 * heads * T * N * D
     b_ms, b_by = bound(nbytes, flops, "bf16")
     return b_ms, b_by, flops / PEAK_FLOPS["f32"] * 1e3
+
+
+def favor_bound(nbytes: float, flops: float):
+    """The FAVOR+ kernels (1, 3, 8, 10), whose products must keep f32
+    accuracy in front of the exp: (bound ms, its "by", the IEEE design's
+    floor ms). On Hopper's tensor cores that takes three TF32 passes
+    (3xTF32, the kernels' own design), so the bound is 3 x ``flops`` at the
+    dense TF32 rate, or the bytes where they take longer. A design that
+    holds the products in IEEE f32 FMAs, as PRs 1-4's did, cannot go below
+    ``flops`` at the f32 rate: that floor is printed beside the bound,
+    never in its place."""
+    b_ms, b_by = bound(nbytes, 3 * flops, "tf32")
+    return b_ms, b_by, flops / PEAK_FLOPS["f32"] * 1e3
+
+
+def cluster_s(bh: int, dev, per_sm: int) -> str:
+    from motiondiffusion_moe_tpu_torch.ops import performer as P
+
+    return (f"{P.favor_cluster(bh, dev, per_sm)} CTAs per (b, h) in a "
+            f"cluster")
+
+
+def cluster_sweep(tag, name, kernel, small, per_sm):
+    """Times of a FAVOR+ kernel with the CTAs of a thread-block cluster
+    forced to 1, 2, 4 and 8 per (b, h): ``kernel`` at the flagship batch
+    (B*H = 128) and ``small`` at a serving batch of one CFG-doubled prompt
+    (B*H = 8), against the wrapper's own choice (``favor_cluster``)."""
+    import torch
+    from motiondiffusion_moe_tpu_torch.ops import performer as P
+
+    dev = torch.device("cuda", 0)
+    auto = P.favor_cluster
+    picks = (auto(128, dev, per_sm), auto(8, dev, per_sm))
+    times = {}
+    try:
+        for c in (1, 2, 4, 8):
+            P.favor_cluster = lambda bh, d, per_sm, c=c: c
+            times[c] = (time_ms(kernel, 10), time_ms(small, 10))
+    finally:
+        P.favor_cluster = auto
+    print(f"[{tag}] {name} by CTAs per (b, h), ms per call (CUDA events): "
+          + ", ".join(f"{c}: {a:.4f} (B*H=128) / {b:.4f} (B*H=8)"
+                      for c, (a, b) in times.items())
+          + f"; the wrapper picks {picks[0]} and {picks[1]}")
 
 
 def time_ms(fn, iters: int = 20) -> float:
@@ -330,21 +381,57 @@ def phase_a(dev, card):
             torch.cuda.synchronize()
             ref = P.favor_qkv_plain(qkv, scale, bias, proj, mask)
             err = report("favor_qkv", dtype, T, out, ref)
+            same = torch.equal(out, P.favor_qkv(qkv, scale, bias, proj, mask))
+            print(f"[A] favor_qkv {str(dtype)[6:]} T={T}: a second call "
+                  f"gives the same bits: {same}")
+            check(same, "favor_qkv differs between two calls")
             kernel = lambda: P.favor_qkv(qkv, scale, bias, proj, mask)
             plain = lambda: P.favor_qkv_plain(qkv, scale, bias, proj, mask)
             k_ms, p_ms = paired_ms(kernel, plain)
             # inputs read once, output written once; the four [T, D] x
-            # [D, m]-sized products of every (b, h) in f32
+            # [D, m]-sized products of every (b, h)
             el = qkv.element_size()
-            b_ms, b_by = bound(
+            b_ms, b_by, floor_ms = favor_bound(
                 B * T * 4 * H * D * el + (2 * D + D * m + B * T) * 4,
-                4 * 2 * B * H * T * D * m, "f32")
-            print(f"[A] favor_qkv {str(dtype)[6:]} B={B} T={T}: kernel "
-                  f"{k_ms:.4f} ms, plain {p_ms:.4f} ms per call (CUDA "
-                  f"events); device time kernel {device_ms(kernel)}, "
-                  f"plain {device_ms(plain)} (torch.profiler); bound "
-                  f"{b_ms:.4f} ms ({b_by}) ({card})")
+                4 * 2 * B * H * T * D * m)
+            print(f"[A] favor_qkv {str(dtype)[6:]} B={B} T={T} "
+                  f"({cluster_s(B * H, dev, 2)}): kernel {k_ms:.4f} ms, "
+                  f"plain {p_ms:.4f} ms per call (CUDA events); device time "
+                  f"kernel {device_ms(kernel)}, plain {device_ms(plain)} "
+                  f"(torch.profiler); bound {b_ms:.4f} ms ({b_by}, 3xTF32 "
+                  f"on the tensor cores); the floor of IEEE f32 FMA "
+                  f"products (PRs 1-5's design) {floor_ms:.4f} ms ({card})")
             results[("favor_qkv", dtype, T)] = (err, k_ms, p_ms, b_ms, b_by)
+            if T != 196:
+                continue
+            if dtype == torch.bfloat16:
+                cluster_sweep("A", "favor_qkv bf16 T=196", kernel,
+                              lambda: P.favor_qkv(qkv[:2], scale, bias, proj,
+                                                  mask[:2]), 2)
+            # FAVOR_MXU_BF16=1: one bf16 pass per product, against the
+            # plain version with bf16 operands (an operand the two sides
+            # round from f32 values summed in another order may land one
+            # bf16 ulp apart: held at bf16 resolution, 2^-8 of max|plain|)
+            os.environ["FAVOR_MXU_BF16"] = "1"
+            try:
+                out = P.favor_qkv(qkv, scale, bias, proj, mask)
+                torch.cuda.synchronize()
+                k_ms = time_ms(kernel)
+            finally:
+                del os.environ["FAVOR_MXU_BF16"]
+            ref = P.favor_qkv_plain(qkv, scale, bias, proj, mask,
+                                    product=P.bf16_operand_product)
+            diff = (out.float() - ref.float()).abs()
+            floor = 2 ** -8 * ref.float().abs().max().item()
+            ok = bool((diff <= (BF16_REL * ref.float().abs() if dtype
+                                == torch.bfloat16 else 0) + floor).all())
+            print(f"[A] favor_qkv {str(dtype)[6:]} T={T} FAVOR_MXU_BF16=1: "
+                  f"max_abs_err={diff.max().item():.3e} against the plain "
+                  f"version with bf16 operands (tol {floor:.3e}"
+                  + (" + one bf16 ulp" if dtype == torch.bfloat16 else "")
+                  + f") -> {'ok' if ok else 'FAIL'}; kernel {k_ms:.4f} ms "
+                  f"per call ({card})")
+            check(ok, f"favor_qkv FAVOR_MXU_BF16=1 {dtype} outside tolerance")
 
         y = t(B, T, latent).to(torch.bfloat16)
         sc = t(B, latent, s=0.3).to(torch.bfloat16)
@@ -707,7 +794,7 @@ def phase_c(cfg, model, dev, card):
 
     def forward():
         with torch.inference_mode():
-            model(*args, text_ids=ids)
+            pipe.model(*args, text_ids=ids)
 
     print(f"[C] one denoiser forward (B=32, bf16, torch.profiler): "
           f"{kernels_per_call(forward)} ({card})")
@@ -794,20 +881,35 @@ def phase_d1(dev, card):
                         qkv, scale, bias, proj, mask, g, need_dproj=False)
                     plain = lambda: P.favor_qkv_bwd_plain(  # noqa: E731
                         qkv, scale, bias, proj, mask, g, need_dproj=False)
+                    again = kernel()
+                    same = all(torch.equal(a, o) for a, o in
+                               zip(again[:3], out[:3]))
+                    print(f"[D1] {name}: a second call gives the same bits: "
+                          f"{same}")
+                    check(same, "favor_qkv_bwd differs between two calls")
                     k_ms, p_ms = paired_ms(kernel, plain, iters=10)
                     # qkv and g read, d qkv and d(LN) written; the forward's
                     # four [T, D] x [D, m]-sized products recomputed and six
-                    # in the backward, f32
-                    b_ms, b_by = bound(
+                    # in the backward
+                    b_ms, b_by, floor_ms = favor_bound(
                         B * T * 7 * H * D * 2 + (4 * D + D * m + B * T) * 4,
-                        10 * 2 * B * H * T * D * m, "f32")
-                    print(f"[D1] {name}: kernel {k_ms:.4f} ms, plain "
-                          f"{p_ms:.4f} ms per call (CUDA events); device "
-                          f"time kernel {device_ms(kernel, 10)}, plain "
+                        10 * 2 * B * H * T * D * m)
+                    print(f"[D1] {name} ({cluster_s(B * H, dev, 1)}): "
+                          f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms per "
+                          f"call (CUDA events); device time kernel "
+                          f"{device_ms(kernel, 10)}, plain "
                           f"{device_ms(plain, 10)} (torch.profiler); bound "
-                          f"{b_ms:.4f} ms ({b_by}) ({card})")
+                          f"{b_ms:.4f} ms ({b_by}, 3xTF32 on the tensor "
+                          f"cores); the floor of IEEE f32 FMA products (PRs "
+                          f"1-5's design) {floor_ms:.4f} ms ({card})")
                     results[("favor_qkv_bwd", T)] = (err, k_ms, p_ms, b_ms,
                                                      b_by)
+                    if T == 196:
+                        cluster_sweep("D1", name, kernel,
+                                      lambda: P.favor_qkv_bwd(
+                                          qkv[:2], scale, bias, proj,
+                                          mask[:2], g[:2], need_dproj=False),
+                                      1)
 
         y, g = t(B, T, latent).to(torch.bfloat16), t(B, T, latent).to(
             torch.bfloat16)
@@ -1369,7 +1471,7 @@ def phase_e3(cfg, model, dev, card, c_timings):
                               num_inference_steps=20, micro_batch=16,
                               param_dtype="bfloat16", device=dev)
     T, F = cfg.model.max_frames, cfg.model.input_feats
-    set_fused_paths(model, True)
+    set_fused_paths(pipe.model, True)
     pipe.generate(["warm up"], [T])  # cuBLAS handles, allocator
     counts = (P.favor_qkv, P.performer_epilogue, MOE.moe_dense_fused,
               XA.xattn_fastlayout, ACT.silu, ACT.gelu, ACT.sigmoid)
@@ -1411,16 +1513,16 @@ def phase_e3(cfg, model, dev, card, c_timings):
     args, ids = denoiser_inputs(cfg, dev)
     seen = {}
     for on in (False, True):
-        set_fused_paths(model, on)
+        set_fused_paths(pipe.model, on)
 
         def forward():
             with torch.inference_mode():
-                model(*args, text_ids=ids)
+                pipe.model(*args, text_ids=ids)
 
         seen[on] = kernels_per_call(forward)
     gen = {False: [], True: []}
     for on in (False, True, True, False) * 2:
-        set_fused_paths(model, on)
+        set_fused_paths(pipe.model, on)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = pipe.generate(prompts, [T] * 16,
@@ -1428,7 +1530,7 @@ def phase_e3(cfg, model, dev, card, c_timings):
         torch.cuda.synchronize()
         gen[on].append(time.perf_counter() - t0)
         check(all(np.isfinite(o).all() for o in out), "E3 generate")
-    set_fused_paths(model, True)
+    set_fused_paths(pipe.model, True)
     print(f"[E3] one denoiser forward (B=32, bf16, torch.profiler): switches "
           f"off {seen[False]}; on {seen[True]}")
     print(f"[E3] dpm20 generate 16 prompts x {T} frames, in turns (off, on, "
@@ -1520,6 +1622,10 @@ def phase_f1(dev, card):
                  is not None else "; no single PyTorch call computes it")
         floor_s = ("" if floor_ms is None else f"; the floor of IEEE f32 FMA "
                    f"products (PR 4's design) {floor_ms:.4f} ms")
+        if name.startswith("favor"):
+            floor_s = (f" (3xTF32 on the tensor cores; "
+                       f"{cluster_s(B * H, dev, 2)})"
+                       + floor_s.replace("PR 4's design", "PRs 1-5's design"))
         print(f"[F1] {name}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms per "
               f"call (CUDA events){lib_s}; device time kernel "
               f"{device_ms(kernel)}, plain {device_ms(plain)}"
@@ -1577,10 +1683,11 @@ def phase_f1(dev, card):
               for kind, sel in (("valid", valid), ("masked", ~valid)))
     # q, k, v read and out written in f32; the four [T, D] x [D, m]-sized
     # products of every (b, h) in f32
+    b_ms, b_by, floor_ms = favor_bound(
+        4 * (4 * B * H * T * Dh + Dh * m + B * T), 4 * 2 * B * H * T * Dh * m)
     numbers = timed(name, lambda: P.favor_attention(q, k, v, proj, hmask),
                     lambda: P.favor_attention_plain(q, k, v, proj, hmask),
-                    bound(4 * (4 * B * H * T * Dh + Dh * m + B * T),
-                          4 * 2 * B * H * T * Dh * m, "f32"))
+                    (b_ms, b_by), floor_ms=floor_ms)
     results["favor_attention"] = (err,) + numbers
     grad_vs_plain("F1", "favor_attention", lambda a: P.favor_attention(*a),
                   lambda a: P.favor_attention_plain(*a),
@@ -1604,12 +1711,14 @@ def phase_f1(dev, card):
         if dtype != torch.bfloat16:
             continue
         el = qkv.element_size()
+        b_ms, b_by, floor_ms = favor_bound(
+            B * T * 4 * H * Dh * el + (2 * Dh + Dh * m + B * T) * 4,
+            4 * 2 * B * H * T * Dh * m)
         numbers = timed(
             name, lambda: P.favor_attention_full(q3, k3, v3, scale, bias,
                                                  proj, mask),
             lambda: P.favor_full_plain(q3, k3, v3, scale, bias, proj, mask),
-            bound(B * T * 4 * H * Dh * el + (2 * Dh + Dh * m + B * T) * 4,
-                  4 * 2 * B * H * T * Dh * m, "f32"))
+            (b_ms, b_by), floor_ms=floor_ms)
         results["favor_attention_full"] = (err,) + numbers
         P.favor_attention_full.launches = 0
         P.favor_attention_full(q3, k3, v3, scale, bias, proj, mask)
@@ -1873,7 +1982,7 @@ def main() -> int:
     phase_b(cfg, model, dev)
 
     launches, c_timings = phase_c(cfg, model, dev, card)
-    model.cpu()  # its bf16 weights come back in phase E
+    model.cpu()  # back to the card in phase E
     torch.cuda.empty_cache()
 
     d1 = phase_d1(dev, card)

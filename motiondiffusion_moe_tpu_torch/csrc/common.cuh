@@ -1,6 +1,7 @@
 // Small device helpers shared by the hand-written Hopper kernels.
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -94,30 +95,269 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// ---- f32-accurate products on the tensor cores (3xTF32) -----------------
+//
+// A TF32 operand keeps 10 of f32's 23 mantissa bits, about three decimal
+// digits: too few in front of the FAVOR+ exp. Split each operand x into
+// hi = tf32(x) and lo = tf32(x - hi) (x - hi is exact in f32, and lo keeps
+// the next 11 bits), and a . b = a_lo b_hi + a_hi b_lo + a_hi b_hi, each
+// product of two TF32 values exact in f32, with f32 accumulation: the
+// dropped a_lo b_lo and the rounding of lo leave ~2^-21 of each product.
+
+// x rounded to TF32 (cvt.rna: to nearest, ties away from zero) as the bits
+// of an f32 value whose low 13 mantissa bits are zero.
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r & 0xffffe000u;
+}
+
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(x - __uint_as_float(hi));
+}
+
+// D (16x8, f32) += A (16x8, tf32, row-major) . B (8x8, tf32, col-major).
+// a[0..3]: (row g, k t), (row g+8, k t), (row g, k t+4), (row g+8, k t+4);
+// b0 / b1: k t / t+4 of column g; c as for mma_bf16 (g = lane / 4,
+// t = lane % 4).
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Element (r, c) of a matrix in shared memory, row-major with leading
+// dimension ld, or (kT) of the transpose of such a matrix.
+template <bool kT>
+__device__ __forceinline__ float mat_at(const float* p, int ld, int r,
+                                        int c) {
+  return kT ? p[c * ld + r] : p[r * ld + c];
+}
+
+// One warp: acc[j] += A . B[:, 8j .. 8j+8) for j < NT, where A (16 x K) and
+// B (K x 8 NT) are f32 matrices in shared memory read through mat_at<kTA>
+// and mat_at<kTB>. acc[j][0..1] is row g, columns 8j + 2t, 8j + 2t + 1;
+// acc[j][2..3] the same columns of row g + 8 (g = lane / 4, t = lane % 4).
+//
+// kBf16 false: 3xTF32 (above), per k step of 8 the three mma lo.hi, hi.lo,
+// hi.hi. kBf16 true (FAVOR_MXU_BF16=1): the operands rounded to bf16 (to
+// nearest even, as .astype(bfloat16)), one bf16 mma per k step of 16, f32
+// accumulation: the JAX kernels' single MXU pass.
+//
+// An mma waits for the one before it on the same accumulator. With few
+// output tiles (NT <= 4) each tile's sum is therefore taken in independent
+// chains, even and odd k steps apart and (3xTF32) the two small terms apart
+// from hi.hi, added at the end in a fixed order; with more tiles the tiles
+// themselves keep the tensor cores busy and each is one chain. Either way
+// each output element is a fixed sequence of mma over k that depends on its
+// own row of A only: the same row and the same B give the same bits in any
+// tile of any caller with the same NT.
+template <bool kBf16, int NT, bool kTA, bool kTB>
+__device__ __forceinline__ void warp_product(float (&acc)[NT][4],
+                                             const float* a, int lda,
+                                             const float* b, int ldb, int K,
+                                             int lane) {
+  constexpr bool kChains = NT <= 4;
+  constexpr int kP = kChains ? 2 : 1;  // k-step parities
+  constexpr int kStep = kBf16 ? 16 : 8;
+  const int g = lane >> 2, t = lane & 3;
+  float big[kP][NT][4], small[kP][NT][4];
+  if constexpr (kChains) {
+#pragma unroll
+    for (int p = 0; p < kP; ++p) {
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) big[p][j][e] = small[p][j][e] = 0.f;
+      }
+    }
+  }
+#pragma unroll 4
+  for (int k0 = 0; k0 < K; k0 += kStep) {
+    const int p = kChains ? (k0 / kStep) & 1 : 0;
+    if constexpr (kBf16) {
+      const int k = k0 + 2 * t;
+      const uint32_t af[4] = {
+          pack_bf16(mat_at<kTA>(a, lda, g, k), mat_at<kTA>(a, lda, g, k + 1)),
+          pack_bf16(mat_at<kTA>(a, lda, g + 8, k),
+                    mat_at<kTA>(a, lda, g + 8, k + 1)),
+          pack_bf16(mat_at<kTA>(a, lda, g, k + 8),
+                    mat_at<kTA>(a, lda, g, k + 9)),
+          pack_bf16(mat_at<kTA>(a, lda, g + 8, k + 8),
+                    mat_at<kTA>(a, lda, g + 8, k + 9))};
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const int n = 8 * j + g;
+        const uint32_t b0 = pack_bf16(mat_at<kTB>(b, ldb, k, n),
+                                      mat_at<kTB>(b, ldb, k + 1, n));
+        const uint32_t b1 = pack_bf16(mat_at<kTB>(b, ldb, k + 8, n),
+                                      mat_at<kTB>(b, ldb, k + 9, n));
+        if constexpr (kChains) {
+          mma_bf16(big[p][j], af, b0, b1);
+        } else {
+          mma_bf16(acc[j], af, b0, b1);
+        }
+      }
+    } else {
+      uint32_t ah[4], al[4];
+      split_tf32(mat_at<kTA>(a, lda, g, k0 + t), ah[0], al[0]);
+      split_tf32(mat_at<kTA>(a, lda, g + 8, k0 + t), ah[1], al[1]);
+      split_tf32(mat_at<kTA>(a, lda, g, k0 + t + 4), ah[2], al[2]);
+      split_tf32(mat_at<kTA>(a, lda, g + 8, k0 + t + 4), ah[3], al[3]);
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const int n = 8 * j + g;
+        uint32_t bh0, bl0, bh1, bl1;
+        split_tf32(mat_at<kTB>(b, ldb, k0 + t, n), bh0, bl0);
+        split_tf32(mat_at<kTB>(b, ldb, k0 + t + 4, n), bh1, bl1);
+        if constexpr (kChains) {
+          mma_tf32(small[p][j], al, bh0, bh1);
+          mma_tf32(small[p][j], ah, bl0, bl1);
+          mma_tf32(big[p][j], ah, bh0, bh1);
+        } else {
+          mma_tf32(acc[j], al, bh0, bh1);
+          mma_tf32(acc[j], ah, bl0, bl1);
+          mma_tf32(acc[j], ah, bh0, bh1);
+        }
+      }
+    }
+  }
+  if constexpr (kChains) {
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        acc[j][e] += (small[0][j][e] + big[0][j][e]) +
+                     (small[1][j][e] + big[1][j][e]);
+      }
+    }
+  }
+}
+
+// The FAVOR+ feature logits of one 16-row tile: acc[j] = rows (16 x D,
+// leading dimension ld_rows) . proj[:, n0 + 8j .. + 8) (proj [D][M],
+// leading dimension ld_proj). Kernel 1 (favor_qkv.cu) and its backward
+// (favor_qkv_bwd.cu) both take their logits from this one routine with
+// NT = 2, on rows from normalize_loaded: the backward's clip masks are the
+// forward's, bit for bit.
+template <bool kBf16, int D, int NT>
+__device__ __forceinline__ void feature_logits(const float* rows, int ld_rows,
+                                               const float* proj, int ld_proj,
+                                               int n0, float (&acc)[NT][4],
+                                               int lane) {
+  static_assert(NT == 2, "one summation structure for every caller");
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  }
+  warp_product<kBf16, NT, false, false>(acc, rows, ld_rows, proj + n0,
+                                        ld_proj, D, lane);
+}
+
+// The cluster's sum of a [rows x cols] f32 matrix of which every CTA of the
+// thread-block cluster holds a partial at the same place `buf` of its
+// shared memory (leading dimension ld; cols and ld multiples of 4), read
+// through distributed shared memory and added in rank order 0, 1, ..., C-1:
+// no atomics, so repeated runs give the same bits. Rank r sums rows
+// [r rows / C, (r + 1) rows / C), times `scale`, into its own buf and, when
+// dst is not null, into dst (global, rows x cols, 16-byte aligned). With
+// `gather`, every CTA then copies the other ranks' sums, so that each holds
+// the whole sum. Every thread of every CTA of the cluster (C <= 8) calls
+// it after writing its partial; on return no CTA reads another's shared
+// memory.
+__device__ __forceinline__ void cluster_sum(float* buf, int ld, int rows,
+                                            int cols, float scale,
+                                            bool gather, float* dst) {
+  cooperative_groups::cluster_group cluster =
+      cooperative_groups::this_cluster();
+  const int C = int(cluster.num_blocks());
+  const int me = int(cluster.block_rank());
+  const int c4 = cols / 4;
+  cluster.sync();  // every partial is written
+  const int r0 = me * rows / C, r1 = (me + 1) * rows / C;
+  for (int i = threadIdx.x; i < (r1 - r0) * c4; i += blockDim.x) {
+    const int off = (r0 + i / c4) * ld + 4 * (i % c4);
+    float4 p[8];  // every rank's partial in flight at once
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      if (q < C) {
+        p[q] = *reinterpret_cast<const float4*>(
+            cluster.map_shared_rank(buf, q) + off);
+      }
+    }
+    float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      if (q < C) {
+        s.x += p[q].x;
+        s.y += p[q].y;
+        s.z += p[q].z;
+        s.w += p[q].w;
+      }
+    }
+    s = make_float4(s.x * scale, s.y * scale, s.z * scale, s.w * scale);
+    *reinterpret_cast<float4*>(buf + off) = s;
+    if (dst != nullptr) {
+      *reinterpret_cast<float4*>(dst + (r0 + i / c4) * cols + 4 * (i % c4)) =
+          s;
+    }
+  }
+  cluster.sync();  // every slice is summed
+  if (!gather) return;
+  for (int i = threadIdx.x; i < rows * c4; i += blockDim.x) {
+    const int r = i / c4;
+    int owner = 0;
+    while (r >= (owner + 1) * rows / C) ++owner;
+    if (owner == me) continue;
+    const int off = r * ld + 4 * (i % c4);
+    *reinterpret_cast<float4*>(buf + off) = *reinterpret_cast<const float4*>(
+        cluster.map_shared_rank(buf, owner) + off);
+  }
+  cluster.sync();  // no CTA reads another's buf after this
+}
+
 // The FAVOR+ feature map exp(clip(logit, -15, 15)) * 0.1.
 __device__ __forceinline__ float feature(float logit) {
   return expf(fminf(fmaxf(logit, -15.f), 15.f)) * 0.1f;
 }
 
-// Statistics of one normalize_row call: LayerNorm mean and 1/std, the L2
+// Statistics of one normalize_loaded call: LayerNorm mean and 1/std, the L2
 // sum of squares n2 and factor r = 1/sqrt(max(n2, 1e-24)) (r = 1 without
 // L2). All zero for a row past the sequence end.
 struct RowStats {
   float mu, inv, n2, r;
 };
 
-// One warp normalizes one D-wide row: x * pre_scale -> LayerNorm(g, beta),
-// then L2 when `l2`. Lane l holds columns [l*C, l*C + C). A row past the
-// sequence end (`valid` false) is written as zeros. `valid` is the same for
-// all lanes, so the early return keeps the shuffles convergent.
+// One lane's C columns [lane*C, lane*C + C) of a row, widened to f32; zeros
+// for a row past the sequence end. Issued for all of a tile's rows before
+// any is normalized, so that their loads are in flight together.
+template <typename T, int C>
+__device__ __forceinline__ void load_row(const T* __restrict__ src,
+                                         bool valid, int lane,
+                                         float (&x)[C]) {
+#pragma unroll
+  for (int c = 0; c < C; ++c) x[c] = valid ? to_f32(src[lane * C + c]) : 0.f;
+}
+
+// One warp normalizes one D-wide row loaded by load_row: x * pre_scale ->
+// LayerNorm(g, beta), then L2 when `l2`, written to dst (lane l holds
+// columns [l*C, l*C + C)). A row past the sequence end (`valid` false) is
+// written as zeros. `valid` is the same for all lanes, so the early return
+// keeps the shuffles convergent.
 //
 // The forward kernel (favor_qkv.cu) and its backward (favor_qkv_bwd.cu)
 // both normalize through this one function, so the backward recomputes the
 // forward's rows, and from them its feature logits, bit for bit: the clip
 // pass-through masks of the backward agree with the loss that was computed.
-template <typename T, int C>
-__device__ __forceinline__ RowStats normalize_row(
-    const T* __restrict__ src, bool valid, const float (&g)[C],
+template <int C>
+__device__ __forceinline__ RowStats normalize_loaded(
+    const float (&raw)[C], bool valid, const float (&g)[C],
     const float (&beta)[C], float pre_scale, bool l2, float* dst, int lane) {
   constexpr float kInvD = 1.0f / float(C * 32);
   if (!valid) {
@@ -129,7 +369,7 @@ __device__ __forceinline__ RowStats normalize_row(
   float s = 0.f;
 #pragma unroll
   for (int c = 0; c < C; ++c) {
-    x[c] = to_f32(src[lane * C + c]) * pre_scale;
+    x[c] = raw[c] * pre_scale;
     s += x[c];
   }
   const float mu = warp_sum(s) * kInvD;

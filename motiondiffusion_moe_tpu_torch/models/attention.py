@@ -38,6 +38,8 @@ from motiondiffusion_moe_tpu_torch.models.layers import (
     LayerNorm,
     TrainContext,
     dropout,
+    round_keeping_f32,
+    softmax,
     weak_scalar,
 )
 from motiondiffusion_moe_tpu_torch.ops.activations import gelu, sigmoid
@@ -218,7 +220,8 @@ class PerformerSelfAttention(nn.Module):
             hf = hf / torch.linalg.vector_norm(
                 hf, dim=-1, keepdim=True).clamp_min(1e-12) * (D ** 0.5)
             style_out = self.style_block(hf.to(self.dtype), emb, ctx=ctx)
-        return x + weak_scalar(0.1, style_out.dtype) * style_out
+        res = weak_scalar(0.1, style_out.dtype) * style_out
+        return round_keeping_f32(x.float() + res, x.dtype)
 
 
 class DualSelfAttentionBlock(nn.Module):
@@ -249,8 +252,8 @@ class DualSelfAttentionBlock(nn.Module):
             skip = gelu(dropout(self.skip_proj(x), self.dropout, True, ctx))
         else:
             skip = self.skip_proj(x, "gelu")
-        return self.post_norm(
-            skip + weak_scalar(0.1, global_out.dtype) * global_out)
+        res = weak_scalar(0.1, global_out.dtype) * global_out
+        return self.post_norm(skip.float() + res)  # unrounded
 
 
 class LinearTemporalCrossAttention(nn.Module):
@@ -284,8 +287,8 @@ class LinearTemporalCrossAttention(nn.Module):
         N = xf.shape[1]
         H = self.num_heads
         tn = self.text_norm(xf)
-        q = torch.softmax(self.query(self.norm(x)).view(B, T, H, -1), dim=-1)
-        k = torch.softmax(self.key(tn).view(B, N, H, -1), dim=1)
+        q = softmax(self.query(self.norm(x)).view(B, T, H, -1), dim=-1)
+        k = softmax(self.key(tn).view(B, N, H, -1), dim=1)
         v = self.value(tn).view(B, N, H, -1)
         attention = torch.einsum("bnhd,bnhl->bhdl", k, v)
         y = torch.einsum("bnhd,bhdl->bnhl", q, attention).reshape(B, T, D)
@@ -314,7 +317,8 @@ class GatedCrossAttention(nn.Module):
                 ctx: Optional[TrainContext] = None) -> torch.Tensor:
         ca_out = self.base_ca(x, xf, emb, ctx)
         alpha = sigmoid(self.gate.to(self.dtype)).view(1, 1, -1)
-        return x + alpha * (ca_out - x)
+        res = alpha * (ca_out - x)
+        return round_keeping_f32(x.float() + res, x.dtype)
 
 
 class CrossAttentionBlock(nn.Module):
@@ -360,7 +364,7 @@ class CrossAttentionBlock(nn.Module):
             probs = dropout(probs, self.dropout, self.training, ctx)
             out = torch.einsum("bhqk,bkhd->bqhd", probs,
                                v.view(B, N, H, -1)).reshape(B, T, D)
-        out = self.out(out)
+        out = self.out.forward_keeping_f32(out)
         h = self.ffn_1(self.ffn_0(self.ffn_norm(out), "gelu"))
         h = dropout(h, self.dropout, self.training, ctx)
-        return x + (out + h)
+        return round_keeping_f32(x.float() + (out + h), x.dtype)

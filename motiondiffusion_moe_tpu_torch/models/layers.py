@@ -11,6 +11,12 @@
 - :class:`LayerNorm` is the hot-path ``nn.LayerNorm``: statistics and the
   affine step in f32, eps 1e-6 (not torch's 1e-5), result in the compute
   dtype.
+- Excess precision: XLA's compiled program (the JAX package under ``jit``)
+  leaves out the bf16 rounding of a value that the program widens to f32
+  straight away. A LayerNorm reads the unrounded f32 result of the bias add
+  or residual add in front of it (:func:`round_keeping_f32`), while every
+  other consumer reads the rounded value; a bf16 :func:`softmax` sums its
+  exponentials unrounded; the MoE router adds the gate's bias in f32.
 - Parameters are created as zeros; :func:`init_weights` fills them from one
   ``torch.Generator``, mirroring the flax initialisers module by module
   (each module that owns parameters defines ``_init_own(g)``).
@@ -109,6 +115,16 @@ class Dense(nn.Module):
             return y + b
         return getattr(activations, activation)(y, b)
 
+    def forward_keeping_f32(self, x: torch.Tensor) -> torch.Tensor:
+        """``forward(x)`` for a value that a :class:`LayerNorm` reads next:
+        in bf16 it also carries the bias add's unrounded f32 result (see
+        :func:`round_keeping_f32`)."""
+        dt = self.dtype
+        if dt == torch.float32:
+            return self(x)
+        y = F.linear(x.to(dt), self.weight.to(dt))
+        return round_keeping_f32(y.float() + self.bias.to(dt), dt)
+
     @torch.no_grad()
     def _init_own(self, g: torch.Generator) -> None:
         out_f, in_f = self.weight.shape
@@ -138,6 +154,7 @@ class LayerNorm(nn.Module):
         self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = getattr(x, "unrounded", x)  # see round_keeping_f32
         return F.layer_norm(x.float(), self.weight.shape,
                             self.weight.float(), self.bias.float(),
                             LN_EPS).to(self.dtype)
@@ -146,6 +163,32 @@ class LayerNorm(nn.Module):
     def _init_own(self, g: torch.Generator) -> None:
         self.weight.fill_(1.0)
         self.bias.zero_()
+
+
+def round_keeping_f32(y: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The f32 result ``y`` of an add, rounded to ``dtype``, carrying ``y``
+    itself as ``.unrounded`` for a :class:`LayerNorm` that reads it next: in
+    bf16 XLA's compiled program fuses the add with the LayerNorm's widening
+    to f32 and leaves the rounding out there, while every other consumer of
+    the value reads it rounded."""
+    if dtype == torch.float32:
+        return y
+    out = y.to(dtype)
+    out.unrounded = y
+    return out
+
+
+def softmax(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """``jax.nn.softmax`` as XLA's compiled CPU program computes it. In bf16
+    the shifted logits and the exponentials are rounded to bf16, but the
+    sum takes the exponentials unrounded (``jnp.sum`` widens them to f32
+    straight away), and the sum and the quotient are rounded; f32 is
+    ``torch.softmax``."""
+    if x.dtype == torch.float32:
+        return torch.softmax(x, dim)
+    e = torch.exp((x - x.amax(dim, keepdim=True)).float())
+    # bf16 / bf16: the quotient of the rounded values, rounded once
+    return e.to(x.dtype) / e.sum(dim, keepdim=True).to(x.dtype)
 
 
 @functools.lru_cache(maxsize=None)

@@ -92,6 +92,17 @@ class SwitchMoELayer(nn.Module):
         self.b1.zero_()
         self.b2.zero_()
 
+    def _router_logits(self, x_flat: torch.Tensor) -> torch.Tensor:
+        """The gate's logits in f32. In bf16 the product is rounded to bf16
+        and the bias added in f32 without rounding the sum: the softmax
+        widens it to f32 straight away, and XLA's compiled program leaves
+        that rounding out."""
+        if self.dtype == torch.float32:
+            return self.gate(x_flat)
+        dt = self.dtype
+        y = F.linear(x_flat, self.gate.weight.to(dt))
+        return y.float() + self.gate.bias.to(dt)
+
     def forward(self, x: torch.Tensor, with_metrics: bool = False,
                 ctx: Optional[TrainContext] = None):
         """x: [..., D] -> same shape; with ``with_metrics`` also returns
@@ -102,7 +113,7 @@ class SwitchMoELayer(nn.Module):
         x_flat = x.reshape(-1, shape[-1]).to(dt)
         S, D = x_flat.shape
         E, _, hid = self.w1.shape
-        probs = torch.softmax(self.gate(x_flat).float(), dim=-1)
+        probs = torch.softmax(self._router_logits(x_flat), dim=-1)
         top_vals, top_idx = top_k_lowest_index(probs, self.top_k)
         if ctx is not None:
             ctx.aux_losses.append(switch_aux_loss(probs, top_idx[:, 0], E))

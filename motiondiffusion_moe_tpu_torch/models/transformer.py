@@ -41,6 +41,7 @@ from motiondiffusion_moe_tpu_torch.models.layers import (
     Dense,
     TrainContext,
     lecun_normal_,
+    round_keeping_f32,
 )
 from motiondiffusion_moe_tpu_torch.models.moe import DenseFFN, MoEMultiBranchFFN
 from motiondiffusion_moe_tpu_torch.models.text_encoder import (
@@ -195,7 +196,10 @@ class MotionTransformer(nn.Module):
             y = F.conv_transpose1d(y, conv.weight.to(dt), fused_bias,
                                    stride=2)
         y = y.transpose(1, 2)
-        return y if fused_bias is not None else y + conv.bias.to(dt)
+        if fused_bias is not None:
+            return y
+        # the first block's LayerNorm reads the bias add unrounded
+        return round_keeping_f32(y.float() + conv.bias.to(dt), dt)
 
     def forward(self, x: torch.Tensor, timesteps: torch.Tensor,
                 length: torch.Tensor, text_ids: Optional[torch.Tensor] = None,
@@ -222,7 +226,8 @@ class MotionTransformer(nn.Module):
         mask_low = generate_src_mask(h_low.shape[1], length // 2)
         h_low = self._run_blocks(self.blocks_low, h_low, xf_out, fused_emb,
                                  mask_low, ctx)
-        h = self._conv(self.upsample, h_low)[:, :T] + h
+        up = self._conv(self.upsample, h_low)[:, :T]
+        h = round_keeping_f32(up.float() + h, dt)
         h = self._run_blocks(self.blocks_high, h, xf_out, fused_emb, src_mask,
                              ctx)
         return self.out(h).float()

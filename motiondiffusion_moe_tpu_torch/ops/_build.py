@@ -113,17 +113,18 @@ def build() -> str:
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.mdm_favor_qkv.argtypes = [vp, vp, vp, vp, vp, vp,  # tensors
-                                  i, i, i, i, i, i,        # B T H D M bf16
-                                  f, f, vp]                # eps pre stream
+    lib.mdm_favor_qkv.argtypes = ([vp] * 9        # tensors, scratch, logits
+                                  + [i] * 7      # B T H D M bf16 mxu_bf16
+                                  + [f, f, i, vp])  # eps pre cluster stream
     lib.mdm_favor_qkv.restype = i
     lib.mdm_performer_epilogue.argtypes = [vp] * 8 + [i, i, i, i, vp]
     lib.mdm_performer_epilogue.restype = i
-    lib.mdm_favor_qkv_bwd.argtypes = ([vp] * 11      # tensors, scratch
-                                      + [i] * 6      # B T H D M bf16
-                                      + [f, f, vp])  # eps pre stream
+    lib.mdm_favor_qkv_bwd.argtypes = ([vp] * 13     # tensors, scratch,
+                                      + [i] * 7      # logits; B T H D M bf16
+                                                     # mxu_bf16
+                                      + [f, f, i, vp])  # eps pre cluster s
     lib.mdm_favor_qkv_bwd.restype = i
-    lib.mdm_favor_qkv_bwd_scratch_floats.argtypes = [i] * 6
+    lib.mdm_favor_qkv_bwd_scratch_floats.argtypes = [i] * 7
     lib.mdm_favor_qkv_bwd_scratch_floats.restype = ctypes.c_longlong
     lib.mdm_performer_epilogue_bwd.argtypes = ([vp] * 16    # tensors, scratch
                                                + [i] * 4    # B T D bf16
@@ -146,13 +147,13 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
                                     + [i] * 5        # rows T D Dout bf16
                                     + [vp])          # stream
     lib.mdm_adaln_dense.restype = i
-    lib.mdm_favor_attention.argtypes = ([vp] * 6     # q k v proj mask out
+    lib.mdm_favor_attention.argtypes = ([vp] * 7     # q k v proj mask out sc
                                         + [i] * 5    # B H T D M
-                                        + [f, vp])   # eps stream
+                                        + [f, i, vp])  # eps cluster stream
     lib.mdm_favor_attention.restype = i
-    lib.mdm_favor_attention_full.argtypes = ([vp] * 8    # tensors
+    lib.mdm_favor_attention_full.argtypes = ([vp] * 9    # tensors, scratch
                                              + [i] * 6   # B T H D M bf16
-                                             + [f, f, vp])  # eps pre stream
+                                             + [f, f, i, vp])  # eps pre C s
     lib.mdm_favor_attention_full.restype = i
     lib.mdm_flash_cross_attention.argtypes = ([vp] * 4      # q k v out
                                               + [i] * 5     # BH T N D bn

@@ -25,6 +25,13 @@ only the inputs and recompute the rest. The TPU kernels behind
 :func:`favor_attention` and :func:`favor_attention_full` have no backward
 kernel: their backward is autograd through the plain version.
 
+``FAVOR_MXU_BF16=1`` (the JAX package's switch, read once per call of
+:func:`favor_qkv`, as ``performer_pallas.py`` reads it for kernel 1) runs
+the products of kernel 1 on bf16 operands with f32 accumulation, and its
+backward does the same when, and only when, its forward did
+(``performer_pallas_bwd.py``); LayerNorm, L2, the exp and the denominator
+stay f32. Kernels 8 and 10 take no such switch in the JAX package either.
+
 Each wrapper runs its plain PyTorch version (``*_plain``, mirroring the JAX
 ``*_reference`` functions, and autograd through them for the backward)
 only for tensors on the CPU. For a CUDA tensor it launches the kernel or
@@ -37,7 +44,8 @@ about it.
 
 from __future__ import annotations
 
-from typing import Optional
+import os
+from typing import Callable, Optional
 
 import torch
 
@@ -63,6 +71,65 @@ def _l2(x: torch.Tensor) -> torch.Tensor:
         1e-12)
 
 
+def favor_cluster(bh: int, device: torch.device, per_sm: int) -> int:
+    """CTAs of a thread-block cluster that share the rows of one (b, h) in
+    the kernels of ``csrc/favor_qkv.cu`` (``per_sm`` 2: two CTAs fit on an
+    SM) and ``csrc/favor_qkv_bwd.cu`` (``per_sm`` 1): as many as the card's
+    SMs hold at once, 1 to 8. The flagship's B*H = 128 takes 2 and 1; a
+    serving batch of 2 x 4 heads takes 8."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return max(1, min(8, per_sm * sms // bh))
+
+
+def _favor_scratch(B: int, T: int, H: int, m: int,
+                   device: torch.device) -> torch.Tensor:
+    """phi(q) and the denominators from pass 1 to pass 2 of the kernel of
+    ``csrc/favor_qkv.cu``: B*H*T*(m + 1) floats."""
+    return torch.empty(B * H * T * (m + 1), dtype=torch.float32,
+                       device=device)
+
+
+def mxu_bf16() -> bool:
+    """``FAVOR_MXU_BF16=1``: kernel 1's products on bf16 operands."""
+    return os.environ.get("FAVOR_MXU_BF16", "0") == "1"
+
+
+def bf16_operand_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b with both operands rounded to bf16 and f32 accumulation: the
+    JAX kernels' ``jnp.dot(mx(a), mx(b), preferred_element_type=f32)``."""
+    return torch.matmul(a.to(torch.bfloat16).float(),
+                        b.to(torch.bfloat16).float())
+
+
+class _Product(torch.autograd.Function):
+    """``product(a, b) * scale`` for a product in another arithmetic than
+    f32 (bf16 operands, or a test's emulation of the kernels'). Its backward
+    takes the two products of the JAX backward kernel in the same
+    arithmetic: ``product(g, b^T) * scale`` and ``product(a^T, g) * scale``
+    (a 2-D ``b`` against batched rows: one product over all rows)."""
+
+    @staticmethod
+    def forward(ctx, a, b, scale, product):
+        ctx.save_for_backward(a, b)
+        ctx.scale, ctx.product = scale, product
+        return product(a, b) * scale
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        mul, scale = ctx.product, ctx.scale
+        da = db = None
+        if ctx.needs_input_grad[0]:
+            da = mul(g, b.transpose(-1, -2)) * scale
+        if ctx.needs_input_grad[1]:
+            if b.dim() == 2:
+                db = mul(a.reshape(-1, a.shape[-1]).T,
+                         g.reshape(-1, g.shape[-1])) * scale
+            else:
+                db = mul(a.transpose(-1, -2), g) * scale
+        return da, db, None, None
+
+
 # ---------------------------------------------------------------------------
 # plain versions
 # ---------------------------------------------------------------------------
@@ -71,11 +138,14 @@ def favor_full_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      ln_scale: torch.Tensor, ln_bias: torch.Tensor,
                      projection: torch.Tensor,
                      mask: Optional[torch.Tensor] = None, eps: float = 1e-6,
-                     pre_scale: float = 0.1) -> torch.Tensor:
+                     pre_scale: float = 0.1,
+                     product: Optional[Callable] = None) -> torch.Tensor:
     """The kernels' normalised FAVOR+ math (``favor_full_reference``). q, k,
     v: [B, T, H*D]; ln_scale/ln_bias: [D]; projection: [D, m]; mask: [B, T]
     or None. Returns [B, T, H*D] in q's dtype; everything inside runs in
-    f32."""
+    f32. ``product`` (e.g. :func:`bf16_operand_product`) takes the four
+    products (the two feature logits, kv, phi(q) kv) and their backward in
+    its own arithmetic, at the JAX kernel's points; None: f32 products."""
     B, T, HD = q.shape
     D = projection.shape[0]
     H = HD // D
@@ -87,14 +157,25 @@ def favor_full_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kh = _l2(_ln(heads(k), ln_scale, ln_bias))
     vh = _ln(heads(v), ln_scale, ln_bias)
     proj = projection.float()
-    q_proj = torch.exp(torch.clamp(
-        torch.einsum("bthd,dm->bthm", qh, proj), -15, 15)) * 0.1
-    k_proj = torch.exp(torch.clamp(
-        torch.einsum("bthd,dm->bthm", kh, proj), -15, 15)) * 0.1
+
+    def mm(a, b, scale=1.0):
+        return _Product.apply(a, b, scale, product)
+
+    if product is None:
+        q_lin = torch.einsum("bthd,dm->bthm", qh, proj)
+        k_lin = torch.einsum("bthd,dm->bthm", kh, proj)
+    else:
+        q_lin, k_lin = mm(qh, proj), mm(kh, proj)
+    q_proj = torch.exp(torch.clamp(q_lin, -15, 15)) * 0.1
+    k_proj = torch.exp(torch.clamp(k_lin, -15, 15)) * 0.1
     if mask is not None:
         k_proj = k_proj * mask.float()[:, :, None, None]
-    kv = torch.einsum("bthm,bthd->bhmd", k_proj, vh) * 0.1
-    out = torch.einsum("bthm,bhmd->bthd", q_proj, kv) * 0.1
+    if product is None:
+        kv = torch.einsum("bthm,bthd->bhmd", k_proj, vh) * 0.1
+        out = torch.einsum("bthm,bhmd->bthd", q_proj, kv) * 0.1
+    else:
+        kv = mm(k_proj.permute(0, 2, 3, 1), vh.permute(0, 2, 1, 3), 0.1)
+        out = mm(q_proj.permute(0, 2, 1, 3), kv, 0.1).permute(0, 2, 1, 3)
     den = (q_proj * k_proj).sum(-1, keepdim=True).clamp_min(eps)
     out = _ln(out / den, ln_scale, ln_bias)
     return out.reshape(B, T, HD).to(q.dtype)
@@ -103,11 +184,27 @@ def favor_full_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def favor_qkv_plain(qkv: torch.Tensor, ln_scale: torch.Tensor,
                     ln_bias: torch.Tensor, projection: torch.Tensor,
                     mask: Optional[torch.Tensor] = None, eps: float = 1e-6,
-                    pre_scale: float = 0.1) -> torch.Tensor:
+                    pre_scale: float = 0.1,
+                    product: Optional[Callable] = None) -> torch.Tensor:
     """qkv: [B, T, 3*H*D] (column order q|k|v); the rest as
     :func:`favor_full_plain`. Returns [B, T, H*D] in qkv's dtype."""
     return favor_full_plain(*qkv.split(qkv.shape[-1] // 3, dim=-1), ln_scale,
-                            ln_bias, projection, mask, eps, pre_scale)
+                            ln_bias, projection, mask, eps, pre_scale,
+                            product)
+
+
+def favor_qkv_logits_plain(qkv: torch.Tensor, ln_scale: torch.Tensor,
+                           ln_bias: torch.Tensor, projection: torch.Tensor,
+                           pre_scale: float = 0.1):
+    """The feature logits (q and k, each [B, T, H, m], f32) of
+    :func:`favor_qkv_plain`: the normalised rows times the projection."""
+    B, T, HD3 = qkv.shape
+    D = projection.shape[0]
+    H = HD3 // (3 * D)
+    q, k, _ = qkv.reshape(B, T, 3, H, D).float().unbind(2)
+    return tuple(torch.einsum("bthd,dm->bthm", _l2(_ln(
+        x * pre_scale, ln_scale, ln_bias)), projection.float())
+        for x in (q, k))
 
 
 def favor_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -152,14 +249,17 @@ def favor_qkv_bwd_plain(qkv: torch.Tensor, ln_scale: torch.Tensor,
                         ln_bias: torch.Tensor, projection: torch.Tensor,
                         mask: Optional[torch.Tensor], g: torch.Tensor,
                         eps: float = 1e-6, pre_scale: float = 0.1,
-                        need_dproj: bool = True):
+                        need_dproj: bool = True,
+                        product: Optional[Callable] = None):
     """Backward of :func:`favor_qkv_plain` by autograd through it (the
-    counterpart of ``_favor_qkv_bwd_reference``): (d qkv in qkv's dtype,
-    d ln_scale, d ln_bias, d projection or None). The mask gets none."""
+    counterpart of ``_favor_qkv_bwd_reference``; with ``product``, of the
+    JAX backward kernel's products in that arithmetic): (d qkv in qkv's
+    dtype, d ln_scale, d ln_bias, d projection or None). The mask gets
+    none."""
     with torch.enable_grad():
         xs = [t.detach().requires_grad_() for t in (qkv, ln_scale, ln_bias)]
         proj = projection.detach().requires_grad_(need_dproj)
-        out = favor_qkv_plain(*xs, proj, mask, eps, pre_scale)
+        out = favor_qkv_plain(*xs, proj, mask, eps, pre_scale, product)
         grads = torch.autograd.grad(out, xs + ([proj] if need_dproj else []),
                                     g)
     return (*grads[:3], grads[3] if need_dproj else None)
@@ -282,19 +382,23 @@ def _stream(dev: torch.device) -> int:
 
 
 def _launch_favor_qkv(qkv, ln_scale, ln_bias, projection, mask, eps,
-                      pre_scale) -> torch.Tensor:
+                      pre_scale, bf16_products: bool,
+                      logits=None) -> torch.Tensor:
     B, T, H, D, m = _check_favor("favor_qkv", qkv, ln_scale, ln_bias,
                                  projection, mask)
     from motiondiffusion_moe_tpu_torch.ops._build import library
 
     lib = library()
     out = torch.empty((B, T, H * D), dtype=qkv.dtype, device=qkv.device)
+    scratch = _favor_scratch(B, T, H, m, qkv.device)
+    lq, lk = (None, None) if logits is None else logits
     with torch.cuda.device(qkv.device):
         rc = lib.mdm_favor_qkv(
             qkv.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(),
             projection.data_ptr(), _ptr(mask), out.data_ptr(),
-            B, T, H, D, m, _KERNEL_DTYPES[qkv.dtype], eps, pre_scale,
-            _stream(qkv.device))
+            scratch.data_ptr(), _ptr(lq), _ptr(lk), B, T, H, D, m,
+            _KERNEL_DTYPES[qkv.dtype], int(bf16_products), eps, pre_scale,
+            favor_cluster(B * H, qkv.device, 2), _stream(qkv.device))
     if rc != 0:
         raise RuntimeError(f"favor_qkv kernel launch failed: CUDA error {rc}")
     favor_qkv.launches += 1
@@ -305,15 +409,22 @@ def favor_qkv_bwd(qkv: torch.Tensor, ln_scale: torch.Tensor,
                   ln_bias: torch.Tensor, projection: torch.Tensor,
                   mask: Optional[torch.Tensor], g: torch.Tensor,
                   eps: float = 1e-6, pre_scale: float = 0.1,
-                  need_dproj: bool = True):
+                  need_dproj: bool = True,
+                  bf16_products: Optional[bool] = None, logits=None):
     """Backward of :func:`favor_qkv` from the inputs and the output's
     gradient ``g`` [B, T, H*D]: (d qkv, d ln_scale, d ln_bias, d projection
-    or None when ``need_dproj`` is False). CPU tensors take
-    :func:`favor_qkv_bwd_plain`; CUDA tensors launch
-    ``csrc/favor_qkv_bwd.cu`` (g contiguous, in qkv's dtype)."""
+    or None when ``need_dproj`` is False). ``bf16_products``: the products
+    on bf16 operands, as a forward under ``FAVOR_MXU_BF16=1`` took them
+    (None: read the switch). CPU tensors take :func:`favor_qkv_bwd_plain`;
+    CUDA tensors launch ``csrc/favor_qkv_bwd.cu`` (g contiguous, in qkv's
+    dtype). ``logits``: None, or two f32 [B, T, H, m] tensors on the card
+    that receive the kernel's feature logits of q and k (tests)."""
+    if bf16_products is None:
+        bf16_products = mxu_bf16()
     if qkv.device.type == "cpu":
-        return favor_qkv_bwd_plain(qkv, ln_scale, ln_bias, projection, mask,
-                                   g, eps, pre_scale, need_dproj)
+        return favor_qkv_bwd_plain(
+            qkv, ln_scale, ln_bias, projection, mask, g, eps, pre_scale,
+            need_dproj, bf16_operand_product if bf16_products else None)
     B, T, H, D, m = _check_favor("favor_qkv_bwd", qkv, ln_scale, ln_bias,
                                  projection, mask)
     dev = qkv.device
@@ -326,18 +437,20 @@ def favor_qkv_bwd(qkv: torch.Tensor, ln_scale: torch.Tensor,
 
     lib = library()
     f32 = dict(dtype=torch.float32, device=dev)
+    cluster = favor_cluster(B * H, dev, 1)
     dqkv = torch.empty_like(qkv)
     ds, dc = torch.empty(D, **f32), torch.empty(D, **f32)
     dp = torch.empty((D, m), **f32) if need_dproj else None
     scratch = torch.empty(lib.mdm_favor_qkv_bwd_scratch_floats(
-        B, T, H, D, m, int(need_dproj)), **f32)
+        B, T, H, D, m, int(need_dproj), cluster), **f32)
+    lq, lk = (None, None) if logits is None else logits
     with torch.cuda.device(dev):
         rc = lib.mdm_favor_qkv_bwd(
             qkv.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(),
             projection.data_ptr(), _ptr(mask), g.data_ptr(), dqkv.data_ptr(),
             ds.data_ptr(), dc.data_ptr(), _ptr(dp), scratch.data_ptr(),
-            B, T, H, D, m, _KERNEL_DTYPES[qkv.dtype], eps, pre_scale,
-            _stream(dev))
+            _ptr(lq), _ptr(lk), B, T, H, D, m, _KERNEL_DTYPES[qkv.dtype],
+            int(bf16_products), eps, pre_scale, cluster, _stream(dev))
     if rc != 0:
         raise RuntimeError(
             f"favor_qkv_bwd kernel launch failed: CUDA error {rc}")
@@ -348,27 +461,62 @@ def favor_qkv_bwd(qkv: torch.Tensor, ln_scale: torch.Tensor,
 favor_qkv_bwd.launches = 0
 
 
+def favor_qkv_feature_logits(qkv: torch.Tensor, ln_scale: torch.Tensor,
+                             ln_bias: torch.Tensor, projection: torch.Tensor,
+                             mask: Optional[torch.Tensor] = None,
+                             pre_scale: float = 0.1, source: str = "forward",
+                             bf16_products: bool = False):
+    """The feature logits of q and k (each [B, T, H, m], f32) as kernel 1
+    (``source="forward"``) or its backward kernel (``"backward"``, from a
+    zero output gradient) computes them, so that a test can hold the
+    backward's clip masks to the forward's; its count goes up as for any
+    launch. CPU tensors take :func:`favor_qkv_logits_plain`."""
+    if qkv.device.type == "cpu":
+        return favor_qkv_logits_plain(qkv, ln_scale, ln_bias, projection,
+                                      pre_scale)
+    B, T, HD3 = qkv.shape
+    D, m = projection.shape
+    logits = tuple(torch.zeros((B, T, HD3 // (3 * D), m),
+                               dtype=torch.float32, device=qkv.device)
+                   for _ in range(2))
+    if source == "forward":
+        _launch_favor_qkv(qkv, ln_scale, ln_bias, projection, mask, 1e-6,
+                          pre_scale, bf16_products, logits)
+    elif source == "backward":
+        g = torch.zeros((B, T, HD3 // 3), dtype=qkv.dtype, device=qkv.device)
+        favor_qkv_bwd(qkv, ln_scale, ln_bias, projection, mask, g,
+                      pre_scale=pre_scale, need_dproj=False,
+                      bf16_products=bf16_products, logits=logits)
+    else:
+        raise ValueError(f"source {source!r}: 'forward' or 'backward'")
+    return logits
+
+
 class _FavorQKV(torch.autograd.Function):
     """favor_qkv with its backward kernel. Saves only the inputs, as the
-    JAX custom_vjp does; the backward recomputes the rest."""
+    JAX custom_vjp does; the backward recomputes the rest, with the
+    forward's products (``FAVOR_MXU_BF16`` as the forward read it)."""
 
     @staticmethod
     def forward(ctx, qkv, ln_scale, ln_bias, projection, mask, eps,
                 pre_scale):
         ctx.save_for_backward(qkv, ln_scale, ln_bias, projection, mask)
         ctx.eps, ctx.pre_scale = eps, pre_scale
+        ctx.bf16_products = mxu_bf16()
         if qkv.device.type == "cpu":
-            return favor_qkv_plain(qkv, ln_scale, ln_bias, projection, mask,
-                                   eps, pre_scale)
+            return favor_qkv_plain(
+                qkv, ln_scale, ln_bias, projection, mask, eps, pre_scale,
+                bf16_operand_product if ctx.bf16_products else None)
         return _launch_favor_qkv(qkv, ln_scale, ln_bias, projection, mask,
-                                 eps, pre_scale)
+                                 eps, pre_scale, ctx.bf16_products)
 
     @staticmethod
     def backward(ctx, g):
         qkv, ln_scale, ln_bias, projection, mask = ctx.saved_tensors
         dq, ds, dc, dp = favor_qkv_bwd(
             qkv, ln_scale, ln_bias, projection, mask, g.contiguous(),
-            ctx.eps, ctx.pre_scale, need_dproj=ctx.needs_input_grad[3])
+            ctx.eps, ctx.pre_scale, need_dproj=ctx.needs_input_grad[3],
+            bf16_products=ctx.bf16_products)
         return dq, ds, dc, dp, None, None, None
 
 
@@ -380,7 +528,8 @@ def favor_qkv(qkv: torch.Tensor, ln_scale: torch.Tensor,
     every device. CPU tensors take :func:`favor_qkv_plain` and its autograd
     backward; CUDA tensors launch ``csrc/favor_qkv.cu`` forward and
     ``csrc/favor_qkv_bwd.cu`` backward (the projection's gradient only when
-    it requires one).
+    it requires one). ``FAVOR_MXU_BF16=1``, read at each call, puts the
+    products on bf16 operands (module doc).
 
     On CUDA: qkv contiguous f32 or bf16; ln_scale, ln_bias, projection and
     mask contiguous f32; (D, m) one of :data:`FAVOR_SHAPES`."""
@@ -531,10 +680,12 @@ def _launch_favor_attention(q, k, v, projection, mask, eps) -> torch.Tensor:
 
     lib = library()
     out = torch.empty_like(q)
+    scratch = _favor_scratch(B, T, H, m, dev)
     with torch.cuda.device(dev):
         rc = lib.mdm_favor_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), projection.data_ptr(),
-            _ptr(mask), out.data_ptr(), B, H, T, D, m, eps, _stream(dev))
+            _ptr(mask), out.data_ptr(), scratch.data_ptr(), B, H, T, D, m,
+            eps, favor_cluster(B * H, dev, 2), _stream(dev))
     if rc != 0:
         raise RuntimeError(
             f"favor_attention kernel launch failed: CUDA error {rc}")
@@ -596,12 +747,14 @@ def _launch_favor_full(q, k, v, ln_scale, ln_bias, projection, mask, eps,
 
     lib = library()
     out = torch.empty_like(q)
+    scratch = _favor_scratch(B, T, H, m, q.device)
     with torch.cuda.device(q.device):
         rc = lib.mdm_favor_attention_full(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), ln_scale.data_ptr(),
             ln_bias.data_ptr(), projection.data_ptr(), _ptr(mask),
-            out.data_ptr(), B, T, H, D, m, _KERNEL_DTYPES[q.dtype], eps,
-            pre_scale, _stream(q.device))
+            out.data_ptr(), scratch.data_ptr(), B, T, H, D, m,
+            _KERNEL_DTYPES[q.dtype], eps, pre_scale,
+            favor_cluster(B * H, q.device, 2), _stream(q.device))
     if rc != 0:
         raise RuntimeError(
             f"favor_attention_full kernel launch failed: CUDA error {rc}")

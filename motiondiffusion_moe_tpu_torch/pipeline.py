@@ -8,10 +8,13 @@ without a mesh):
 - every denoising step runs ONE forward of the CFG-doubled batch
   (conditional rows over unconditional rows);
 - prompts are padded to a fixed micro-batch;
-- ``param_dtype="bfloat16"`` stores the weights in bf16 except every FAVOR+
-  ``projection`` (which defines the attention kernel's feature map), as the
-  JAX pipeline does;
-- the weights move to ``device`` once, at construction (the JAX pipeline
+- the pipeline samples with its own copy of the model it is given, as the
+  JAX pipeline casts a copy of its params (``_place_params``): the caller's
+  module keeps its parameters' dtype, values and device;
+- ``param_dtype="bfloat16"`` stores the copy's weights in bf16 except every
+  FAVOR+ ``projection`` (which defines the attention kernel's feature map),
+  as the JAX pipeline does;
+- the copy moves to ``device`` once, at construction (the JAX pipeline
   without a mesh re-uploads host params on every call); ``device`` is the
   card unless the caller asks for the CPU (``device="cpu"``).
 
@@ -24,6 +27,8 @@ port the same draws.
 from __future__ import annotations
 
 from typing import List, Optional, Sequence
+
+import copy
 
 import numpy as np
 import torch
@@ -58,7 +63,9 @@ def cast_params_(model: torch.nn.Module, dtype: torch.dtype) -> None:
 class GenerationPipeline:
     """Text -> motion sampler around a :class:`MotionTransformer` that
     already holds its weights (seeded :func:`init_weights`, or a flax tree
-    through :func:`bridge.jax_to_state_dict`)."""
+    through :func:`bridge.jax_to_state_dict`). ``self.model`` is the
+    pipeline's own copy (cast and moved); the caller's module is left as it
+    was."""
 
     def __init__(self, cfg: ExperimentConfig, model: MotionTransformer, *,
                  sampler: str = "ddpm", num_inference_steps: Optional[int] = None,
@@ -71,6 +78,7 @@ class GenerationPipeline:
                              "'bfloat16'")
         self.cfg = cfg
         self.device = torch.device(device)
+        model = copy.deepcopy(model)
         if param_dtype == "bfloat16":
             cast_params_(model, torch.bfloat16)
         self.model = model.to(self.device).eval()

@@ -19,8 +19,13 @@ Per switch setting it prints the CUDA kernels of one forward by family
 (count and device ms, ``torch.profiler``, a discarded warm-up cycle first),
 the 25 kernels that take the most device time, and the host's wall time of
 one synchronised forward (median of 5); then dpm20 ``generate`` of 16
-prompts x 196 frames, in turns (off, on, on, off), s/motion. The last line
-is one JSON object with these numbers; ``--out`` also writes it to a file.
+prompts x 196 frames, in turns (off, on, on, off), s/motion. With
+``--train-steps N`` it then runs ``tools/train.py main()`` of the checkout
+for N optimizer steps at the flagship defaults (synthetic dataset, B = 32,
+bf16 compute, dropout 0.1) and reports the host's ms per synchronised step
+(``chip_smoke.run_train_cli``; the first step, which warms up, left out).
+The last line is one JSON object with these numbers; ``--out`` also writes
+it to a file.
 """
 
 from __future__ import annotations
@@ -42,13 +47,15 @@ FAMILIES = (
     ("activation kernels (csrc/activations.cu)", r"activation_kernel"),
     ("cross-attention kernels (6, 9)", r"cross_attention|xattn|flash_cross"),
     ("favor kernels (1, 8, 10)", r"favor"),
+    # before the epilogue: PyTorch's softmax kernels carry "Epilogue" in
+    # their template arguments
+    ("softmax", r"softmax"),
     ("performer epilogue (2)", r"epilogue"),
     ("fused MoE (5)", r"moe_dense"),
     ("adaln (7)", r"adaln"),
     ("GEMM", r"gemm|nvjet|cutlass|xmma|cublas|sm90_"),
     ("convolution", r"conv|cudnn|implicit_"),
     ("layer_norm", r"layer_norm"),
-    ("softmax", r"softmax"),
     ("top-k / sort", r"topk|sort|radix"),
     ("dtype copies", r"copy"),
     ("elementwise add", r"elementwise.*(add|sub)"),
@@ -113,6 +120,8 @@ def main(argv=None) -> int:
                     help="checkout whose motiondiffusion_moe_tpu_torch runs")
     ap.add_argument("--label", required=True)
     ap.add_argument("--out", default=None)
+    ap.add_argument("--train-steps", type=int, default=0,
+                    help="also time this many optimizer steps (even)")
     args = ap.parse_args(argv)
 
     root = os.path.abspath(args.root)
@@ -147,6 +156,8 @@ def main(argv=None) -> int:
     pipe.generate(["warm up"], [T])
     inputs, ids = cs.denoiser_inputs(cfg, dev)
     sync = torch.cuda.synchronize
+
+    model = pipe.model  # the pipeline's own bf16 copy
 
     def forward():
         with torch.inference_mode():
@@ -205,6 +216,21 @@ def main(argv=None) -> int:
           f"frames, in turns (off, on, on, off): s/motion off "
           f"{result['s_per_motion']['off']}, on "
           f"{result['s_per_motion']['on']} ({result['card']})")
+    if args.train_steps:
+        import tempfile
+
+        del pipe, model
+        torch.cuda.empty_cache()
+        with tempfile.TemporaryDirectory() as ckdir:
+            _, _, times = cs.run_train_cli([
+                "--dataset", "synthetic", "--synthetic_size",
+                str(16 * args.train_steps), "--batch_size", "32",
+                "--device", "cuda", "--log_every", "1", "--num_epochs", "1",
+                "--checkpoint_dir", ckdir])
+        result["train_ms_per_step"] = times[1:]
+        print(f"[{args.label}] train step (B=32, bf16, dropout 0.1), ms per "
+              f"synchronised step after the first: {times[1:]} (median "
+              f"{statistics.median(times[1:]):.1f}) ({result['card']})")
     line = json.dumps(result)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

@@ -192,10 +192,10 @@ def test_pipeline_on_the_card_matches_the_cpu(dev):
     assert (out - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
 
 
-def _assert_close(out, ref, dtype):
+def _assert_close(out, ref, dtype, floor_rel=1e-3):
     out, ref = out.float(), ref.float()
     assert torch.isfinite(out).all()
-    floor = 1e-3 * ref.abs().max().item()
+    floor = floor_rel * ref.abs().max().item()
     if dtype == torch.float32:
         assert (out - ref).abs().max().item() <= floor
     else:
@@ -783,3 +783,159 @@ def test_activation_wrappers_raise_and_differentiate(dev):
         getattr(ACT, op)(*ys).backward(g.cpu())
         assert_bf16_flips(xs[0].grad, ys[0].grad)
         assert_bf16_flips(xs[1].grad, ys[1].grad)
+
+
+# ---- kernels 1 and 3 on the tensor cores, T split over a cluster ----------
+# (b, h)'s T rows go in tiles of 16 to the P.FAVOR_CLUSTER CTAs of a cluster:
+# T = 1 and 37 leave CTAs without a tile, 200 is no multiple of the tiles'
+# share, B * H = 1 is a cluster alone on the card.
+FAVOR_EDGE_SHAPES = [(1, 1, 1, 128, 128), (2, 37, 2, 64, 128),
+                     (1, 98, 1, 96, 128), (2, 196, 4, 128, 128),
+                     (2, 200, 2, 96, 128), (1, 200, 1, 64, 128)]
+
+
+def _edge_id(shape):
+    return "B{}-T{}-H{}-D{}".format(*shape[:4])
+
+
+@pytest.mark.parametrize("masked", [True, False], ids=["mask", "no_mask"])
+@pytest.mark.parametrize("shape", FAVOR_EDGE_SHAPES, ids=_edge_id)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_favor_qkv_kernel_takes_any_t_and_repeats_its_bits(dev, shape, dtype,
+                                                           masked):
+    B, T, H, D, m = shape
+    qkv, scale, bias, proj, mask = _favor_inputs(dev, B, T, H, D, m, dtype,
+                                                 seed=21)
+    mask = mask if masked else None
+    out = P.favor_qkv(qkv, scale, bias, proj, mask)
+    torch.cuda.synchronize()
+    ref = P.favor_qkv_plain(qkv, scale, bias, proj, mask)
+    assert out.dtype == dtype and out.shape == (B, T, H * D)
+    err = (out.float() - ref.float()).abs()
+    assert torch.isfinite(out.float()).all()
+    if dtype == torch.float32:
+        assert err.max().item() <= 1e-4 * ref.abs().max().item()
+    else:
+        assert (err <= 2 ** -7 * ref.float().abs() + 1e-3).all()
+    # no atomics: the cluster's partial kv are added in rank order
+    assert torch.equal(out, P.favor_qkv(qkv, scale, bias, proj, mask))
+
+
+@pytest.mark.parametrize("need_dproj", [True, False],
+                         ids=["dproj", "no_dproj"])
+@pytest.mark.parametrize("masked", [True, False], ids=["mask", "no_mask"])
+@pytest.mark.parametrize("shape", FAVOR_EDGE_SHAPES, ids=_edge_id)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_favor_qkv_bwd_kernel_takes_any_t_and_repeats_its_bits(
+        dev, shape, dtype, masked, need_dproj):
+    B, T, H, D, m = shape
+    qkv, scale, bias, proj, mask = _favor_inputs(dev, B, T, H, D, m, dtype,
+                                                 seed=22)
+    mask = mask if masked else None
+    g = torch.from_numpy(np.random.default_rng(23).standard_normal(
+        (B, T, H * D)).astype(np.float32)).to(dev, dtype)
+    out = P.favor_qkv_bwd(qkv, scale, bias, proj, mask, g,
+                          need_dproj=need_dproj)
+    torch.cuda.synchronize()
+    ref = P.favor_qkv_bwd_plain(qkv, scale, bias, proj, mask, g,
+                                need_dproj=need_dproj)
+    for o, r, dt in zip(out[:3], ref[:3], (dtype, torch.float32,
+                                           torch.float32)):
+        _assert_close(o, r, dt)
+    if need_dproj and T > 1:
+        _assert_close(out[3], ref[3], torch.float32)
+    elif need_dproj:
+        # one frame: the output is v's LayerNorm scaled, whatever q, k and
+        # the projection, so d(proj) is zero up to rounding on both sides
+        scale_g = ref[0].float().abs().max().item()
+        assert out[3].abs().max().item() <= 1e-6 * scale_g
+        assert ref[3].abs().max().item() <= 1e-6 * scale_g
+    again = P.favor_qkv_bwd(qkv, scale, bias, proj, mask, g,
+                            need_dproj=need_dproj)
+    for a, o in zip(again, out):
+        assert (a is None and o is None) or torch.equal(a, o)
+
+
+def _logits_near_the_clip(dev, B, T, H, D, m, dtype):
+    """favor_qkv inputs whose projection puts logits within ~1e-6 of +15 and
+    -15: columns 0-7 are +-15 (1 + d) times the normalised q of rows 0-7 of
+    batch row 0, head 0, columns 8-15 the same of k (d from -4e-7 to
+    +3e-7)."""
+    qkv, scale, bias, proj, mask = _favor_inputs(dev, B, T, H, D, m,
+                                                 torch.float32, seed=24)
+    x = qkv.reshape(B, T, 3, H, D)
+    rows = P._l2(P._ln(x * 0.1, scale, bias))  # [B, T, 3, H, D]
+    proj = proj.clone()
+    for c in range(16):
+        part, t = divmod(c, 8)
+        sign = 1.0 if c % 2 == 0 else -1.0
+        proj[:, c] = sign * 15.0 * (1 + (t - 4) * 1e-7) * rows[0, t, part, 0]
+    return qkv.to(dtype), scale, bias, proj.contiguous(), mask
+
+
+@pytest.mark.parametrize("bf16_products", [False, True],
+                         ids=["3xtf32", "mxu_bf16"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_favor_bwd_clip_masks_are_the_forwards(dev, dtype, bf16_products):
+    """The backward's feature logits, and so its clip pass-through masks,
+    are the forward's bit for bit, at logits built to sit at +-15."""
+    B, T, H, D, m = 2, 37, 2, 128, 128
+    qkv, scale, bias, proj, mask = _logits_near_the_clip(dev, B, T, H, D, m,
+                                                         dtype)
+    fwd = P.favor_qkv_feature_logits(qkv, scale, bias, proj, mask,
+                                     source="forward",
+                                     bf16_products=bf16_products)
+    bwd = P.favor_qkv_feature_logits(qkv, scale, bias, proj, mask,
+                                     source="backward",
+                                     bf16_products=bf16_products)
+    torch.cuda.synchronize()
+    for f, b in zip(fwd, bwd):
+        assert torch.equal(f, b)
+        assert torch.equal(f.abs() <= 15, b.abs() <= 15)
+    ql, kl = fwd
+    if not bf16_products:  # the built logits do sit at the clip
+        near = ((ql[0, :8, 0, :8].diagonal().abs() - 15).abs().max(),
+                (kl[0, :8, 0, 8:16].diagonal().abs() - 15).abs().max())
+        assert max(n.item() for n in near) < 1e-4
+    plain = P.favor_qkv_logits_plain(qkv, scale, bias, proj)
+    for f, p in zip(fwd, plain):
+        # bf16 operands: each rounded by up to 2^-9 -> 2^-8 of |logit| <= 15
+        assert (f - p).abs().max().item() <= 1e-4 * p.abs().max().item() + (
+            15 * 2 ** -8 if bf16_products else 0.0)
+
+
+@pytest.mark.parametrize("shape", [(2, 37, 2, 64, 128), (4, 196, 4, 128, 128),
+                                   (2, 200, 2, 96, 128)], ids=_edge_id)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_favor_mxu_bf16_kernels_match_plain_with_bf16_operands(
+        dev, shape, dtype, monkeypatch):
+    """FAVOR_MXU_BF16=1: one bf16 mma per product, against the plain
+    versions with bf16 operands. The two sides round the same f32 values,
+    computed in another order, to bf16, so an operand may land one bf16 ulp
+    (2^-8) apart: held at bf16 resolution, 2^-8 of the output's largest
+    value (and one ulp more for bf16 outputs). The backward follows the
+    forward's setting, not the environment at backward time."""
+    B, T, H, D, m = shape
+    qkv, scale, bias, proj, mask = _favor_inputs(dev, B, T, H, D, m, dtype,
+                                                 seed=25)
+    g = torch.from_numpy(np.random.default_rng(26).standard_normal(
+        (B, T, H * D)).astype(np.float32)).to(dev, dtype)
+    monkeypatch.setenv("FAVOR_MXU_BF16", "1")
+    x = qkv.clone().requires_grad_()
+    out = P.favor_qkv(x, scale, bias, proj, mask)
+    ref = P.favor_qkv_plain(qkv, scale, bias, proj, mask,
+                            product=P.bf16_operand_product)
+    _assert_close(out, ref, dtype, 2 ** -8)
+    f32 = P.favor_qkv_plain(qkv, scale, bias, proj, mask)
+    assert not torch.equal(out.float(), f32.float())  # the switch took
+    monkeypatch.setenv("FAVOR_MXU_BF16", "0")
+    (dx,) = torch.autograd.grad(out, x, g)
+    ref_b = P.favor_qkv_bwd_plain(qkv, scale, bias, proj, mask, g,
+                                  product=P.bf16_operand_product)
+    _assert_close(dx, ref_b[0], dtype, 2 ** -8)
+    outs = P.favor_qkv_bwd(qkv, scale, bias, proj, mask, g,
+                           bf16_products=True)
+    for o, r, dt in zip(outs, ref_b, (dtype, torch.float32, torch.float32,
+                                      torch.float32)):
+        _assert_close(o, r, dt, 2 ** -8)
+

@@ -23,10 +23,9 @@ path) or the hidden chain (inline MoE) to bf16 before the second product
 differ from the fused forms by 3.5e-3 / 4.8e-3 relative RMS here, so the
 modules are held to 5e-4 relative RMS of the residual branch. The port's
 Dense adds its bias after rounding the product, as flax does, so the biases
-feeding the fused ops are drawn, but for the MoE router's: XLA's compiled
+feeding the fused ops are drawn, the MoE router's too: XLA's compiled
 program widens the gate's output to f32 for the softmax straight after the
-bias add and leaves that add's bf16 rounding out, which the port does not
-reproduce; near-tied routings then pick other experts, so that bias is zero.
+bias add and leaves that add's bf16 rounding out, and so does the port.
 """
 
 import jax
@@ -274,16 +273,15 @@ def test_cross_attention_block_fast_path(dtype):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_switch_moe_under_moe_fused_kernel(dtype, monkeypatch):
     """The JAX layer and the port's under MOE_FUSED_KERNEL=1, deterministic
-    (eval): both take the fused form. bf16: the gate's bias zero (see the
-    module doc)."""
+    (eval): both take the fused form, every leaf drawn (the router's bias
+    too, see the module doc)."""
     monkeypatch.setenv("MOE_FUSED_KERNEL", "1")
     jdt, tdt = DTYPES[dtype]
     x = _n(B, T, D, seed=2)
     jmod = JM.SwitchMoELayer(latent_dim=D, hidden_dim=128, num_experts=4,
                              top_k=2, dtype=jdt)
     params = random_params(jmod, x)
-    if dtype == "bfloat16":
-        params = _zero_biases(params, ("gate",))
+    assert np.abs(np.asarray(params["gate"]["bias"])).max() > 0
     ref = np.asarray(jax.jit(lambda p, a: jmod.apply(
         {"params": p}, a, mutable=["moe_metrics", "moe_losses"])[0])(
             params, x)).astype(np.float32)

@@ -301,8 +301,51 @@ def test_motion_transformer_bf16(denoiser_params):
     _, _, ref, out = _denoise_both("bfloat16", 16, denoiser_params)
     dist = rel_rms(out.numpy(), ref)
     print(f"tiny bf16 denoiser: relative RMS to the JAX bf16 output {dist:.3e}"
-          " (2.07e-2 before the port rounded where JAX rounds)")
-    assert dist < 1.2e-2
+          " (2.07e-2 before the port rounded where JAX rounds, 1.11e-2 before"
+          " it left out the roundings that XLA's compiled program leaves"
+          " out)")
+    # measured 7.43e-3; the bound leaves ~15% for MoE routings near a tie
+    assert dist < 8.5e-3
+
+
+def test_each_left_out_rounding_of_the_bf16_denoiser(denoiser_params,
+                                                     monkeypatch):
+    """The three roundings that XLA's compiled program leaves out, each
+    alone (the other two put back), against all three: only together do
+    they bring the tiny bf16 denoiser closest to jitted JAX (MoE routings
+    near a tie move the distance in steps, so a point alone can land
+    further away)."""
+    import torch.nn.functional as F
+
+    from motiondiffusion_moe_tpu_torch.models import layers as TL
+
+    port, (x, ts, lengths, ids), ref, out = _denoise_both(
+        "bfloat16", 16, denoiser_params)
+    together = rel_rms(out.numpy(), ref)
+
+    def ln_rounded(self, v):
+        v = getattr(v, "unrounded", v).to(self.dtype)
+        return F.layer_norm(v.float(), self.weight.shape, self.weight.float(),
+                            self.bias.float(), TL.LN_EPS).to(self.dtype)
+
+    put_back = {
+        "router": (TM.SwitchMoELayer, "_router_logits",
+                   lambda self, v: self.gate(v).float()),
+        "layer_norm": (TL.LayerNorm, "forward", ln_rounded),
+        "softmax": (TA, "softmax", lambda v, dim: torch.softmax(v, dim)),
+    }
+    alone = {}
+    for point in put_back:
+        with monkeypatch.context() as mp:
+            for other, (owner, name, old) in put_back.items():
+                if other != point:
+                    mp.setattr(owner, name, old)
+            with torch.no_grad():
+                o = port(t(x), t(ts), t(lengths), text_ids=t(ids))
+        alone[point] = rel_rms(o.numpy(), ref)
+    print(f"tiny bf16 denoiser, relative RMS to jitted JAX: all three "
+          f"{together:.3e}; each alone {alone}")
+    assert all(together < d for d in alone.values())
 
 
 # ---------------------------------------------------------------- init

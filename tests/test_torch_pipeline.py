@@ -215,6 +215,31 @@ def test_bf16_params_keep_the_projection_f32(seeded_pipe):
                if "projection" not in n)
 
 
+def test_pipeline_leaves_the_callers_model_as_it_was():
+    """The JAX pipeline casts a copy of its params (``_place_params``); the
+    port's pipeline owns a copy: after ``param_dtype="bfloat16"`` the
+    caller's parameters keep their dtype, bits, storage and device, and the
+    pipeline samples with its own bf16 copy."""
+    cfg = to_port(tiny_config(num_layers=1))
+    model = init_weights(MotionTransformer(cfg.model), 0)
+    before = {n: (p.dtype, p.device, p.data_ptr(), p.detach().clone())
+              for n, p in model.named_parameters()}
+    assert all(d == torch.float32 for d, _, _, _ in before.values())
+    pipe = GenerationPipeline(cfg, model, sampler="dpm",
+                              num_inference_steps=2, micro_batch=2,
+                              param_dtype="bfloat16", device="cpu")
+    assert pipe.model is not model
+    for n, p in model.named_parameters():
+        dtype, device, ptr, value = before[n]
+        assert p.dtype == dtype and p.device == device and p.data_ptr() == ptr
+        assert torch.equal(p, value), n
+    copied = dict(pipe.model.named_parameters())
+    assert copied.keys() == before.keys()
+    assert all(p.dtype == torch.bfloat16 for n, p in copied.items()
+               if "projection" not in n)
+    assert not any(p.data_ptr() == before[n][2] for n, p in copied.items())
+
+
 def test_generate_pads_chunks_and_crops(seeded_pipe):
     calls = []
     sample = seeded_pipe.sample

@@ -211,7 +211,9 @@ def test_residual_steps_multiply_by_the_weak_scalar():
     """``x + 0.1 * style_out`` of the Performer (``attention.py:238``) and
     ``skip + 0.1 * global_out`` of the dual block (``:275``) in bf16 give
     the bits of the same expressions in jitted JAX, on the port's own
-    intermediate values (captured with hooks)."""
+    intermediate values (captured with hooks). A LayerNorm reads each sum
+    unrounded, as XLA's compiled program of the whole block does: rounded,
+    that f32 sum is the jitted expression's bf16 result."""
     from motiondiffusion_moe_tpu_torch.models import attention as TA
 
     block = TA.DualSelfAttentionBlock(D, 2, TED, 32, dtype=torch.bfloat16)
@@ -237,7 +239,12 @@ def test_residual_steps_multiply_by_the_weak_scalar():
     j = {k: [jnp.asarray(v.float().numpy(), jnp.bfloat16) for v in vs]
          for k, vs in (("local", (seen["local"][0][0], seen["style"][1])),
                        ("dual", (seen["skip"][1], seen["global"][1])))}
-    np.testing.assert_array_equal(seen["local"][1].float().numpy(),
+    local = seen["local"][1]
+    np.testing.assert_array_equal(local.float().numpy(),
                                   _f32(residual(*j["local"])))
-    np.testing.assert_array_equal(seen["post"][0][0].float().numpy(),
+    assert local.unrounded.dtype == torch.float32
+    assert torch.equal(local.unrounded.bfloat16(), local)
+    post_in = seen["post"][0][0]
+    assert post_in.dtype == torch.float32
+    np.testing.assert_array_equal(post_in.bfloat16().float().numpy(),
                                   _f32(residual(*j["dual"])))
