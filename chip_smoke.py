@@ -62,10 +62,15 @@ first use) and exits non-zero without one. Phases, each fatal on failure:
   E      this slice's two switches, ModelConfig.use_fast_xattn and
          MOE_FUSED_KERNEL=1. E1: the fused-MoE and fast cross-attention
          kernels against their plain versions on the card, in bf16 and f32
-         (MoE at the flagship shape, at S = 600 and at the moe_big shape;
+         (MoE at the flagship shape, at S = 600, at E = 3 experts and at
+         the moe_big shape, each with the same bits on a second call;
          cross-attention at the flagship shape and at H = 8, D = 96), with
          kernel, plain and device times, the bound, scaled_dot_product_attention
-         as the cross-attention's library yardstick, and each gradient
+         as the cross-attention's library yardstick, the MoE kernel's times
+         also at the moe_big shape, at a quarter of the flagship's tokens
+         and beside the unfused path's cuBLAS chain at the flagship shape
+         (its yardstick: several calls, not one, so its library_ms stays
+         null), and each gradient
          through its autograd Function against autograd of the plain
          version. The bf16 cross-attention (the tensor-core kernel, also at
          N = 1024 keys) is held to at most 1% of its values one ulp from
@@ -1204,6 +1209,31 @@ def _top2_combine(rng, S, E):
     return combine
 
 
+def moe_bound(S, D, E, hid):
+    """The fused MoE chain's bound: x, combine, the weights and biases read
+    once and out written once in bf16; the two products and combine . b2
+    at the bf16 tensor-core rate."""
+    return bound(2 * (2 * S * D + S * E + 2 * E * D * hid + E * hid + E * D),
+                 4 * S * D * E * hid + 2 * S * E * D, "bf16")
+
+
+def unfused_moe_chain(x, combine, w1, b1, w2, b2):
+    """The expert chain as the MoE layer runs it with MOE_FUSED_KERNEL
+    unset (``models/moe.py``): a function of no arguments for timing."""
+    from motiondiffusion_moe_tpu_torch.ops.activations import gelu
+
+    S, D = x.shape
+    E, _, hid = w1.shape
+
+    def chain():
+        w1m = w1.permute(1, 0, 2).reshape(D, E * hid)
+        h = gelu(x @ w1m, b1.reshape(E * hid)).view(S, E, hid)
+        h = h * combine[:, :, None]
+        return h.reshape(S, E * hid) @ w2.reshape(E * hid, D) + combine @ b2
+
+    return chain
+
+
 def compare_to_plain(tag, name, out, ref, dtype, floor):
     """A kernel's output against its plain version's: f32 to F32_REL of
     the largest value; bf16 to one rounding plus ``floor``. Returns the
@@ -1303,7 +1333,9 @@ def phase_e1(dev, card):
         return torch.from_numpy((s * rng.standard_normal(shape))
                                 .astype(np.float32)).to(dev)
 
+    # S = 600 and 6272 end in a ragged token tile; E = 3 is no power of two
     moe_shapes = (("flagship", 6272, 512, 4, 256), ("S=600", 600, 512, 4, 256),
+                  ("E=3", 1000, 384, 3, 128),
                   ("moe_big", 6272, 768, 16, 1024))
     for label, S, D, E, hid in moe_shapes:
         base = [t(S, D), torch.from_numpy(_top2_combine(rng, S, E)).to(dev),
@@ -1319,21 +1351,44 @@ def phase_e1(dev, card):
             err = compare_to_plain(
                 "E1", name, out, ref, dtype,
                 MOE_BF16_FLOOR * ref.float().abs().max().item())
-            if label != "flagship" or dtype != torch.bfloat16:
+            again = MOE.moe_dense_fused(*args)
+            torch.cuda.synchronize()
+            check(torch.equal(again, out), f"{name}: a second call gave "
+                                           f"other bits")
+            if label not in ("flagship", "moe_big") or dtype != torch.bfloat16:
                 continue
             kernel = lambda: MOE.moe_dense_fused(*args)  # noqa: E731
             plain = lambda: MOE.moe_dense_fused_plain(*args)  # noqa: E731
             k_ms, p_ms = paired_ms(kernel, plain)
-            # x, combine, the weights and biases read, out written; the two
-            # products and combine . b2, bf16 products on the tensor cores
-            b_ms, b_by = bound(
-                2 * (2 * S * D + S * E + 2 * E * D * hid + E * hid + E * D),
-                4 * S * D * E * hid + 2 * S * E * D, "bf16")
+            b_ms, b_by = moe_bound(S, D, E, hid)
             print(f"[E1] {name}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms "
                   f"per call (CUDA events); device time kernel "
                   f"{device_ms(kernel)}, plain {device_ms(plain)} "
-                  f"(torch.profiler); bound {b_ms:.4f} ms ({b_by}); no "
-                  f"single PyTorch call computes it ({card})")
+                  f"(torch.profiler); bound {b_ms:.4f} ms ({b_by}); the "
+                  f"same bits on a second call; no single PyTorch call "
+                  f"computes it ({card})")
+            if label == "moe_big":
+                continue
+            chain = unfused_moe_chain(*args)
+            c_ms, k2_ms = paired_ms(chain, kernel)
+            c_err = (chain().float() - ref.float()).abs().max().item()
+            print(f"[E1] {name}: the unfused path's cuBLAS chain "
+                  f"(models/moe.py with MOE_FUSED_KERNEL unset: two cuBLAS "
+                  f"GEMMs, the gelu kernel, the combine product and "
+                  f"combine . b2; several calls, rounding to bf16 between "
+                  f"them, {c_err:.3e} from the plain version at most) "
+                  f"{c_ms:.4f} ms per call against the kernel's {k2_ms:.4f} "
+                  f"in turns (CUDA events); device time chain "
+                  f"{device_ms(chain)}, kernel {device_ms(kernel)} "
+                  f"(torch.profiler) ({card})")
+            # a quarter of the token tiles: a time that stays the same says
+            # that each SM's own work, not the card's L2, sets the time
+            quarter = lambda: MOE.moe_dense_fused(  # noqa: E731
+                args[0][:1584], args[1][:1584], *args[2:])
+            print(f"[E1] {name}: the kernel at S=1584 (33 token tiles, a "
+                  f"quarter of the SMs busy) {time_ms(quarter):.4f} ms per "
+                  f"call (CUDA events), device time {device_ms(quarter)} "
+                  f"(torch.profiler) ({card})")
             results["moe_dense_fused"] = (err, k_ms, p_ms, b_ms, b_by, None)
             grad_vs_plain("E1", "moe_dense_fused flagship",
                           lambda a: MOE.moe_dense_fused(*a),

@@ -85,43 +85,6 @@ struct AmSmem {
       sizeof(__nv_bfloat16) * (kTile + 2 * kAmStages * kBlock);
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, asynchronously; zeros where !valid.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-// Wait until at most kAmStages - 1 committed groups are still in flight.
-__device__ __forceinline__ void cp_async_wait_stage() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kAmStages - 1) : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p))
-      : "memory");
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p))
-      : "memory");
-}
-
 // Rows [0, valid) of an R-row tile from global memory (rows `row` elements
 // apart) into padded shared rows, by cp.async; rows past `valid` are zeros.
 // Where the threads split evenly over the 16-byte chunks of a row, each
@@ -223,7 +186,7 @@ __global__ void __launch_bounds__(kAmThreads, 2) cross_attention_mma_kernel(
   }
 
   for (int j = 0; j < blocks; ++j) {
-    cp_async_wait_stage();  // group j has landed (later blocks may fly)
+    cp_async_wait<kAmStages - 1>();  // group j landed (later ones may fly)
     __syncthreads();
     const __nv_bfloat16* kt = ks + (j % kAmStages) * S::kBlock;
     const __nv_bfloat16* vt = vs + (j % kAmStages) * S::kBlock;

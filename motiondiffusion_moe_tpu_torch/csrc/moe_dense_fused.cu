@@ -10,30 +10,60 @@
 //
 // with W1m [D, E*hid] and W2m [E*hid, D] the experts' weights merged along
 // the hidden axis. The kernel reads the stored w1 [E, D, hid] and
-// w2 [E, hid, D] and indexes those merged views itself.
+// w2 [E, hid, D] and indexes those merged views itself. The [S, E*hid]
+// hidden tensor never leaves the block, as on the TPU.
 //
-// What bounds it on the card: tensor-core throughput. At the flagship shape
-// (S = 6272 tokens, D = 512, E*hid = 1024) the two products are 13.2 GFLOP
-// against ~15 MB of inputs and output, ~870 flops per byte, far above the
-// H100's ~295 flops/byte line for bf16: 13.3 us at 989 TFLOP/s. The TPU
-// kernel's point, keeping the [S, E*hid] hidden tensor out of device memory,
-// holds here too: it never leaves the block.
+// What bounds it on the card. The function: tensor-core throughput. At the
+// flagship shape (S = 6272 tokens, D = 512, E*hid = 1024) the two products
+// are 13.2 GFLOP against ~15 MB of inputs and output, ~870 flops per byte,
+// far above the H100's ~295 flops/byte line for bf16: 13.3 us at
+// 989 TFLOP/s. This design: the weights, which every token tile streams
+// from L2 through cp.async (2 MiB per tile at the flagship, 262 MiB per
+// call), at a rate per SM that leaves the copies about as long as the
+// products; the products themselves, on mma.sync at 8 warps per SM, wait
+// on fragment loads and reach a fraction of the rate that wgmma would.
+// What would move it: weight panels shared by the SMs of a cluster (one L2
+// read for several token tiles) through TMA multicast, and wgmma.
 //
-// Design (a simple first version, no TMA or wgmma yet): one block of 8
-// warps per 32-token tile (196 blocks at the flagship). The x tile stays in
-// shared memory; the block walks the E*hid hidden columns in chunks (64 in
-// bf16, 32 in f32; a chunk lies inside one expert because hid % 128 == 0).
-// Per chunk: stage the W1 chunk, h = x . W1 chunk, then bias, tanh-gelu and
-// the combine weight in f32 on the accumulator, rounded once to the input
-// dtype into shared memory; stage the W2 chunk into the same buffer and
-// accumulate out += h . W2 chunk in registers (each warp owns a 16-row by
-// D/4-column slab of the output). Finally add combine . b2 and store once.
-// bf16 runs both products on the tensor cores (mma.sync m16n8k16, bf16
-// products summed in f32: the reference's preferred_element_type=f32);
-// f32 runs IEEE f32 FMAs, not TF32, so the f32 parity holds. Shared-memory
-// rows are padded so that every fragment load of a warp hits 32 distinct
-// banks. The weights are re-read from L2 by every block: at the flagship
-// ~2 MB per block, which, not the tensor cores, bounds this version.
+// bf16 design. One block of 8 warps per tile of 48 tokens: 131 blocks at
+// the flagship, one wave on the 132 SMs at one block per SM, so every
+// weight byte read from L2 feeds 48 rows. The 48-row output
+// accumulator stays in registers, 3 m-tiles x D/64 n-tiles x 4 floats per
+// thread (96 at D = 512, 144 at D = 768): that is what caps the tile at 255
+// registers a thread (64-token tiles were measured slower: more products
+// per SM for the same weight stream). The x tile stays in shared memory.
+// The block walks the E*hid hidden columns in chunks of C = 256 (D <= 512
+// and E*hid a multiple of 256; else C = 128, which hid % 128 == 0 keeps
+// inside one expert; a 256-column chunk may span two experts, and each
+// thread's 8 columns lie in one). Each chunk's weights arrive as panels:
+// W1 in slices of 64 (C = 128 and D <= 512: 128) rows of D, [rows x C];
+// W2 in slices of 32 hidden rows, [32 x D] (64 and 128 rows at D = 256 and
+// 128; 16 at D > 512). They pass through a ring of 3 panel slots (4 at
+// D > 512) filled by cp.async two (three) panels ahead of the one being
+// multiplied, so the copies from L2 overlap the tensor cores; the panels
+// of a chunk's second product arrive while its first product and the gelu
+// are computed. Tiles are row-major in shared memory with rows padded by
+// 16 bytes, so that the 8 row addresses of every ldmatrix hit distinct
+// banks, and both products are one warp routine (warp_mma):
+//   h [48 x C] = x . W1c: warp w owns chunk columns w C/8 .. +C/8 for all
+//     48 rows, x fragments by ldmatrix from the x tile, W1 fragments by
+//     ldmatrix.trans from the [k][n] panel, each x fragment feeding C/64
+//     mma and each W1 fragment 3. Then + b1, gelu_tanh and the combine
+//     weight in f32 on the accumulator, rounded once to bf16 into the h
+//     chunk in shared memory;
+//   out [48 x D] += h . W2c: warp w owns output columns w D/8 .. +D/8, h
+//     fragments by ldmatrix, W2 fragments by ldmatrix.trans, each h
+//     fragment feeding D/64 mma and each W2 fragment all 3 m-tiles.
+// Both on mma.sync m16n8k16 (bf16 products summed in f32: the reference's
+// preferred_element_type=f32). Finally + combine . b2 in f32, one rounding,
+// one store; rows past S are zeros in and are not stored. Shared memory:
+// the x tile, the h chunk, the slots and the combine weights in f32:
+// 173.25 KB at D = 512 (E = 4, C = 256), 185.5 KB at D = 768 (E = 16,
+// C = 128), at most 194.5 KB (E = 64). No atomics: each output is one
+// fixed sequence of mma, the same bits on every call.
+//
+// f32 design: 32-token tiles, IEEE f32 FMAs (not TF32, so the f32 parity
+// holds), the weight chunks staged by the threads themselves.
 
 #include <cstddef>
 #include <cstdint>
@@ -43,7 +73,6 @@
 namespace mdm {
 namespace {
 
-constexpr int kMoeTile = 32;      // tokens per block
 constexpr int kMoeThreads = 256;  // 8 warps
 constexpr int kMaxExperts = 64;
 
@@ -55,172 +84,254 @@ __device__ __forceinline__ float gelu_tanh(float x) {
 
 // ---------------------------------------------------------------- bf16
 
-constexpr int kChunkBf16 = 64;  // hidden columns per chunk
+constexpr int kMT = 3;         // 16-token m-tiles per block
+constexpr int kTok = 16 * kMT;  // tokens per block
+constexpr int kPad = 8;        // bf16 padding of a shared-memory row
 
-// Shared memory of the bf16 kernel, in 32-bit words, each holding two bf16
-// neighbours along the contracted axis of the product that reads them.
-template <int D>
-struct MoeBf16Layout {
-  static constexpr int kXs = D / 2 + 4;          // x tile row stride
-  static constexpr int kW1s = kChunkBf16 + 8;    // W1 chunk [D/2][kW1s]
-  static constexpr int kW2s = D + 8;             // W2 chunk [32][kW2s]
-  static constexpr int kHs = kChunkBf16 / 2 + 4;  // h chunk [32][kHs]
-  static constexpr int kW = (D / 2) * kW1s > (kChunkBf16 / 2) * kW2s
-                                ? (D / 2) * kW1s
-                                : (kChunkBf16 / 2) * kW2s;
+// The tile and the ring for one D and chunk width C (hidden columns per
+// chunk). C = 256 where the output accumulator leaves room for the first
+// product's (D <= 512, 48 + 96 floats a thread) and E*hid is a multiple of
+// 256; else 128. Panels of ~32 KB in 3 slots up to D = 512; at D = 640 and
+// 768, where the x tile is larger, ~16-24 KB panels in 4 slots.
+template <int D, int C>
+struct MoeBf16Plan {
+  static constexpr bool kWide = D > 512;
+  static_assert(C == 128 || !kWide, "C = 256 only up to D = 512");
+  static constexpr int kStages = kWide ? 4 : 3;      // slots of the ring
+  static constexpr int kW1Rows = C == 256 || kWide ? 64 : 128;  // of D
+  static constexpr int kW2Rows = kWide ? 16 : D <= 128 ? 128 : D <= 256 ? 64
+                                                                  : 32;
+  static constexpr int kXs = D + kPad;   // x tile [kTok][kXs]
+  static constexpr int kHs = C + kPad;   // h chunk [kTok][kHs]
+  static constexpr int kW1s = C + kPad;  // W1 panel [kW1Rows][kW1s]
+  static constexpr int kW2s = D + kPad;  // W2 panel [kW2Rows][kW2s]
+  static constexpr int kP1 = D / kW1Rows;  // W1 panels per chunk
+  static constexpr int kP2 = C / kW2Rows;  // W2 panels per chunk
+  static constexpr int kPanels = kP1 + kP2;
+  static constexpr int kSlot = kW1Rows * kW1s > kW2Rows * kW2s
+                                   ? kW1Rows * kW1s
+                                   : kW2Rows * kW2s;
   static constexpr size_t bytes(int experts) {
-    return 4 * (size_t(kMoeTile) * kXs + kW + size_t(kMoeTile) * kHs +
-                size_t(kMoeTile) * experts);
+    return sizeof(__nv_bfloat16) *
+               (size_t(kTok) * (kXs + kHs) + size_t(kStages) * kSlot) +
+           sizeof(float) * size_t(kTok) * experts;
   }
 };
 
-template <int D>
-__global__ void __launch_bounds__(kMoeThreads) moe_bf16_kernel(
+// One warp: acc[mi][nt] += A[16 mi + i][k] . B[k][8 nt + j] for the kTok
+// rows of A, 8 NT columns of B and k < K. A: bf16 rows of length >= K in
+// shared memory, `lda` apart (a token tile), fragments by ldmatrix; B: K
+// bf16 rows `ldb` apart (a weight panel, [k][n]), fragments by
+// ldmatrix.trans. Each A fragment feeds NT mma, each B fragment kMT.
+template <int NT, int K>
+__device__ __forceinline__ void warp_mma(float (&acc)[kMT][NT][4],
+                                         const __nv_bfloat16* a, int lda,
+                                         const __nv_bfloat16* b, int ldb,
+                                         int lane) {
+  static_assert(NT % 2 == 0 && K % 16 == 0, "warp tile");
+  // ldmatrix row addresses: lanes 8i .. 8i+7 give matrix i, whose rows are
+  // (i & 1) 8 rows down and whose columns (i >> 1) 8 columns on
+  const int row = (lane & 7) + 8 * ((lane >> 3) & 1), col = 8 * (lane >> 4);
+#pragma unroll
+  for (int k = 0; k < K; k += 16) {
+    uint32_t af[kMT][4];
+#pragma unroll
+    for (int mi = 0; mi < kMT; ++mi) {
+      ldmatrix_x4(af[mi], a + (16 * mi + row) * lda + k + col);
+    }
+#pragma unroll
+    for (int np = 0; np < NT / 2; ++np) {
+      uint32_t bf[4];  // n-tiles 2 np and 2 np + 1
+      ldmatrix_x4_trans(bf, b + (k + row) * ldb + 16 * np + col);
+#pragma unroll
+      for (int mi = 0; mi < kMT; ++mi) {
+        mma_bf16(acc[mi][2 * np], af[mi], bf[0], bf[1]);
+        mma_bf16(acc[mi][2 * np + 1], af[mi], bf[2], bf[3]);
+      }
+    }
+  }
+}
+
+template <int NT>
+__device__ __forceinline__ void zero(float (&acc)[kMT][NT][4]) {
+#pragma unroll
+  for (int mi = 0; mi < kMT; ++mi) {
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[mi][nt][c] = 0.f;
+    }
+  }
+}
+
+template <int D, int C>
+__global__ void __launch_bounds__(kMoeThreads, 1) moe_bf16_kernel(
     const __nv_bfloat16* __restrict__ x,
     const __nv_bfloat16* __restrict__ combine,
     const __nv_bfloat16* __restrict__ w1, const __nv_bfloat16* __restrict__ b1,
     const __nv_bfloat16* __restrict__ w2, const __nv_bfloat16* __restrict__ b2,
     __nv_bfloat16* __restrict__ out, int S, int E, int hid) {
-  using L = MoeBf16Layout<D>;
-  extern __shared__ __align__(16) uint32_t smem[];
-  uint32_t* xs = smem;
-  uint32_t* ws = xs + kMoeTile * L::kXs;
-  uint32_t* hs = ws + L::kW;
-  float* cs = reinterpret_cast<float*>(hs + kMoeTile * L::kHs);
+  using P = MoeBf16Plan<D, C>;
+  constexpr int kStages = P::kStages, kW1Rows = P::kW1Rows;
+  constexpr int kW2Rows = P::kW2Rows;
+  constexpr int kNT1 = C / 64, kNT2 = D / 64;  // n-tiles of a warp
+  extern __shared__ __align__(16) unsigned char moe_smem[];
+  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(moe_smem);
+  __nv_bfloat16* hs = xs + kTok * P::kXs;
+  __nv_bfloat16* ring = hs + kTok * P::kHs;
+  float* cs = reinterpret_cast<float*>(ring + kStages * P::kSlot);
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, tq = lane % 4;
-  const int s0 = blockIdx.x * kMoeTile;
+  const int s0 = blockIdx.x * kTok;
+  const int valid = min(kTok, S - s0);  // rows of the tile before S
+  const int panels = E * hid / C * P::kPanels;
 
-  // the x tile (zero rows past S) and its combine weights, widened to f32
-  constexpr int kRowVec = D / 8;  // 16-byte vectors per row
-  for (int i = tid; i < kMoeTile * kRowVec; i += kMoeThreads) {
-    const int r = i / kRowVec, c = i % kRowVec;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (s0 + r < S) {
-      v = reinterpret_cast<const uint4*>(x + size_t(s0 + r) * D)[c];
-    }
-    *reinterpret_cast<uint4*>(xs + r * L::kXs + 4 * c) = v;
-  }
-  for (int i = tid; i < kMoeTile * E; i += kMoeThreads) {
-    const int r = i / E;
-    cs[i] = s0 + r < S ? __bfloat162float(combine[size_t(s0) * E + i]) : 0.f;
-  }
-
-  // this warp's rows (mt) and column quarter (nq) of both products
-  const int mt = warp % 2, nq = warp / 2;
-  constexpr int kNT = D / 32;  // 8-column output tiles per warp
-  float acc[kNT][4];
+  // panel p of the sequence (chunk p / kPanels: its W1 panels, then its W2
+  // panels) into slot p % kStages, as one cp.async group (empty past the
+  // end, so that the count of groups in flight stays the same)
+  auto load_panel = [&](int p) {
+    if (p < panels) {
+      const int col0 = p / P::kPanels * C;  // the chunk's first merged column
+      const int q = p % P::kPanels;
+      __nv_bfloat16* dst = ring + (p % kStages) * P::kSlot;
+      if (q < P::kP1) {
+        // W1m rows q*kW1Rows + r, columns col0 + c: w1[e][row][h] for the
+        // merged column e*hid + h (a chunk of 256 may span two experts;
+        // a thread's 8 columns lie in one)
+        constexpr int kRow = C / 8;  // 16-byte pieces of a row
+        static_assert(kMoeThreads % kRow == 0 &&
+                          kW1Rows * kRow % kMoeThreads == 0, "W1 panel");
+        const int c = 8 * (tid % kRow), m = col0 + c, e = m / hid;
+        const __nv_bfloat16* src =
+            w1 + (size_t(e) * D + q * kW1Rows) * hid + (m - e * hid);
 #pragma unroll
-  for (int i = 0; i < kNT; ++i) {
+        for (int it = 0; it < kW1Rows * kRow / kMoeThreads; ++it) {
+          const int r = it * (kMoeThreads / kRow) + tid / kRow;
+          cp_async16(dst + r * P::kW1s + c, src + size_t(r) * hid, true);
+        }
+      } else {  // W2m rows col0 + (q - kP1) * kW2Rows + r
+        const __nv_bfloat16* src =
+            w2 + (size_t(col0) + (q - P::kP1) * kW2Rows) * D;
+        constexpr int kRow = D / 8;
+        static_assert(kW2Rows * kRow % kMoeThreads == 0, "W2 panel");
 #pragma unroll
-    for (int c = 0; c < 4; ++c) acc[i][c] = 0.f;
-  }
-  const int r0 = mt * 16 + g, r1 = r0 + 8;
-
-  for (int j0 = 0; j0 < E * hid; j0 += kChunkBf16) {
-    const int e = j0 / hid, h0 = j0 % hid;
-    __syncthreads();  // the previous chunk's readers of ws and hs are done
-    // W1 chunk: word (kp, n) = {w1[e][2kp][h0 + n], w1[e][2kp + 1][h0 + n]};
-    // 8-byte loads of 4 columns, unrolled so that many are in flight
-    const __nv_bfloat16* w1e = w1 + size_t(e) * D * hid + h0;
-    constexpr int kW1Items = (D / 2) * (kChunkBf16 / 4);
-    static_assert(kW1Items % kMoeThreads == 0, "W1 staging");
-#pragma unroll 8
-    for (int it = 0; it < kW1Items / kMoeThreads; ++it) {
-      const int i = it * kMoeThreads + tid;
-      const int kp = i / (kChunkBf16 / 4), n4 = i % (kChunkBf16 / 4);
-      const __nv_bfloat16* src = w1e + size_t(2 * kp) * hid + 4 * n4;
-      *reinterpret_cast<uint4*>(ws + kp * L::kW1s + 4 * n4) = interleave_rows(
-          *reinterpret_cast<const uint2*>(src),
-          *reinterpret_cast<const uint2*>(src + hid));
-    }
-    __syncthreads();
-
-    // h = x . W1 chunk: this warp's two 16x8 tiles (columns 16*nq .. +15)
-    float hc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-#pragma unroll 4
-    for (int ks = 0; ks < D / 16; ++ks) {
-      const uint32_t* xa = xs + r0 * L::kXs + ks * 8 + tq;
-      const uint32_t a[4] = {xa[0], xa[8 * L::kXs], xa[4],
-                             xa[8 * L::kXs + 4]};
-#pragma unroll
-      for (int q = 0; q < 2; ++q) {
-        const uint32_t* wb = ws + (ks * 8 + tq) * L::kW1s + (2 * nq + q) * 8 + g;
-        mma_bf16(hc[q], a, wb[0], wb[4 * L::kW1s]);
+        for (int it = 0; it < kW2Rows * kRow / kMoeThreads; ++it) {
+          const int i = it * kMoeThreads + tid;
+          const int r = i / kRow, c = 8 * (i % kRow);
+          cp_async16(dst + r * P::kW2s + c, src + size_t(r) * D + c, true);
+        }
       }
     }
-    // + b1, gelu, * combine in f32 on the accumulator; one rounding to bf16
-    const float c0 = cs[r0 * E + e], c1 = cs[r1 * E + e];
-#pragma unroll
-    for (int q = 0; q < 2; ++q) {
-      const int col = (2 * nq + q) * 8 + 2 * tq;
-      const float bb0 = __bfloat162float(b1[size_t(e) * hid + h0 + col]);
-      const float bb1 = __bfloat162float(b1[size_t(e) * hid + h0 + col + 1]);
-      hs[r0 * L::kHs + col / 2] = pack_bf16(gelu_tanh(hc[q][0] + bb0) * c0,
-                                            gelu_tanh(hc[q][1] + bb1) * c0);
-      hs[r1 * L::kHs + col / 2] = pack_bf16(gelu_tanh(hc[q][2] + bb0) * c1,
-                                            gelu_tanh(hc[q][3] + bb1) * c1);
-    }
-    __syncthreads();  // W1 chunk no longer read; h chunk complete
+    cp_async_commit();
+  };
 
-    // W2 chunk: word (kp, n) = {w2[e][h0 + 2kp][n], w2[e][h0 + 2kp + 1][n]}
-    const __nv_bfloat16* w2e = w2 + (size_t(e) * hid + h0) * D;
-    constexpr int kW2Items = (kChunkBf16 / 2) * (D / 4);
-    static_assert(kW2Items % kMoeThreads == 0, "W2 staging");
-#pragma unroll 8
-    for (int it = 0; it < kW2Items / kMoeThreads; ++it) {
+  // the x tile (zeros past S) joins the group of panel 0
+  {
+    constexpr int kRow = D / 8;
+    static_assert(kTok * kRow % kMoeThreads == 0, "x tile");
+#pragma unroll
+    for (int it = 0; it < kTok * kRow / kMoeThreads; ++it) {
       const int i = it * kMoeThreads + tid;
-      const int kp = i / (D / 4), n4 = i % (D / 4);
-      const __nv_bfloat16* src = w2e + size_t(2 * kp) * D + 4 * n4;
-      *reinterpret_cast<uint4*>(ws + kp * L::kW2s + 4 * n4) = interleave_rows(
-          *reinterpret_cast<const uint2*>(src),
-          *reinterpret_cast<const uint2*>(src + D));
-    }
-    __syncthreads();
-
-    // out += h . W2 chunk
-#pragma unroll
-    for (int ks = 0; ks < kChunkBf16 / 16; ++ks) {
-      const uint32_t* ha = hs + r0 * L::kHs + ks * 8 + tq;
-      const uint32_t a[4] = {ha[0], ha[8 * L::kHs], ha[4],
-                             ha[8 * L::kHs + 4]};
-#pragma unroll
-      for (int i = 0; i < kNT; ++i) {
-        const uint32_t* wb =
-            ws + (ks * 8 + tq) * L::kW2s + (nq * kNT + i) * 8 + g;
-        mma_bf16(acc[i], a, wb[0], wb[4 * L::kW2s]);
-      }
+      const int r = i / kRow, c = 8 * (i % kRow);
+      const bool ok = r < valid;
+      cp_async16(xs + r * P::kXs + c, x + size_t(s0 + (ok ? r : 0)) * D + c,
+                 ok);
     }
   }
+#pragma unroll
+  for (int p = 0; p < kStages - 1; ++p) load_panel(p);
+  // the combine weights, widened to f32 (zeros past S)
+  for (int i = tid; i < kTok * E; i += kMoeThreads) {
+    cs[i] = i / E < valid ? __bfloat162float(combine[size_t(s0) * E + i])
+                          : 0.f;
+  }
+
+  int p = 0;  // the next panel to multiply
+  // wait for panel p, refill the slot that panel p - 1 used, return p's
+  auto next_panel = [&]() {
+    cp_async_wait<kStages - 2>();  // this thread's copies of panel p landed
+    __syncthreads();  // everyone's did, and panel p - 1 is no longer read
+    load_panel(p + kStages - 1);
+    return ring + (p++ % kStages) * P::kSlot;
+  };
+
+  // out [kTok x D]: warp w owns output columns w D/8 .. for every row
+  float acc[kMT][kNT2][4];
+  zero(acc);
+  for (int col0 = 0; col0 < E * hid; col0 += C) {
+    // h = x . W1c: warp w owns the chunk's columns w C/8 ..
+    float hacc[kMT][kNT1][4];
+    zero(hacc);
+    for (int q = 0; q < P::kP1; ++q) {
+      const __nv_bfloat16* panel = next_panel();
+      warp_mma<kNT1, kW1Rows>(hacc, xs + q * kW1Rows, P::kXs,
+                              panel + warp * (C / 8), P::kW1s, lane);
+    }
+    // + b1, gelu, * combine in f32 on the accumulator; one rounding to bf16.
+    // The previous chunk's h was last read before the barrier of this
+    // chunk's last W1 panel; this h is first read after the next barrier.
+#pragma unroll
+    for (int nt = 0; nt < kNT1; ++nt) {
+      const int hc = warp * (C / 8) + 8 * nt + 2 * tq;  // column in the chunk
+      const int e = (col0 + hc) / hid;
+      const float2 bias = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(b1 + col0 + hc));
+#pragma unroll
+      for (int mi = 0; mi < kMT; ++mi) {
+        const int r0 = 16 * mi + g, r1 = r0 + 8;
+        const float c0 = cs[r0 * E + e], c1 = cs[r1 * E + e];
+        const float(&h)[4] = hacc[mi][nt];
+        *reinterpret_cast<uint32_t*>(hs + r0 * P::kHs + hc) =
+            pack_bf16(gelu_tanh(h[0] + bias.x) * c0,
+                      gelu_tanh(h[1] + bias.y) * c0);
+        *reinterpret_cast<uint32_t*>(hs + r1 * P::kHs + hc) =
+            pack_bf16(gelu_tanh(h[2] + bias.x) * c1,
+                      gelu_tanh(h[3] + bias.y) * c1);
+      }
+    }
+    // out += h . W2c
+    for (int q = 0; q < P::kP2; ++q) {
+      const __nv_bfloat16* panel = next_panel();
+      warp_mma<kNT2, kW2Rows>(acc, hs + q * kW2Rows, P::kHs,
+                              panel + warp * (D / 8), P::kW2s, lane);
+    }
+  }
+  cp_async_wait<0>();  // only empty groups remain
 
   // + combine . b2 (f32), one rounding, one store
 #pragma unroll
-  for (int i = 0; i < kNT; ++i) {
-    const int col = (nq * kNT + i) * 8 + 2 * tq;
-    float cb[4] = {0.f, 0.f, 0.f, 0.f};
-    for (int e = 0; e < E; ++e) {
-      const float ba = __bfloat162float(b2[size_t(e) * D + col]);
-      const float bb = __bfloat162float(b2[size_t(e) * D + col + 1]);
-      const float ca = cs[r0 * E + e], cc = cs[r1 * E + e];
-      cb[0] = fmaf(ca, ba, cb[0]);
-      cb[1] = fmaf(ca, bb, cb[1]);
-      cb[2] = fmaf(cc, ba, cb[2]);
-      cb[3] = fmaf(cc, bb, cb[3]);
-    }
-    if (s0 + r0 < S) {
-      *reinterpret_cast<uint32_t*>(out + size_t(s0 + r0) * D + col) =
-          pack_bf16(acc[i][0] + cb[0], acc[i][1] + cb[1]);
-    }
-    if (s0 + r1 < S) {
-      *reinterpret_cast<uint32_t*>(out + size_t(s0 + r1) * D + col) =
-          pack_bf16(acc[i][2] + cb[2], acc[i][3] + cb[3]);
+  for (int mi = 0; mi < kMT; ++mi) {
+    const int r0 = 16 * mi + g, r1 = r0 + 8;
+#pragma unroll
+    for (int nt = 0; nt < kNT2; ++nt) {
+      const int col = warp * (D / 8) + 8 * nt + 2 * tq;
+      float cb[4] = {0.f, 0.f, 0.f, 0.f};
+      for (int e = 0; e < E; ++e) {
+        const float2 bb = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(b2 + size_t(e) * D +
+                                                     col));
+        const float ca = cs[r0 * E + e], cc = cs[r1 * E + e];
+        cb[0] = fmaf(ca, bb.x, cb[0]);
+        cb[1] = fmaf(ca, bb.y, cb[1]);
+        cb[2] = fmaf(cc, bb.x, cb[2]);
+        cb[3] = fmaf(cc, bb.y, cb[3]);
+      }
+      if (r0 < valid) {
+        *reinterpret_cast<uint32_t*>(out + size_t(s0 + r0) * D + col) =
+            pack_bf16(acc[mi][nt][0] + cb[0], acc[mi][nt][1] + cb[1]);
+      }
+      if (r1 < valid) {
+        *reinterpret_cast<uint32_t*>(out + size_t(s0 + r1) * D + col) =
+            pack_bf16(acc[mi][nt][2] + cb[2], acc[mi][nt][3] + cb[3]);
+      }
     }
   }
 }
 
 // ---------------------------------------------------------------- f32
 
+constexpr int kMoeTile = 32;   // tokens per block
 constexpr int kChunkF32 = 32;  // hidden columns per chunk
 
 template <int D>
@@ -345,14 +456,14 @@ __global__ void __launch_bounds__(kMoeThreads) moe_f32_kernel(
 }
 
 template <typename Kernel, typename T>
-cudaError_t launch_moe(Kernel kernel, size_t smem, const void* x,
+cudaError_t launch_moe(Kernel kernel, int tile, size_t smem, const void* x,
                        const void* combine, const void* w1, const void* b1,
                        const void* w2, const void* b2, void* out, int S,
                        int E, int hid, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return err;
-  const int blocks = (S + kMoeTile - 1) / kMoeTile;
+  const int blocks = (S + tile - 1) / tile;
   kernel<<<blocks, kMoeThreads, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(combine),
       static_cast<const T*>(w1), static_cast<const T*>(b1),
@@ -367,13 +478,20 @@ cudaError_t dispatch_moe(const void* x, const void* combine, const void* w1,
                          void* out, int S, int E, int hid, int is_bf16,
                          cudaStream_t stream) {
   if (is_bf16) {
-    return launch_moe<decltype(&moe_bf16_kernel<D>), __nv_bfloat16>(
-        &moe_bf16_kernel<D>, MoeBf16Layout<D>::bytes(E), x, combine, w1, b1,
-        w2, b2, out, S, E, hid, stream);
+    if constexpr (D <= 512) {
+      if (E * hid % 256 == 0) {
+        return launch_moe<decltype(&moe_bf16_kernel<D, 256>), __nv_bfloat16>(
+            &moe_bf16_kernel<D, 256>, kTok, MoeBf16Plan<D, 256>::bytes(E), x,
+            combine, w1, b1, w2, b2, out, S, E, hid, stream);
+      }
+    }
+    return launch_moe<decltype(&moe_bf16_kernel<D, 128>), __nv_bfloat16>(
+        &moe_bf16_kernel<D, 128>, kTok, MoeBf16Plan<D, 128>::bytes(E), x,
+        combine, w1, b1, w2, b2, out, S, E, hid, stream);
   }
   return launch_moe<decltype(&moe_f32_kernel<D>), float>(
-      &moe_f32_kernel<D>, MoeF32Layout<D>::bytes(E), x, combine, w1, b1, w2,
-      b2, out, S, E, hid, stream);
+      &moe_f32_kernel<D>, kMoeTile, MoeF32Layout<D>::bytes(E), x, combine,
+      w1, b1, w2, b2, out, S, E, hid, stream);
 }
 
 }  // namespace

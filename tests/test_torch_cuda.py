@@ -324,7 +324,8 @@ def _moe_inputs(dev, S, D, E, hid, dtype, seed=7):
 
 
 @pytest.mark.parametrize("shape", [(6272, 512, 4, 256), (600, 128, 4, 128),
-                                   (1000, 768, 16, 1024), (37, 256, 2, 128)])
+                                   (1000, 768, 16, 1024), (37, 256, 2, 128),
+                                   (1000, 384, 3, 128), (600, 512, 3, 128)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_moe_dense_fused_kernel_matches_plain(dev, shape, dtype):
     S, D, E, hid = shape
