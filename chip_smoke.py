@@ -45,7 +45,11 @@ first use) and exits non-zero without one. Phases, each fatal on failure:
          d(proj); performer_epilogue_bwd in bf16 at width 512), max errors
          against stated tolerances, kernel and plain times; favor_qkv_bwd
          as favor_qkv in A (repeated bits, the 3xTF32 bound and the
-         IEEE-FMA floor, the cluster sweep). D2: one
+         IEEE-FMA floor, the cluster sweep); performer_epilogue_bwd also
+         with the same bits on a second call, its blocks per batch row
+         (the thread-block cluster), the device time of each of its two
+         launches, and ptxas's registers and spills of its main kernel
+         (none may spill at D = 512). D2: one
          full-width train step in f32 compute (dropout 0, no stochastic
          depth) through the kernels and with use_kernels=False on the same
          batch, noise and t: equal losses, a finite gradient for every
@@ -63,7 +67,8 @@ first use) and exits non-zero without one. Phases, each fatal on failure:
          MOE_FUSED_KERNEL=1. E1: the fused-MoE and fast cross-attention
          kernels against their plain versions on the card, in bf16 and f32
          (MoE at the flagship shape, at S = 600, at E = 3 experts and at
-         the moe_big shape, each with the same bits on a second call;
+         the moe_big shape, each with the same bits on a second call and
+         the SHA-256 of its output;
          cross-attention at the flagship shape and at H = 8, D = 96), with
          kernel, plain and device times, the bound, scaled_dot_product_attention
          as the cross-attention's library yardstick, the MoE kernel's times
@@ -91,7 +96,12 @@ first use) and exits non-zero without one. Phases, each fatal on failure:
          and favor_attention_full against their plain versions at the
          flagship shapes, in f32 and (all but favor_attention, which takes
          f32) bf16; flash_cross_attention also at N = 1024 keys and at a T
-         that is no multiple of its 32-row tile; favor_attention_full bit
+         that is no multiple of its 32-row tile; adaln_dense also at
+         B*T = 305 rows (no multiple of its 96-row tile) with Dout = 320,
+         with the same bits on a second call, and in bf16 timed beside the
+         unfused StylizationBlock chain (LayerNorm, modulation, SiLU, the
+         cuBLAS Dense with its bias: several calls, so its library_ms
+         stays null); favor_attention_full bit
          for bit against favor_qkv on the merged panel; in bf16
          flash_cross_attention (the tensor-core kernel) is held to the
          share-and-ulp rule of E1; kernel, plain and
@@ -108,7 +118,8 @@ first use) and exits non-zero without one. Phases, each fatal on failure:
          favor_qkv never; against the standard flagship and against itself
          with use_pallas=False and use_kernels=False in f32; in bf16 compute
          both paths against the f32 result (phase B's rule); CUDA kernels
-         and device time per forward against the standard flagship.
+         and device time per forward against the standard flagship, in f32
+         and in bf16 compute.
 
 The last line is {"ok": true, "device": {...}}, printed only when every
 phase passed; the line before it lists the kernels of the paths, each with
@@ -121,6 +132,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import hashlib
 import importlib.util
 import io
 import json
@@ -293,11 +305,9 @@ def paired_ms(kernel_fn, plain_fn, iters: int = 20):
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
-def device_ms(fn, iters: int = 20) -> str:
-    """Device time of one call: the sum of the CUDA kernels' own times
-    that torch.profiler records over ``iters`` calls, divided by
-    ``iters``. Unlike back-to-back CUDA events it leaves out the host's
-    launch cost, which exceeds a short kernel's run time.
+def _profiled_kernels(fn, iters: int):
+    """{CUDA kernel name: its device time in us over ``iters`` calls of
+    ``fn``} from one accepted torch.profiler session, or None.
 
     The profiler loses the first kernels of a session now and then, or
     all of them (seen on an H100 under torch 2.11 for calls that it had
@@ -305,10 +315,7 @@ def device_ms(fn, iters: int = 20) -> str:
     cycle of ``iters`` calls that it discards before the cycle it keeps;
     and, as every call launches the same kernels, a session counts only if
     its kernel count is a positive multiple of ``iters``. It is asked up
-    to three times; if no session counts, the result is "not measured",
-    and the CUDA-event times printed beside it are the only ones for that
-    call. This number is printed and nothing else: no check and no line
-    of JSON reads it."""
+    to three times."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
@@ -328,10 +335,51 @@ def device_ms(fn, iters: int = 20) -> str:
                   if e.device_type == DeviceType.CUDA]
         n = sum(e.count for e in events)
         if n and n % iters == 0:
-            us = sum(e.self_device_time_total for e in events)
-            return f"{us / iters / 1e3:.4f} ms"
-    return ("not measured (torch.profiler recorded no whole set of CUDA "
-            "kernels)")
+            return {e.key: e.self_device_time_total for e in events}
+    return None
+
+
+NOT_PROFILED = ("not measured (torch.profiler recorded no whole set of CUDA "
+                "kernels)")
+
+
+def device_ms(fn, iters: int = 20) -> str:
+    """Device time of one call: the sum of the CUDA kernels' own times
+    that torch.profiler records over ``iters`` calls, divided by
+    ``iters``. Unlike back-to-back CUDA events it leaves out the host's
+    launch cost, which exceeds a short kernel's run time. If no profiler
+    session counts (``_profiled_kernels``), the result is "not measured",
+    and the CUDA-event times printed beside it are the only ones for that
+    call. This number is printed and nothing else: no check and no line
+    of JSON reads it."""
+    times = _profiled_kernels(fn, iters)
+    if times is None:
+        return NOT_PROFILED
+    return f"{sum(times.values()) / iters / 1e3:.4f} ms"
+
+
+def device_ms_by_kernel(fn, iters: int = 20) -> str:
+    """``device_ms`` split by CUDA kernel: each kernel's device time per
+    call, under its short name, the longest first."""
+    times = _profiled_kernels(fn, iters)
+    if times is None:
+        return NOT_PROFILED
+    short = {}
+    for key, us in times.items():
+        name = re.sub(r"<.*|\(.*", "", key.replace(
+            "(anonymous namespace)::", "")).split("::")[-1].split()[-1]
+        short[name] = short.get(name, 0.0) + us
+    return ", ".join(f"{name} {us / iters / 1e3:.4f} ms" for name, us in
+                     sorted(short.items(), key=lambda kv: -kv[1]))
+
+
+def digest(t) -> str:
+    """The first 16 hex digits of the SHA-256 of a tensor's bytes: equal
+    digests, equal bits."""
+    import torch
+
+    raw = t.detach().contiguous().cpu().view(torch.uint8).numpy()
+    return hashlib.sha256(raw.tobytes()).hexdigest()[:16]
 
 
 def ragged_mask(rng, B, T, dev):
@@ -942,8 +990,29 @@ def phase_d1(dev, card):
               f"{device_ms(kernel, 10)}, plain "
               f"{device_ms(plain, 10)} (torch.profiler); bound {b_ms:.4f} "
               f"ms ({b_by}) ({card})")
+        again = kernel()
+        same = all(torch.equal(a, o) for a, o in zip(again, out))
+        print(f"[D1] {name}: a second call gives the same bits: {same}")
+        check(same, "performer_epilogue_bwd differs between two calls")
+        cluster = P.epilogue_bwd_cluster(B, T, latent, torch.bfloat16)
+        print(f"[D1] {name} (T no multiple of 32; {cluster} blocks of "
+              f"{-(-T // cluster)} rows per batch row, one thread-block "
+              f"cluster): device time per launch "
+              f"{device_ms_by_kernel(kernel, 10)} (torch.profiler) ({card})")
         results[("performer_epilogue_bwd", T)] = (err, k_ms, p_ms, b_ms,
                                                   b_by)
+    # registers and spills of the main kernel, as ptxas reported them in
+    # this run's build: none may spill at D = 512
+    from motiondiffusion_moe_tpu_torch.ops import _build
+
+    usage = _build.resource_usage("performer_epilogue_bwd_kernel")
+    for line in usage:
+        print(f"[D1] ptxas: {line}")
+    if not usage:
+        print("[D1] ptxas: not reported (the library came from the cache)")
+    spills = [u for u in usage
+              if "Li16E" in u and " 0 bytes spill stores" not in u]
+    check(not spills, "performer_epilogue_bwd_kernel spills at D = 512")
     return results
 
 
@@ -1234,6 +1303,23 @@ def unfused_moe_chain(x, combine, w1, b1, w2, b2):
     return chain
 
 
+def unfused_style_chain(h, scale, shift, ln_scale, ln_bias, w, b):
+    """The StylizationBlock body as it runs with ``fused=False`` and no
+    dropout (``models/embeddings.py``): LayerNorm, modulation, SiLU, the
+    Dense with its bias. A function of no arguments for timing."""
+    import torch.nn.functional as F
+    from motiondiffusion_moe_tpu_torch.ops.activations import silu
+    from motiondiffusion_moe_tpu_torch.ops.performer import LN_EPS
+
+    def chain():
+        normed = F.layer_norm(h.float(), (h.shape[-1],), ln_scale, ln_bias,
+                              LN_EPS).to(h.dtype)
+        return silu(normed * (1 + scale[:, None, :])
+                    + shift[:, None, :]) @ w + b
+
+    return chain
+
+
 def compare_to_plain(tag, name, out, ref, dtype, floor):
     """A kernel's output against its plain version's: f32 to F32_REL of
     the largest value; bf16 to one rounding plus ``floor``. Returns the
@@ -1355,6 +1441,9 @@ def phase_e1(dev, card):
             torch.cuda.synchronize()
             check(torch.equal(again, out), f"{name}: a second call gave "
                                            f"other bits")
+            # for comparing the bits across checkouts on one card
+            # (scripts/kernel_digests.py draws other inputs)
+            print(f"[E1] {name}: SHA-256 of the output {digest(out)}")
             if label not in ("flagship", "moe_big") or dtype != torch.bfloat16:
                 continue
             kernel = lambda: MOE.moe_dense_fused(*args)  # noqa: E731
@@ -1708,11 +1797,41 @@ def phase_f1(dev, card):
             continue
         # h read and out written, scale, shift, w, b in bf16, the LN
         # vectors in f32; the product on the tensor cores
-        numbers = timed(name, lambda: AD.adaln_dense(*args),
-                        lambda: AD.adaln_dense_plain(*args),
+        kernel = lambda: AD.adaln_dense(*args)  # noqa: E731
+        numbers = timed(name, kernel, lambda: AD.adaln_dense_plain(*args),
                         bound(2 * (2 * B * T * D + 2 * B * D + D * D + D)
                               + 4 * 2 * D, 2 * B * T * D * D, "bf16"))
         results["adaln_dense"] = (err,) + numbers
+        same = torch.equal(kernel(), out)
+        print(f"[F1] {name}: a second call gives the same bits: {same}")
+        check(same, "adaln_dense differs between two calls")
+        chain = unfused_style_chain(*args)
+        c_ms, k_ms = paired_ms(chain, kernel)
+        c_err = (chain().float() - ref.float()).abs().max().item()
+        print(f"[F1] {name}: the unfused StylizationBlock chain "
+              f"(fused=False: LayerNorm, modulation, the SiLU kernel and the "
+              f"cuBLAS Dense with its bias; several calls, rounding to bf16 "
+              f"between them, {c_err:.3e} from the plain version at most) "
+              f"{c_ms:.4f} ms per call against the kernel's {k_ms:.4f} in "
+              f"turns (CUDA events); device time chain {device_ms(chain)}, "
+              f"kernel {device_ms(kernel)} (torch.profiler); bound "
+              f"{numbers[2]:.4f} ms ({card})")
+    # B*T = 305 rows: three tiles of 96 and a ragged one of 17; Dout = 320
+    # takes 64-column slices (slices of the inputs above)
+    ragged = [base[0][:5, :61].contiguous(), base[1][:5], base[2][:5],
+              base[3], base[4], base[5][:, :320].contiguous(),
+              base[6][:320].contiguous()]
+    for dtype in (torch.bfloat16, torch.float32):
+        args = [a if i in (3, 4) else a.to(dtype)
+                for i, a in enumerate(ragged)]
+        name = f"adaln_dense {str(dtype)[6:]} B=5 T=61 D={D} Dout=320"
+        out = AD.adaln_dense(*args)
+        torch.cuda.synchronize()
+        ref = AD.adaln_dense_plain(*args)
+        compare_to_plain("F1", name, out, ref, dtype, MOE_BF16_FLOOR
+                         * ref.float().abs().max().item())
+        check(torch.equal(AD.adaln_dense(*args), out),
+              f"{name}: a second call gave other bits")
     grad_vs_plain("F1", "adaln_dense", lambda a: AD.adaln_dense(*a),
                   lambda a: AD.adaln_dense_plain(*a), base, t(B, T, D))
 
@@ -1955,15 +2074,15 @@ def phase_f3(cfg, model, dev, card):
         m.to(dev).eval()
         if dt == "float32":
             std = forward(m)
-            seen["standard"] = kernels_per_call(lambda: forward(m))
+        seen[("standard", dt)] = kernels_per_call(lambda: forward(m))
         _unfused_forms(m)
         for c in counts:
             c.launches = 0
         out = forward(m)
         launches = {c.__name__: c.launches for c in counts}
         if dt == "float32":
-            seen["forms"] = kernels_per_call(lambda: forward(m))
             main_launches = launches
+        seen[("forms", dt)] = kernels_per_call(lambda: forward(m))
         m.set_use_kernels(False)
         outs[dt] = (out, forward(m))
         del m
@@ -1990,8 +2109,10 @@ def phase_f3(cfg, model, dev, card):
           f" tol kernels <= {DENOISER_BF16_FACTOR:g} x plain + "
           f"{DENOISER_BF16_FLOOR:g} = {tol:.3e} -> {'ok' if ok else 'FAIL'}")
     check(ok, "F3 bfloat16 denoiser")
-    print(f"[F3] one forward (B={B}, f32, torch.profiler): standard flagship "
-          f"{seen['standard']}; module forms {seen['forms']} ({card})")
+    for dt in ("float32", "bfloat16"):
+        print(f"[F3] one forward (B={B}, {dt} compute, torch.profiler): "
+              f"standard flagship {seen[('standard', dt)]}; module forms "
+              f"{seen[('forms', dt)]} ({card})")
     return main_launches
 
 

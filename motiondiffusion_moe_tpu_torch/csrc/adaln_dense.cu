@@ -16,16 +16,44 @@
 // the tensor cores. The TPU kernel's point holds here too: the normalised,
 // modulated activations never reach device memory.
 //
-// Design (a simple first version, no TMA or wgmma): one block of 8 warps per
-// 32-row tile of [B*T, D] (196 blocks at the flagship, two per SM). Each warp
-// runs the row prologue for 4 rows (statistics by shuffles, all in f32) and
-// writes the activations, rounded to w's dtype, into shared memory. The block
-// then walks Dout in column chunks, staging each chunk of w through one shared
-// buffer: bf16 multiplies on the tensor cores (mma.sync m16n8k16, f32 sums,
-// the fragment packing of moe_dense_fused.cu, rows padded so every fragment
-// load hits 32 banks); f32 with IEEE FMAs, not TF32, as the TPU kernel sums in
-// f32. The bias is added to the f32 sum and the result rounded once. Every
-// block re-reads w from L2 (0.5 MB a block at the flagship).
+// bf16 design. One block of 8 warps per tile of 96 rows x NC output
+// columns, NC = 256 where Dout is a multiple of 256, else 64: at the
+// flagship 66 row tiles x 2 column slices = 132 blocks, one wave at one
+// block per SM. So each block streams only its NC columns of w from L2
+// (256 KB at the flagship, ~33 MB per call, a third of a design where
+// every block reads all of w), and each weight byte it reads feeds 96 rows;
+// h is read once per column slice, the second time mostly from L2.
+//   1. The raw h tile [96 x D] is copied by cp.async straight into the
+//      activation tile in shared memory (rows padded by 16 bytes), and the
+//      first panels of w are issued behind it, so that the copies of w
+//      overlap the prologue. Rows past the end are zeros and stay so.
+//   2. The prologue, in place: warp w takes rows 12w .. 12w+11 of the
+//      tile, two at a time (their loads and shuffles overlap), lane l the
+//      columns 8l + 256j .. +7 (16-byte accesses); the statistics by
+//      shuffles, LayerNorm, modulation with the row's own scale and shift
+//      and SiLU in f32 (the exp and the divide of the SiLU by the fast
+//      intrinsics, a few f32 ulps against the activation's bf16 rounding
+//      next), the activations rounded once to bf16 over the raw row.
+//   3. The product: w passes as panels [32 k-rows x NC] through a ring of
+//      4 slots (common.cuh::ring_wait), filled 3 panels ahead. The 8 warps
+//      form 2 (48 rows) x 4 (NC/4 columns); each runs common.cuh::warp_mma,
+//      the routine of kernel 5 (moe_dense_fused.cu): 3 m-tiles x NC/32
+//      n-tiles on mma.sync m16n8k16 (bf16 products summed in f32), A
+//      fragments by ldmatrix from the activation tile, each feeding NC/32
+//      mma, B fragments by ldmatrix.trans from the panel, each feeding 3.
+//   4. The epilogue: + b on the f32 accumulator, one rounding, stores of
+//      the rows before the end only.
+// Shared memory: the tile, 96 (D + 8) bf16, and the ring, 4 slots of
+// 32 (NC + 8): 163.5 KB at D = 512 and NC = 256, 211.5 KB at D = 768. No
+// atomics: each output is one fixed sequence of mma, the same bits on
+// every call. Not in this design: TMA multicast of a w panel to the blocks
+// of a cluster, wgmma.
+//
+// f32 design (a simple first version): one block of 8 warps per 32-row
+// tile. Each warp runs the row prologue for 4 rows and writes the
+// activations into shared memory; the block then walks Dout in chunks of 32
+// columns, staging each chunk of w through one shared buffer, with IEEE
+// FMAs, not TF32, as the TPU kernel sums in f32.
 
 #include <cstddef>
 #include <cstdint>
@@ -35,8 +63,8 @@
 namespace mdm {
 namespace {
 
-constexpr int kAdTile = 32;      // rows per block
 constexpr int kAdThreads = 256;  // 8 warps
+constexpr int kAdTile = 32;      // rows per block (f32)
 constexpr int kAdRowsPerWarp = kAdTile / (kAdThreads / 32);
 
 // The prologue of one row, one warp: lane l holds columns [l*C, l*C + C).
@@ -80,97 +108,177 @@ __device__ __forceinline__ void adaln_row(const T* __restrict__ src,
 
 // ---------------------------------------------------------------- bf16
 
-constexpr int kAdChunkBf16 = 64;  // output columns per chunk
+constexpr int kAbRows = 96;    // rows per block
+constexpr int kAbMT = 3;       // 16-row m-tiles of a warp (2 x 48 rows)
+constexpr int kAbPanelK = 32;  // k-rows of a w panel
+constexpr int kAbPair = 2;     // rows of a warp's prologue step
 
-// Shared memory in 32-bit words, each two bf16 neighbours along D.
-template <int D>
-struct AdalnBf16Layout {
-  static constexpr int kAs = D / 2 + 4;          // activation row stride
-  static constexpr int kWs = kAdChunkBf16 + 8;   // w chunk [D/2][kWs]
+template <int D, int NC>
+struct AdalnBf16Plan {
+  static_assert(D % 256 == 0 && D % kAbPanelK == 0, "D");
+  static_assert(NC == 256 || NC == 64, "column slice");
+  // slots of the ring: 4 (7 at D <= 512, which the tile leaves room for,
+  // ran 2.5% slower on the H100)
+  static constexpr int kStages = 4;
+  static constexpr int kAs = D + kRowPad;    // activation tile [96][kAs]
+  static constexpr int kWs = NC + kRowPad;   // w panel [32][kWs]
+  static constexpr int kSlot = kAbPanelK * kWs;
+  static constexpr int kPanels = D / kAbPanelK;
   static constexpr size_t kBytes =
-      4 * (size_t(kAdTile) * kAs + size_t(D / 2) * kWs);
+      sizeof(__nv_bfloat16) *
+      (size_t(kAbRows) * kAs + size_t(kStages) * kSlot);
 };
 
-template <int D>
-__global__ void __launch_bounds__(kAdThreads) adaln_bf16_kernel(
+template <int D, int NC>
+__global__ void __launch_bounds__(kAdThreads, 1) adaln_bf16_kernel(
     const __nv_bfloat16* __restrict__ h,
     const __nv_bfloat16* __restrict__ scale,
     const __nv_bfloat16* __restrict__ shift,
     const float* __restrict__ ln_scale, const float* __restrict__ ln_bias,
     const __nv_bfloat16* __restrict__ w, const __nv_bfloat16* __restrict__ bias,
     __nv_bfloat16* __restrict__ out, int rows, int seq_len, int dout) {
-  using L = AdalnBf16Layout<D>;
-  constexpr int C = D / 32;
-  extern __shared__ __align__(16) uint32_t ad_smem[];
-  uint32_t* as = ad_smem;
-  uint32_t* ws = as + kAdTile * L::kAs;
+  using P = AdalnBf16Plan<D, NC>;
+  constexpr int G = D / 256;     // 8-column groups of a lane
+  constexpr int kNT = NC / 32;   // n-tiles of a warp
+  constexpr int kRowsPerWarp = kAbRows / (kAdThreads / 32);
+  extern __shared__ __align__(16) unsigned char ad_smem[];
+  __nv_bfloat16* as = reinterpret_cast<__nv_bfloat16*>(ad_smem);
+  __nv_bfloat16* ring = as + kAbRows * P::kAs;
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, tq = lane % 4;
-  const int row0 = blockIdx.x * kAdTile;
+  const int row0 = blockIdx.x * kAbRows, n0 = blockIdx.y * NC;
+  const int valid = min(kAbRows, rows - row0);  // rows before the end
 
-  float gam[C], bet[C];
+  // 1. the raw h tile as group 0, then panels 0 .. P::kStages - 2
+  cp_async_tile<kAbRows, D, kAdThreads>(as, P::kAs, h + size_t(row0) * D, D,
+                                        valid, tid);
+  cp_async_commit();
+  // panel p (k-rows 32p ..) into slot p % P::kStages, one group (empty past
+  // the last panel, so that the count of groups in flight stays the same)
+  auto load_panel = [&](int p) {
+    if (p < P::kPanels) {
+      cp_async_tile<kAbPanelK, NC, kAdThreads>(
+          ring + (p % P::kStages) * P::kSlot, P::kWs,
+          w + size_t(p) * kAbPanelK * dout + n0, dout, kAbPanelK, tid);
+    }
+    cp_async_commit();
+  };
 #pragma unroll
-  for (int c = 0; c < C; ++c) {
-    gam[c] = ln_scale[lane * C + c];
-    bet[c] = ln_bias[lane * C + c];
-  }
-  for (int r = 0; r < kAdRowsPerWarp; ++r) {
-    const int lr = warp * kAdRowsPerWarp + r, row = row0 + lr;
-    const bool valid = row < rows;
-    const size_t bo = valid ? size_t(row / seq_len) * D : 0;
-    float a[C];
-    adaln_row<__nv_bfloat16, C>(h + size_t(valid ? row : 0) * D, scale + bo,
-                                shift + bo, valid, gam, bet, lane, a);
+  for (int p = 0; p < P::kStages - 1; ++p) load_panel(p);
+
+  // 2. the prologue, in place, once the h tile has landed
+  float gam[G][8], bet[G][8];
 #pragma unroll
-    for (int c = 0; c < C; c += 2) {
-      as[lr * L::kAs + (lane * C + c) / 2] = pack_bf16(a[c], a[c + 1]);
+  for (int j = 0; j < G; ++j) {
+    const int c = 256 * j + 8 * lane;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      gam[j][e] = ln_scale[c + e];
+      bet[j][e] = ln_bias[c + e];
     }
   }
-
-  // this warp's rows (mt) and column quarter (nq) of each chunk
-  const int mt = warp % 2, nq = warp / 2;
-  const int r0 = mt * 16 + g, r1 = r0 + 8;
-  for (int n0 = 0; n0 < dout; n0 += kAdChunkBf16) {
-    __syncthreads();  // activations written; the previous chunk's reads done
-    // w chunk: word (kp, n) = {w[2kp][n0 + n], w[2kp + 1][n0 + n]}
-    constexpr int kItems = (D / 2) * (kAdChunkBf16 / 4);
-    static_assert(kItems % kAdThreads == 0, "w staging");
-#pragma unroll 8
-    for (int it = 0; it < kItems / kAdThreads; ++it) {
-      const int i = it * kAdThreads + tid;
-      const int kp = i / (kAdChunkBf16 / 4), n4 = i % (kAdChunkBf16 / 4);
-      const __nv_bfloat16* src = w + size_t(2 * kp) * dout + n0 + 4 * n4;
-      *reinterpret_cast<uint4*>(ws + kp * L::kWs + 4 * n4) = interleave_rows(
-          *reinterpret_cast<const uint2*>(src),
-          *reinterpret_cast<const uint2*>(src + dout));
-    }
-    __syncthreads();
-
-    float acc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-#pragma unroll 4
-    for (int ks = 0; ks < D / 16; ++ks) {
-      const uint32_t* xa = as + r0 * L::kAs + ks * 8 + tq;
-      const uint32_t a[4] = {xa[0], xa[8 * L::kAs], xa[4], xa[8 * L::kAs + 4]};
+  cp_async_wait<P::kStages - 1>();  // this thread's copies of the h tile
+  __syncthreads();                  // and everyone's
+  {
+    constexpr float kInvD = 1.0f / float(D);
+    const int r_end = min(valid, (warp + 1) * kRowsPerWarp);
+    // kAbPair rows at a time, so that their loads and shuffles overlap; a
+    // row at or past r_end (a zero row) is computed and not stored
+    for (int lr0 = warp * kRowsPerWarp; lr0 < r_end; lr0 += kAbPair) {
+      float x[kAbPair][G][8], s1[kAbPair][G][8], sh[kAbPair][G][8];
+      float s[kAbPair], v[kAbPair], mu[kAbPair], inv[kAbPair];
 #pragma unroll
-      for (int q = 0; q < 2; ++q) {
-        const uint32_t* wb = ws + (ks * 8 + tq) * L::kWs + (2 * nq + q) * 8 + g;
-        mma_bf16(acc[q], a, wb[0], wb[4 * L::kWs]);
+      for (int q = 0; q < kAbPair; ++q) {
+        // this row's batch row (the last row's where the row is past it)
+        const int b = (row0 + min(lr0 + q, valid - 1)) / seq_len;
+        s[q] = 0.f;
+#pragma unroll
+        for (int j = 0; j < G; ++j) {
+          const size_t o = size_t(b) * D + 256 * j + 8 * lane;
+          unpack_bf16x8(*reinterpret_cast<const uint4*>(
+                            as + (lr0 + q) * P::kAs + 256 * j + 8 * lane),
+                        x[q][j]);
+          unpack_bf16x8(*reinterpret_cast<const uint4*>(scale + o),
+                        s1[q][j]);
+          unpack_bf16x8(*reinterpret_cast<const uint4*>(shift + o),
+                        sh[q][j]);
+#pragma unroll
+          for (int e = 0; e < 8; ++e) s[q] += x[q][j][e];
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < kAbPair; ++q) mu[q] = warp_sum(s[q]) * kInvD;
+#pragma unroll
+      for (int q = 0; q < kAbPair; ++q) {
+        v[q] = 0.f;
+#pragma unroll
+        for (int j = 0; j < G; ++j) {
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            const float d = x[q][j][e] - mu[q];
+            v[q] = fmaf(d, d, v[q]);
+          }
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < kAbPair; ++q) {
+        inv[q] = 1.0f / sqrtf(warp_sum(v[q]) * kInvD + kLnEps);
+      }
+#pragma unroll
+      for (int q = 0; q < kAbPair; ++q) {
+        if (lr0 + q >= r_end) continue;  // the same for the whole warp
+#pragma unroll
+        for (int j = 0; j < G; ++j) {
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            const float n =
+                (x[q][j][e] - mu[q]) * inv[q] * gam[j][e] + bet[j][e];
+            const float m = n * (1.f + s1[q][j][e]) + sh[q][j][e];
+            // silu with the fast exp and divide (a few f32 ulps; the
+            // activation is rounded to bf16 next)
+            x[q][j][e] = __fdividef(m, 1.f + __expf(-m));
+          }
+          *reinterpret_cast<uint4*>(as + (lr0 + q) * P::kAs + 256 * j +
+                                    8 * lane) = pack_bf16x8(x[q][j]);
+        }
       }
     }
-    // + b in f32 on the accumulator, one rounding, one store
+  }
+
+  // 3. the product: warp (wm, wn) owns rows 48 wm .. and columns
+  // NC/4 wn .. of the block's output tile
+  const int wm = warp % 2, wn = warp / 2;
+  const __nv_bfloat16* a_rows = as + 48 * wm * P::kAs;
+  float acc[kAbMT][kNT][4];
+  zero_tiles(acc);
+  for (int p = 0; p < P::kPanels; ++p) {
+    // panel p landed, every warp's activations are written (p = 0) and
+    // panel p - 1 is no longer read
+    ring_wait<P::kStages>();
+    load_panel(p + P::kStages - 1);
+    warp_mma<kAbPanelK>(acc, a_rows + p * kAbPanelK, P::kAs,
+                        ring + (p % P::kStages) * P::kSlot + wn * (NC / 4),
+                        P::kWs, lane);
+  }
+  cp_async_wait<0>();  // only empty groups remain
+
+  // 4. + b in f32 on the accumulator, one rounding, one store
 #pragma unroll
-    for (int q = 0; q < 2; ++q) {
-      const int col = n0 + (2 * nq + q) * 8 + 2 * tq;
-      const float bb0 = __bfloat162float(bias[col]);
-      const float bb1 = __bfloat162float(bias[col + 1]);
-      if (row0 + r0 < rows) {
+  for (int nt = 0; nt < kNT; ++nt) {
+    const int col = n0 + wn * (NC / 4) + 8 * nt + 2 * tq;
+    const float2 bb = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(bias + col));
+#pragma unroll
+    for (int mi = 0; mi < kAbMT; ++mi) {
+      const int r0 = 48 * wm + 16 * mi + g, r1 = r0 + 8;
+      if (r0 < valid) {
         *reinterpret_cast<uint32_t*>(out + size_t(row0 + r0) * dout + col) =
-            pack_bf16(acc[q][0] + bb0, acc[q][1] + bb1);
+            pack_bf16(acc[mi][nt][0] + bb.x, acc[mi][nt][1] + bb.y);
       }
-      if (row0 + r1 < rows) {
+      if (r1 < valid) {
         *reinterpret_cast<uint32_t*>(out + size_t(row0 + r1) * dout + col) =
-            pack_bf16(acc[q][2] + bb0, acc[q][3] + bb1);
+            pack_bf16(acc[mi][nt][2] + bb.x, acc[mi][nt][3] + bb.y);
       }
     }
   }
@@ -254,7 +362,7 @@ __global__ void __launch_bounds__(kAdThreads) adaln_f32_kernel(
 }
 
 template <typename Kernel, typename T>
-cudaError_t launch_adaln(Kernel kernel, size_t smem, const void* h,
+cudaError_t launch_adaln(Kernel kernel, dim3 grid, size_t smem, const void* h,
                          const void* scale, const void* shift,
                          const void* ln_scale, const void* ln_bias,
                          const void* w, const void* b, void* out, int rows,
@@ -262,13 +370,25 @@ cudaError_t launch_adaln(Kernel kernel, size_t smem, const void* h,
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return err;
-  const int blocks = (rows + kAdTile - 1) / kAdTile;
-  kernel<<<blocks, kAdThreads, smem, stream>>>(
+  kernel<<<grid, kAdThreads, smem, stream>>>(
       static_cast<const T*>(h), static_cast<const T*>(scale),
       static_cast<const T*>(shift), static_cast<const float*>(ln_scale),
       static_cast<const float*>(ln_bias), static_cast<const T*>(w),
       static_cast<const T*>(b), static_cast<T*>(out), rows, seq_len, dout);
   return cudaGetLastError();
+}
+
+template <int D, int NC>
+cudaError_t launch_adaln_bf16(const void* h, const void* scale,
+                              const void* shift, const void* ln_scale,
+                              const void* ln_bias, const void* w,
+                              const void* b, void* out, int rows, int seq_len,
+                              int dout, cudaStream_t stream) {
+  const dim3 grid((rows + kAbRows - 1) / kAbRows, dout / NC);
+  return launch_adaln<decltype(&adaln_bf16_kernel<D, NC>), __nv_bfloat16>(
+      &adaln_bf16_kernel<D, NC>, grid, AdalnBf16Plan<D, NC>::kBytes, h,
+      scale, shift, ln_scale, ln_bias, w, b, out, rows, seq_len, dout,
+      stream);
 }
 
 template <int D>
@@ -278,13 +398,18 @@ cudaError_t dispatch_adaln(const void* h, const void* scale,
                            void* out, int rows, int seq_len, int dout,
                            int is_bf16, cudaStream_t stream) {
   if (is_bf16) {
-    return launch_adaln<decltype(&adaln_bf16_kernel<D>), __nv_bfloat16>(
-        &adaln_bf16_kernel<D>, AdalnBf16Layout<D>::kBytes, h, scale, shift,
-        ln_scale, ln_bias, w, b, out, rows, seq_len, dout, stream);
+    return dout % 256 == 0
+               ? launch_adaln_bf16<D, 256>(h, scale, shift, ln_scale, ln_bias,
+                                           w, b, out, rows, seq_len, dout,
+                                           stream)
+               : launch_adaln_bf16<D, 64>(h, scale, shift, ln_scale, ln_bias,
+                                          w, b, out, rows, seq_len, dout,
+                                          stream);
   }
   return launch_adaln<decltype(&adaln_f32_kernel<D>), float>(
-      &adaln_f32_kernel<D>, AdalnF32Layout<D>::kBytes, h, scale, shift,
-      ln_scale, ln_bias, w, b, out, rows, seq_len, dout, stream);
+      &adaln_f32_kernel<D>, dim3((rows + kAdTile - 1) / kAdTile),
+      AdalnF32Layout<D>::kBytes, h, scale, shift, ln_scale, ln_bias, w, b,
+      out, rows, seq_len, dout, stream);
 }
 
 }  // namespace

@@ -82,6 +82,23 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
+// 8 bf16 (16 bytes) <-> 8 f32, for kernels that load and store rows 16 bytes
+// a lane.
+__device__ __forceinline__ void unpack_bf16x8(uint4 u, float (&v)[8]) {
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+    v[2 * i] = f.x;
+    v[2 * i + 1] = f.y;
+  }
+}
+__device__ __forceinline__ uint4 pack_bf16x8(const float (&v)[8]) {
+  return make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]),
+                    pack_bf16(v[4], v[5]), pack_bf16(v[6], v[7]));
+}
+
 // D (16x8, f32) += A (16x16, bf16, row-major) . B (16x8, bf16, col-major).
 // a[0..3]: rows g / g+8, k 2t..2t+1 and 2t+8..2t+9; b0 / b1: k 2t..2t+1 and
 // 2t+8..2t+9 of column g; c: rows g / g+8, columns 2t..2t+1 (g = lane / 4,
@@ -139,6 +156,94 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(smem_u32(p))
       : "memory");
+}
+
+// ---- bf16 tiles streamed through shared memory and multiplied there, the
+// routine of the fused MoE chain (moe_dense_fused.cu) and the fused AdaLN
+// dense (adaln_dense.cu)
+
+// bf16 padding of a shared-memory row: 16 bytes, so that the 8 row
+// addresses of every ldmatrix hit distinct banks.
+constexpr int kRowPad = 8;
+
+// A [ROWS x COLS] bf16 tile from global memory (rows `lds` apart) into
+// shared memory (rows `ldd` apart) by cp.async, 16 bytes a copy, spread
+// over the THREADS threads of the block (`tid`); rows at or past `valid`
+// are zeros and are not read. The caller commits the group.
+template <int ROWS, int COLS, int THREADS>
+__device__ __forceinline__ void cp_async_tile(__nv_bfloat16* dst, int ldd,
+                                              const __nv_bfloat16* src,
+                                              size_t lds, int valid,
+                                              int tid) {
+  constexpr int kRow = COLS / 8;  // 16-byte pieces of a row
+  static_assert(COLS % 8 == 0 && ROWS * kRow % THREADS == 0, "tile copy");
+#pragma unroll
+  for (int it = 0; it < ROWS * kRow / THREADS; ++it) {
+    const int i = it * THREADS + tid;
+    const int r = i / kRow, c = 8 * (i % kRow);
+    const bool ok = r < valid;
+    cp_async16(dst + r * ldd + c, src + size_t(ok ? r : 0) * lds + c, ok);
+  }
+}
+
+// A ring of S panel slots in shared memory, filled by cp.async with one
+// commit group per panel, S - 1 panels ahead of the one multiplied. Before
+// panel p is read: wait until this thread's copies of it have landed (the
+// S - 2 later groups may still fly), then a barrier, after which every
+// thread's copies have landed and no warp still reads panel p - 1, whose
+// slot the caller may then refill with panel p + S - 1.
+template <int S>
+__device__ __forceinline__ void ring_wait() {
+  static_assert(S >= 2, "ring of at least two slots");
+  cp_async_wait<S - 2>();
+  __syncthreads();
+}
+
+template <int MT, int NT>
+__device__ __forceinline__ void zero_tiles(float (&acc)[MT][NT][4]) {
+#pragma unroll
+  for (int mi = 0; mi < MT; ++mi) {
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[mi][nt][c] = 0.f;
+    }
+  }
+}
+
+// One warp: acc[mi][nt] += A[16 mi + i][k] . B[k][8 nt + j] for the 16 MT
+// rows of A, 8 NT columns of B and k < K. A: bf16 rows of length >= K in
+// shared memory, `lda` apart (a token or row tile), fragments by ldmatrix;
+// B: K bf16 rows `ldb` apart (a weight panel, [k][n]), fragments by
+// ldmatrix.trans. Each A fragment feeds NT mma, each B fragment MT; each
+// output element is one fixed sequence of mma over k.
+template <int K, int MT, int NT>
+__device__ __forceinline__ void warp_mma(float (&acc)[MT][NT][4],
+                                         const __nv_bfloat16* a, int lda,
+                                         const __nv_bfloat16* b, int ldb,
+                                         int lane) {
+  static_assert(NT % 2 == 0 && K % 16 == 0, "warp tile");
+  // ldmatrix row addresses: lanes 8i .. 8i+7 give matrix i, whose rows are
+  // (i & 1) 8 rows down and whose columns (i >> 1) 8 columns on
+  const int row = (lane & 7) + 8 * ((lane >> 3) & 1), col = 8 * (lane >> 4);
+#pragma unroll
+  for (int k = 0; k < K; k += 16) {
+    uint32_t af[MT][4];
+#pragma unroll
+    for (int mi = 0; mi < MT; ++mi) {
+      ldmatrix_x4(af[mi], a + (16 * mi + row) * lda + k + col);
+    }
+#pragma unroll
+    for (int np = 0; np < NT / 2; ++np) {
+      uint32_t bf[4];  // n-tiles 2 np and 2 np + 1
+      ldmatrix_x4_trans(bf, b + (k + row) * ldb + 16 * np + col);
+#pragma unroll
+      for (int mi = 0; mi < MT; ++mi) {
+        mma_bf16(acc[mi][2 * np], af[mi], bf[0], bf[1]);
+        mma_bf16(acc[mi][2 * np + 1], af[mi], bf[2], bf[3]);
+      }
+    }
+  }
 }
 
 // ---- f32-accurate products on the tensor cores (3xTF32) -----------------

@@ -44,7 +44,8 @@
 // of a chunk's second product arrive while its first product and the gelu
 // are computed. Tiles are row-major in shared memory with rows padded by
 // 16 bytes, so that the 8 row addresses of every ldmatrix hit distinct
-// banks, and both products are one warp routine (warp_mma):
+// banks, and both products are one warp routine (common.cuh::warp_mma,
+// shared with adaln_dense.cu):
 //   h [48 x C] = x . W1c: warp w owns chunk columns w C/8 .. +C/8 for all
 //     48 rows, x fragments by ldmatrix from the x tile, W1 fragments by
 //     ldmatrix.trans from the [k][n] panel, each x fragment feeding C/64
@@ -86,7 +87,6 @@ __device__ __forceinline__ float gelu_tanh(float x) {
 
 constexpr int kMT = 3;         // 16-token m-tiles per block
 constexpr int kTok = 16 * kMT;  // tokens per block
-constexpr int kPad = 8;        // bf16 padding of a shared-memory row
 
 // The tile and the ring for one D and chunk width C (hidden columns per
 // chunk). C = 256 where the output accumulator leaves room for the first
@@ -101,10 +101,10 @@ struct MoeBf16Plan {
   static constexpr int kW1Rows = C == 256 || kWide ? 64 : 128;  // of D
   static constexpr int kW2Rows = kWide ? 16 : D <= 128 ? 128 : D <= 256 ? 64
                                                                   : 32;
-  static constexpr int kXs = D + kPad;   // x tile [kTok][kXs]
-  static constexpr int kHs = C + kPad;   // h chunk [kTok][kHs]
-  static constexpr int kW1s = C + kPad;  // W1 panel [kW1Rows][kW1s]
-  static constexpr int kW2s = D + kPad;  // W2 panel [kW2Rows][kW2s]
+  static constexpr int kXs = D + kRowPad;   // x tile [kTok][kXs]
+  static constexpr int kHs = C + kRowPad;   // h chunk [kTok][kHs]
+  static constexpr int kW1s = C + kRowPad;  // W1 panel [kW1Rows][kW1s]
+  static constexpr int kW2s = D + kRowPad;  // W2 panel [kW2Rows][kW2s]
   static constexpr int kP1 = D / kW1Rows;  // W1 panels per chunk
   static constexpr int kP2 = C / kW2Rows;  // W2 panels per chunk
   static constexpr int kPanels = kP1 + kP2;
@@ -117,52 +117,6 @@ struct MoeBf16Plan {
            sizeof(float) * size_t(kTok) * experts;
   }
 };
-
-// One warp: acc[mi][nt] += A[16 mi + i][k] . B[k][8 nt + j] for the kTok
-// rows of A, 8 NT columns of B and k < K. A: bf16 rows of length >= K in
-// shared memory, `lda` apart (a token tile), fragments by ldmatrix; B: K
-// bf16 rows `ldb` apart (a weight panel, [k][n]), fragments by
-// ldmatrix.trans. Each A fragment feeds NT mma, each B fragment kMT.
-template <int NT, int K>
-__device__ __forceinline__ void warp_mma(float (&acc)[kMT][NT][4],
-                                         const __nv_bfloat16* a, int lda,
-                                         const __nv_bfloat16* b, int ldb,
-                                         int lane) {
-  static_assert(NT % 2 == 0 && K % 16 == 0, "warp tile");
-  // ldmatrix row addresses: lanes 8i .. 8i+7 give matrix i, whose rows are
-  // (i & 1) 8 rows down and whose columns (i >> 1) 8 columns on
-  const int row = (lane & 7) + 8 * ((lane >> 3) & 1), col = 8 * (lane >> 4);
-#pragma unroll
-  for (int k = 0; k < K; k += 16) {
-    uint32_t af[kMT][4];
-#pragma unroll
-    for (int mi = 0; mi < kMT; ++mi) {
-      ldmatrix_x4(af[mi], a + (16 * mi + row) * lda + k + col);
-    }
-#pragma unroll
-    for (int np = 0; np < NT / 2; ++np) {
-      uint32_t bf[4];  // n-tiles 2 np and 2 np + 1
-      ldmatrix_x4_trans(bf, b + (k + row) * ldb + 16 * np + col);
-#pragma unroll
-      for (int mi = 0; mi < kMT; ++mi) {
-        mma_bf16(acc[mi][2 * np], af[mi], bf[0], bf[1]);
-        mma_bf16(acc[mi][2 * np + 1], af[mi], bf[2], bf[3]);
-      }
-    }
-  }
-}
-
-template <int NT>
-__device__ __forceinline__ void zero(float (&acc)[kMT][NT][4]) {
-#pragma unroll
-  for (int mi = 0; mi < kMT; ++mi) {
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[mi][nt][c] = 0.f;
-    }
-  }
-}
 
 template <int D, int C>
 __global__ void __launch_bounds__(kMoeThreads, 1) moe_bf16_kernel(
@@ -211,34 +165,17 @@ __global__ void __launch_bounds__(kMoeThreads, 1) moe_bf16_kernel(
           cp_async16(dst + r * P::kW1s + c, src + size_t(r) * hid, true);
         }
       } else {  // W2m rows col0 + (q - kP1) * kW2Rows + r
-        const __nv_bfloat16* src =
-            w2 + (size_t(col0) + (q - P::kP1) * kW2Rows) * D;
-        constexpr int kRow = D / 8;
-        static_assert(kW2Rows * kRow % kMoeThreads == 0, "W2 panel");
-#pragma unroll
-        for (int it = 0; it < kW2Rows * kRow / kMoeThreads; ++it) {
-          const int i = it * kMoeThreads + tid;
-          const int r = i / kRow, c = 8 * (i % kRow);
-          cp_async16(dst + r * P::kW2s + c, src + size_t(r) * D + c, true);
-        }
+        cp_async_tile<kW2Rows, D, kMoeThreads>(
+            dst, P::kW2s, w2 + (size_t(col0) + (q - P::kP1) * kW2Rows) * D,
+            D, kW2Rows, tid);
       }
     }
     cp_async_commit();
   };
 
   // the x tile (zeros past S) joins the group of panel 0
-  {
-    constexpr int kRow = D / 8;
-    static_assert(kTok * kRow % kMoeThreads == 0, "x tile");
-#pragma unroll
-    for (int it = 0; it < kTok * kRow / kMoeThreads; ++it) {
-      const int i = it * kMoeThreads + tid;
-      const int r = i / kRow, c = 8 * (i % kRow);
-      const bool ok = r < valid;
-      cp_async16(xs + r * P::kXs + c, x + size_t(s0 + (ok ? r : 0)) * D + c,
-                 ok);
-    }
-  }
+  cp_async_tile<kTok, D, kMoeThreads>(xs, P::kXs, x + size_t(s0) * D, D,
+                                      valid, tid);
 #pragma unroll
   for (int p = 0; p < kStages - 1; ++p) load_panel(p);
   // the combine weights, widened to f32 (zeros past S)
@@ -250,22 +187,21 @@ __global__ void __launch_bounds__(kMoeThreads, 1) moe_bf16_kernel(
   int p = 0;  // the next panel to multiply
   // wait for panel p, refill the slot that panel p - 1 used, return p's
   auto next_panel = [&]() {
-    cp_async_wait<kStages - 2>();  // this thread's copies of panel p landed
-    __syncthreads();  // everyone's did, and panel p - 1 is no longer read
+    ring_wait<kStages>();
     load_panel(p + kStages - 1);
     return ring + (p++ % kStages) * P::kSlot;
   };
 
   // out [kTok x D]: warp w owns output columns w D/8 .. for every row
   float acc[kMT][kNT2][4];
-  zero(acc);
+  zero_tiles(acc);
   for (int col0 = 0; col0 < E * hid; col0 += C) {
     // h = x . W1c: warp w owns the chunk's columns w C/8 ..
     float hacc[kMT][kNT1][4];
-    zero(hacc);
+    zero_tiles(hacc);
     for (int q = 0; q < P::kP1; ++q) {
       const __nv_bfloat16* panel = next_panel();
-      warp_mma<kNT1, kW1Rows>(hacc, xs + q * kW1Rows, P::kXs,
+      warp_mma<kW1Rows>(hacc, xs + q * kW1Rows, P::kXs,
                               panel + warp * (C / 8), P::kW1s, lane);
     }
     // + b1, gelu, * combine in f32 on the accumulator; one rounding to bf16.
@@ -293,7 +229,7 @@ __global__ void __launch_bounds__(kMoeThreads, 1) moe_bf16_kernel(
     // out += h . W2c
     for (int q = 0; q < P::kP2; ++q) {
       const __nv_bfloat16* panel = next_panel();
-      warp_mma<kNT2, kW2Rows>(acc, hs + q * kW2Rows, P::kHs,
+      warp_mma<kW2Rows>(acc, hs + q * kW2Rows, P::kHs,
                               panel + warp * (D / 8), P::kW2s, lane);
     }
   }

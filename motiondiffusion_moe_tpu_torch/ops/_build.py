@@ -37,7 +37,25 @@ NVCC_FLAGS = COMPILE_FLAGS + LINK_FLAGS  # what the library's hash covers
 _LOCK = threading.Lock()
 _LIB: Optional[ctypes.CDLL] = None
 # what the last build in this process reported: seconds and ptxas lines
+# (each kernel's "Compiling entry function", its stack and spill bytes, its
+# registers)
 build_info: dict = {}
+
+
+def resource_usage(fragment: str) -> List[str]:
+    """What ptxas reported for the kernels whose mangled names contain
+    ``fragment``, one line per kernel: "<name>: <registers line>; <stack and
+    spill line>". Empty when the library came from the cache."""
+    out, name, spill = [], None, ""
+    for line in build_info.get("ptxas", []):
+        if "Compiling entry function" in line:
+            name = line.split("'")[1] if "'" in line else line
+            spill = ""
+        elif "spill" in line:
+            spill = line.strip()
+        elif "Used" in line and name is not None and fragment in name:
+            out.append(f"{name}: {line.split(':', 1)[-1].strip()}; {spill}")
+    return out
 
 
 def sources() -> List[str]:
@@ -107,7 +125,8 @@ def build() -> str:
         # atomic install: concurrent builds each write their own work dir
         os.replace(tmp, path)
     build_info.update(seconds=time.perf_counter() - t0, cached=False,
-                      ptxas=[l for l in log if "ptxas info" in l])
+                      ptxas=[l for l in log if "ptxas info" in l
+                             or "spill" in l])
     return path
 
 
@@ -132,6 +151,9 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.mdm_performer_epilogue_bwd.restype = i
     lib.mdm_performer_epilogue_bwd_scratch_floats.argtypes = [i] * 3
     lib.mdm_performer_epilogue_bwd_scratch_floats.restype = ctypes.c_longlong
+    lib.mdm_performer_epilogue_bwd_cluster.argtypes = ([i] * 4  # B T D bf16
+                                                       + [ctypes.POINTER(i)])
+    lib.mdm_performer_epilogue_bwd_cluster.restype = i
     lib.mdm_moe_dense_fused.argtypes = ([vp] * 7     # tensors
                                         + [i] * 5    # S D E hid bf16
                                         + [vp])      # stream

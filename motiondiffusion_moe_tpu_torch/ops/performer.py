@@ -44,6 +44,7 @@ about it.
 
 from __future__ import annotations
 
+import ctypes
 import os
 from typing import Callable, Optional
 
@@ -583,6 +584,8 @@ def performer_epilogue_bwd(y: torch.Tensor, scale: torch.Tensor,
              f"performer_epilogue_bwd: g must be a contiguous {y.dtype} "
              f"{tuple(y.shape)} tensor on {y.device}, got {g.dtype} "
              f"{tuple(g.shape)} on {g.device}")
+    _require(y.data_ptr() % 16 == 0 and g.data_ptr() % 16 == 0,
+             "performer_epilogue_bwd: y and g must be 16-byte aligned")
     from motiondiffusion_moe_tpu_torch.ops._build import library
 
     lib = library()
@@ -607,6 +610,22 @@ def performer_epilogue_bwd(y: torch.Tensor, scale: torch.Tensor,
 
 
 performer_epilogue_bwd.launches = 0
+
+
+def epilogue_bwd_cluster(B: int, T: int, D: int, dtype: torch.dtype) -> int:
+    """The blocks per batch row (a thread-block cluster, each block a chunk
+    of ceil(T / C) rows) that the kernel of ``csrc/performer_epilogue_bwd.cu``
+    launches on the current card for these shapes: the largest C <= min(8,
+    T) for which all B clusters are resident at once, else 1 (3 at the
+    flagship's B = 32 on an H100, where 32 clusters of 4 do not fit)."""
+    from motiondiffusion_moe_tpu_torch.ops._build import library
+
+    out = ctypes.c_int(0)
+    rc = library().mdm_performer_epilogue_bwd_cluster(
+        B, T, D, _KERNEL_DTYPES[dtype], ctypes.byref(out))
+    if rc != 0:
+        raise RuntimeError(f"epilogue_bwd_cluster failed: CUDA error {rc}")
+    return out.value
 
 
 class _PerformerEpilogue(torch.autograd.Function):

@@ -232,8 +232,10 @@ def test_favor_qkv_bwd_kernel_matches_plain(dev, shape, dtype, need_dproj):
         assert (a is None and o is None) or torch.equal(a, o)
 
 
+# T = 1, 37, 196 and 300: no multiple of the chunk of rows a block takes;
+# at B = 5 one block per batch row (T = 1) and clusters of 8 (the others)
 @pytest.mark.parametrize("D", [256, 512])
-@pytest.mark.parametrize("T", [37, 196])
+@pytest.mark.parametrize("T", [1, 37, 196, 300])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_epilogue_bwd_kernel_matches_plain(dev, D, T, dtype):
     rng = np.random.default_rng(3)
@@ -257,6 +259,8 @@ def test_epilogue_bwd_kernel_matches_plain(dev, D, T, dtype):
         _assert_close(o, r, dtype if i < 3 else torch.float32)
     again = P.performer_epilogue_bwd(y, scale, shift, *vecs, g)
     assert all(torch.equal(a, o) for a, o in zip(again, out))
+    cluster = P.epilogue_bwd_cluster(B, T, D, dtype)
+    assert 1 <= cluster <= min(8, T)
 
 
 def test_autograd_functions_take_the_backward_kernels(dev):
@@ -479,8 +483,11 @@ def _adaln_inputs(dev, B, T, D, Dout, dtype, seed=11):
     return [t if i in (3, 4) else t.to(dtype) for i, t in enumerate(ts)]
 
 
+# B*T = 6272, 111, 100, 26, 99 and 305: tiles of 96 rows with a ragged last
+# one; Dout = 128 and 320 take 64-column slices, the others 256
 @pytest.mark.parametrize("shape", [(32, 196, 512, 512), (3, 37, 256, 256),
-                                   (2, 50, 768, 768), (2, 13, 512, 128)])
+                                   (2, 50, 768, 768), (2, 13, 512, 128),
+                                   (3, 33, 768, 512), (5, 61, 512, 320)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_adaln_dense_kernel_matches_plain(dev, shape, dtype):
     B, T, D, Dout = shape
