@@ -11,7 +11,7 @@ first use) and exits non-zero without one. Phases, each fatal on failure:
   A      each hand-written kernel against its plain PyTorch version on the
          card, at the flagship shapes the main path gives it (B = 32 rows of
          the CFG-doubled micro-batch of 16, T = 196 and 98, ragged mask):
-         favor_qkv in bf16 and f32, performer_epilogue in bf16; the bf16
+         favor_qkv and performer_epilogue in bf16 and f32; the bf16
          silu, gelu (with a Dense bias) and sigmoid kernels, which round
          where the JAX package rounds, and their gradient pass (JAX's bf16
          gradient steps, the backward in training), against their plain
@@ -24,6 +24,16 @@ first use) and exits non-zero without one. Phases, each fatal on failure:
          PRs 1-5's design, its time at 1, 2, 4 and 8 CTAs per (b, h) at
          B*H = 128 and at a serving batch of B*H = 8, and under
          FAVOR_MXU_BF16=1 against the plain version with bf16 operands.
+         performer_epilogue (kernel 2) is fed scale and shift as the style
+         block feeds them, strided views of one [B, 2D] tensor; it also
+         prints the same bits on a second call, its time per call under
+         inference mode (the sampling path's launch) beside the time with
+         grad, the unfused chain of PyTorch calls (F.layer_norm, L2,
+         F.layer_norm, modulation, F.silu in f32) timed in turns with it,
+         its time at 1-16 blocks per batch row and the number the wrapper
+         takes on this card, the host's microseconds per call of its
+         launch path part by part, and ptxas's registers and spills of its
+         kernels (none may spill at D = 512).
   B      the full-width flagship denoiser (ExperimentConfig.moe_small(),
          seeded init, zero-init leaves perturbed) forward once through the
          kernels and once with use_kernels=False, in f32 compute (tight
@@ -391,6 +401,165 @@ def ragged_mask(rng, B, T, dev):
                             .astype(np.float32)).to(dev)
 
 
+def unfused_epilogue_chain(y, scale, shift, ps, pb, ss, sb):
+    """Kernel 2's function as a chain of PyTorch calls in f32: F.layer_norm,
+    the L2 scaling, F.layer_norm, the modulation, F.silu, one rounding to
+    y's dtype. A function of no arguments for timing."""
+    import torch
+    import torch.nn.functional as F
+    from motiondiffusion_moe_tpu_torch.ops.performer import LN_EPS
+
+    D = y.shape[-1]
+
+    def chain():
+        h = F.layer_norm(y.float(), (D,), ps, pb, LN_EPS)
+        h = h / torch.linalg.vector_norm(h, dim=-1, keepdim=True).clamp_min(
+            1e-12) * D ** 0.5
+        h = F.layer_norm(h, (D,), ss, sb, LN_EPS)
+        h = h * (1 + scale[:, None, :].float()) + shift[:, None, :].float()
+        return F.silu(h).to(y.dtype)
+
+    return chain
+
+
+def epilogue_case(dev, card, t, report, B, T, D, dtype):
+    """Kernel 2 at one shape, fed scale and shift as the style block feeds
+    them (the chunk halves of its Dense's [B, 2D] output): against the
+    plain version, the same bits on a second call, times per call with
+    grad (the autograd Function) and under inference mode (the sampling
+    path), device times, the unfused chain of PyTorch calls in turns with
+    the kernel, and the bound. Returns (err, ms, plain ms, bound ms, by,
+    None): the chain is several calls, so no library time."""
+    import torch
+    from motiondiffusion_moe_tpu_torch.ops import performer as P
+
+    y = t(B, T, D).to(dtype)
+    sc, sh = t(B, 2 * D, s=0.3).to(dtype).chunk(2, dim=-1)
+    vecs = [t(D, s=0.1, off=1.0), t(D, s=0.1), t(D, s=0.1, off=1.0),
+            t(D, s=0.1)]
+    check(not sc.is_contiguous() and sc.stride() == (2 * D, 1),
+          "performer_epilogue: scale is not the strided view")
+    out = P.performer_epilogue(y, sc, sh, *vecs)
+    torch.cuda.synchronize()
+    ref = P.performer_epilogue_plain(y, sc, sh, *vecs)
+    err = report("performer_epilogue", dtype, T, out, ref)
+    same = torch.equal(out, P.performer_epilogue(y, sc, sh, *vecs))
+    name = f"performer_epilogue {str(dtype)[6:]} B={B} T={T} D={D}"
+    print(f"[A] {name} (scale and shift strided views, row stride {2 * D}): "
+          f"a second call gives the same bits: {same}")
+    check(same, f"{name} differs between two calls")
+    kernel = lambda: P.performer_epilogue(y, sc, sh, *vecs)  # noqa: E731
+    plain = lambda: P.performer_epilogue_plain(  # noqa: E731
+        y, sc, sh, *vecs)
+    chain = unfused_epilogue_chain(y, sc, sh, *vecs)
+    k_ms, p_ms = paired_ms(kernel, plain)
+    with torch.inference_mode():  # entered once, as a sampling forward does
+        i_ms, c_ms = paired_ms(kernel, chain)
+    c_err = (chain().float() - ref.float()).abs().max().item()
+    # y read and the output written in y's dtype, scale and shift read,
+    # the four LN vectors in f32; ~17 f32 operations per element (two
+    # LayerNorms, L2, modulate, SiLU) at the f32 rate
+    el = y.element_size()
+    b_ms, b_by = bound(2 * B * T * D * el + 2 * B * D * el + 4 * D * 4,
+                       17 * B * T * D, "f32")
+    chunks = P.epilogue_chunks(B, T, P.epilogue_slots(0, D, dtype))
+    print(f"[A] {name}: kernel {k_ms:.4f} ms per call with grad (the "
+          f"autograd Function), {i_ms:.4f} ms under inference mode (the "
+          f"launch path), plain {p_ms:.4f} ms (CUDA events, back-to-back); "
+          f"device time kernel {device_ms(kernel)}, plain "
+          f"{device_ms(plain)} (torch.profiler); the unfused chain of "
+          f"PyTorch calls (F.layer_norm, L2, F.layer_norm, modulation, "
+          f"F.silu in f32; several calls, {c_err:.3e} from the plain "
+          f"version at most) {c_ms:.4f} ms per call, device time "
+          f"{device_ms(chain)}; bound {b_ms:.4f} ms ({b_by}); {chunks} "
+          f"blocks per batch row ({B * chunks} blocks) ({card})")
+    if dtype == torch.bfloat16 and T == 196:
+        sweep = {}
+        for c in (1, 2, 3, 4, 6, 8, 12, 16):
+            fn = (lambda c=c: P._launch_performer_epilogue(  # noqa: E731
+                y, sc, sh, *vecs, chunks=c))
+            check(torch.equal(fn(), out), f"{name}: {c} chunks give other "
+                                          f"bits")
+            sweep[c] = (time_ms(fn), device_ms(fn))
+        print(f"[A] {name} by blocks per batch row C (forced; the same bits "
+              f"for every C), ms per call (CUDA events) / device time "
+              f"(torch.profiler): " + ", ".join(
+                  f"{c}: {a:.4f} / {d}" for c, (a, d) in sweep.items())
+              + f"; the wrapper takes {chunks} ({card})")
+    return err, k_ms, p_ms, b_ms, b_by, None
+
+
+def host_us(fn, n: int = 1000) -> float:
+    """Host microseconds per call: a CPU clock over ``n`` back-to-back
+    calls with no synchronisation inside, then one."""
+    import torch
+
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / n * 1e6
+
+
+def epilogue_launch_costs(dev, card, t, B, D):
+    """Kernel 2's launch path, part by part, on the host's clock (bf16,
+    T = 196, strided scale and shift): the whole wrapper with grad and
+    under inference mode (entered once around all the calls, as a sampling
+    forward enters it), and each of its steps alone; beside them the steps
+    the earlier launch path took (the detailed check that builds its
+    messages, a torch.cuda.device context, the stream object)."""
+    import torch
+    from motiondiffusion_moe_tpu_torch.ops import performer as P
+    from motiondiffusion_moe_tpu_torch.ops._build import library
+
+    y = t(B, 196, D).to(torch.bfloat16)
+    sc, sh = t(B, 2 * D, s=0.3).to(torch.bfloat16).chunk(2, dim=-1)
+    vecs = [t(D, s=0.1, off=1.0), t(D, s=0.1), t(D, s=0.1, off=1.0),
+            t(D, s=0.1)]
+    out = torch.empty_like(y)
+    fn = library().mdm_performer_epilogue
+    chunks = P.epilogue_chunks(B, 196, P.epilogue_slots(0, D,
+                                                        torch.bfloat16))
+    args = (y.data_ptr(), sc.data_ptr(), sh.data_ptr(), sc.stride(0),
+            sh.stride(0), *[v.data_ptr() for v in vecs], out.data_ptr(), B,
+            196, D, 1, chunks)
+    raw = torch.cuda.current_stream(dev).cuda_stream
+
+    def device_context():
+        with torch.cuda.device(dev):
+            pass
+
+    wrapper = lambda: P.performer_epilogue(y, sc, sh, *vecs)  # noqa: E731
+    with torch.inference_mode():
+        print(f"[A] performer_epilogue bfloat16 B={B} T=196 host cost: the "
+              f"wrapper under inference mode: {host_us(wrapper):.2f} us per "
+              f"call ({card})")
+    parts = {
+        "the wrapper with grad (the autograd Function)": wrapper,
+        "the one-pass check": lambda: P._epilogue_ok(y, sc, sh, vecs),
+        "the detailed check (the earlier path's, messages built)":
+            lambda: P._check_epilogue("performer_epilogue", y, sc, sh, vecs,
+                                      views=True),
+        "torch.empty_like(y)": lambda: torch.empty_like(y),
+        "torch.cuda.current_device()": torch.cuda.current_device,
+        "the raw stream (torch._C._cuda_getCurrentRawStream)":
+            lambda: torch._C._cuda_getCurrentRawStream(0),
+        "the stream object (torch.cuda.current_stream().cuda_stream, the "
+        "earlier path's)": lambda: torch.cuda.current_stream(dev).cuda_stream,
+        "a torch.cuda.device context (the earlier path's)": device_context,
+        "the C entry through ctypes (launches the kernel)":
+            lambda: fn(*args, raw),
+    }
+    for label, f in parts.items():
+        print(f"[A] performer_epilogue bfloat16 B={B} T=196 host cost: "
+              f"{label}: {host_us(f):.2f} us per call ({card})")
+    torch.cuda.synchronize()
+
+
 def phase_a(dev, card):
     import torch
     import torch.nn.functional as F
@@ -486,29 +655,22 @@ def phase_a(dev, card):
                   f"per call ({card})")
             check(ok, f"favor_qkv FAVOR_MXU_BF16=1 {dtype} outside tolerance")
 
-        y = t(B, T, latent).to(torch.bfloat16)
-        sc = t(B, latent, s=0.3).to(torch.bfloat16)
-        sh = t(B, latent, s=0.3).to(torch.bfloat16)
-        vecs = [t(latent, s=0.1, off=1.0), t(latent, s=0.1),
-                t(latent, s=0.1, off=1.0), t(latent, s=0.1)]
-        out = P.performer_epilogue(y, sc, sh, *vecs)
-        torch.cuda.synchronize()
-        ref = P.performer_epilogue_plain(y, sc, sh, *vecs)
-        err = report("performer_epilogue", torch.bfloat16, T, out, ref)
-        kernel = lambda: P.performer_epilogue(y, sc, sh, *vecs)
-        plain = lambda: P.performer_epilogue_plain(y, sc, sh, *vecs)
-        k_ms, p_ms = paired_ms(kernel, plain)
-        # y, scale, shift and the four LN vectors read, out written; ~20 f32
-        # operations per element (two LayerNorms, L2, modulate, SiLU)
-        b_ms, b_by = bound(2 * B * T * latent * 2 + 2 * B * latent * 2
-                           + 4 * latent * 4, 20 * B * T * latent, "f32")
-        print(f"[A] performer_epilogue bfloat16 B={B} T={T}: kernel "
-              f"{k_ms:.4f} ms, plain {p_ms:.4f} ms per call (CUDA events); "
-              f"device time kernel {device_ms(kernel)}, plain "
-              f"{device_ms(plain)} (torch.profiler); bound {b_ms:.4f} ms "
-              f"({b_by}) ({card})")
-        results[("performer_epilogue", torch.bfloat16, T)] = (
-            err, k_ms, p_ms, b_ms, b_by)
+        for dtype in (torch.bfloat16, torch.float32):
+            results[("performer_epilogue", dtype, T)] = epilogue_case(
+                dev, card, t, report, B, T, latent, dtype)
+    epilogue_launch_costs(dev, card, t, B, latent)
+    # registers and spills of kernel 2, as ptxas reported them in this
+    # run's build: none may spill at D = 512
+    from motiondiffusion_moe_tpu_torch.ops import _build
+
+    usage = _build.resource_usage("performer_epilogue_kernel")
+    for line in usage:
+        print(f"[A] ptxas: {line}")
+    if not usage:
+        print("[A] ptxas: not reported (the library came from the cache)")
+    spills = [u for u in usage
+              if "Li16E" in u and " 0 bytes spill stores" not in u]
+    check(not spills, "performer_epilogue_kernel spills at D = 512")
 
     # the bf16 activations at widths the flagship gives them: the style
     # blocks' silu, the exact cross-attention FFN's gelu after ffn_0 (with
@@ -2188,7 +2350,7 @@ def main() -> int:
          a[("favor_qkv", torch.bfloat16, 196)] + (None,)),
         ("performer_epilogue", "performer_epilogue.cu",
          ops + "performer_pallas.py:657", launches["performer_epilogue"],
-         a[("performer_epilogue", torch.bfloat16, 196)] + (None,)),
+         a[("performer_epilogue", torch.bfloat16, 196)]),
         ("favor_qkv_bwd", "favor_qkv_bwd.cu",
          ops + "performer_pallas_bwd.py:70", d3_launches["favor_qkv_bwd"],
          d1[("favor_qkv_bwd", 196)] + (None,)),

@@ -169,9 +169,10 @@ class StylizationBlock(nn.Module):
         if pre_ln is not None:
             if self.training and self.dropout > 0:
                 raise ValueError("the fused epilogue path takes no dropout")
+            # scale and shift stay the chunk views of the Dense's output:
+            # the kernel reads their rows where they are
             hmod = performer_epilogue(
-                h, scale.to(h.dtype).contiguous(),
-                shift.to(h.dtype).contiguous(), pre_ln[0].float(),
+                h, scale.to(h.dtype), shift.to(h.dtype), pre_ln[0].float(),
                 pre_ln[1].float(), self.norm_scale.float(),
                 self.norm_bias.float())
             return hmod @ w + b

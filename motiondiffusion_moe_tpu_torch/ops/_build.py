@@ -136,8 +136,16 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
                                   + [i] * 7      # B T H D M bf16 mxu_bf16
                                   + [f, f, i, vp])  # eps pre cluster stream
     lib.mdm_favor_qkv.restype = i
-    lib.mdm_performer_epilogue.argtypes = [vp] * 8 + [i, i, i, i, vp]
+    ll = ctypes.c_longlong
+    lib.mdm_performer_epilogue.argtypes = ([vp] * 3        # y scale shift
+                                           + [ll, ll]      # their strides
+                                           + [vp] * 5      # LN vectors, out
+                                           + [i] * 5       # B T D bf16 C
+                                           + [vp])         # stream
     lib.mdm_performer_epilogue.restype = i
+    lib.mdm_performer_epilogue_blocks_per_sm.argtypes = [
+        i, i, ctypes.POINTER(i)]                          # D bf16 out
+    lib.mdm_performer_epilogue_blocks_per_sm.restype = i
     lib.mdm_favor_qkv_bwd.argtypes = ([vp] * 13     # tensors, scratch,
                                       + [i] * 7      # logits; B T H D M bf16
                                                      # mxu_bf16

@@ -16,7 +16,9 @@ Counterpart of ``motiondiffusion_moe_tpu/ops/performer_pallas.py``:
   ``_epilogue_kernel``): post-LN -> L2*sqrt(D) -> style-LN -> modulate ->
   SiLU in one read and one write. CUDA C++ in ``csrc/performer_epilogue.cu``.
 
-All are ``torch.autograd.Function``s on every device. The backward of
+All are ``torch.autograd.Function``s on every device (with grad disabled,
+:func:`performer_epilogue` launches its kernel without one: the sampling
+path's launch cost). The backward of
 :func:`favor_qkv` and :func:`performer_epilogue` is :func:`favor_qkv_bwd`
 (Pallas ``_favor_qkv_bwd_kernel``, CUDA C++ in ``csrc/favor_qkv_bwd.cu``)
 and :func:`performer_epilogue_bwd` (Pallas ``_epilogue_bwd_kernel``,
@@ -336,8 +338,12 @@ def _check_favor(op: str, qkv, ln_scale, ln_bias, projection, mask,
     return B, T, HD3 // (parts * D), D, m
 
 
-def _check_epilogue(op: str, y, scale, shift, vecs):
-    """Validate the inputs of the epilogue kernels; returns (B, T, D)."""
+def _check_epilogue(op: str, y, scale, shift, vecs, views: bool = False):
+    """Validate the inputs of the epilogue kernels, raising with a message
+    on the first one the kernel does not take; returns (B, T, D). With
+    ``views`` (the forward kernel), scale and shift may be strided [B, D]
+    views: column stride 1, a row stride >= D, every row 16-byte aligned;
+    else (the backward kernel) they must be contiguous."""
     _require(y.device.type == "cuda", f"{op}: unsupported device {y.device}")
     _require(y.dim() == 3 and y.dtype in _KERNEL_DTYPES
              and y.is_contiguous(),
@@ -346,17 +352,60 @@ def _check_epilogue(op: str, y, scale, shift, vecs):
     B, T, D = y.shape
     _require(D in EPILOGUE_DIMS and B > 0 and T > 0,
              f"{op}: D={D} not in {sorted(EPILOGUE_DIMS)}")
+    _require(y.data_ptr() % 16 == 0, f"{op}: y must be 16-byte aligned")
     dev = y.device
     for name, t in (("scale", scale), ("shift", shift)):
         _require(t.device == dev and t.dtype == y.dtype
-                 and t.shape == (B, D) and t.is_contiguous(),
-                 f"{op}: {name} must be a contiguous {y.dtype} [{B}, {D}] "
-                 f"tensor on {dev}, got {t.dtype} {tuple(t.shape)} on "
-                 f"{t.device}")
+                 and t.shape == (B, D),
+                 f"{op}: {name} must be a {y.dtype} [{B}, {D}] tensor on "
+                 f"{dev}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+        if views:
+            _require(_row_view_ok(t, D),
+                     f"{op}: {name} must have column stride 1, a row stride "
+                     f">= {D} and 16-byte aligned rows, got strides "
+                     f"{t.stride()} at address {t.data_ptr()}")
+        else:
+            _require(t.is_contiguous(),
+                     f"{op}: {name} must be contiguous, got strides "
+                     f"{t.stride()}")
     for name, t in zip(("post_scale", "post_bias", "style_scale",
                         "style_bias"), vecs):
         _check_f32_vec(name, t, D, dev)
     return B, T, D
+
+
+def _row_view_ok(t: torch.Tensor, D: int) -> bool:
+    """A [B, D] operand the forward epilogue kernel reads 16 bytes a lane:
+    column stride 1, rows at least D apart, every row 16-byte aligned."""
+    rs, cs = t.stride()
+    return (cs == 1 and rs >= D and not rs * t.element_size() % 16
+            and not t.data_ptr() % 16)
+
+
+def _epilogue_ok(y, scale, shift, vecs) -> bool:
+    """What :func:`_check_epilogue` checks for the forward kernel, in one
+    pass of plain comparisons with no message built: the launch path's
+    check. Only when it fails does the wrapper run the detailed check,
+    which raises with the reason."""
+    if not (y.is_cuda and y.dim() == 3 and y.is_contiguous()):
+        return False
+    dt = y.dtype
+    if dt not in _KERNEL_DTYPES or y.data_ptr() % 16:
+        return False
+    B, T, D = y.shape
+    if D not in EPILOGUE_DIMS or not B or not T:
+        return False
+    index = y.get_device()
+    for t in (scale, shift):
+        if not (t.dtype is dt and t.get_device() == index
+                and t.shape == (B, D) and _row_view_ok(t, D)):
+            return False
+    f32 = torch.float32
+    for v in vecs:
+        if not (v.dtype is f32 and v.get_device() == index
+                and v.shape == (D,) and v.is_contiguous()):
+            return False
+    return True
 
 
 def plain_vjp(plain, saved, needs_input_grad, g, *static):
@@ -543,19 +592,75 @@ def favor_qkv(qkv: torch.Tensor, ln_scale: torch.Tensor,
 favor_qkv.launches = 0
 
 
-def _launch_performer_epilogue(y, scale, shift, post_scale, post_bias,
-                               style_scale, style_bias) -> torch.Tensor:
-    vecs = (post_scale, post_bias, style_scale, style_bias)
-    B, T, D = _check_epilogue("performer_epilogue", y, scale, shift, vecs)
-    from motiondiffusion_moe_tpu_torch.ops._build import library
+_EPILOGUE_SLOTS: dict = {}  # (device index, D, dtype) -> blocks at once
+_EPILOGUE_FN = None  # the C entry, taken from the library once
 
-    lib = library()
+
+def epilogue_chunks(B: int, T: int, slots: int) -> int:
+    """Blocks per batch row (each ceil(T / C) rows) of the kernel of
+    ``csrc/performer_epilogue.cu`` on a card that holds ``slots`` of its
+    blocks at once: as many as fill it, 1 at the least and no more than
+    leave each of a block's 8 warps a row (8 at the flagship's B = 32, T =
+    196 on an H100, which holds two blocks on each of its 132 SMs)."""
+    return max(1, min(-(-T // 8), slots // B))
+
+
+def epilogue_slots(index: int, D: int, dtype: torch.dtype) -> int:
+    """Blocks of the kernel of ``csrc/performer_epilogue.cu`` that card
+    ``index`` holds at once at width D in ``dtype``: its occupancy per SM
+    times the SMs, asked once per card, width and dtype."""
+    key = (index, D, dtype)
+    n = _EPILOGUE_SLOTS.get(key)
+    if n is None:
+        from motiondiffusion_moe_tpu_torch.ops._build import library
+
+        per_sm = ctypes.c_int(0)
+        with torch.cuda.device(index):
+            rc = library().mdm_performer_epilogue_blocks_per_sm(
+                D, _KERNEL_DTYPES[dtype], ctypes.byref(per_sm))
+        if rc != 0 or per_sm.value < 1:
+            raise RuntimeError(f"performer_epilogue occupancy query failed: "
+                               f"CUDA error {rc}, {per_sm.value} blocks")
+        n = _EPILOGUE_SLOTS[key] = per_sm.value * torch.cuda.\
+            get_device_properties(index).multi_processor_count
+    return n
+
+
+def _launch_performer_epilogue(y, scale, shift, post_scale, post_bias,
+                               style_scale, style_bias,
+                               chunks: Optional[int] = None) -> torch.Tensor:
+    """Launch kernel 2 on the card: one check of the inputs (the detailed
+    one, which raises, only where it fails), the output, the C entry on
+    the current stream, entering a device context only when y lies on
+    another card than the current one. ``chunks`` forces the blocks per
+    batch row (a measurement's sweep); None takes :func:`epilogue_chunks`."""
+    global _EPILOGUE_FN
+    vecs = (post_scale, post_bias, style_scale, style_bias)
+    if not _epilogue_ok(y, scale, shift, vecs):
+        _check_epilogue("performer_epilogue", y, scale, shift, vecs,
+                        views=True)
+        raise ValueError("performer_epilogue: inputs the kernel does not "
+                         "take")
+    if _EPILOGUE_FN is None:
+        from motiondiffusion_moe_tpu_torch.ops._build import library
+
+        _EPILOGUE_FN = library().mdm_performer_epilogue
+    B, T, D = y.shape
+    index = y.get_device()
+    if chunks is None:
+        chunks = epilogue_chunks(B, T, epilogue_slots(index, D, y.dtype))
     out = torch.empty_like(y)
-    with torch.cuda.device(y.device):
-        rc = lib.mdm_performer_epilogue(
-            y.data_ptr(), scale.data_ptr(), shift.data_ptr(),
-            *[v.data_ptr() for v in vecs], out.data_ptr(),
-            B * T, T, D, _KERNEL_DTYPES[y.dtype], _stream(y.device))
+    args = (y.data_ptr(), scale.data_ptr(), shift.data_ptr(),
+            scale.stride(0), shift.stride(0), post_scale.data_ptr(),
+            post_bias.data_ptr(), style_scale.data_ptr(),
+            style_bias.data_ptr(), out.data_ptr(), B, T, D,
+            _KERNEL_DTYPES[y.dtype], chunks)
+    if index == torch.cuda.current_device():
+        rc = _EPILOGUE_FN(*args, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(index):
+            rc = _EPILOGUE_FN(*args,
+                              torch._C._cuda_getCurrentRawStream(index))
     if rc != 0:
         raise RuntimeError(
             f"performer_epilogue kernel launch failed: CUDA error {rc}")
@@ -584,8 +689,8 @@ def performer_epilogue_bwd(y: torch.Tensor, scale: torch.Tensor,
              f"performer_epilogue_bwd: g must be a contiguous {y.dtype} "
              f"{tuple(y.shape)} tensor on {y.device}, got {g.dtype} "
              f"{tuple(g.shape)} on {g.device}")
-    _require(y.data_ptr() % 16 == 0 and g.data_ptr() % 16 == 0,
-             "performer_epilogue_bwd: y and g must be 16-byte aligned")
+    _require(g.data_ptr() % 16 == 0,
+             "performer_epilogue_bwd: g must be 16-byte aligned")
     from motiondiffusion_moe_tpu_torch.ops._build import library
 
     lib = library()
@@ -630,7 +735,8 @@ def epilogue_bwd_cluster(B: int, T: int, D: int, dtype: torch.dtype) -> int:
 
 class _PerformerEpilogue(torch.autograd.Function):
     """performer_epilogue with its backward kernel; saves only the
-    inputs."""
+    inputs. Kernel 4 takes scale and shift contiguous: the backward copies
+    strided views (the forward kernel reads them as they are)."""
 
     @staticmethod
     def forward(ctx, y, scale, shift, post_scale, post_bias, style_scale,
@@ -644,7 +750,10 @@ class _PerformerEpilogue(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return performer_epilogue_bwd(*ctx.saved_tensors, g.contiguous())
+        y, scale, shift, *vecs = ctx.saved_tensors
+        return performer_epilogue_bwd(y, scale.contiguous(),
+                                      shift.contiguous(), *vecs,
+                                      g.contiguous())
 
 
 def performer_epilogue(y: torch.Tensor, scale: torch.Tensor,
@@ -654,11 +763,24 @@ def performer_epilogue(y: torch.Tensor, scale: torch.Tensor,
     """Fused Performer epilogue (see module doc), differentiable on every
     device. CPU tensors take :func:`performer_epilogue_plain` and its
     autograd backward; CUDA tensors launch ``csrc/performer_epilogue.cu``
-    forward and ``csrc/performer_epilogue_bwd.cu`` backward.
+    forward and ``csrc/performer_epilogue_bwd.cu`` backward. With grad
+    disabled (``torch.no_grad``, ``torch.inference_mode``: sampling) the
+    call goes straight to the launch, without the autograd Function.
 
     On CUDA: y contiguous f32 or bf16 with D in :data:`EPILOGUE_DIMS`;
-    scale and shift contiguous [B, D] in y's dtype; the four LN vectors
-    contiguous f32 [D]."""
+    scale and shift [B, D] in y's dtype, contiguous or strided views with
+    column stride 1, a row stride >= D and 16-byte aligned rows (the
+    ``chunk`` halves of a [B, 2D] tensor); the four LN vectors contiguous
+    f32 [D]."""
+    if not torch.is_grad_enabled():
+        if y.is_cuda:
+            return _launch_performer_epilogue(
+                y, scale, shift, post_scale, post_bias, style_scale,
+                style_bias)
+        if y.is_cpu:
+            return performer_epilogue_plain(
+                y, scale, shift, post_scale, post_bias, style_scale,
+                style_bias)
     if y.device.type not in ("cpu", "cuda"):
         raise ValueError(f"performer_epilogue: unsupported device {y.device}")
     return _PerformerEpilogue.apply(y, scale, shift, post_scale, post_bias,

@@ -1,7 +1,8 @@
 """For one checkout of the PyTorch port: the SHA-256 of the fused MoE
 kernel's outputs (kernel 5, ``csrc/moe_dense_fused.cu``) at the shapes of
-``chip_smoke.py`` phase E1, and the times of kernels 4, 5 and 7 at the
-flagship shapes.
+``chip_smoke.py`` phase E1 and of the epilogue backward's outputs (kernel
+4, ``csrc/performer_epilogue_bwd.cu``) at the flagship shape, and the
+times of kernels 2, 4, 5 and 7 at the flagship shapes.
 
     python3 scripts/kernel_bench.py --root DIR [--label NAME] [--times]
 
@@ -9,7 +10,8 @@ flagship shapes.
 is imported (not necessarily this one's). Run it for each of two checkouts
 on one card, one process each, in turns (a, b, b, a; unpack the other with
 ``git archive`` into a directory that ``.gitignore`` lists): equal digests
-show that a change left kernel 5's bits as they were, and the times compare
+show that a change left kernel 5's and kernel 4's bits as they were, and
+the times compare
 the two checkouts' kernels on the same inputs. The inputs are drawn with
 numpy from fixed seeds, the same for every checkout. Needs a CUDA device;
 the checkout builds its kernels on first use.
@@ -17,7 +19,10 @@ the checkout builds its kernels on first use.
 With ``--times``: per kernel, the time per call (CUDA events over
 back-to-back calls) and the device time per call (``torch.profiler``, with
 the helpers of this checkout's ``chip_smoke.py``) of
-``performer_epilogue_bwd`` (bf16, B = 32, T = 196, D = 512),
+``performer_epilogue`` (bf16, B = 32, T = 196, D = 512, contiguous scale
+and shift, which every checkout takes; with grad, and under inference
+mode entered once around the timed calls, as the sampling path calls it), ``performer_epilogue_bwd`` (bf16,
+B = 32, T = 196, D = 512),
 ``moe_dense_fused`` (bf16, S = 6272, D = 512, E = 4, hid = 256) and
 ``adaln_dense`` (bf16, B = 32, T = 196, D = Dout = 512).
 
@@ -95,11 +100,17 @@ def times(dev) -> dict:
     ada = (t(B, T, D), t(B, D, s=0.3), t(B, D, s=0.3),
            t(D, s=0.1, off=1.0, dtype=f32), t(D, s=0.1, dtype=f32),
            t(D, D, s=D ** -0.5), t(D, s=0.1))
-    calls = {"performer_epilogue_bwd": lambda: P.performer_epilogue_bwd(*epi),
+    calls = {"performer_epilogue": lambda: P.performer_epilogue(*epi[:7]),
+             "performer_epilogue_bwd": lambda: P.performer_epilogue_bwd(*epi),
              "moe_dense_fused": lambda: MOE.moe_dense_fused(*moe),
              "adaln_dense": lambda: AD.adaln_dense(*ada)}
-    return {name: (cs.time_ms(fn), cs.device_ms(fn))
-            for name, fn in calls.items()}
+    out = {name: (cs.time_ms(fn), cs.device_ms(fn))
+           for name, fn in calls.items()}
+    fn = calls["performer_epilogue"]
+    with torch.inference_mode():  # entered once, as a sampling forward does
+        out["performer_epilogue (inference mode)"] = (cs.time_ms(fn),
+                                                      cs.device_ms(fn))
+    return out
 
 
 def forward_time(dev) -> str:
@@ -136,7 +147,7 @@ def main() -> int:
     ap.add_argument("--label", default="",
                     help="a name for this checkout in the output")
     ap.add_argument("--times", action="store_true",
-                    help="also time kernels 4, 5 and 7")
+                    help="also time kernels 2, 4, 5 and 7")
     ap.add_argument("--forward", action="store_true",
                     help="also time phase F3's bf16 forward")
     args = ap.parse_args()
@@ -161,6 +172,29 @@ def main() -> int:
             key = f"{shape} {str(dtype)[6:]}"
             digests[key] = hashlib.sha256(raw.tobytes()).hexdigest()
             print(f"[{label}] moe_dense_fused {key}: SHA-256 {digests[key]}")
+    # kernel 4 at the flagship shape, bf16 and f32: its seven outputs
+    from motiondiffusion_moe_tpu_torch.ops import performer as P
+
+    rng = np.random.default_rng(200)
+    B, T, D = 32, 196, 512
+    base = [rng.standard_normal((B, T, D)), 0.3 * rng.standard_normal((B, D)),
+            0.3 * rng.standard_normal((B, D)),
+            1 + 0.1 * rng.standard_normal(D), 0.1 * rng.standard_normal(D),
+            1 + 0.1 * rng.standard_normal(D), 0.1 * rng.standard_normal(D),
+            rng.standard_normal((B, T, D))]
+    base = [torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+            for a in base]
+    for dtype in (torch.bfloat16, torch.float32):
+        k4_args = [a if i in (3, 4, 5, 6) else a.to(dtype)
+                   for i, a in enumerate(base)]
+        outs = P.performer_epilogue_bwd(*k4_args)
+        torch.cuda.synchronize()
+        h = hashlib.sha256()
+        for o in outs:
+            h.update(o.contiguous().cpu().view(torch.uint8).numpy().tobytes())
+        key = f"performer_epilogue_bwd flagship {str(dtype)[6:]}"
+        digests[key] = h.hexdigest()
+        print(f"[{label}] {key}: SHA-256 {digests[key]}")
     result = {"label": label, "device": torch.cuda.get_device_name(0),
               "digests": digests}
     if args.times:

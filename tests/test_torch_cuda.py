@@ -103,31 +103,122 @@ def test_favor_qkv_kernel_without_mask(dev):
     assert (out - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
 
 
-@pytest.mark.parametrize("D", [256, 512])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_epilogue_kernel_matches_plain(dev, D, dtype):
-    rng = np.random.default_rng(2)
-    B, T = 5, 37
+def _epilogue_inputs(dev, B, T, D, dtype, views, seed=2):
+    """y, scale, shift and the four LN vectors; with ``views`` scale and
+    shift are the ``chunk`` halves of one [B, 2D] tensor, as the style
+    block's Dense gives them (row stride 2D, shift at +D elements)."""
+    rng = np.random.default_rng(seed)
 
     def t(*shape, s=1.0, off=0.0):
         return torch.from_numpy((off + s * rng.standard_normal(shape))
                                 .astype(np.float32)).to(dev)
 
     y = t(B, T, D).to(dtype)
-    scale, shift = t(B, D, s=0.3).to(dtype), t(B, D, s=0.3).to(dtype)
+    both = t(B, 2 * D, s=0.3).to(dtype)
+    scale, shift = both.chunk(2, dim=-1)
+    if not views:
+        scale, shift = scale.contiguous(), shift.contiguous()
     vecs = [t(D, s=0.1, off=1.0), t(D, s=0.1), t(D, s=0.1, off=1.0),
             t(D, s=0.1)]
+    return y, scale, shift, vecs
+
+
+# T = 37, 98, 196: no multiple of the 8 rows a block's warps take at once;
+# at B = 5 the wrapper's chunks per batch row are 5, 13 and 25
+@pytest.mark.parametrize("views", [False, True], ids=["contiguous", "views"])
+@pytest.mark.parametrize("T", [37, 98, 196])
+@pytest.mark.parametrize("D", [256, 512, 768])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_epilogue_kernel_matches_plain(dev, D, T, dtype, views):
+    B = 5
+    y, scale, shift, vecs = _epilogue_inputs(dev, B, T, D, dtype, views)
+    assert scale.is_contiguous() != views
     n0 = P.performer_epilogue.launches
     out = P.performer_epilogue(y, scale, shift, *vecs)
     torch.cuda.synchronize()
     assert P.performer_epilogue.launches == n0 + 1
     ref = P.performer_epilogue_plain(y, scale, shift, *vecs)
+    assert out.dtype == dtype and out.shape == y.shape
     err = (out.float() - ref.float()).abs()
     assert torch.isfinite(out.float()).all()
     if dtype == torch.float32:
         assert err.max().item() <= 1e-4 * ref.abs().max().item()
     else:
         assert (err <= 2 ** -7 * ref.float().abs() + 1e-3).all()
+    # no atomics, no cross-row sums: the same bits on a second call, and
+    # from contiguous copies of the views
+    assert torch.equal(P.performer_epilogue(y, scale, shift, *vecs), out)
+    assert torch.equal(P.performer_epilogue(
+        y, scale.contiguous(), shift.contiguous(), *vecs), out)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_epilogue_launch_path_without_grad(dev, dtype):
+    """Under inference mode and no_grad the wrapper launches without the
+    autograd Function: one launch counted each, the same bits as with
+    grad; forced chunkings of the rows give the same bits too."""
+    y, scale, shift, vecs = _epilogue_inputs(dev, 32, 196, 512, dtype,
+                                             views=True, seed=9)
+    ref = P.performer_epilogue(y, scale, shift, *vecs)
+    n0 = P.performer_epilogue.launches
+    with torch.inference_mode():
+        a = P.performer_epilogue(y, scale, shift, *vecs)
+    with torch.no_grad():
+        b = P.performer_epilogue(y, scale, shift, *vecs)
+    assert P.performer_epilogue.launches == n0 + 2
+    assert a.grad_fn is None and b.grad_fn is None
+    assert torch.equal(a, ref) and torch.equal(b, ref)
+    for c in (1, 2, 3, 6, 8, 25, 196):
+        assert torch.equal(P._launch_performer_epilogue(
+            y, scale, shift, *vecs, chunks=c), ref)
+    slots = P.epilogue_slots(0, 512, dtype)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert slots % sms == 0 and slots >= sms
+    assert 1 <= P.epilogue_chunks(32, 196, slots) <= 25
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_epilogue_kernel_on_rows_whose_l2_norm_is_zero(dev, dtype):
+    """post_scale = post_bias = 0: h1 = 0, the L2 step's max(|h1|, 1e-12)
+    (in bf16 sqrt(D) min(rsqrt(0), 1e12)), and SiLU(mb) everywhere."""
+    y, scale, shift, vecs = _epilogue_inputs(dev, 3, 37, 512, dtype,
+                                             views=True, seed=8)
+    vecs[0].zero_()
+    vecs[1].zero_()
+    out = P.performer_epilogue(y, scale, shift, *vecs)
+    ref = P.performer_epilogue_plain(y, scale, shift, *vecs)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out.float()).all()
+    err = (out.float() - ref.float()).abs()
+    if dtype == torch.float32:
+        assert err.max().item() <= 1e-4 * ref.abs().max().item()
+    else:
+        assert (err <= 2 ** -7 * ref.float().abs() + 1e-3).all()
+
+
+def test_epilogue_refuses_views_the_kernel_cannot_read(dev):
+    """ValueError for a column stride other than 1, a row stride < D and
+    a base that is not 16-byte aligned, under grad and without."""
+    B, T, D = 4, 37, 256
+    y, scale, shift, vecs = _epilogue_inputs(dev, B, T, D, torch.bfloat16,
+                                             views=True)
+    wide = torch.zeros(B, 2 * D + 16, device=dev, dtype=torch.bfloat16)
+    bad = {"column stride 2": wide[:, :2 * D:2],
+           "row stride < D": wide.view(-1).as_strided((B, D), (D - 8, 1)),
+           "misaligned base": wide[:, 1:D + 1],
+           "misaligned rows": wide.view(-1).as_strided((B, D), (D + 1, 1))}
+    for name, x in bad.items():
+        assert x.shape == (B, D), name
+        for grad in (True, False):
+            with torch.set_grad_enabled(grad):
+                with pytest.raises(ValueError):
+                    P.performer_epilogue(y, x, shift, *vecs)
+                with pytest.raises(ValueError):
+                    P.performer_epilogue(y, scale, x, *vecs)
+    # the backward kernel keeps its contract: contiguous scale and shift
+    g = torch.zeros_like(y)
+    with pytest.raises(ValueError):
+        P.performer_epilogue_bwd(y, scale, shift, *vecs, g)
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
@@ -293,6 +384,22 @@ def test_autograd_functions_take_the_backward_kernels(dev):
     assert P.performer_epilogue_bwd.launches == n0 + 1
     assert all(v.grad is not None and torch.isfinite(v.grad).all()
                for v in [y, sc] + vecs)
+
+
+def test_epilogue_backward_through_views(dev):
+    """Scale and shift as chunk views of one [B, 2D] leaf: the backward
+    kernel gets contiguous copies and the leaf's gradient is kernel 4's
+    d(scale) | d(shift), the same bits as from contiguous inputs."""
+    y, scale, shift, vecs = _epilogue_inputs(dev, 8, 98, 512,
+                                             torch.bfloat16, views=True)
+    both = torch.cat([scale, shift], dim=-1).requires_grad_()
+    g = torch.randn_like(y)
+    n0 = P.performer_epilogue_bwd.launches
+    P.performer_epilogue(y, *both.chunk(2, dim=-1), *vecs).backward(g)
+    assert P.performer_epilogue_bwd.launches == n0 + 1
+    ref = P.performer_epilogue_bwd(y, scale.contiguous(), shift.contiguous(),
+                                   *vecs, g)
+    assert torch.equal(both.grad, torch.cat([ref[1], ref[2]], dim=-1))
 
 
 def test_backward_wrappers_raise_on_what_the_kernels_do_not_take(dev):
