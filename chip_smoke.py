@@ -130,6 +130,25 @@ first use) and exits non-zero without one. Phases, each fatal on failure:
          both paths against the f32 result (phase B's rule); CUDA kernels
          and device time per forward against the standard flagship, in f32
          and in bf16 compute.
+  G      serving an export, and the widths of tools/train.py --model_size
+         big. G1: the flagship written by tools/export.py's export_model
+         in bf16 (the JAX package's flax-msgpack format), served by
+         tools/serve.py's build_server (dpm20, micro_batch 16, on the card
+         by default): /healthz, concurrent seedless requests merged, a
+         seeded request twice (identical) and bit for bit against
+         GenerationPipeline(model, param_dtype="bfloat16") from the
+         in-memory model; favor_qkv and performer_epilogue launched
+         exactly 32 x forwards; the export's write and read rates (host)
+         and the latency p50 / p99 of 8 sequential single-prompt requests
+         at 196 frames. G2: --model_size big (latent 1024, head dim 256,
+         expert hidden 512, 2 blocks per scale), the widths of the kernel
+         instances added for it: G2a kernels 1-5 and 7 against their plain
+         versions at the shapes that path gives them, bf16 and f32, with
+         times, bounds and ptxas's registers and spills at those widths;
+         G2b one forward at B = 4 through the kernels (MOE_FUSED_KERNEL=1)
+         against use_kernels=False, f32 tight and bf16 by phase B's rule,
+         with exact launch counts of kernels 1, 2 and 5; G2c two optimizer
+         steps through the train CLI, launching kernels 1 and 3.
 
 The last line is {"ok": true, "device": {...}}, printed only when every
 phase passed; the line before it lists the kernels of the paths, each with
@@ -2278,6 +2297,403 @@ def phase_f3(cfg, model, dev, card):
     return main_launches
 
 
+def phase_g1(cfg, model, dev, card):
+    """A JAX-format export of the flagship served at full width: the
+    port's export_model in bf16, the serve CLI's build_server on it, the
+    requests of phase C, the seeded motion bit for bit against the
+    in-memory bf16 pipeline, kernels 1 and 2 launched exactly 32 x
+    forwards; export write / read rates and the latency of 8 sequential
+    single-prompt requests."""
+    import torch
+    from motiondiffusion_moe_tpu_torch.data.normalizer import (
+        MotionNormalizer)
+    from motiondiffusion_moe_tpu_torch.ops import performer as P
+    from motiondiffusion_moe_tpu_torch.pipeline import GenerationPipeline
+    from motiondiffusion_moe_tpu_torch.tools.export import (
+        export_model, load_export)
+    from motiondiffusion_moe_tpu_torch.tools.serve import build_server
+
+    os.environ.pop("MOE_FUSED_KERNEL", None)
+    T = cfg.model.max_frames
+    with tempfile.TemporaryDirectory() as d:
+        t_write = []
+        for _ in range(2):  # the second into memory the first freed
+            t0 = time.perf_counter()
+            export_model(model, cfg, d, dtype="bfloat16",
+                         normalizer=MotionNormalizer.identity(
+                             cfg.data.dim_pose))
+            t_write.append(time.perf_counter() - t0)
+        size = os.path.getsize(os.path.join(d, "params.msgpack"))
+        t0 = time.perf_counter()
+        _, tree, _ = load_export(d)
+        t_read = time.perf_counter() - t0
+        del tree
+        print(f"[G1] export of the flagship, bf16 storage: params.msgpack "
+              f"{size / 1e9:.3f} GB; write {t_write[0]:.2f} s "
+              f"({size / t_write[0] / 1e9:.3f} GB/s), again "
+              f"{t_write[1]:.2f} s ({size / t_write[1] / 1e9:.3f} GB/s); "
+              f"read {t_read:.2f} s ({size / t_read / 1e9:.3f} GB/s) (host; "
+              f"{card})")
+        t0 = time.perf_counter()
+        srv = build_server(["--export_dir", d, "--sampler", "dpm", "--steps",
+                            "20", "--micro_batch", "16", "--port", "0"])
+        print(f"[G1] build_server from the export onto the card: "
+              f"{time.perf_counter() - t0:.2f} s ({card})")
+    pipe = srv.pipe
+    check(pipe.device.type == "cuda", f"served on {pipe.device}")
+    dtypes = {n: p.dtype for n, p in pipe.model.named_parameters()}
+    check(all((dt == torch.float32) == ("projection" in n)
+              for n, dt in dtypes.items()), "served storage dtypes")
+    samples = []
+    sample = pipe.sample
+
+    def counted_sample(*a, **k):
+        samples.append(1)
+        return sample(*a, **k)
+
+    pipe.sample = counted_sample
+    th = threading.Thread(target=srv.serve_forever, daemon=True)
+    th.start()
+    url = f"http://127.0.0.1:{srv.server_address[1]}"
+    seeded = {"texts": ["a person bows", "a person climbs stairs"],
+              "lengths": [150, 196], "seed": 1234, "denormalize": False}
+    try:
+        for c in (P.favor_qkv, P.performer_epilogue):
+            c.launches = 0
+        with urllib.request.urlopen(url + "/healthz", timeout=60) as r:
+            health = json.loads(r.read())
+        check(health.get("ok") is True and health.get("device") == "cuda",
+              f"/healthz {health}")
+        results = {}
+
+        def post_into(key, payload):
+            results[key] = _post(url + "/generate", payload)
+
+        first = threading.Thread(target=post_into, args=(
+            "a", {"texts": ["a person runs in a circle"] * 4,
+                  "lengths": [T] * 4}))
+        first.start()
+        time.sleep(0.05)
+        pair = [threading.Thread(target=post_into, args=(k, {
+            "texts": [txt], "lengths": [n]})) for k, txt, n in (
+                ("b", "a person waves with the left hand", 120),
+                ("c", "a person jumps twice", 64))]
+        for t2 in pair:
+            t2.start()
+        for t2 in [first] + pair:
+            t2.join(timeout=600)
+            check(not t2.is_alive(), "request thread hung")
+        post_into("s1", seeded)
+        post_into("s2", seeded)
+        F = cfg.model.input_feats
+        for key, lens in {"a": [T] * 4, "b": [120], "c": [64],
+                          "s1": [150, 196], "s2": [150, 196]}.items():
+            status, body = results[key]
+            motions = [np.asarray(m, dtype=np.float32)
+                       for m in body["motions"]]
+            check(status == 200 and [list(m.shape) for m in motions]
+                  == [[n, F] for n in lens], f"G1 request {key}")
+            check(all(np.isfinite(m).all() for m in motions),
+                  f"G1 request {key}: non-finite motion")
+        check(results["b"][1]["batched"] == 2
+              and results["c"][1]["batched"] == 2,
+              "G1: the batcher did not merge the two concurrent requests")
+        check(results["s1"][1]["motions"] == results["s2"][1]["motions"],
+              "G1: seeded repeats differ")
+        fwd = len(samples) * pipe.forwards_per_sample
+        launches = {c.__name__: c.launches
+                    for c in (P.favor_qkv, P.performer_epilogue)}
+        n_perf = 2 * 2 * cfg.model.num_layers
+        print(f"[G1] /healthz ok; concurrent seedless requests merged; "
+              f"seeded repeats identical; {len(samples)} samples x "
+              f"{pipe.forwards_per_sample} forwards = {fwd} forwards; "
+              f"launches {launches}, expected {n_perf} x {fwd} each")
+        for name, n in launches.items():
+            check(n == n_perf * fwd, f"G1: {name} launched {n} times, "
+                                     f"expected {n_perf * fwd}")
+        lat = []
+        for i in range(8):
+            t0 = time.perf_counter()
+            status, body = _post(url + "/generate", {
+                "texts": [f"a person walks in a line {i}"],
+                "lengths": [T]})
+            lat.append(time.perf_counter() - t0)
+            check(status == 200 and body["shapes"] == [[T, F]],
+                  "G1 latency request")
+        p50, p99 = np.percentile(np.asarray(lat) * 1e3, [50, 99])
+        print(f"[G1] 8 sequential single-prompt requests at {T} frames "
+              f"(dpm20, micro_batch 16): p50 {p50:.1f} ms, p99 {p99:.1f} "
+              f"ms, each "
+              f"{', '.join(f'{x * 1e3:.1f}' for x in lat)} ms ({card})")
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    pipe.sample = sample
+    served = [np.asarray(m, dtype=np.float32)
+              for m in results["s1"][1]["motions"]]
+    del srv, pipe
+    ref = GenerationPipeline(cfg, model, sampler="dpm",
+                             num_inference_steps=20, micro_batch=16,
+                             param_dtype="bfloat16", device=dev)
+    want = ref.generate(seeded["texts"], seeded["lengths"],
+                        generator=torch.Generator(dev).manual_seed(
+                            seeded["seed"]))
+    same = all(np.array_equal(a, b) for a, b in zip(served, want))
+    print(f"[G1] the served seeded motions vs GenerationPipeline(model, "
+          f"param_dtype='bfloat16') from the in-memory model, same seed: "
+          f"{'bit-identical' if same else 'DIFFER'} (max abs "
+          f"{max(float(np.abs(a - b).max()) for a, b in zip(served, want)):.3e})")
+    check(same, "G1: the served motion is not the in-memory pipeline's")
+    del ref
+    torch.cuda.empty_cache()
+
+
+def phase_g2(dev, card):
+    """tools/train.py --model_size big on the card (latent 1024, head dim
+    256, expert hidden 512; depth cut to 2 blocks per scale), the widths of
+    the kernel instances added for it. G2a: kernels 1-5 and 7 against their
+    plain versions at the shapes this path gives them (B = 4, T = 196,
+    ragged mask), bf16 and f32, with times and bounds. G2b: the forward
+    through the kernels with MOE_FUSED_KERNEL=1 against use_kernels=False
+    with the switch unset, in f32 (tight) and bf16 (phase B's rule), with
+    exact launch counts of kernels 1, 2 and 5. G2c: two train steps through
+    the train CLI, through kernels 1 and 3. The flagship's modules are
+    untouched by any of it."""
+    import torch
+    from motiondiffusion_moe_tpu_torch.models.attention import (
+        PerformerSelfAttention)
+    from motiondiffusion_moe_tpu_torch.models.moe import SwitchMoELayer
+    from motiondiffusion_moe_tpu_torch.models.transformer import (
+        MotionTransformer)
+    from motiondiffusion_moe_tpu_torch.ops import adaln as AD
+    from motiondiffusion_moe_tpu_torch.ops import moe as MOE
+    from motiondiffusion_moe_tpu_torch.ops import performer as P
+    from motiondiffusion_moe_tpu_torch.tools.train import (
+        build_argparser, config_from_args)
+
+    argv = ["--dataset", "synthetic", "--model_size", "big", "--num_layers",
+            "2"]
+    big = config_from_args(build_argparser().parse_args(argv))
+    mc = big.model
+    B, T, D, H = 4, mc.max_frames, mc.latent_dim, mc.num_heads
+    hd, m, E, hid = D // H, mc.num_random_features, mc.num_experts, mc.ff_size
+    check((D, hd, m, hid) == (1024, 256, 128, 512), "G2 widths")
+    print(f"[G2] --model_size big: latent {D}, {H} heads of {hd}, {m} random "
+          f"features, {E} experts of hidden {hid}, 2 blocks per scale")
+
+    # ---- G2a: the kernels at these widths against their plain versions
+    rng = np.random.default_rng(SEED + 60)
+
+    def t(*shape, s=1.0, off=0.0):
+        return torch.from_numpy((off + s * rng.standard_normal(shape))
+                                .astype(np.float32)).to(dev)
+
+    def timed(name, kernel, plain, nbytes, flops, kind):
+        k_ms, p_ms = paired_ms(kernel, plain, iters=10)
+        b_ms, b_by = bound(nbytes, flops, kind)
+        print(f"[G2a] {name}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms per "
+              f"call (CUDA events); bound {b_ms:.4f} ms ({b_by}) ({card})")
+
+    mask = ragged_mask(rng, B, T, dev)
+    ln_s, ln_b, proj = t(hd, s=0.1, off=1.0), t(hd, s=0.1), t(
+        hd, m, s=hd ** -0.25)
+    for dtype in (torch.bfloat16, torch.float32):
+        dt, el = str(dtype)[6:], 2 if dtype == torch.bfloat16 else 4
+        qkv = t(B, T, 3 * H * hd).to(dtype)
+        name = f"favor_qkv {dt} B={B} T={T} H={H} D={hd} m={m}"
+        out = P.favor_qkv(qkv, ln_s, ln_b, proj, mask)
+        torch.cuda.synchronize()
+        compare_to_plain("G2a", name, out,
+                         P.favor_qkv_plain(qkv, ln_s, ln_b, proj, mask),
+                         dtype, BF16_ABS)
+        check(torch.equal(out, P.favor_qkv(qkv, ln_s, ln_b, proj, mask)),
+              f"{name}: a second call gave other bits")
+        timed(name, lambda: P.favor_qkv(qkv, ln_s, ln_b, proj, mask),
+              lambda: P.favor_qkv_plain(qkv, ln_s, ln_b, proj, mask),
+              B * T * 4 * H * hd * el + (2 * hd + hd * m + B * T) * 4,
+              3 * 4 * 2 * B * H * T * hd * m, "tf32")
+        g = t(B, T, H * hd).to(dtype)
+        for need in (False, True):
+            name = (f"favor_qkv_bwd {dt} B={B} T={T} D={hd} d(proj)="
+                    f"{'yes' if need else 'no'}")
+            outs = P.favor_qkv_bwd(qkv, ln_s, ln_b, proj, mask, g,
+                                   need_dproj=need)
+            torch.cuda.synchronize()
+            refs = P.favor_qkv_bwd_plain(qkv, ln_s, ln_b, proj, mask, g,
+                                         need_dproj=need)
+            for i, (o, r) in enumerate(zip(outs, refs)):
+                if r is None:
+                    check(o is None, f"{name} output {i} should be None")
+                    continue
+                o, r = o.float(), r.float()
+                err = (o - r).abs()
+                floor = BWD_FLOOR * r.abs().max().item()
+                ok = bool(torch.isfinite(o).all()) and (
+                    err.max().item() <= floor
+                    if i or dtype == torch.float32 else
+                    bool((err <= 2 ** -7 * r.abs() + floor).all()))
+                print(f"[G2a] {name} output {i}: max_abs_err="
+                      f"{err.max().item():.3e} (max|plain| "
+                      f"{r.abs().max().item():.3e}); tol f32 {BWD_FLOOR:g} "
+                      f"max|plain|, bf16 + 2^-7 |plain| -> "
+                      f"{'ok' if ok else 'FAIL'}")
+                check(ok, f"{name} output {i} outside tolerance")
+            if not need:
+                timed(name, lambda: P.favor_qkv_bwd(
+                          qkv, ln_s, ln_b, proj, mask, g, need_dproj=False),
+                      lambda: P.favor_qkv_bwd_plain(
+                          qkv, ln_s, ln_b, proj, mask, g, need_dproj=False),
+                      B * T * 7 * H * hd * el + (4 * hd + hd * m + B * T) * 4,
+                      3 * 10 * 2 * B * H * T * hd * m, "tf32")
+        # kernel 2 on the style block's strided chunk views, and its
+        # backward on contiguous scale and shift, as the Function passes them
+        y = t(B, T, D).to(dtype)
+        sc, sh = t(B, 2 * D, s=0.3).to(dtype).chunk(2, dim=-1)
+        vecs = [t(D, s=0.1, off=1.0), t(D, s=0.1), t(D, s=0.1, off=1.0),
+                t(D, s=0.1)]
+        name = f"performer_epilogue {dt} B={B} T={T} D={D}"
+        out = P.performer_epilogue(y, sc, sh, *vecs)
+        torch.cuda.synchronize()
+        compare_to_plain("G2a", name, out,
+                         P.performer_epilogue_plain(y, sc, sh, *vecs), dtype,
+                         BF16_ABS)
+        timed(name, lambda: P.performer_epilogue(y, sc, sh, *vecs),
+              lambda: P.performer_epilogue_plain(y, sc, sh, *vecs),
+              2 * B * T * D * el + 2 * B * D * el + 4 * D * 4,
+              17 * B * T * D, "f32")
+        sc, sh = sc.contiguous(), sh.contiguous()
+        name = f"performer_epilogue_bwd {dt} B={B} T={T} D={D}"
+        outs = P.performer_epilogue_bwd(y, sc, sh, *vecs, g.view(B, T, D))
+        torch.cuda.synchronize()
+        refs = P.performer_epilogue_bwd_plain(y, sc, sh, *vecs,
+                                              g.view(B, T, D))
+        for i, (o, r) in enumerate(zip(outs, refs)):
+            o, r = o.float(), r.float()
+            err = (o - r).abs()
+            floor = BWD_FLOOR * r.abs().max().item()
+            ok = bool(torch.isfinite(o).all()) and (
+                err.max().item() <= floor if i > 2 or dtype == torch.float32
+                else bool((err <= 2 ** -7 * r.abs() + floor).all()))
+            print(f"[G2a] {name} output {i}: max_abs_err="
+                  f"{err.max().item():.3e} (max|plain| "
+                  f"{r.abs().max().item():.3e}) -> {'ok' if ok else 'FAIL'}")
+            check(ok, f"{name} output {i} outside tolerance")
+        timed(name, lambda: P.performer_epilogue_bwd(y, sc, sh, *vecs,
+                                                     g.view(B, T, D)),
+              lambda: P.performer_epilogue_bwd_plain(y, sc, sh, *vecs,
+                                                     g.view(B, T, D)),
+              3 * B * T * D * el + 4 * B * D * el + 8 * D * 4,
+              50 * B * T * D, "f32")
+        # kernel 5 on the tokens of this batch, kernel 7 on a style block
+        S = B * T
+        args = [t(S, D), torch.from_numpy(_top2_combine(rng, S, E)).to(dev),
+                t(E, D, hid, s=D ** -0.5), t(E, hid, s=0.1),
+                t(E, hid, D, s=hid ** -0.5), t(E, D, s=0.1)]
+        args = [a.to(dtype) for a in args]
+        name = f"moe_dense_fused {dt} S={S} D={D} E={E} hid={hid}"
+        out = MOE.moe_dense_fused(*args)
+        torch.cuda.synchronize()
+        ref = MOE.moe_dense_fused_plain(*args)
+        compare_to_plain("G2a", name, out, ref, dtype,
+                         MOE_BF16_FLOOR * ref.float().abs().max().item())
+        check(torch.equal(out, MOE.moe_dense_fused(*args)),
+              f"{name}: a second call gave other bits")
+        timed(name, lambda: MOE.moe_dense_fused(*args),
+              lambda: MOE.moe_dense_fused_plain(*args),
+              el * (2 * S * D + S * E + 2 * E * D * hid + E * hid + E * D),
+              4 * S * D * E * hid + 2 * S * E * D,
+              "bf16" if dtype == torch.bfloat16 else "f32")
+        args = [y, t(B, D, s=0.3), t(B, D, s=0.3), t(D, s=0.1, off=1.0),
+                t(D, s=0.1), t(D, D, s=D ** -0.5), t(D, s=0.1)]
+        args = [a if i in (3, 4) else a.to(dtype) for i, a in enumerate(args)]
+        name = f"adaln_dense {dt} B={B} T={T} D=Dout={D}"
+        out = AD.adaln_dense(*args)
+        torch.cuda.synchronize()
+        ref = AD.adaln_dense_plain(*args)
+        compare_to_plain("G2a", name, out, ref, dtype,
+                         MOE_BF16_FLOOR * ref.float().abs().max().item())
+        timed(name, lambda: AD.adaln_dense(*args),
+              lambda: AD.adaln_dense_plain(*args),
+              el * (2 * B * T * D + 2 * B * D + D * D + D) + 8 * D,
+              2 * B * T * D * D, "bf16" if dtype == torch.bfloat16 else "f32")
+    from motiondiffusion_moe_tpu_torch.ops import _build
+
+    for kname in ("favor_kernel", "favor_qkv_bwd_kernel",
+                  "performer_epilogue_kernel",
+                  "performer_epilogue_bwd_kernel", "moe_bf16_kernel",
+                  "moe_f32_kernel", "adaln_bf16_kernel", "adaln_f32_kernel"):
+        for line in _build.resource_usage(kname):
+            if any(f"Li{v}E" in line for v in (256, 1024, 32)):
+                print(f"[G2a] ptxas: {line}")
+
+    # ---- G2b: the forward through the kernels
+    mb = build_flagship(big).to(dev).eval()
+    n_perf = sum(isinstance(x, PerformerSelfAttention) for x in mb.modules())
+    n_moe = sum(isinstance(x, SwitchMoELayer) for x in mb.modules())
+    args, ids = denoiser_inputs(big, dev, B=B)
+    m32 = MotionTransformer(dataclasses.replace(mc, dtype="float32"))
+    m32.load_state_dict(mb.state_dict())
+    m32.to(dev).eval()
+    counted = (P.favor_qkv, P.performer_epilogue, MOE.moe_dense_fused)
+    with torch.inference_mode():
+        m32.set_use_kernels(False)  # MOE_FUSED_KERNEL unset here
+        ref = m32(*args, text_ids=ids)
+        mb.set_use_kernels(False)
+        p16 = mb(*args, text_ids=ids)
+        mb.set_use_kernels(True)
+        m32.set_use_kernels(True)
+        for c in counted:
+            c.launches = 0
+        os.environ["MOE_FUSED_KERNEL"] = "1"
+        try:
+            k32 = m32(*args, text_ids=ids)
+            k16 = mb(*args, text_ids=ids)
+        finally:
+            os.environ.pop("MOE_FUSED_KERNEL", None)
+        torch.cuda.synchronize()
+    launches = {c.__name__: c.launches for c in counted}
+    want = {"favor_qkv": 2 * n_perf, "performer_epilogue": 2 * n_perf,
+            "moe_dense_fused": 2 * n_moe}
+    for out in (ref, k32, k16, p16):
+        check(bool(torch.isfinite(out).all()), "G2 non-finite forward")
+    rel32 = rel_rms(k32, ref)
+    err_k, err_p = rel_rms(k16, ref), rel_rms(p16, ref)
+    tol = DENOISER_BF16_FACTOR * err_p + DENOISER_BF16_FLOOR
+    ok = rel32 <= DENOISER_F32_REL_RMS and err_k <= tol
+    print(f"[G2b] forward B={B} T={T} through the kernels "
+          f"(MOE_FUSED_KERNEL=1) vs use_kernels=False (switch unset): f32 "
+          f"rel_rms={rel32:.3e} (tol {DENOISER_F32_REL_RMS:g}); bf16 "
+          f"rel_rms to the f32 plain result: kernels {err_k:.3e}, plain "
+          f"{err_p:.3e}; tol kernels <= {DENOISER_BF16_FACTOR:g} x plain + "
+          f"{DENOISER_BF16_FLOOR:g} = {tol:.3e} -> {'ok' if ok else 'FAIL'}; "
+          f"launches in the two kernel forwards {launches}, expected {want}")
+    check(ok, "G2 forward")
+    check(launches == want, f"G2 launches {launches}, expected {want}")
+    del mb, m32, ref, k32, k16, p16
+    torch.cuda.empty_cache()
+
+    # ---- G2c: two train steps through the train CLI
+    counted = (P.favor_qkv, P.favor_qkv_bwd)
+    for c in counted:
+        c.launches = 0
+    with tempfile.TemporaryDirectory() as d:
+        state, _, times = run_train_cli(argv + [
+            "--batch_size", str(B), "--synthetic_size", str(B),
+            "--num_epochs", "1", "--device", "cuda", "--checkpoint_dir", d,
+            "--log_every", "1"])
+    launches = {c.__name__: c.launches for c in counted}
+    check(state.step == 2, f"G2 train CLI took {state.step} steps")
+    check(all(bool(torch.isfinite(p).all())
+              for p in state.model.parameters()), "G2 non-finite weights")
+    check(all(launches.values()), f"G2 train launches {launches}")
+    print(f"[G2c] tools/train.py --model_size big --num_layers 2 on the card: "
+          f"2 optimizer steps at batch {B}, ms per step "
+          f"{', '.join(f'{x:.1f}' for x in times)}; launches {launches} "
+          f"({card})")
+    del state
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -2338,6 +2754,8 @@ def main() -> int:
     f1 = phase_f1(dev, card)
     phase_f2(dev)
     f3_launches = phase_f3(cfg, model, dev, card)
+    phase_g1(cfg, model, dev, card)
+    phase_g2(dev, card)
     del model
 
     csrc = "motiondiffusion_moe_tpu_torch/csrc/"

@@ -44,16 +44,19 @@
 //   4. The epilogue: + b on the f32 accumulator, one rounding, stores of
 //      the rows before the end only.
 // Shared memory: the tile, 96 (D + 8) bf16, and the ring, 4 slots of
-// 32 (NC + 8): 163.5 KB at D = 512 and NC = 256, 211.5 KB at D = 768. No
-// atomics: each output is one fixed sequence of mma, the same bits on
-// every call. Not in this design: TMA multicast of a w panel to the blocks
-// of a cluster, wgmma.
+// 32 (NC + 8): 163.5 KB at D = 512 and NC = 256, 211.5 KB at D = 768. At
+// D = 1024 a tile of 96 rows does not fit: the tile is 64 rows (two m-tiles
+// a warp), 195 KB, and the prologue takes one row at a time. No atomics:
+// each output is one fixed sequence of mma, the same bits on every call.
+// Not in this design: TMA multicast of a w panel to the blocks of a
+// cluster, wgmma.
 //
 // f32 design (a simple first version): one block of 8 warps per 32-row
 // tile. Each warp runs the row prologue for 4 rows and writes the
 // activations into shared memory; the block then walks Dout in chunks of 32
-// columns, staging each chunk of w through one shared buffer, with IEEE
-// FMAs, not TF32, as the TPU kernel sums in f32.
+// columns, staging each chunk of w through one shared buffer (in two parts
+// of its rows at D = 1024), with IEEE FMAs, not TF32, as the TPU kernel
+// sums in f32.
 
 #include <cstddef>
 #include <cstdint>
@@ -108,15 +111,15 @@ __device__ __forceinline__ void adaln_row(const T* __restrict__ src,
 
 // ---------------------------------------------------------------- bf16
 
-constexpr int kAbRows = 96;    // rows per block
-constexpr int kAbMT = 3;       // 16-row m-tiles of a warp (2 x 48 rows)
 constexpr int kAbPanelK = 32;  // k-rows of a w panel
-constexpr int kAbPair = 2;     // rows of a warp's prologue step
 
 template <int D, int NC>
 struct AdalnBf16Plan {
   static_assert(D % 256 == 0 && D % kAbPanelK == 0, "D");
   static_assert(NC == 256 || NC == 64, "column slice");
+  static constexpr int kRows = D <= 768 ? 96 : 64;  // rows per block
+  static constexpr int kMT = kRows / 32;  // 16-row m-tiles of a warp (2 x)
+  static constexpr int kPair = D <= 768 ? 2 : 1;  // rows of a prologue step
   // slots of the ring: 4 (7 at D <= 512, which the tile leaves room for,
   // ran 2.5% slower on the H100)
   static constexpr int kStages = 4;
@@ -126,7 +129,8 @@ struct AdalnBf16Plan {
   static constexpr int kPanels = D / kAbPanelK;
   static constexpr size_t kBytes =
       sizeof(__nv_bfloat16) *
-      (size_t(kAbRows) * kAs + size_t(kStages) * kSlot);
+      (size_t(kRows) * kAs + size_t(kStages) * kSlot);
+  static_assert(kBytes <= 232448, "within an sm_90 block's shared memory");
 };
 
 template <int D, int NC>
@@ -138,6 +142,7 @@ __global__ void __launch_bounds__(kAdThreads, 1) adaln_bf16_kernel(
     const __nv_bfloat16* __restrict__ w, const __nv_bfloat16* __restrict__ bias,
     __nv_bfloat16* __restrict__ out, int rows, int seq_len, int dout) {
   using P = AdalnBf16Plan<D, NC>;
+  constexpr int kAbRows = P::kRows, kAbPair = P::kPair;
   constexpr int G = D / 256;     // 8-column groups of a lane
   constexpr int kNT = NC / 32;   // n-tiles of a warp
   constexpr int kRowsPerWarp = kAbRows / (kAdThreads / 32);
@@ -246,11 +251,11 @@ __global__ void __launch_bounds__(kAdThreads, 1) adaln_bf16_kernel(
     }
   }
 
-  // 3. the product: warp (wm, wn) owns rows 48 wm .. and columns
+  // 3. the product: warp (wm, wn) owns rows kAbRows/2 wm .. and columns
   // NC/4 wn .. of the block's output tile
   const int wm = warp % 2, wn = warp / 2;
-  const __nv_bfloat16* a_rows = as + 48 * wm * P::kAs;
-  float acc[kAbMT][kNT][4];
+  const __nv_bfloat16* a_rows = as + kAbRows / 2 * wm * P::kAs;
+  float acc[P::kMT][kNT][4];
   zero_tiles(acc);
   for (int p = 0; p < P::kPanels; ++p) {
     // panel p landed, every warp's activations are written (p = 0) and
@@ -270,8 +275,8 @@ __global__ void __launch_bounds__(kAdThreads, 1) adaln_bf16_kernel(
     const float2 bb = __bfloat1622float2(
         *reinterpret_cast<const __nv_bfloat162*>(bias + col));
 #pragma unroll
-    for (int mi = 0; mi < kAbMT; ++mi) {
-      const int r0 = 48 * wm + 16 * mi + g, r1 = r0 + 8;
+    for (int mi = 0; mi < P::kMT; ++mi) {
+      const int r0 = kAbRows / 2 * wm + 16 * mi + g, r1 = r0 + 8;
       if (r0 < valid) {
         *reinterpret_cast<uint32_t*>(out + size_t(row0 + r0) * dout + col) =
             pack_bf16(acc[mi][nt][0] + bb.x, acc[mi][nt][1] + bb.y);
@@ -291,8 +296,13 @@ constexpr int kAdChunkF32 = 32;  // output columns per chunk
 template <int D>
 struct AdalnF32Layout {
   static constexpr int kAs = D + 4;  // activation row stride (floats)
+  // parts a w chunk is staged in, by rows of D: at D = 1024 the tile and
+  // a whole chunk do not both fit
+  static constexpr int kParts = D <= 768 ? 1 : 2;
+  static constexpr int kDp = D / kParts;
   static constexpr size_t kBytes =
-      4 * (size_t(kAdTile) * kAs + size_t(D) * kAdChunkF32);
+      4 * (size_t(kAdTile) * kAs + size_t(kDp) * kAdChunkF32);
+  static_assert(kBytes <= 232448, "within an sm_90 block's shared memory");
 };
 
 // Thread (r, cq) = (tid / 8, tid % 8) computes row r of the tile, columns
@@ -330,27 +340,32 @@ __global__ void __launch_bounds__(kAdThreads) adaln_f32_kernel(
     for (int c = 0; c < C; ++c) as[lr * L::kAs + lane * C + c] = a[c];
   }
 
+  constexpr int kDp = L::kDp;
   const int r = tid / 8, cq = tid % 8;
   const float* ar = as + r * L::kAs;
   for (int n0 = 0; n0 < dout; n0 += kAdChunkF32) {
-    __syncthreads();
-    // w chunk [D][32]: ws[d][n] = w[d][n0 + n]
-    for (int i = tid; i < D * (kAdChunkF32 / 4); i += kAdThreads) {
-      const int d = i / (kAdChunkF32 / 4), c = i % (kAdChunkF32 / 4);
-      *reinterpret_cast<float4*>(ws + d * kAdChunkF32 + 4 * c) =
-          *reinterpret_cast<const float4*>(w + size_t(d) * dout + n0 + 4 * c);
-    }
-    __syncthreads();
     float o[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int part = 0; part < L::kParts; ++part) {
+      __syncthreads();  // ws is no longer read
+      // w chunk rows part kDp ..: ws[d][n] = w[part kDp + d][n0 + n]
+      for (int i = tid; i < kDp * (kAdChunkF32 / 4); i += kAdThreads) {
+        const int d = i / (kAdChunkF32 / 4), c = i % (kAdChunkF32 / 4);
+        *reinterpret_cast<float4*>(ws + d * kAdChunkF32 + 4 * c) =
+            *reinterpret_cast<const float4*>(
+                w + size_t(part * kDp + d) * dout + n0 + 4 * c);
+      }
+      __syncthreads();
 #pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      const float a = ar[d];
-      const float4 wv =
-          *reinterpret_cast<const float4*>(ws + d * kAdChunkF32 + 4 * cq);
-      o[0] = fmaf(a, wv.x, o[0]);
-      o[1] = fmaf(a, wv.y, o[1]);
-      o[2] = fmaf(a, wv.z, o[2]);
-      o[3] = fmaf(a, wv.w, o[3]);
+      for (int d = 0; d < kDp; ++d) {
+        const float a = ar[part * kDp + d];
+        const float4 wv =
+            *reinterpret_cast<const float4*>(ws + d * kAdChunkF32 + 4 * cq);
+        o[0] = fmaf(a, wv.x, o[0]);
+        o[1] = fmaf(a, wv.y, o[1]);
+        o[2] = fmaf(a, wv.z, o[2]);
+        o[3] = fmaf(a, wv.w, o[3]);
+      }
     }
     if (row0 + r < rows) {
       const int col = n0 + 4 * cq;
@@ -384,7 +399,8 @@ cudaError_t launch_adaln_bf16(const void* h, const void* scale,
                               const void* ln_bias, const void* w,
                               const void* b, void* out, int rows, int seq_len,
                               int dout, cudaStream_t stream) {
-  const dim3 grid((rows + kAbRows - 1) / kAbRows, dout / NC);
+  constexpr int kRows = AdalnBf16Plan<D, NC>::kRows;
+  const dim3 grid((rows + kRows - 1) / kRows, dout / NC);
   return launch_adaln<decltype(&adaln_bf16_kernel<D, NC>), __nv_bfloat16>(
       &adaln_bf16_kernel<D, NC>, grid, AdalnBf16Plan<D, NC>::kBytes, h,
       scale, shift, ln_scale, ln_bias, w, b, out, rows, seq_len, dout,
@@ -419,8 +435,8 @@ cudaError_t dispatch_adaln(const void* h, const void* scale,
 // b: [Dout]; out: [B, T, Dout]; all contiguous, 16-byte aligned, f32
 // (is_bf16 = 0) or bf16 (is_bf16 = 1); ln_scale, ln_bias: [D] f32. rows =
 // B*T. Returns the CUDA error code of the launch (0 on success); a D other
-// than 256, 512 or 768, or a Dout that is not a positive multiple of 64,
-// returns cudaErrorInvalidValue.
+// than 256, 512, 768 or 1024, or a Dout that is not a positive multiple of
+// 64, returns cudaErrorInvalidValue.
 extern "C" int mdm_adaln_dense(const void* h, const void* scale,
                                const void* shift, const void* ln_scale,
                                const void* ln_bias, const void* w,
@@ -440,6 +456,7 @@ extern "C" int mdm_adaln_dense(const void* h, const void* scale,
   MDM_ADALN_CASE(256)
   MDM_ADALN_CASE(512)
   MDM_ADALN_CASE(768)
+  MDM_ADALN_CASE(1024)
 #undef MDM_ADALN_CASE
   return int(cudaErrorInvalidValue);
 }

@@ -56,11 +56,13 @@
 //           phi(q); the denominator max(sum_m phi(q) phi(k), eps) a warp per
 //           row; phi(q) kv * 0.1 / den on the tensor cores; the output
 //           LayerNorm a warp per row.
-// Shared memory (182 KB at D = m = 128, one CTA per SM) holds the
-// projection and kv in f32 (split on the fly at each fragment load) and the
-// tile's rows, each with a padded leading dimension chosen for the way the
-// products read it (4 mod 32 for an A operand, 8 mod 32 for a B operand or
-// a transposed A: no bank conflicts).
+// Shared memory (113 KB at D = m = 128, two CTAs per SM; 207 KB at D = 256,
+// one) holds the projection and kv in f32 (split on the fly at each fragment
+// load) and the tile's rows, each with a padded leading dimension chosen for
+// the way the products read it (4 mod 32 for an A operand, 8 mod 32 for a B
+// operand or a transposed A: no bank conflicts). At D = 256 each warp's
+// share of kv is 128 accumulators a thread: one CTA an SM, up to 255
+// registers a thread (ops/performer.py::favor_per_sm).
 
 #include <cstddef>
 
@@ -93,6 +95,7 @@ struct FavorSmem {
   static constexpr int kDen = kDenPart + kWarps * kRows;
   static constexpr int kMask = kDen + kRows;
   static constexpr size_t kBytes = sizeof(float) * size_t(kMask + kRows);
+  static_assert(kBytes <= 232448, "within an sm_90 block's shared memory");
 };
 
 // Element strides of one batch row, one head and one sequence step, for
@@ -109,7 +112,7 @@ struct FavorLayout {
 // logits_k, when not null, receive the raw feature logits [B, T, H, M] of
 // the valid rows (the card tests hold the backward's to them).
 template <typename T, int D, int M, bool kNorm, bool kBf16>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kThreads, D <= 128 ? 2 : 1)
     favor_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const float* __restrict__ ln_scale,
                  const float* __restrict__ ln_bias,
@@ -427,8 +430,9 @@ cudaError_t launch_favor_rows(const void* q, const void* k, const void* v,
 }  // namespace mdm
 
 // The (head_dim, num_features) pairs instantiated: those of the config
-// presets small_dense (64, 128), moe_big (96, 128) and moe_small (128, 128).
-#define MDM_FAVOR_SHAPES(X) X(64, 128) X(96, 128) X(128, 128)
+// presets small_dense (64, 128), moe_big (96, 128) and moe_small (128, 128),
+// and of tools/train.py --model_size big (256, 128).
+#define MDM_FAVOR_SHAPES(X) X(64, 128) X(96, 128) X(128, 128) X(256, 128)
 
 // C entry for ctypes, kernel 1. qkv/out: [B, T, 3*H*D] / [B, T, H*D],
 // contiguous, f32 (is_bf16 = 0) or bf16 (is_bf16 = 1); ln_scale, ln_bias:

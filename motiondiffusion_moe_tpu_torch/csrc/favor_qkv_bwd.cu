@@ -43,8 +43,12 @@
 // taken once. d(ln_scale) and d(ln_bias) are per-CTA partials, d(proj) one
 // partial per (b, h), all summed by a second small kernel in a fixed
 // order: no atomics, so repeated runs give identical bits.
-// Shared memory: 206 KB at D = m = 128 (the projection, kv / g_kv, nine row
-// tiles with padded leading dimensions), one CTA per SM.
+// Shared memory: 208 KB at D = m = 128 (the projection, kv / g_kv, nine row
+// tiles with padded leading dimensions), one CTA per SM. At D = 256 the
+// projection and kv do not both fit (375 KB): the products read the
+// projection from device memory (128 KB, L2-resident) and kv is held
+// unpadded, 232 KB in all, with bank conflicts on its reads; a simple
+// first version of that width.
 
 #include <cstddef>
 
@@ -59,17 +63,21 @@ constexpr int kRows = 16;  // rows of T per tile: one mma row tile
 
 template <int D, int M>
 struct BwdSmem {
-  static constexpr int kLdP = M + 8;    // projection [D][M]
-  static constexpr int kLdKv = D + 8;   // kv, g_kv [M][D]; d(proj) [D][M]
+  // the projection staged in shared memory (else read where it lies)
+  static constexpr bool kProjSmem = D <= 128;
+  static constexpr int kLdP = kProjSmem ? M + 8 : M;  // projection [D][M]
+  // kv, g_kv [M][D]; d(proj) [D][M]
+  static constexpr int kLdKv = kProjSmem ? D + 8 : D;
   static constexpr int kLdX = D + 4;    // q2, k2 rows; g_q2 (pass 2)
-  static constexpr int kLdV = D + 8;    // v1 rows; u, g_o (pass 2)
+  // v1 rows; u, g_o (pass 2); g_k2 (pass 3)
+  static constexpr int kLdV = D + 8;
   static constexpr int kLdW = D + 4;    // g_v1 * 0.1 (pass 3)
-  static constexpr int kLdPq = M + 4;   // phi(q); g_k2 (pass 3)
+  static constexpr int kLdPq = M + 4;   // phi(q)
   static constexpr int kLdPk = M + 8;   // masked phi(k)
   static constexpr int kLdDq = M + 4;   // q logits, then dqlin
   static constexpr int kLdDk = M + 4;   // k logits, then dklin (pass 3)
   static constexpr int kP = 0;
-  static constexpr int kKv = kP + D * kLdP;
+  static constexpr int kKv = kP + (kProjSmem ? D * kLdP : 0);
   static constexpr int kQ = kKv + M * kLdKv;
   static constexpr int kK = kQ + kRows * kLdX;
   static constexpr int kV = kK + kRows * kLdX;
@@ -82,6 +90,7 @@ struct BwdSmem {
   static constexpr int kGden = kDen + kRows;
   static constexpr int kMask = kGden + kRows;
   static constexpr size_t kBytes = sizeof(float) * size_t(kMask + kRows);
+  static_assert(kBytes <= 232448, "within an sm_90 block's shared memory");
   static_assert(D * M <= M * kLdKv, "d(proj) fits where g_kv was");
   static_assert(2 * kBwdWarps * D <= 2 * kRows * kLdX, "ds / dc reduction");
 };
@@ -152,7 +161,7 @@ __global__ void __launch_bounds__(kBwdThreads, 1) favor_qkv_bwd_kernel(
   const bool want_dp = dp_part != nullptr;
 
   extern __shared__ __align__(16) float smem[];
-  float* s_p = smem + S::kP;
+  const float* s_p = S::kProjSmem ? smem + S::kP : proj;
   float* s_kv = smem + S::kKv;
   float* s_q = smem + S::kQ;
   float* s_k = smem + S::kK;
@@ -209,10 +218,12 @@ __global__ void __launch_bounds__(kBwdThreads, 1) favor_qkv_bwd_kernel(
     ds_acc[c] = 0.f;
     dc_acc[c] = 0.f;
   }
-  for (int i = threadIdx.x; i < D * M / 4; i += kBwdThreads) {
-    const int e = 4 * i;
-    *reinterpret_cast<float4*>(s_p + (e / M) * S::kLdP + e % M) =
-        reinterpret_cast<const float4*>(proj)[i];
+  if constexpr (S::kProjSmem) {
+    for (int i = threadIdx.x; i < D * M / 4; i += kBwdThreads) {
+      const int e = 4 * i;
+      *reinterpret_cast<float4*>(smem + S::kP + (e / M) * S::kLdP + e % M) =
+          reinterpret_cast<const float4*>(proj)[i];
+    }
   }
 
   // One warp stages rows 2 warp and 2 warp + 1 of a tile: loaded
@@ -588,7 +599,7 @@ __global__ void __launch_bounds__(kBwdThreads, 1) favor_qkv_bwd_kernel(
       }
     }
     __syncthreads();
-    // g_k2 = dklin proj^T into s_pq
+    // g_k2 = dklin proj^T into s_v (D wide; v1 is no longer read)
     for (int j0 = NO * warp; j0 < D / 8; j0 += NO * kBwdWarps) {
       float o[NO][4];
       zero(o);
@@ -599,7 +610,7 @@ __global__ void __launch_bounds__(kBwdThreads, 1) favor_qkv_bwd_kernel(
       for (int j = 0; j < NO; ++j) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          s_pq[(gq + (e >> 1) * 8) * S::kLdPq + 8 * (j0 + j) + 2 * tq +
+          s_v[(gq + (e >> 1) * 8) * S::kLdV + 8 * (j0 + j) + 2 * tq +
                (e & 1)] = o[j][e];
         }
       }
@@ -628,7 +639,7 @@ __global__ void __launch_bounds__(kBwdThreads, 1) favor_qkv_bwd_kernel(
       ln_recompute<T, CD>(k_base + size_t(t) * row_stride, st_k[r], gS, bS,
                           pre_scale, lane, z, y);
 #pragma unroll
-      for (int c = 0; c < CD; ++c) g2[c] = s_pq[row * S::kLdPq + lane + 32 * c];
+      for (int c = 0; c < CD; ++c) g2[c] = s_v[row * S::kLdV + lane + 32 * c];
       l2_bwd_row<CD>(g2, y, st_k[r], g1);
       layer_norm_bwd_row<CD>(g1, z, gS, st_k[r].inv, g0, ds_acc, dc_acc);
       T* dst = dk_base + size_t(t) * row_stride;
@@ -826,6 +837,7 @@ extern "C" int mdm_favor_qkv_bwd(const void* qkv, const void* ln_scale,
   MDM_FAVOR_BWD_CASE(64, 128)
   MDM_FAVOR_BWD_CASE(96, 128)
   MDM_FAVOR_BWD_CASE(128, 128)
+  MDM_FAVOR_BWD_CASE(256, 128)
 #undef MDM_FAVOR_BWD_CASE
 #undef MDM_FAVOR_BWD_LAUNCH
   return int(cudaErrorInvalidValue);

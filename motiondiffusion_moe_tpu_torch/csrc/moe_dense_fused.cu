@@ -60,11 +60,14 @@
 // one store; rows past S are zeros in and are not stored. Shared memory:
 // the x tile, the h chunk, the slots and the combine weights in f32:
 // 173.25 KB at D = 512 (E = 4, C = 256), 185.5 KB at D = 768 (E = 16,
-// C = 128), at most 194.5 KB (E = 64). No atomics: each output is one
-// fixed sequence of mma, the same bits on every call.
+// C = 128), at most 194.5 KB (E = 64). At D = 1024 the tile is 32 tokens
+// (2 m-tiles, 128 accumulators a thread; 48 tokens would need 192), 202 KB
+// at E = 4. No atomics: each output is one fixed sequence of mma, the same
+// bits on every call.
 //
 // f32 design: 32-token tiles, IEEE f32 FMAs (not TF32, so the f32 parity
-// holds), the weight chunks staged by the threads themselves.
+// holds), the weight chunks staged by the threads themselves (at D = 1024,
+// where the x tile and a whole chunk do not both fit, in two parts).
 
 #include <cstddef>
 #include <cstdint>
@@ -85,9 +88,6 @@ __device__ __forceinline__ float gelu_tanh(float x) {
 
 // ---------------------------------------------------------------- bf16
 
-constexpr int kMT = 3;         // 16-token m-tiles per block
-constexpr int kTok = 16 * kMT;  // tokens per block
-
 // The tile and the ring for one D and chunk width C (hidden columns per
 // chunk). C = 256 where the output accumulator leaves room for the first
 // product's (D <= 512, 48 + 96 floats a thread) and E*hid is a multiple of
@@ -95,6 +95,8 @@ constexpr int kTok = 16 * kMT;  // tokens per block
 // 768, where the x tile is larger, ~16-24 KB panels in 4 slots.
 template <int D, int C>
 struct MoeBf16Plan {
+  static constexpr int kMT = D <= 768 ? 3 : 2;  // 16-token m-tiles per block
+  static constexpr int kTok = 16 * kMT;         // tokens per block
   static constexpr bool kWide = D > 512;
   static_assert(C == 128 || !kWide, "C = 256 only up to D = 512");
   static constexpr int kStages = kWide ? 4 : 3;      // slots of the ring
@@ -126,6 +128,7 @@ __global__ void __launch_bounds__(kMoeThreads, 1) moe_bf16_kernel(
     const __nv_bfloat16* __restrict__ w2, const __nv_bfloat16* __restrict__ b2,
     __nv_bfloat16* __restrict__ out, int S, int E, int hid) {
   using P = MoeBf16Plan<D, C>;
+  constexpr int kMT = P::kMT, kTok = P::kTok;
   constexpr int kStages = P::kStages, kW1Rows = P::kW1Rows;
   constexpr int kW2Rows = P::kW2Rows;
   constexpr int kNT1 = C / 64, kNT2 = D / 64;  // n-tiles of a warp
@@ -274,15 +277,20 @@ template <int D>
 struct MoeF32Layout {
   static constexpr int kXs = D + 4;  // x tile row stride (floats)
   static constexpr int kHs = kChunkF32 + 1;
+  // parts a weight chunk is staged in (W1 by rows of D, W2 by columns):
+  // at D = 1024 the x tile and a whole chunk do not both fit
+  static constexpr int kParts = D <= 768 ? 1 : 2;
+  static constexpr int kDp = D / kParts;
   static constexpr size_t bytes(int experts) {
-    return 4 * (size_t(kMoeTile) * kXs + size_t(D) * kChunkF32 +
+    return 4 * (size_t(kMoeTile) * kXs + size_t(kDp) * kChunkF32 +
                 size_t(kMoeTile) * kHs + size_t(kMoeTile) * experts);
   }
 };
 
 // Thread (r, cq) = (tid / 8, tid % 8) owns token row r of the tile: in the
 // first product hidden columns 4cq .. 4cq+3 of the chunk, in the second the
-// output columns 4cq + 32v .. +3 for v < D/32.
+// output columns 4cq + 32v .. +3 for v < D/32. Each sum is one sequential
+// FMA chain, whatever the parts.
 template <int D>
 __global__ void __launch_bounds__(kMoeThreads) moe_f32_kernel(
     const float* __restrict__ x, const float* __restrict__ combine,
@@ -290,10 +298,11 @@ __global__ void __launch_bounds__(kMoeThreads) moe_f32_kernel(
     const float* __restrict__ w2, const float* __restrict__ b2,
     float* __restrict__ out, int S, int E, int hid) {
   using L = MoeF32Layout<D>;
+  constexpr int kParts = L::kParts, kDp = L::kDp;
   extern __shared__ __align__(16) float fsmem[];
   float* xs = fsmem;
   float* ws = xs + kMoeTile * L::kXs;
-  float* hs = ws + D * kChunkF32;
+  float* hs = ws + kDp * kChunkF32;
   float* cs = hs + kMoeTile * L::kHs;
 
   const int tid = threadIdx.x, r = tid / 8, cq = tid % 8;
@@ -312,6 +321,7 @@ __global__ void __launch_bounds__(kMoeThreads) moe_f32_kernel(
   }
 
   constexpr int kV = D / 32;
+  constexpr int kVp = kV / kParts;  // output column groups of a part
   float acc[kV][4];
 #pragma unroll
   for (int v = 0; v < kV; ++v) {
@@ -321,26 +331,30 @@ __global__ void __launch_bounds__(kMoeThreads) moe_f32_kernel(
 
   for (int j0 = 0; j0 < E * hid; j0 += kChunkF32) {
     const int e = j0 / hid, h0 = j0 % hid;
-    __syncthreads();
-    // W1 chunk [D][32]: ws[d][n] = w1[e][d][h0 + n]
+    // W1 chunk rows part kDp ..: ws[d][n] = w1[e][part kDp + d][h0 + n]
     const float* w1e = w1 + size_t(e) * D * hid + h0;
-    for (int i = tid; i < D * (kChunkF32 / 4); i += kMoeThreads) {
-      const int d = i / (kChunkF32 / 4), c = i % (kChunkF32 / 4);
-      *reinterpret_cast<float4*>(ws + d * kChunkF32 + 4 * c) =
-          *reinterpret_cast<const float4*>(w1e + size_t(d) * hid + 4 * c);
-    }
-    __syncthreads();
-    float h[4] = {0.f, 0.f, 0.f, 0.f};
     const float* xr = xs + r * L::kXs;
+    float h[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int part = 0; part < kParts; ++part) {
+      __syncthreads();  // ws is no longer read
+      for (int i = tid; i < kDp * (kChunkF32 / 4); i += kMoeThreads) {
+        const int d = i / (kChunkF32 / 4), c = i % (kChunkF32 / 4);
+        *reinterpret_cast<float4*>(ws + d * kChunkF32 + 4 * c) =
+            *reinterpret_cast<const float4*>(
+                w1e + size_t(part * kDp + d) * hid + 4 * c);
+      }
+      __syncthreads();
 #pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      const float a = xr[d];
-      const float4 w = *reinterpret_cast<const float4*>(ws + d * kChunkF32 +
-                                                        4 * cq);
-      h[0] = fmaf(a, w.x, h[0]);
-      h[1] = fmaf(a, w.y, h[1]);
-      h[2] = fmaf(a, w.z, h[2]);
-      h[3] = fmaf(a, w.w, h[3]);
+      for (int d = 0; d < kDp; ++d) {
+        const float a = xr[part * kDp + d];
+        const float4 w =
+            *reinterpret_cast<const float4*>(ws + d * kChunkF32 + 4 * cq);
+        h[0] = fmaf(a, w.x, h[0]);
+        h[1] = fmaf(a, w.y, h[1]);
+        h[2] = fmaf(a, w.z, h[2]);
+        h[3] = fmaf(a, w.w, h[3]);
+      }
     }
     const float cw = cs[r * E + e];
 #pragma unroll
@@ -348,25 +362,31 @@ __global__ void __launch_bounds__(kMoeThreads) moe_f32_kernel(
       const float bias = b1[size_t(e) * hid + h0 + 4 * cq + c];
       hs[r * L::kHs + 4 * cq + c] = gelu_tanh(h[c] + bias) * cw;
     }
-    __syncthreads();
-    // W2 chunk [32][D]: ws[k][n] = w2[e][h0 + k][n]
+    // W2 chunk columns part kDp ..: ws[k][n] = w2[e][h0 + k][part kDp + n]
     const float* w2e = w2 + (size_t(e) * hid + h0) * D;
-    for (int i = tid; i < kChunkF32 * (D / 4); i += kMoeThreads) {
-      reinterpret_cast<float4*>(ws)[i] =
-          reinterpret_cast<const float4*>(w2e)[i];
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int k = 0; k < kChunkF32; ++k) {
-      const float a = hs[r * L::kHs + k];
 #pragma unroll
-      for (int v = 0; v < kV; ++v) {
-        const float4 w = *reinterpret_cast<const float4*>(ws + k * D + 4 * cq +
-                                                          32 * v);
-        acc[v][0] = fmaf(a, w.x, acc[v][0]);
-        acc[v][1] = fmaf(a, w.y, acc[v][1]);
-        acc[v][2] = fmaf(a, w.z, acc[v][2]);
-        acc[v][3] = fmaf(a, w.w, acc[v][3]);
+    for (int part = 0; part < kParts; ++part) {
+      __syncthreads();  // h is written and ws no longer read
+      for (int i = tid; i < kChunkF32 * (kDp / 4); i += kMoeThreads) {
+        const int k = i / (kDp / 4), c = i % (kDp / 4);
+        *reinterpret_cast<float4*>(ws + k * kDp + 4 * c) =
+            *reinterpret_cast<const float4*>(w2e + size_t(k) * D +
+                                             part * kDp + 4 * c);
+      }
+      __syncthreads();
+#pragma unroll 4
+      for (int k = 0; k < kChunkF32; ++k) {
+        const float a = hs[r * L::kHs + k];
+#pragma unroll
+        for (int v = 0; v < kVp; ++v) {
+          const float4 w = *reinterpret_cast<const float4*>(
+              ws + k * kDp + 4 * cq + 32 * v);
+          float(&o)[4] = acc[part * kVp + v];
+          o[0] = fmaf(a, w.x, o[0]);
+          o[1] = fmaf(a, w.y, o[1]);
+          o[2] = fmaf(a, w.z, o[2]);
+          o[3] = fmaf(a, w.w, o[3]);
+        }
       }
     }
   }
@@ -413,16 +433,24 @@ cudaError_t dispatch_moe(const void* x, const void* combine, const void* w1,
                          const void* b1, const void* w2, const void* b2,
                          void* out, int S, int E, int hid, int is_bf16,
                          cudaStream_t stream) {
+  // within an sm_90 block's shared memory at the most experts
+  static_assert(MoeBf16Plan<D, 128>::bytes(kMaxExperts) <= 232448 &&
+                    MoeF32Layout<D>::bytes(kMaxExperts) <= 232448,
+                "shared memory");
   if (is_bf16) {
     if constexpr (D <= 512) {
+      static_assert(MoeBf16Plan<D, 256>::bytes(kMaxExperts) <= 232448,
+                    "shared memory");
       if (E * hid % 256 == 0) {
         return launch_moe<decltype(&moe_bf16_kernel<D, 256>), __nv_bfloat16>(
-            &moe_bf16_kernel<D, 256>, kTok, MoeBf16Plan<D, 256>::bytes(E), x,
+            &moe_bf16_kernel<D, 256>, MoeBf16Plan<D, 256>::kTok,
+            MoeBf16Plan<D, 256>::bytes(E), x,
             combine, w1, b1, w2, b2, out, S, E, hid, stream);
       }
     }
     return launch_moe<decltype(&moe_bf16_kernel<D, 128>), __nv_bfloat16>(
-        &moe_bf16_kernel<D, 128>, kTok, MoeBf16Plan<D, 128>::bytes(E), x,
+        &moe_bf16_kernel<D, 128>, MoeBf16Plan<D, 128>::kTok,
+        MoeBf16Plan<D, 128>::bytes(E), x,
         combine, w1, b1, w2, b2, out, S, E, hid, stream);
   }
   return launch_moe<decltype(&moe_f32_kernel<D>), float>(
@@ -437,8 +465,8 @@ cudaError_t dispatch_moe(const void* x, const void* combine, const void* w1,
 // b1: [E, hid]; w2: [E, hid, D]; b2: [E, D]; out: [S, D]; all contiguous,
 // 16-byte aligned, f32 (is_bf16 = 0) or bf16 (is_bf16 = 1). Returns the CUDA
 // error code of the launch (0 on success); a D other than the instantiated
-// multiples of 128 up to 768, hid not a multiple of 128, or E outside
-// [1, 64] return cudaErrorInvalidValue.
+// multiples of 128 up to 768 and 1024, hid not a multiple of 128, or E
+// outside [1, 64] return cudaErrorInvalidValue.
 extern "C" int mdm_moe_dense_fused(const void* x, const void* combine,
                                    const void* w1, const void* b1,
                                    const void* w2, const void* b2, void* out,
@@ -460,6 +488,7 @@ extern "C" int mdm_moe_dense_fused(const void* x, const void* combine,
   MDM_MOE_CASE(512)
   MDM_MOE_CASE(640)
   MDM_MOE_CASE(768)
+  MDM_MOE_CASE(1024)
 #undef MDM_MOE_CASE
   return int(cudaErrorInvalidValue);
 }

@@ -307,7 +307,7 @@ cudaError_t launch_epilogue(const void* y, const void* scale,
 }  // namespace
 }  // namespace mdm
 
-// The instantiated widths (D = 32 V): 256, 512, 768, in f32 and bf16.
+// The instantiated widths (D = 32 V): 256, 512, 768, 1024, in f32 and bf16.
 #define MDM_EPILOGUE_DISPATCH(CALL)                                       \
   if (dim == 256) {                                                       \
     return int(is_bf16 ? CALL(__nv_bfloat16, 8) : CALL(float, 8));        \
@@ -317,6 +317,9 @@ cudaError_t launch_epilogue(const void* y, const void* scale,
   }                                                                       \
   if (dim == 768) {                                                       \
     return int(is_bf16 ? CALL(__nv_bfloat16, 24) : CALL(float, 24));      \
+  }                                                                       \
+  if (dim == 1024) {                                                      \
+    return int(is_bf16 ? CALL(__nv_bfloat16, 32) : CALL(float, 32));      \
   }
 
 // Blocks of the kernel an SM holds at once for this width and dtype, in

@@ -41,9 +41,11 @@
 //     (1 + scale[b]) sum dh4 z3, d(style_bias) = (1 + scale[b]) sum dh4.
 //     The row itself lives in three arrays (z1, z3, the running gradient);
 //     h1 is recomputed from z1 where needed, so nothing spills at
-//     D = 512. In bf16 up to D = 512 the next row's y and g are loaded
-//     while this one is computed. The sigmoid takes the fast exp and
-//     divide (a few f32 ulps).
+//     D = 512. At D = 1024 the same design holds more values than a
+//     thread's 255 registers, and ptxas puts the rest in local memory: a
+//     simple first version of that width. In bf16 up to D = 512 the next
+//     row's y and g are loaded while this one is computed. The sigmoid
+//     takes the fast exp and divide (a few f32 ulps).
 //   - The block adds its warps' sums in warp order in shared memory and
 //     forms the six partials. The cluster then adds its blocks' partials in
 //     rank order through distributed shared memory, each rank a slice:
@@ -503,6 +505,7 @@ extern "C" int mdm_performer_epilogue_bwd_cluster(int batch, int seq_len,
   MDM_EPILOGUE_BWD_DISPATCH(256, MDM_CLUSTER_CALL)
   MDM_EPILOGUE_BWD_DISPATCH(512, MDM_CLUSTER_CALL)
   MDM_EPILOGUE_BWD_DISPATCH(768, MDM_CLUSTER_CALL)
+  MDM_EPILOGUE_BWD_DISPATCH(1024, MDM_CLUSTER_CALL)
 #undef MDM_CLUSTER_CALL
   return int(cudaErrorInvalidValue);
 }
@@ -529,6 +532,7 @@ extern "C" int mdm_performer_epilogue_bwd(
   MDM_EPILOGUE_BWD_DISPATCH(256, MDM_LAUNCH_CALL)
   MDM_EPILOGUE_BWD_DISPATCH(512, MDM_LAUNCH_CALL)
   MDM_EPILOGUE_BWD_DISPATCH(768, MDM_LAUNCH_CALL)
+  MDM_EPILOGUE_BWD_DISPATCH(1024, MDM_LAUNCH_CALL)
 #undef MDM_LAUNCH_CALL
   return int(cudaErrorInvalidValue);
 }

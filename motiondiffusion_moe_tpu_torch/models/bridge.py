@@ -1,9 +1,13 @@
-"""Weight bridge: a flax parameter tree -> the port's ``state_dict``.
+"""Weight bridge: a flax parameter tree <-> the port's ``state_dict``.
 
-Input: the ``params`` collection of a ``MotionTransformer`` as nested dicts
-of numpy arrays (what ``jax.device_get(variables["params"])`` gives; this
-module never imports JAX). A tree in the stacked ``scan_blocks`` layout
-(``blocks_low/block/...`` with a leading layer axis) is unstacked first.
+Input of :func:`jax_to_state_dict`: the ``params`` collection of a
+``MotionTransformer`` as nested dicts of numpy arrays (what
+``jax.device_get(variables["params"])`` gives; this module never imports
+JAX). A tree in the stacked ``scan_blocks`` layout (``blocks_low/block/...``
+with a leading layer axis) is unstacked first. A bf16 leaf (a
+``torch.bfloat16`` tensor, as ``utils/flax_msgpack.py`` reads one, or a
+numpy array of JAX's bf16 dtype) stays bf16; every other leaf becomes f32.
+:func:`state_dict_to_jax` is the inverse, into the named layout.
 
 Mapping rules (each one is pinned by ``tests/test_torch_bridge.py``):
 
@@ -45,6 +49,11 @@ import numpy as np
 import torch
 from torch import nn
 
+from motiondiffusion_moe_tpu_torch.utils.flax_msgpack import (
+    bf16_words,
+    is_bf16,
+)
+
 _MHA_PARTS = ("query", "key", "value", "out")
 
 
@@ -65,26 +74,41 @@ def unstack_block_params(params: Mapping) -> dict:
     return p
 
 
+def _leaf(x):
+    """A leaf as an array: torch tensors as they are, the rest as numpy."""
+    return x if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
 def _first_leaf(tree):
     while isinstance(tree, Mapping):
         tree = next(iter(tree.values()))
-    return np.asarray(tree)
+    return _leaf(tree)
 
 
 def _map_leaves(tree, fn):
     if isinstance(tree, Mapping):
         return {k: _map_leaves(v, fn) for k, v in tree.items()}
-    return fn(np.asarray(tree))
+    return fn(_leaf(tree))
 
 
-def _flatten(tree: Mapping, prefix=()) -> Dict[tuple, np.ndarray]:
+def _flatten(tree: Mapping, prefix=()) -> Dict[tuple, object]:
     out = {}
     for k, v in tree.items():
         if isinstance(v, Mapping):
             out.update(_flatten(v, prefix + (k,)))
         else:
-            out[prefix + (k,)] = np.asarray(v)
+            out[prefix + (k,)] = _leaf(v)
     return out
+
+
+def _widened(leaf) -> np.ndarray:
+    """A leaf as f32 numpy; a bf16 leaf widened exactly (its 16 bits become
+    the top half of the f32 word)."""
+    if is_bf16(leaf):
+        return (bf16_words(leaf).astype(np.uint32) << 16).view(np.float32)
+    if isinstance(leaf, torch.Tensor):
+        leaf = leaf.detach().cpu().numpy()
+    return np.array(leaf, dtype=np.float32)
 
 
 def _module_name(part: str) -> str:
@@ -126,16 +150,90 @@ def convert_leaf(path: tuple, leaf: np.ndarray):
 
 def jax_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
     """The port's ``MotionTransformer`` state_dict for a flax ``params``
-    tree (named or stacked layout). Load it with
+    tree (named or stacked layout): f32 tensors, and bf16 ones for the bf16
+    leaves (the same bits). Load it with
     ``model.load_state_dict(sd, strict=True)``, which also checks that
-    every parameter was covered."""
+    every parameter was covered (and widens bf16 into an f32 module; keep
+    the bf16 storage with ``GenerationPipeline.set_params``)."""
     if "params" in params:  # a whole variables dict
         params = params["params"]
     sd = {}
     for path, leaf in _flatten(unstack_block_params(params)).items():
-        key, x = convert_leaf(path, leaf)
-        sd[key] = torch.from_numpy(np.array(x, dtype=np.float32))
+        key, x = convert_leaf(path, _widened(leaf))
+        t = torch.from_numpy(np.array(x, dtype=np.float32))
+        sd[key] = t.to(torch.bfloat16) if is_bf16(leaf) else t
     return sd
+
+
+def _flax_parts(key: str) -> list:
+    """A state_dict key's module path in the flax tree: ``blocks_low.3`` ->
+    ``block_low_3``."""
+    out = []
+    for p in key.split(".") if key else ():
+        if p.isdigit() and out and out[-1] in ("blocks_low", "blocks_high"):
+            out[-1] = f"block_{out[-1][len('blocks_'):]}_{p}"
+        else:
+            out.append(p)
+    return out
+
+
+def state_dict_to_jax(sd: Mapping[str, torch.Tensor], cfg) -> dict:
+    """The flax ``params`` tree (named layout) of a port ``MotionTransformer``
+    state_dict: the inverse of :func:`jax_to_state_dict`, case by case of
+    :func:`convert_leaf`. ``cfg`` (a ``ModelConfig`` or an
+    ``ExperimentConfig``) gives the module of each key, built on the meta
+    device: a ``Conv1d`` / ``ConvTranspose1d`` weight goes back to the flax
+    ``[k, in, out]`` kernel (the transposed one flipped back), a text
+    encoder attention part's weight and bias to the ``DenseGeneral`` shapes
+    of its head count, a LayerNorm weight to ``scale``, an ``Embedding``'s
+    to ``embedding``, any other weight to the transposed ``kernel``. Leaves
+    are f32 numpy arrays, and ``torch.bfloat16`` tensors (CPU, contiguous)
+    where the state_dict holds bf16."""
+    from motiondiffusion_moe_tpu_torch.models.layers import LayerNorm
+    from motiondiffusion_moe_tpu_torch.models.text_encoder import (
+        MultiHeadDotProductAttention)
+    from motiondiffusion_moe_tpu_torch.models.transformer import (
+        MotionTransformer)
+
+    cfg = getattr(cfg, "model", cfg)
+    with torch.device("meta"):
+        model = MotionTransformer(cfg, use_kernels=False)
+    modules = dict(model.named_modules())
+    tree: dict = {}
+    for key, value in sd.items():
+        mod_name, _, name = key.rpartition(".")
+        module = modules[mod_name]
+        parent = modules.get(mod_name.rpartition(".")[0])
+        x = value.detach().cpu()
+        mha = (isinstance(parent, MultiHeadDotProductAttention)
+               and mod_name.rpartition(".")[2] in _MHA_PARTS)
+        if name == "weight":
+            if isinstance(module, nn.ConvTranspose1d):
+                name, x = "kernel", x.permute(2, 0, 1).flip(0)
+            elif isinstance(module, nn.Conv1d):
+                name, x = "kernel", x.permute(2, 1, 0)
+            elif isinstance(module, nn.Embedding):
+                name = "embedding"
+            elif isinstance(module, LayerNorm):
+                name = "scale"
+            elif mha:
+                H = parent.num_heads
+                name = "kernel"
+                if mod_name.endswith(".out"):   # [D, H*dh] -> [H, dh, D]
+                    x = x.T.reshape(H, -1, x.shape[0])
+                else:                           # [H*dh, D] -> [D, H, dh]
+                    x = x.T.reshape(x.shape[1], H, -1)
+            else:
+                name, x = "kernel", x.T
+        elif name == "bias" and mha and not mod_name.endswith(".out"):
+            x = x.reshape(parent.num_heads, -1)  # [H*dh] -> [H, dh]
+        x = x.contiguous()
+        leaf = x if x.dtype == torch.bfloat16 else x.float().numpy()
+        node = tree
+        for part in _flax_parts(mod_name):
+            node = node.setdefault(part, {})
+        node[name] = leaf
+    return tree
 
 
 # fused Performer leaf -> its place in the unfused twin

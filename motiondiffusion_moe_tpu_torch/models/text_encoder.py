@@ -128,14 +128,17 @@ class HashTextEncoder(nn.Module):
                 ctx: Optional[TrainContext] = None) -> TextEncoding:
         B, N = ids.shape
         ids = ids.long()
-        h = self.embed(ids) + self.pos_embed[None, :N]
+        # f32 throughout, as the flax module (dtype float32) promotes its
+        # parameters: bf16-stored weights are widened, never added in bf16
+        h = self.embed(ids).float() + self.pos_embed[None, :N].float()
         key_mask = ids != 0
         for i in range(self.num_layers):
             h = h + getattr(self, f"attn_{i}")(getattr(self, f"ln1_{i}")(h),
                                                key_mask, ctx)
             f = getattr(self, f"mlp_{i}_0")(getattr(self, f"ln2_{i}")(h))
             h = h + getattr(self, f"mlp_{i}_1")(gelu(f))
-        h = torch.cat([self.prompt_tokens.expand(B, -1, -1), h], dim=1)
+        h = torch.cat([self.prompt_tokens.float().expand(B, -1, -1), h],
+                      dim=1)
         p = self.proj_dense(self.proj_norm(h))
         p = gelu(dropout(p, self.dropout, self.training, ctx))
         return TextEncoding(pooled=p.mean(dim=1), tokens=p)

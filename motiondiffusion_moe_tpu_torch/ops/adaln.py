@@ -39,8 +39,16 @@ from motiondiffusion_moe_tpu_torch.ops.performer import (
 )
 
 # latent widths the CUDA library is instantiated for (small_dense 256,
-# moe_small 512, moe_big 768); Dout must be a multiple of 64
-ADALN_DIMS = {256, 512, 768}
+# moe_small 512, moe_big 768, tools/train.py --model_size big 1024); Dout
+# must be a multiple of 64
+ADALN_DIMS = {256, 512, 768, 1024}
+
+
+def adaln_kernel_ok(D: int, Dout: int) -> bool:
+    """Whether the CUDA library has an instance of kernel 7 for input width
+    ``D`` and output width ``Dout``; the wrapper raises on a CUDA tensor
+    outside it."""
+    return D in ADALN_DIMS and Dout > 0 and Dout % 64 == 0
 
 
 def adaln_dense_plain(h: torch.Tensor, scale: torch.Tensor,
@@ -65,17 +73,18 @@ def adaln_dense_plain(h: torch.Tensor, scale: torch.Tensor,
 
 def _launch(h, scale, shift, ln_scale, ln_bias, w, b) -> torch.Tensor:
     op = "adaln_dense"
-    _require(h.device.type == "cuda", f"{op}: unsupported device {h.device}")
     _require(h.dim() == 3 and h.dtype in _KERNEL_DTYPES,
              f"{op}: h must be a [B, T, D] float32 or bfloat16 tensor, got "
              f"{h.dtype} {tuple(h.shape)}")
     B, T, D = h.shape
-    _require(D in ADALN_DIMS, f"{op}: D={D} not in {sorted(ADALN_DIMS)}")
     _require(w.dim() == 2 and w.shape[0] == D,
              f"{op}: w must be [{D}, Dout], got {tuple(w.shape)}")
     Dout = w.shape[1]
-    _require(B > 0 and T > 0 and Dout > 0 and Dout % 64 == 0,
-             f"{op}: empty input or Dout={Dout} not a multiple of 64")
+    _require(adaln_kernel_ok(D, Dout),
+             f"{op}: D={D} not in {sorted(ADALN_DIMS)} or Dout={Dout} not a "
+             "positive multiple of 64")
+    _require(B > 0 and T > 0, f"{op}: empty input")
+    _require(h.device.type == "cuda", f"{op}: unsupported device {h.device}")
     for name, t, shape in (("h", h, (B, T, D)), ("scale", scale, (B, D)),
                            ("shift", shift, (B, D)), ("w", w, (D, Dout)),
                            ("b", b, (Dout,))):

@@ -46,6 +46,14 @@ from motiondiffusion_moe_tpu_torch.ops.performer import (
 # head dims the CUDA library is instantiated for (small_dense 64, moe_big
 # 96, moe_small 128)
 XATTN_HEAD_DIMS = {64, 96, 128}
+
+
+def xattn_kernel_ok(head_dim: int) -> bool:
+    """Whether the CUDA library has an instance of kernels 6 and 9 for
+    ``head_dim``; the wrappers raise on a CUDA tensor outside it."""
+    return head_dim in XATTN_HEAD_DIMS
+
+
 # shared memory one block of an sm_90 card may opt into
 MAX_SMEM_PER_BLOCK = 232448
 
@@ -69,16 +77,16 @@ def xattn_fastlayout_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _check(q, k, v, num_heads):
     """Validate the kernel's inputs; returns (B, T, N, H, D)."""
-    _require(q.device.type == "cuda", f"xattn_fastlayout: unsupported "
-                                      f"device {q.device}")
     _require(q.dim() == 3 and q.dtype in _KERNEL_DTYPES,
              f"xattn_fastlayout: q must be a [B, T, H*D] float32 or bfloat16 "
              f"tensor, got {q.dtype} {tuple(q.shape)}")
     B, T, HD = q.shape
     H = num_heads
-    _require(H > 0 and HD % H == 0 and HD // H in XATTN_HEAD_DIMS,
+    _require(H > 0 and HD % H == 0 and xattn_kernel_ok(HD // H),
              f"xattn_fastlayout: head dim {HD}/{H} not in "
              f"{sorted(XATTN_HEAD_DIMS)}")
+    _require(q.device.type == "cuda", f"xattn_fastlayout: unsupported "
+                                      f"device {q.device}")
     _require(k.dim() == 3 and k.shape[0] == B and k.shape[2] == HD,
              f"xattn_fastlayout: k must be [{B}, N, {HD}], got "
              f"{tuple(k.shape)}")
@@ -184,13 +192,13 @@ def flash_cross_attention_plain(q: torch.Tensor, k: torch.Tensor,
 
 def _launch_flash(q, k, v, scale, block_n) -> torch.Tensor:
     op = "flash_cross_attention"
-    _require(q.device.type == "cuda", f"{op}: unsupported device {q.device}")
     _require(q.dim() == 4 and q.dtype in _KERNEL_DTYPES,
              f"{op}: q must be a [B, H, T, D] float32 or bfloat16 tensor, "
              f"got {q.dtype} {tuple(q.shape)}")
     B, H, T, D = q.shape
-    _require(D in XATTN_HEAD_DIMS,
+    _require(xattn_kernel_ok(D),
              f"{op}: head dim {D} not in {sorted(XATTN_HEAD_DIMS)}")
+    _require(q.device.type == "cuda", f"{op}: unsupported device {q.device}")
     _require(k.dim() == 4 and k.shape[:2] == (B, H) and k.shape[3] == D,
              f"{op}: k must be [{B}, {H}, N, {D}], got {tuple(k.shape)}")
     N = k.shape[2]

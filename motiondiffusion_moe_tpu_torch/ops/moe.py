@@ -36,10 +36,19 @@ from motiondiffusion_moe_tpu_torch.ops.performer import (
 )
 
 # latent widths the CUDA library is instantiated for (multiples of 128 up
-# to moe_big's 768); the hidden width must be a multiple of 128, as the JAX
-# package's condition for the kernel asks (models/moe.py:145)
-MOE_DIMS = {128, 256, 384, 512, 640, 768}
+# to moe_big's 768, and tools/train.py --model_size big's 1024); the hidden
+# width must be a multiple of 128, as the JAX package's condition for the
+# kernel asks (models/moe.py:145)
+MOE_DIMS = {128, 256, 384, 512, 640, 768, 1024}
 MOE_MAX_EXPERTS = 64
+
+
+def moe_kernel_ok(D: int, hid: int, num_experts: int) -> bool:
+    """Whether the CUDA library has an instance of kernel 5 for width
+    ``D``, expert hidden width ``hid`` and ``num_experts`` experts; the
+    wrapper raises on a CUDA tensor outside it."""
+    return (D in MOE_DIMS and hid > 0 and hid % 128 == 0
+            and 0 < num_experts <= MOE_MAX_EXPERTS)
 
 
 def moe_dense_fused_plain(x: torch.Tensor, combine: torch.Tensor,
@@ -65,21 +74,19 @@ def moe_dense_fused_plain(x: torch.Tensor, combine: torch.Tensor,
 
 def _check(x, combine, w1, b1, w2, b2):
     """Validate the kernel's inputs; returns (S, D, E, hid)."""
-    _require(x.device.type == "cuda", f"moe_dense_fused: unsupported device "
-                                      f"{x.device}")
     _require(x.dim() == 2 and x.dtype in _KERNEL_DTYPES,
              f"moe_dense_fused: x must be a [S, D] float32 or bfloat16 "
              f"tensor, got {x.dtype} {tuple(x.shape)}")
     _require(w1.dim() == 3, "moe_dense_fused: w1 must be [E, D, hid]")
     S, D = x.shape
     E, _, hid = w1.shape
-    _require(D in MOE_DIMS, f"moe_dense_fused: D={D} not in "
-                            f"{sorted(MOE_DIMS)}")
-    _require(hid > 0 and hid % 128 == 0,
-             f"moe_dense_fused: hid={hid} is not a multiple of 128")
-    _require(0 < E <= MOE_MAX_EXPERTS and S > 0,
-             f"moe_dense_fused: E={E} outside [1, {MOE_MAX_EXPERTS}] or "
-             f"S={S} empty")
+    _require(moe_kernel_ok(D, hid, E),
+             f"moe_dense_fused: D={D} not in {sorted(MOE_DIMS)}, hid={hid} "
+             f"not a multiple of 128 or E={E} outside [1, "
+             f"{MOE_MAX_EXPERTS}]")
+    _require(S > 0, "moe_dense_fused: empty input")
+    _require(x.device.type == "cuda", f"moe_dense_fused: unsupported device "
+                                      f"{x.device}")
     for name, t, shape in (("x", x, (S, D)), ("combine", combine, (S, E)),
                            ("w1", w1, (E, D, hid)), ("b1", b1, (E, hid)),
                            ("w2", w2, (E, hid, D)), ("b2", b2, (E, D))):

@@ -57,10 +57,24 @@ LN_EPS = 1e-6  # flax.linen.LayerNorm default, as in the JAX ops
 # (head_dim, num_features) pairs and epilogue widths the CUDA library is
 # instantiated for (see the C entries in csrc/): those of the config presets
 # moe_small (128, 128; 512), moe_big (96, 128; 768) and small_dense
-# (64, 128; 256)
-FAVOR_SHAPES = {(64, 128), (96, 128), (128, 128)}
-EPILOGUE_DIMS = {256, 512, 768}
+# (64, 128; 256), and of tools/train.py --model_size big (256, 128; 1024)
+FAVOR_SHAPES = {(64, 128), (96, 128), (128, 128), (256, 128)}
+EPILOGUE_DIMS = {256, 512, 768, 1024}
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def favor_kernel_ok(D: int, m: int) -> bool:
+    """Whether the CUDA library has an instance of the favor kernels (1, 3,
+    8 and 10) for head dim ``D`` and ``m`` random features; the wrappers
+    raise on a CUDA tensor outside it."""
+    return (D, m) in FAVOR_SHAPES
+
+
+def epilogue_kernel_ok(D: int) -> bool:
+    """Whether the CUDA library has an instance of the epilogue kernels (2
+    and 4) for width ``D``; the wrappers raise on a CUDA tensor outside
+    it."""
+    return D in EPILOGUE_DIMS
 
 
 def _ln(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -76,12 +90,19 @@ def _l2(x: torch.Tensor) -> torch.Tensor:
 
 def favor_cluster(bh: int, device: torch.device, per_sm: int) -> int:
     """CTAs of a thread-block cluster that share the rows of one (b, h) in
-    the kernels of ``csrc/favor_qkv.cu`` (``per_sm`` 2: two CTAs fit on an
-    SM) and ``csrc/favor_qkv_bwd.cu`` (``per_sm`` 1): as many as the card's
-    SMs hold at once, 1 to 8. The flagship's B*H = 128 takes 2 and 1; a
-    serving batch of 2 x 4 heads takes 8."""
+    the kernels of ``csrc/favor_qkv.cu`` (``per_sm`` from
+    :func:`favor_per_sm`) and ``csrc/favor_qkv_bwd.cu`` (``per_sm`` 1): as
+    many as the card's SMs hold at once, 1 to 8. The flagship's B*H = 128
+    takes 2 and 1; a serving batch of 2 x 4 heads takes 8."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     return max(1, min(8, per_sm * sms // bh))
+
+
+def favor_per_sm(D: int) -> int:
+    """CTAs of the forward kernel of ``csrc/favor_qkv.cu`` an SM holds at
+    head dim D: two up to D = 128; one at D = 256, whose shared memory
+    (207 KB) and registers (a 256-column kv a warp) fill the SM."""
+    return 2 if D <= 128 else 1
 
 
 def _favor_scratch(B: int, T: int, H: int, m: int,
@@ -303,7 +324,7 @@ def _check_projection(op: str, projection, dev):
     """Validate the random-feature projection; returns (D, m)."""
     _require(projection.dim() == 2, f"{op}: projection must be [D, m]")
     D, m = projection.shape
-    _require((D, m) in FAVOR_SHAPES,
+    _require(favor_kernel_ok(D, m),
              f"{op}: (D, m)=({D}, {m}) not in {sorted(FAVOR_SHAPES)}")
     _require(projection.device == dev and projection.dtype == torch.float32
              and projection.is_contiguous(),
@@ -316,8 +337,6 @@ def _check_favor(op: str, qkv, ln_scale, ln_bias, projection, mask,
     """Validate the inputs of the normalised favor kernels, ``qkv`` being
     the merged panel (``parts`` 3) or q (``parts`` 1); returns (B, T, H, D,
     m)."""
-    _require(qkv.device.type == "cuda", f"{op}: unsupported device "
-                                        f"{qkv.device}")
     name = "qkv" if parts == 3 else "q"
     _require(qkv.dim() == 3 and qkv.dtype in _KERNEL_DTYPES
              and qkv.is_contiguous(),
@@ -325,6 +344,8 @@ def _check_favor(op: str, qkv, ln_scale, ln_bias, projection, mask,
              f"or bfloat16 tensor, got {qkv.dtype} {tuple(qkv.shape)}")
     B, T, HD3 = qkv.shape
     D, m = _check_projection(op, projection, qkv.device)
+    _require(qkv.device.type == "cuda", f"{op}: unsupported device "
+                                        f"{qkv.device}")
     _require(HD3 % (parts * D) == 0 and B > 0 and T > 0,
              f"{op}: {name} width {HD3} is not {parts}*H*{D}")
     dev = qkv.device
@@ -344,14 +365,14 @@ def _check_epilogue(op: str, y, scale, shift, vecs, views: bool = False):
     ``views`` (the forward kernel), scale and shift may be strided [B, D]
     views: column stride 1, a row stride >= D, every row 16-byte aligned;
     else (the backward kernel) they must be contiguous."""
-    _require(y.device.type == "cuda", f"{op}: unsupported device {y.device}")
     _require(y.dim() == 3 and y.dtype in _KERNEL_DTYPES
              and y.is_contiguous(),
              f"{op}: y must be a contiguous [B, T, D] float32 or bfloat16 "
              f"tensor, got {y.dtype} {tuple(y.shape)}")
     B, T, D = y.shape
-    _require(D in EPILOGUE_DIMS and B > 0 and T > 0,
+    _require(epilogue_kernel_ok(D) and B > 0 and T > 0,
              f"{op}: D={D} not in {sorted(EPILOGUE_DIMS)}")
+    _require(y.device.type == "cuda", f"{op}: unsupported device {y.device}")
     _require(y.data_ptr() % 16 == 0, f"{op}: y must be 16-byte aligned")
     dev = y.device
     for name, t in (("scale", scale), ("shift", shift)):
@@ -393,7 +414,7 @@ def _epilogue_ok(y, scale, shift, vecs) -> bool:
     if dt not in _KERNEL_DTYPES or y.data_ptr() % 16:
         return False
     B, T, D = y.shape
-    if D not in EPILOGUE_DIMS or not B or not T:
+    if not epilogue_kernel_ok(D) or not B or not T:
         return False
     index = y.get_device()
     for t in (scale, shift):
@@ -448,7 +469,7 @@ def _launch_favor_qkv(qkv, ln_scale, ln_bias, projection, mask, eps,
             projection.data_ptr(), _ptr(mask), out.data_ptr(),
             scratch.data_ptr(), _ptr(lq), _ptr(lk), B, T, H, D, m,
             _KERNEL_DTYPES[qkv.dtype], int(bf16_products), eps, pre_scale,
-            favor_cluster(B * H, qkv.device, 2), _stream(qkv.device))
+            favor_cluster(B * H, qkv.device, favor_per_sm(D)), _stream(qkv.device))
     if rc != 0:
         raise RuntimeError(f"favor_qkv kernel launch failed: CUDA error {rc}")
     favor_qkv.launches += 1
@@ -798,11 +819,12 @@ performer_epilogue.launches = 0
 
 def _launch_favor_attention(q, k, v, projection, mask, eps) -> torch.Tensor:
     op = "favor_attention"
-    _require(q.device.type == "cuda", f"{op}: unsupported device {q.device}")
     _require(q.dim() == 4, f"{op}: q must be [B, H, T, D], got "
                            f"{tuple(q.shape)}")
     B, H, T, D = q.shape
     dev = q.device
+    Dp, m = _check_projection(op, projection, dev)
+    _require(q.device.type == "cuda", f"{op}: unsupported device {q.device}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         _require(t.device == dev and t.dtype == torch.float32
                  and t.shape == q.shape and t.is_contiguous(),
@@ -810,7 +832,6 @@ def _launch_favor_attention(q, k, v, projection, mask, eps) -> torch.Tensor:
                  f"{list(q.shape)} tensor on {dev}, got {t.dtype} "
                  f"{tuple(t.shape)} on {t.device}")
     _require(B > 0 and H > 0 and T > 0, f"{op}: empty input")
-    Dp, m = _check_projection(op, projection, dev)
     _require(Dp == D, f"{op}: projection is [{Dp}, {m}] for head dim {D}")
     if mask is not None:
         _require(mask.device == dev and mask.dtype == torch.float32
@@ -826,7 +847,7 @@ def _launch_favor_attention(q, k, v, projection, mask, eps) -> torch.Tensor:
         rc = lib.mdm_favor_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), projection.data_ptr(),
             _ptr(mask), out.data_ptr(), scratch.data_ptr(), B, H, T, D, m,
-            eps, favor_cluster(B * H, dev, 2), _stream(dev))
+            eps, favor_cluster(B * H, dev, favor_per_sm(D)), _stream(dev))
     if rc != 0:
         raise RuntimeError(
             f"favor_attention kernel launch failed: CUDA error {rc}")
@@ -895,7 +916,7 @@ def _launch_favor_full(q, k, v, ln_scale, ln_bias, projection, mask, eps,
             ln_bias.data_ptr(), projection.data_ptr(), _ptr(mask),
             out.data_ptr(), scratch.data_ptr(), B, T, H, D, m,
             _KERNEL_DTYPES[q.dtype], eps, pre_scale,
-            favor_cluster(B * H, q.device, 2), _stream(q.device))
+            favor_cluster(B * H, q.device, favor_per_sm(D)), _stream(q.device))
     if rc != 0:
         raise RuntimeError(
             f"favor_attention_full kernel launch failed: CUDA error {rc}")

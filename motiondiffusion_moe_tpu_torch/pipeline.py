@@ -16,7 +16,16 @@ without a mesh):
   as the JAX pipeline does;
 - the copy moves to ``device`` once, at construction (the JAX pipeline
   without a mesh re-uploads host params on every call); ``device`` is the
-  card unless the caller asks for the CPU (``device="cpu"``).
+  card unless the caller asks for the CPU (``device="cpu"``);
+- :meth:`GenerationPipeline.from_export` builds a pipeline from a serving
+  artifact of either package (``tools/export.py``), and
+  :meth:`GenerationPipeline.set_params` loads a flax ``params`` tree or a
+  state_dict into the pipeline's copy, each leaf stored as the JAX pipeline
+  holds it (a bf16 leaf of the file stays bf16, bit for bit);
+- :meth:`GenerationPipeline.generate` samples micro-batch i + 1 while
+  micro-batch i goes to the host (``fetch_window``, as the JAX pipeline
+  bounds its dispatch-ahead): the copy goes through a pinned buffer behind
+  a CUDA event, with at most ``fetch_window`` results waiting on the card.
 
 Randomness comes from ``torch.Generator``s on ``device``; the micro-batch
 sampler :meth:`GenerationPipeline.sample` also takes injected ``noise`` (and
@@ -26,7 +35,8 @@ port the same draws.
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+from collections import deque
+from typing import List, Mapping, Optional, Sequence
 
 import copy
 
@@ -52,36 +62,62 @@ from motiondiffusion_moe_tpu_torch.models.text_encoder import hash_tokenize
 from motiondiffusion_moe_tpu_torch.models.transformer import MotionTransformer
 
 
+def serving_dtype(name: str, dtype: torch.dtype,
+                  param_dtype: Optional[torch.dtype]) -> torch.dtype:
+    """The dtype a parameter named ``name`` of ``dtype`` is stored in for
+    serving: ``param_dtype`` for a float32 one, except the FAVOR+
+    random-feature projections, which stay float32; any other as it is."""
+    if param_dtype is None or "projection" in name or dtype != torch.float32:
+        return dtype
+    return param_dtype
+
+
 def cast_params_(model: torch.nn.Module, dtype: torch.dtype) -> None:
     """Store every float32 parameter in ``dtype``, except the FAVOR+
     random-feature projections, which stay float32."""
     for name, p in model.named_parameters():
-        if "projection" not in name and p.dtype == torch.float32:
-            p.data = p.data.to(dtype)
+        p.data = p.data.to(serving_dtype(name, p.dtype, dtype))
 
 
 class GenerationPipeline:
-    """Text -> motion sampler around a :class:`MotionTransformer` that
+    """Text -> motion sampler around a :class:`MotionTransformer`: one that
     already holds its weights (seeded :func:`init_weights`, or a flax tree
-    through :func:`bridge.jax_to_state_dict`). ``self.model`` is the
+    through :func:`bridge.jax_to_state_dict`), or ``params`` (a flax tree or
+    a state_dict, loaded by :meth:`set_params`) for the given ``model`` or,
+    without one, for a model built from ``cfg``. ``self.model`` is the
     pipeline's own copy (cast and moved); the caller's module is left as it
     was."""
 
-    def __init__(self, cfg: ExperimentConfig, model: MotionTransformer, *,
+    def __init__(self, cfg: ExperimentConfig,
+                 model: Optional[MotionTransformer] = None, params=None, *,
                  sampler: str = "ddpm", num_inference_steps: Optional[int] = None,
                  eta: float = 0.0, micro_batch: int = 8,
-                 param_dtype: Optional[str] = None, device="cuda"):
+                 param_dtype: Optional[str] = None, fetch_window: int = 2,
+                 device="cuda"):
         if sampler not in ("ddpm", "ddim", "dpm"):
             raise ValueError(f"unknown sampler {sampler!r}")
         if param_dtype not in (None, "bfloat16"):
             raise ValueError(f"param_dtype {param_dtype!r}: None or "
                              "'bfloat16'")
+        if model is None and params is None:
+            raise ValueError("give a model that holds its weights, or params")
         self.cfg = cfg
         self.device = torch.device(device)
-        model = copy.deepcopy(model)
-        if param_dtype == "bfloat16":
-            cast_params_(model, torch.bfloat16)
-        self.model = model.to(self.device).eval()
+        self.param_dtype = (torch.bfloat16 if param_dtype == "bfloat16"
+                            else None)
+        self.fetch_window = max(1, fetch_window)
+        if model is None:
+            with torch.device("meta"):  # set_params gives every parameter
+                model = MotionTransformer(cfg.model)
+        else:
+            model = copy.deepcopy(model)
+        if params is None:
+            if self.param_dtype is not None:
+                cast_params_(model, self.param_dtype)
+            self.model = model.to(self.device).eval()
+        else:
+            self.model = model.eval()
+            self.set_params(params)
         self.micro_batch = micro_batch
         self.sampler = sampler
         self.eta = eta
@@ -107,6 +143,39 @@ class GenerationPipeline:
         else:
             # DPM-Solver++ picks its own timesteps on the full schedule
             self.sched = base
+
+    @classmethod
+    def from_export(cls, export_dir: str, **kwargs) -> "GenerationPipeline":
+        """A pipeline from a serving artifact written by either package's
+        ``tools/export.py``: config, weights and, as ``pipeline.normalizer``,
+        the normalizer. Extra kwargs go to the constructor (sampler,
+        micro_batch, param_dtype, device, ...)."""
+        from motiondiffusion_moe_tpu_torch.tools.export import load_export
+
+        cfg, params, normalizer = load_export(export_dir)
+        pipe = cls(cfg, params=params, **kwargs)
+        pipe.normalizer = normalizer
+        return pipe
+
+    def set_params(self, params) -> None:
+        """Load weights into the pipeline's own model: a flax ``params``
+        tree or variables dict (numpy leaves, ``torch.bfloat16`` tensors for
+        bf16 ones, as ``tools/export.py::load_export`` reads them), or a
+        state_dict of this model. Each parameter is stored as the
+        constructor stores it (:func:`serving_dtype`): a bf16 source stays
+        bf16 with its bits, an f32 one becomes ``param_dtype`` except the
+        FAVOR+ projections."""
+        from motiondiffusion_moe_tpu_torch.models.bridge import (
+            jax_to_state_dict)
+
+        if any(isinstance(v, Mapping) for v in params.values()):
+            params = jax_to_state_dict(params)
+        placed = {name: x.to(self.device, serving_dtype(
+            name, x.dtype, self.param_dtype), copy=True).contiguous()
+            for name, x in params.items()}
+        # assign: the model's parameters become these copies, dtype and all
+        # (strict: every parameter covered, every shape checked)
+        self.model.load_state_dict(placed, strict=True, assign=True)
 
     def tokenize(self, texts: Sequence[str]) -> np.ndarray:
         return hash_tokenize(list(texts), self.cfg.model.text_max_tokens)
@@ -167,7 +236,9 @@ class GenerationPipeline:
                  ) -> List[np.ndarray]:
         """One motion per caption: a list of [len_i, F] float32 arrays in
         the model's (normalized) feature space. ``generator`` (on the
-        pipeline's device) defaults to one seeded with 0."""
+        pipeline's device) defaults to one seeded with 0. Micro-batch i + 1
+        is sampled while micro-batch i is copied to the host; the results
+        are those of one micro-batch at a time, bit for bit."""
         if len(captions) != len(m_lens):
             raise ValueError(
                 f"{len(captions)} captions but {len(m_lens)} lengths")
@@ -182,6 +253,15 @@ class GenerationPipeline:
         mb = self.micro_batch
         ids_u = torch.as_tensor(self.tokenize([""] * mb))
         outputs: List[np.ndarray] = []
+        pending: deque = deque()  # (host motions, copy event, lengths, n)
+
+        def drain():
+            host, done, lens, n = pending.popleft()
+            if done is not None:
+                done.synchronize()
+            motions = host.numpy()
+            outputs.extend(motions[i, :int(lens[i])] for i in range(n))
+
         for start in range(0, len(captions), mb):
             chunk = list(captions[start:start + mb])
             lens = list(m_lens[start:start + mb])
@@ -192,6 +272,18 @@ class GenerationPipeline:
             motions = self.sample(
                 torch.as_tensor(self.tokenize(chunk)), ids_u,
                 torch.as_tensor(lens, dtype=torch.long), generator=generator)
-            motions = motions.cpu().numpy()
-            outputs.extend(motions[i, :int(lens[i])] for i in range(n))
+            done = None
+            if motions.is_cuda:
+                host = torch.empty(motions.shape, dtype=motions.dtype,
+                                   pin_memory=True)
+                host.copy_(motions, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record()
+            else:
+                host = motions
+            pending.append((host, done, lens, n))
+            if len(pending) > self.fetch_window:
+                drain()
+        while pending:
+            drain()
         return outputs

@@ -15,12 +15,22 @@ generation is in flight into ONE ``pipe.generate`` call; requests WITH a
 ``seed`` run alone with ``torch.Generator(device).manual_seed(seed)``, so
 their output is a pure function of (texts, lengths, seed). Stdlib only.
 
-The command-line entry (serving a flax export) waits for a reader of that
-format that needs no flax.
+The command line serves an export of either package (``tools/export.py``)
+or a run dir of the port's ``tools/train.py``, on the card unless
+``--device cpu``; the JAX CLI's flags, plus ``--device``::
+
+    python -m motiondiffusion_moe_tpu_torch.tools.serve \
+        --export_dir checkpoints/demo/export --port 8980 \
+        --sampler dpm --steps 20 --micro_batch 16
+
+:func:`build_server` builds the pipeline and the unstarted server from the
+arguments; :func:`main` serves it until interrupted. The multi-device flags
+above 1 raise: the port serves on one device.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import threading
 import time
@@ -250,3 +260,113 @@ def make_server(pipe, host: str = "127.0.0.1", port: int = 0,
             })
 
     return ThreadingHTTPServer((host, port), Handler)
+
+
+def build_argparser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    src = p.add_mutually_exclusive_group(required=True)
+    src.add_argument("--export_dir",
+                     help="serving artifact from either package's "
+                          "tools/export.py")
+    src.add_argument("--run_dir",
+                     help="the port's training run dir (config.json + ckpt/)")
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=8980)
+    p.add_argument("--sampler", default="ddim",
+                   choices=["ddpm", "ddim", "dpm"])
+    p.add_argument("--steps", type=int, default=50,
+                   help="inference steps (0 = full schedule)")
+    p.add_argument("--micro_batch", type=int, default=8)
+    p.add_argument("--max_batch", type=int, default=64)
+    p.add_argument("--max_queue", type=int, default=256,
+                   help="queued-prompt bound; past it requests shed with "
+                        "503 + Retry-After")
+    p.add_argument("--request_timeout", type=float, default=120.0,
+                   help="per-request deadline in seconds (504 past it; "
+                        "0 disables)")
+    p.add_argument("--use_ema", action="store_true",
+                   help="(--run_dir only) serve the EMA weights")
+    p.add_argument("--param_dtype", default="", choices=["", "bfloat16"],
+                   help="serving weight dtype (see GenerationPipeline)")
+    p.add_argument("--no_denormalize", action="store_true",
+                   help="return normalized feature space")
+    p.add_argument("--warmup", action="store_true",
+                   help="run one generation before binding")
+    p.add_argument("--data_parallel", type=int, default=1,
+                   help="raises above 1: the port serves on one device")
+    p.add_argument("--expert_parallel", type=int, default=1,
+                   help="raises above 1: the port serves on one device")
+    p.add_argument("--tensor_parallel", type=int, default=1,
+                   help="raises above 1: the port serves on one device")
+    p.add_argument("--device", default="cuda",
+                   help="torch device to serve on (cuda by default; cpu "
+                        "only when asked)")
+    return p
+
+
+def build_server(argv=None) -> ThreadingHTTPServer:
+    """The pipeline and the unstarted HTTP server for the command line
+    ``argv`` (see :func:`build_argparser`); the server's pipeline is
+    ``server.pipe``."""
+    from motiondiffusion_moe_tpu_torch.pipeline import GenerationPipeline
+    from motiondiffusion_moe_tpu_torch.tools.export import load_run
+
+    args = build_argparser().parse_args(argv)
+    for flag in ("data_parallel", "expert_parallel", "tensor_parallel"):
+        if getattr(args, flag) > 1:
+            raise NotImplementedError(
+                f"--{flag} {getattr(args, flag)}: the port serves on one "
+                "device; the multi-device axes are not ported yet "
+                "(ROADMAP.md, queue 1, item 11)")
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"--device {args.device}: no CUDA device is "
+                           "available (pass --device cpu to serve on the "
+                           "CPU)")
+    kw = dict(sampler=args.sampler, num_inference_steps=args.steps or None,
+              micro_batch=args.micro_batch,
+              param_dtype=args.param_dtype or None, device=device)
+    if args.export_dir:
+        pipe = GenerationPipeline.from_export(args.export_dir, **kw)
+    else:
+        from motiondiffusion_moe_tpu_torch.data.normalizer import (
+            MotionNormalizer)
+
+        cfg, sd, step, normalizer = load_run(args.run_dir,
+                                             use_ema=args.use_ema)
+        pipe = GenerationPipeline(cfg, params=sd, **kw)
+        pipe.normalizer = normalizer or MotionNormalizer.identity(
+            cfg.data.dim_pose)
+        print(f"[serve] {args.run_dir} step {step} (ema={args.use_ema})")
+    print(f"[serve] device {device}"
+          + (f" ({torch.cuda.get_device_name(device)})"
+             if device.type == "cuda" else ""))
+    if args.warmup:
+        t0 = time.perf_counter()
+        pipe.generate(["warmup"], [min(16, pipe.cfg.model.max_frames)])
+        print(f"[serve] warmup run {time.perf_counter() - t0:.1f}s")
+    server = make_server(pipe, args.host, args.port,
+                         denormalize=not args.no_denormalize,
+                         max_batch=args.max_batch, max_queue=args.max_queue,
+                         request_timeout=args.request_timeout or None)
+    server.pipe = pipe
+    return server
+
+
+def main(argv=None) -> None:
+    server = build_server(argv)
+    pipe = server.pipe
+    print(f"[serve] listening on http://{server.server_address[0]}:"
+          f"{server.server_address[1]} (sampler={pipe.sampler}, "
+          f"steps={pipe.num_inference_steps}, "
+          f"micro_batch={pipe.micro_batch})")
+    try:
+        server.serve_forever()
+    except KeyboardInterrupt:  # pragma: no cover
+        print("[serve] shutting down")
+    finally:
+        server.server_close()
+
+
+if __name__ == "__main__":
+    main()

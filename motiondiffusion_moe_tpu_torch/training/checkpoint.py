@@ -99,6 +99,17 @@ class CheckpointManager:
 
     # -- restore -----------------------------------------------------------
 
+    def read(self, step: Optional[int] = None) -> Optional[dict]:
+        """The saved payload at ``step`` (default the newest) on the CPU, or
+        None when no checkpoint exists: ``params`` (the model's
+        state_dict), ``opt_state``, ``step``, ``epoch``, ``rng`` and, when
+        the run keeps one, ``ema_params``."""
+        step = step if step is not None else self.latest_step()
+        if step is None:
+            return None
+        return torch.load(self._path(step), map_location="cpu",
+                          weights_only=True)
+
     def restore_with_rng(self, state, step: Optional[int] = None
                          ) -> Optional[Tuple[object, int,
                                              Optional[torch.Tensor]]]:
@@ -109,8 +120,7 @@ class CheckpointManager:
         step = step if step is not None else self.latest_step()
         if step is None:
             return None
-        payload = torch.load(self._path(step), map_location="cpu",
-                             weights_only=True)
+        payload = self.read(step)
         state.model.load_state_dict(payload["params"])
         state.optimizer.load_state_dict(payload["opt_state"])
         state.step = int(payload["step"])

@@ -4,7 +4,8 @@
 config: the presets must give the same dictionaries, and a ``config.json``
 written by either package must load equal in the other. The port, every
 submodule of it, and ``chip_smoke.py`` must import neither ``jax``,
-``flax`` nor anything of ``motiondiffusion_moe_tpu``.
+``flax``, ``msgpack``, ``ml_dtypes`` (the card's machine has neither) nor
+anything of ``motiondiffusion_moe_tpu``.
 """
 
 import ast
@@ -22,7 +23,8 @@ from motiondiffusion_moe_tpu_torch.pipeline import GenerationPipeline
 from tests._torch_parity import tiny_config, to_port
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "jaxlib", "flax", "motiondiffusion_moe_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "motiondiffusion_moe_tpu", "msgpack",
+             "ml_dtypes")
 
 
 @pytest.mark.parametrize("preset", ["small_dense", "moe_small", "moe_big"])

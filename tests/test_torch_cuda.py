@@ -1054,3 +1054,136 @@ def test_favor_mxu_bf16_kernels_match_plain_with_bf16_operands(
                                       torch.float32)):
         _assert_close(o, r, dt, 2 ** -8)
 
+
+
+# ---------------------------------------------------------------------------
+# tools/train.py --model_size big widths (latent 1024, head dim 256, expert
+# hidden 512): the kernel instances added for them
+# ---------------------------------------------------------------------------
+
+BIG_CLI = ["--dataset", "synthetic", "--model_size", "big", "--num_layers",
+           "1", "--batch_size", "2", "--synthetic_size", "2",
+           "--log_every", "1"]
+
+
+def test_big_widths_forward_on_the_card(dev, monkeypatch):
+    """One forward in f32 compute at ``--model_size big`` widths (one block
+    per scale) through the kernels on the card, with ``MOE_FUSED_KERNEL=1``,
+    against the CPU (the plain versions: 1e-4 of the output's largest
+    value); the favor, epilogue and MoE kernels each launch once per
+    module. The same in bf16 compute: finite."""
+    import dataclasses
+
+    from motiondiffusion_moe_tpu_torch.models.attention import (
+        PerformerSelfAttention)
+    from motiondiffusion_moe_tpu_torch.models.layers import init_weights
+    from motiondiffusion_moe_tpu_torch.models.moe import SwitchMoELayer
+    from motiondiffusion_moe_tpu_torch.models.text_encoder import (
+        hash_tokenize)
+    from motiondiffusion_moe_tpu_torch.models.transformer import (
+        MotionTransformer)
+    from motiondiffusion_moe_tpu_torch.tools.train import (
+        build_argparser, config_from_args)
+
+    monkeypatch.setenv("MOE_FUSED_KERNEL", "1")
+    cfg = config_from_args(build_argparser().parse_args(BIG_CLI)).model
+    cfg = dataclasses.replace(cfg, dtype="float32")
+    model = init_weights(MotionTransformer(cfg), 0).eval()
+    g = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for p in model.parameters():
+            if not p.any():
+                p.normal_(0.0, 0.02, generator=g)
+    T = cfg.max_frames
+    x = torch.randn(2, T, cfg.input_feats, generator=g)
+    t, length = torch.tensor([10, 900]), torch.tensor([T, 77])
+    ids = torch.from_numpy(hash_tokenize(["walk", "jump"],
+                                         cfg.text_max_tokens))
+    with torch.no_grad():
+        ref = model(x, t, length, text_ids=ids)
+    counted = (P.favor_qkv, P.performer_epilogue, MOE.moe_dense_fused)
+    n0 = [c.launches for c in counted]
+    model.to(dev)
+    with torch.no_grad():
+        out = model(x.to(dev), t.to(dev), length.to(dev),
+                    text_ids=ids.to(dev)).cpu()
+    n_perf = sum(isinstance(m, PerformerSelfAttention)
+                 for m in model.modules())
+    n_moe = sum(isinstance(m, SwitchMoELayer) for m in model.modules())
+    assert [c.launches - n for c, n in zip(counted, n0)] == [
+        n_perf, n_perf, n_moe]
+    assert torch.isfinite(out).all()
+    assert (out - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
+    bf = MotionTransformer(dataclasses.replace(cfg, dtype="bfloat16"))
+    bf.load_state_dict(model.state_dict())
+    with torch.no_grad():
+        out = bf.to(dev).eval()(x.to(dev), t.to(dev), length.to(dev),
+                                text_ids=ids.to(dev))
+    assert torch.isfinite(out).all()
+
+
+def test_big_widths_train_on_the_card(dev, tmp_path):
+    """tools/train.py at ``--model_size big`` widths on the card: one batch
+    = two optimizer steps (cond, uncond) through kernel 1 and its backward,
+    finite parameters."""
+    from motiondiffusion_moe_tpu_torch.tools import train as train_cli
+
+    n0 = (P.favor_qkv.launches, P.favor_qkv_bwd.launches)
+    state = train_cli.main(BIG_CLI + ["--device", "cuda", "--num_epochs",
+                                      "1", "--checkpoint_dir",
+                                      str(tmp_path)])
+    assert state.step == 2
+    assert all(torch.isfinite(p).all() for p in state.model.parameters())
+    assert P.favor_qkv.launches > n0[0] and P.favor_qkv_bwd.launches > n0[1]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_big_width_kernels_match_plain(dev, dtype):
+    """Kernels 1-5 and 7 at ``--model_size big`` widths (head dim 256,
+    latent 1024, 4 experts of hidden 512) against their plain versions:
+    f32 to 1e-4 of the largest value (1e-3 for the backward kernels' sums
+    over T), bf16 to one rounding plus 1e-3 of the largest value."""
+    rng = np.random.default_rng(7)
+    B, T, H, hd, m, D, E, hid = 2, 64, 4, 256, 128, 1024, 4, 512
+
+    def r(*shape, s=1.0, off=0.0):
+        return torch.from_numpy((off + s * rng.standard_normal(shape))
+                                .astype(np.float32)).to(dev)
+
+    def close(out, ref, rel=1e-4):
+        err, top = (out.float() - ref.float()).abs(), ref.abs().max().item()
+        if out.dtype == torch.float32:
+            assert err.max().item() <= rel * top
+        else:
+            assert bool((err <= 2 ** -7 * ref.float().abs()
+                         + 1e-3 * top).all())
+
+    mask = (torch.arange(T, device=dev)[None] < torch.tensor(
+        [T, 41], device=dev)[:, None]).float()
+    ln_s, ln_b, proj = r(hd, s=0.1, off=1.0), r(hd, s=0.1), r(
+        hd, m, s=hd ** -0.25)
+    qkv, g = r(B, T, 3 * H * hd).to(dtype), r(B, T, H * hd).to(dtype)
+    close(P.favor_qkv(qkv, ln_s, ln_b, proj, mask),
+          P.favor_qkv_plain(qkv, ln_s, ln_b, proj, mask))
+    for o, ref in zip(P.favor_qkv_bwd(qkv, ln_s, ln_b, proj, mask, g),
+                      P.favor_qkv_bwd_plain(qkv, ln_s, ln_b, proj, mask, g)):
+        close(o, ref, 1e-3)
+    y = r(B, T, D).to(dtype)
+    sc, sh = r(B, D, s=0.3).to(dtype), r(B, D, s=0.3).to(dtype)
+    vecs = [r(D, s=0.1, off=1.0), r(D, s=0.1), r(D, s=0.1, off=1.0),
+            r(D, s=0.1)]
+    close(P.performer_epilogue(y, sc, sh, *vecs),
+          P.performer_epilogue_plain(y, sc, sh, *vecs))
+    for o, ref in zip(P.performer_epilogue_bwd(y, sc, sh, *vecs, g),
+                      P.performer_epilogue_bwd_plain(y, sc, sh, *vecs, g)):
+        close(o, ref, 1e-3)
+    S = B * T
+    p = rng.random((S, E)).astype(np.float32)  # top-2 routing weights
+    p[np.arange(S)[:, None], np.argsort(p, -1)[:, :E - 2]] = 0.0
+    args = [r(S, D), torch.from_numpy(p).to(dev), r(E, D, hid, s=D ** -0.5),
+            r(E, hid, s=0.1), r(E, hid, D, s=hid ** -0.5), r(E, D, s=0.1)]
+    args = [a.to(dtype) for a in args]
+    close(MOE.moe_dense_fused(*args), MOE.moe_dense_fused_plain(*args))
+    args = [y, sc, sh, vecs[0], vecs[1], r(D, D, s=D ** -0.5).to(dtype),
+            r(D, s=0.1).to(dtype)]
+    close(AD.adaln_dense(*args), AD.adaln_dense_plain(*args))

@@ -323,13 +323,16 @@ def test_make_server_answers_healthz_and_generate(seeded_pipe):
 
 
 def test_port_never_imports_jax_or_flax():
-    """Import the port and run a tiny generate in a fresh interpreter."""
+    """Import the port, run a tiny generate, export the model and serve the
+    export, in a fresh interpreter: no JAX, flax, msgpack or ml_dtypes."""
     code = """
 import sys
 import torch
 from motiondiffusion_moe_tpu_torch.config import (
     DataConfig, DiffusionConfig, ExperimentConfig, ModelConfig)
 import motiondiffusion_moe_tpu_torch.tools.serve
+import motiondiffusion_moe_tpu_torch.tools.export
+import motiondiffusion_moe_tpu_torch.utils.flax_msgpack
 import motiondiffusion_moe_tpu_torch.models.bridge
 import motiondiffusion_moe_tpu_torch.motion.recover
 import motiondiffusion_moe_tpu_torch.ops._build
@@ -347,8 +350,17 @@ pipe = GenerationPipeline(cfg, init_weights(MotionTransformer(cfg.model), 0),
                           sampler="ddim", num_inference_steps=2, micro_batch=1,
                           device="cpu")
 assert pipe.generate(["walk"], [5])[0].shape == (5, 26)
+# export -> from_export -> the served weights, through the port's own codec
+import tempfile
+from motiondiffusion_moe_tpu_torch.tools.export import export_model
+d = export_model(pipe.model, cfg, tempfile.mkdtemp(), dtype="bfloat16")
+back = GenerationPipeline.from_export(d, sampler="ddim",
+                                      num_inference_steps=2, micro_batch=1,
+                                      device="cpu")
+assert back.generate(["walk"], [5])[0].shape == (5, 26)
 bad = sorted(m for m in sys.modules if m.split(".")[0] in (
-    "jax", "jaxlib", "flax", "motiondiffusion_moe_tpu"))
+    "jax", "jaxlib", "flax", "motiondiffusion_moe_tpu", "msgpack",
+    "ml_dtypes"))
 print("LOADED", bad)
 sys.exit(1 if bad else 0)
 """
