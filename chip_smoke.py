@@ -148,7 +148,25 @@ first use) and exits non-zero without one. Phases, each fatal on failure:
          G2b one forward at B = 4 through the kernels (MOE_FUSED_KERNEL=1)
          against use_kernels=False, f32 tight and bf16 by phase B's rule,
          with exact launch counts of kernels 1, 2 and 5; G2c two optimizer
-         steps through the train CLI, launching kernels 1 and 3.
+         steps through the train CLI, launching kernels 1 and 3. Since PR
+         12 G2a also holds kernels 6 and 9 at head dim 256 (bf16 by E1's
+         rule, f32 tight) with times, the bound and SDPA's time, and fails
+         on a spill of the bf16 instance; G2b runs the forward again with
+         use_fast_xattn, kernel 6 launched once per cross-attention block.
+  H      training from raw joints. H1: 48 synthetic t2m clips (60-240
+         frames, the port's Skeleton over a root that walks and stands)
+         through tools/prepare_data.py on the card and on the CPU: every
+         clip kept, 263 finite features, Mean / Std / meta/ written, card
+         and CPU features within 1e-4, foot contacts equal, clips/s; 40
+         KIT clips the same way. H2: texts and train.txt for the corpus
+         (whole-clip and sub-clip lines), Text2MotionDataset with the
+         native store: uncropped batches equal the Python path's, every
+         crop a window, host ms per batch of 32 native vs Python. H3:
+         tools/train.py main() on the corpus at the flagship defaults
+         (full width and depth, bf16, dropout 0.1), 4 optimizer steps:
+         finite losses, kernels 1 and 3 launched 32 x 4 times each, meta/
+         the dataset's normalizer, ms/step beside D3's; then 2 steps with
+         --no_native_io and 2 on the KIT corpus.
 
 The last line is {"ok": true, "device": {...}}, printed only when every
 phase passed; the line before it lists the kernels of the paths, each with
@@ -2448,6 +2466,53 @@ def phase_g1(cfg, model, dev, card):
     torch.cuda.empty_cache()
 
 
+def g2_xattn_head_dim_256(card, t, B, T, N, H, hd):
+    """Kernels 6 (xattn_fastlayout, [B, T, H*D]) and 9
+    (flash_cross_attention, [B, H, T, D]) at head dim 256 against their
+    plain versions: bf16 by E1's rule, f32 to F32_REL; ms per call, device
+    ms, the bound and scaled_dot_product_attention's time beside them.
+    Returns {(kernel, dtype): (err, ms, plain ms, bound ms, by, SDPA ms)}."""
+    import torch
+    import torch.nn.functional as F
+    from motiondiffusion_moe_tpu_torch.ops import flash_attention as XA
+
+    scale = hd ** -0.5
+    b_ms, b_by, floor_ms = attention_bound(B * H, T, N, hd)
+    out_rows = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        dt = str(dtype)[6:]
+        q, k, v = (t(B, n, H * hd).to(dtype) for n in (T, N, N))
+        heads = [a.view(B, -1, H, hd).transpose(1, 2).contiguous()
+                 for a in (q, k, v)]
+        cases = (
+            ("xattn_fastlayout",
+             lambda: XA.xattn_fastlayout(q, k, v, H, scale),
+             lambda: XA.xattn_fastlayout_plain(q, k, v, H, scale)),
+            ("flash_cross_attention",
+             lambda: XA.flash_cross_attention(*heads, scale=scale),
+             lambda: XA.flash_cross_attention_plain(*heads, scale=scale)))
+        library = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            *heads, scale=scale)
+        for kname, kernel, plain in cases:
+            name = f"{kname} {dt} B={B} T={T} N={N} H={H} D={hd}"
+            out = kernel()
+            torch.cuda.synchronize()
+            ref = plain()
+            err = (compare_flips("G2a", name, out, ref, XATTN_FLIP_SHARE)
+                   if dtype == torch.bfloat16 else compare_to_plain(
+                       "G2a", name, out, ref, dtype, BF16_ABS))
+            k_ms, p_ms = paired_ms(kernel, plain, iters=10)
+            l_ms = time_ms(library, 10)
+            print(f"[G2a] {name}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} "
+                  f"ms, scaled_dot_product_attention {l_ms:.4f} ms per call "
+                  f"(CUDA events); device time kernel {device_ms(kernel)}, "
+                  f"library {device_ms(library)} (torch.profiler); bound "
+                  f"{b_ms:.4f} ms ({b_by}); the floor of IEEE f32 FMA "
+                  f"products {floor_ms:.4f} ms ({card})")
+            out_rows[(kname, dtype)] = (err, k_ms, p_ms, b_ms, b_by, l_ms)
+    return out_rows
+
+
 def phase_g2(dev, card):
     """tools/train.py --model_size big on the card (latent 1024, head dim
     256, expert hidden 512; depth cut to 2 blocks per scale), the widths of
@@ -2616,15 +2681,29 @@ def phase_g2(dev, card):
               lambda: AD.adaln_dense_plain(*args),
               el * (2 * B * T * D + 2 * B * D + D * D + D) + 8 * D,
               2 * B * T * D * D, "bf16" if dtype == torch.bfloat16 else "f32")
+    # kernels 6 and 9 at head dim 256 (use_fast_xattn at these widths), on
+    # the text encoder's N keys
+    N = mc.text_max_tokens + mc.text_num_prompt_tokens
+    g2_xattn_head_dim_256(card, t, B, T, N, H, hd)
     from motiondiffusion_moe_tpu_torch.ops import _build
 
     for kname in ("favor_kernel", "favor_qkv_bwd_kernel",
                   "performer_epilogue_kernel",
                   "performer_epilogue_bwd_kernel", "moe_bf16_kernel",
-                  "moe_f32_kernel", "adaln_bf16_kernel", "adaln_f32_kernel"):
+                  "moe_f32_kernel", "adaln_bf16_kernel", "adaln_f32_kernel",
+                  "cross_attention_mma_kernel", "xattn_fastlayout_kernel",
+                  "flash_xattn_kernel"):
         for line in _build.resource_usage(kname):
             if any(f"Li{v}E" in line for v in (256, 1024, 32)):
                 print(f"[G2a] ptxas: {line}")
+    # the bf16 tensor-core instance at head dim 256 holds a 16-row tile a
+    # warp so that its accumulator stays in registers: no spill
+    usage = [u for u in _build.resource_usage("cross_attention_mma_kernel")
+             if "Li256E" in u]
+    if not usage:
+        print("[G2a] ptxas: not reported (the library came from the cache)")
+    check(all(" 0 bytes spill stores" in u for u in usage),
+          "cross_attention_mma_kernel spills at D = 256")
 
     # ---- G2b: the forward through the kernels
     mb = build_flagship(big).to(dev).eval()
@@ -2669,7 +2748,38 @@ def phase_g2(dev, card):
           f"launches in the two kernel forwards {launches}, expected {want}")
     check(ok, "G2 forward")
     check(launches == want, f"G2 launches {launches}, expected {want}")
-    del mb, m32, ref, k32, k16, p16
+
+    # once more with use_fast_xattn: kernel 6 at head dim 256 in every
+    # exact cross-attention block
+    from motiondiffusion_moe_tpu_torch.models.attention import (
+        CrossAttentionBlock)
+    from motiondiffusion_moe_tpu_torch.ops import flash_attention as XA
+
+    n_cross = 0
+    for mod in (m32, mb):
+        for x in mod.modules():
+            if isinstance(x, CrossAttentionBlock):
+                x.use_fast_xattn = True
+                n_cross += mod is mb
+    XA.xattn_fastlayout.launches = 0
+    with torch.inference_mode():
+        f32 = m32(*args, text_ids=ids)
+        f16 = mb(*args, text_ids=ids)
+        torch.cuda.synchronize()
+    n6 = XA.xattn_fastlayout.launches
+    rel32, err_k = rel_rms(f32, ref), rel_rms(f16, ref)
+    ok = (bool(torch.isfinite(f32).all() and torch.isfinite(f16).all())
+          and rel32 <= DENOISER_F32_REL_RMS and err_k <= tol)
+    print(f"[G2b] the same forward with use_fast_xattn (kernel 6 at head "
+          f"dim {hd}): f32 rel_rms to use_kernels=False {rel32:.3e} (tol "
+          f"{DENOISER_F32_REL_RMS:g}); bf16 rel_rms to the f32 plain result "
+          f"{err_k:.3e} (tol {tol:.3e}) -> {'ok' if ok else 'FAIL'}; "
+          f"xattn_fastlayout launched {n6} times in the two forwards, "
+          f"expected 2 x {n_cross} cross-attention blocks")
+    check(ok, "G2 forward with use_fast_xattn")
+    check(n6 == 2 * n_cross and n_cross > 0,
+          f"G2 xattn_fastlayout launches {n6}, expected {2 * n_cross}")
+    del mb, m32, ref, k32, k16, p16, f32, f16
     torch.cuda.empty_cache()
 
     # ---- G2c: two train steps through the train CLI
@@ -2692,6 +2802,314 @@ def phase_g2(dev, card):
           f"({card})")
     del state
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# H: raw joints -> corpus -> training on the card
+# ---------------------------------------------------------------------------
+
+# (frames per second, walking speed per frame) of the synthetic raw clips:
+# t2m 1.4 m/s at 20 fps, KIT's feet threshold (0.05) is 25x t2m's
+RAW_CLIPS = {"t2m": (20.0, 0.07), "kit": (12.5, 0.4)}
+
+
+def rest_pose(cfg, bone):
+    """A rest pose [J, 3]: every child ``bone`` along its raw offset
+    direction, the sideways bones off the spine (collar bones) 5/3 as
+    long: shoulders wider than hips, as in a body (with equal widths the
+    hips' and the shoulders' vectors cancel in the facing that IK takes
+    from them)."""
+    rest = np.zeros((len(cfg.raw_offsets), 3), np.float32)
+    for chain in cfg.kinematic_chain:
+        for a, b in zip(chain[:-1], chain[1:]):
+            wide = a != 0 and cfg.raw_offsets[b][0] != 0
+            rest[b] = rest[a] + bone * (5 / 3 if wide else 1) * \
+                cfg.raw_offsets[b]
+    return rest
+
+
+def synth_raw_clips(root, dataset, lengths, seed):
+    """Raw world joints [T, J, 3] of one clip per entry of ``lengths``,
+    written as the dataset's raw files (t2m ``0010NN.npy`` with the default
+    example ``000021``; KIT ``000NN_mmm_00.npy`` with ``03950_gt``): forward
+    kinematics (the port's Skeleton) of smooth seeded rotations over a
+    root that walks and stands in turns. While walking, every joint turns
+    by ~0.005 rad a frame and the root moves at the dataset's walking speed
+    along a drifting heading; while standing nothing moves. So a foot moves
+    either not at all or about as fast as the root: its squared speed stays
+    far from the contact threshold on both sides. Each clip turns the
+    whole body by a seeded yaw, and the root bobs while walking."""
+    from motiondiffusion_moe_tpu_torch.motion.process import ProcessConfig
+    from motiondiffusion_moe_tpu_torch.motion.skeleton import Skeleton
+    import torch
+
+    cfg = ProcessConfig.t2m() if dataset == "t2m" else ProcessConfig.kit()
+    J, bone = cfg.joints_num, 0.3
+    speed = RAW_CLIPS[dataset][1]
+    rest = rest_pose(cfg, bone)
+    skel = Skeleton(cfg.raw_offsets, cfg.kinematic_chain)
+    skel.get_offsets_joints(torch.from_numpy(rest))
+    os.makedirs(root, exist_ok=True)
+    names = []
+    for i, T in enumerate(lengths):
+        rng = np.random.default_rng(seed + i)
+        walking = np.zeros(T, bool)
+        t0, walk = 0, bool(rng.integers(2))
+        while t0 < T:
+            n = int(rng.integers(15, 40))
+            walking[t0:t0 + n] = walk
+            t0, walk = t0 + n, not walk
+        steps = rng.standard_normal((T, J, 3)) * 0.005 * walking[:, None,
+                                                                 None]
+        # a pose of its own (~0.1 rad a joint: no bone exactly along or
+        # against its offset, where IK's rotation between them is
+        # undefined) and a yaw of the whole body, away from facing +-Z
+        angles = (np.cumsum(steps, axis=0)
+                  + 0.1 * rng.standard_normal((J, 3)))
+        angles[:, 0, 1] += rng.choice([-1, 1]) * rng.uniform(0.5, 2.6)
+        theta = np.linalg.norm(angles, axis=-1, keepdims=True)
+        quat = np.concatenate([np.cos(theta / 2), 0.5 * np.sinc(
+            theta / (2 * np.pi)) * angles], axis=-1)
+        heading = np.cumsum(0.01 * walking) + rng.uniform(0, 2 * np.pi)
+        vel = speed * walking[:, None] * np.stack(
+            [np.cos(heading), np.sin(heading)], -1)
+        xz = np.cumsum(vel, axis=0) - vel[0]
+        bob = 0.02 * bone * np.sin(np.cumsum(0.3 * walking))
+        root_pos = np.stack([xz[:, 0], 3 * bone + bob, xz[:, 1]], -1)
+        joints = skel.forward_kinematics(
+            torch.from_numpy(quat.astype(np.float32)),
+            torch.from_numpy(root_pos.astype(np.float32))).numpy()
+        if dataset == "t2m":
+            name = "000021" if i == 0 else f"{1000 + i:06d}"
+        else:
+            name = "03950_gt" if i == 0 else f"{i:05d}_mmm_00"
+        np.save(os.path.join(root, name + ".npy"), joints)
+        names.append(name)
+    return names
+
+
+def write_texts(data_dir, subclips):
+    """texts/<id>.txt and train.txt for every clip under new_joint_vecs/:
+    two whole-clip captions each and, with ``subclips``, one
+    ``f_tag#to_tag`` line of 50-189 frames at 20 fps, which the dataset
+    makes an item of its own. Returns the ids."""
+    ids = sorted(f[:-4] for f in os.listdir(
+        os.path.join(data_dir, "new_joint_vecs")))
+    os.makedirs(os.path.join(data_dir, "texts"), exist_ok=True)
+    for i, name in enumerate(ids):
+        lines = [f"a person walks and stands {i}#a/DET person/NOUN "
+                 f"walk/VERB#0.0#0.0",
+                 f"someone pauses on the way {i}#someone/PRON#nan#nan"]
+        if subclips:
+            f = 5 * (i % 4)
+            lines.append(f"the person walks a little {i}#x/X#{f / 20}#"
+                         f"{(f + 50 + (i * 37) % 140) / 20}")
+        with open(os.path.join(data_dir, "texts", name + ".txt"), "w") as fh:
+            fh.write("\n".join(lines) + "\n")
+    with open(os.path.join(data_dir, "train.txt"), "w") as fh:
+        fh.write("\n".join(ids) + "\n")
+    return ids
+
+
+def foot_margin(raw_dir, dataset):
+    """Smallest relative distance of a squared foot speed from the contact
+    threshold over the first 8 raw clips' global positions (process_file
+    on the CPU): how far the contacts are from flipping."""
+    from motiondiffusion_moe_tpu_torch.motion.process import (
+        ProcessConfig, build_target_offsets, process_file)
+
+    cfg = ProcessConfig.t2m() if dataset == "t2m" else ProcessConfig.kit()
+    files = sorted(os.listdir(raw_dir))
+    tgt = build_target_offsets(np.load(os.path.join(raw_dir, files[0])),
+                               cfg)
+    feet = list(cfg.fid_l) + list(cfg.fid_r)
+    worst = np.inf
+    for f in files[:8]:
+        _, gp, _, _ = process_file(np.load(os.path.join(raw_dir, f)), cfg,
+                                   tgt)
+        d = gp[1:, feet] - gp[:-1, feet]
+        worst = min(worst, float(np.abs((d ** 2).sum(-1) / cfg.feet_thre
+                                        - 1).min()))
+    return worst
+
+
+def phase_h(card, d3_ms):
+    """Raw joints -> prepare_data -> Text2MotionDataset with the native
+    store -> tools/train.py --dataset t2m / kit on the card, at the
+    flagship's full width and depth. H1: 48 synthetic t2m clips of 60-240
+    frames through prepare_data on the card and on the CPU; H2: the corpus
+    read by Text2MotionDataset, native batches against the Python path;
+    H3: 4 optimizer steps of the flagship on it (kernels 1 and 3 counted),
+    2 with --no_native_io, 2 on a KIT corpus."""
+    with tempfile.TemporaryDirectory(prefix="phase_h_") as root:
+        return _phase_h(root, card, d3_ms)
+
+
+def _phase_h(root, card, d3_ms):
+    import torch
+    from motiondiffusion_moe_tpu_torch.config import DataConfig
+    from motiondiffusion_moe_tpu_torch.data.dataset import (
+        Text2MotionDataset)
+    from motiondiffusion_moe_tpu_torch.data.normalizer import (
+        MotionNormalizer)
+    from motiondiffusion_moe_tpu_torch.ops import performer as P
+    from motiondiffusion_moe_tpu_torch.tools import prepare_data
+
+    # ---- H1: prepare_data on the card and on the CPU
+    j = os.path.join
+    lengths = [60 + (i * 180) // 47 for i in range(48)]
+    raw = j(root, "raw_t2m")
+    synth_raw_clips(raw, "t2m", lengths, SEED + 70)
+    out = {}
+    secs = {}
+    for device in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        out[device] = prepare_data.main(
+            ["--dataset", "t2m", "--joints_dir", raw, "--out_dir",
+             j(root, f"t2m_{device}"), "--device", device])
+        if device == "cuda":
+            torch.cuda.synchronize()
+        secs[device] = time.perf_counter() - t0
+    check(out["cuda"] == out["cpu"] and out["cuda"]["kept"] == len(lengths)
+          and out["cuda"]["skipped"] == 0 and out["cuda"]["dim"] == 263,
+          f"H1 prepare_data summaries {out}")
+    corpus = j(root, "t2m_cuda")
+    for f in ("Mean.npy", "Std.npy", "meta/mean.npy", "meta/std.npy"):
+        a = np.load(j(corpus, f))
+        check(a.shape == (263,) and np.isfinite(a).all(), f"H1 {f}")
+    diff, flips, frames = 0.0, 0, 0
+    for f in sorted(os.listdir(j(corpus, "new_joint_vecs"))):
+        a = np.load(j(corpus, "new_joint_vecs", f))
+        b = np.load(j(root, "t2m_cpu", "new_joint_vecs", f))
+        rec = np.load(j(corpus, "new_joints", f))
+        check(a.shape[1] == 263 and np.isfinite(a).all()
+              and rec.shape == (len(a), 22, 3) and np.isfinite(rec).all(),
+              f"H1 {f}: features {a.shape}, joints {rec.shape}")
+        diff = max(diff, float(np.abs(a - b).max()))
+        flips += int((a[:, -4:] != b[:, -4:]).sum())
+        frames += len(a)
+    margin = foot_margin(raw, "t2m")
+    print(f"[H1] prepare_data t2m: {len(lengths)} clips of "
+          f"{min(lengths)}-{max(lengths)} frames, all kept, the round trip "
+          f"finite; card {len(lengths) / secs['cuda']:.1f} clips/s "
+          f"({secs['cuda']:.2f} s), CPU {len(lengths) / secs['cpu']:.1f} "
+          f"clips/s ({secs['cpu']:.2f} s), host clock, the first card call "
+          f"included; card vs CPU: max |features| diff {diff:.3e} (tol 1e-4), "
+          f"{flips} of {4 * frames} foot contacts differ (tol 0; the "
+          f"squared foot speeds stay >= {margin:.3f} of the threshold away "
+          f"from it on the first 8 clips) ({card})")
+    check(diff <= 1e-4 and flips == 0, "H1 card vs CPU")
+    kit_lengths = [60 + (i * 139) // 39 for i in range(40)]
+    raw_kit = j(root, "raw_kit")
+    synth_raw_clips(raw_kit, "kit", kit_lengths, SEED + 80)
+    kit = prepare_data.main(["--dataset", "kit", "--joints_dir", raw_kit,
+                             "--out_dir", j(root, "kit")])
+    check(kit["kept"] == len(kit_lengths) and kit["dim"] == 251,
+          f"H1 KIT summary {kit}")
+    print(f"[H1] prepare_data kit on the card: {kit}")
+
+    # ---- H2: the corpus through Text2MotionDataset
+    ids = write_texts(corpus, subclips=True)
+    dcfg = DataConfig.humanml3d(data_root=corpus)
+    ds = Text2MotionDataset(dcfg, split="train", seed=SEED)
+    py = Text2MotionDataset(dcfg, split="train", seed=SEED, use_native=False)
+    check(ds.has_native and not py.has_native, "H2 native store")
+    check(ds.name_list == py.name_list, "H2 the same items")
+    L = dcfg.max_motion_length
+    short = [i for i in range(ds.real_len()) if ds.length_arr[i] < L]
+    long = [i for i in range(ds.real_len()) if ds.length_arr[i] >= L]
+    check(len(short) >= 32 and len(long) >= 1,
+          f"H2 {len(short)} uncropped and {len(long)} cropped items")
+    cn, mn, ln = ds.get_batch(short[:32], seed=3)
+    cp, mp, lp = py.get_batch(short[:32], seed=3)
+    err = float(np.abs(mn - mp).max())
+    check(cn == cp and np.array_equal(ln, lp) and err <= 1e-6,
+          f"H2 native vs Python batch: {err:.3e}")
+    _, mc, lc = ds.get_batch(long * 8, seed=5)
+    windows = 0
+    for row, i in enumerate(long * 8):
+        src = ds.normalizer.normalize_np(ds.data_dict[ds.name_list[i]]
+                                         ["motion"])
+        windows += any(np.allclose(src[s:s + L], mc[row], atol=1e-6)
+                       for s in range(len(src) - L + 1))
+    check(windows == len(long) * 8 and (lc == L).all(),
+          f"H2 {windows} of {len(long) * 8} crops are windows")
+    rng = np.random.default_rng(SEED + 90)
+    idx = [rng.integers(0, len(ds), 32).tolist() for _ in range(20)]
+    t0 = time.perf_counter()
+    for b, ix in enumerate(idx):
+        ds.get_batch(ix, seed=b)
+    nat_ms = (time.perf_counter() - t0) * 1e3 / len(idx)
+    t0 = time.perf_counter()
+    for b, ix in enumerate(idx):
+        py.get_batch(ix, seed=b)
+    py_ms = (time.perf_counter() - t0) * 1e3 / len(idx)
+    print(f"[H2] Text2MotionDataset: {ds.real_len()} items ({len(short)} "
+          f"shorter than {L} frames, {len(long)} cropped) from "
+          f"{len(lengths)} clips with their sub-clips; native store: the "
+          f"uncropped batch equals the Python path's within {err:.1e} (tol "
+          f"1e-6), {windows} crops all windows of their sources; host ms "
+          f"per batch of 32: native {nat_ms:.3f}, Python {py_ms:.3f}")
+
+    # ---- H3: tools/train.py on the corpus, the flagship at full width
+    counted = (P.favor_qkv, P.favor_qkv_bwd)
+    base = ["--device", "cuda", "--batch_size", "32", "--num_epochs", "1",
+            "--log_every", "1"]
+    steps_want = 2 * (len(ds) // 32)
+    check(steps_want == 4, f"H3 corpus gives {steps_want} steps, not 4")
+
+    def train(label, argv, steps):
+        for c in counted:
+            c.launches = 0
+        with tempfile.TemporaryDirectory(dir=root) as ck:
+            state, log, times = run_train_cli(
+                argv + base + ["--checkpoint_dir", ck])
+            meta = MotionNormalizer.load(j(ck, "t2m_moe_small", "meta"))
+        launches = {c.__name__: c.launches for c in counted}
+        losses = [float(v) for v in re.findall(r"loss_total: (\S+)", log)]
+        n_perf = 2 * 2 * state.model.config.num_layers
+        ok = (state.step == steps and len(losses) == steps
+              and all(math.isfinite(v) for v in losses)
+              and launches == {"favor_qkv": n_perf * steps,
+                               "favor_qkv_bwd": n_perf * steps})
+        ms = float(np.median(times[1:]))
+        print(f"[H3] {label}: {state.step} optimizer steps (latent "
+              f"{state.model.config.latent_dim}, "
+              f"{state.model.config.num_layers} blocks per scale, "
+              f"{state.model.config.input_feats} features, dropout "
+              f"{state.model.config.dropout}); losses {losses}; launches "
+              f"{launches}, expected {n_perf} x {steps} each; ms per step "
+              f"{', '.join(f'{x:.1f}' for x in times)}, median after the "
+              f"first {ms:.1f} ({card}) -> {'ok' if ok else 'FAIL'}")
+        check(ok, f"H3 {label}")
+        check(all(bool(torch.isfinite(p).all())
+                  for p in state.model.parameters()), f"H3 {label} weights")
+        del state
+        torch.cuda.empty_cache()
+        return meta, ms
+
+    meta, ms = train("--dataset t2m, native store",
+                     ["--dataset", "t2m", "--data_root", corpus], 4)
+    check(meta.mean.tobytes() == ds.normalizer.mean.tobytes()
+          and meta.std.tobytes() == ds.normalizer.std.tobytes(),
+          "H3 meta/ is not the dataset's normalizer")
+    print(f"[H3] ms per optimizer step on the t2m corpus {ms:.1f}, on D3's "
+          f"synthetic dataset {d3_ms:.1f} (medians, this run; {card}); "
+          f"meta/ equals the dataset's normalizer")
+    # 2 steps through the Python path: a corpus of 20 ids (40 items)
+    sub = j(root, "t2m_python")
+    os.makedirs(sub)
+    for d in ("new_joint_vecs", "texts"):
+        os.symlink(j(corpus, d), j(sub, d))
+    with open(j(sub, "train.txt"), "w") as fh:
+        fh.write("\n".join(ids[:20]) + "\n")
+    train("--dataset t2m --no_native_io",
+          ["--dataset", "t2m", "--data_root", sub, "--no_native_io"], 2)
+    write_texts(j(root, "kit"), subclips=False)
+    train("--dataset kit", ["--dataset", "kit", "--data_root",
+                            j(root, "kit")], 2)
+    return {"clips_per_s": len(lengths) / secs["cuda"],
+            "native_ms": nat_ms, "python_ms": py_ms, "ms_per_step": ms}
 
 
 def main() -> int:
@@ -2741,7 +3159,7 @@ def main() -> int:
 
     d1 = phase_d1(dev, card)
     phase_d2(cfg, dev)
-    d3_launches, _ = phase_d3(dev, card)
+    d3_launches, d3_ms = phase_d3(dev, card)
     d4_launches = phase_d4(cfg, dev)
 
     e1 = phase_e1(dev, card)
@@ -2757,6 +3175,7 @@ def main() -> int:
     phase_g1(cfg, model, dev, card)
     phase_g2(dev, card)
     del model
+    phase_h(card, d3_ms)
 
     csrc = "motiondiffusion_moe_tpu_torch/csrc/"
     ops = "motiondiffusion_moe_tpu/ops/"

@@ -35,7 +35,10 @@
 // Design: one CTA of 4 warps per (batch row, head, 128 query rows): 256 CTAs
 // at the flagship, two per SM, one wave. Each warp owns 32 rows as two
 // mma.sync m16n8k16 row tiles, so that every k and v fragment read from
-// shared memory feeds both; q stays in shared memory and its A fragments are
+// shared memory feeds both (up to D = 128; at D = 256 the two tiles'
+// accumulators, 2 x 32 n-tiles x 4 floats a thread, would not fit in the
+// registers, so each warp owns one 16-row tile, 128 floats a thread, and a
+// CTA 64 query rows: AmShape); q stays in shared memory and its A fragments are
 // read with ldmatrix at each k-step (measured faster on the H100 than
 // holding them in registers, which costs two CTAs' worth of registers). k
 // and v stream through shared memory in blocks of 32 keys with cp.async,
@@ -57,12 +60,19 @@ namespace {
 
 constexpr int kAmWarps = 4;
 constexpr int kAmThreads = kAmWarps * 32;
-constexpr int kAmTiles = 2;                     // 16-row tiles per warp
-constexpr int kAmWarpRows = 16 * kAmTiles;
-constexpr int kAmRows = kAmWarpRows * kAmWarps;  // query rows per CTA
 constexpr int kAmKeys = 32;                     // keys per block
 constexpr int kAmStages = 2;                    // key blocks in flight
 constexpr int kAmPad = 8;                       // bf16 padding of a smem row
+
+// The query rows of a warp and of a CTA at head dim D: two 16-row tiles a
+// warp up to D = 128, one at D = 256, where the output accumulator of a
+// thread (kTiles x D/8 n-tiles x 4 floats) would otherwise be 256 floats.
+template <int D>
+struct AmShape {
+  static constexpr int kTiles = D <= 128 ? 2 : 1;  // 16-row tiles per warp
+  static constexpr int kWarpRows = 16 * kTiles;
+  static constexpr int kRows = kWarpRows * kAmWarps;  // query rows per CTA
+};
 
 // Element strides of one launch: q and out share theirs, k and v theirs.
 // The (batch row, head) of a CTA starts at batch * b + head * h; rows are
@@ -74,15 +84,20 @@ struct AttnLayout {
   float l_floor;
 };
 
-// Shared memory: the q tile (kAmRows padded rows of D bf16), then k and v,
+// Shared memory: the q tile (AmShape<D>::kRows padded rows of D bf16), then
+// k and v,
 // kAmStages key blocks each (kAmKeys padded rows).
 template <int D>
 struct AmSmem {
   static constexpr int kStride = D + kAmPad;
-  static constexpr size_t kTile = size_t(kAmRows) * kStride;
+  static constexpr size_t kTile = size_t(AmShape<D>::kRows) * kStride;
   static constexpr size_t kBlock = size_t(kAmKeys) * kStride;
   static constexpr size_t kBytes =
       sizeof(__nv_bfloat16) * (kTile + 2 * kAmStages * kBlock);
+  // two CTAs an SM (__launch_bounds__ below) at every instance: 2 x 101,376
+  // bytes at D = 256
+  static_assert(kBytes <= 232448, "within an sm_90 block's shared memory");
+  static_assert(2 * kBytes <= 233472, "two CTAs within an SM's 228 KB");
 };
 
 // Rows [0, valid) of an R-row tile from global memory (rows `row` elements
@@ -133,7 +148,9 @@ __global__ void __launch_bounds__(kAmThreads, 2) cross_attention_mma_kernel(
   constexpr int kDSteps = D / 16;  // k-steps of q . k^T
   constexpr int kDTiles = D / 8;   // n-tiles of the output
   constexpr int kKeyTiles = kAmKeys / 8;
-  constexpr int M = kAmTiles;
+  constexpr int M = AmShape<D>::kTiles;
+  constexpr int kAmWarpRows = AmShape<D>::kWarpRows;
+  constexpr int kAmRows = AmShape<D>::kRows;
   extern __shared__ __align__(16) unsigned char am_smem[];
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(am_smem);
   __nv_bfloat16* ks = qs + S::kTile;
@@ -193,7 +210,7 @@ __global__ void __launch_bounds__(kAmThreads, 2) cross_attention_mma_kernel(
     // keys of this block before N; tiles past them take no products
     const int valid = min(kAmKeys, num_keys - j * kAmKeys);
     if (active) {
-      // scores of the warp's 32 rows against the block's keys
+      // scores of the warp's rows against the block's keys
       float s[M][kKeyTiles][4];
 #pragma unroll
       for (int mt = 0; mt < M; ++mt) {
@@ -347,7 +364,8 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, void* out,
       cross_attention_mma_kernel<D>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return err;
-  const int tiles = (seq_len + kAmRows - 1) / kAmRows;
+  constexpr int kRows = AmShape<D>::kRows;
+  const int tiles = (seq_len + kRows - 1) / kRows;
   cross_attention_mma_kernel<D><<<batch_heads * tiles, kAmThreads, smem,
                                   stream>>>(
       static_cast<const __nv_bfloat16*>(q),
@@ -374,6 +392,9 @@ cudaError_t launch_for_head_dim(int head_dim, const void* q, const void* k,
     case 128:
       return launch_mma<128>(q, k, v, out, batch_heads, seq_len, num_keys,
                              scale, lay, stream);
+    case 256:
+      return launch_mma<256>(q, k, v, out, batch_heads, seq_len, num_keys,
+                             scale, lay, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -384,7 +405,7 @@ cudaError_t launch_for_head_dim(int head_dim, const void* q, const void* k,
 
 // C entries for ctypes; bf16 tensors, contiguous and 16-byte aligned. Each
 // returns the CUDA error code of the launch (0 on success); a head dim other
-// than 64, 96 or 128 or an empty input returns cudaErrorInvalidValue.
+// than 64, 96, 128 or 256 or an empty input returns cudaErrorInvalidValue.
 //
 // Kernel 6's layout: q, out [B, T, H*D]; k, v [B, N, H*D]; out = p . v / l.
 extern "C" int mdm_xattn_fastlayout_bf16(const void* q, const void* k,

@@ -193,8 +193,14 @@ __global__ void __launch_bounds__(kFlThreads) flash_xattn_kernel(
 #pragma unroll 2
     for (int n = 0; n < nb; ++n) {
       float vv[C];
-      if constexpr (C == 4) {
-        fl_load16(vs + size_t(n) * D + lane * C, vv);
+      if constexpr (C % 4 == 0) {
+#pragma unroll
+        for (int c = 0; c < C; c += 4) {
+          float t[4];
+          fl_load16(vs + size_t(n) * D + lane * C + c, t);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) vv[c + e] = t[e];
+        }
       } else {
 #pragma unroll
         for (int c = 0; c < C; ++c) vv[c] = vs[size_t(n) * D + lane * C + c];
@@ -241,7 +247,8 @@ cudaError_t launch_flash(const void* q, const void* k, const void* v,
 }  // namespace mdm
 
 // Shared memory one launch needs for key blocks of block_n rows at head_dim
-// (64, 96 or 128); 0 for another head dim.
+// (64, 96, 128 or 256); 0 for another head dim. At D = 256 blocks of up to
+// 91 keys fit (the wrapper halves block_n until the plan fits).
 extern "C" long long mdm_flash_cross_attention_smem_bytes(int block_n,
                                                           int head_dim) {
   switch (head_dim) {
@@ -251,6 +258,8 @@ extern "C" long long mdm_flash_cross_attention_smem_bytes(int block_n,
       return static_cast<long long>(mdm::FlashLayout<96>::bytes(block_n));
     case 128:
       return static_cast<long long>(mdm::FlashLayout<128>::bytes(block_n));
+    case 256:
+      return static_cast<long long>(mdm::FlashLayout<256>::bytes(block_n));
     default:
       return 0;
   }
@@ -259,7 +268,7 @@ extern "C" long long mdm_flash_cross_attention_smem_bytes(int block_n,
 // C entry for ctypes. q, out: [B, H, T, D]; k, v: [B, H, N, D]; contiguous,
 // 16-byte aligned, f32; bh = B*H; keys pass through shared memory block_n
 // rows at a time. Returns the CUDA error code of the launch (0 on success);
-// a head dim other than 64, 96 or 128 or an empty input returns
+// a head dim other than 64, 96, 128 or 256 or an empty input returns
 // cudaErrorInvalidValue.
 extern "C" int mdm_flash_cross_attention(const void* q, const void* k,
                                          const void* v, void* out, int bh,
@@ -279,6 +288,9 @@ extern "C" int mdm_flash_cross_attention(const void* q, const void* k,
                                        block_n, scale, s));
     case 128:
       return int(mdm::launch_flash<128>(q, k, v, out, bh, seq_len, num_keys,
+                                        block_n, scale, s));
+    case 256:
+      return int(mdm::launch_flash<256>(q, k, v, out, bh, seq_len, num_keys,
                                         block_n, scale, s));
     default:
       return int(cudaErrorInvalidValue);

@@ -64,8 +64,15 @@ __device__ __forceinline__ void load16(const float* p, float (&v)[4]) {
 // and C values stored at p.
 template <int C>
 __device__ __forceinline__ void load_cols(const float* p, float (&v)[C]) {
-  if constexpr (C == 4) {
-    load16(p, v);
+  if constexpr (C % 4 == 0) {
+#pragma unroll
+    for (int c = 0; c < C; c += 4) {
+      const float4 t = *reinterpret_cast<const float4*>(p + c);
+      v[c] = t.x;
+      v[c + 1] = t.y;
+      v[c + 2] = t.z;
+      v[c + 3] = t.w;
+    }
   } else if constexpr (C == 2) {
     const float2 t = *reinterpret_cast<const float2*>(p);
     v[0] = t.x;
@@ -77,8 +84,12 @@ __device__ __forceinline__ void load_cols(const float* p, float (&v)[C]) {
 }
 template <int C>
 __device__ __forceinline__ void store_cols(float* p, const float (&v)[C]) {
-  if constexpr (C == 4) {
-    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  if constexpr (C % 4 == 0) {
+#pragma unroll
+    for (int c = 0; c < C; c += 4) {
+      *reinterpret_cast<float4*>(p + c) =
+          make_float4(v[c], v[c + 1], v[c + 2], v[c + 3]);
+    }
   } else {
 #pragma unroll
     for (int c = 0; c < C; ++c) p[c] = v[c];
@@ -257,8 +268,9 @@ cudaError_t launch_xattn(const void* q, const void* k, const void* v,
 }  // namespace
 }  // namespace mdm
 
-// Shared memory one launch needs for num_keys keys of head_dim (64, 96 or
-// 128); 0 for another head dim.
+// Shared memory one launch needs for num_keys keys of head_dim (64, 96, 128
+// or 256); 0 for another head dim. At D = 256 k and v of 91 keys fill the
+// 232,448 bytes a block may use (the text encoder emits 85).
 extern "C" long long mdm_xattn_fastlayout_smem_bytes(int num_keys,
                                                      int head_dim) {
   switch (head_dim) {
@@ -268,6 +280,8 @@ extern "C" long long mdm_xattn_fastlayout_smem_bytes(int num_keys,
       return static_cast<long long>(mdm::XattnLayout<96>::bytes(num_keys));
     case 128:
       return static_cast<long long>(mdm::XattnLayout<128>::bytes(num_keys));
+    case 256:
+      return static_cast<long long>(mdm::XattnLayout<256>::bytes(num_keys));
     default:
       return 0;
   }
@@ -275,7 +289,7 @@ extern "C" long long mdm_xattn_fastlayout_smem_bytes(int num_keys,
 
 // C entry for ctypes. q, out: [B, T, H*D]; k, v: [B, N, H*D]; contiguous,
 // 16-byte aligned, f32. Returns the CUDA error code of the launch (0 on
-// success); a head dim other than 64, 96 or 128 returns
+// success); a head dim other than 64, 96, 128 or 256 returns
 // cudaErrorInvalidValue, and an N whose k and v do not fit in shared memory
 // the error of the shared-memory request.
 extern "C" int mdm_xattn_fastlayout(const void* q, const void* k,
@@ -295,6 +309,9 @@ extern "C" int mdm_xattn_fastlayout(const void* q, const void* k,
                                        num_keys, num_heads, scale, s));
     case 128:
       return int(mdm::launch_xattn<128>(q, k, v, out, batch, seq_len,
+                                        num_keys, num_heads, scale, s));
+    case 256:
+      return int(mdm::launch_xattn<256>(q, k, v, out, batch, seq_len,
                                         num_keys, num_heads, scale, s));
     default:
       return int(cudaErrorInvalidValue);

@@ -1,9 +1,10 @@
 """Batching with the reference's distributed sampler, host-side numpy.
 
-A copy of ``motiondiffusion_moe_tpu/data/loader.py`` less the native (C++)
-batch assembly, which comes with the data port: ``DistributedSampler``
+A copy of ``motiondiffusion_moe_tpu/data/loader.py``: ``DistributedSampler``
 (epoch-seeded shuffle, round-up padding), ``collate`` and ``DataLoader``
-with a one-batch background prefetch. The port trains on one process, so
+with a one-batch background prefetch, whose batches come from the dataset's
+native (C++) store where it has one (``Text2MotionDataset.get_batch``), with
+the JAX package's per-batch crop seed. The port trains on one process, so
 the sampler runs with one replica.
 """
 
@@ -89,14 +90,29 @@ class DataLoader:
             n / self.batch_size)
 
     def _batches(self) -> Iterator[Batch]:
+        native = getattr(self.dataset, "has_native", False)
         buf: List[int] = []
+        n_batch = 0
+
+        def emit(idxs: List[int]) -> Batch:
+            nonlocal n_batch
+            if native:
+                # the crop seed of a batch: (seed, epoch, batch number)
+                seed = ((self.sampler.seed * 1_000_003
+                         + self.sampler.epoch) * 131 + n_batch) & 0x7FFFFFFF
+                b = self.dataset.get_batch(idxs, seed=seed)
+            else:
+                b = collate([self.dataset[i] for i in idxs])
+            n_batch += 1
+            return b
+
         for idx in self.sampler:
             buf.append(idx)
             if len(buf) == self.batch_size:
-                yield collate([self.dataset[i] for i in buf])
+                yield emit(buf)
                 buf = []
         if buf and not self.drop_last:
-            yield collate([self.dataset[i] for i in buf])
+            yield emit(buf)
 
     def __iter__(self) -> Iterator[Batch]:
         if not self.prefetch:

@@ -44,8 +44,8 @@ from motiondiffusion_moe_tpu_torch.ops.performer import (
 )
 
 # head dims the CUDA library is instantiated for (small_dense 64, moe_big
-# 96, moe_small 128)
-XATTN_HEAD_DIMS = {64, 96, 128}
+# 96, moe_small 128, tools/train.py --model_size big 256)
+XATTN_HEAD_DIMS = {64, 96, 128, 256}
 
 
 def xattn_kernel_ok(head_dim: int) -> bool:
@@ -160,7 +160,8 @@ def xattn_fastlayout(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     On CUDA: q, k, v contiguous, 16-byte aligned, one dtype (f32 or bf16);
     head dim in :data:`XATTN_HEAD_DIMS`; any N in bf16; in f32, N small
     enough for k and v of one head to fit in shared memory (about 180 keys
-    at head dim 128)."""
+    at head dim 128, 91 at head dim 256, where the text encoder emits
+    85)."""
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"xattn_fastlayout: unsupported device {q.device}")
     D = q.shape[-1] // num_heads
@@ -220,12 +221,12 @@ def _launch_flash(q, k, v, scale, block_n) -> torch.Tensor:
         launch = lambda: lib.mdm_flash_cross_attention_bf16(  # noqa: E731
             *ptrs, B * H, T, N, D, scale, _stream(q.device))
     else:
+        # halved until the plan fits: at head dim 256 a block holds at most
+        # 91 keys (128 do not fit)
         bn = min(block_n, N)
-        smem = lib.mdm_flash_cross_attention_smem_bytes(bn, D)
-        _require(smem <= MAX_SMEM_PER_BLOCK,
-                 f"{op}: f32 key blocks of {bn} rows at head dim {D} need "
-                 f"{smem} bytes of shared memory, more than "
-                 f"{MAX_SMEM_PER_BLOCK}")
+        while (bn > 1 and lib.mdm_flash_cross_attention_smem_bytes(bn, D)
+               > MAX_SMEM_PER_BLOCK):
+            bn = (bn + 1) // 2
         launch = lambda: lib.mdm_flash_cross_attention(  # noqa: E731
             *ptrs, B * H, T, N, D, bn, scale, _stream(q.device))
     with torch.cuda.device(q.device):
@@ -264,7 +265,9 @@ def flash_cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``csrc/flash_cross_attention.cu`` (f32, keys through shared memory
     ``block_n`` rows at a time). ``block_q``, and in bf16 ``block_n``, are
     kept for the JAX signature and set no tile: the bf16 kernel takes 128
-    query rows and 32 keys at a time, the f32 one 32 query rows.
+    query rows (64 at head dim 256) and 32 keys at a time, the f32 one 32
+    query rows. In f32 ``block_n`` is halved until a block fits in shared
+    memory (at head dim 256, 128 keys do not).
 
     On CUDA: q, k, v contiguous, 16-byte aligned, one dtype (f32 or bf16);
     head dim in :data:`XATTN_HEAD_DIMS`; any number of keys."""

@@ -3,15 +3,19 @@
 The counterpart of ``python -m motiondiffusion_moe_tpu.tools.train``, with
 the same flags plus ``--device``::
 
-    python -m motiondiffusion_moe_tpu_torch.tools.train --dataset synthetic \\
-        --device cuda
+    python -m motiondiffusion_moe_tpu_torch.tools.train --dataset t2m \\
+        --data_root data/HumanML3D --device cuda
 
-The config is written to ``<checkpoint_dir>/<name>/config.json`` (the JAX
-package's format) and the normalizer to ``meta/``; checkpoints go to
-``ckpt/`` and a rerun resumes from the newest. What the port does not run
-yet raises: the real datasets (``t2m``, ``kit``) and DeBERTa until the data
-port, the multi-device flags until the parallel port, and ``--scan_blocks``
-/ ``--remat_blocks``, which exist for JAX compilation and are not ported.
+``--dataset t2m`` / ``kit`` read a HumanML3D / KIT-ML directory
+(``new_joint_vecs/``, ``texts/``, ``train.txt``; ``tools/prepare_data.py``
+makes one from raw joints) through ``Text2MotionDataset``, its batches
+assembled by the native C++ store unless ``--no_native_io``;
+``--dataset synthetic`` takes no files. The config is written to
+``<checkpoint_dir>/<name>/config.json`` (the JAX package's format) and the
+normalizer to ``meta/``; checkpoints go to ``ckpt/`` and a rerun resumes
+from the newest. What the port does not run yet raises: DeBERTa, the
+multi-device flags until the parallel port, and ``--scan_blocks`` /
+``--remat_blocks``, which exist for JAX compilation and are not ported.
 """
 
 from __future__ import annotations
@@ -30,7 +34,8 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--name", default="t2m_moe_small")
     p.add_argument("--dataset", default="t2m",
                    choices=["t2m", "kit", "synthetic"],
-                   help="t2m and kit are not ported yet and raise")
+                   help="t2m / kit: a HumanML3D / KIT-ML directory under "
+                        "--data_root; synthetic: generated, no files")
     p.add_argument("--data_root", default="./data/HumanML3D")
     p.add_argument("--checkpoint_dir", default="./checkpoints")
     p.add_argument("--batch_size", type=int, default=32)
@@ -111,8 +116,9 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--synthetic_size", type=int, default=256,
                    help="synthetic dataset size (dataset=synthetic)")
     p.add_argument("--no_native_io", action="store_true",
-                   help="accepted for the JAX CLI's sake; the port has no "
-                        "native data plane yet")
+                   help="assemble batches in Python instead of the native "
+                        "C++ store (which otherwise must build, or the run "
+                        "raises)")
     p.add_argument("--coordinator_address", default="",
                    help="multi-host: raises until the parallel port")
     p.add_argument("--num_processes", type=int, default=0,
@@ -124,10 +130,6 @@ def build_argparser() -> argparse.ArgumentParser:
 
 def check_supported(args: argparse.Namespace) -> None:
     """Raise for what the port does not run yet (see the module doc)."""
-    if args.dataset != "synthetic":
-        raise NotImplementedError(
-            f"--dataset {args.dataset}: the HumanML3D / KIT-ML readers are "
-            "not ported yet; use --dataset synthetic")
     if args.text_encoder != "hash" or args.deberta_ckpt:
         raise NotImplementedError(
             f"--text_encoder {args.text_encoder}: only the hash encoder is "
@@ -212,7 +214,7 @@ def main(argv=None):
     import torch
 
     from motiondiffusion_moe_tpu_torch.data.dataset import (
-        SyntheticText2MotionDataset)
+        SyntheticText2MotionDataset, Text2MotionDataset)
     from motiondiffusion_moe_tpu_torch.data.loader import (
         DataLoader, DistributedSampler)
     from motiondiffusion_moe_tpu_torch.training.checkpoint import (
@@ -234,8 +236,12 @@ def main(argv=None):
           + (f" ({torch.cuda.get_device_name(device)})"
              if device.type == "cuda" else ""))
 
-    dataset = SyntheticText2MotionDataset(cfg.data, size=args.synthetic_size,
-                                          seed=cfg.train.seed)
+    if args.dataset == "synthetic":
+        dataset = SyntheticText2MotionDataset(
+            cfg.data, size=args.synthetic_size, seed=cfg.train.seed)
+    else:
+        dataset = Text2MotionDataset(cfg.data, split="train",
+                                     seed=cfg.train.seed)
     dataset.normalizer.save(os.path.join(run_dir, "meta"))
     sampler = DistributedSampler(len(dataset), seed=cfg.train.seed)
     loader = DataLoader(dataset, batch_size=cfg.train.batch_size,

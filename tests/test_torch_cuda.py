@@ -452,7 +452,8 @@ def test_moe_dense_fused_kernel_matches_plain(dev, shape, dtype):
 
 
 @pytest.mark.parametrize("shape", [(32, 196, 85, 4, 128), (3, 37, 20, 8, 96),
-                                   (2, 50, 7, 2, 64), (2, 40, 160, 4, 128)])
+                                   (2, 50, 7, 2, 64), (2, 40, 160, 4, 128),
+                                   (4, 196, 85, 4, 256), (2, 37, 91, 2, 256)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_xattn_fastlayout_kernel_matches_plain(dev, shape, dtype):
     B, T, N, H, D = shape
@@ -471,6 +472,19 @@ def test_xattn_fastlayout_kernel_matches_plain(dev, shape, dtype):
         assert err.max().item() <= 1e-4 * ref.abs().max().item()
     else:
         assert_bf16_flips(out, ref)
+
+
+def test_xattn_fastlayout_f32_at_head_dim_256_raises_past_91_keys(dev):
+    """k and v of a head in shared memory: 91 keys fit at head dim 256 (the
+    text encoder emits 85), 92 do not, and the wrapper says so; bf16 streams
+    any number."""
+    x = torch.zeros(1, 8, 4 * 256, device=dev)
+    kv = torch.zeros(1, 92, 4 * 256, device=dev)
+    with pytest.raises(ValueError, match="shared memory"):
+        XA.xattn_fastlayout(x, kv, kv, 4)
+    out = XA.xattn_fastlayout(x.bfloat16(), kv.bfloat16(), kv.bfloat16(), 4)
+    torch.cuda.synchronize()
+    assert out.shape == x.shape
 
 
 def test_xattn_fastlayout_bf16_takes_any_number_of_keys(dev):
@@ -678,7 +692,9 @@ def test_favor_attention_full_kernel_matches_plain(dev, shape, dtype):
                                    (2, 4, 50, 1024, 128, 128),
                                    (3, 8, 37, 20, 96, 128),
                                    (2, 2, 33, 300, 64, 64),
-                                   (1, 2, 7, 5, 128, 128)])
+                                   (1, 2, 7, 5, 128, 128),
+                                   (4, 4, 196, 85, 256, 128),
+                                   (2, 2, 33, 200, 256, 128)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_cross_attention_kernel_matches_plain(dev, shape, dtype):
     B, H, T, N, D, block_n = shape
@@ -1187,3 +1203,54 @@ def test_big_width_kernels_match_plain(dev, dtype):
     args = [y, sc, sh, vecs[0], vecs[1], r(D, D, s=D ** -0.5).to(dtype),
             r(D, s=0.1).to(dtype)]
     close(AD.adaln_dense(*args), AD.adaln_dense_plain(*args))
+
+
+# ---------------------------------------------------------------------------
+# the motion codec on the card: raw joints -> features
+# ---------------------------------------------------------------------------
+
+def test_process_file_on_the_card_matches_the_cpu(dev):
+    """``process_file`` of a seeded t2m clip on the card against the same
+    on the CPU: features within 1e-4 (f32 IK chains, another order of sums
+    and other sqrt / trig roundings), foot contacts equal. The clip stands,
+    walks at 1.4 m/s (20 fps), then stands again: a foot either stays still
+    or moves about as fast as the root, so its squared speed stays away
+    from the contact threshold (checked)."""
+    from motiondiffusion_moe_tpu_torch.motion.process import (
+        ProcessConfig, build_target_offsets, process_file)
+    from motiondiffusion_moe_tpu_torch.motion.skeleton import Skeleton
+
+    cfg = ProcessConfig.t2m()
+    rng = np.random.default_rng(3)
+    rest = np.zeros((22, 3), np.float32)
+    for chain in cfg.kinematic_chain:  # shoulders wider than hips
+        for a, b in zip(chain[:-1], chain[1:]):
+            wide = a != 0 and cfg.raw_offsets[b][0] != 0
+            rest[b] = rest[a] + (0.5 if wide else 0.3) * cfg.raw_offsets[b]
+    skel = Skeleton(cfg.raw_offsets, cfg.kinematic_chain)
+    skel.get_offsets_joints(torch.from_numpy(rest))
+    T = 120
+    walking = (np.arange(T) >= 30) & (np.arange(T) < 90)
+    angles = (np.cumsum(rng.standard_normal((T, 22, 3)) * 0.005
+                        * walking[:, None, None], axis=0)
+              + 0.1 * rng.standard_normal((22, 3)))
+    theta = np.linalg.norm(angles, axis=-1, keepdims=True)
+    quat = np.concatenate([np.cos(theta / 2),
+                           0.5 * np.sinc(theta / (2 * np.pi)) * angles],
+                          axis=-1).astype(np.float32)
+    x = np.cumsum(0.07 * walking)
+    root = np.stack([x, np.full(T, 0.9), 0.5 * x], -1).astype(np.float32)
+    joints = skel.forward_kinematics(torch.from_numpy(quat),
+                                     torch.from_numpy(root)).numpy()
+    tgt = build_target_offsets(joints, cfg)
+    ref = process_file(joints, cfg, tgt, device="cpu")
+    out = process_file(joints, cfg, tgt, device=dev)
+    feet = list(cfg.fid_l) + list(cfg.fid_r)
+    speed_sq = (np.diff(ref[1][:, feet], axis=0) ** 2).sum(-1)
+    assert np.abs(speed_sq / cfg.feet_thre - 1).min() > 1e-3
+    assert 0 < ref[0][:, -4:].mean() < 1
+    assert out[0].shape == ref[0].shape == (T - 1, 263)
+    np.testing.assert_array_equal(out[0][:, -4:], ref[0][:, -4:])
+    for o, r in zip(out, ref):
+        assert np.isfinite(o).all()
+        np.testing.assert_allclose(o, r, atol=1e-4, rtol=0)

@@ -113,18 +113,18 @@ def test_presets_take_every_kernel(preset):
 
 
 @pytest.mark.parametrize("kind", ["favor_qkv", "performer_epilogue",
-                                  "adaln_dense", "moe_dense_fused"])
+                                  "adaln_dense", "moe_dense_fused",
+                                  "xattn_fastlayout"])
 def test_big_widths_have_every_instance(kind):
     """``--model_size big`` (head dim 256, latent 1024, expert hidden 512):
-    kernels 1-5 and 7 have instances. The exact cross-attention at head dim
-    256 (``use_fast_xattn``, which the CLI does not set) has none: its
-    wrappers raise there (ROADMAP.md queue 2)."""
+    kernels 1-5 and 7 have instances, and so do kernels 6 and 9 at head dim
+    256 (``use_fast_xattn``, which the CLI does not set)."""
     cfg = _big_config()
     assert (cfg.latent_dim, cfg.latent_dim // cfg.num_heads,
             cfg.ff_size) == (1024, 256, 512)
     found = _instances(_meta_model(cfg))
     assert found[kind]
-    assert not FA.xattn_kernel_ok(cfg.latent_dim // cfg.num_heads)
+    assert FA.xattn_kernel_ok(cfg.latent_dim // cfg.num_heads)
 
 
 def test_construction_prints_nothing(capsys):
@@ -219,7 +219,8 @@ def test_moe_check_raises_outside_the_set(D, hid, ok):
                   _meta(4, hid, D), _meta(4, D))
 
 
-@pytest.mark.parametrize("head_dim,ok", [(256, False), (128, True)])
+@pytest.mark.parametrize("head_dim,ok", [(512, False), (80, False),
+                                         (256, True), (128, True)])
 def test_xattn_checks_raise_outside_the_set(head_dim, ok):
     H = 4
     q, k = _meta(2, 8, H * head_dim), _meta(2, 5, H * head_dim)
