@@ -1,5 +1,5 @@
-"""Drive the PyTorch port's sampling, serving and training paths once on one
-CUDA GPU.
+"""Drive the PyTorch port's sampling, serving, training and evaluation
+paths once on one CUDA GPU.
 
     python3 chip_smoke.py
 
@@ -167,6 +167,26 @@ first use) and exits non-zero without one. Phases, each fatal on failure:
          finite losses, kernels 1 and 3 launched 32 x 4 times each, meta/
          the dataset's normalizer, ms/step beside D3's; then 2 steps with
          --no_native_io and 2 on the KIT corpus.
+  I      evaluating H3's trained t2m run (kept with H's corpus until I is
+         done) on a test split over the corpus's ids, with a finest.tar of
+         the released shapes and seeded weights and the committed GloVe
+         fixture. I1: tools/evaluate.main on the card, dpm20, the host
+         path, 2 replications, the protocol cut to the split (pools of 32,
+         diversity 30, mm 4 x 6, mm times 3, micro-batch 16, joint scores
+         over 32 samples; each cut printed): every summary metric finite,
+         the log holding each metric's summary, kernels 1 and 2 launched
+         exactly 32 x 21 x micro-batches; seconds per replication, s/motion,
+         evaluator ms per pool of 32, bytes fetched. I2: the same with
+         --device_embeddings, 1 replication: replication 0's Matching
+         Score, R-precision and FID within 1e-4 relative of I1's (the same
+         motions embedded), the bytes fetched. I3: the evaluator on the
+         card (f32, TF32 off) against the same weights on the CPU, one
+         pool's co-embeddings within 1e-4 of their largest value, ms per
+         pool on each, and the difference cuDNN's default TF32 makes. I4:
+         ddpm_sample_loop, ddim_sample_loop(cond_fn=...) and calc_bpd_loop
+         through the flagship's conditional branch at B = 4 on a 50-step
+         respaced schedule: finite, kernels 1 and 2 launched 50 x 32 times
+         per loop.
 
 The last line is {"ok": true, "device": {...}}, printed only when every
 phase passed; the line before it lists the kernels of the paths, each with
@@ -2933,16 +2953,18 @@ def foot_margin(raw_dir, dataset):
     return worst
 
 
-def phase_h(card, d3_ms):
+def phase_h_and_i(card, d3_ms):
     """Raw joints -> prepare_data -> Text2MotionDataset with the native
     store -> tools/train.py --dataset t2m / kit on the card, at the
     flagship's full width and depth. H1: 48 synthetic t2m clips of 60-240
     frames through prepare_data on the card and on the CPU; H2: the corpus
     read by Text2MotionDataset, native batches against the Python path;
     H3: 4 optimizer steps of the flagship on it (kernels 1 and 3 counted),
-    2 with --no_native_io, 2 on a KIT corpus."""
+    2 with --no_native_io, 2 on a KIT corpus. Then phase I evaluates H3's
+    t2m run on the same corpus; both live in one temporary directory."""
     with tempfile.TemporaryDirectory(prefix="phase_h_") as root:
-        return _phase_h(root, card, d3_ms)
+        h = _phase_h(root, card, d3_ms)
+        return h, phase_i(root, h, card)
 
 
 def _phase_h(root, card, d3_ms):
@@ -3058,10 +3080,14 @@ def _phase_h(root, card, d3_ms):
     steps_want = 2 * (len(ds) // 32)
     check(steps_want == 4, f"H3 corpus gives {steps_want} steps, not 4")
 
-    def train(label, argv, steps):
+    def train(label, argv, steps, keep=None):
+        """``keep``: the checkpoint dir to write and keep (phase I reads
+        the run); else a temporary one."""
         for c in counted:
             c.launches = 0
-        with tempfile.TemporaryDirectory(dir=root) as ck:
+        with contextlib.ExitStack() as stack:
+            ck = keep or stack.enter_context(
+                tempfile.TemporaryDirectory(dir=root))
             state, log, times = run_train_cli(
                 argv + base + ["--checkpoint_dir", ck])
             meta = MotionNormalizer.load(j(ck, "t2m_moe_small", "meta"))
@@ -3088,8 +3114,10 @@ def _phase_h(root, card, d3_ms):
         torch.cuda.empty_cache()
         return meta, ms
 
+    run_root = j(root, "run_t2m")
     meta, ms = train("--dataset t2m, native store",
-                     ["--dataset", "t2m", "--data_root", corpus], 4)
+                     ["--dataset", "t2m", "--data_root", corpus], 4,
+                     keep=run_root)
     check(meta.mean.tobytes() == ds.normalizer.mean.tobytes()
           and meta.std.tobytes() == ds.normalizer.std.tobytes(),
           "H3 meta/ is not the dataset's normalizer")
@@ -3109,7 +3137,368 @@ def _phase_h(root, card, d3_ms):
     train("--dataset kit", ["--dataset", "kit", "--data_root",
                             j(root, "kit")], 2)
     return {"clips_per_s": len(lengths) / secs["cuda"],
-            "native_ms": nat_ms, "python_ms": py_ms, "ms_per_step": ms}
+            "native_ms": nat_ms, "python_ms": py_ms, "ms_per_step": ms,
+            "corpus": corpus, "ids": ids,
+            "run_dir": j(run_root, "t2m_moe_small")}
+
+
+# ---------------------------------------------------------------------------
+# I: evaluating the trained flagship
+# ---------------------------------------------------------------------------
+
+GLOVE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                     "fixtures", "glove")
+# the protocol cut to what H's 74-item test split holds and to about a
+# minute and a half of the card (the reference's: retrieval pools of 512,
+# diversity 300, mm 100 x 30, mm times 10, 20 replications, every test
+# sample scored in joint space, the 1000-step DDPM); each cut is printed
+I_MB, I_MM, I_REPS, I_SCORE = 16, 4, 6, 32
+I_PROTOCOL = ["--sampler", "dpm", "--steps", "20", "--batch_size",
+              str(I_MB), "--protocol_batch_size", "32", "--diversity_times",
+              "30", "--mm_num_samples", str(I_MM), "--mm_num_repeats",
+              str(I_REPS), "--mm_num_times", "3"]
+METRICS = ("Matching Score", "R_precision", "FID", "Diversity",
+           "MultiModality")
+
+
+def write_finest_tar(path, dim_pose=263, seed=SEED + 100):
+    """A finest.tar with the released evaluator's layout and shapes (the
+    reference's torch modules: the movement conv encoder, the text and
+    motion BiGRU co-encoders, text hidden 512, motion hidden 1024,
+    co-embedding 512), seeded weights."""
+    import torch
+    from torch import nn
+
+    def co(input_size, hidden, with_pos):
+        m = nn.Module()
+        if with_pos:
+            m.pos_emb = nn.Linear(15, 300)
+        m.input_emb = nn.Linear(input_size, hidden)
+        m.gru = nn.GRU(hidden, hidden, batch_first=True, bidirectional=True)
+        m.output_net = nn.Sequential(
+            nn.Linear(hidden * 2, hidden), nn.LayerNorm(hidden),
+            nn.LeakyReLU(0.2), nn.Linear(hidden, 512))
+        m.hidden = nn.Parameter(torch.randn(2, 1, hidden))
+        return m
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        mov = nn.Module()
+        mov.main = nn.Sequential(
+            nn.Conv1d(dim_pose - 4, 512, 4, 2, 1), nn.Dropout(0.2),
+            nn.LeakyReLU(0.2), nn.Conv1d(512, 512, 4, 2, 1),
+            nn.Dropout(0.2), nn.LeakyReLU(0.2))
+        mov.out_net = nn.Linear(512, 512)
+        torch.save({"movement_encoder": mov.state_dict(),
+                    "text_encoder": co(300, 512, True).state_dict(),
+                    "motion_encoder": co(512, 1024, False).state_dict()},
+                   path)
+
+
+@contextlib.contextmanager
+def patched(*patches):
+    """Set (owner, attribute, value) for the block, then restore."""
+    old = [(o, a, getattr(o, a)) for o, a, _ in patches]
+    for o, a, v in patches:
+        setattr(o, a, v)
+    try:
+        yield
+    finally:
+        for o, a, v in old:
+            setattr(o, a, v)
+
+
+def phase_i(root, h, card, dev="cuda"):
+    """The trained flagship of H3 evaluated on H's corpus (a test split over
+    its ids, a real-shaped finest.tar with seeded weights, the committed
+    GloVe fixture). I1: tools/evaluate.main on the card, host path, dpm20,
+    2 replications; I2: --device_embeddings, replication 0 against I1's;
+    I3: the evaluator on the card against the CPU; I4: the unguided DDPM
+    loop, DDIM with a classifier gradient and the bits-per-dim loop through
+    the flagship's conditional branch on a respaced 50-step schedule."""
+    import torch
+    from motiondiffusion_moe_tpu_torch.config import DataConfig
+    from motiondiffusion_moe_tpu_torch.data.dataset import (
+        Text2MotionDataset)
+    from motiondiffusion_moe_tpu_torch.eval import evaluator_models as EM
+    from motiondiffusion_moe_tpu_torch.ops import performer as P
+    from motiondiffusion_moe_tpu_torch.pipeline import GenerationPipeline
+    from motiondiffusion_moe_tpu_torch.tools import evaluate
+
+    j = os.path.join
+    corpus, run_dir = h["corpus"], h["run_dir"]
+    with open(j(corpus, "test.txt"), "w") as fh:
+        fh.write("\n".join(h["ids"]) + "\n")
+    finest = j(root, "finest.tar")
+    write_finest_tar(finest)
+    n = len(Text2MotionDataset(DataConfig.humanml3d(data_root=corpus),
+                               split="test", use_native=False).name_list)
+    prompts = n + min(I_MM, n) * (I_REPS - 1)  # per replication
+    n_perf, fwd = 32, 21  # Performers per forward, dpm20 forwards
+    counted = (P.favor_qkv, P.performer_epilogue)
+    print(f"[I] cuts: test split {n} items (HumanML3D's 4,384), retrieval "
+          f"pools of 32 (512; {n - n % 32} items pooled, the ragged tail "
+          f"dropped as the reference's loaders drop it), diversity 30 "
+          f"(300), mm {I_MM} x {I_REPS} (100 x 30), mm times 3 (10), "
+          f"dpm20 (the CLI's DDPM 1000), generation micro-batch {I_MB}; "
+          f"I1 2 replications (20), joint scores over {I_SCORE} samples "
+          f"(all); I2 1 replication, no joint scores; {prompts} prompts "
+          f"per replication")
+
+    gen_s, gen_n, pool_ms, fetched = [], [], [], [0]
+
+    def timed(fn):
+        def run(self, captions, *a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(self, captions, *a, **k)
+            torch.cuda.synchronize()
+            gen_s.append(time.perf_counter() - t0)
+            gen_n.append(len(captions))
+            return out
+        return run
+
+    co = EM.EvaluatorModelWrapper.get_co_embeddings
+
+    def timed_co(self, *a):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = co(self, *a)  # numpy: the copy waits for the card
+        pool_ms.append((len(out[0]), (time.perf_counter() - t0) * 1e3))
+        return out
+
+    micro = GenerationPipeline._micro_batches
+
+    def counted_micro(self, *a, **k):
+        for host, lens, rows in micro(self, *a, **k):
+            fetched[0] += host.nbytes
+            yield host, lens, rows
+
+    def run_cli(label, extra):
+        for c in counted:
+            c.launches = 0
+        gen_s.clear(), gen_n.clear(), pool_ms.clear()
+        fetched[0] = 0
+        log_file = j(root, f"{label}.log")
+        t0 = time.perf_counter()
+        with patched(
+                (GenerationPipeline, "generate",
+                 timed(GenerationPipeline.generate)),
+                (GenerationPipeline, "generate_motion_embeddings",
+                 timed(GenerationPipeline.generate_motion_embeddings)),
+                (GenerationPipeline, "_micro_batches", counted_micro),
+                (EM.EvaluatorModelWrapper, "get_co_embeddings", timed_co)):
+            res = evaluate.main(
+                ["--run_dir", run_dir, "--device", str(dev), "--evaluator_ckpt",
+                 finest, "--glove_dir", GLOVE, "--log_file", log_file]
+                + I_PROTOCOL + extra)
+        secs = time.perf_counter() - t0
+        with open(log_file) as fh:
+            log = fh.read()
+        launches = {c.__name__: c.launches for c in counted}
+        for metric, per_model in res["summary"].items():
+            for model, (mean, ci) in per_model.items():
+                check(np.all(np.isfinite(mean)) and np.all(np.isfinite(ci)),
+                      f"{label} {metric} [{model}] {mean} {ci}")
+        for metric in METRICS:
+            check(f"========== {metric} Summary ==========" in log,
+                  f"{label}: the log lacks the {metric} summary")
+        reps = [float(x) for x in
+                re.findall(r"replication total ([\d.]+)s", log)]
+        pools = [ms for rows, ms in pool_ms if rows == 32]
+        print(f"[{label.upper()}] tools/evaluate.main {secs:.1f} s; "
+              f"seconds per replication (the protocol's clock) {reps}; "
+              f"generation {sum(gen_n)} motions in {sum(gen_s):.3f} s = "
+              f"{sum(gen_s) / max(1, sum(gen_n)):.4f} s/motion; evaluator "
+              f"ms per pool of 32 (co-embeddings, {len(pools)} pools) "
+              f"median {np.median(pools) if pools else float('nan'):.2f}; "
+              f"bytes fetched from the card by the sampler {fetched[0]} "
+              f"({fetched[0] / max(1, sum(gen_n)):.0f} a motion); launches "
+              f"{launches} ({card})")
+        return res, launches, sum(gen_n)
+
+    # ---- I1: the host path, 2 replications, joint scores
+    res1, l1, made1 = run_cli("i1", ["--replication_times", "2",
+                                     "--score_samples", str(I_SCORE)])
+    mbs = 2 * math.ceil(prompts / I_MB) + math.ceil(I_SCORE / I_MB)
+    want = n_perf * fwd * mbs
+    check(made1 == 2 * prompts + I_SCORE, f"I1 generated {made1} motions")
+    check(l1 == {"favor_qkv": want, "performer_epilogue": want},
+          f"I1 launches {l1}, expected {n_perf} x {fwd} x {mbs} = {want}")
+    mae, vel, jerk = res1["joint"]
+    check(np.isfinite(mae).all() and math.isfinite(vel)
+          and math.isfinite(jerk), "I1 joint-space scores")
+    name = "t2m_moe_small"
+    summary = {m: {k: np.round(np.asarray(v[0]), 4).tolist()
+                   for k, v in res1["summary"][m].items()} for m in METRICS}
+    print(f"[I1] summary means {summary}; MAE {float(mae.mean()):.4f}, "
+          f"velocity error {vel:.4f}, jerk error {jerk:.4f} (random "
+          f"weights, a few training steps: not comparable to published "
+          f"numbers); kernels 1 and 2 launched {want} times each = "
+          f"{n_perf} x {fwd} forwards x {mbs} micro-batches, as expected")
+
+    # ---- I2: the fused sample-and-embed path, replication 0
+    res2, l2, made2 = run_cli("i2", ["--replication_times", "1",
+                                     "--device_embeddings",
+                                     "--skip_joint_scores"])
+    mbs2 = math.ceil(prompts / I_MB)
+    want2 = n_perf * fwd * mbs2
+    check(l2 == {"favor_qkv": want2, "performer_epilogue": want2},
+          f"I2 launches {l2}, expected {want2}")
+    worst = 0.0
+    for metric in ("Matching Score", "R_precision", "FID"):
+        for model in res2["per_replication"][metric]:
+            a = np.asarray(res1["per_replication"][metric][model][0])
+            b = np.asarray(res2["per_replication"][metric][model][0])
+            rel = float(np.max(np.abs(a - b) / np.maximum(np.abs(a),
+                                                          1e-12)))
+            worst = max(worst, rel)
+            check(rel <= 1e-4, f"I2 {metric} [{model}]: {b} vs I1's {a}")
+    print(f"[I2] --device_embeddings replication 0 against I1's: Matching "
+          f"Score, R-precision and FID within {worst:.2e} relative (tol "
+          f"1e-4); {made2} motions, only their co-embeddings fetched")
+
+    # ---- I3: the evaluator on the card against the CPU
+    i3 = phase_i3(run_dir, finest, card, dev)
+
+    # ---- I4: the rest of the diffusion code through the flagship
+    phase_i4(run_dir, card, dev)
+    return {"summary": summary, **i3}
+
+
+def phase_i3(run_dir, finest, card, dev="cuda"):
+    """One ground-truth pool of 32 through the evaluator on the card (f32,
+    TF32 off) and on the CPU, the same weights; also with cuDNN's TF32 on,
+    PyTorch's default."""
+    import torch
+    from motiondiffusion_moe_tpu_torch.data.dataset import (
+        Text2MotionDataset)
+    from motiondiffusion_moe_tpu_torch.eval import (
+        EvaluatorModelWrapper, get_word_vectorizer, make_batches)
+    from motiondiffusion_moe_tpu_torch.tools.evaluate import (
+        build_eval_samples)
+    from motiondiffusion_moe_tpu_torch.tools.export import load_run
+
+    cfg, _, _, normalizer = load_run(run_dir)
+    ds = Text2MotionDataset(cfg.data, split="test", normalizer=normalizer,
+                            use_native=False)
+    samples = build_eval_samples(ds)[:32]
+    batch = make_batches(samples, get_word_vectorizer(GLOVE), 32)[0]
+    args = (batch.word_embs, batch.pos_ohots, batch.sent_lens,
+            batch.motions, batch.m_lens)
+    out, ms = {}, {}
+    wrappers = {d: EvaluatorModelWrapper.from_torch_checkpoint(finest,
+                                                               device=d)
+                for d in (str(dev), "cpu")}
+    for device, w in wrappers.items():
+        out[device] = w.get_co_embeddings(*args)
+        iters = 10 if device == "cuda" else 2
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            w.get_co_embeddings(*args)  # numpy: waits for the card
+        ms[device] = (time.perf_counter() - t0) * 1e3 / iters
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        tf32 = wrappers[str(dev)].get_co_embeddings(*args)
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    errs = [float(np.abs(o - r).max() / np.abs(r).max())
+            for o, r in zip(out[str(dev)], out["cpu"])]
+    tf32_errs = [float(np.abs(o - r).max() / np.abs(r).max())
+                 for o, r in zip(tf32, out[str(dev)])]
+    print(f"[I3] evaluator co-embeddings of one pool of 32 (text, motion): "
+          f"card vs CPU {errs[0]:.3e}, {errs[1]:.3e} of their largest "
+          f"value (tol 1e-4); ms per pool: card {ms[str(dev)]:.2f}, CPU "
+          f"{ms['cpu']:.2f}; with cudnn.allow_tf32=True (PyTorch's default) "
+          f"the card's are {tf32_errs[0]:.3e}, {tf32_errs[1]:.3e} of their "
+          f"largest value from its f32 ones ({card})")
+    check(max(errs) <= 1e-4, "I3 the evaluator on the card vs the CPU")
+    return {"pool_ms_card": ms[str(dev)], "pool_ms_cpu": ms["cpu"],
+            "tf32_rel": max(tf32_errs)}
+
+
+def phase_i4(run_dir, card, dev="cuda"):
+    """ddpm_sample_loop, ddim_sample_loop(cond_fn=...) and calc_bpd_loop at
+    B = 4 through the flagship's conditional branch (no CFG), each on a
+    50-step schedule respaced from the run's 1000: finite, 50 x 32
+    launches of kernels 1 and 2 per loop."""
+    import torch
+    from motiondiffusion_moe_tpu_torch.data.dataset import (
+        Text2MotionDataset)
+    from motiondiffusion_moe_tpu_torch.diffusion import (
+        ModelMeanType, ModelVarType, ddim_sample_loop, ddpm_sample_loop,
+        make_schedule, respace_schedule, space_timesteps)
+    from motiondiffusion_moe_tpu_torch.diffusion.guidance import (
+        calc_bpd_loop)
+    from motiondiffusion_moe_tpu_torch.models.text_encoder import (
+        hash_tokenize)
+    from motiondiffusion_moe_tpu_torch.ops import performer as P
+    from motiondiffusion_moe_tpu_torch.pipeline import GenerationPipeline
+    from motiondiffusion_moe_tpu_torch.tools.evaluate import (
+        build_eval_samples)
+    from motiondiffusion_moe_tpu_torch.tools.export import load_run
+
+    cfg, sd, _, normalizer = load_run(run_dir)
+    model = GenerationPipeline(cfg, params=sd, device=dev).model
+    dc = cfg.diffusion
+    base = make_schedule(schedule_name=dc.beta_schedule,
+                         num_timesteps=dc.num_timesteps, device=dev)
+    sched, tmap = respace_schedule(
+        base.betas.double().cpu().numpy(),
+        space_timesteps(dc.num_timesteps, "ddim50"), device=dev)
+    tmap = torch.as_tensor(tmap, dtype=torch.long, device=dev)
+    samples = build_eval_samples(Text2MotionDataset(
+        cfg.data, split="test", normalizer=normalizer, use_native=False))[:4]
+    gt = torch.from_numpy(np.stack([s.motion for s in samples])).to(dev)
+    lengths = torch.tensor([s.m_length for s in samples], device=dev)
+    kw = dict(mean_type=ModelMeanType(dc.model_mean_type),
+              var_type=ModelVarType(dc.model_var_type))
+    g = torch.Generator(dev).manual_seed(SEED + 110)
+    counted = (P.favor_qkv, P.performer_epilogue)
+    with torch.inference_mode():
+        enc = model.encode_text(torch.from_numpy(hash_tokenize(
+            [s.caption for s in samples], cfg.model.text_max_tokens)).to(dev))
+
+        def model_fn(x, t):  # the conditional branch alone
+            return model(x, t, lengths, xf_proj=enc.pooled,
+                         xf_out=enc.tokens)
+
+        def cond_fn(x, t):  # grad log N(gt, 20^2 I) at x
+            return (gt - x) / 400.0
+
+        noise = torch.randn(gt.shape, generator=g, device=dev)
+        loops = (
+            ("ddpm_sample_loop", lambda: ddpm_sample_loop(
+                sched, model_fn, noise, generator=g, timestep_map=tmap,
+                clip_denoised=dc.clip_denoised, **kw)),
+            ("ddim_sample_loop(cond_fn)", lambda: ddim_sample_loop(
+                sched, model_fn, noise, generator=g, timestep_map=tmap,
+                cond_fn=cond_fn, clip_denoised=dc.clip_denoised, **kw)),
+            ("calc_bpd_loop", lambda: calc_bpd_loop(
+                sched, lambda x, t: model_fn(x, tmap[t]), gt, generator=g,
+                **kw)))
+        for name, run in loops:
+            for c in counted:
+                c.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = run()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            launches = {c.__name__: c.launches for c in counted}
+            tensors = [out] if isinstance(out, torch.Tensor) else list(
+                out.values())
+            finite = all(bool(torch.isfinite(v).all()) for v in tensors)
+            shown = (f"bpd {out['total_bpd'].tolist()}"
+                     if isinstance(out, dict) else
+                     f"out {tuple(out.shape)} max|x| "
+                     f"{float(out.abs().max()):.3f}")
+            print(f"[I4] {name}: 50 steps at B = 4 in {ms:.1f} ms "
+                  f"({ms / 50:.2f} ms a step), {shown}, finite {finite}, "
+                  f"launches {launches} ({card})")
+            check(finite and launches == {"favor_qkv": 50 * 32,
+                                          "performer_epilogue": 50 * 32},
+                  f"I4 {name}: finite {finite}, launches {launches}")
 
 
 def main() -> int:
@@ -3175,7 +3564,7 @@ def main() -> int:
     phase_g1(cfg, model, dev, card)
     phase_g2(dev, card)
     del model
-    phase_h(card, d3_ms)
+    phase_h_and_i(card, d3_ms)
 
     csrc = "motiondiffusion_moe_tpu_torch/csrc/"
     ops = "motiondiffusion_moe_tpu/ops/"

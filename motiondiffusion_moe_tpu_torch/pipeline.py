@@ -25,7 +25,11 @@ without a mesh):
 - :meth:`GenerationPipeline.generate` samples micro-batch i + 1 while
   micro-batch i goes to the host (``fetch_window``, as the JAX pipeline
   bounds its dispatch-ahead): the copy goes through a pinned buffer behind
-  a CUDA event, with at most ``fetch_window`` results waiting on the card.
+  a CUDA event, with at most ``fetch_window`` results waiting on the card;
+  :meth:`GenerationPipeline.generate_motion_embeddings` samples the same
+  way and fetches only the evaluator's co-embedding of each motion (with
+  the length check and the wrapper-wide empty result the JAX version
+  lacks).
 
 Randomness comes from ``torch.Generator``s on ``device``; the micro-batch
 sampler :meth:`GenerationPipeline.sample` also takes injected ``noise`` (and
@@ -231,14 +235,8 @@ class GenerationPipeline:
                                     step_noise=step_noise,
                                     timestep_map=self.timestep_map, **kw)
 
-    def generate(self, captions: Sequence[str], m_lens: Sequence[int],
-                 generator: Optional[torch.Generator] = None
-                 ) -> List[np.ndarray]:
-        """One motion per caption: a list of [len_i, F] float32 arrays in
-        the model's (normalized) feature space. ``generator`` (on the
-        pipeline's device) defaults to one seeded with 0. Micro-batch i + 1
-        is sampled while micro-batch i is copied to the host; the results
-        are those of one micro-batch at a time, bit for bit."""
+    def _check_lengths(self, captions: Sequence[str],
+                       m_lens: Sequence[int]) -> None:
         if len(captions) != len(m_lens):
             raise ValueError(
                 f"{len(captions)} captions but {len(m_lens)} lengths")
@@ -248,19 +246,28 @@ class GenerationPipeline:
             i, l = bad[0]
             raise ValueError(f"m_lens[{i}]={l} outside [1, max_frames={T}] "
                              f"({len(bad)} offending length(s))")
+
+    def _micro_batches(self, captions: Sequence[str], m_lens: Sequence[int],
+                       generator: Optional[torch.Generator], reduce):
+        """Sample the prompts micro-batch by micro-batch (the tail padded
+        with empty prompts at ``max_frames``); ``reduce(motions [mb, T, F]
+        on the device, lens)`` gives the tensor that goes to the host.
+        Yields (host array, lens, n real rows) in order; micro-batch i + 1
+        is sampled while micro-batch i is copied, through a pinned buffer
+        behind a CUDA event, with at most ``fetch_window`` waiting."""
+        self._check_lengths(captions, m_lens)
         if generator is None:
             generator = torch.Generator(self.device).manual_seed(0)
+        T = self.cfg.model.max_frames
         mb = self.micro_batch
         ids_u = torch.as_tensor(self.tokenize([""] * mb))
-        outputs: List[np.ndarray] = []
-        pending: deque = deque()  # (host motions, copy event, lengths, n)
+        pending: deque = deque()  # (host tensor, copy event, lengths, n)
 
         def drain():
             host, done, lens, n = pending.popleft()
             if done is not None:
                 done.synchronize()
-            motions = host.numpy()
-            outputs.extend(motions[i, :int(lens[i])] for i in range(n))
+            return host.numpy(), lens, n
 
         for start in range(0, len(captions), mb):
             chunk = list(captions[start:start + mb])
@@ -269,21 +276,70 @@ class GenerationPipeline:
             # pad the tail chunk to the fixed micro-batch
             chunk += [""] * (mb - n)
             lens += [T] * (mb - n)
-            motions = self.sample(
+            out = reduce(self.sample(
                 torch.as_tensor(self.tokenize(chunk)), ids_u,
-                torch.as_tensor(lens, dtype=torch.long), generator=generator)
+                torch.as_tensor(lens, dtype=torch.long),
+                generator=generator), lens)
             done = None
-            if motions.is_cuda:
-                host = torch.empty(motions.shape, dtype=motions.dtype,
+            if out.is_cuda:
+                host = torch.empty(out.shape, dtype=out.dtype,
                                    pin_memory=True)
-                host.copy_(motions, non_blocking=True)
+                host.copy_(out, non_blocking=True)
                 done = torch.cuda.Event()
                 done.record()
             else:
-                host = motions
+                host = out
             pending.append((host, done, lens, n))
             if len(pending) > self.fetch_window:
-                drain()
+                yield drain()
         while pending:
-            drain()
+            yield drain()
+
+    def generate(self, captions: Sequence[str], m_lens: Sequence[int],
+                 generator: Optional[torch.Generator] = None
+                 ) -> List[np.ndarray]:
+        """One motion per caption: a list of [len_i, F] float32 arrays in
+        the model's (normalized) feature space. ``generator`` (on the
+        pipeline's device) defaults to one seeded with 0. Micro-batch i + 1
+        is sampled while micro-batch i is copied to the host; the results
+        are those of one micro-batch at a time, bit for bit."""
+        outputs: List[np.ndarray] = []
+        for motions, lens, n in self._micro_batches(
+                captions, m_lens, generator, lambda m, lens: m):
+            outputs.extend(motions[i, :int(lens[i])] for i in range(n))
         return outputs
+
+    def generate_motion_embeddings(self, captions: Sequence[str],
+                                   m_lens: Sequence[int], wrapper,
+                                   generator: Optional[torch.Generator] = None
+                                   ) -> np.ndarray:
+        """Sample each micro-batch and embed it with the evaluator's motion
+        encoder on the device; returns [N, E] co-embedding rows. Only the
+        rows go to the host (~2 KB a motion instead of ~206 KB of
+        features), behind the same ``fetch_window`` as :meth:`generate`.
+
+        ``wrapper`` is an ``eval.EvaluatorModelWrapper`` on the pipeline's
+        device. Frames at or past each length are zeroed before the
+        embedding, as the host protocol pads them. The generator is
+        consumed micro-batch for micro-batch as :meth:`generate` consumes
+        it, so the same generator state embeds the motions ``generate``
+        returns. Lengths are checked as :meth:`generate` checks them, and
+        an empty prompt list gives [0, E] with E the wrapper's width."""
+        if wrapper.device.type != self.device.type:
+            raise ValueError(f"the evaluator is on {wrapper.device}, the "
+                             f"pipeline on {self.device}: embed where the "
+                             "motions are sampled")
+        T = self.cfg.model.max_frames
+
+        @torch.inference_mode()
+        def embed(motions, lens):
+            lt = torch.as_tensor(lens, device=motions.device)
+            keep = (torch.arange(T, device=motions.device)[None, :, None]
+                    < lt[:, None, None])
+            return wrapper.motion_embeddings(
+                torch.where(keep, motions, 0.0), lens)
+
+        rows = [embs[:n] for embs, _, n in self._micro_batches(
+            captions, m_lens, generator, embed)]
+        return (np.concatenate(rows, axis=0) if rows
+                else np.zeros((0, wrapper.embed_dim), np.float32))

@@ -25,6 +25,11 @@ from tests._torch_parity import tiny_config, to_port
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "flax", "motiondiffusion_moe_tpu", "msgpack",
              "ml_dtypes")
+# modules the fresh-interpreter import must reach (the eval slice among them)
+NEEDED = tuple("motiondiffusion_moe_tpu_torch." + m for m in (
+    "diffusion.guidance", "diffusion.sampling", "eval", "eval.metrics",
+    "eval.word_vectorizer", "eval.evaluator_models", "eval.protocol",
+    "models.evaluator_bridge", "tools.evaluate", "pipeline"))
 
 
 @pytest.mark.parametrize("preset", ["small_dense", "moe_small", "moe_big"])
@@ -59,8 +64,9 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules if m.split(".")[0] in {FORBIDDEN!r})
-print("IMPORTED", len(names), "LOADED", bad)
-sys.exit(1 if bad or len(names) < 30 else 0)
+missing = [m for m in {NEEDED!r} if m not in names]
+print("IMPORTED", len(names), "LOADED", bad, "MISSING", missing)
+sys.exit(1 if bad or missing or len(names) < 30 else 0)
 """
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = REPO

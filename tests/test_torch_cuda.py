@@ -1254,3 +1254,79 @@ def test_process_file_on_the_card_matches_the_cpu(dev):
     for o, r in zip(out, ref):
         assert np.isfinite(o).all()
         np.testing.assert_allclose(o, r, atol=1e-4, rtol=0)
+
+
+def test_evaluator_on_the_card_matches_the_cpu(dev):
+    """The evaluator networks (the released widths: conv encoder, GRU hidden
+    512 and 1024) on the card in f32 (cuDNN, TF32 off) against the same
+    weights on the CPU: text and motion co-embeddings of a ragged pool in
+    input order within 1e-4 of their largest value."""
+    from motiondiffusion_moe_tpu_torch.eval.evaluator_models import (
+        EvaluatorModelWrapper)
+
+    cpu = EvaluatorModelWrapper(dim_pose=263, device="cpu", seed=5)
+    card = EvaluatorModelWrapper(
+        dim_pose=263, device=dev,
+        state_dicts={k: m.state_dict() for k, m in cpu.encoders().items()})
+    rng = np.random.default_rng(0)
+    B = 12
+    motions = rng.standard_normal((B, 196, 263)).astype(np.float32)
+    m_lens = rng.integers(40, 197, size=B)
+    m_lens[3] = 196
+    words = rng.standard_normal((B, 22, 300)).astype(np.float32)
+    pos = rng.standard_normal((B, 22, 15)).astype(np.float32)
+    cap_lens = rng.integers(3, 23, size=B)
+    ref = cpu.get_co_embeddings(words, pos, cap_lens, motions, m_lens)
+    out = card.get_co_embeddings(words, pos, cap_lens, motions, m_lens)
+    assert card.motion_enc.gru.weight_ih_l0.is_cuda
+    for o, r in zip(out, ref):
+        assert o.shape == (B, 512) and np.isfinite(o).all()
+        np.testing.assert_allclose(o, r, atol=1e-4 * np.abs(r).max())
+
+
+def test_generate_motion_embeddings_on_the_card(dev):
+    """The fused sample-and-embed path on the card (the small_dense
+    attention shape, kernels 1 and 2): equal to generate() then embedding
+    the padded motions, within 1e-5 of the largest value (the same motions,
+    embedded in other batch groupings by cuDNN); only [n, 512] rows come
+    back."""
+    from motiondiffusion_moe_tpu_torch.config import (
+        DataConfig, DiffusionConfig, ExperimentConfig, ModelConfig)
+    from motiondiffusion_moe_tpu_torch.eval.evaluator_models import (
+        EvaluatorModelWrapper)
+    from motiondiffusion_moe_tpu_torch.models.layers import init_weights
+    from motiondiffusion_moe_tpu_torch.models.transformer import (
+        MotionTransformer)
+    from motiondiffusion_moe_tpu_torch.pipeline import GenerationPipeline
+
+    cfg = ExperimentConfig(
+        data=DataConfig(dim_pose=26, max_motion_length=40, num_joints=4),
+        diffusion=DiffusionConfig(num_timesteps=100),
+        model=ModelConfig(input_feats=26, max_frames=40, latent_dim=256,
+                          ff_size=64, num_layers=1, num_heads=4,
+                          num_experts=4, text_latent_dim=32,
+                          text_max_tokens=12, dtype="float32"))
+    model = init_weights(MotionTransformer(cfg.model), 0)
+    pipe = GenerationPipeline(cfg, model, sampler="dpm",
+                              num_inference_steps=3, micro_batch=2,
+                              device=dev)
+    wrapper = EvaluatorModelWrapper(dim_pose=26, device=dev, seed=2)
+    captions = ["walk", "jump twice", "turn", "", "wave"]
+    lens = [40, 8, 17, 33, 4]
+    n0 = P.favor_qkv.launches
+    embs = pipe.generate_motion_embeddings(
+        captions, lens, wrapper, generator=torch.Generator(dev).manual_seed(3))
+    assert P.favor_qkv.launches - n0 == 3 * 4 * 4  # 3 micro-batches
+    motions = pipe.generate(captions, lens,
+                            generator=torch.Generator(dev).manual_seed(3))
+    padded = np.zeros((5, 40, 26), np.float32)
+    for i, m in enumerate(motions):
+        padded[i, :len(m)] = m
+    ref = wrapper.get_motion_embeddings(padded, np.array(lens))
+    assert embs.shape == (5, 512) and np.isfinite(embs).all()
+    np.testing.assert_allclose(embs, ref, atol=1e-5 * np.abs(ref).max())
+    with pytest.raises(ValueError):
+        pipe.generate_motion_embeddings(["a"], [41], wrapper)
+    cpu_wrapper = EvaluatorModelWrapper(dim_pose=26, device="cpu")
+    with pytest.raises(ValueError, match="evaluator is on"):
+        pipe.generate_motion_embeddings(["a"], [8], cpu_wrapper)

@@ -16,6 +16,8 @@ routings -> relative RMS <= 1.2e-2 over the whole denoiser (2.07e-2 with
 PyTorch's own bf16 silu, gelu, sigmoid and fused Dense bias; 1.11e-2 now).
 """
 
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -98,12 +100,52 @@ def _compare(jax_mod, port_mod, jax_args, port_args=None, jax_kw=None,
 # ---------------------------------------------------------------- embeddings
 
 def test_timestep_sinusoidal_cos_first():
+    """Both packages compute ``cos | sin`` of ``t * exp(-log(1e4) i / half)``
+    in f32. Their ``exp`` (torch's and XLA's CPU one) may differ by one ulp
+    at some frequencies, which ``t = 999`` turns into ~3e-5 at the output,
+    with each side as far from the float64 value as the other. So: the
+    frequencies agree within 1 ulp; each embedding lies within the f32
+    rounding of its own arguments of the float64 value; and the two agree
+    at 2e-5 where the argument is small enough that one ulp of a frequency
+    cannot matter."""
     ts = np.array([0, 1, 57, 999], np.int32)
+    u = 2.0 ** -24  # f32 unit roundoff
     for dim in (64, 65):
-        np.testing.assert_allclose(
-            TE.timestep_sinusoidal(t(ts), dim).numpy(),
-            np.asarray(JE.timestep_sinusoidal(jnp.asarray(ts), dim)),
-            atol=2e-5)  # cos/sin of f32 arguments up to ~1e3
+        half = dim // 2
+        port = TE.timestep_sinusoidal(t(ts), dim).numpy()
+        ref = np.asarray(JE.timestep_sinusoidal(jnp.asarray(ts), dim))
+        assert port.shape == ref.shape == (len(ts), dim)
+        # 1. the frequencies, each package's own f32 exp of the same f32
+        # exponents (as the two functions compute them)
+        e = -math.log(10000) * np.arange(half, dtype=np.float32) / half
+        f_port = torch.exp(-math.log(10000) * torch.arange(
+            half, dtype=torch.float32) / half).numpy()
+        f_jax = np.asarray(jnp.exp(-math.log(10000) * jnp.arange(
+            half, dtype=jnp.float32) / half))
+        np.testing.assert_array_max_ulp(f_port, f_jax, maxulp=1)
+        # 2. each side against float64 cos / sin of the exact arguments.
+        # The f32 argument t * f is off by t * |f - f64| (the frequency's
+        # own rounding) plus the product's rounding, u * t * f; cos and sin
+        # are 1-Lipschitz, and their f32 results add a few ulps (4 u). At
+        # t = 999 that is about max(t) * u * max|f| + 4 u = 6e-5, plus the
+        # frequencies' roundings: the bound is derived per element below.
+        f64 = np.exp(e.astype(np.float64))
+        a64 = ts[:, None].astype(np.float64) * f64[None]
+        exact = np.concatenate([np.cos(a64), np.sin(a64)], axis=-1)
+        for emb, f32 in ((port, f_port), (ref, f_jax)):
+            tf = ts[:, None].astype(np.float64) * f32.astype(np.float64)
+            arg_err = (ts[:, None] * np.abs(f32.astype(np.float64) - f64)
+                       + u * tf)
+            bound = np.concatenate([arg_err, arg_err], axis=-1) + 4 * u
+            assert np.all(np.abs(emb[:, :2 * half] - exact) <= bound)
+            assert np.all(emb[:, 2 * half:] == 0.0)
+        # 3. port and JAX at 2e-5 wherever t * f < 64 (one ulp of the
+        # argument there is <= 2^-18)
+        small = np.concatenate([a64 < 64] * 2, axis=-1)
+        np.testing.assert_allclose(port[:, :2 * half][small],
+                                   ref[:, :2 * half][small], atol=2e-5)
+        assert small.sum() > small.size // 2
+        np.testing.assert_array_equal(port[:, 2 * half:], ref[:, 2 * half:])
 
 
 def test_timestep_embedding_and_gated_fusion():
