@@ -171,7 +171,7 @@ first use) and exits non-zero without one. Phases, each fatal on failure:
          done) on a test split over the corpus's ids, with a finest.tar of
          the released shapes and seeded weights and the committed GloVe
          fixture. I1: tools/evaluate.main on the card, dpm20, the host
-         path, 2 replications, the protocol cut to the split (pools of 32,
+         path, 1 replication, the protocol cut to the split (pools of 32,
          diversity 30, mm 4 x 6, mm times 3, micro-batch 16, joint scores
          over 32 samples; each cut printed): every summary metric finite,
          the log holding each metric's summary, kernels 1 and 2 launched
@@ -187,6 +187,35 @@ first use) and exits non-zero without one. Phases, each fatal on failure:
          through the flagship's conditional branch at B = 4 on a 50-step
          respaced schedule: finite, kernels 1 and 2 launched 50 x 32 times
          per loop.
+  J      the DeBERTa-v3-large text encoder (434 M parameters, f32 compute
+         whatever the denoiser's dtype) in front of the flagship denoiser,
+         ExperimentConfig.moe_small() with text_encoder="deberta-v3-large".
+         DeBERTa has no Pallas kernel in the JAX package and none here; the
+         denoiser behind it launches kernels 1-4. J1: the flagship built and
+         seeded (the seconds of init_weights printed); the encoder on the
+         card against the same module on the CPU over 4 ragged prompts (one
+         empty, the CFG branch), pooled and tokens within DEBERTA_REL of
+         their largest value; ms per encode of 32 prompts (CUDA events),
+         its device time in all and by kernel, and its f32 bound (TF32
+         off). J2: GenerationPipeline(dpm, 20 steps, micro_batch 16, bf16
+         weights); its model (the MoE FFN behind DeBERTa, bf16 compute)
+         through the kernels and with use_kernels=False, both held to the
+         same weights in f32 compute by phase B's rule, with the top-2
+         routings the two paths chose differently printed; then behind
+         make_server: 16 prompts at mixed lengths, finite motions of the
+         right shapes, favor_qkv and performer_epilogue launched exactly 32 x
+         forwards, the text encoder run on the card twice per micro-batch
+         (its prompts and its empty prompts) and never per denoising step,
+         counted by a forward hook; s/motion beside phase
+         C's dpm20. J3: tools/train.py --text_encoder deberta-v3-large
+         --deberta_ckpt DIR --ema_decay 0.9999 on the synthetic dataset,
+         2 optimizer steps at B = 32, DIR holding a seeded HF-layout
+         pytorch_model.bin in half precision that J3 writes: the grafted
+         backbone and its EMA equal the file's tensors (cast to f32) bit
+         for bit at step 0, finite losses, every layer's weights moved by
+         the steps, favor_qkv and favor_qkv_bwd launched 32 x 2 and the
+         epilogue and its backward never (dropout 0.1); ms/step beside
+         D3's.
 
 The last line is {"ok": true, "device": {...}}, printed only when every
 phase passed; the line before it lists the kernels of the paths, each with
@@ -264,6 +293,10 @@ ACT_FLIP_SHARE = 1e-3
 # fused and every Performer unfused against itself on the plain paths
 MODULE_F32_REL_RMS = 1e-5
 FORMS_F32_REL_RMS = 1e-5
+# phase J: DeBERTa on the card against the same module on the CPU, f32
+# throughout (cuBLAS with TF32 off): 24 layers of the same products in
+# another summation order -> 1e-4 of the output's largest value
+DEBERTA_REL = 1e-4
 # the least time the card could take: published H100 SXM peaks (dense)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bf16": 989e12, "tf32": 495e12, "f32": 67e12}
@@ -796,7 +829,14 @@ def build_flagship(cfg):
     from motiondiffusion_moe_tpu_torch.models.transformer import (
         MotionTransformer)
 
-    model = init_weights(MotionTransformer(cfg.model), SEED)
+    return perturb_zero_init(init_weights(MotionTransformer(cfg.model), SEED))
+
+
+def perturb_zero_init(model):
+    """A small seeded draw into the denoiser's zero-init leaves (MoE gates,
+    style-block output kernels, the head); returns ``model``."""
+    import torch
+
     g = torch.Generator().manual_seed(SEED + 1)
     with torch.no_grad():
         for name, p in model.named_parameters():
@@ -808,12 +848,17 @@ def build_flagship(cfg):
     return model
 
 
-def denoiser_inputs(cfg, dev, B=32):
+def denoiser_inputs(cfg, dev, B=32, tokenize=None):
     """One denoiser batch of the CFG-doubled flagship micro-batch: x, t and
-    lengths on the card, and the token ids of 16 prompts and 16 empty ones."""
+    lengths on the card, and the token ids of 16 prompts and 16 empty ones
+    (``tokenize``'s, else the hash encoder's)."""
     import torch
     from motiondiffusion_moe_tpu_torch.models.text_encoder import (
         hash_tokenize)
+
+    if tokenize is None:
+        tokenize = lambda texts: hash_tokenize(  # noqa: E731
+            texts, cfg.model.text_max_tokens)
 
     rng = np.random.default_rng(SEED + 2)
     T, F = cfg.model.max_frames, cfg.model.input_feats
@@ -822,8 +867,7 @@ def denoiser_inputs(cfg, dev, B=32):
     length = torch.from_numpy(rng.integers(1, T + 1, size=B))
     length[0] = T
     prompts = [f"a person walks forward and turns {i}" for i in range(B // 2)]
-    ids = torch.from_numpy(hash_tokenize(prompts + [""] * (B // 2),
-                                         cfg.model.text_max_tokens))
+    ids = torch.from_numpy(tokenize(prompts + [""] * (B // 2)))
     return [a.to(dev) for a in (x, t, length)], ids.to(dev)
 
 
@@ -1884,7 +1928,7 @@ def phase_e3(cfg, model, dev, card, c_timings):
 
         seen[on] = kernels_per_call(forward)
     gen = {False: [], True: []}
-    for on in (False, True, True, False) * 2:
+    for on in (False, True, True, False):
         set_fused_paths(pipe.model, on)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1897,7 +1941,7 @@ def phase_e3(cfg, model, dev, card, c_timings):
     print(f"[E3] one denoiser forward (B=32, bf16, torch.profiler): switches "
           f"off {seen[False]}; on {seen[True]}")
     print(f"[E3] dpm20 generate 16 prompts x {T} frames, in turns (off, on, "
-          f"on, off) x 2: off {', '.join(f'{s:.3f}' for s in gen[False])} s, on "
+          f"on, off): off {', '.join(f'{s:.3f}' for s in gen[False])} s, on "
           f"{', '.join(f'{s:.3f}' for s in gen[True])} s; s/motion off "
           f"{np.mean(gen[False]) / 16:.4f}, on {np.mean(gen[True]) / 16:.4f}"
           f" (phase C dpm20: {c_timings['dpm20'] / 16:.4f}) ({card})")
@@ -3212,7 +3256,7 @@ def phase_i(root, h, card, dev="cuda"):
     """The trained flagship of H3 evaluated on H's corpus (a test split over
     its ids, a real-shaped finest.tar with seeded weights, the committed
     GloVe fixture). I1: tools/evaluate.main on the card, host path, dpm20,
-    2 replications; I2: --device_embeddings, replication 0 against I1's;
+    1 replication; I2: --device_embeddings, replication 0 against I1's;
     I3: the evaluator on the card against the CPU; I4: the unguided DDPM
     loop, DDIM with a classifier gradient and the bits-per-dim loop through
     the flagship's conditional branch on a respaced 50-step schedule."""
@@ -3241,7 +3285,7 @@ def phase_i(root, h, card, dev="cuda"):
           f"dropped as the reference's loaders drop it), diversity 30 "
           f"(300), mm {I_MM} x {I_REPS} (100 x 30), mm times 3 (10), "
           f"dpm20 (the CLI's DDPM 1000), generation micro-batch {I_MB}; "
-          f"I1 2 replications (20), joint scores over {I_SCORE} samples "
+          f"I1 1 replication (20), joint scores over {I_SCORE} samples "
           f"(all); I2 1 replication, no joint scores; {prompts} prompts "
           f"per replication")
 
@@ -3317,12 +3361,12 @@ def phase_i(root, h, card, dev="cuda"):
               f"{launches} ({card})")
         return res, launches, sum(gen_n)
 
-    # ---- I1: the host path, 2 replications, joint scores
-    res1, l1, made1 = run_cli("i1", ["--replication_times", "2",
+    # ---- I1: the host path, 1 replication, joint scores
+    res1, l1, made1 = run_cli("i1", ["--replication_times", "1",
                                      "--score_samples", str(I_SCORE)])
-    mbs = 2 * math.ceil(prompts / I_MB) + math.ceil(I_SCORE / I_MB)
+    mbs = math.ceil(prompts / I_MB) + math.ceil(I_SCORE / I_MB)
     want = n_perf * fwd * mbs
-    check(made1 == 2 * prompts + I_SCORE, f"I1 generated {made1} motions")
+    check(made1 == prompts + I_SCORE, f"I1 generated {made1} motions")
     check(l1 == {"favor_qkv": want, "performer_epilogue": want},
           f"I1 launches {l1}, expected {n_perf} x {fwd} x {mbs} = {want}")
     mae, vel, jerk = res1["joint"]
@@ -3501,6 +3545,362 @@ def phase_i4(run_dir, card, dev="cuda"):
                   f"I4 {name}: finite {finite}, launches {launches}")
 
 
+def deberta_work(dc, B: int, T: int, out_dim: int, prompts: int):
+    """(bytes, operations) of one DeBERTa encode of B prompts x T tokens in
+    f32. Operations (a multiply-add is 2): per layer the q / k / v,
+    attention-output and FFN products over B*T rows, the position key /
+    query projections over the 2 x buckets rows of the relative table,
+    q.k and probs.v, and c2p / p2c over the table; then the head over
+    B x (prompts + T) rows. Bytes: every weight read once (of the
+    embedding table only the B*T gathered rows), the ids read and the
+    tokens and pooled rows written once."""
+    C, I, S = dc.hidden_size, dc.intermediate_size, dc.position_buckets
+    rows = B * T
+    layer = (2 * rows * C * C * 4 + 2 * (2 * S) * C * C * 2
+             + 2 * B * T * T * C * 2 + 2 * B * T * (2 * S) * C * 2
+             + 2 * rows * C * I * 2)
+    flops = dc.num_hidden_layers * layer + 2 * B * (prompts + T) * C * out_dim
+    weights = (dc.num_hidden_layers * (4 * C * C + 2 * C * I + 9 * C + I)
+               + 2 * S * C + 4 * C + prompts * C + C * out_dim + out_dim)
+    nbytes = (4 * (weights + rows * C) + 8 * rows
+              + 4 * B * (prompts + T + 1) * out_dim)
+    return nbytes, flops
+
+
+def phase_j(cfg, dev, card, c_timings, d3_ms):
+    """The flagship with text_encoder="deberta-v3-large": J1 the encoder on
+    the card against the CPU, J2 sampling behind make_server, J3 the train
+    CLI grafting a seeded HF-layout checkpoint (see the module doc)."""
+    import torch
+    from motiondiffusion_moe_tpu_torch.models.layers import init_weights
+    from motiondiffusion_moe_tpu_torch.models.transformer import (
+        MotionTransformer)
+
+    jcfg = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, text_encoder="deberta-v3-large"))
+    t0 = time.perf_counter()
+    model = MotionTransformer(jcfg.model)
+    t_build = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    init_weights(model, SEED)
+    t_init = time.perf_counter() - t0
+    perturb_zero_init(model)
+    n_enc = sum(p.numel() for p in model.text_encoder.parameters())
+    n_all = sum(p.numel() for p in model.parameters())
+    print(f"[J1] flagship + deberta-v3-large: {n_all} parameters, "
+          f"{n_enc} of them the text encoder; built in {t_build:.1f} s, "
+          f"init_weights (one CPU torch.Generator, "
+          f"{torch.get_num_threads()} threads) {t_init:.1f} s")
+    phase_j1(model, dev, card)
+    phase_j2(jcfg, model, dev, card, c_timings)
+    del model
+    torch.cuda.empty_cache()
+    phase_j3(jcfg, dev, card, d3_ms)
+
+
+def phase_j1(model, dev, card):
+    import torch
+    from motiondiffusion_moe_tpu_torch.models import deberta as TD
+
+    enc = model.text_encoder.eval()
+    dc = enc.bert.cfg
+    tok = TD.get_deberta_tokenizer(model.config.text_max_tokens,
+                                   dc.vocab_size)
+    ids = torch.from_numpy(tok([
+        "a person walks forward", "",
+        "a man jumps twice and then sits down on the floor slowly",
+        "turn left"]))
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        ref = enc(ids)
+    cpu_s = time.perf_counter() - t0
+    enc.to(dev)
+    try:
+        with torch.no_grad():
+            out = enc(ids.to(dev))
+        torch.cuda.synchronize()
+        for name, a, b in (("pooled", out.pooled, ref.pooled),
+                           ("tokens", out.tokens, ref.tokens)):
+            check(a.is_cuda and a.dtype == torch.float32,
+                  f"J1 {name} on {a.device} in {a.dtype}")
+            check(bool(torch.isfinite(a).all()), f"J1 {name} not finite")
+            err = (a.cpu() - b).abs().max().item() / b.abs().max().item()
+            print(f"[J1] {name} {tuple(a.shape)}: card vs CPU max error "
+                  f"{err:.3e} of the largest value (tolerance "
+                  f"{DEBERTA_REL:g})")
+            check(err <= DEBERTA_REL, f"J1 {name} error {err:.3e}")
+        B = 32
+        prompts = [f"a person performs action number {i}" for i in
+                   range(B // 2)] + [""] * (B // 2)
+        ids32 = torch.from_numpy(tok(prompts)).to(dev)
+
+        def encode():
+            with torch.inference_mode():
+                enc(ids32)
+
+        ms = time_ms(encode, iters=10)
+        nbytes, flops = deberta_work(dc, B, ids32.shape[1],
+                                     enc.proj_dense.weight.shape[0],
+                                     enc.prompt_tokens.shape[1])
+        b_ms, b_by = bound(nbytes, flops, "f32")
+        print(f"[J1] one encode of {B} prompts x {ids32.shape[1]} tokens "
+              f"(f32, TF32 off): {ms:.3f} ms per call (CUDA events), "
+              f"device {device_ms(encode, iters=5)} (by kernel: "
+              f"{device_ms_by_kernel(encode, iters=5)}); {flops / 1e12:.3f} "
+              f"TFLOP, {flops / ms / 1e9:.1f} TFLOP/s; bound {b_ms:.3f} ms "
+              f"({b_by}, f32 at {PEAK_FLOPS['f32'] / 1e12:.0f} TFLOP/s); "
+              f"the CPU encode of 4 prompts {cpu_s:.2f} s ({card})")
+    finally:
+        enc.cpu()
+        torch.cuda.empty_cache()
+
+
+def phase_j2(jcfg, model, dev, card, c_timings):
+    import torch
+    from motiondiffusion_moe_tpu_torch.data.normalizer import (
+        MotionNormalizer)
+    from motiondiffusion_moe_tpu_torch.ops import performer as P
+    from motiondiffusion_moe_tpu_torch.pipeline import GenerationPipeline
+    from motiondiffusion_moe_tpu_torch.tools.serve import make_server
+
+    t0 = time.perf_counter()
+    pipe = GenerationPipeline(jcfg, model, sampler="dpm",
+                              num_inference_steps=20, micro_batch=16,
+                              param_dtype="bfloat16", device=dev)
+    pipe.normalizer = MotionNormalizer.identity(jcfg.data.dim_pose)
+    bert = pipe.model.text_encoder.bert
+    check(bert.word_embeddings.weight.dtype == torch.bfloat16
+          and bert.rel_embeddings.is_cuda, "J2 the backbone's storage")
+    print(f"[J2] pipeline built (bf16 weights on the card) in "
+          f"{time.perf_counter() - t0:.1f} s")
+    j2_denoiser_bf16(jcfg, pipe, dev)
+    T, F = jcfg.model.max_frames, jcfg.model.input_feats
+    samples, encodes = [], []
+    sample = pipe.sample
+
+    def counted_sample(*a, **k):
+        samples.append(1)
+        return sample(*a, **k)
+
+    pipe.sample = counted_sample
+    hook = pipe.model.text_encoder.register_forward_hook(
+        lambda m, args, out: encodes.append(
+            (args[0].device.type, out.tokens.device.type,
+             tuple(out.tokens.shape))))
+    pipe.generate(["warm up"], [T])
+    srv = make_server(pipe, port=0, max_batch=64)
+    th = threading.Thread(target=srv.serve_forever, daemon=True)
+    th.start()
+    url = f"http://127.0.0.1:{srv.server_address[1]}"
+    counted = (P.favor_qkv, P.performer_epilogue)
+    try:
+        for c in counted:
+            c.launches = 0
+        samples.clear()
+        encodes.clear()
+        texts = ["a person walks forward", "kick the ball hard", "",
+                 "dance slowly", "sit down", "a person waves with the left "
+                 "hand", "jump twice", "walk in a circle and then stop",
+                 "run", "climb the stairs", "bow", "turn around", "crouch",
+                 "throw a ball overhand with the right arm", "stretch",
+                 "a man stumbles and falls"]
+        lens = [min(n, T) for n in (1, 40, 57, 98, 120, 133, 150, 196)] * 2
+        status, body = _post(url + "/generate",
+                             {"texts": texts, "lengths": lens})
+        check(status == 200, f"J2 HTTP {status}")
+        motions = [np.asarray(mo, dtype=np.float32) for mo in body["motions"]]
+        check([list(mo.shape) for mo in motions] == [[n, F] for n in lens],
+              f"J2 shapes {body['shapes']}")
+        check(all(np.isfinite(mo).all() for mo in motions),
+              "J2 non-finite motion")
+        fwd = len(samples) * pipe.forwards_per_sample
+        launches = {c.__name__: c.launches for c in counted}
+        print(f"[J2] 16 prompts at lengths {lens}: HTTP 200, finite; "
+              f"{len(samples)} micro-batch samples x "
+              f"{pipe.forwards_per_sample} forwards = {fwd} forwards; "
+              f"launches {launches}, expected 32 x {fwd} = {32 * fwd} each; "
+              f"text encoder forwards {len(encodes)} "
+              f"{sorted(set(encodes))}, expected 2 x {len(samples)}")
+        check(all(n == 32 * fwd for n in launches.values()),
+              "J2 launch counts")
+        check(len(encodes) == 2 * len(samples)
+              and all(i == o == "cuda" for i, o, _ in encodes),
+              "J2 text encoder runs")
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        hook.remove()
+    pipe.sample = sample
+    prompts = [f"a person performs action number {i}" for i in range(16)]
+    pipe.generate(prompts, [T] * 16)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = pipe.generate(prompts, [T] * 16,
+                        generator=torch.Generator(dev).manual_seed(7))
+    torch.cuda.synchronize()
+    s = time.perf_counter() - t0
+    check(all(np.isfinite(o).all() for o in out), "J2 dpm20 non-finite")
+    print(f"[J2] dpm20 generate 16 prompts x {T} frames with "
+          f"deberta-v3-large (CFG, micro_batch 16, bf16 weights): {s:.3f} s, "
+          f"{s / 16:.4f} s/motion; phase C's hash encoder "
+          f"{c_timings['dpm20'] / 16:.4f} s/motion (this run; {card})")
+    del pipe
+    torch.cuda.empty_cache()
+
+
+def j2_denoiser_bf16(jcfg, pipe, dev):
+    """Phase B's bf16 rule behind DeBERTa: the served model (bf16 weights,
+    bf16 compute, the MoE FFN fed by deberta-v3-large's f32 encodings)
+    through the kernels and with use_kernels=False, both held to the same
+    weights in f32 compute. Prints how many top-2 routings the two paths
+    chose differently."""
+    import torch
+    from motiondiffusion_moe_tpu_torch.models import moe as TM
+    from motiondiffusion_moe_tpu_torch.models.transformer import (
+        MotionTransformer)
+
+    args, ids = denoiser_inputs(jcfg, dev, tokenize=pipe.tokenize)
+    with torch.device(dev):
+        m32 = MotionTransformer(dataclasses.replace(jcfg.model,
+                                                    dtype="float32"))
+    m32.load_state_dict(pipe.model.state_dict())
+    with torch.inference_mode():
+        ref = m32.eval()(*args, text_ids=ids)
+    del m32
+    m, own = pipe.model, TM.top_k_lowest_index
+    outs, routes = {}, {}
+    try:
+        for kernels in (True, False):
+            chosen = routes[kernels] = []
+
+            def top_k(probs, k):
+                vals, idx = own(probs, k)
+                chosen.append(idx.sort(-1).values)
+                return vals, idx
+
+            TM.top_k_lowest_index = top_k
+            m.set_use_kernels(kernels)
+            with torch.inference_mode():
+                outs[kernels] = m(*args, text_ids=ids)
+    finally:
+        TM.top_k_lowest_index = own
+        m.set_use_kernels(True)
+    torch.cuda.synchronize()
+    for out in outs.values():
+        check(out.shape == ref.shape and bool(torch.isfinite(out).all()),
+              "J2 denoiser output")
+    err_k, err_p = rel_rms(outs[True], ref), rel_rms(outs[False], ref)
+    tol = DENOISER_BF16_FACTOR * err_p + DENOISER_BF16_FLOOR
+    n = sum(a.shape[0] for a in routes[True])
+    flips = sum(int((a != b).any(-1).sum())
+                for a, b in zip(routes[True], routes[False]))
+    print(f"[J2] flagship denoiser behind deberta-v3-large, bf16 weights and "
+          f"compute, B={args[0].shape[0]} T={args[0].shape[1]}: rel_rms to "
+          f"the f32 result: kernels {err_k:.3e}, use_kernels=False "
+          f"{err_p:.3e}; top-2 routings that differ between the two "
+          f"{flips} of {n}; tol kernels <= {DENOISER_BF16_FACTOR:g} x "
+          f"use_kernels=False + {DENOISER_BF16_FLOOR:g} = {tol:.3e} -> "
+          f"{'ok' if err_k <= tol else 'FAIL'}")
+    check(err_k <= tol, "J2 denoiser (bfloat16) kernels vs plain")
+
+
+def phase_j3(jcfg, dev, card, d3_ms):
+    import torch
+    from motiondiffusion_moe_tpu_torch.models import deberta as TD
+    from motiondiffusion_moe_tpu_torch.ops import performer as P
+    from motiondiffusion_moe_tpu_torch.training.trainer import Trainer
+
+    dc = TD.deberta_config(jcfg.model.text_encoder)
+    with tempfile.TemporaryDirectory(prefix="phase_j_") as root:
+        ckdir = os.path.join(root, "deberta-v3-large")
+        os.makedirs(ckdir)
+        with torch.device("meta"):
+            shapes = TD.DebertaEncoder(dc).state_dict()
+        g = torch.Generator(dev).manual_seed(SEED + 40)
+        hf = {}
+        for ours, theirs in TD.hf_deberta_names(dc).items():
+            x = 0.02 * torch.randn(shapes[ours].shape, generator=g,
+                                   device=dev)
+            hf[theirs] = (x + 1.0 if ours.endswith("norm.weight")
+                          else x).half().cpu()
+        path = os.path.join(ckdir, "pytorch_model.bin")
+        t0 = time.perf_counter()
+        torch.save(hf, path)
+        print(f"[J3] seeded HF-layout checkpoint: {len(hf)} half-precision "
+              f"tensors, {os.path.getsize(path) / 1e9:.3f} GB written in "
+              f"{time.perf_counter() - t0:.1f} s")
+        want = {k: v.to(dev).float() for k, v in
+                TD.convert_hf_deberta_checkpoint(hf, dc).items()}
+        del hf
+        at_init = {}
+        init_state = Trainer.init_state
+
+        def checked_init(self):
+            state = init_state(self)
+            bert = state.model.text_encoder.bert.state_dict()
+            names = [n for n, _ in state.model.named_parameters()]
+            ema = dict(zip(names, state.ema.params))
+            at_init["params"] = all(torch.equal(bert[k], v)
+                                    for k, v in want.items())
+            at_init["ema"] = all(torch.equal(
+                ema[f"text_encoder.bert.{k}"], v) for k, v in want.items())
+            return state
+
+        counted = (P.favor_qkv, P.favor_qkv_bwd, P.performer_epilogue,
+                   P.performer_epilogue_bwd)
+        for c in counted:
+            c.launches = 0
+        argv = ["--dataset", "synthetic", "--synthetic_size", "32",
+                "--batch_size", "32", "--num_epochs", "1", "--device", "cuda",
+                "--log_every", "1", "--ema_decay", "0.9999",
+                "--text_encoder", "deberta-v3-large", "--deberta_ckpt", ckdir,
+                "--checkpoint_dir", os.path.join(root, "runs")]
+        t0 = time.perf_counter()
+        with patched((Trainer, "init_state", checked_init)):
+            state, log, times = run_train_cli(argv)
+        wall = time.perf_counter() - t0
+        launches = {c.__name__: c.launches for c in counted}
+        losses = [float(v) for v in re.findall(r"loss_total: (\S+)", log)]
+        print(f"[J3] grafted backbone equal to the file's tensors (cast to "
+              f"f32) at step 0: {at_init.get('params')}, its EMA: "
+              f"{at_init.get('ema')} ({len(want)} tensors)")
+        check(at_init.get("params") is True and at_init.get("ema") is True,
+              "J3 graft")
+        check(state.step == 2 and len(losses) == 2
+              and all(math.isfinite(v) for v in losses),
+              f"J3 {state.step} steps, losses {losses}")
+        bert = state.model.text_encoder.bert.state_dict()
+        # the head starts at zero, so the first step sends no gradient
+        # upstream and the second a small one: Adam (eps 1e-8) moves the
+        # tensors whose gradients stand above its eps
+        moved = {k for k, v in want.items() if not torch.equal(bert[k], v)}
+        layers_moved = all(any(k.startswith(f"layer_{i}.") for k in moved)
+                           for i in range(dc.num_hidden_layers))
+        n_perf = 2 * 2 * jcfg.model.num_layers
+        expect = {"favor_qkv": n_perf * 2, "favor_qkv_bwd": n_perf * 2,
+                  "performer_epilogue": 0, "performer_epilogue_bwd": 0}
+        ckpt = os.path.join(root, "runs", "t2m_moe_small", "ckpt")
+        size = sum(os.path.getsize(os.path.join(ckpt, f))
+                   for f in os.listdir(ckpt))
+        print(f"[J3] 2 optimizer steps (B=32, bf16 compute, dropout 0.1, "
+              f"EMA 0.9999), losses {losses}; backbone tensors moved by the "
+              f"steps {len(moved)} of {len(want)}, in every layer: "
+              f"{layers_moved}; unmoved "
+              f"{sorted(set(want) - moved)[:6]}; launches {launches}, "
+              f"expected {expect}; "
+              f"checkpoint {size / 1e9:.2f} GB; main() {wall:.1f} s")
+        check(layers_moved, "J3 the backbone did not train")
+        check(launches == expect, "J3 launch counts")
+        check(all(bool(torch.isfinite(p).all())
+                  for p in state.model.parameters()), "J3 weights")
+        print(f"[J3] ms per optimizer step (host clock around each "
+              f"synchronised step): {', '.join(f'{x:.1f}' for x in times)}; "
+              f"D3's median at the hash encoder {d3_ms:.1f} (this run; "
+              f"{card})")
+        del state, want, bert
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -3565,6 +3965,9 @@ def main() -> int:
     phase_g2(dev, card)
     del model
     phase_h_and_i(card, d3_ms)
+    t0 = time.perf_counter()
+    phase_j(cfg, dev, card, c_timings, d3_ms)
+    j_s = time.perf_counter() - t0
 
     csrc = "motiondiffusion_moe_tpu_torch/csrc/"
     ops = "motiondiffusion_moe_tpu/ops/"
@@ -3620,7 +4023,8 @@ def main() -> int:
                         "library_ms": l_ms})
     check(all(math.isfinite(k["ms"]) and k["launches"] > 0 for k in kernels),
           "kernel times and launches")
-    print(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
+    print(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s"
+          f" (phase J {j_s:.1f} s)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}))

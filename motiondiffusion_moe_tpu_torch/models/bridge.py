@@ -14,7 +14,8 @@ Mapping rules (each one is pinned by ``tests/test_torch_bridge.py``):
 - a Dense ``kernel [in, out]`` -> ``weight [out, in]``; the Performer's
   merged ``qkv`` Dense is ``[D, 3D]`` with column blocks q|k|v, so its
   weight rows come out q|k|v as well;
-- LayerNorm ``scale`` -> ``weight`` (eps stays 1e-6 in the module);
+- LayerNorm ``scale`` -> ``weight`` (eps stays in the module: 1e-6, and
+  1e-7 in DeBERTa's backbone);
 - ``nn.Embed`` ``embedding`` -> ``weight``;
 - ``nn.Conv(k=2, s=2)`` kernel ``[k, in, out]`` -> ``Conv1d`` weight
   ``[out, in, k]``;

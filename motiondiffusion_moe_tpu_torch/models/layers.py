@@ -9,8 +9,8 @@
 - :func:`weak_scalar` is a Python float as JAX multiplies a compute-dtype
   array by it: rounded to that dtype first.
 - :class:`LayerNorm` is the hot-path ``nn.LayerNorm``: statistics and the
-  affine step in f32, eps 1e-6 (not torch's 1e-5), result in the compute
-  dtype.
+  affine step in f32, eps 1e-6 (flax's default, not torch's 1e-5) unless
+  given (DeBERTa's norms take 1e-7), result in the compute dtype.
 - Excess precision: XLA's compiled program (the JAX package under ``jit``)
   leaves out the bf16 rounding of a value that the program widens to f32
   straight away. A LayerNorm reads the unrounded f32 result of the bias add
@@ -144,20 +144,22 @@ class Dense(nn.Module):
 
 
 class LayerNorm(nn.Module):
-    """``flax.linen.LayerNorm(dtype=...)``: f32 statistics, eps 1e-6,
+    """``flax.linen.LayerNorm(epsilon=eps, dtype=...)``: f32 statistics,
     output cast to the compute dtype."""
 
-    def __init__(self, dim: int, dtype: torch.dtype = torch.float32):
+    def __init__(self, dim: int, dtype: torch.dtype = torch.float32,
+                 eps: float = LN_EPS):
         super().__init__()
         self.weight = nn.Parameter(torch.ones(dim))
         self.bias = nn.Parameter(torch.zeros(dim))
         self.dtype = dtype
+        self.eps = eps
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = getattr(x, "unrounded", x)  # see round_keeping_f32
         return F.layer_norm(x.float(), self.weight.shape,
                             self.weight.float(), self.bias.float(),
-                            LN_EPS).to(self.dtype)
+                            self.eps).to(self.dtype)
 
     @torch.no_grad()
     def _init_own(self, g: torch.Generator) -> None:

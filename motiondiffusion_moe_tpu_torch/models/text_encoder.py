@@ -1,4 +1,4 @@
-"""Hash text encoder.
+"""Text encoders: the hash encoder, and the lookup by config.
 
 Port of ``motiondiffusion_moe_tpu/models/text_encoder.py``:
 :func:`hash_tokenize` is a copy (importing the JAX module would pull in
@@ -8,12 +8,15 @@ mean over all ``prompt + N`` positions (pads included), and every GELU is the
 tanh form. The encoder always runs in f32, as in the JAX package. In
 training mode its two dropout sites are live (``text_encoder.py:84, :104``):
 flax's attention-weight dropout, one mask broadcast over batch and heads,
-and the dropout after the projection head.
+and the dropout after the projection head. :func:`get_tokenizer` and
+:func:`make_text_encoder` pick the tokenizer and the module of the encoder a
+``ModelConfig`` names, the hash one or DeBERTa (``models/deberta.py``);
+:func:`get_text_encoder` returns both.
 """
 
 from __future__ import annotations
 
-from typing import List, NamedTuple, Optional
+from typing import Callable, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -142,3 +145,42 @@ class HashTextEncoder(nn.Module):
         p = self.proj_dense(self.proj_norm(h))
         p = gelu(dropout(p, self.dropout, self.training, ctx))
         return TextEncoding(pooled=p.mean(dim=1), tokens=p)
+
+
+TokenizeFn = Callable[[List[str]], np.ndarray]
+
+
+def get_tokenizer(cfg) -> TokenizeFn:
+    """The host tokenizer of the backend a ``ModelConfig`` names:
+    ``"hash"`` or ``"deberta*"``; any other name raises. Builds no
+    module."""
+    if cfg.text_encoder == "hash":
+        return lambda texts: hash_tokenize(texts, cfg.text_max_tokens)
+    if cfg.text_encoder.startswith("deberta"):
+        from motiondiffusion_moe_tpu_torch.models.deberta import (
+            deberta_config, get_deberta_tokenizer)
+        return get_deberta_tokenizer(
+            cfg.text_max_tokens, deberta_config(cfg.text_encoder).vocab_size)
+    raise ValueError(f"unknown text encoder: {cfg.text_encoder}")
+
+
+def make_text_encoder(cfg) -> nn.Module:
+    """The encoder module of the backend a ``ModelConfig`` names; any other
+    name raises. Builds no tokenizer."""
+    if cfg.text_encoder == "hash":
+        return HashTextEncoder(cfg.text_latent_dim, cfg.text_max_tokens,
+                               num_prompt_tokens=cfg.text_num_prompt_tokens,
+                               dropout=cfg.dropout)
+    if cfg.text_encoder.startswith("deberta"):
+        from motiondiffusion_moe_tpu_torch.models.deberta import (
+            DebertaTextEncoder, deberta_config)
+        return DebertaTextEncoder(
+            cfg.text_latent_dim, deberta_config(cfg.text_encoder),
+            num_prompt_tokens=cfg.text_num_prompt_tokens, dropout=cfg.dropout)
+    raise ValueError(f"unknown text encoder: {cfg.text_encoder}")
+
+
+def get_text_encoder(cfg) -> Tuple[TokenizeFn, nn.Module]:
+    """(host tokenizer, encoder module) of the backend a ``ModelConfig``
+    names, as the JAX package's lookup returns them."""
+    return get_tokenizer(cfg), make_text_encoder(cfg)

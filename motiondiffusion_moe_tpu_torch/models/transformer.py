@@ -45,8 +45,8 @@ from motiondiffusion_moe_tpu_torch.models.layers import (
 )
 from motiondiffusion_moe_tpu_torch.models.moe import DenseFFN, MoEMultiBranchFFN
 from motiondiffusion_moe_tpu_torch.models.text_encoder import (
-    HashTextEncoder,
     TextEncoding,
+    make_text_encoder,
 )
 
 
@@ -113,10 +113,6 @@ class MotionTransformer(nn.Module):
 
     def __init__(self, cfg: ModelConfig, use_kernels: bool = True):
         super().__init__()
-        if cfg.text_encoder != "hash":
-            raise NotImplementedError(
-                f"text encoder {cfg.text_encoder!r}: only the hash encoder "
-                "is ported so far")
         if cfg.moe_compute != "dense_fused":
             raise NotImplementedError(
                 f"moe_compute={cfg.moe_compute!r}: only 'dense_fused' is "
@@ -129,11 +125,7 @@ class MotionTransformer(nn.Module):
         self.sequence_embedding = nn.Parameter(torch.zeros(cfg.max_frames, D))
         self.learnable_time_embed = TimestepEmbedding(D, dtype)
         self.gated_fusion = GatedFusion(D, dtype)
-        self.text_encoder = HashTextEncoder(cfg.text_latent_dim,
-                                            cfg.text_max_tokens,
-                                            num_prompt_tokens=
-                                            cfg.text_num_prompt_tokens,
-                                            dropout=cfg.dropout)
+        self.text_encoder = make_text_encoder(cfg)
         self.time_embed_0 = Dense(D, ted, dtype)
         self.time_embed_1 = Dense(ted, ted, dtype)
         self.time_proj = Dense(ted, D, dtype)

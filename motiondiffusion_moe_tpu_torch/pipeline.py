@@ -14,6 +14,11 @@ without a mesh):
 - ``param_dtype="bfloat16"`` stores the copy's weights in bf16 except every
   FAVOR+ ``projection`` (which defines the attention kernel's feature map),
   as the JAX pipeline does;
+- the tokenizer is the one the config's text encoder names
+  (``get_tokenizer``), and ``graft_pretrained_text=True`` loads the
+  DeBERTa checkpoint ``cfg.model.text_encoder_ckpt`` into the copy: for
+  sampling from fresh weights with a pretrained backbone, never for a
+  trained run's (its text encoder is already finetuned);
 - the copy moves to ``device`` once, at construction (the JAX pipeline
   without a mesh re-uploads host params on every call); ``device`` is the
   card unless the caller asks for the CPU (``device="cpu"``);
@@ -62,7 +67,7 @@ from motiondiffusion_moe_tpu_torch.diffusion.sampling import (
     ddim_sample_loop,
     ddpm_sample_loop_cfg,
 )
-from motiondiffusion_moe_tpu_torch.models.text_encoder import hash_tokenize
+from motiondiffusion_moe_tpu_torch.models.text_encoder import get_tokenizer
 from motiondiffusion_moe_tpu_torch.models.transformer import MotionTransformer
 
 
@@ -97,7 +102,7 @@ class GenerationPipeline:
                  sampler: str = "ddpm", num_inference_steps: Optional[int] = None,
                  eta: float = 0.0, micro_batch: int = 8,
                  param_dtype: Optional[str] = None, fetch_window: int = 2,
-                 device="cuda"):
+                 graft_pretrained_text: bool = False, device="cuda"):
         if sampler not in ("ddpm", "ddim", "dpm"):
             raise ValueError(f"unknown sampler {sampler!r}")
         if param_dtype not in (None, "bfloat16"):
@@ -122,6 +127,11 @@ class GenerationPipeline:
         else:
             self.model = model.eval()
             self.set_params(params)
+        if graft_pretrained_text:
+            from motiondiffusion_moe_tpu_torch.models.deberta import (
+                graft_pretrained_text_encoder)
+            graft_pretrained_text_encoder(self.model, cfg.model)
+        self._tokenize = get_tokenizer(cfg.model)
         self.micro_batch = micro_batch
         self.sampler = sampler
         self.eta = eta
@@ -182,7 +192,7 @@ class GenerationPipeline:
         self.model.load_state_dict(placed, strict=True, assign=True)
 
     def tokenize(self, texts: Sequence[str]) -> np.ndarray:
-        return hash_tokenize(list(texts), self.cfg.model.text_max_tokens)
+        return self._tokenize(list(texts))
 
     @property
     def forwards_per_sample(self) -> int:

@@ -13,7 +13,10 @@ assembled by the native C++ store unless ``--no_native_io``;
 ``--dataset synthetic`` takes no files. The config is written to
 ``<checkpoint_dir>/<name>/config.json`` (the JAX package's format) and the
 normalizer to ``meta/``; checkpoints go to ``ckpt/`` and a rerun resumes
-from the newest. What the port does not run yet raises: DeBERTa, the
+from the newest. ``--text_encoder deberta-v3-large`` (or ``deberta-tiny``)
+trains the DeBERTa text encoder jointly, from the local HF checkpoint
+``--deberta_ckpt`` when given (grafted at init) and else from its random
+init, with a warning. What the port does not run yet raises: the
 multi-device flags until the parallel port, and ``--scan_blocks`` /
 ``--remat_blocks``, which exist for JAX compilation and are not ported.
 """
@@ -54,10 +57,13 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--no_moe", action="store_true")
     p.add_argument("--model_size", default="small", choices=["small", "big"])
     p.add_argument("--text_encoder", default="hash",
-                   choices=["hash", "deberta-v3-large", "deberta-tiny"],
-                   help="only hash is ported; the DeBERTa encoders raise")
+                   choices=["hash", "deberta-v3-large", "deberta-tiny"])
     p.add_argument("--deberta_ckpt", default="",
-                   help="DeBERTa checkpoint (not ported; must stay empty)")
+                   help="local HF DeBERTa checkpoint (dir with "
+                        "pytorch_model.bin, or a .bin/.pt file) grafted "
+                        "into the text encoder at init; without it a "
+                        "deberta text_encoder trains from RANDOM init "
+                        "(warned)")
     p.add_argument("--text_latent_dim", type=int, default=128)
     p.add_argument("--times", type=int, default=1)
     p.add_argument("--seed", type=int, default=0)
@@ -130,10 +136,6 @@ def build_argparser() -> argparse.ArgumentParser:
 
 def check_supported(args: argparse.Namespace) -> None:
     """Raise for what the port does not run yet (see the module doc)."""
-    if args.text_encoder != "hash" or args.deberta_ckpt:
-        raise NotImplementedError(
-            f"--text_encoder {args.text_encoder}: only the hash encoder is "
-            "ported")
     if args.scan_blocks or args.remat_blocks:
         raise NotImplementedError(
             "--scan_blocks / --remat_blocks exist for JAX compilation and "

@@ -12,8 +12,9 @@ updated yet) holds by construction.
 
 One device only: a ``ParallelConfig`` that asks for more than one raises
 ``NotImplementedError`` (the ``parallel/`` port is a later slice). Host
-work per step: draw t from the schedule sampler, tokenize the captions,
-copy the batch to the device from pinned memory.
+work per step: draw t from the schedule sampler, tokenize the captions
+(with the tokenizer of the config's text encoder), copy the batch to the
+device from pinned memory.
 """
 
 from __future__ import annotations
@@ -32,7 +33,7 @@ from motiondiffusion_moe_tpu_torch.diffusion.samplers import (
     create_named_schedule_sampler,
 )
 from motiondiffusion_moe_tpu_torch.models.layers import init_weights
-from motiondiffusion_moe_tpu_torch.models.text_encoder import hash_tokenize
+from motiondiffusion_moe_tpu_torch.models.text_encoder import get_tokenizer
 from motiondiffusion_moe_tpu_torch.models.transformer import MotionTransformer
 from motiondiffusion_moe_tpu_torch.training.checkpoint import (
     CheckpointManager,
@@ -76,8 +77,7 @@ class Trainer:
                 f"grad_accum_steps {self.accum}")
         self.model = model if model is not None else MotionTransformer(
             cfg.model)
-        self.tokenize = lambda texts: hash_tokenize(
-            texts, cfg.model.text_max_tokens)
+        self.tokenize = get_tokenizer(cfg.model)
         self.sched = make_schedule(schedule_name=cfg.diffusion.beta_schedule,
                                    num_timesteps=cfg.diffusion.num_timesteps,
                                    device=self.device)
@@ -90,8 +90,17 @@ class Trainer:
 
     def init_state(self) -> TrainState:
         """Seeded parameters (``init_weights``, the flax initialisers) on
-        the device, the optimizer and the EMA."""
+        the device, the optimizer and the EMA. A DeBERTa text encoder gets
+        the checkpoint ``text_encoder_ckpt`` grafted in (or a warning and
+        its random init), as the reference trains from
+        ``AutoModel.from_pretrained``. The graft comes before the EMA is
+        copied, so the EMA starts from the grafted weights too (the JAX
+        trainer grafts after and refreshes its EMA: the same state)."""
         init_weights(self.model, self.cfg.train.seed)
+        if self.cfg.model.text_encoder.startswith("deberta"):
+            from motiondiffusion_moe_tpu_torch.models.deberta import (
+                graft_pretrained_text_encoder)
+            graft_pretrained_text_encoder(self.model, self.cfg.model)
         self.model.to(self.device)
         return create_train_state(self.model, self.cfg)
 

@@ -29,7 +29,8 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "motiondiffusion_moe_tpu", "msgpack",
 NEEDED = tuple("motiondiffusion_moe_tpu_torch." + m for m in (
     "diffusion.guidance", "diffusion.sampling", "eval", "eval.metrics",
     "eval.word_vectorizer", "eval.evaluator_models", "eval.protocol",
-    "models.evaluator_bridge", "tools.evaluate", "pipeline"))
+    "models.evaluator_bridge", "tools.evaluate", "pipeline",
+    "models.deberta"))
 
 
 @pytest.mark.parametrize("preset", ["small_dense", "moe_small", "moe_big"])

@@ -28,7 +28,10 @@ plain version's, each by one ulp (floored at 2^-16 of the largest value,
 the f32 sums' absolute error where values cancel to near zero). The bf16
 activations and their gradient pass take the plain versions' steps with
 the same roundings: their bits on >= 99.9% of the values (expf and tanhf may differ from PyTorch's in
-the last f32 bit, which can move a rounding), one ulp elsewhere.
+the last f32 bit, which can move a rounding), one ulp elsewhere. The
+DeBERTa text encoder (plain PyTorch ops in f32, cuBLAS with TF32 off, on
+f32- and bf16-stored weights) on the card against the CPU: 1e-4 of the
+output's largest value.
 """
 
 import numpy as np
@@ -1330,3 +1333,70 @@ def test_generate_motion_embeddings_on_the_card(dev):
     cpu_wrapper = EvaluatorModelWrapper(dim_pose=26, device="cpu")
     with pytest.raises(ValueError, match="evaluator is on"):
         pipe.generate_motion_embeddings(["a"], [8], cpu_wrapper)
+
+
+@pytest.mark.parametrize("share", [True, False])
+@pytest.mark.parametrize("stored", [torch.float32, torch.bfloat16])
+def test_deberta_on_the_card_matches_the_cpu(dev, share, stored):
+    """The DeBERTa text encoder (no kernel of its own) at tiny width, with
+    ragged ids and an empty prompt, on the card against the CPU."""
+    import dataclasses
+
+    from motiondiffusion_moe_tpu_torch.models import deberta as TD
+    from motiondiffusion_moe_tpu_torch.models.layers import init_weights
+    from motiondiffusion_moe_tpu_torch.pipeline import cast_params_
+
+    cfg = dataclasses.replace(TD.DebertaConfig.tiny(), share_att_key=share)
+    mod = init_weights(TD.DebertaTextEncoder(16, cfg), 0).eval()
+    cast_params_(mod, stored)
+    ids = torch.from_numpy(TD.get_deberta_tokenizer(77, cfg.vocab_size)(
+        ["a person walks forward", "", "jump twice then sit down"]))
+    with torch.no_grad():
+        ref = mod(ids)
+        card = mod.to(dev)(ids.to(dev))
+    for out, want in ((card.pooled, ref.pooled), (card.tokens, ref.tokens)):
+        assert out.is_cuda and out.dtype == torch.float32
+        err = (out.cpu() - want).abs().max().item()
+        assert err <= 1e-4 * want.abs().max().item()
+
+
+def test_deberta_pipeline_on_the_card_matches_the_cpu(dev):
+    """test_pipeline_on_the_card_matches_the_cpu with the DeBERTa text
+    encoder (deberta-tiny) in front of the denoiser."""
+    from motiondiffusion_moe_tpu_torch.config import (
+        DataConfig, DiffusionConfig, ExperimentConfig, ModelConfig)
+    from motiondiffusion_moe_tpu_torch.models.layers import init_weights
+    from motiondiffusion_moe_tpu_torch.models.transformer import (
+        MotionTransformer)
+    from motiondiffusion_moe_tpu_torch.pipeline import GenerationPipeline
+
+    cfg = ExperimentConfig(
+        data=DataConfig(dim_pose=26, max_motion_length=40, num_joints=4),
+        diffusion=DiffusionConfig(num_timesteps=100),
+        model=ModelConfig(input_feats=26, max_frames=40, latent_dim=256,
+                          ff_size=64, num_layers=1, num_heads=4,
+                          num_experts=4, text_latent_dim=32,
+                          text_max_tokens=12, dtype="float32",
+                          text_encoder="deberta-tiny"))
+    model = init_weights(MotionTransformer(cfg.model), 0)
+    g = torch.Generator().manual_seed(1)
+    with torch.no_grad():  # the zero-init leaves, or the output is zero
+        for name, p in model.named_parameters():
+            if not p.any():
+                p.normal_(0.0, 0.02, generator=g)
+    noise = torch.randn(2, 40, 26, generator=g)
+    lengths = torch.tensor([40, 17])
+    outs = {}
+    for d in ("cpu", dev):
+        pipe = GenerationPipeline(cfg, model, sampler="dpm",
+                                  num_inference_steps=3, micro_batch=2,
+                                  device=d)
+        ids_c = torch.from_numpy(pipe.tokenize(["walk", "jump twice"]))
+        ids_u = torch.from_numpy(pipe.tokenize(["", ""]))
+        n0 = P.favor_qkv.launches
+        outs[str(d)] = pipe.sample(ids_c, ids_u, lengths,
+                                   noise=noise).cpu()
+    assert P.favor_qkv.launches - n0 == 4 * 4  # 4 Performers x 4 forwards
+    ref, out = outs["cpu"], outs[str(dev)]
+    assert torch.isfinite(out).all()
+    assert (out - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()

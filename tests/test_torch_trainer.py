@@ -143,8 +143,7 @@ def test_what_the_port_does_not_run_yet_raises():
     for argv in (["--scan_blocks"],
                  ["--remat_blocks", "dots"], ["--pipeline_parallel", "2"],
                  ["--expert_parallel", "2"], ["--zero1"],
-                 ["--num_processes", "2"],
-                 ["--text_encoder", "deberta-tiny"]):
+                 ["--num_processes", "2"]):
         with pytest.raises(NotImplementedError):
             train_cli.main(["--dataset", "synthetic", "--device", "cpu"]
                            + argv)
