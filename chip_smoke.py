@@ -217,6 +217,35 @@ first use) and exits non-zero without one. Phases, each fatal on failure:
          epilogue and its backward never (dropout 0.1); ms/step beside
          D3's.
 
+  K      the single-device rest of the JAX package at the flagship's full
+         width and depth (ExperimentConfig.moe_small(), seeded weights,
+         zero-init leaves perturbed, bf16 compute). K1: moe_compute "dense"
+         and "dispatch" through the kernels against use_kernels=False (f32
+         tight, bf16 by phase B's rule, at B = 32), dense against
+         dense_fused (f32 tight, bf16 by phase B's rule), dispatch at
+         capacity factor E (no slot dropped) against dense (f32 tight, bf16
+         by phase B's rule), the slots dispatch drops at the default factor
+         2; then dpm20 of 16 prompts x 196 frames (CFG micro-batch 16, bf16
+         weights) through a pipeline built in each mode (every MoE layer of
+         its model checked to compute in that mode), kernels 1 and 2
+         launched exactly 32 x 21 times, s/motion and peak memory. K2: one
+         train step after a warm-up step at B = 32, dropout 0.1, in each
+         mode: finite loss and grad norm, kernels 1 and 3 launched 32 times
+         a step, ms/step and peak memory. K3: a run dir of the flagship
+         written through CheckpointManager (with a seeded normalizer),
+         tools/visualize.py --sampler dpm --motion_length 120 on it: a GIF
+         of 120 frames at 20 fps, joints [120, 22, 3] finite and bit for
+         bit those of an in-process pipeline on the in-memory weights ->
+         recover_from_ric -> motion_temporal_filter from the same seed,
+         kernels 1 and 2 launched 32 x forwards. K4:
+         tools/serving_quality.py --batch 8 on that run dir with a seeded
+         finest.tar: a finite table, the two bf16 drift lines, kernels 1
+         and 2 launched 32 x 1153 forwards, seconds. K5:
+         tools/profile_bench.py --mode sample --steps 5 --batch 16 and
+         --mode train --batch 8: the family table's total within 10 % of
+         the profiler's device total, the rows of kernels 1 and 2 (train:
+         1 and 3) present, each family's share printed.
+
 The last line is {"ok": true, "device": {...}}, printed only when every
 phase passed; the line before it lists the kernels of the paths, each with
 its launches on its path, its error against its plain version, its time,
@@ -3901,6 +3930,478 @@ def phase_j3(jcfg, dev, card, d3_ms):
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------- phase K
+
+def moe_variant(model_cfg, state_dict, dev, compute, dtype, cf=None):
+    """The flagship denoiser with ``moe_compute=compute`` (checked on every
+    MoE layer), compute ``dtype`` (and ``cf`` as its capacity factor) on
+    the same weights, on ``dev`` in eval mode."""
+    import torch
+    from motiondiffusion_moe_tpu_torch.models.transformer import (
+        MotionTransformer)
+
+    kw = {"moe_compute": compute, "dtype": dtype}
+    if cf is not None:
+        kw["moe_capacity_factor"] = cf
+    with torch.device(dev):
+        m = MotionTransformer(dataclasses.replace(model_cfg, **kw))
+    m.load_state_dict(state_dict)
+    check_moe_compute(m, compute, 4 * model_cfg.num_layers,
+                      f"the {compute} denoiser")
+    return m.eval()
+
+
+def check_moe_compute(model, mode, n_layers, where):
+    """Every MoE layer of ``model`` computes in ``mode``: a layer's compute
+    is fixed when it is built, so a copy of a module built in another mode
+    would not switch."""
+    from motiondiffusion_moe_tpu_torch.models.moe import SwitchMoELayer
+
+    computes = [x.compute for x in model.modules()
+                if isinstance(x, SwitchMoELayer)]
+    check(len(computes) == n_layers and set(computes) == {mode},
+          f"{where}: the MoE layers compute {sorted(set(computes))} "
+          f"({len(computes)} layers), expected {mode} in {n_layers}")
+
+
+def dispatch_drops(m, args, ids):
+    """One forward of a ``dispatch`` denoiser with each MoE layer's routing
+    captured: (its output, slots dropped, slots asked for, the most any
+    layer dropped)."""
+    import torch
+    from motiondiffusion_moe_tpu_torch.models import moe as TM
+
+    own, seen = TM.top_k_lowest_index, []
+
+    def top_k(probs, k):
+        vals, idx = own(probs, k)
+        seen.append(idx)
+        return vals, idx
+
+    with patched((TM, "top_k_lowest_index", top_k)), torch.inference_mode():
+        out = m(*args, text_ids=ids)
+    cf, E = m.config.moe_capacity_factor, m.config.num_experts
+    dropped = []
+    for idx in seen:
+        S, k = idx.shape
+        keep = TM.capacity_slots(idx, E, TM.expert_capacity(S, E, cf))[1]
+        dropped.append(S * k - int(keep.sum()))
+    return out, sum(dropped), sum(i.numel() for i in seen), max(dropped)
+
+
+def phase_k(cfg, dev, card, c_timings):
+    """The MoE dense and dispatch paths, visualize, serving_quality and
+    profile_bench at the flagship's full width and depth (see the module
+    doc)."""
+    import torch
+
+    t0 = time.perf_counter()
+    seconds, mark = {}, [t0]
+
+    def lap(name):
+        now = time.perf_counter()
+        seconds[name] = round(now - mark[0], 1)
+        mark[0] = now
+
+    model = build_flagship(cfg)
+    sd = model.state_dict()
+    phase_k1(cfg, sd, dev, card, c_timings)
+    lap("K1")
+    phase_k2(cfg, sd, dev, card)
+    lap("K2")
+    with tempfile.TemporaryDirectory() as root:
+        run = write_run_dir(root, cfg, model)
+        del model
+        phase_k3(run, sd, root, dev, card)
+        lap("K3")
+        phase_k4(run, root, dev, card)
+        lap("K4")
+        phase_k5(root, card)
+        lap("K5")
+    torch.cuda.empty_cache()
+    print(f"[K] phase K in {time.perf_counter() - t0:.1f} s, by part "
+          f"{seconds} ({card})")
+
+
+def phase_k1(cfg, sd, dev, card, c_timings):
+    """moe_compute dense and dispatch on the flagship's weights ``sd``:
+    kernels vs plain by phase B's rule, dense vs dense_fused, dispatch at
+    cf = E vs dense, the slots dispatch drops at cf = 2, then dpm20 through
+    the pipeline with exact launch counts, s/motion and peak memory."""
+    import torch
+    from motiondiffusion_moe_tpu_torch.ops import performer as P
+    from motiondiffusion_moe_tpu_torch.pipeline import GenerationPipeline
+
+    args, ids = denoiser_inputs(cfg, dev)
+    B, T, F = args[0].shape
+    E = cfg.model.num_experts
+
+    def fwd(m, kernels=True):
+        m.set_use_kernels(kernels)
+        with torch.inference_mode():
+            out = m(*args, text_ids=ids)
+        m.set_use_kernels(True)
+        torch.cuda.synchronize()
+        check(out.shape == (B, T, F) and bool(torch.isfinite(out).all()),
+              f"K1 {m.config.moe_compute} output {tuple(out.shape)} or "
+              "non-finite")
+        return out
+
+    ref32, out16 = {}, {}
+    for mode in ("dense_fused", "dense", "dispatch"):
+        m = moe_variant(cfg.model, sd, dev, mode, "float32")
+        ref32[mode] = fwd(m, False)
+        if mode != "dense_fused":
+            rel = rel_rms(fwd(m), ref32[mode])
+            ok = rel <= DENOISER_F32_REL_RMS
+            print(f"[K1] moe_compute={mode} float32 compute B={B} T={T}: "
+                  f"kernels vs use_kernels=False rel_rms={rel:.3e}; tol "
+                  f"<= {DENOISER_F32_REL_RMS:g} -> {'ok' if ok else 'FAIL'}")
+            check(ok, f"K1 {mode} (float32) kernels vs plain")
+        del m
+        m = moe_variant(cfg.model, sd, dev, mode, "bfloat16")
+        out16[mode] = fwd(m)
+        if mode != "dense_fused":
+            err_k = rel_rms(out16[mode], ref32[mode])
+            err_p = rel_rms(fwd(m, False), ref32[mode])
+            tol = DENOISER_BF16_FACTOR * err_p + DENOISER_BF16_FLOOR
+            ok = err_k <= tol
+            print(f"[K1] moe_compute={mode} bfloat16 compute: rel_rms to "
+                  f"its f32 result: kernels {err_k:.3e}, use_kernels=False "
+                  f"{err_p:.3e}; tol {tol:.3e} -> {'ok' if ok else 'FAIL'}")
+            check(ok, f"K1 {mode} (bfloat16) kernels vs plain")
+        if mode == "dispatch":
+            _, dropped, slots, most = dispatch_drops(m, args, ids)
+            print(f"[K1] dispatch at capacity factor "
+                  f"{cfg.model.moe_capacity_factor:g} (bf16, B={B}): "
+                  f"{dropped} of {slots} (token, choice) slots dropped over "
+                  f"{4 * cfg.model.num_layers} MoE calls, at most {most} "
+                  "in one call")
+        del m
+        torch.cuda.empty_cache()
+
+    rel = rel_rms(ref32["dense"], ref32["dense_fused"])
+    ok = rel <= DENOISER_F32_REL_RMS
+    print(f"[K1] dense vs dense_fused, float32 compute: rel_rms={rel:.3e}; "
+          f"tol <= {DENOISER_F32_REL_RMS:g} -> {'ok' if ok else 'FAIL'}")
+    check(ok, "K1 dense vs dense_fused (float32)")
+    err_d = rel_rms(out16["dense"], ref32["dense"])
+    err_f = rel_rms(out16["dense_fused"], ref32["dense_fused"])
+    tol = DENOISER_BF16_FACTOR * err_f + DENOISER_BF16_FLOOR
+    ok = err_d <= tol
+    print(f"[K1] dense vs dense_fused, bfloat16 compute: rel_rms to the f32 "
+          f"result dense {err_d:.3e}, dense_fused {err_f:.3e} (tol "
+          f"{tol:.3e}); dense vs dense_fused directly "
+          f"{rel_rms(out16['dense'], out16['dense_fused']):.3e} -> "
+          f"{'ok' if ok else 'FAIL'}")
+    check(ok, "K1 dense vs dense_fused (bfloat16)")
+    for dtype in ("float32", "bfloat16"):
+        m = moe_variant(cfg.model, sd, dev, "dispatch", dtype, cf=float(E))
+        out, dropped, slots, _ = dispatch_drops(m, args, ids)
+        del m
+        check(out.shape == (B, T, F) and bool(torch.isfinite(out).all()),
+              f"K1 dispatch at cf = E ({dtype}): {tuple(out.shape)} or "
+              "non-finite")
+        check(dropped == 0, f"K1 dispatch at cf = E dropped {dropped}")
+        if dtype == "float32":
+            # against dense's plain result
+            rel = rel_rms(out, ref32["dense"])
+            ok = rel <= DENOISER_F32_REL_RMS
+            print(f"[K1] dispatch at cf = E = {E} (0 of {slots} slots "
+                  f"dropped) vs dense, float32 compute, kernels: rel_rms="
+                  f"{rel:.3e}; tol <= {DENOISER_F32_REL_RMS:g} -> "
+                  f"{'ok' if ok else 'FAIL'}")
+            check(ok, "K1 dispatch without drops vs dense (float32)")
+        else:
+            # phase B's rule against dense: both held to dense's f32 result
+            err_x = rel_rms(out, ref32["dense"])
+            err_d = rel_rms(out16["dense"], ref32["dense"])
+            tol = DENOISER_BF16_FACTOR * err_d + DENOISER_BF16_FLOOR
+            ok = err_x <= tol
+            print(f"[K1] dispatch at cf = E vs dense, bfloat16 compute, "
+                  f"kernels: rel_rms to dense's f32 result dispatch "
+                  f"{err_x:.3e}, dense {err_d:.3e} (tol {tol:.3e}); "
+                  f"dispatch vs dense directly "
+                  f"{rel_rms(out, out16['dense']):.3e} -> "
+                  f"{'ok' if ok else 'FAIL'}")
+            check(ok, "K1 dispatch without drops vs dense (bfloat16)")
+    del ref32, out16
+    torch.cuda.empty_cache()
+
+    counted = (P.favor_qkv, P.performer_epilogue)
+    prompts = [f"a person performs action number {i}" for i in range(16)]
+    for mode in ("dense", "dispatch"):
+        mcfg = dataclasses.replace(cfg, model=dataclasses.replace(
+            cfg.model, moe_compute=mode))
+        # the model built from mcfg, not a copy of a module of another mode
+        pipe = GenerationPipeline(mcfg, params=sd, sampler="dpm",
+                                  num_inference_steps=20, micro_batch=16,
+                                  param_dtype="bfloat16", device=dev)
+        check_moe_compute(pipe.model, mode, 4 * cfg.model.num_layers,
+                          f"K1 the {mode} pipeline")
+        pipe.generate(["warm up"], [T])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev) / 2 ** 30
+        for c in counted:
+            c.launches = 0
+        t0 = time.perf_counter()
+        out = pipe.generate(prompts, [T] * 16,
+                            generator=torch.Generator(dev).manual_seed(7))
+        torch.cuda.synchronize()
+        s = time.perf_counter() - t0
+        got = {c.__name__: c.launches for c in counted}
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        check(all(np.isfinite(o).all() and o.shape == (T, F) for o in out),
+              f"K1 {mode} dpm20 motions")
+        want = 2 * 2 * cfg.model.num_layers * pipe.forwards_per_sample
+        print(f"[K1] moe_compute={mode} dpm20 generate 16 prompts x {T} "
+              f"frames (CFG, micro_batch 16, bf16 weights): {s:.3f} s, "
+              f"{s / 16:.4f} s/motion (phase C's dense_fused "
+              f"{c_timings['dpm20'] / 16:.4f}), peak {peak:.2f} GiB "
+              f"allocated, {peak - base:.2f} GiB above the {base:.2f} GiB "
+              f"live at its start; launches {got}, expected {want} each "
+              f"({card})")
+        check(all(n == want for n in got.values()),
+              f"K1 {mode} launch counts")
+        del pipe
+        torch.cuda.empty_cache()
+
+
+def phase_k2(cfg, sd, dev, card):
+    """One train step (after a warm-up step) at B = 32, dropout 0.1, under
+    dense and under dispatch, from the flagship's weights ``sd``: finite
+    loss and grad norm, kernels 1 and 3 launched 32 times a step, peak
+    memory, ms/step."""
+    import torch
+    from motiondiffusion_moe_tpu_torch.diffusion.gaussian import (
+        make_schedule)
+    from motiondiffusion_moe_tpu_torch.ops import performer as P
+    from motiondiffusion_moe_tpu_torch.training.train_state import (
+        TrainStep, create_train_state)
+
+    counted = (P.favor_qkv, P.favor_qkv_bwd)
+    n_perf = 2 * 2 * cfg.model.num_layers
+    for mode in ("dense", "dispatch"):
+        mcfg = dataclasses.replace(cfg, model=dataclasses.replace(
+            cfg.model, moe_compute=mode))
+        m = moe_variant(cfg.model, sd, dev, mode, cfg.model.dtype)
+        state = create_train_state(m, mcfg)
+        step = TrainStep(make_schedule(
+            schedule_name=mcfg.diffusion.beta_schedule,
+            num_timesteps=mcfg.diffusion.num_timesteps, device=dev), mcfg)
+        batch, _ = synthetic_batch(mcfg, dev)
+        g = torch.Generator(dev).manual_seed(SEED + 30)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev) / 2 ** 30
+        for c in counted:
+            c.launches = 0
+        times, losses = [], []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            metrics = step(state, batch, g)
+            loss, gn = (float(metrics[k]) for k in ("loss_total",
+                                                     "grad_norm"))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            losses.append(loss)
+            check(math.isfinite(loss) and math.isfinite(gn),
+                  f"K2 {mode}: loss {loss}, grad norm {gn}")
+        got = {c.__name__: c.launches for c in counted}
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        print(f"[K2] moe_compute={mode} train step B=32, bf16 compute, "
+              f"dropout 0.1: losses {losses}, last grad norm {gn:.4g}; "
+              f"launches {got}, expected {n_perf} x 2 each; ms per step "
+              f"(host clock, synchronised): first {times[0]:.1f}, then "
+              f"{times[1]:.1f}; peak {peak:.2f} GiB allocated, "
+              f"{peak - base:.2f} GiB above the {base:.2f} GiB live at its "
+              f"start ({card})")
+        check(all(n == n_perf * 2 for n in got.values()),
+              f"K2 {mode} launch counts")
+        check(all(bool(torch.isfinite(p).all()) for p in m.parameters()),
+              f"K2 {mode}: non-finite parameters")
+        del state, m, step
+        torch.cuda.empty_cache()
+
+
+def write_run_dir(root, cfg, model):
+    """A run dir of the flagship as the port's tools/train.py writes one:
+    config.json, ckpt/step_0.pt through CheckpointManager, and meta/ with a
+    seeded normalizer of a motion's scale (joints within the plot's box)."""
+    from motiondiffusion_moe_tpu_torch.data.normalizer import (
+        MotionNormalizer)
+    from motiondiffusion_moe_tpu_torch.training.checkpoint import (
+        CheckpointManager)
+    from motiondiffusion_moe_tpu_torch.training.train_state import (
+        create_train_state)
+
+    t0 = time.perf_counter()
+    run = os.path.join(root, cfg.name)
+    os.makedirs(run)
+    cfg.save(os.path.join(run, "config.json"))
+    CheckpointManager(os.path.join(run, "ckpt")).save(
+        0, create_train_state(model, cfg), epoch=0)
+    rng = np.random.default_rng(SEED + 40)
+    F = cfg.data.dim_pose
+    mean = (0.05 * rng.standard_normal(F)).astype(np.float32)
+    mean[3] = 1.0
+    std = (0.05 + 0.1 * rng.random(F)).astype(np.float32)
+    MotionNormalizer(mean, std).save(os.path.join(run, "meta"))
+    size = sum(os.path.getsize(os.path.join(run, "ckpt", f))
+               for f in os.listdir(os.path.join(run, "ckpt")))
+    print(f"[K3] run dir written: {size / 1e9:.2f} GB checkpoint in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return run
+
+
+def gif_frames(path):
+    """(frames stored, total duration in ms) of a GIF."""
+    from PIL import Image, ImageSequence
+
+    with Image.open(path) as im:
+        ms = sum(f.info.get("duration", 0) for f in ImageSequence.Iterator(im))
+        return im.n_frames, ms
+
+
+def phase_k3(run, sd, root, dev, card):
+    """tools/visualize.py on the card: a 120-frame GIF, joints [120, 22, 3]
+    finite and equal bit for bit to an in-process pipeline on the weights
+    ``sd`` that the run dir holds -> recover_from_ric -> filter from the
+    same seed."""
+    import torch
+    from motiondiffusion_moe_tpu_torch.config import ExperimentConfig
+    from motiondiffusion_moe_tpu_torch.data.normalizer import (
+        MotionNormalizer)
+    from motiondiffusion_moe_tpu_torch.motion import recover_from_ric
+    from motiondiffusion_moe_tpu_torch.ops import performer as P
+    from motiondiffusion_moe_tpu_torch.pipeline import GenerationPipeline
+    from motiondiffusion_moe_tpu_torch.tools import visualize
+    from motiondiffusion_moe_tpu_torch.utils import plot
+
+    text, n, seed = "a person walks forward and waves", 120, 5
+    gif, npy = os.path.join(root, "k3.gif"), os.path.join(root, "k3.npy")
+    counted = (P.favor_qkv, P.performer_epilogue)
+    for c in counted:
+        c.launches = 0
+    render = plot.plot_3d_motion
+    render_s = []
+
+    def timed_render(*a, **k):
+        t = time.perf_counter()
+        render(*a, **k)
+        render_s.append(time.perf_counter() - t)
+
+    t0 = time.perf_counter()
+    with patched((plot, "plot_3d_motion", timed_render)):
+        visualize.main(["--run_dir", run, "--text", text, "--sampler", "dpm",
+                        "--motion_length", str(n), "--seed", str(seed),
+                        "--npy_path", npy, "--result_path", gif,
+                        "--device", str(dev)])
+    s = time.perf_counter() - t0
+    got = {c.__name__: c.launches for c in counted}
+    joints = np.load(npy)
+    check(os.path.exists(gif), "K3: no GIF")
+    frames, ms = gif_frames(gif)
+    # Pillow stores a run of equal frames once, with their summed duration
+    check(ms == n * 50, f"K3: the GIF holds {ms} ms, expected {n} frames "
+                        "at 20 fps")
+    check(joints.shape == (n, 22, 3) and np.isfinite(joints).all(),
+          f"K3 joints {joints.shape} or non-finite")
+    cfg = ExperimentConfig.load(os.path.join(run, "config.json"))
+    normalizer = MotionNormalizer.load(os.path.join(run, "meta"))
+    pipe = GenerationPipeline(cfg, params=sd, sampler="dpm", micro_batch=1,
+                              device=dev)
+    motion = normalizer.denormalize_np(pipe.generate(
+        [text], [n], generator=torch.Generator(dev).manual_seed(seed))[0])
+    want = plot.motion_temporal_filter(recover_from_ric(
+        torch.from_numpy(motion).to(dev), cfg.data.num_joints).cpu().numpy(),
+        sigma=1.0)
+    same = np.array_equal(joints, want)
+    print(f"[K3] tools/visualize.py --sampler dpm --motion_length {n}: "
+          f"{s:.1f} s ({render_s[0]:.1f} s of it drawing the GIF), GIF "
+          f"{n} frames at 20 fps ({frames} distinct), joints "
+          f"{joints.shape} finite, bit for bit equal to the in-process "
+          f"pipeline: {same}; launches {got} "
+          f"({pipe.forwards_per_sample} forwards x 32) ({card})")
+    check(same, "K3 joints differ from the in-process pipeline")
+    check(all(v == 32 * pipe.forwards_per_sample for v in got.values()),
+          "K3 launch counts")
+    del pipe
+
+
+def phase_k4(run, root, dev, card):
+    """tools/serving_quality.py on the card with a seeded finest.tar: its
+    table finite, kernels 1 and 2 launched 32 x forwards, seconds."""
+    from motiondiffusion_moe_tpu_torch.ops import performer as P
+    from motiondiffusion_moe_tpu_torch.tools import serving_quality
+
+    finest = os.path.join(root, "finest.tar")
+    write_finest_tar(finest)
+    counted = (P.favor_qkv, P.performer_epilogue)
+    for c in counted:
+        c.launches = 0
+    t0 = time.perf_counter()
+    res = serving_quality.main(["--run_dir", run, "--batch", "8",
+                                "--evaluator_ckpt", finest,
+                                "--device", str(dev)])
+    s = time.perf_counter() - t0
+    got = {c.__name__: c.launches for c in counted}
+    # ddim at the full 1000-step schedule, ddim50 twice, dpm20 twice, dpm10
+    forwards = 1000 + 2 * 50 + 2 * 21 + 11
+    values = [v for pair in res["stats"].values() for v in pair] + list(
+        res["drifts"].values())
+    print(f"[K4] tools/serving_quality.py --batch 8 (finest.tar seeded): "
+          f"{s:.1f} s in all; per variant (s) "
+          f"{ {k: round(v, 2) for k, v in res['seconds'].items()} }; "
+          f"launches {got}, expected 32 x {forwards} each ({card})")
+    check(len(values) == 12 and all(math.isfinite(v) for v in values),
+          "K4 table")
+    check(set(res["drifts"]) == {"ddim50", "dpm20"}, "K4 bf16 drift lines")
+    check(all(v == 32 * forwards for v in got.values()), "K4 launch counts")
+
+
+def phase_k5(root, card):
+    """tools/profile_bench.py --mode sample (5 ddim steps, B = 16) and
+    --mode train (B = 8): the family table's total within 10 % of the
+    profiler's device total, the rows of the path's kernels present.
+    torch.profiler now and then records nothing or loses kernels, so a
+    reading that fails is taken again, up to three times."""
+    from motiondiffusion_moe_tpu_torch.tools import profile_bench
+
+    for argv, want in (
+            (["--mode", "sample", "--steps", "5", "--batch", "16"],
+             ("favor_qkv (1; 8, 10)", "performer_epilogue (2)")),
+            (["--mode", "train", "--batch", "8"],
+             ("favor_qkv (1; 8, 10)", "favor_qkv_bwd (3)"))):
+        for attempt in range(3):
+            t0 = time.perf_counter()
+            res = profile_bench.main(argv + [
+                "--top", "12", "--device", "cuda",
+                "--log_dir", tempfile.mkdtemp(dir=root)])
+            s = time.perf_counter() - t0
+            a, total = res["analysis"], res["profiler_device_ms"]
+            ok = (a is not None and bool(total)
+                  and abs(a["total_ms"] - total) <= 0.1 * total
+                  and all(f in a["families"] for f in want))
+            if a is not None and total:
+                shares = {k: round(100 * v[1] / a["total_ms"], 1)
+                          for k, v in sorted(a["families"].items(),
+                                             key=lambda kv: -kv[1][1])}
+                print(f"[K5] profile_bench {' '.join(argv)} (reading "
+                      f"{attempt + 1}): {s:.1f} s; family table "
+                      f"{a['total_ms']:.3f} ms vs the profiler's device "
+                      f"total {total:.3f} ms; shares (%) {shares} -> "
+                      f"{'ok' if ok else 'FAIL'} ({card})")
+            else:
+                print(f"[K5] profile_bench {' '.join(argv)} (reading "
+                      f"{attempt + 1}): the profiler recorded no kernels")
+            if ok:
+                break
+        check(ok, f"K5 {argv[1]}: the family table's total within 10 % of "
+                  f"the profiler's and the rows {want}")
+
+
 def main() -> int:
     import torch
 
@@ -3932,7 +4433,17 @@ def main() -> int:
     print(f"[setup] matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}"
           f" cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
 
+    seconds = {}  # each phase's wall time, printed at the end
+    mark = [t_start]
+
+    def lap(name):
+        now = time.perf_counter()
+        seconds[name] = round(now - mark[0], 1)
+        mark[0] = now
+
+    lap("setup and build")
     a = phase_a(dev, card)
+    lap("A")
 
     cfg = ExperimentConfig.moe_small()
     t0 = time.perf_counter()
@@ -3941,15 +4452,18 @@ def main() -> int:
     print(f"[B] flagship moe_small: {n_params} parameters, seeded init + "
           f"perturbed zero-init leaves in {time.perf_counter() - t0:.1f} s")
     phase_b(cfg, model, dev)
+    lap("B")
 
     launches, c_timings = phase_c(cfg, model, dev, card)
     model.cpu()  # back to the card in phase E
     torch.cuda.empty_cache()
+    lap("C")
 
     d1 = phase_d1(dev, card)
     phase_d2(cfg, dev)
     d3_launches, d3_ms = phase_d3(dev, card)
     d4_launches = phase_d4(cfg, dev)
+    lap("D")
 
     e1 = phase_e1(dev, card)
     fast = phase_e2(cfg, model, dev)
@@ -3957,17 +4471,22 @@ def main() -> int:
     del fast
     torch.cuda.empty_cache()
     phase_e4(cfg, dev)
+    lap("E")
 
     f1 = phase_f1(dev, card)
     phase_f2(dev)
     f3_launches = phase_f3(cfg, model, dev, card)
+    lap("F")
     phase_g1(cfg, model, dev, card)
     phase_g2(dev, card)
     del model
+    lap("G")
     phase_h_and_i(card, d3_ms)
-    t0 = time.perf_counter()
+    lap("H+I")
     phase_j(cfg, dev, card, c_timings, d3_ms)
-    j_s = time.perf_counter() - t0
+    lap("J")
+    phase_k(cfg, dev, card, c_timings)
+    lap("K")
 
     csrc = "motiondiffusion_moe_tpu_torch/csrc/"
     ops = "motiondiffusion_moe_tpu/ops/"
@@ -4024,7 +4543,7 @@ def main() -> int:
     check(all(math.isfinite(k["ms"]) and k["launches"] > 0 for k in kernels),
           "kernel times and launches")
     print(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s"
-          f" (phase J {j_s:.1f} s)")
+          f"; seconds by phase {seconds}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}))

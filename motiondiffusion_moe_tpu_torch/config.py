@@ -79,7 +79,10 @@ class ModelConfig:
     moe_capacity_factor: float = 2.0
     moe_aux_loss_weight: float = 0.01
     moe_num_branches: int = 2
-    # "dense_fused" (the port's only MoE path so far), "dense", "dispatch"
+    # "dense_fused" (every expert on every token, combine weights folded in),
+    # "dense" (every expert on every token, then the combine) or "dispatch"
+    # (each token to its top-k experts, up to moe_capacity_factor * S / E
+    # slots per expert); fixed when the model is built
     moe_compute: str = "dense_fused"
     # --- attention ---
     # Performer FAVOR+ feature count (the reference's effective 128)

@@ -44,7 +44,7 @@ becomes the shared ``fast_attention.norm``, ``fa_projection`` its
 from __future__ import annotations
 
 import re
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -178,21 +178,56 @@ def _flax_parts(key: str) -> list:
     return out
 
 
+def flax_leaf(key: str, x: torch.Tensor, modules: Mapping[str, nn.Module]
+              ) -> Tuple[list, str, torch.Tensor]:
+    """A state_dict entry's place in the flax tree: (module path, leaf name,
+    the tensor in flax's layout), the inverse of :func:`convert_leaf`.
+    ``modules`` is ``dict(model.named_modules())``; ``x`` may live on any
+    device, the meta device included."""
+    from motiondiffusion_moe_tpu_torch.models.layers import LayerNorm
+    from motiondiffusion_moe_tpu_torch.models.text_encoder import (
+        MultiHeadDotProductAttention)
+
+    mod_name, _, name = key.rpartition(".")
+    module = modules[mod_name]
+    parent = modules.get(mod_name.rpartition(".")[0])
+    mha = (isinstance(parent, MultiHeadDotProductAttention)
+           and mod_name.rpartition(".")[2] in _MHA_PARTS)
+    if name == "weight":
+        if isinstance(module, nn.ConvTranspose1d):
+            name, x = "kernel", x.permute(2, 0, 1).flip(0)
+        elif isinstance(module, nn.Conv1d):
+            name, x = "kernel", x.permute(2, 1, 0)
+        elif isinstance(module, nn.Embedding):
+            name = "embedding"
+        elif isinstance(module, LayerNorm):
+            name = "scale"
+        elif mha:
+            H = parent.num_heads
+            name = "kernel"
+            if mod_name.endswith(".out"):   # [D, H*dh] -> [H, dh, D]
+                x = x.T.reshape(H, -1, x.shape[0])
+            else:                           # [H*dh, D] -> [D, H, dh]
+                x = x.T.reshape(x.shape[1], H, -1)
+        else:
+            name, x = "kernel", x.T
+    elif name == "bias" and mha and not mod_name.endswith(".out"):
+        x = x.reshape(parent.num_heads, -1)  # [H*dh] -> [H, dh]
+    return _flax_parts(mod_name), name, x
+
+
 def state_dict_to_jax(sd: Mapping[str, torch.Tensor], cfg) -> dict:
     """The flax ``params`` tree (named layout) of a port ``MotionTransformer``
     state_dict: the inverse of :func:`jax_to_state_dict`, case by case of
-    :func:`convert_leaf`. ``cfg`` (a ``ModelConfig`` or an
-    ``ExperimentConfig``) gives the module of each key, built on the meta
-    device: a ``Conv1d`` / ``ConvTranspose1d`` weight goes back to the flax
-    ``[k, in, out]`` kernel (the transposed one flipped back), a text
+    :func:`convert_leaf` (:func:`flax_leaf`). ``cfg`` (a ``ModelConfig`` or
+    an ``ExperimentConfig``) gives the module of each key, built on the
+    meta device: a ``Conv1d`` / ``ConvTranspose1d`` weight goes back to the
+    flax ``[k, in, out]`` kernel (the transposed one flipped back), a text
     encoder attention part's weight and bias to the ``DenseGeneral`` shapes
     of its head count, a LayerNorm weight to ``scale``, an ``Embedding``'s
     to ``embedding``, any other weight to the transposed ``kernel``. Leaves
     are f32 numpy arrays, and ``torch.bfloat16`` tensors (CPU, contiguous)
     where the state_dict holds bf16."""
-    from motiondiffusion_moe_tpu_torch.models.layers import LayerNorm
-    from motiondiffusion_moe_tpu_torch.models.text_encoder import (
-        MultiHeadDotProductAttention)
     from motiondiffusion_moe_tpu_torch.models.transformer import (
         MotionTransformer)
 
@@ -202,36 +237,11 @@ def state_dict_to_jax(sd: Mapping[str, torch.Tensor], cfg) -> dict:
     modules = dict(model.named_modules())
     tree: dict = {}
     for key, value in sd.items():
-        mod_name, _, name = key.rpartition(".")
-        module = modules[mod_name]
-        parent = modules.get(mod_name.rpartition(".")[0])
-        x = value.detach().cpu()
-        mha = (isinstance(parent, MultiHeadDotProductAttention)
-               and mod_name.rpartition(".")[2] in _MHA_PARTS)
-        if name == "weight":
-            if isinstance(module, nn.ConvTranspose1d):
-                name, x = "kernel", x.permute(2, 0, 1).flip(0)
-            elif isinstance(module, nn.Conv1d):
-                name, x = "kernel", x.permute(2, 1, 0)
-            elif isinstance(module, nn.Embedding):
-                name = "embedding"
-            elif isinstance(module, LayerNorm):
-                name = "scale"
-            elif mha:
-                H = parent.num_heads
-                name = "kernel"
-                if mod_name.endswith(".out"):   # [D, H*dh] -> [H, dh, D]
-                    x = x.T.reshape(H, -1, x.shape[0])
-                else:                           # [H*dh, D] -> [D, H, dh]
-                    x = x.T.reshape(x.shape[1], H, -1)
-            else:
-                name, x = "kernel", x.T
-        elif name == "bias" and mha and not mod_name.endswith(".out"):
-            x = x.reshape(parent.num_heads, -1)  # [H*dh] -> [H, dh]
+        parts, name, x = flax_leaf(key, value.detach().cpu(), modules)
         x = x.contiguous()
         leaf = x if x.dtype == torch.bfloat16 else x.float().numpy()
         node = tree
-        for part in _flax_parts(mod_name):
+        for part in parts:
             node = node.setdefault(part, {})
         node[name] = leaf
     return tree

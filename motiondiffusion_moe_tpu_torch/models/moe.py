@@ -1,22 +1,43 @@
 """Top-k Switch-style Mixture-of-Experts feed-forward.
 
-Port of ``motiondiffusion_moe_tpu/models/moe.py``, ``dense_fused`` path
-(``moe.py:86-169``): f32 router softmax, top-k with ties broken toward the
-lowest expert index (what ``jax.lax.top_k`` does; ``torch.topk`` promises no
-order, and at init the zero gate makes every probability equal), all
-experts as two stacked matmuls with the combine weights applied to the
-hidden activations. The ``dense`` and ``dispatch`` paths come with the
-expert-parallel port. A training forward appends each layer's Switch aux
-loss to its :class:`TrainContext` (the JAX ``sow`` into ``moe_losses``,
-``moe.py:105-109``).
+Port of ``motiondiffusion_moe_tpu/models/moe.py`` on one device: f32 router
+softmax, top-k with ties broken toward the lowest expert index (what
+``jax.lax.top_k`` does; ``torch.topk`` promises no order, and at init the
+zero gate makes every probability equal), then one of the three expert
+computes of ``ModelConfig.moe_compute`` (``moe.py:124-234``):
 
-With ``MOE_FUSED_KERNEL`` set to anything but ``0``, an eval-mode layer
-whose widths are multiples of 128 runs the expert chain through
-:func:`ops.moe.moe_dense_fused` (the fused kernel on the card): the JAX
-package's own switch and condition (``moe.py:144-162``), read at every
-forward. That form keeps the bias, gelu and combine weighting in f32 and
-rounds once, where the inline chain rounds to the compute dtype after each
-step; in f32 the two agree.
+- ``dense_fused`` (the default): all experts as two stacked matmuls with the
+  combine weights applied to the hidden activations;
+- ``dense``: per-expert products, each expert's output (its ``b2`` added in
+  the compute dtype) weighted by the combine weights and summed over the
+  experts in f32, rounded once, as XLA's dot computes the JAX einsum;
+- ``dispatch``: static-capacity dispatch, ``_capacity_dispatch_ffn``. Each
+  expert takes at most ``C = max(1, ceil(S * cf / E))`` tokens; slots fill
+  choice by choice (every token's first choice, then its second) in the
+  row order of the flattened ``[B * T]`` batch, padding frames included,
+  and a token past an expert's capacity gets nothing from that expert. The
+  JAX form builds one-hot ``[S, E, C]`` dispatch and combine tensors; here
+  the slots are indices (:func:`capacity_slots`, static shapes, no host
+  sync), the experts' inputs an ``index_add`` into ``[E, C, D]`` and the
+  output a gather of each token's k slots, weighted and summed in f32: the
+  same sums (a token has at most k terms), with no ``[S, E, C]`` tensor.
+  The router gets gradient through the gate values of the kept slots only;
+  positions carry none.
+
+Routing, the aux loss and :func:`moe_metrics` are the same in all three. A
+training forward appends each layer's Switch aux loss to its
+:class:`TrainContext` (the JAX ``sow`` into ``moe_losses``,
+``moe.py:105-109``). The expert-parallel all-to-all (a mesh with an
+``expert`` axis) is not ported.
+
+With ``MOE_FUSED_KERNEL`` set to anything but ``0``, an eval-mode
+``dense_fused`` layer whose widths are multiples of 128 runs the expert
+chain through :func:`ops.moe.moe_dense_fused` (the fused kernel on the
+card): the JAX package's own switch and condition (``moe.py:144-162``),
+read at every forward; it changes nothing under ``dense`` or
+``dispatch``. That form keeps the bias, gelu and combine weighting in f32
+and rounds once, where the inline chain rounds to the compute dtype after
+each step; in f32 the two agree.
 """
 
 from __future__ import annotations
@@ -67,16 +88,82 @@ def moe_metrics(probs: torch.Tensor, top_vals: torch.Tensor,
             "aux": switch_aux_loss(probs, top_idx[:, 0], E)}
 
 
+MOE_COMPUTES = ("dense_fused", "dense", "dispatch")
+
+
+def expert_capacity(S: int, num_experts: int, capacity_factor: float) -> int:
+    """Tokens an expert takes under ``dispatch``: ``max(1, ceil(S * cf /
+    E))``, computed as the JAX package does (``int(-(-S * cf // E))``, a
+    float ``cf``); not multiplied by k."""
+    return max(1, int(-(-S * capacity_factor // num_experts)))
+
+
+def capacity_slots(top_idx: torch.Tensor, num_experts: int, capacity: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The slots of a capacity dispatch: ``top_idx`` [S, k] -> (slot [S,
+    k], keep [S, k]) with ``slot = expert * C + position``. Positions fill
+    choice by choice, tokens in row order within a choice, each expert's
+    count carried from one choice to the next (``fill``,
+    ``moe.py:218-226``); a (token, choice) pair past capacity is dropped
+    (``keep`` False) from that expert only. Static shapes: no host sync."""
+    S, k = top_idx.shape
+    fill = torch.zeros(num_experts, dtype=torch.long, device=top_idx.device)
+    slots, keeps = [], []
+    for j in range(k):
+        e = top_idx[:, j]
+        mask = F.one_hot(e, num_experts)                        # [S, E]
+        pos = (mask.cumsum(0) - 1 + fill).gather(1, e[:, None])[:, 0]
+        keep = pos < capacity
+        fill = fill + (mask * keep[:, None]).sum(0)
+        slots.append(e * capacity + pos)
+        keeps.append(keep)
+    return torch.stack(slots, 1), torch.stack(keeps, 1)
+
+
+def capacity_dispatch_ffn(x: torch.Tensor, top_idx: torch.Tensor,
+                          top_vals: torch.Tensor, w1, b1, w2, b2, *,
+                          capacity_factor: float) -> torch.Tensor:
+    """``_capacity_dispatch_ffn`` (``moe.py:201-234``) with index gathers in
+    place of the one-hot [S, E, C] tensors: x [S, D] in the compute dtype,
+    top_idx / top_vals [S, k] (the values in the compute dtype) -> [S, D].
+    A dropped pair's row goes to a spare slot past the last expert that no
+    expert reads. Empty slots hold zero rows, as the JAX dispatch leaves
+    them; each expert adds its bias to them too, and no token reads them
+    back."""
+    S, D = x.shape
+    E, _, hid = w1.shape
+    k = top_idx.shape[1]
+    C = expert_capacity(S, E, capacity_factor)
+    slot, keep = capacity_slots(top_idx, E, C)
+    spare = torch.full_like(slot, E * C)
+    rows = x[:, None, :].expand(S, k, D).reshape(S * k, D)
+    expert_in = x.new_zeros(E * C + 1, D).index_add(
+        0, torch.where(keep, slot, spare).reshape(-1), rows)[:E * C]
+    h = gelu(torch.bmm(expert_in.view(E, C, D), w1) + b1[:, None, :])
+    y = (torch.bmm(h, w2) + b2[:, None, :]).view(E * C, D)
+    # the combine: a token's kept terms summed in f32, rounded once
+    weight = torch.where(keep, top_vals, 0).float()[..., None]
+    picked = y[torch.where(keep, slot, 0).reshape(-1)].view(S, k, D)
+    return (weight * picked.float()).sum(1).to(x.dtype)
+
+
 class SwitchMoELayer(nn.Module):
     """Top-k gated MoE over per-token FFN experts (Dense(hidden) -> GELU ->
-    Dense(latent)); the gate starts at zero."""
+    Dense(latent)); the gate starts at zero. ``compute`` is one of
+    ``MOE_COMPUTES`` (see the module doc); ``capacity_factor`` sizes the
+    experts under ``dispatch``."""
 
     def __init__(self, latent_dim: int, hidden_dim: int, num_experts: int = 8,
-                 top_k: int = 2, dtype: torch.dtype = torch.float32):
+                 top_k: int = 2, dtype: torch.dtype = torch.float32,
+                 compute: str = "dense_fused", capacity_factor: float = 2.0):
         super().__init__()
+        if compute not in MOE_COMPUTES:
+            raise ValueError(f"unknown moe compute mode: {compute}")
         E, D = num_experts, latent_dim
         self.top_k = top_k
         self.dtype = dtype
+        self.compute = compute
+        self.capacity_factor = capacity_factor
         self.gate = Dense(D, E, dtype, init="zeros")
         self.w1 = nn.Parameter(torch.zeros(E, D, hidden_dim))
         self.b1 = nn.Parameter(torch.zeros(E, hidden_dim))
@@ -117,23 +204,39 @@ class SwitchMoELayer(nn.Module):
         top_vals, top_idx = top_k_lowest_index(probs, self.top_k)
         if ctx is not None:
             ctx.aux_losses.append(switch_aux_loss(probs, top_idx[:, 0], E))
-        combine = torch.zeros(S, E, dtype=dt, device=x.device).scatter_add_(
-            1, top_idx, top_vals.to(dt))
         w1, b1, w2, b2 = (p.to(dt) for p in (self.w1, self.b1, self.w2,
                                               self.b2))
-        if (not self.training and hid % 128 == 0 and D % 128 == 0
-                and os.environ.get("MOE_FUSED_KERNEL", "0") != "0"):
-            out = moe_dense_fused(x_flat, combine, w1, b1, w2, b2)
+        if self.compute == "dispatch":
+            out = capacity_dispatch_ffn(
+                x_flat, top_idx, top_vals.to(dt), w1, b1, w2, b2,
+                capacity_factor=self.capacity_factor)
         else:
-            w1m = w1.permute(1, 0, 2).reshape(D, E * hid)
-            # the bias add in the compute dtype, then gelu: one pass
-            h = gelu(x_flat @ w1m, b1.reshape(E * hid)).view(S, E, hid)
-            h = h * combine[:, :, None]
-            out = h.reshape(S, E * hid) @ w2.reshape(E * hid, D) + combine @ b2
+            combine = torch.zeros(S, E, dtype=dt, device=x.device
+                                  ).scatter_add_(1, top_idx, top_vals.to(dt))
+            out = self._dense(x_flat, combine, w1, b1, w2, b2)
         out = out.reshape(shape)
         if with_metrics:
             return out, moe_metrics(probs, top_vals, top_idx)
         return out
+
+    def _dense(self, x_flat, combine, w1, b1, w2, b2) -> torch.Tensor:
+        """The two dense computes: [S, D] -> [S, D]."""
+        S, D = x_flat.shape
+        E, _, hid = w1.shape
+        if (self.compute == "dense_fused" and not self.training
+                and hid % 128 == 0 and D % 128 == 0
+                and os.environ.get("MOE_FUSED_KERNEL", "0") != "0"):
+            return moe_dense_fused(x_flat, combine, w1, b1, w2, b2)
+        w1m = w1.permute(1, 0, 2).reshape(D, E * hid)
+        # the bias add in the compute dtype, then gelu: one pass
+        h = gelu(x_flat @ w1m, b1.reshape(E * hid)).view(S, E, hid)
+        if self.compute == "dense":
+            # per expert [E, S, D], its bias added in the compute dtype
+            y = torch.bmm(h.transpose(0, 1), w2) + b2[:, None, :]
+            return torch.einsum("esd,se->sd", y.float(),
+                                combine.float()).to(x_flat.dtype)
+        h = h * combine[:, :, None]
+        return h.reshape(S, E * hid) @ w2.reshape(E * hid, D) + combine @ b2
 
 
 class MoEMultiBranchFFN(nn.Module):
@@ -143,14 +246,17 @@ class MoEMultiBranchFFN(nn.Module):
     def __init__(self, latent_dim: int, ffn_dim: int, num_experts: int = 8,
                  num_branches: int = 2, top_k: int = 2,
                  time_embed_dim: int = 512,
-                 dtype: torch.dtype = torch.float32, dropout: float = 0.0):
+                 dtype: torch.dtype = torch.float32, dropout: float = 0.0,
+                 moe_compute: str = "dense_fused",
+                 capacity_factor: float = 2.0):
         super().__init__()
         self.num_branches = num_branches
         self.dropout = dropout
         for i in range(num_branches):
             self.add_module(f"branch_{i}_norm", LayerNorm(latent_dim, dtype))
             self.add_module(f"branch_{i}_moe", SwitchMoELayer(
-                latent_dim, ffn_dim, num_experts, top_k, dtype))
+                latent_dim, ffn_dim, num_experts, top_k, dtype, moe_compute,
+                capacity_factor))
         self.proj_out = StylizationBlock(latent_dim, time_embed_dim,
                                          latent_dim, dtype, dropout=dropout)
 

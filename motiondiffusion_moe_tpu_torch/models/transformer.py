@@ -87,7 +87,8 @@ class MoEDecoderLayer(nn.Module):
         if cfg.use_moe:
             self.ffn = MoEMultiBranchFFN(
                 D, cfg.ff_size, cfg.num_experts, cfg.moe_num_branches,
-                cfg.moe_top_k, time_embed_dim, dtype, p)
+                cfg.moe_top_k, time_embed_dim, dtype, p, cfg.moe_compute,
+                cfg.moe_capacity_factor)
         else:
             self.ffn = DenseFFN(D, cfg.ff_size, cfg.moe_num_branches,
                                 time_embed_dim, dtype, p)
@@ -113,10 +114,6 @@ class MotionTransformer(nn.Module):
 
     def __init__(self, cfg: ModelConfig, use_kernels: bool = True):
         super().__init__()
-        if cfg.moe_compute != "dense_fused":
-            raise NotImplementedError(
-                f"moe_compute={cfg.moe_compute!r}: only 'dense_fused' is "
-                "ported so far")
         self.config = cfg
         D = cfg.latent_dim
         ted = D * cfg.time_embed_mult

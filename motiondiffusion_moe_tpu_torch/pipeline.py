@@ -103,8 +103,6 @@ class GenerationPipeline:
                  eta: float = 0.0, micro_batch: int = 8,
                  param_dtype: Optional[str] = None, fetch_window: int = 2,
                  graft_pretrained_text: bool = False, device="cuda"):
-        if sampler not in ("ddpm", "ddim", "dpm"):
-            raise ValueError(f"unknown sampler {sampler!r}")
         if param_dtype not in (None, "bfloat16"):
             raise ValueError(f"param_dtype {param_dtype!r}: None or "
                              "'bfloat16'")
@@ -133,15 +131,22 @@ class GenerationPipeline:
             graft_pretrained_text_encoder(self.model, cfg.model)
         self._tokenize = get_tokenizer(cfg.model)
         self.micro_batch = micro_batch
-        self.sampler = sampler
-        self.eta = eta
-        self.num_inference_steps = num_inference_steps
         self.guidance_scale = cfg.diffusion.cfg_scale
         self.mean_type = ModelMeanType(cfg.diffusion.model_mean_type)
         self.var_type = ModelVarType(cfg.diffusion.model_var_type)
         self.clip_denoised = cfg.diffusion.clip_denoised
         self.normalizer = None
+        self._set_sampler(sampler, num_inference_steps, eta)
 
+    def _set_sampler(self, sampler: str, num_inference_steps: Optional[int],
+                     eta: float) -> None:
+        """The sampler, its step count and its (respaced) schedule."""
+        if sampler not in ("ddpm", "ddim", "dpm"):
+            raise ValueError(f"unknown sampler {sampler!r}")
+        cfg = self.cfg
+        self.sampler = sampler
+        self.eta = eta
+        self.num_inference_steps = num_inference_steps
         T_diff = cfg.diffusion.num_timesteps
         base = make_schedule(schedule_name=cfg.diffusion.beta_schedule,
                              num_timesteps=T_diff, device=self.device)
@@ -157,6 +162,16 @@ class GenerationPipeline:
         else:
             # DPM-Solver++ picks its own timesteps on the full schedule
             self.sched = base
+
+    def with_sampler(self, sampler: str,
+                     num_inference_steps: Optional[int] = None,
+                     eta: float = 0.0) -> "GenerationPipeline":
+        """A pipeline with another sampler (and step count) that shares this
+        one's model, weights and device: nothing is copied or placed
+        again."""
+        other = copy.copy(self)
+        other._set_sampler(sampler, num_inference_steps, eta)
+        return other
 
     @classmethod
     def from_export(cls, export_dir: str, **kwargs) -> "GenerationPipeline":

@@ -317,7 +317,7 @@ def build_server(argv=None) -> ThreadingHTTPServer:
             raise NotImplementedError(
                 f"--{flag} {getattr(args, flag)}: the port serves on one "
                 "device; the multi-device axes are not ported yet "
-                "(ROADMAP.md, queue 1, item 11)")
+                "(ROADMAP.md, queue 1, item 6: parallel)")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"--device {args.device}: no CUDA device is "

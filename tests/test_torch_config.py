@@ -25,12 +25,16 @@ from tests._torch_parity import tiny_config, to_port
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "flax", "motiondiffusion_moe_tpu", "msgpack",
              "ml_dtypes")
-# modules the fresh-interpreter import must reach (the eval slice among them)
+# modules the fresh-interpreter import must reach (the eval slice, the MoE
+# computes, the tools and utilities among them)
 NEEDED = tuple("motiondiffusion_moe_tpu_torch." + m for m in (
     "diffusion.guidance", "diffusion.sampling", "eval", "eval.metrics",
     "eval.word_vectorizer", "eval.evaluator_models", "eval.protocol",
     "models.evaluator_bridge", "tools.evaluate", "pipeline",
-    "models.deberta"))
+    "models.deberta", "models.moe", "tools.visualize",
+    "tools.serving_quality", "tools.profile_bench", "tools.bench_loader",
+    "tools.soak_report", "utils.plot", "utils.media", "utils.profiling",
+    "utils.debugging", "utils.bench_init"))
 
 
 @pytest.mark.parametrize("preset", ["small_dense", "moe_small", "moe_big"])
