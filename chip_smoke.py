@@ -238,13 +238,35 @@ first use) and exits non-zero without one. Phases, each fatal on failure:
          bit those of an in-process pipeline on the in-memory weights ->
          recover_from_ric -> motion_temporal_filter from the same seed,
          kernels 1 and 2 launched 32 x forwards. K4:
-         tools/serving_quality.py --batch 8 on that run dir with a seeded
-         finest.tar: a finite table, the two bf16 drift lines, kernels 1
-         and 2 launched 32 x 1153 forwards, seconds. K5:
+         tools/serving_quality.py --batch 8 with a seeded finest.tar on a
+         run dir of the flagship at 2 blocks a scale (full width; at 8 the
+         whole run passed 900 s on a slow host): a finite table, the two bf16
+         drift lines, kernels 1 and 2 launched 8 x 1153 forwards, seconds. K5:
          tools/profile_bench.py --mode sample --steps 5 --batch 16 and
          --mode train --batch 8: the family table's total within 10 % of
          the profiler's device total, the rows of kernels 1 and 2 (train:
          1 and 3) present, each family's share printed.
+  L      a JAX run's orbax checkpoint. L1: the committed fixture
+         tests/fixtures/jax_orbax_run/ (written by the JAX package's
+         CheckpointManager: OCDBT, zstd chunks, bf16 mu) read with this
+         machine's libzstd (its path and version printed): every leaf, the
+         step and the epoch equal its .npz bit for bit, and
+         CheckpointManager.read and load_run equal the bridge of those
+         leaves; its width has no kernel instance, so no kernel runs. L2:
+         the flagship (bf16 compute, EMA 0.999, warmup 100) trained 2 steps
+         at B = 32, dropout 0.1, saved in the JAX layout (plain zarr; the
+         bytes, seconds and GB/s of the write and of the read, the file
+         layer apart from the tree's conversion); Trainer.fit resumes the
+         step for 2 more steps, and the read of its restore gives params,
+         mu, nu, count, EMA, step, epoch and the generator back bit for
+         bit; load_run(use_ema=True) -> dpm20 of 16 prompts x 196 frames
+         bit for bit against the in-memory EMA, kernels 1 and 2 launched
+         exactly 32 x 21 times, s/motion; the resumed steps against the
+         in-memory state continued with the same generator (bit for bit,
+         or within phase B's floor: which one is printed), kernel 3
+         launched 32 x 2 times, and the end-of-epoch save asked of the
+         JAX-format manager (recorded, not written again: the first save
+         wrote that layout).
 
 The last line is {"ok": true, "device": {...}}, printed only when every
 phase passed; the line before it lists the kernels of the paths, each with
@@ -3989,6 +4011,9 @@ def dispatch_drops(m, args, ids):
     return out, sum(dropped), sum(i.numel() for i in seen), max(dropped)
 
 
+K4_LAYERS = 2  # K4's blocks a scale
+
+
 def phase_k(cfg, dev, card, c_timings):
     """The MoE dense and dispatch paths, visualize, serving_quality and
     profile_bench at the flagship's full width and depth (see the module
@@ -4014,7 +4039,13 @@ def phase_k(cfg, dev, card, c_timings):
         del model
         phase_k3(run, sd, root, dev, card)
         lap("K3")
-        phase_k4(run, root, dev, card)
+        # K4's 1,153 forwards wait on the host: at the full width, 2 blocks
+        # a scale (with K4 at 8 the whole run passed 900 s on a slow host)
+        cfg4 = dataclasses.replace(
+            cfg, name=cfg.name + "_k4", model=dataclasses.replace(
+                cfg.model, num_layers=K4_LAYERS))
+        run4 = write_run_dir(root, cfg4, build_flagship(cfg4), tag="K4")
+        phase_k4(run4, root, dev, card, 2 * 2 * K4_LAYERS)
         lap("K4")
         phase_k5(root, card)
         lap("K5")
@@ -4225,7 +4256,7 @@ def phase_k2(cfg, sd, dev, card):
         torch.cuda.empty_cache()
 
 
-def write_run_dir(root, cfg, model):
+def write_run_dir(root, cfg, model, tag="K3"):
     """A run dir of the flagship as the port's tools/train.py writes one:
     config.json, ckpt/step_0.pt through CheckpointManager, and meta/ with a
     seeded normalizer of a motion's scale (joints within the plot's box)."""
@@ -4250,7 +4281,7 @@ def write_run_dir(root, cfg, model):
     MotionNormalizer(mean, std).save(os.path.join(run, "meta"))
     size = sum(os.path.getsize(os.path.join(run, "ckpt", f))
                for f in os.listdir(os.path.join(run, "ckpt")))
-    print(f"[K3] run dir written: {size / 1e9:.2f} GB checkpoint in "
+    print(f"[{tag}] run dir written: {size / 1e9:.2f} GB checkpoint in "
           f"{time.perf_counter() - t0:.1f} s")
     return run
 
@@ -4330,9 +4361,10 @@ def phase_k3(run, sd, root, dev, card):
     del pipe
 
 
-def phase_k4(run, root, dev, card):
+def phase_k4(run, root, dev, card, n_perf):
     """tools/serving_quality.py on the card with a seeded finest.tar: its
-    table finite, kernels 1 and 2 launched 32 x forwards, seconds."""
+    table finite, kernels 1 and 2 launched ``n_perf`` x forwards (2 per
+    block), seconds."""
     from motiondiffusion_moe_tpu_torch.ops import performer as P
     from motiondiffusion_moe_tpu_torch.tools import serving_quality
 
@@ -4354,11 +4386,12 @@ def phase_k4(run, root, dev, card):
     print(f"[K4] tools/serving_quality.py --batch 8 (finest.tar seeded): "
           f"{s:.1f} s in all; per variant (s) "
           f"{ {k: round(v, 2) for k, v in res['seconds'].items()} }; "
-          f"launches {got}, expected 32 x {forwards} each ({card})")
+          f"launches {got}, expected {n_perf} x {forwards} each ({card})")
     check(len(values) == 12 and all(math.isfinite(v) for v in values),
           "K4 table")
     check(set(res["drifts"]) == {"ddim50", "dpm20"}, "K4 bf16 drift lines")
-    check(all(v == 32 * forwards for v in got.values()), "K4 launch counts")
+    check(all(v == n_perf * forwards for v in got.values()),
+          "K4 launch counts")
 
 
 def phase_k5(root, card):
@@ -4400,6 +4433,364 @@ def phase_k5(root, card):
                 break
         check(ok, f"K5 {argv[1]}: the family table's total within 10 % of "
                   f"the profiler's and the rows {want}")
+
+
+# ---------------------------------------------------------------------------
+# L: a JAX run's orbax checkpoint, read, resumed, served and written
+# ---------------------------------------------------------------------------
+
+ORBAX_FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "tests", "fixtures", "jax_orbax_run")
+
+
+def phase_l(cfg, dev, card):
+    """A JAX run's orbax checkpoint on the card machine (see the module
+    doc): L1 the committed OCDBT fixture, L2 the flagship through the JAX
+    layout."""
+    import torch
+
+    t0 = time.perf_counter()
+    phase_l1(card)
+    t1 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        phase_l2(cfg, root, dev, card)
+    torch.cuda.empty_cache()
+    now = time.perf_counter()
+    print(f"[L] phase L in {now - t0:.1f} s (L1 {t1 - t0:.1f} s, L2 "
+          f"{now - t1:.1f} s) ({card})")
+
+
+def same_bits(a, b) -> bool:
+    """Two tensors of one dtype and shape holding the same bytes."""
+    import torch
+
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    a, b = a.detach().cpu(), b.detach().cpu()
+    if a.is_floating_point():
+        a, b = (x.contiguous().view({2: torch.int16, 4: torch.int32,
+                                     8: torch.int64}[x.element_size()])
+                for x in (a, b))
+    return torch.equal(a, b)
+
+
+def nested(flat: dict) -> dict:
+    """{"a.b.c": leaf} -> {"a": {"b": {"c": leaf}}}."""
+    tree: dict = {}
+    for key, leaf in flat.items():
+        node = tree
+        *parents, last = key.split(".")
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[last] = leaf
+    return tree
+
+
+def phase_l1(card):
+    """The committed fixture, written by the JAX package's CheckpointManager
+    (OCDBT, zstd chunks): every leaf, the step and the epoch against its
+    .npz bit for bit, and the port's payload (CheckpointManager.read,
+    load_run) against the bridge of those leaves. Its width has no kernel
+    instance: no kernel runs here."""
+    import torch
+    from motiondiffusion_moe_tpu_torch.config import ExperimentConfig
+    from motiondiffusion_moe_tpu_torch.models.bridge import (
+        jax_to_state_dict)
+    from motiondiffusion_moe_tpu_torch.models.transformer import (
+        MotionTransformer)
+    from motiondiffusion_moe_tpu_torch.tools.export import load_run
+    from motiondiffusion_moe_tpu_torch.training.checkpoint import (
+        CheckpointManager)
+    from motiondiffusion_moe_tpu_torch.utils import zstd
+    from motiondiffusion_moe_tpu_torch.utils.orbax_format import (
+        flatten, read_step)
+
+    npz = np.load(ORBAX_FIXTURE + ".npz")
+    bf16 = set(npz["__bf16__"].tolist())
+    want = {k: (torch.from_numpy(npz[k]).view(torch.bfloat16) if k in bf16
+                else torch.from_numpy(npz[k]))
+            for k in npz.files if k != "__bf16__"}
+    ckpt = os.path.join(ORBAX_FIXTURE, "ckpt")
+    step = max(int(n) for n in os.listdir(ckpt) if n.isdigit())
+    print(f"[L1] libzstd {zstd.library_path()} version {zstd.version()}")
+    t0 = time.perf_counter()
+    got = {".".join(k for k, _ in p): v for p, v in
+           flatten(read_step(os.path.join(ckpt, str(step))))
+           if v is not None}
+    t_read = time.perf_counter() - t0
+    check(set(got) == set(want), f"L1: leaves {sorted(set(got) ^ set(want))}")
+    bad = [k for k in want if not same_bits(got[k], want[k])]
+    nbytes = sum(v.numel() * v.element_size() for v in got.values())
+    print(f"[L1] {ckpt}/{step} (OCDBT, zstd) read in {t_read:.3f} s: "
+          f"{len(got)} leaves, {nbytes} bytes, {len(bf16)} of them bf16; "
+          f"{len(bad)} differ from the .npz {bad[:3]}; step "
+          f"{int(got['step'])}, epoch {int(got['epoch'])}")
+    check(not bad, "L1: leaves differ from the fixture's .npz")
+
+    cfg = ExperimentConfig.load(os.path.join(ORBAX_FIXTURE, "config.json"))
+    payload = CheckpointManager(ckpt, cfg=cfg).read()
+    with torch.device("meta"):
+        named = list(MotionTransformer(cfg.model,
+                                       use_kernels=False).named_parameters())
+    trainable = [n for n, p in named if p.requires_grad]
+    tree = nested(want)
+    adam = tree["opt_state"]["1"]["0"]
+    ref = {"params": jax_to_state_dict(tree["params"]["params"]),
+           "mu": jax_to_state_dict(adam["mu"]["params"]),
+           "nu": jax_to_state_dict(adam["nu"]["params"]),
+           "ema": jax_to_state_dict(tree["ema_params"]["params"])}
+    checks = {
+        "params": all(same_bits(payload["params"][n], ref["params"][n])
+                      for n, _ in named)
+        and len(payload["params"]) == len(named),
+        "mu": all(same_bits(m, ref["mu"][n]) for n, m in
+                  zip(trainable, payload["opt_state"]["mu"])),
+        "nu": all(same_bits(v, ref["nu"][n]) for n, v in
+                  zip(trainable, payload["opt_state"]["nu"])),
+        "ema": all(same_bits(e, ref["ema"][n]) for (n, _), e in
+                   zip(named, payload["ema_params"]["params"])),
+        "count": payload["opt_state"]["count"] == int(adam["count"])
+        == int(tree["opt_state"]["1"]["1"]["count"]),
+        "step": payload["step"] == int(want["step"]) == step,
+        "epoch": payload["epoch"] == int(want["epoch"]),
+        "rng": payload["rng"] is None,
+    }
+    _, sd, run_step, normalizer = load_run(ORBAX_FIXTURE, use_ema=True)
+    checks["load_run"] = (run_step == step and normalizer is not None
+                          and all(same_bits(sd[n], ref["ema"][n])
+                                  for n, _ in named))
+    mu_dtypes = sorted({str(m.dtype) for m in payload["opt_state"]["mu"]})
+    print(f"[L1] CheckpointManager.read and load_run(use_ema=True) against "
+          f"the bridge of the .npz leaves: {checks}; {len(named)} "
+          f"parameters, {len(trainable)} with moments (mu {mu_dtypes}), "
+          f"count {payload['opt_state']['count']} ({card})")
+    check(all(checks.values()), f"L1: the port's payload {checks}")
+
+
+def l2_losses(trainer):
+    """Record (loss, grad norm) of every step ``trainer`` takes."""
+    seen = []
+    step = trainer.train_step
+
+    def recorded(state, batch, generator):
+        metrics = step(state, batch, generator)
+        seen.append((metrics["loss_total"].item(),
+                     metrics["grad_norm"].item()))
+        return metrics
+
+    trainer.train_step = recorded
+    return seen
+
+
+def phase_l2(cfg, root, dev, card):
+    """The flagship (moe_small, bf16 compute, EMA, a warmup schedule) for 2
+    train steps at B = 32, dropout 0.1, saved in the JAX layout: the round
+    trip bit for bit, a served dpm20 micro-batch from load_run(use_ema)
+    against the in-memory EMA, and the trainer resuming for 2 more steps
+    against the in-memory state continued with the same generator."""
+    import torch
+    from motiondiffusion_moe_tpu_torch.data.dataset import (
+        SyntheticText2MotionDataset)
+    from motiondiffusion_moe_tpu_torch.data.loader import DataLoader
+    from motiondiffusion_moe_tpu_torch.data.normalizer import (
+        MotionNormalizer)
+    from motiondiffusion_moe_tpu_torch.models.transformer import (
+        MotionTransformer)
+    from motiondiffusion_moe_tpu_torch.ops import performer as P
+    from motiondiffusion_moe_tpu_torch.pipeline import GenerationPipeline
+    from motiondiffusion_moe_tpu_torch.tools.export import load_run
+    from motiondiffusion_moe_tpu_torch.training.checkpoint import (
+        CheckpointManager)
+    from motiondiffusion_moe_tpu_torch.training.train_state import (
+        create_train_state)
+    from motiondiffusion_moe_tpu_torch.training.trainer import Trainer
+    from motiondiffusion_moe_tpu_torch.utils import orbax_format
+
+    cfgL = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, ema_decay=0.999, lr_warmup_steps=100, num_epochs=1))
+    check(cfgL.model.dropout > 0 and cfgL.train.uncond_step,
+          "L2 trains at dropout > 0 with the uncond double step")
+    run = os.path.join(root, cfgL.name)
+    os.makedirs(run)
+    cfgL.save(os.path.join(run, "config.json"))
+    MotionNormalizer.identity(cfgL.data.dim_pose).save(
+        os.path.join(run, "meta"))
+    ckpt = os.path.join(run, "ckpt")
+
+    t0 = time.perf_counter()
+    model = build_flagship(cfgL).to(dev)
+    state = create_train_state(model, cfgL)
+    trainer = Trainer(cfgL, model=model, device=dev)
+    loader = DataLoader(SyntheticText2MotionDataset(cfgL.data, size=32,
+                                                    seed=SEED + 50),
+                        batch_size=32, seed=SEED + 50)
+    gen = torch.Generator(dev).manual_seed(SEED + 51)
+    state = trainer.fit(state, loader, generator=gen)
+    torch.cuda.synchronize()
+    check(state.step == 2, f"L2: {state.step} steps, expected 2")
+    print(f"[L2] flagship moe_small, bf16 compute, ema_decay 0.999, warmup "
+          f"100: 2 train steps at B=32, dropout {cfgL.model.dropout} in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    # save in the JAX layout; the seconds inside the file layer
+    # (write_step, read_step) counted apart from the tree's conversion (the
+    # bridge, device <-> host)
+    gen_state = gen.get_state()
+    mgr = CheckpointManager(ckpt, fmt="orbax", cfg=cfgL)
+    inner = {}
+
+    def timed(name, fn):
+        def run(*a, **k):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                inner[name] = time.perf_counter() - t
+        return run
+
+    t0 = time.perf_counter()
+    with patched((orbax_format, "write_step",
+                  timed("write_step", orbax_format.write_step))):
+        mgr.save(state.step, state, 1, gen)
+    t_write = time.perf_counter() - t0
+    step_dir = os.path.join(ckpt, str(state.step))
+    nbytes = sum(os.path.getsize(os.path.join(d, f))
+                 for d, _, fs in os.walk(step_dir) for f in fs)
+    with open(os.path.join(step_dir, "default", "_METADATA")) as f:
+        jax_layout = '"use_ocdbt": false' in f.read()
+
+    # the trainer resumes from the saved step; its restore's read is the
+    # round trip's, held against the in-memory state at step 2. Its
+    # end-of-epoch save (step 4) is recorded, not written: the step 2 save
+    # above went through the same path.
+    cfg2 = dataclasses.replace(cfgL, train=dataclasses.replace(
+        cfgL.train, num_epochs=2))
+    model_b = MotionTransformer(cfg2.model).to(dev)
+    state_b = create_train_state(model_b, cfg2)
+    trainer_b = Trainer(cfg2, model=model_b, device=dev)
+    seen_b = l2_losses(trainer_b)
+    mgr_b = CheckpointManager(ckpt, cfg=cfg2)
+    got, saved = {}, []
+    mgr_b.read = timed("read", lambda *a, **k: got.setdefault(
+        "payload", CheckpointManager.read(mgr_b, *a, **k)))
+    mgr_b.save = lambda step, *a, **k: saved.append(step)
+    P.favor_qkv_bwd.launches = 0
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with patched((orbax_format, "read_step",
+                  timed("read_step", orbax_format.read_step))), \
+            contextlib.redirect_stdout(out):
+        state_b = trainer_b.fit(state_b, loader,
+                                generator=torch.Generator(dev),
+                                checkpoints=mgr_b)
+    torch.cuda.synchronize()
+    t_resume = time.perf_counter() - t0
+    bwd = P.favor_qkv_bwd.launches
+    t_read = inner["read"]
+    payload = got.pop("payload")
+    opt = state.optimizer
+    named = list(state.model.named_parameters())
+    checks = {
+        "params": all(same_bits(payload["params"][n], p)
+                      for n, p in named),
+        "mu": all(same_bits(a, b) for a, b in
+                  zip(payload["opt_state"]["mu"], opt.mu)),
+        "nu": all(same_bits(a, b) for a, b in
+                  zip(payload["opt_state"]["nu"], opt.nu)),
+        "count": payload["opt_state"]["count"] == opt.count == 2,
+        "ema": all(same_bits(a, b) for a, b in
+                   zip(payload["ema_params"]["params"], state.ema.params)),
+        "step": payload["step"] == 2, "epoch": payload["epoch"] == 1,
+        "rng": torch.equal(payload["rng"], gen_state),
+    }
+    del payload
+    print(f"[L2] saved in the JAX layout (plain zarr, uncompressed: "
+          f"{jax_layout}): {nbytes} bytes in {t_write:.2f} s "
+          f"({nbytes / t_write / 1e9:.3f} GB/s; write_step "
+          f"{inner['write_step']:.2f} s, the tree "
+          f"{t_write - inner['write_step']:.2f} s); read back by the "
+          f"trainer's restore (CheckpointManager.read) in {t_read:.2f} s "
+          f"({nbytes / t_read / 1e9:.3f} GB/s; read_step "
+          f"{inner['read_step']:.2f} s, the bridge "
+          f"{t_read - inner['read_step']:.2f} s); bit for bit {checks} "
+          f"(host; {card})")
+    check(jax_layout, "L2: the saved step is not in the plain JAX layout")
+    check(all(checks.values()), f"L2 round trip {checks}")
+
+    # serve the saved EMA against the in-memory one
+    texts = [f"a person walks forward and turns {i}" for i in range(16)]
+    lens = [cfgL.model.max_frames] * 16
+    kw = dict(sampler="dpm", num_inference_steps=20, micro_batch=16,
+              device=dev)
+    t0 = time.perf_counter()
+    run_cfg, sd, run_step, _ = load_run(run, use_ema=True)
+    pipe = GenerationPipeline(run_cfg, params=sd, **kw)
+    del sd
+    print(f"[L2] load_run(use_ema=True) step {run_step} + "
+          f"GenerationPipeline onto the card: {time.perf_counter() - t0:.2f}"
+          f" s")
+    samples = []
+    sample = pipe.sample
+    pipe.sample = lambda *a, **k: samples.append(1) or sample(*a, **k)
+    kern = (P.favor_qkv, P.performer_epilogue)
+    for c in kern:
+        c.launches = 0
+    t0 = time.perf_counter()
+    served = pipe.generate(texts, lens, generator=torch.Generator(
+        dev).manual_seed(SEED + 52))
+    torch.cuda.synchronize()
+    s_motion = (time.perf_counter() - t0) / len(texts)
+    launches = {c.__name__: c.launches for c in kern}
+    fwd = len(samples) * pipe.forwards_per_sample
+    n_perf = 2 * 2 * cfgL.model.num_layers
+    pipe.sample = sample
+    del pipe
+    names = [n for n, _ in named]
+    ref = GenerationPipeline(cfgL, params=dict(zip(names, state.ema.params)),
+                             **kw)
+    want = ref.generate(texts, lens, generator=torch.Generator(
+        dev).manual_seed(SEED + 52))
+    del ref
+    same = all(np.array_equal(a, b) for a, b in zip(served, want))
+    print(f"[L2] dpm20, 16 prompts x {lens[0]} frames (CFG micro-batch 16) "
+          f"from the saved EMA vs the in-memory EMA, same seed: "
+          f"{'bit-identical' if same else 'DIFFER'}; {fwd} forwards, "
+          f"launches {launches}, expected {n_perf} x {fwd} each; "
+          f"{s_motion:.4f} s/motion, the pipeline's first call ({card})")
+    check(same, "L2: the served EMA is not the in-memory EMA's")
+    check(all(v == n_perf * fwd for v in launches.values()),
+          f"L2 serving launches {launches}")
+
+    # the in-memory state continued with the same generator
+    trainer_a = Trainer(cfg2, model=state.model, device=dev)
+    seen_a = l2_losses(trainer_a)
+    gen_a = torch.Generator(dev)
+    gen_a.set_state(gen_state)
+    state = trainer_a.fit(state, loader, generator=gen_a, start_epoch=1)
+    print("".join(f"[L2] | {line}\n" for line in
+                  out.getvalue().splitlines() if "[trainer]" in line),
+          end="")
+    exact = seen_a == seen_b and all(
+        same_bits(a, b) for a, b in zip(state.model.parameters(),
+                                        state_b.model.parameters()))
+    rel = max(abs(a - b) / max(abs(b), 1e-12) for pa, pb in
+              zip(seen_a, seen_b) for a, b in zip(pa, pb)) if \
+        len(seen_a) == len(seen_b) == 2 else math.inf
+    agree = ("bit for bit, parameters too" if exact else
+             f"not bit for bit, max rel {rel:.3e} (tol "
+             f"{DENOISER_BF16_FLOOR:g}, phase B's floor)")
+    print(f"[L2] resumed by Trainer.fit from the JAX-layout step 2: steps "
+          f"{state_b.step}; (loss, grad norm) resumed {seen_b} vs in-memory "
+          f"{seen_a}: {agree}; favor_qkv_bwd launched {bwd}, expected "
+          f"{n_perf} x 2; {t_resume:.1f} s with the restore; saves asked "
+          f"of the {mgr_b.format}-format manager: steps {saved} ({card})")
+    check(state_b.step == 4 and saved == [4] and mgr_b.format == "orbax",
+          "L2: the resumed run's steps and its end-of-epoch save")
+    check(exact or rel <= DENOISER_BF16_FLOOR,
+          "L2: the resumed steps against the in-memory ones")
+    check(bwd == n_perf * 2, f"L2: favor_qkv_bwd launched {bwd}")
+    del state, state_b, trainer, trainer_a, trainer_b, model, model_b
+
 
 
 def main() -> int:
@@ -4487,6 +4878,8 @@ def main() -> int:
     lap("J")
     phase_k(cfg, dev, card, c_timings)
     lap("K")
+    phase_l(cfg, dev, card)
+    lap("L")
 
     csrc = "motiondiffusion_moe_tpu_torch/csrc/"
     ops = "motiondiffusion_moe_tpu/ops/"

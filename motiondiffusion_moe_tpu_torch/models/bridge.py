@@ -6,7 +6,8 @@ Input of :func:`jax_to_state_dict`: the ``params`` collection of a
 JAX). A tree in the stacked ``scan_blocks`` layout (``blocks_low/block/...``
 with a leading layer axis) is unstacked first. A bf16 leaf (a
 ``torch.bfloat16`` tensor, as ``utils/flax_msgpack.py`` reads one, or a
-numpy array of JAX's bf16 dtype) stays bf16; every other leaf becomes f32.
+numpy array of JAX's bf16 dtype) stays bf16, its words moved as they are;
+every other leaf becomes f32.
 :func:`state_dict_to_jax` is the inverse, into the named layout.
 
 Mapping rules (each one is pinned by ``tests/test_torch_bridge.py``):
@@ -102,14 +103,15 @@ def _flatten(tree: Mapping, prefix=()) -> Dict[tuple, object]:
     return out
 
 
-def _widened(leaf) -> np.ndarray:
-    """A leaf as f32 numpy; a bf16 leaf widened exactly (its 16 bits become
-    the top half of the f32 word)."""
+def _as_array(leaf) -> np.ndarray:
+    """A leaf as numpy with no copy where one is not needed: a bf16 leaf as
+    its uint16 words (the layout rules only move words, so its bits stay
+    as they are, never widened), every other leaf as f32."""
     if is_bf16(leaf):
-        return (bf16_words(leaf).astype(np.uint32) << 16).view(np.float32)
+        return bf16_words(leaf)
     if isinstance(leaf, torch.Tensor):
-        leaf = leaf.detach().cpu().numpy()
-    return np.array(leaf, dtype=np.float32)
+        return leaf.detach().cpu().float().numpy()
+    return np.asarray(leaf, dtype=np.float32)
 
 
 def _module_name(part: str) -> str:
@@ -146,7 +148,21 @@ def convert_leaf(path: tuple, leaf: np.ndarray):
         name = "weight"
     elif name == "embedding":
         name = "weight"
-    return ".".join(key_mods + [name]), np.ascontiguousarray(x)
+    return ".".join(key_mods + [name]), _contiguous(x)
+
+
+def _contiguous(x: np.ndarray, tile: int = 128) -> np.ndarray:
+    """``np.ascontiguousarray(x)``; a transposed 2-D view is copied in
+    square tiles, which keeps both sides in cache (several times faster
+    than numpy's strided copy for a large kernel)."""
+    if (x.ndim != 2 or x.flags.c_contiguous or x.strides[0] >= x.strides[1]
+            or min(x.shape) < tile):
+        return np.ascontiguousarray(x)
+    out = np.empty(x.shape, x.dtype)
+    for i in range(0, x.shape[0], tile):
+        for j in range(0, x.shape[1], tile):
+            out[i:i + tile, j:j + tile] = x[i:i + tile, j:j + tile]
+    return out
 
 
 def jax_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
@@ -155,14 +171,20 @@ def jax_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
     leaves (the same bits). Load it with
     ``model.load_state_dict(sd, strict=True)``, which also checks that
     every parameter was covered (and widens bf16 into an f32 module; keep
-    the bf16 storage with ``GenerationPipeline.set_params``)."""
+    the bf16 storage with ``GenerationPipeline.set_params``). A tensor
+    whose layout needs no change shares a writable leaf's memory; every
+    other tensor (a re-laid-out leaf, or one that is read-only, as a JAX
+    array's host copy is) owns fresh memory."""
     if "params" in params:  # a whole variables dict
         params = params["params"]
     sd = {}
     for path, leaf in _flatten(unstack_block_params(params)).items():
-        key, x = convert_leaf(path, _widened(leaf))
-        t = torch.from_numpy(np.array(x, dtype=np.float32))
-        sd[key] = t.to(torch.bfloat16) if is_bf16(leaf) else t
+        words = _as_array(leaf)
+        key, x = convert_leaf(path, words)
+        if np.may_share_memory(x, words) and not x.flags.writeable:
+            x = x.copy()
+        t = torch.from_numpy(x)
+        sd[key] = t.view(torch.bfloat16) if is_bf16(leaf) else t
     return sd
 
 
@@ -237,8 +259,9 @@ def state_dict_to_jax(sd: Mapping[str, torch.Tensor], cfg) -> dict:
     modules = dict(model.named_modules())
     tree: dict = {}
     for key, value in sd.items():
-        parts, name, x = flax_leaf(key, value.detach().cpu(), modules)
-        x = x.contiguous()
+        # re-laid out where the tensor lives, then one copy to the host
+        parts, name, x = flax_leaf(key, value.detach(), modules)
+        x = x.contiguous().cpu()
         leaf = x if x.dtype == torch.bfloat16 else x.float().numpy()
         node = tree
         for part in parts:

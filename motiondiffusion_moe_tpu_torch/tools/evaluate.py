@@ -8,7 +8,8 @@ with the same flags plus ``--device``::
         [--evaluator_ckpt path/to/finest.tar] [--glove_dir ./glove] \\
         [--replication_times 20] [--sampler dpm --steps 20]
 
-``--run_dir`` is a run dir of the port's ``tools/train.py``, read through
+``--run_dir`` is a run dir of either package's ``tools/train.py`` (the
+port's steps or a JAX run's orbax ones), read through
 ``tools/export.py::load_run`` (``--use_ema`` as there) with the normalizer
 from ``meta/``; ``--dataset real`` reads the ``--split`` of the run's
 corpus (``config.json``'s ``data_root``). The model is placed on

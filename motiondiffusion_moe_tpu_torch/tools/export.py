@@ -17,9 +17,10 @@ The tree is the JAX package's named flax layout
 package's. ``--dtype bfloat16`` stores the weights bf16 except the FAVOR+
 random-feature projections, as the JAX export does.
 
-``--run_dir`` is a run dir of the port's ``tools/train.py``: ``config.json``,
-``ckpt/step_<N>.pt`` (``training/checkpoint.py``) and ``meta/``. Reading a
-JAX package run (orbax checkpoints) is not ported.
+``--run_dir`` is a run dir of either package's ``tools/train.py``:
+``config.json``, ``meta/`` and ``ckpt/``, which holds the port's
+``step_<N>.pt`` files or a JAX run's orbax steps ``<N>/`` (read without
+orbax, tensorstore or JAX; ``training/checkpoint.py``).
 
 Usage::
 
@@ -55,9 +56,10 @@ def cast_serving_dtype(sd: Mapping[str, torch.Tensor],
 
 def load_run(run_dir: str, step: Optional[int] = None,
              use_ema: bool = False):
-    """A run dir of the port's ``tools/train.py`` -> (cfg, state_dict on the
-    CPU, step, normalizer or None): the checkpoint at ``step`` (default the
-    newest), its EMA weights with ``use_ema``."""
+    """A run dir of either package's ``tools/train.py`` -> (cfg, state_dict
+    on the CPU, step, normalizer or None): the checkpoint at ``step``
+    (default the newest; the port's format or a JAX run's orbax steps), its
+    EMA weights with ``use_ema``."""
     from motiondiffusion_moe_tpu_torch.models.transformer import (
         MotionTransformer)
     from motiondiffusion_moe_tpu_torch.training.checkpoint import (
@@ -65,12 +67,15 @@ def load_run(run_dir: str, step: Optional[int] = None,
 
     cfg = ExperimentConfig.load(os.path.join(run_dir, "config.json"))
     ckpt_dir = os.path.join(run_dir, "ckpt")
-    payload = (CheckpointManager(ckpt_dir).read(step)
+    weights = "ema_params" if use_ema else "params"
+    payload = (CheckpointManager(ckpt_dir, cfg=cfg).read(step,
+                                                         weights=weights)
                if os.path.isdir(ckpt_dir) else None)
     if payload is None:
         raise FileNotFoundError(f"no checkpoint in {ckpt_dir}")
-    sd = payload["params"]
-    if use_ema:
+    if not use_ema:
+        sd = payload["params"]
+    else:
         if "ema_params" not in payload:
             raise ValueError(
                 "this run has no EMA weights (trained with ema_decay=0); "
@@ -118,7 +123,7 @@ def export_model(model, cfg: ExperimentConfig, out_dir: str, *,
 
 def export_run(run_dir: str, out_dir: str = "", *, step=None,
                use_ema: bool = False, dtype: str = "float32") -> str:
-    """Write the serving artifact of a port run dir (default
+    """Write the serving artifact of a run dir of either package (default
     ``<run_dir>/export``); returns the export directory."""
     cfg, sd, step, normalizer = load_run(run_dir, step, use_ema)
     return export_model(sd, cfg, out_dir or os.path.join(run_dir, "export"),

@@ -16,7 +16,7 @@ generation is in flight into ONE ``pipe.generate`` call; requests WITH a
 their output is a pure function of (texts, lengths, seed). Stdlib only.
 
 The command line serves an export of either package (``tools/export.py``)
-or a run dir of the port's ``tools/train.py``, on the card unless
+or a run dir of either package's ``tools/train.py``, on the card unless
 ``--device cpu``; the JAX CLI's flags, plus ``--device``::
 
     python -m motiondiffusion_moe_tpu_torch.tools.serve \
@@ -269,7 +269,8 @@ def build_argparser() -> argparse.ArgumentParser:
                      help="serving artifact from either package's "
                           "tools/export.py")
     src.add_argument("--run_dir",
-                     help="the port's training run dir (config.json + ckpt/)")
+                     help="a training run dir of either package "
+                          "(config.json + ckpt/)")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8980)
     p.add_argument("--sampler", default="ddim",

@@ -11,7 +11,7 @@ flags plus ``--device``. It measures the two serving-surface claims:
   ``param_dtype="bfloat16"`` (the ``tools/export.py --dtype bfloat16``
   cast) against the same solver with the f32 weights.
 
-Usage (after a training run of the port's ``tools/train.py``)::
+Usage (after a training run of either package's ``tools/train.py``)::
 
     python -m motiondiffusion_moe_tpu_torch.tools.serving_quality \\
         --run_dir RUN [--use_ema] [--batch 8] \\

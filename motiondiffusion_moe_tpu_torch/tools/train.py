@@ -13,12 +13,17 @@ assembled by the native C++ store unless ``--no_native_io``;
 ``--dataset synthetic`` takes no files. The config is written to
 ``<checkpoint_dir>/<name>/config.json`` (the JAX package's format) and the
 normalizer to ``meta/``; checkpoints go to ``ckpt/`` and a rerun resumes
-from the newest. ``--text_encoder deberta-v3-large`` (or ``deberta-tiny``)
-trains the DeBERTa text encoder jointly, from the local HF checkpoint
-``--deberta_ckpt`` when given (grafted at init) and else from its random
-init, with a warning. What the port does not run yet raises: the
-multi-device flags until the parallel port, and ``--scan_blocks`` /
-``--remat_blocks``, which exist for JAX compilation and are not ported.
+from the newest. A run dir of the JAX package's ``tools/train.py`` (orbax
+steps in ``ckpt/``) resumes the same way, given the flags it was trained
+with: its parameters, Adam moments and count, EMA, step and epoch, and the
+run goes on saving in the JAX layout, which the JAX package resumes again
+(``training/checkpoint.py``). ``--text_encoder deberta-v3-large`` (or
+``deberta-tiny``) trains the DeBERTa text encoder jointly, from the local
+HF checkpoint ``--deberta_ckpt`` when given (grafted at init) and else
+from its random init, with a warning. What the port does not run yet
+raises: the multi-device flags until the parallel port, and
+``--scan_blocks`` / ``--remat_blocks``, which exist for JAX compilation
+and are not ported.
 """
 
 from __future__ import annotations
@@ -252,7 +257,7 @@ def main(argv=None):
     trainer = Trainer(cfg, normalizer_stats=(norm.mean, norm.std),
                       device=device)
     state = trainer.init_state()
-    ckpt = CheckpointManager(os.path.join(run_dir, "ckpt"))
+    ckpt = CheckpointManager(os.path.join(run_dir, "ckpt"), cfg=cfg)
     state = trainer.fit(state, loader, checkpoints=ckpt)
     print("[train] done")
     return state

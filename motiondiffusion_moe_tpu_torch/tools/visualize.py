@@ -8,7 +8,8 @@ plus ``--device``::
         --text "a person is running" --motion_length 120 \\
         --result_path test_sample.gif [--npy_path out.npy] [--device cpu]
 
-``--run_dir`` is a run dir of the port's ``tools/train.py``, read through
+``--run_dir`` is a run dir of either package's ``tools/train.py`` (the
+port's steps or a JAX run's orbax ones), read through
 ``tools/export.py::load_run`` (``--use_ema`` takes its EMA weights). The
 motion is sampled by ``GenerationPipeline(..., micro_batch=1)`` on the card
 (``--device cpu`` for the CPU) from a generator seeded with ``--seed``,

@@ -4,7 +4,10 @@ Port of ``motiondiffusion_moe_tpu/training/trainer.py``: the epoch loop, the
 (cond, uncond) double step per batch (``ddpm_trainer.py:319-333``), caption
 dropout, schedule-sampler updates (loss-aware samplers see every step's
 per-sample losses), periodic logging, the rolling save cadence and the
-end-of-epoch save with its ``epoch_meta.json`` marker, and auto-resume.
+end-of-epoch save with its ``epoch_meta.json`` marker, and auto-resume,
+from a run dir of either package (``training/checkpoint.py``; a JAX step
+carries no ``torch.Generator`` state, so the generator is then seeded with
+``resume_seed(seed, step)``).
 Steps run one by one whatever ``steps_per_call`` says (see
 ``train_state.py``), so the JAX trainer's rule for loss-aware samplers
 (``trainer.py:326-337``: never draw t from weights a buffered step has not
@@ -37,6 +40,7 @@ from motiondiffusion_moe_tpu_torch.models.text_encoder import get_tokenizer
 from motiondiffusion_moe_tpu_torch.models.transformer import MotionTransformer
 from motiondiffusion_moe_tpu_torch.training.checkpoint import (
     CheckpointManager,
+    resume_seed,
 )
 from motiondiffusion_moe_tpu_torch.training.train_state import (
     TrainState,
@@ -148,6 +152,14 @@ class Trainer:
                 state, start_epoch, rng_state = restored
                 if rng_state is not None:
                     generator.set_state(rng_state)
+                elif checkpoints.format == "orbax":
+                    seed = resume_seed(cfg.train.seed, state.step)
+                    generator.manual_seed(seed)
+                    print(f"[trainer] step {state.step} holds no torch "
+                          "generator state (a JAX run's key cannot become "
+                          f"one): generator seeded with {seed} = "
+                          f"resume_seed(seed={cfg.train.seed}, "
+                          f"step={state.step})")
                 print(f"[trainer] resumed from step {state.step} "
                       f"(epoch {start_epoch})")
 

@@ -4,8 +4,9 @@
 config: the presets must give the same dictionaries, and a ``config.json``
 written by either package must load equal in the other. The port, every
 submodule of it, and ``chip_smoke.py`` must import neither ``jax``,
-``flax``, ``msgpack``, ``ml_dtypes`` (the card's machine has neither) nor
-anything of ``motiondiffusion_moe_tpu``.
+``flax``, ``msgpack``, ``ml_dtypes``, ``tensorstore``, ``orbax``,
+``zstandard`` (the card's machine has none of them) nor anything of
+``motiondiffusion_moe_tpu``.
 """
 
 import ast
@@ -24,7 +25,7 @@ from tests._torch_parity import tiny_config, to_port
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "flax", "motiondiffusion_moe_tpu", "msgpack",
-             "ml_dtypes")
+             "ml_dtypes", "tensorstore", "orbax", "zstandard")
 # modules the fresh-interpreter import must reach (the eval slice, the MoE
 # computes, the tools and utilities among them)
 NEEDED = tuple("motiondiffusion_moe_tpu_torch." + m for m in (
@@ -34,7 +35,8 @@ NEEDED = tuple("motiondiffusion_moe_tpu_torch." + m for m in (
     "models.deberta", "models.moe", "tools.visualize",
     "tools.serving_quality", "tools.profile_bench", "tools.bench_loader",
     "tools.soak_report", "utils.plot", "utils.media", "utils.profiling",
-    "utils.debugging", "utils.bench_init"))
+    "utils.debugging", "utils.bench_init", "utils.zstd", "utils.ocdbt",
+    "utils.orbax_format", "training.checkpoint"))
 
 
 @pytest.mark.parametrize("preset", ["small_dense", "moe_small", "moe_big"])
