@@ -162,10 +162,11 @@ first use) and exits non-zero without one. Phases, each fatal on failure:
          (whole-clip and sub-clip lines), Text2MotionDataset with the
          native store: uncropped batches equal the Python path's, every
          crop a window, host ms per batch of 32 native vs Python. H3:
-         tools/train.py main() on the corpus at the flagship defaults
-         (full width and depth, bf16, dropout 0.1), 4 optimizer steps:
-         finite losses, kernels 1 and 3 launched 32 x 4 times each, meta/
-         the dataset's normalizer, ms/step beside D3's; then 2 steps with
+         tools/train.py main() on the corpus at the flagship defaults but
+         2 blocks a scale (full width, bf16, dropout 0.1; H_LAYERS, which
+         pays for phase M's time), 4 optimizer steps: finite losses,
+         kernels 1 and 3 launched 8 x 4 times each, meta/ the dataset's
+         normalizer, ms/step beside D3's; then 2 steps with
          --no_native_io and 2 on the KIT corpus.
   I      evaluating H3's trained t2m run (kept with H's corpus until I is
          done) on a test split over the corpus's ids, with a finest.tar of
@@ -175,7 +176,8 @@ first use) and exits non-zero without one. Phases, each fatal on failure:
          diversity 30, mm 4 x 6, mm times 3, micro-batch 16, joint scores
          over 32 samples; each cut printed): every summary metric finite,
          the log holding each metric's summary, kernels 1 and 2 launched
-         exactly 32 x 21 x micro-batches; seconds per replication, s/motion,
+         exactly (Performers per forward: 8 at H3's 2 blocks a scale) x
+         21 x micro-batches; seconds per replication, s/motion,
          evaluator ms per pool of 32, bytes fetched. I2: the same with
          --device_embeddings, 1 replication: replication 0's Matching
          Score, R-precision and FID within 1e-4 relative of I1's (the same
@@ -184,14 +186,17 @@ first use) and exits non-zero without one. Phases, each fatal on failure:
          pool's co-embeddings within 1e-4 of their largest value, ms per
          pool on each, and the difference cuDNN's default TF32 makes. I4:
          ddpm_sample_loop, ddim_sample_loop(cond_fn=...) and calc_bpd_loop
-         through the flagship's conditional branch at B = 4 on a 50-step
-         respaced schedule: finite, kernels 1 and 2 launched 50 x 32 times
-         per loop.
+         through the run's conditional branch at B = 4 on a 50-step
+         respaced schedule: finite, kernels 1 and 2 launched 50 x
+         (Performers per forward) times per loop.
   J      the DeBERTa-v3-large text encoder (434 M parameters, f32 compute
          whatever the denoiser's dtype) in front of the flagship denoiser,
          ExperimentConfig.moe_small() with text_encoder="deberta-v3-large".
          DeBERTa has no Pallas kernel in the JAX package and none here; the
-         denoiser behind it launches kernels 1-4. J1: the flagship built and
+         denoiser behind it launches kernels 1-4. The denoiser runs at 2
+         blocks a scale (full width; J_LAYERS), which pays for phase M's
+         time, so the launch counts below are 8 a forward. J1: the flagship
+         built and
          seeded (the seconds of init_weights printed); the encoder on the
          card against the same module on the CPU over 4 ragged prompts (one
          empty, the CFG branch), pooled and tokens within DEBERTA_REL of
@@ -203,7 +208,7 @@ first use) and exits non-zero without one. Phases, each fatal on failure:
          same weights in f32 compute by phase B's rule, with the top-2
          routings the two paths chose differently printed; then behind
          make_server: 16 prompts at mixed lengths, finite motions of the
-         right shapes, favor_qkv and performer_epilogue launched exactly 32 x
+         right shapes, favor_qkv and performer_epilogue launched exactly 8 x
          forwards, the text encoder run on the card twice per micro-batch
          (its prompts and its empty prompts) and never per denoising step,
          counted by a forward hook; s/motion beside phase
@@ -213,7 +218,7 @@ first use) and exits non-zero without one. Phases, each fatal on failure:
          pytorch_model.bin in half precision that J3 writes: the grafted
          backbone and its EMA equal the file's tensors (cast to f32) bit
          for bit at step 0, finite losses, every layer's weights moved by
-         the steps, favor_qkv and favor_qkv_bwd launched 32 x 2 and the
+         the steps, favor_qkv and favor_qkv_bwd launched 8 x 2 and the
          epilogue and its backward never (dropout 0.1); ms/step beside
          D3's.
 
@@ -267,6 +272,33 @@ first use) and exits non-zero without one. Phases, each fatal on failure:
          launched 32 x 2 times, and the end-of-epoch save asked of the
          JAX-format manager (recorded, not written again: the first save
          wrote that layout).
+  M      data-parallel training and ZeRO-1 over torch.distributed
+         (parallel/): the flagship at full width and depth, f32 compute,
+         dropout 0, EMA 0.999, one global batch of 32 at T = 196 with
+         ragged lengths (long on rank 0's rows, short on rank 1's), t and
+         noise injected. M1 (i): one rank over NCCL through parallel/
+         against the plain one-process TrainStep on the same batch: loss,
+         grad_norm, parameters, mu, nu and EMA bit for bit (zero1 off);
+         with zero1 (reduce_scatter_tensor / all_gather_into_tensor) within
+         the stated tolerances. M1 (ii): two ranks on this one card, gloo
+         named (NCCL refuses two ranks on one device), CUDA tensors staged
+         through the host, zero1 off and on, each against the one-process
+         step that rank 0 runs (tests/test_torch_parallel.py's
+         tolerances); per rank: the launches of kernels 1-4 in the step
+         (32 each), the resident elements and bytes of the moments and the
+         EMA (under zero1 one shard of each, at most ceil(n / W) plus the
+         256-byte alignment of each tensor in the flat buffers),
+         max_memory_allocated of the step and ms per step (two ranks
+         sharing one card: not a speed-up); then 2 steps in the flagship's
+         bf16 compute with zero1, finite, the same launches. M2:
+         tools/train.py --num_processes 2 --data_parallel 2 --zero1 as two
+         processes on this card, each started by this script's --m2-rank
+         entry, which joins the group over gloo (NCCL refuses two ranks on
+         one device) before it calls the CLI's main; synthetic set, 2
+         blocks a scale at full width, 2 optimizer steps (cond + uncond)
+         and the torch-format save: only rank 0 logs and writes
+         config.json, meta/ and ckpt/; then a one-process resume of the
+         run dir starts at step 2 with the gathered state bit for bit.
 
 The last line is {"ok": true, "device": {...}}, printed only when every
 phase passed; the line before it lists the kernels of the paths, each with
@@ -3048,10 +3080,13 @@ def foot_margin(raw_dir, dataset):
     return worst
 
 
+H_LAYERS = 2  # H3's blocks a scale (full width), so I's too
+
+
 def phase_h_and_i(card, d3_ms):
     """Raw joints -> prepare_data -> Text2MotionDataset with the native
     store -> tools/train.py --dataset t2m / kit on the card, at the
-    flagship's full width and depth. H1: 48 synthetic t2m clips of 60-240
+    flagship's full width and H_LAYERS blocks a scale. H1: 48 synthetic t2m clips of 60-240
     frames through prepare_data on the card and on the CPU; H2: the corpus
     read by Text2MotionDataset, native batches against the Python path;
     H3: 4 optimizer steps of the flagship on it (kernels 1 and 3 counted),
@@ -3171,7 +3206,7 @@ def _phase_h(root, card, d3_ms):
     # ---- H3: tools/train.py on the corpus, the flagship at full width
     counted = (P.favor_qkv, P.favor_qkv_bwd)
     base = ["--device", "cuda", "--batch_size", "32", "--num_epochs", "1",
-            "--log_every", "1"]
+            "--log_every", "1", "--num_layers", str(H_LAYERS)]
     steps_want = 2 * (len(ds) // 32)
     check(steps_want == 4, f"H3 corpus gives {steps_want} steps, not 4")
 
@@ -3329,7 +3364,7 @@ def phase_i(root, h, card, dev="cuda"):
     n = len(Text2MotionDataset(DataConfig.humanml3d(data_root=corpus),
                                split="test", use_native=False).name_list)
     prompts = n + min(I_MM, n) * (I_REPS - 1)  # per replication
-    n_perf, fwd = 32, 21  # Performers per forward, dpm20 forwards
+    n_perf, fwd = 2 * 2 * H_LAYERS, 21  # Performers a forward, dpm20's
     counted = (P.favor_qkv, P.performer_epilogue)
     print(f"[I] cuts: test split {n} items (HumanML3D's 4,384), retrieval "
           f"pools of 32 (512; {n - n % 32} items pooled, the ragged tail "
@@ -3514,9 +3549,9 @@ def phase_i3(run_dir, finest, card, dev="cuda"):
 
 def phase_i4(run_dir, card, dev="cuda"):
     """ddpm_sample_loop, ddim_sample_loop(cond_fn=...) and calc_bpd_loop at
-    B = 4 through the flagship's conditional branch (no CFG), each on a
-    50-step schedule respaced from the run's 1000: finite, 50 x 32
-    launches of kernels 1 and 2 per loop."""
+    B = 4 through the run's conditional branch (no CFG), each on a 50-step
+    schedule respaced from the run's 1000: finite, 50 x (Performers per
+    forward) launches of kernels 1 and 2 per loop."""
     import torch
     from motiondiffusion_moe_tpu_torch.data.dataset import (
         Text2MotionDataset)
@@ -3534,6 +3569,7 @@ def phase_i4(run_dir, card, dev="cuda"):
     from motiondiffusion_moe_tpu_torch.tools.export import load_run
 
     cfg, sd, _, normalizer = load_run(run_dir)
+    n_perf = 2 * 2 * cfg.model.num_layers
     model = GenerationPipeline(cfg, params=sd, device=dev).model
     dc = cfg.diffusion
     base = make_schedule(schedule_name=dc.beta_schedule,
@@ -3591,8 +3627,8 @@ def phase_i4(run_dir, card, dev="cuda"):
             print(f"[I4] {name}: 50 steps at B = 4 in {ms:.1f} ms "
                   f"({ms / 50:.2f} ms a step), {shown}, finite {finite}, "
                   f"launches {launches} ({card})")
-            check(finite and launches == {"favor_qkv": 50 * 32,
-                                          "performer_epilogue": 50 * 32},
+            check(finite and launches == {"favor_qkv": 50 * n_perf,
+                                          "performer_epilogue": 50 * n_perf},
                   f"I4 {name}: finite {finite}, launches {launches}")
 
 
@@ -3618,6 +3654,9 @@ def deberta_work(dc, B: int, T: int, out_dim: int, prompts: int):
     return nbytes, flops
 
 
+J_LAYERS = 2  # J's denoiser's blocks a scale (full width)
+
+
 def phase_j(cfg, dev, card, c_timings, d3_ms):
     """The flagship with text_encoder="deberta-v3-large": J1 the encoder on
     the card against the CPU, J2 sampling behind make_server, J3 the train
@@ -3628,7 +3667,7 @@ def phase_j(cfg, dev, card, c_timings, d3_ms):
         MotionTransformer)
 
     jcfg = dataclasses.replace(cfg, model=dataclasses.replace(
-        cfg.model, text_encoder="deberta-v3-large"))
+        cfg.model, text_encoder="deberta-v3-large", num_layers=J_LAYERS))
     t0 = time.perf_counter()
     model = MotionTransformer(jcfg.model)
     t_build = time.perf_counter() - t0
@@ -3725,6 +3764,7 @@ def phase_j2(jcfg, model, dev, card, c_timings):
     print(f"[J2] pipeline built (bf16 weights on the card) in "
           f"{time.perf_counter() - t0:.1f} s")
     j2_denoiser_bf16(jcfg, pipe, dev)
+    n_perf = 2 * 2 * jcfg.model.num_layers  # Performers per forward
     T, F = jcfg.model.max_frames, jcfg.model.input_feats
     samples, encodes = [], []
     sample = pipe.sample
@@ -3769,10 +3809,10 @@ def phase_j2(jcfg, model, dev, card, c_timings):
         print(f"[J2] 16 prompts at lengths {lens}: HTTP 200, finite; "
               f"{len(samples)} micro-batch samples x "
               f"{pipe.forwards_per_sample} forwards = {fwd} forwards; "
-              f"launches {launches}, expected 32 x {fwd} = {32 * fwd} each; "
-              f"text encoder forwards {len(encodes)} "
+              f"launches {launches}, expected {n_perf} x {fwd} = "
+              f"{n_perf * fwd} each; text encoder forwards {len(encodes)} "
               f"{sorted(set(encodes))}, expected 2 x {len(samples)}")
-        check(all(n == 32 * fwd for n in launches.values()),
+        check(all(n == n_perf * fwd for n in launches.values()),
               "J2 launch counts")
         check(len(encodes) == 2 * len(samples)
               and all(i == o == "cuda" for i, o, _ in encodes),
@@ -3905,6 +3945,7 @@ def phase_j3(jcfg, dev, card, d3_ms):
                 "--batch_size", "32", "--num_epochs", "1", "--device", "cuda",
                 "--log_every", "1", "--ema_decay", "0.9999",
                 "--text_encoder", "deberta-v3-large", "--deberta_ckpt", ckdir,
+                "--num_layers", str(jcfg.model.num_layers),
                 "--checkpoint_dir", os.path.join(root, "runs")]
         t0 = time.perf_counter()
         with patched((Trainer, "init_state", checked_init)):
@@ -4793,6 +4834,583 @@ def phase_l2(cfg, root, dev, card):
 
 
 
+# ---------------------------------------------------------------------------
+# M: data-parallel training and ZeRO-1 over torch.distributed
+# ---------------------------------------------------------------------------
+
+M_B, M_LONG, M_SHORT = 32, (150, 196), (40, 100)  # rank 0 long, rank 1 short
+M2_LAYERS = 2  # M2's blocks a scale (full width)
+M_KERNELS = ("favor_qkv", "performer_epilogue", "favor_qkv_bwd",
+             "performer_epilogue_bwd")
+
+
+def m_config(cfg, dtype="float32"):
+    """The flagship at dropout 0, no stochastic depth, EMA 0.999, in
+    ``dtype`` compute."""
+    return dataclasses.replace(
+        cfg, model=dataclasses.replace(cfg.model, dtype=dtype, dropout=0.0,
+                                       stochastic_depth_min=1.0),
+        train=dataclasses.replace(cfg.train, ema_decay=0.999))
+
+
+def m_batch(cfg, path):
+    """The global batch of M1 and its noise, in rank order (rank r's rows
+    ``[r * B / 2, (r + 1) * B / 2)``): ragged lengths, long on rank 0 and
+    short on rank 1, seeded t and importance weights; saved to ``path``."""
+    from motiondiffusion_moe_tpu_torch.models.text_encoder import (
+        hash_tokenize)
+
+    rng = np.random.default_rng(SEED + 60)
+    T, F, h = cfg.model.max_frames, cfg.model.input_feats, M_B // 2
+    prompts = [f"a person walks forward and turns {i}" if i % 4 else ""
+               for i in range(M_B)]
+    np.savez(path,
+             motion=rng.standard_normal((M_B, T, F)).astype(np.float32),
+             length=np.concatenate([rng.integers(*M_LONG, h),
+                                    rng.integers(*M_SHORT, h)]),
+             text_ids=hash_tokenize(prompts, cfg.model.text_max_tokens),
+             t=rng.integers(0, cfg.diffusion.num_timesteps, M_B),
+             t_weight=rng.uniform(0.5, 2.0, M_B).astype(np.float32),
+             noise=rng.standard_normal((M_B, T, F)).astype(np.float32))
+
+
+def m_rows(path, dev, rows=slice(None)):
+    import torch
+
+    a = np.load(path)
+    batch = {k: torch.from_numpy(a[k][rows]).to(dev) for k in
+             ("motion", "length", "text_ids", "t", "t_weight")}
+    for k in ("length", "text_ids", "t"):
+        batch[k] = batch[k].long()
+    return batch, torch.from_numpy(a["noise"][rows]).to(dev)
+
+
+def m_step(cfg, weights, batch_path, dev, dp=None, steps=1):
+    """``steps`` optimizer steps of the flagship from ``weights`` (a state
+    dict) on this rank's rows (all of them without ``dp``); returns the
+    state, the
+    metrics of the last step, this rank's gradient of the first (copied to
+    the host, outside the timed step, so the card's peak is the step's
+    own), the kernels' launches per step and the ms of each step."""
+    import torch
+    from motiondiffusion_moe_tpu_torch.diffusion.gaussian import (
+        make_schedule)
+    from motiondiffusion_moe_tpu_torch.models.transformer import (
+        MotionTransformer)
+    from motiondiffusion_moe_tpu_torch.ops import performer as P
+    from motiondiffusion_moe_tpu_torch.parallel.distributed import barrier
+    from motiondiffusion_moe_tpu_torch.training.train_state import (
+        TrainStep, create_train_state)
+
+    with torch.device(dev):
+        model = MotionTransformer(cfg.model)
+    model.load_state_dict(weights)
+    model.to(dev)
+    state = create_train_state(model, cfg, dp=dp)
+    dc = cfg.diffusion
+    step = TrainStep(make_schedule(schedule_name=dc.beta_schedule,
+                                   num_timesteps=dc.num_timesteps,
+                                   device=dev), cfg, dp=dp)
+    h = M_B // (dp.world if dp is not None else 1)
+    r = dp.rank if dp is not None else 0
+    batch, noise = m_rows(batch_path, dev, slice(r * h, (r + 1) * h))
+    counted = [getattr(P, k) for k in M_KERNELS]
+    launches, times, grads = [], [], None
+    for i in range(steps):
+        for c in counted:
+            c.launches = 0
+        torch.cuda.synchronize()
+        if dp is not None:
+            barrier()  # the ranks start the step together
+        t0 = time.perf_counter()
+        metrics = step.backward(state, batch, None, noise=noise)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        if i == 0:
+            grads = [p.grad.to("cpu", copy=True) if p.grad is not None
+                     else torch.zeros(p.shape, dtype=p.dtype)
+                     for p in model.parameters()]
+        t0 = time.perf_counter()
+        metrics = step.apply_update(state, metrics)
+        torch.cuda.synchronize()
+        times.append(ms + (time.perf_counter() - t0) * 1e3)
+        launches.append({c.__name__: c.launches for c in counted})
+    return state, metrics, grads, launches, times
+
+
+def m_mean_grads(dp, grads, dev):
+    """The first step's gradients (host copies) averaged over the ranks, on
+    ``dev``, for the comparison alone (after the timed steps), and the ms
+    of the one all-reduce of the whole flat gradient that takes."""
+    import torch
+
+    flat = torch.cat([g.reshape(-1) for g in grads]).to(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dp.sum_(flat).div_(dp.world)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    return [v.view(g.shape) for v, g in zip(
+        flat.split([g.numel() for g in grads]), grads)], ms
+
+
+def m_whole(state, dev):
+    """(parameters, mu, nu, EMA) as whole lists on ``dev`` (a collective
+    under ZeRO-1, whose moments and EMA only rank 0 receives: None on the
+    others)."""
+    opt = state.optimizer.state_dict()
+    ema = state.ema.state_dict()["params"]
+
+    def on(ts):
+        return None if ts is None else [t.to(dev) for t in ts]
+
+    return ([p.detach() for p in state.model.parameters()], on(opt["mu"]),
+            on(opt["nu"]), on(ema))
+
+
+def m_resident(state) -> dict:
+    """This rank's elements and bytes of the moments and the EMA, and what
+    ZeRO-1 allows: a moment at most ceil(n / W) plus the flat buffers'
+    alignment gaps, the EMA ceil(n / W)."""
+    from motiondiffusion_moe_tpu_torch.parallel.data_parallel import (
+        ALIGN_BYTES)
+
+    opt, ema = state.optimizer, state.ema.params
+    n = {"mu": sum(x.numel() for x in opt.mu),
+         "nu": sum(x.numel() for x in opt.nu),
+         "ema": sum(x.numel() for x in ema)}
+    nbytes = sum(x.numel() * x.element_size()
+                 for x in list(opt.mu) + list(opt.nu) + list(ema))
+    world = opt.dp.world if opt.dp is not None else 1
+    gaps = ALIGN_BYTES // 4 * (len(opt.params) + world)  # f32 parameters
+    trainable = sum(p.numel() for p in opt.params)
+    every = sum(p.numel() for p in state.model.parameters())
+    return {**n, "bytes": nbytes, "trainable": trainable, "all": every,
+            "shard_max": -(-(trainable + gaps) // world),
+            "ema_shard": -(-every // world)}
+
+
+def m_compare(got, ref, grads, ref_grads, lr, names, tnames) -> dict:
+    """{part: (worst error over its tolerance, the parameter)}, <= 1
+    passing. The gradient, mu and nu by D2's rule for the same f32 math in
+    another order (the flagship's sums over 6,272 tokens cancel, so an
+    entry's error is no fixed share of the largest entry): each
+    parameter's RMS error relative to its RMS, floored at 1e-3 of the RMS
+    of all, within STEP_GRAD_REL_RMS (twice that for nu, a square). A
+    parameter and the EMA after the update within 2e-6 where the gradient
+    is at least 1e-6, within 2 lr elsewhere (Adam's first step moves each
+    by lr g / (|g| + eps))."""
+    import torch
+
+    def rel_rms_rule(pairs, factor):
+        pairs = list(pairs)
+        floor = 1e-3 * torch.sqrt(torch.stack(
+            [b.float().pow(2).mean() for _, b in pairs]).mean())
+        errs = [float((a - b).float().pow(2).mean().sqrt() / torch.maximum(
+            b.float().pow(2).mean().sqrt(), floor))
+            / (factor * STEP_GRAD_REL_RMS) for a, b in pairs]
+        i = int(np.argmax(errs))
+        return errs[i], i
+
+    def step_rule(pairs):
+        errs = []
+        for i, (a, b) in enumerate(pairs):
+            tol = torch.where(ref_grads[i].abs() >= 1e-6,
+                              torch.full_like(b, 2e-6),
+                              torch.full_like(b, 2 * lr))
+            errs.append(float(((a - b).abs() / tol).max()))
+        i = int(np.argmax(errs))
+        return errs[i], i
+
+    out = {"grads": rel_rms_rule(zip(grads, ref_grads), 1),
+           "params": step_rule(zip(got[0], ref[0])),
+           "ema": step_rule(zip(got[3], ref[3])),
+           "mu": rel_rms_rule(zip(got[1], ref[1]), 1),
+           "nu": rel_rms_rule(zip(got[2], ref[2]), 2)}
+    named = {}
+    for part, (err, i) in out.items():
+        who = tnames[i] if part in ("mu", "nu") else names[i]
+        named[part] = (round(err, 4), who)
+    # the largest entry error over the largest entry, shown beside
+    named["grads, max over largest"] = round(max(
+        float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+        for a, b in zip(grads, ref_grads)), 8)
+    return named
+
+
+def m_worst(errs) -> float:
+    return max(v[0] for k, v in errs.items() if isinstance(v, tuple))
+
+
+def phase_m(cfg, dev, card):
+    """Data-parallel training and ZeRO-1 (see the module doc): M1 the step
+    at full width, one rank over NCCL and two ranks on this card over
+    gloo, against the one-process step; M2 tools/train.py as two processes
+    and a one-process resume."""
+    import torch
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        phase_m1(cfg, dev, card, root)
+        t1 = time.perf_counter()
+        phase_m2(dev, card, root)
+    torch.cuda.empty_cache()
+    now = time.perf_counter()
+    print(f"[M] phase M in {now - t0:.1f} s (M1 {t1 - t0:.1f} s, M2 "
+          f"{now - t1:.1f} s) ({card})")
+
+
+def phase_m1(cfg, dev, card, root):
+    import torch
+    import torch.distributed as dist
+    from motiondiffusion_moe_tpu_torch.parallel.data_parallel import (
+        DataGroup)
+    from motiondiffusion_moe_tpu_torch.parallel.distributed import (
+        initialize_distributed)
+
+    j = os.path.join
+    cfg32 = m_config(cfg)
+    params_path, batch_path = j(root, "m_params.pt"), j(root, "m_batch.npz")
+    t0 = time.perf_counter()
+    weights = build_flagship(cfg32).state_dict()
+    t_init = time.perf_counter() - t0
+    torch.save(weights, params_path)
+    weights = {k: v.to(dev) for k, v in weights.items()}
+    m_batch(cfg32, batch_path)
+    lr = cfg32.train.lr
+    print(f"[M1] the flagship's seeded weights in {t_init:.1f} s, saved for "
+          f"the ranks in {time.perf_counter() - t0 - t_init:.1f} s")
+
+    # (i) one rank over NCCL, through parallel/, against the plain step
+    t0 = time.perf_counter()
+    ref_state, ref_m, ref_g, _, _ = m_step(cfg32, weights, batch_path,
+                                           dev)
+    ref_g = [g.to(dev) for g in ref_g]
+    names = ([n for n, _ in ref_state.model.named_parameters()],
+             [n for n, p in ref_state.model.named_parameters()
+              if p.requires_grad])
+    ref = m_whole(ref_state, dev)
+    del ref_state
+    initialize_distributed(f"file://{j(root, 'rdv_m1')}", 1, 0, device=dev)
+    try:
+        backend = dist.get_backend()
+        check(backend == "nccl", f"M1 (i) backend {backend}, not nccl")
+        dp = DataGroup()
+        for zero1 in (False, True):
+            c = dataclasses.replace(cfg32, parallel=dataclasses.replace(
+                cfg32.parallel, zero1=zero1))
+            state, m, g, launches, times = m_step(c, weights, batch_path,
+                                                  dev, dp)
+            g, _ = m_mean_grads(dp, g, dev)
+            got = m_whole(state, dev)
+            del state
+            if not zero1:
+                bits = {"loss": same_bits(m["loss_total"],
+                                          ref_m["loss_total"]),
+                        "grad_norm": same_bits(m["grad_norm"],
+                                               ref_m["grad_norm"])}
+                for name, k in (("params", 0), ("mu", 1), ("nu", 2),
+                                ("ema", 3)):
+                    bits[name] = all(
+                        a.dtype == b.dtype and torch.equal(a, b)
+                        for a, b in zip(got[k], ref[k]))
+                ok = all(bits.values())
+                print(f"[M1] (i) world 1 over {backend}, zero1 off, B = "
+                      f"{M_B}, f32: the step through parallel/ against the "
+                      f"plain TrainStep, bit for bit: {bits}; launches "
+                      f"{launches[0]}; {times[0]:.1f} ms ({card}) -> "
+                      f"{'ok' if ok else 'FAIL'}")
+                check(ok, f"M1 (i) bits {bits}")
+            else:
+                errs = m_compare(got, ref, g, ref_g, lr, *names)
+                rel = {k: abs(float(m[k]) - float(ref_m[k]))
+                       / abs(float(ref_m[k]))
+                       for k in ("loss_total", "grad_norm")}
+                ok = (m_worst(errs) <= 1 and rel["loss_total"] == 0
+                      and rel["grad_norm"] <= STEP_LOSS_REL)
+                print(f"[M1] (i) world 1 over {backend}, zero1 on (the "
+                      f"flat shard is the whole; reduce_scatter_tensor and "
+                      f"all_gather_into_tensor over {backend}): loss rel "
+                      f"{rel['loss_total']:.1e} (bits wanted), grad_norm "
+                      f"rel {rel['grad_norm']:.1e} (the flat norm sums in "
+                      f"another order; tol {STEP_LOSS_REL:g}), worst error "
+                      f"over tolerance {errs}; {times[0]:.1f} ms -> "
+                      f"{'ok' if ok else 'FAIL'}")
+                check(ok, f"M1 (i) zero1 {errs} {rel}")
+            del got, g  # not alive in the next case's measured step
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    del ref, ref_g, weights
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+
+    # (ii) two ranks on this one card: NCCL refuses two ranks on one device
+    # ("Duplicate GPU detected", as of NCCL 2.28.9), so gloo is
+    # named here, with CUDA tensors staged through the host
+    spec = {"init": f"file://{j(root, 'rdv_m1_2')}", "params": params_path,
+            "batch": batch_path, "out": root, "cfg": cfg32.to_dict(),
+            "device": str(dev), "world": 2, "backend": "gloo",
+            "label": "two ranks sharing one card, collectives staged "
+                     "through the host under gloo"}
+    with open(j(root, "m1.json"), "w") as fh:
+        json.dump(spec, fh)
+    outs = spawn_ranks([[os.path.abspath(__file__), "--m1-rank",
+                         j(root, "m1.json"), str(r)] for r in range(2)])
+    for r, (rc, out) in enumerate(outs):
+        print("".join(f"[M1 rank {r}] {line}\n"
+                      for line in out.splitlines() if line.strip()), end="")
+    check(all(rc == 0 for rc, _ in outs),
+          f"M1 ranks exited with {[rc for rc, _ in outs]}")
+    res = [json.load(open(j(root, f"m1_rank{r}.json"))) for r in range(2)]
+    for r, rr in enumerate(res):
+        for case in ("replicated", "zero1", "bf16_zero1"):
+            check(rr[case]["ok"], f"M1 (ii) rank {r} {case}: {rr[case]}")
+    print(f"[M1] (ii) two ranks on one card over gloo (collectives staged "
+          f"through the host): every check passed on both ranks; (i) "
+          f"{t1 - t0:.1f} s, (ii) {time.perf_counter() - t1:.1f} s with "
+          f"both processes' start ({card})")
+
+
+def m1_rank(spec_path, rank):
+    """One rank of M1 (ii): ``spec["world"]`` ranks over ``spec["backend"]``
+    on ``spec["device"]`` (``"cuda"``: card r for rank r,
+    ``scripts/dp_cards.py``); writes ``m1_rank<r>.json`` into the spec's
+    out directory and prints its lines."""
+    import torch
+    from motiondiffusion_moe_tpu_torch.config import ExperimentConfig
+    from motiondiffusion_moe_tpu_torch.parallel.data_parallel import (
+        DataGroup)
+    from motiondiffusion_moe_tpu_torch.parallel.distributed import (
+        initialize_distributed, rank_device)
+
+    with open(spec_path) as fh:
+        spec = json.load(fh)
+    world = spec["world"]
+    dev = rank_device(spec["device"], rank)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    initialize_distributed(spec["init"], world, rank,
+                           backend=spec["backend"], device=dev)
+    dp = DataGroup()
+    cfg32 = ExperimentConfig.from_dict(spec["cfg"])
+    lr = cfg32.train.lr
+    weights = torch.load(spec["params"], map_location=dev, weights_only=True)
+    out = {}
+    ref = ref_m = ref_g = None
+    if rank == 0:  # the one-process step on the whole batch, on this card
+        state, ref_m, ref_g, _, _ = m_step(cfg32, weights, spec["batch"],
+                                           dev)
+        ref_g = [g.to(dev) for g in ref_g]
+        names = ([n for n, _ in state.model.named_parameters()],
+                 [n for n, p in state.model.named_parameters()
+                  if p.requires_grad])
+        ref = m_whole(state, dev)
+        del state
+        torch.cuda.empty_cache()
+    n_perf = 2 * 2 * cfg32.model.num_layers
+    for zero1 in (False, True):
+        c = dataclasses.replace(cfg32, parallel=dataclasses.replace(
+            cfg32.parallel, zero1=zero1))
+        torch.cuda.reset_peak_memory_stats(dev)
+        state, m, g, launches, times = m_step(c, weights, spec["batch"],
+                                              dev, dp)
+        peak = torch.cuda.max_memory_allocated(dev)
+        g, reduce_ms = m_mean_grads(dp, g, dev)
+        res = m_resident(state)
+        got = m_whole(state, dev)
+        del state
+        held = (res["mu"] == res["nu"] <= res["shard_max"]
+                and res["ema"] == res["ema_shard"] if zero1 else
+                (res["mu"], res["nu"], res["ema"]) == (
+                    res["trainable"], res["trainable"], res["all"]))
+        counts = launches[0] == {k: n_perf for k in M_KERNELS}
+        line = (f"zero1 {'on' if zero1 else 'off'}, B = {M_B // world} of "
+                f"{M_B} on {dev} over {spec['backend']}, f32: loss {float(m['loss_total']):.8f}, grad_norm "
+                f"{float(m['grad_norm']):.6f}; launches {launches[0]} "
+                f"({n_perf} each wanted); moments + EMA resident "
+                f"{res['bytes'] / 1e9:.3f} GB ({res['mu']} + {res['nu']} + "
+                f"{res['ema']} elements; under zero1 at most ceil(n / W) "
+                f"plus the alignment gaps, {res['shard_max']} for a moment: "
+                f"{held}); max_memory_allocated in the step "
+                f"{peak / 2 ** 30:.2f} GiB; {times[0]:.1f} ms a step "
+                f"({spec['label']}; one all-reduce of the whole f32 "
+                f"gradient alone {reduce_ms:.1f} ms)")
+        ok = held and counts
+        if rank == 0:
+            errs = m_compare(got, ref, g, ref_g, lr, *names)
+            rel = {k: abs(float(m[k]) - float(ref_m[k])) / abs(float(
+                ref_m[k])) for k in ("loss_total", "grad_norm")}
+            ok = (ok and m_worst(errs) <= 1
+                  and max(rel.values()) <= STEP_LOSS_REL)
+            line += (f"; against the one-process step: loss rel "
+                     f"{rel['loss_total']:.2e}, grad_norm rel "
+                     f"{rel['grad_norm']:.2e} (tol {STEP_LOSS_REL:g}), worst "
+                     f"error over tolerance {errs}")
+        print(f"{line} -> {'ok' if ok else 'FAIL'}", flush=True)
+        out["replicated" if not zero1 else "zero1"] = {
+            "ok": ok, "launches": launches[0], "ms": times[0],
+            "reduce_ms": reduce_ms, "resident": res, "peak_bytes": peak}
+        del got, g  # not alive in the next case's measured step
+        torch.cuda.empty_cache()
+    del ref, ref_g
+    cbf = dataclasses.replace(m_config(cfg32, "bfloat16"),
+                              parallel=dataclasses.replace(cfg32.parallel,
+                                                           zero1=True))
+    state, m, _, launches, times = m_step(cbf, weights, spec["batch"], dev,
+                                          dp, steps=2)
+    finite = all(math.isfinite(float(m[k])) for k in ("loss_total",
+                                                      "grad_norm"))
+    finite = finite and all(bool(torch.isfinite(p).all())
+                            for p in state.model.parameters())
+    counts = all(x == {k: n_perf for k in M_KERNELS} for x in launches)
+    ok = finite and counts
+    print(f"bf16 compute, zero1, 2 steps: loss {float(m['loss_total']):.6f}"
+          f", finite {finite}; launches per step {launches}; ms "
+          f"{[round(x, 1) for x in times]} -> {'ok' if ok else 'FAIL'}",
+          flush=True)
+    out["bf16_zero1"] = {"ok": ok, "launches": launches, "ms": times}
+    with open(os.path.join(spec["out"], f"m1_rank{rank}.json"), "w") as fh:
+        json.dump(out, fh)
+    torch.distributed.destroy_process_group()
+
+
+def spawn_ranks(argvs, timeout=300):
+    """One process per argv (this interpreter, from the repo root), their
+    output in files; waits for all, and kills every one still running
+    ``timeout`` s after the start or 30 s after another failed;
+    [(returncode, output)]."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        x for x in (here, env.get("PYTHONPATH")) if x)
+    with contextlib.ExitStack() as stack:
+        logs = [stack.enter_context(tempfile.TemporaryFile("w+"))
+                for _ in argvs]
+        procs = [subprocess.Popen([sys.executable, *argv], cwd=here, env=env,
+                                  stdout=log, stderr=subprocess.STDOUT,
+                                  text=True)
+                 for argv, log in zip(argvs, logs)]
+        deadline = time.monotonic() + timeout
+        killed = ""
+        try:
+            while any(p.poll() is None for p in procs):
+                if any(p.poll() not in (None, 0) for p in procs):
+                    deadline = min(deadline, time.monotonic() + 30)
+                if time.monotonic() > deadline:
+                    killed = "\n(killed: past its deadline)"
+                    break
+                time.sleep(0.2)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        outs = []
+        for p, log in zip(procs, logs):
+            log.seek(0)
+            outs.append((p.returncode, log.read()
+                         + (killed if p.returncode < 0 else "")))
+    return outs
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def m2_rank(argv):
+    """One rank of M2, where the ranks share one card: join the group that
+    tools/train.py's launch flags in ``argv`` name over gloo (NCCL refuses
+    two ranks on one device), then run the CLI's main on ``argv``, which
+    finds the group made."""
+    import torch
+    from motiondiffusion_moe_tpu_torch.parallel.distributed import (
+        initialize_distributed)
+    from motiondiffusion_moe_tpu_torch.tools import train as train_cli
+
+    args = train_cli.build_argparser().parse_args(argv)
+    initialize_distributed(args.coordinator_address, args.num_processes,
+                           args.process_id, backend="gloo",
+                           device=args.device)
+    try:
+        train_cli.main(argv)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def phase_m2(dev, card, root, devices=None, layers=M2_LAYERS):
+    """tools/train.py as processes on ``devices`` with --data_parallel and
+    --zero1, then a one-process resume of the run dir on ``dev``. By
+    default two ranks on ``dev``, each through :func:`m2_rank` (gloo);
+    ``scripts/dp_cards.py`` gives one card each, and the CLI picks NCCL."""
+    import torch
+    from motiondiffusion_moe_tpu_torch.training.checkpoint import (
+        CheckpointManager)
+
+    shared = devices is None
+    devices = devices or [str(dev)] * 2
+    n = len(devices)
+    entry = ([os.path.abspath(__file__), "--m2-rank"] if shared
+             else ["-m", "motiondiffusion_moe_tpu_torch.tools.train"])
+    how = ("over gloo, each rank joined by --m2-rank" if shared
+           else "over NCCL, the CLI alone")
+    j = os.path.join
+    ck = j(root, "m2")
+    base = ["--dataset", "synthetic", "--synthetic_size", "32",
+            "--batch_size", "32", "--num_epochs", "1", "--log_every", "1",
+            "--num_layers", str(layers), "--checkpoint_dir", ck]
+    port = free_port()
+    t0 = time.perf_counter()
+    outs = spawn_ranks([[*entry, *base, "--device", d,
+                         "--num_processes", str(n), "--process_id", str(r),
+                         "--coordinator_address", f"127.0.0.1:{port}",
+                         "--data_parallel", str(n), "--zero1"]
+                        for r, d in enumerate(devices)])
+    secs = time.perf_counter() - t0
+    for r, (rc, out) in enumerate(outs):
+        print("".join(f"[M2 rank {r}] {line}\n"
+                      for line in out.splitlines() if line.strip()), end="")
+    check(all(rc == 0 for rc, _ in outs),
+          f"M2 ranks exited with {[rc for rc, _ in outs]}")
+    logs0 = re.findall(r"loss_total: (\S+)", outs[0][1])
+    quiet = all("loss_total" not in out and "[train]" not in out
+                for _, out in outs[1:])
+    run_dir = j(ck, "t2m_moe_small")
+    files = sorted(os.listdir(run_dir))
+    ckpt = CheckpointManager(j(run_dir, "ckpt"))
+    payload = ckpt.read()
+    ok = (len(logs0) == 2 and quiet
+          and files == ["ckpt", "config.json", "meta"]
+          and ckpt.all_steps() == [2] and len(payload["rng"]) == n)
+    print(f"[M2] tools/train.py --num_processes {n} --data_parallel {n} "
+          f"--zero1 on {devices} {how}, {layers} blocks "
+          f"a scale (full width): rank 0 logged {len(logs0)} steps "
+          f"{logs0}, the other ranks no log line: {quiet}; the run dir "
+          f"holds {files}, checkpoint steps {ckpt.all_steps()}, "
+          f"{len(payload['rng'])} generator states; {secs:.1f} s with the "
+          f"processes' start ({card}) -> {'ok' if ok else 'FAIL'}")
+    check(ok, "M2 the multi-process run")
+    state, log, _ = run_train_cli(base + ["--device", str(dev)])
+    same = (state.step == 2
+            and all(same_bits(a, b) for a, b in zip(
+                state.model.state_dict().values(),
+                payload["params"].values()))
+            and all(same_bits(a, b) for k in ("mu", "nu") for a, b in zip(
+                state.optimizer.state_dict()[k], payload["opt_state"][k])))
+    resumed = "resumed from step 2 (epoch 1)" in log
+    print(f"[M2] one process resumes the run dir: {log.count('resumed')} "
+          f"resume line(s), step {state.step}, its parameters and moments "
+          f"the gathered ones bit for bit: {same} -> "
+          f"{'ok' if same and resumed else 'FAIL'}")
+    check(same and resumed, "M2 the one-process resume")
+    del state
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -4880,6 +5498,8 @@ def main() -> int:
     lap("K")
     phase_l(cfg, dev, card)
     lap("L")
+    phase_m(cfg, dev, card)
+    lap("M")
 
     csrc = "motiondiffusion_moe_tpu_torch/csrc/"
     ops = "motiondiffusion_moe_tpu/ops/"
@@ -4944,4 +5564,10 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--m1-rank"]:  # one rank of phase M1 (ii)
+        m1_rank(sys.argv[2], int(sys.argv[3]))
+        sys.exit(0)
+    if sys.argv[1:2] == ["--m2-rank"]:  # one rank of phase M2
+        m2_rank(sys.argv[2:])
+        sys.exit(0)
     sys.exit(main())

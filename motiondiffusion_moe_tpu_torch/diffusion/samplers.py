@@ -4,9 +4,10 @@ A copy of ``motiondiffusion_moe_tpu/diffusion/samplers.py`` (importing it
 would pull in JAX through the package ``__init__``): uniform,
 loss-second-moment resampling and the EMA-based adaptive sampler. The
 sampled ``t`` goes to the device as a tensor; the loss history stays on the
-host. The port runs on one process, so ``update_with_local_losses`` is the
-single-host passthrough (the multi-process gather comes with the parallel
-port).
+host. Over several processes (``parallel/``), ``update_with_local_losses``
+gathers every process's (t, loss) pairs in rank order before it updates, as
+the JAX package's ``process_allgather`` does, so every rank's sampler holds
+the same history.
 """
 
 from __future__ import annotations
@@ -53,9 +54,15 @@ class LossAwareSampler(ScheduleSampler):
 
     def update_with_local_losses(self, local_ts: np.ndarray,
                                  local_losses: np.ndarray) -> None:
-        """One process: the local (t, loss) pairs are all of them."""
-        self.update_with_all_losses(np.asarray(local_ts),
-                                    np.asarray(local_losses))
+        """Gather the processes' (t, loss) pairs in rank order (in one
+        process, the local pairs are all of them), then update."""
+        from motiondiffusion_moe_tpu_torch.parallel.distributed import (
+            allgather_numpy, world_size)
+
+        ts, losses = np.asarray(local_ts), np.asarray(local_losses)
+        if world_size() > 1:
+            ts, losses = allgather_numpy(ts), allgather_numpy(losses)
+        self.update_with_all_losses(ts, losses)
 
     @abstractmethod
     def update_with_all_losses(self, ts: np.ndarray,

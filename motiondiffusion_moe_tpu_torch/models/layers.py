@@ -32,7 +32,7 @@ from __future__ import annotations
 import functools
 import math
 from dataclasses import dataclass, field
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -46,11 +46,19 @@ LN_EPS = 1e-6
 @dataclass
 class TrainContext:
     """What one training forward threads through the modules: the generator
-    every random draw comes from (on the activations' device), and the MoE
-    aux losses the forward collected."""
+    every random draw comes from (on the activations' device), and each
+    MoE layer's balance statistics (f, P) (``moe.py::switch_balance``),
+    from which :attr:`aux_losses` are its Switch aux losses."""
 
     generator: Optional[torch.Generator] = None
-    aux_losses: List[torch.Tensor] = field(default_factory=list)
+    moe_balance: List[Tuple[torch.Tensor, torch.Tensor]] = field(
+        default_factory=list)
+
+    @property
+    def aux_losses(self) -> List[torch.Tensor]:
+        """The MoE aux losses the forward collected, E * sum_i f_i P_i a
+        layer."""
+        return [f.numel() * torch.sum(f * p) for f, p in self.moe_balance]
 
 
 def dropout(x: torch.Tensor, rate: float, training: bool,

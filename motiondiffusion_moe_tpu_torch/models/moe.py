@@ -69,11 +69,19 @@ def top_k_lowest_index(probs: torch.Tensor,
     return vals[..., :k], idx[..., :k]
 
 
+def switch_balance(probs: torch.Tensor, top1_idx: torch.Tensor,
+                   num_experts: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(f, P): each expert's share of the tokens' first choices (no
+    gradient) and its mean router probability."""
+    return (F.one_hot(top1_idx, num_experts).to(probs.dtype).mean(0),
+            probs.mean(0))
+
+
 def switch_aux_loss(probs: torch.Tensor, top1_idx: torch.Tensor,
                     num_experts: int) -> torch.Tensor:
     """Differentiable Switch load-balancing loss: E * sum_i f_i * P_i."""
-    f = F.one_hot(top1_idx, num_experts).to(probs.dtype).mean(0)
-    return num_experts * torch.sum(f * probs.mean(0))
+    f, mean_p = switch_balance(probs, top1_idx, num_experts)
+    return num_experts * torch.sum(f * mean_p)
 
 
 def moe_metrics(probs: torch.Tensor, top_vals: torch.Tensor,
@@ -194,7 +202,8 @@ class SwitchMoELayer(nn.Module):
                 ctx: Optional[TrainContext] = None):
         """x: [..., D] -> same shape; with ``with_metrics`` also returns
         :func:`moe_metrics` of this call's routing. With a ``ctx`` the
-        layer's aux loss is appended to ``ctx.aux_losses``."""
+        layer's :func:`switch_balance`, which makes its aux loss, is
+        appended to ``ctx.moe_balance``."""
         dt = self.dtype
         shape = x.shape
         x_flat = x.reshape(-1, shape[-1]).to(dt)
@@ -203,7 +212,7 @@ class SwitchMoELayer(nn.Module):
         probs = torch.softmax(self._router_logits(x_flat), dim=-1)
         top_vals, top_idx = top_k_lowest_index(probs, self.top_k)
         if ctx is not None:
-            ctx.aux_losses.append(switch_aux_loss(probs, top_idx[:, 0], E))
+            ctx.moe_balance.append(switch_balance(probs, top_idx[:, 0], E))
         w1, b1, w2, b2 = (p.to(dt) for p in (self.w1, self.b1, self.w2,
                                               self.b2))
         if self.compute == "dispatch":

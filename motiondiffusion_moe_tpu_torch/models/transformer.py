@@ -11,8 +11,8 @@ forward takes a :class:`TrainContext` whose generator drives every dropout
 mask and the per-block stochastic-depth coin (survival probabilities
 ``linspace(1, stochastic_depth_min, L)``, ``transformer.py:316-317,
 392-406``), and collects the MoE aux losses: ``forward(..., ctx=ctx)``
-leaves their terms in ``ctx.aux_losses`` and :func:`sum_moe_aux_losses`
-adds them up.
+leaves each MoE layer's balance statistics in ``ctx.moe_balance``, whose
+terms ``ctx.aux_losses`` :func:`sum_moe_aux_losses` adds up.
 """
 
 from __future__ import annotations
@@ -58,9 +58,10 @@ def sum_moe_aux_losses(ctx: TrainContext) -> torch.Tensor:
     """Sum of the MoE aux losses a training forward collected (the
     counterpart of ``sum_moe_aux_losses``, ``transformer.py:498-506``);
     0 when it collected none."""
-    if not ctx.aux_losses:
+    losses = ctx.aux_losses
+    if not losses:
         return torch.zeros(())
-    return torch.stack(ctx.aux_losses).sum()
+    return torch.stack(losses).sum()
 
 
 def generate_src_mask(T: int, length: torch.Tensor) -> torch.Tensor:

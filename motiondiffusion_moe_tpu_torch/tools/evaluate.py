@@ -20,8 +20,8 @@ was sampled and fetches only the co-embeddings); the metric math is numpy.
 Without the released ``finest.tar`` the metrics come from a random-init
 evaluator, and without the GloVe files from hashed word vectors: the
 pipeline is exercised, but the values are not comparable to published
-numbers, and the log says so. The multi-device flags raise above 1 until
-the parallel port.
+numbers, and the log says so. The multi-device flags raise above 1: data
+parallelism for evaluation is ROADMAP queue 1, item 6d.
 """
 
 from __future__ import annotations
@@ -114,8 +114,7 @@ def build_argparser() -> argparse.ArgumentParser:
                         "512-d rows instead of raw motions")
     for flag in ("data_parallel", "expert_parallel", "tensor_parallel"):
         p.add_argument(f"--{flag}", type=int, default=1,
-                       help="multi-device: raises above 1 until the "
-                            "parallel port")
+                       help="multi-device: raises above 1 (not ported)")
     return p
 
 
@@ -128,8 +127,10 @@ def main(argv=None) -> dict:
             if getattr(args, f) > 1]
     if over:
         raise NotImplementedError(
-            f"{', '.join(over)}: the port evaluates on one device until the "
-            "parallel port")
+            f"{', '.join(over)}: the port evaluates on one device; a "
+            "generation batch split over devices is not ported yet "
+            "(ROADMAP.md, queue 1, item 6: parallel, 6d; the expert and "
+            "model axes 6b and 6c)")
 
     import torch
 

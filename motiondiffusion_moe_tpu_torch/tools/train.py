@@ -20,10 +20,25 @@ run goes on saving in the JAX layout, which the JAX package resumes again
 (``training/checkpoint.py``). ``--text_encoder deberta-v3-large`` (or
 ``deberta-tiny``) trains the DeBERTa text encoder jointly, from the local
 HF checkpoint ``--deberta_ckpt`` when given (grafted at init) and else
-from its random init, with a warning. What the port does not run yet
-raises: the multi-device flags until the parallel port, and
-``--scan_blocks`` / ``--remat_blocks``, which exist for JAX compilation
-and are not ported.
+from its random init, with a warning.
+
+Data-parallel training runs one process per device, launched by torchrun::
+
+    torchrun --nproc_per_node N -m motiondiffusion_moe_tpu_torch.tools.train \\
+        --data_parallel N [--zero1] ...
+
+or by starting each process with the JAX CLI's three flags,
+``--coordinator_address HOST:PORT --num_processes N --process_id R`` (an
+init URL such as ``file:///shared/rendezvous`` also serves as the
+address). Each process takes ``cuda:LOCAL_RANK`` unless ``--device`` names
+a card, and its ``1/N`` of every ``--batch_size`` batch through
+``DistributedSampler``; ``--zero1`` shards the Adam moments and the EMA
+over the processes. The backend follows the device: NCCL for CUDA, gloo
+for the CPU. Only the primary writes
+``config.json``, ``meta/`` and the checkpoints and prints. What the port
+does not run yet raises: the expert, tensor, seq and pipeline axes, and
+``--scan_blocks`` / ``--remat_blocks``, which exist for JAX compilation and
+are not ported.
 """
 
 from __future__ import annotations
@@ -114,16 +129,16 @@ def build_argparser() -> argparse.ArgumentParser:
     for flag in ("expert_parallel", "tensor_parallel", "seq_parallel",
                  "pipeline_parallel"):
         p.add_argument(f"--{flag}", type=int, default=1,
-                       help="multi-device: raises above 1 until the "
-                            "parallel port")
+                       help="multi-device: raises above 1 (not ported)")
     p.add_argument("--data_parallel", type=int, default=0,
-                   help="multi-device: raises above 1 until the parallel "
-                        "port")
+                   help="data-parallel ranks, one process each (0 = the "
+                        "number of processes launched)")
     p.add_argument("--pp_microbatches", type=int, default=0,
                    help="pipeline microbatches (read only with "
                         "--pipeline_parallel)")
     p.add_argument("--zero1", action="store_true",
-                   help="multi-device: raises until the parallel port")
+                   help="shard the Adam moments and the EMA over the data "
+                        "ranks (ZeRO-1)")
     p.add_argument("--synthetic_size", type=int, default=256,
                    help="synthetic dataset size (dataset=synthetic)")
     p.add_argument("--no_native_io", action="store_true",
@@ -131,11 +146,12 @@ def build_argparser() -> argparse.ArgumentParser:
                         "C++ store (which otherwise must build, or the run "
                         "raises)")
     p.add_argument("--coordinator_address", default="",
-                   help="multi-host: raises until the parallel port")
+                   help="multi-process: HOST:PORT of rank 0 (or an init URL, "
+                        "e.g. file:///shared/rendezvous)")
     p.add_argument("--num_processes", type=int, default=0,
-                   help="multi-host: raises above 1 until the parallel port")
+                   help="multi-process: the number of processes")
     p.add_argument("--process_id", type=int, default=-1,
-                   help="multi-host: raises until the parallel port")
+                   help="multi-process: this process's rank")
     return p
 
 
@@ -145,11 +161,6 @@ def check_supported(args: argparse.Namespace) -> None:
         raise NotImplementedError(
             "--scan_blocks / --remat_blocks exist for JAX compilation and "
             "are not ported")
-    if (args.num_processes > 1 or args.coordinator_address
-            or args.process_id >= 0):
-        raise NotImplementedError(
-            "multi-host flags: the port trains on one device until the "
-            "parallel port")
 
 
 def config_from_args(args: argparse.Namespace):
@@ -219,48 +230,72 @@ def main(argv=None):
     cfg = config_from_args(args)
 
     import torch
+    import torch.distributed as dist
 
     from motiondiffusion_moe_tpu_torch.data.dataset import (
         SyntheticText2MotionDataset, Text2MotionDataset)
     from motiondiffusion_moe_tpu_torch.data.loader import (
         DataLoader, DistributedSampler)
+    from motiondiffusion_moe_tpu_torch.parallel.distributed import (
+        initialize_distributed, is_primary, local_batch_slice, rank,
+        rank_device, world_size)
     from motiondiffusion_moe_tpu_torch.training.checkpoint import (
         CheckpointManager)
     from motiondiffusion_moe_tpu_torch.training.trainer import (
-        Trainer, check_single_device)
+        Trainer, check_parallel_config)
 
-    check_single_device(cfg)  # the multi-device flags
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
+    check_parallel_config(cfg)
+    if (torch.device(args.device).type == "cuda"
+            and not torch.cuda.is_available()):
         raise RuntimeError(f"--device {args.device}: no CUDA device is "
                            "available (pass --device cpu to train on the "
                            "CPU)")
-    run_dir = os.path.join(cfg.checkpoint_dir, cfg.name)
-    os.makedirs(run_dir, exist_ok=True)
-    cfg.save(os.path.join(run_dir, "config.json"))
-    print(f"[train] config -> {run_dir}/config.json")
-    print(f"[train] device: {device}"
-          + (f" ({torch.cuda.get_device_name(device)})"
-             if device.type == "cuda" else ""))
+    # the process group first: NCCL binds to the card set before it
+    own_group = initialize_distributed(
+        coordinator_address=args.coordinator_address or None,
+        num_processes=args.num_processes or None,
+        process_id=args.process_id if args.process_id >= 0 else None,
+        device=args.device)
+    try:
+        device = rank_device(args.device)
+        primary = is_primary()
+        run_dir = os.path.join(cfg.checkpoint_dir, cfg.name)
+        os.makedirs(run_dir, exist_ok=True)
+        if primary:
+            cfg.save(os.path.join(run_dir, "config.json"))
+            print(f"[train] config -> {run_dir}/config.json")
+            print(f"[train] device: {device}"
+                  + (f" ({torch.cuda.get_device_name(device)})"
+                     if device.type == "cuda" else "")
+                  + (f"; {world_size()} processes over "
+                     f"{dist.get_backend()}" if world_size() > 1 else ""))
 
-    if args.dataset == "synthetic":
-        dataset = SyntheticText2MotionDataset(
-            cfg.data, size=args.synthetic_size, seed=cfg.train.seed)
-    else:
-        dataset = Text2MotionDataset(cfg.data, split="train",
-                                     seed=cfg.train.seed)
-    dataset.normalizer.save(os.path.join(run_dir, "meta"))
-    sampler = DistributedSampler(len(dataset), seed=cfg.train.seed)
-    loader = DataLoader(dataset, batch_size=cfg.train.batch_size,
-                        sampler=sampler, seed=cfg.train.seed)
-    norm = dataset.normalizer
-    trainer = Trainer(cfg, normalizer_stats=(norm.mean, norm.std),
-                      device=device)
-    state = trainer.init_state()
-    ckpt = CheckpointManager(os.path.join(run_dir, "ckpt"), cfg=cfg)
-    state = trainer.fit(state, loader, checkpoints=ckpt)
-    print("[train] done")
-    return state
+        if args.dataset == "synthetic":
+            dataset = SyntheticText2MotionDataset(
+                cfg.data, size=args.synthetic_size, seed=cfg.train.seed)
+        else:
+            dataset = Text2MotionDataset(cfg.data, split="train",
+                                         seed=cfg.train.seed)
+        if primary:
+            dataset.normalizer.save(os.path.join(run_dir, "meta"))
+        # each process its own rows of every global batch
+        sampler = DistributedSampler(len(dataset), num_replicas=world_size(),
+                                     rank=rank(), seed=cfg.train.seed)
+        loader = DataLoader(dataset,
+                            batch_size=local_batch_slice(cfg.train.batch_size),
+                            sampler=sampler, seed=cfg.train.seed)
+        norm = dataset.normalizer
+        trainer = Trainer(cfg, normalizer_stats=(norm.mean, norm.std),
+                          device=device)
+        state = trainer.init_state()
+        ckpt = CheckpointManager(os.path.join(run_dir, "ckpt"), cfg=cfg)
+        state = trainer.fit(state, loader, checkpoints=ckpt)
+        if primary:
+            print("[train] done")
+        return state
+    finally:
+        if own_group:
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -43,6 +43,13 @@ E + 1" in a small JSON file next to the checkpoints; restore honours it
 when it matches the restored step. (Resuming at the epoch after the
 checkpointed one is this package's own choice, not the reference
 trainer's.)
+
+Under data parallelism (``parallel/``) saving is collective: every rank
+calls :meth:`CheckpointManager.save`, which gathers the ZeRO-1 shards into
+the primary's host memory and every rank's generator state (``rng`` is
+then the list of them, in rank order), the primary writes either format
+and ``epoch_meta.json``, and the others wait at a barrier. Every rank reads a restore whole and keeps its
+shard, so a run saved by W ranks resumes at any W.
 """
 
 from __future__ import annotations
@@ -58,6 +65,13 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from motiondiffusion_moe_tpu_torch.parallel.distributed import (
+    all_gather_objects,
+    barrier,
+    is_primary,
+    primary_says,
+    world_size,
+)
 from motiondiffusion_moe_tpu_torch.utils import orbax_format
 
 _STEP_FILE = re.compile(r"step_(\d+)\.pt$")
@@ -155,27 +169,40 @@ class CheckpointManager:
              generator: Optional[torch.Generator] = None) -> None:
         """Save ``state`` (a :class:`TrainState`) at ``step``; skipped when
         that step is saved already. Drops the oldest beyond
-        ``max_to_keep``."""
+        ``max_to_keep``. A collective under data parallelism (see the
+        module doc)."""
         path = self._path(step)
-        if os.path.exists(path):
+        if primary_says(os.path.exists(path)):
             return
+        opt = state.optimizer.state_dict()
+        ema = state.ema.state_dict() if state.ema is not None else None
+        rng = None if generator is None else generator.get_state()
+        if world_size() > 1 and rng is not None:
+            rng = all_gather_objects(rng)
+        if is_primary():
+            self._write(path, state, epoch, opt, ema, rng)
+        barrier()
+
+    def _write(self, path: str, state, epoch: int, opt: dict,
+               ema: Optional[dict], rng) -> None:
         if self.format == "orbax":
             files = {}
-            if generator is not None:
+            if rng is not None:
                 buf = io.BytesIO()
-                torch.save(generator.get_state(), buf)
+                torch.save(rng, buf)
                 files[GENERATOR_FILE] = buf.getvalue()
-            orbax_format.write_step(path, self._jax_tree(state, epoch), files)
+            orbax_format.write_step(path, self._jax_tree(state, epoch, opt,
+                                                         ema), files)
         else:
             payload = {
                 "params": state.model.state_dict(),
-                "opt_state": state.optimizer.state_dict(),
+                "opt_state": opt,
                 "step": int(state.step),
                 "epoch": int(epoch),
-                "rng": None if generator is None else generator.get_state(),
+                "rng": rng,
             }
-            if state.ema is not None:
-                payload["ema_params"] = state.ema.state_dict()
+            if ema is not None:
+                payload["ema_params"] = ema
             tmp = path + ".tmp"
             torch.save(payload, tmp)
             os.replace(tmp, path)
@@ -192,14 +219,16 @@ class CheckpointManager:
         """Record that the checkpoint at ``step`` sits on an epoch boundary
         and a resume should start at ``next_epoch``. One entry per step;
         crash-safe (tmp + rename): losing the marker just falls back to a
-        one-epoch replay."""
-        path = os.path.join(self.directory, "epoch_meta.json")
-        meta = self._read_epoch_meta()
-        meta[str(int(step))] = int(next_epoch)
-        tmp = path + ".tmp"
-        with open(tmp, "w") as f:
-            json.dump(meta, f)
-        os.replace(tmp, path)
+        one-epoch replay. The primary writes; every rank waits for it."""
+        if is_primary():
+            path = os.path.join(self.directory, "epoch_meta.json")
+            meta = self._read_epoch_meta()
+            meta[str(int(step))] = int(next_epoch)
+            tmp = path + ".tmp"
+            with open(tmp, "w") as f:
+                json.dump(meta, f)
+            os.replace(tmp, path)
+        barrier()
 
     def _read_epoch_meta(self) -> Dict[str, int]:
         try:
@@ -239,7 +268,8 @@ class CheckpointManager:
                          ) -> Optional[Tuple[object, int,
                                              Optional[torch.Tensor]]]:
         """Restore into ``state`` in place; returns (state, epoch, the saved
-        generator state or None), or None when no checkpoint exists. An EMA
+        generator state: one, a list of one per rank, or None), or None
+        when no checkpoint exists. An EMA
         the checkpoint lacks is seeded from the restored weights; an EMA
         the live state lacks is dropped with a warning."""
         step = step if step is not None else self.latest_step()
@@ -253,8 +283,7 @@ class CheckpointManager:
             if "ema_params" in payload:
                 state.ema.load_state_dict(payload["ema_params"])
             else:  # checkpoint predates EMA: seed from the restored weights
-                state.ema.params = [p.detach().clone()
-                                    for p in state.model.parameters()]
+                state.ema.reset(state.model)
         elif "ema_params" in payload:
             print(f"[checkpoint] WARNING: checkpoint at step {step} carries "
                   "EMA weights but the current config has ema_decay=0 — the "
@@ -355,9 +384,11 @@ class CheckpointManager:
         self._extras = extras
         return payload
 
-    def _jax_tree(self, state, epoch: int) -> dict:
-        """The JAX package's checkpoint tree of ``state``
-        (``CheckpointManager.save`` there, ``:40-66``)."""
+    def _jax_tree(self, state, epoch: int, opt_state: dict,
+                  ema: Optional[dict]) -> dict:
+        """The JAX package's checkpoint tree of ``state``, given its
+        optimizer's and EMA's whole state dicts (``CheckpointManager.save``
+        there, ``:40-66``)."""
         from motiondiffusion_moe_tpu_torch.models.bridge import (
             state_dict_to_jax)
         from motiondiffusion_moe_tpu_torch.models.moe import SwitchMoELayer
@@ -390,9 +421,9 @@ class CheckpointManager:
             tree.update(_zeros_tree(colls, dtype))
             return tree
 
-        count = np.asarray(opt.count, np.int32)
-        adam = {"count": count, "mu": moments(opt.mu, opt.mu_dtype),
-                "nu": moments(opt.nu, opt.nu_dtype)}
+        count = np.asarray(opt_state["count"], np.int32)
+        adam = {"count": count, "mu": moments(opt_state["mu"], opt.mu_dtype),
+                "nu": moments(opt_state["nu"], opt.nu_dtype)}
         tree = {
             "params": {"params": state_dict_to_jax(model.state_dict(), cfg),
                        **colls},
@@ -404,9 +435,9 @@ class CheckpointManager:
             "rng_width": np.asarray(0, np.int64),
             "has_rng": np.asarray(False),
         }
-        if state.ema is not None:
+        if ema is not None:
             tree["ema_params"] = {"params": state_dict_to_jax(
-                dict(zip([n for n, _ in named], state.ema.params)), cfg)}
+                dict(zip([n for n, _ in named], ema["params"])), cfg)}
         for keys, leaf in self._extras.items():
             node = tree
             for k in keys[:-1]:

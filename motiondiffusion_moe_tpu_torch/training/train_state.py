@@ -15,6 +15,15 @@ amortise dispatch, with the same per-step semantics as K single steps,
 which is what the eager loop runs. Random draws (the noise, dropout masks,
 stochastic-depth coins) come from the ``torch.Generator`` the caller
 passes, never from torch's global RNG.
+
+Data parallelism (``parallel/data_parallel.py``): given a
+``parallel.DataGroup``, each rank's step takes its own rows, its losses are
+its shares of the global batch's, its scalar metrics are averaged over the
+ranks, and :class:`Optimizer` averages the gradients before the clip.
+Under ``ParallelConfig.zero1`` the optimizer's moments and the EMA hold
+only the rank's shard, their ``state_dict`` gathers the whole into the
+primary's host memory (a collective) and ``load_state_dict`` takes the
+whole and keeps the shard.
 """
 
 from __future__ import annotations
@@ -42,6 +51,10 @@ from motiondiffusion_moe_tpu_torch.models.transformer import (
     generate_src_mask,
     sum_moe_aux_losses,
 )
+from motiondiffusion_moe_tpu_torch.parallel.data_parallel import (
+    FlatParams,
+    Sharded,
+)
 from motiondiffusion_moe_tpu_torch.training import losses as L
 
 Batch = Dict[str, torch.Tensor]
@@ -65,17 +78,22 @@ def grouped_global_norm(tensors: Sequence[torch.Tensor],
     return torch.stack(parts).sum().sqrt()
 
 
-def clip_by_grouped_global_norm_(grads: List[torch.Tensor],
-                                 max_norm: float) -> torch.Tensor:
-    """optax ``clip_by_global_norm`` in place: every gradient becomes
-    ``(g / norm) * max_norm`` unless ``norm < max_norm``. Decided on the
-    device (no host sync); returns the norm."""
-    norm = grouped_global_norm(grads)
+def clip_by_norm_(grads: List[torch.Tensor], norm: torch.Tensor,
+                  max_norm: float) -> torch.Tensor:
+    """optax ``clip_by_global_norm`` in place, given the global ``norm``:
+    every gradient becomes ``(g / norm) * max_norm`` unless ``norm <
+    max_norm``. Decided on the device (no host sync); returns the norm."""
     keep = norm < max_norm
     one = torch.ones((), device=norm.device)
     torch._foreach_div_(grads, torch.where(keep, one, norm))
     torch._foreach_mul_(grads, torch.where(keep, one, one * max_norm))
     return norm
+
+
+def clip_by_grouped_global_norm_(grads: List[torch.Tensor],
+                                 max_norm: float) -> torch.Tensor:
+    """:func:`clip_by_norm_` at the grouped global norm of ``grads``."""
+    return clip_by_norm_(grads, grouped_global_norm(grads), max_norm)
 
 
 # ---------------------------------------------------------------------------
@@ -144,10 +162,19 @@ class Optimizer:
     rounded. ``adam_nu_dtype="bfloat16"`` is ``scale_by_adam_compact``: both
     moments accumulate in f32, are stored rounded, and the update reads the
     stored ones. Parameters without a gradient take a zero gradient, as in
-    a JAX gradient tree."""
+    a JAX gradient tree.
+
+    Over the data ranks ``dp`` the gradients are views of flat buffers
+    (``parallel.FlatParams``), averaged over the ranks in place before the
+    clip. With ``cfg.parallel.zero1`` as well, the parameters are views of
+    flat buffers too and ``mu`` and ``nu`` hold one flat shard per
+    parameter dtype: the gradient is reduce-scattered, the clip reads the
+    global norm (the ranks' sums of squares added), Adam updates the rank's
+    shard of the parameters, and the shards are all-gathered into them."""
 
     def __init__(self, params: Sequence[nn.Parameter], cfg: ExperimentConfig,
-                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
+                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+                 dp=None):
         tc = cfg.train
         self.params = list(params)
         self.max_norm = tc.grad_clip_norm
@@ -157,12 +184,21 @@ class Optimizer:
         self.nu_dtype = _DTYPES[tc.adam_nu_dtype]
         self.compact = self.nu_dtype is not None
         self.count = 0
+        self.dp = dp
+        self.flat = (FlatParams(self.params, dp, cfg.parallel.zero1)
+                     if dp is not None else None)
+        self.shards = self.flat if cfg.parallel.zero1 else None
+        like = (self.params if self.shards is None
+                else self.shards.param_shards())
         self.mu = [torch.zeros_like(p, dtype=self.mu_dtype or p.dtype)
-                   for p in self.params]
+                   for p in like]
         self.nu = [torch.zeros_like(p, dtype=self.nu_dtype or p.dtype)
-                   for p in self.params]
+                   for p in like]
 
     def zero_grad(self) -> None:
+        if self.flat is not None:
+            self.flat.zero_grad()
+            return
         for p in self.params:
             p.grad = None
 
@@ -170,9 +206,26 @@ class Optimizer:
     def step(self) -> torch.Tensor:
         """Clip the parameters' gradients and apply one Adam update;
         returns the gradient norm before clipping."""
+        if self.shards is not None:
+            grads = self.shards.reduce_scatter_grads_()
+            sq = torch.stack([g.float().square().sum() for g in grads]).sum()
+            norm = clip_by_norm_(grads, self.dp.total(sq).sqrt(),
+                                 self.max_norm)
+            self._adam_(self.shards.param_shards(), grads)
+            self.shards.gather_params_()
+            return norm
+        if self.flat is not None:
+            self.flat.mean_grads_()
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in self.params]
         norm = clip_by_grouped_global_norm_(grads, self.max_norm)
+        self._adam_(self.params, grads)
+        return norm
+
+    def _adam_(self, params: List[torch.Tensor],
+               grads: List[torch.Tensor]) -> None:
+        """One Adam update of ``params`` in place, from ``grads`` and the
+        moments (each list in the order of ``self.mu``)."""
         lr = self.lr(self.count) if callable(self.lr) else self.lr
         self.count += 1
         b1, b2 = self.b1, self.b2
@@ -198,18 +251,26 @@ class Optimizer:
         upd = torch._foreach_div(mu, c1)
         torch._foreach_div_(upd, denom)
         torch._foreach_mul_(upd, -lr)
-        torch._foreach_add_(self.params, upd)
-        return norm
+        torch._foreach_add_(params, upd)
 
     def state_dict(self) -> dict:
-        return {"count": self.count, "mu": self.mu, "nu": self.nu}
+        """The whole state, one moment per parameter. Under ZeRO-1 a
+        collective that every rank calls: the primary's moments are then
+        in host memory, the other ranks' None."""
+        if self.shards is None:
+            return {"count": self.count, "mu": self.mu, "nu": self.nu}
+        return {"count": self.count, "mu": self.shards.gather(self.mu),
+                "nu": self.shards.gather(self.nu)}
 
     def load_state_dict(self, state: dict) -> None:
+        """From the whole state (under ZeRO-1 the rank keeps its shard)."""
         self.count = int(state["count"])
         for dst, src in ((self.mu, state["mu"]), (self.nu, state["nu"])):
-            if len(dst) != len(src):
+            if len(src) != len(self.params):
                 raise ValueError(f"optimizer state has {len(src)} moments, "
-                                 f"the model {len(dst)} parameters")
+                                 f"the model {len(self.params)} parameters")
+            if self.shards is not None:
+                src = self.shards.local(src)
             for d, s in zip(dst, src):
                 d.copy_(s)
 
@@ -217,24 +278,45 @@ class Optimizer:
 class EMA:
     """Exponential moving average of every parameter (``:368-374``):
     ema = d * ema + (1 - d) * p after each update, starting from a copy of
-    the weights (no bias correction)."""
+    the weights (no bias correction). With ``shards`` (a
+    ``parallel.Sharded`` of the model's parameters; ZeRO-1) it holds and
+    updates the rank's shard alone; ``state_dict`` then gathers the whole
+    into the primary's host memory (a collective; None on the other
+    ranks)."""
 
-    def __init__(self, model: nn.Module, decay: float):
+    def __init__(self, model: nn.Module, decay: float, shards=None):
         self.decay = decay
-        self.params = [p.detach().clone() for p in model.parameters()]
+        self.shards = shards
+        self.params = self._own(model)
+
+    def _own(self, model: nn.Module) -> List[torch.Tensor]:
+        params = [p.detach() for p in model.parameters()]
+        if self.shards is not None:
+            return self.shards.local(params)
+        return [p.clone() for p in params]
 
     @torch.no_grad()
     def update(self, model: nn.Module) -> None:
+        src = [p.detach() for p in model.parameters()]
+        if self.shards is not None:
+            src = self.shards.local(src)
         torch._foreach_mul_(self.params, self.decay)
-        torch._foreach_add_(self.params, [p.detach() for p in
-                                          model.parameters()],
-                            alpha=1.0 - self.decay)
+        torch._foreach_add_(self.params, src, alpha=1.0 - self.decay)
+
+    def reset(self, model: nn.Module) -> None:
+        """Restart from the model's weights."""
+        self.params = self._own(model)
 
     def state_dict(self) -> dict:
-        return {"params": self.params}
+        if self.shards is None:
+            return {"params": self.params}
+        return {"params": self.shards.gather(self.params)}
 
     def load_state_dict(self, state: dict) -> None:
-        for d, s in zip(self.params, state["params"]):
+        src = state["params"]
+        if self.shards is not None:
+            src = self.shards.local(src)
+        for d, s in zip(self.params, src):
             d.copy_(s)
 
 
@@ -249,12 +331,19 @@ class TrainState:
     step: int = 0
 
 
-def create_train_state(model: nn.Module, cfg: ExperimentConfig) -> TrainState:
+def create_train_state(model: nn.Module, cfg: ExperimentConfig,
+                       dp=None) -> TrainState:
     """Optimizer over the trainable parameters (the frozen FAVOR
     projections carry ``requires_grad=False``; in JAX their gradient is an
-    exact zero, so Adam leaves them unchanged either way) and the EMA."""
-    opt = Optimizer([p for p in model.parameters() if p.requires_grad], cfg)
-    ema = EMA(model, cfg.train.ema_decay) if cfg.train.ema_decay > 0 else None
+    exact zero, so Adam leaves them unchanged either way) and the EMA, over
+    the data ranks ``dp`` (a ``parallel.DataGroup``) when given."""
+    opt = Optimizer([p for p in model.parameters() if p.requires_grad], cfg,
+                    dp=dp)
+    ema = None
+    if cfg.train.ema_decay > 0:
+        shards = (Sharded(list(model.parameters()), dp)
+                  if dp is not None and cfg.parallel.zero1 else None)
+        ema = EMA(model, cfg.train.ema_decay, shards)
     return TrainState(model=model, optimizer=opt, ema=ema)
 
 
@@ -272,14 +361,22 @@ class TrainStep:
     [B, N], ``t`` [B], ``t_weight`` [B], all on the model's device. With
     ``grad_accum_steps = A > 1`` the batch is split into A contiguous
     microbatches, each drawing its own noise, and the update uses the mean
-    of their gradients."""
+    of their gradients.
+
+    Over the data ranks ``dp`` (a ``parallel.DataGroup``) the batch is the
+    rank's rows, each microbatch's losses are its shares of the global
+    microbatch's (:meth:`_global`: one collective a microbatch), and the
+    scalar metrics are the global batch's (the mean over the ranks, one
+    collective a step); ``per_sample_mse`` stays the rank's rows."""
 
     def __init__(self, sched: DiffusionSchedule, cfg: ExperimentConfig,
                  normalizer_stats: Optional[Tuple[np.ndarray,
-                                                  np.ndarray]] = None):
+                                                  np.ndarray]] = None,
+                 dp=None):
         dc, tc = cfg.diffusion, cfg.train
         self.sched = sched
         self.cfg = cfg
+        self.dp = dp
         self.mean_type = ModelMeanType(dc.model_mean_type)
         self.var_type = ModelVarType(dc.model_var_type)
         self.loss_type = LossType(dc.loss_type)
@@ -293,7 +390,8 @@ class TrainStep:
              generator: Optional[torch.Generator] = None
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """(total loss, metrics) of one forward in training mode on the
-        given noise: the JAX ``loss_fn``."""
+        given noise: the JAX ``loss_fn``; over the data ranks, this rank's
+        share of the global microbatch's (:meth:`_global`)."""
         tc = self.cfg.train
         ctx = TrainContext(generator=generator)
         x_start, t = batch["motion"], batch["t"]
@@ -305,43 +403,73 @@ class TrainStep:
                                     var_type=self.var_type,
                                     loss_type=self.loss_type)
         src_mask = generate_src_mask(x_start.shape[1], batch["length"])
-        loss_rec = L.masked_frame_mse(terms["pred"], terms["target"],
-                                      src_mask, batch.get("t_weight"))
-        moe_loss = (sum_moe_aux_losses(ctx).to(loss_rec.device)
-                    * self.cfg.model.moe_aux_loss_weight)
-        total = loss_rec + moe_loss
-        metrics = {"loss_mot_rec": loss_rec, "loss_moe": moe_loss}
+        # (name, weight, the masked sums of its mean or means)
+        parts = [("loss_mot_rec", 1.0, L.frame_mse_sums(
+            terms["pred"], terms["target"], src_mask, batch.get("t_weight")))]
         if (tc.w_velocity > 0 or tc.w_acceleration > 0 or tc.w_structure > 0
                 or tc.w_progressive > 0):
             pred_x0 = (pred_xstart_from_eps(self.sched, x_t, t, terms["pred"])
                        if self.mean_type == ModelMeanType.EPSILON
                        else terms["pred"])
-            extra = []
             if tc.w_velocity > 0:
-                extra.append(("loss_velocity", tc.w_velocity,
-                              L.velocity_loss(pred_x0, x_start, src_mask)))
+                parts.append(("loss_velocity", tc.w_velocity,
+                              L.velocity_sums(pred_x0, x_start, src_mask)))
             if tc.w_acceleration > 0:
-                extra.append(("loss_acceleration", tc.w_acceleration,
-                              L.acceleration_loss(pred_x0, x_start,
+                parts.append(("loss_acceleration", tc.w_acceleration,
+                              L.acceleration_sums(pred_x0, x_start,
                                                   src_mask)))
             if tc.w_progressive > 0:
-                extra.append(("loss_progressive", tc.w_progressive,
-                              L.progressive_loss(pred_x0, x_start, src_mask)))
+                parts.append(("loss_progressive", tc.w_progressive,
+                              L.progressive_sums(pred_x0, x_start,
+                                                 src_mask)))
             if tc.w_structure > 0:
                 mean, std = (torch.as_tensor(a, device=x_start.device)
                              for a in self.norm_stats)
-                extra.append(("loss_structure", tc.w_structure,
-                              L.structure_loss(pred_x0 * std + mean,
+                parts.append(("loss_structure", tc.w_structure,
+                              L.structure_sums(pred_x0 * std + mean,
                                                x_start * std + mean, src_mask,
                                                self.cfg.data.num_joints)))
-            for name, w, value in extra:
-                total = total + w * value
-                metrics[name] = value
+        dens, moe_aux, scale = self._global(
+            [den for _, _, sums in parts for _, den in sums], ctx)
+        dens = iter(dens)
+        values = [L.mean_of([(num, next(dens)) for num, _ in sums], scale)
+                  for _, _, sums in parts]
+        loss_rec = values[0]
+        moe_loss = (moe_aux.to(loss_rec.device)
+                    * self.cfg.model.moe_aux_loss_weight)
+        total = loss_rec + moe_loss
+        metrics = {"loss_mot_rec": loss_rec, "loss_moe": moe_loss}
+        for (name, w, _), value in zip(parts[1:], values[1:]):
+            total = total + w * value
+            metrics[name] = value
         metrics["loss_total"] = total
         per_frame = ((terms["pred"] - terms["target"]) ** 2).mean(-1)
         metrics["per_sample_mse"] = ((per_frame * src_mask).sum(1)
                                      / src_mask.sum(1).clamp(min=1.0))
         return total, {k: v.detach() for k, v in metrics.items()}
+
+    def _global(self, dens: List[torch.Tensor], ctx: TrainContext):
+        """(the masked means' denominators, the MoE aux loss, the scale of
+        the means' numerators). In one process: ``dens``, the layers' aux
+        losses, 1. Over W ranks, one all-reduce of ``dens`` and of every
+        MoE layer's expert shares f gives the global batch's: then a rank's
+        numerator x W over the global denominator, and E sum f P with the
+        global f (which has no gradient) and the rank's P, average over
+        the ranks to the global batch's losses and gradients, since each
+        rank holds as many rows."""
+        if self.dp is None:
+            return dens, sum_moe_aux_losses(ctx), 1
+        W, k = self.dp.world, len(dens)
+        fs = [f for f, _ in ctx.moe_balance]
+        flat = self.dp.total(torch.cat([torch.stack(dens).float()]
+                                       + [f.float() for f in fs]))
+        aux, off = [], k
+        for f, mean_p in ctx.moe_balance:
+            f_all = (flat[off:off + f.numel()] / W).to(f.dtype)
+            aux.append(f.numel() * torch.sum(f_all * mean_p))
+            off += f.numel()
+        aux = torch.stack(aux).sum() if aux else torch.zeros(())
+        return list(flat[:k].unbind()), aux, W
 
     def backward(self, state: TrainState, batch: Batch,
                  generator: Optional[torch.Generator],
@@ -365,11 +493,15 @@ class TrainStep:
             total, metrics = self.loss(model, chunk, eps, generator)
             (total / A).backward()
             parts.append(metrics)
-        if A == 1:
-            return parts[0]
-        return {k: (torch.cat([m[k] for m in parts]) if k == "per_sample_mse"
-                    else torch.stack([m[k] for m in parts]).mean())
-                for k in parts[0]}
+        metrics = parts[0] if A == 1 else {
+            k: (torch.cat([m[k] for m in parts]) if k == "per_sample_mse"
+                else torch.stack([m[k] for m in parts]).mean())
+            for k in parts[0]}
+        if self.dp is not None:  # the global batch's: the ranks' mean
+            names = [k for k in metrics if k != "per_sample_mse"]
+            mean = self.dp.total(torch.stack([metrics[k] for k in names]))
+            metrics.update(zip(names, (mean / self.dp.world).unbind()))
+        return metrics
 
     def apply_update(self, state: TrainState,
                      metrics: Dict[str, torch.Tensor]

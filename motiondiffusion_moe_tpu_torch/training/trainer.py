@@ -1,4 +1,4 @@
-"""Training orchestration on one device.
+"""Training orchestration on one device or over data-parallel ranks.
 
 Port of ``motiondiffusion_moe_tpu/training/trainer.py``: the epoch loop, the
 (cond, uncond) double step per batch (``ddpm_trainer.py:319-333``), caption
@@ -13,8 +13,21 @@ Steps run one by one whatever ``steps_per_call`` says (see
 (``trainer.py:326-337``: never draw t from weights a buffered step has not
 updated yet) holds by construction.
 
-One device only: a ``ParallelConfig`` that asks for more than one raises
-``NotImplementedError`` (the ``parallel/`` port is a later slice). Host
+Data parallelism (``parallel/``): where a process group is initialised
+(``parallel.initialize_distributed``), each process is one data rank,
+``num_data_partitions`` (0: the world size) must equal the world size, and
+the world size must divide each microbatch (JAX ``_maybe_make_mesh``,
+``trainer.py:127-169``). The loader gives each rank its own rows; the
+losses, gradients and metrics are the global batch's
+(``train_state.py``); ``zero1`` shards the Adam moments and the EMA. Rank
+r's host RNG (t draws, caption dropout) is ``default_rng(seed + 1_000_003
+* r)``, the JAX process r's. Its ``torch.Generator`` (noise, dropout) is
+seeded ``seed + 1 + 1_000_003 * r``: the port's own choice, since JAX draws
+the global batch's noise from one key. Only the primary prints and logs;
+saves are collective (``training/checkpoint.py``). The expert, model, seq
+and pipe axes raise (ROADMAP, queue 1, items 6b and 6c), and so does
+``moe_compute="dispatch"`` on more than one rank: its capacity and fill
+order span the global batch, which needs 6b's cross-rank dispatch. Host
 work per step: draw t from the schedule sampler, tokenize the captions
 (with the tokenizer of the config's text encoder), copy the batch to the
 device from pinned memory.
@@ -36,8 +49,11 @@ from motiondiffusion_moe_tpu_torch.diffusion.samplers import (
     create_named_schedule_sampler,
 )
 from motiondiffusion_moe_tpu_torch.models.layers import init_weights
+from motiondiffusion_moe_tpu_torch.models.moe import SwitchMoELayer
 from motiondiffusion_moe_tpu_torch.models.text_encoder import get_tokenizer
 from motiondiffusion_moe_tpu_torch.models.transformer import MotionTransformer
+from motiondiffusion_moe_tpu_torch.parallel.data_parallel import data_group
+from motiondiffusion_moe_tpu_torch.parallel.distributed import primary_says
 from motiondiffusion_moe_tpu_torch.training.checkpoint import (
     CheckpointManager,
     resume_seed,
@@ -50,19 +66,21 @@ from motiondiffusion_moe_tpu_torch.training.train_state import (
 from motiondiffusion_moe_tpu_torch.utils.logging import MetricsLogger
 
 
-def check_single_device(cfg: ExperimentConfig) -> None:
-    """Raise for a ParallelConfig that needs more than one device."""
-    pc = cfg.parallel
-    asked = {"num_expert_partitions": pc.num_expert_partitions,
-             "num_model_partitions": pc.num_model_partitions,
-             "num_seq_partitions": pc.num_seq_partitions,
-             "num_pipeline_stages": pc.num_pipeline_stages,
-             "num_data_partitions": pc.num_data_partitions}
+# the ParallelConfig axes not ported yet, by ROADMAP item
+_UNPORTED_AXES = {"num_expert_partitions": "6b", "num_model_partitions": "6c",
+                  "num_seq_partitions": "6c", "num_pipeline_stages": "6c"}
+
+
+def check_parallel_config(cfg: ExperimentConfig) -> None:
+    """Raise for a ParallelConfig axis the port does not run: all but the
+    data axis."""
+    asked = {k: getattr(cfg.parallel, k) for k in _UNPORTED_AXES}
     multi = {k: v for k, v in asked.items() if v > 1}
-    if multi or pc.zero1:
+    if multi:
+        items = sorted({_UNPORTED_AXES[k] for k in multi})
         raise NotImplementedError(
-            f"the port trains on one device; {multi or 'zero1'} needs the "
-            "parallel/ port")
+            f"{multi}: the port trains over the data axis only; the other "
+            f"axes are ROADMAP.md queue 1, item {' and '.join(items)}")
 
 
 class Trainer:
@@ -71,7 +89,11 @@ class Trainer:
                  normalizer_stats=None,
                  logger: Optional[MetricsLogger] = None,
                  device="cuda"):
-        check_single_device(cfg)
+        check_parallel_config(cfg)
+        self.dp = data_group(cfg)
+        self.world = self.dp.world if self.dp is not None else 1
+        self.rank = self.dp.rank if self.dp is not None else 0
+        self.primary = self.rank == 0
         self.cfg = cfg
         self.device = torch.device(device)
         self.accum = max(1, cfg.train.grad_accum_steps)
@@ -81,16 +103,27 @@ class Trainer:
                 f"grad_accum_steps {self.accum}")
         self.model = model if model is not None else MotionTransformer(
             cfg.model)
+        if self.world > 1 and any(isinstance(m, SwitchMoELayer)
+                                  and m.compute == "dispatch"
+                                  for m in self.model.modules()):
+            raise NotImplementedError(
+                "moe_compute='dispatch' over data-parallel ranks: its "
+                "capacity and fill order span the global batch, which "
+                "needs the cross-rank dispatch of ROADMAP.md queue 1, item "
+                "6b; use dense_fused or dense")
         self.tokenize = get_tokenizer(cfg.model)
         self.sched = make_schedule(schedule_name=cfg.diffusion.beta_schedule,
                                    num_timesteps=cfg.diffusion.num_timesteps,
                                    device=self.device)
         self.sampler = create_named_schedule_sampler(
             cfg.diffusion.schedule_sampler, cfg.diffusion.num_timesteps)
-        self.train_step = TrainStep(self.sched, cfg, normalizer_stats)
+        self.train_step = TrainStep(self.sched, cfg, normalizer_stats,
+                                    dp=self.dp)
         self.logger = logger or MetricsLogger(cfg.train.log_every)
-        # host RNG: schedule-sampler t draws and caption dropout
-        self._np_rng = np.random.default_rng(cfg.train.seed)
+        # host RNG: schedule-sampler t draws and caption dropout, JAX
+        # process r's stream on rank r
+        self._np_rng = np.random.default_rng(
+            cfg.train.seed + 1_000_003 * self.rank)
 
     def init_state(self) -> TrainState:
         """Seeded parameters (``init_weights``, the flax initialisers) on
@@ -106,7 +139,7 @@ class Trainer:
                 graft_pretrained_text_encoder)
             graft_pretrained_text_encoder(self.model, self.cfg.model)
         self.model.to(self.device)
-        return create_train_state(self.model, self.cfg)
+        return create_train_state(self.model, self.cfg, dp=self.dp)
 
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
         t = torch.from_numpy(np.ascontiguousarray(a))
@@ -143,25 +176,32 @@ class Trainer:
             checkpoints: Optional[CheckpointManager] = None,
             start_epoch: int = 0) -> TrainState:
         cfg = self.cfg
+        say = print if self.primary else (lambda *a, **k: None)
+        offset = 1_000_003 * self.rank
         if generator is None:
             generator = torch.Generator(self.device).manual_seed(
-                cfg.train.seed + 1)
+                cfg.train.seed + 1 + offset)
         if checkpoints is not None:
             restored = checkpoints.restore_with_rng(state)
             if restored is not None:
                 state, start_epoch, rng_state = restored
-                if rng_state is not None:
-                    generator.set_state(rng_state)
-                elif checkpoints.format == "orbax":
+                saved = (rng_state if isinstance(rng_state, list) else
+                         [] if rng_state is None else [rng_state])
+                if len(saved) == self.world:
+                    generator.set_state(saved[self.rank])
+                elif saved or checkpoints.format == "orbax":
                     seed = resume_seed(cfg.train.seed, state.step)
-                    generator.manual_seed(seed)
-                    print(f"[trainer] step {state.step} holds no torch "
-                          "generator state (a JAX run's key cannot become "
-                          f"one): generator seeded with {seed} = "
-                          f"resume_seed(seed={cfg.train.seed}, "
-                          f"step={state.step})")
-                print(f"[trainer] resumed from step {state.step} "
-                      f"(epoch {start_epoch})")
+                    generator.manual_seed((seed + offset) % 2 ** 64)
+                    why = (f"it holds {len(saved)} ranks' generator "
+                           f"states, this run has {self.world}" if saved
+                           else "it holds no torch generator state (a JAX "
+                           "run's key cannot become one)")
+                    say(f"[trainer] step {state.step}: {why}; generator "
+                        f"seeded with {seed} = resume_seed(seed="
+                        f"{cfg.train.seed}, step={state.step}), plus "
+                        "1_000_003 x rank")
+                say(f"[trainer] resumed from step {state.step} "
+                    f"(epoch {start_epoch})")
 
         start_time = time.time()
         every = cfg.train.save_latest_every
@@ -182,7 +222,8 @@ class Trainer:
                     self._update_sampler(uncond, umetrics)
                     logs.update((f"uncond_{k}", v) for k, v in
                                 self._scalars(umetrics).items())
-                self.logger.log(state.step, epoch, logs, start_time)
+                if self.primary:
+                    self.logger.log(state.step, epoch, logs, start_time)
                 if (checkpoints is not None
                         and state.step // every > prev // every):
                     checkpoints.save(state.step, state, epoch, generator)
@@ -190,7 +231,7 @@ class Trainer:
                 # the end-of-epoch save records epoch + 1 so that a resume
                 # starts the next epoch; when the cadence save already took
                 # this step, the sidecar marker carries the epoch + 1
-                if checkpoints.latest_step() == state.step:
+                if primary_says(checkpoints.latest_step() == state.step):
                     checkpoints.mark_epoch_complete(state.step, epoch + 1)
                 else:
                     checkpoints.save(state.step, state, epoch + 1, generator)

@@ -36,7 +36,8 @@ NEEDED = tuple("motiondiffusion_moe_tpu_torch." + m for m in (
     "tools.serving_quality", "tools.profile_bench", "tools.bench_loader",
     "tools.soak_report", "utils.plot", "utils.media", "utils.profiling",
     "utils.debugging", "utils.bench_init", "utils.zstd", "utils.ocdbt",
-    "utils.orbax_format", "training.checkpoint"))
+    "utils.orbax_format", "training.checkpoint", "parallel",
+    "parallel.distributed", "parallel.data_parallel"))
 
 
 @pytest.mark.parametrize("preset", ["small_dense", "moe_small", "moe_big"])
