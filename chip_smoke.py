@@ -244,9 +244,10 @@ first use) and exits non-zero without one. Phases, each fatal on failure:
          recover_from_ric -> motion_temporal_filter from the same seed,
          kernels 1 and 2 launched 32 x forwards. K4:
          tools/serving_quality.py --batch 8 with a seeded finest.tar on a
-         run dir of the flagship at 2 blocks a scale (full width; at 8 the
-         whole run passed 900 s on a slow host): a finite table, the two bf16
-         drift lines, kernels 1 and 2 launched 8 x 1153 forwards, seconds. K5:
+         run dir of the flagship at K4_LAYERS (1) block a scale (full
+         width; the reference's 1,153 forwards are host-bound): a finite
+         table, the two bf16 drift lines, kernels 1 and 2 launched 4 x 1153
+         forwards, seconds. K5:
          tools/profile_bench.py --mode sample --steps 5 --batch 16 and
          --mode train --batch 8: the family table's total within 10 % of
          the profiler's device total, the rows of kernels 1 and 2 (train:
@@ -258,7 +259,8 @@ first use) and exits non-zero without one. Phases, each fatal on failure:
          step and the epoch equal its .npz bit for bit, and
          CheckpointManager.read and load_run equal the bridge of those
          leaves; its width has no kernel instance, so no kernel runs. L2:
-         the flagship (bf16 compute, EMA 0.999, warmup 100) trained 2 steps
+         the flagship at L_LAYERS (2) blocks a scale (full width, bf16
+         compute, EMA 0.999, warmup 100) trained 2 steps
          at B = 32, dropout 0.1, saved in the JAX layout (plain zarr; the
          bytes, seconds and GB/s of the write and of the read, the file
          layer apart from the tree's conversion); Trainer.fit resumes the
@@ -266,14 +268,15 @@ first use) and exits non-zero without one. Phases, each fatal on failure:
          mu, nu, count, EMA, step, epoch and the generator back bit for
          bit; load_run(use_ema=True) -> dpm20 of 16 prompts x 196 frames
          bit for bit against the in-memory EMA, kernels 1 and 2 launched
-         exactly 32 x 21 times, s/motion; the resumed steps against the
+         exactly 8 x 21 times, s/motion; the resumed steps against the
          in-memory state continued with the same generator (bit for bit,
          or within phase B's floor: which one is printed), kernel 3
-         launched 32 x 2 times, and the end-of-epoch save asked of the
+         launched 8 x 2 times, and the end-of-epoch save asked of the
          JAX-format manager (recorded, not written again: the first save
          wrote that layout).
   M      data-parallel training and ZeRO-1 over torch.distributed
-         (parallel/): the flagship at full width and depth, f32 compute,
+         (parallel/): the flagship at full width and M_LAYERS (2) blocks
+         a scale, f32 compute,
          dropout 0, EMA 0.999, one global batch of 32 at T = 196 with
          ragged lengths (long on rank 0's rows, short on rank 1's), t and
          noise injected. M1 (i): one rank over NCCL through parallel/
@@ -285,20 +288,50 @@ first use) and exits non-zero without one. Phases, each fatal on failure:
          through the host, zero1 off and on, each against the one-process
          step that rank 0 runs (tests/test_torch_parallel.py's
          tolerances); per rank: the launches of kernels 1-4 in the step
-         (32 each), the resident elements and bytes of the moments and the
+         (8 each at M_LAYERS), the resident elements and bytes of the moments and the
          EMA (under zero1 one shard of each, at most ceil(n / W) plus the
          256-byte alignment of each tensor in the flat buffers),
          max_memory_allocated of the step and ms per step (two ranks
          sharing one card: not a speed-up); then 2 steps in the flagship's
-         bf16 compute with zero1, finite, the same launches. M2:
-         tools/train.py --num_processes 2 --data_parallel 2 --zero1 as two
-         processes on this card, each started by this script's --m2-rank
-         entry, which joins the group over gloo (NCCL refuses two ranks on
-         one device) before it calls the CLI's main; synthetic set, 2
-         blocks a scale at full width, 2 optimizer steps (cond + uncond)
-         and the torch-format save: only rank 0 logs and writes
-         config.json, meta/ and ckpt/; then a one-process resume of the
-         run dir starts at step 2 with the gathered state bit for bit.
+         bf16 compute with zero1, finite, the same launches. (M2, the
+         train CLI as two processes, is subsumed by N3 in the whole run;
+         scripts/dp_cards.py still runs it on N cards.)
+  N      expert-parallel MoE training (parallel/mesh.py,
+         parallel/moe_parallel.py): ExperimentConfig.moe_big() (latent
+         768, 8 heads of 96, 16 experts of hidden 1024, top-2) at 2 blocks
+         a scale (N_LAYERS; full width; 403.8 M parameters), seeded, on 8
+         ranks sharing this card over gloo, each a --n-rank worker, the
+         CUDA tensors of every collective staged through the host. N1:
+         the MoE layer at moe_big's widths (4 rows x 196 frames a rank,
+         cf 2.0), dispatch (the all-to-all, each rank's chunk its
+         capacity) and dense (all-gather, reduce-scatter of the f32
+         partial sums), f32 and bf16, against the one-process layer that
+         rank 0 runs chunk by chunk (capacity_dispatch_ffn routed as the
+         expert-parallel dispatch routes, or dense): the output and the
+         gradients of x, the gate and the experts within a rel RMS of
+         N_LAYER_F32_REL / N_LAYER_BF16_REL, the dropped pairs equal. N2:
+         one train step through the Trainer on the global batch of 32
+         (M1's batch: ragged lengths, injected t and noise, dropout 0,
+         EMA 0.999, f32) in four layouts: moe_big as written (ep = 8, its
+         dense_fused run as dense), ep = 8 with dispatch, ep = 4 x dp = 2
+         with ZeRO-1 and dispatch, ep = 1 x dp = 8 with ZeRO-1 and
+         dispatch (the global batch's capacity); rank 0 first runs the
+         one-process steps (dense; dispatch with chunked_dispatch, the
+         per-chunk capacity; dispatch on the global batch) and keeps
+         them in its host memory. Each layout against its reference by
+         M1's rules (loss and grad_norm, the gradients caught where the
+         optimizer clips them, the parameters after the update), the
+         gathered EMA and mu against what the gathered parameters and
+         gradients make of them; per rank: kernels 1-4 launched 8 times a
+         step, 1 / ep of the expert elements held, max_memory_allocated,
+         ms a step (eight ranks on one card, collectives through the
+         host: not a speed). N3: tools/train.py --num_processes 8
+         --expert_parallel 8 --data_parallel 1 --zero1 at moe_big's widths
+         and 2 blocks a scale as 8 processes on this card (--m2-rank), 2
+         optimizer steps and the save: only rank 0 logs and writes, the
+         checkpoint holds the global [16, ...] experts; then a one-process
+         resume of the run dir starts at step 2 with the gathered state
+         bit for bit.
 
 The last line is {"ok": true, "device": {...}}, printed only when every
 phase passed; the line before it lists the kernels of the paths, each with
@@ -4052,7 +4085,7 @@ def dispatch_drops(m, args, ids):
     return out, sum(dropped), sum(i.numel() for i in seen), max(dropped)
 
 
-K4_LAYERS = 2  # K4's blocks a scale
+K4_LAYERS = 1  # K4's blocks a scale (full width)
 
 
 def phase_k(cfg, dev, card, c_timings):
@@ -4480,6 +4513,7 @@ def phase_k5(root, card):
 # L: a JAX run's orbax checkpoint, read, resumed, served and written
 # ---------------------------------------------------------------------------
 
+L_LAYERS = 2  # L2's blocks a scale (full width)
 ORBAX_FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                              "tests", "fixtures", "jax_orbax_run")
 
@@ -4647,8 +4681,10 @@ def phase_l2(cfg, root, dev, card):
     from motiondiffusion_moe_tpu_torch.training.trainer import Trainer
     from motiondiffusion_moe_tpu_torch.utils import orbax_format
 
-    cfgL = dataclasses.replace(cfg, train=dataclasses.replace(
-        cfg.train, ema_decay=0.999, lr_warmup_steps=100, num_epochs=1))
+    cfgL = dataclasses.replace(
+        cfg, model=dataclasses.replace(cfg.model, num_layers=L_LAYERS),
+        train=dataclasses.replace(cfg.train, ema_decay=0.999,
+                                  lr_warmup_steps=100, num_epochs=1))
     check(cfgL.model.dropout > 0 and cfgL.train.uncond_step,
           "L2 trains at dropout > 0 with the uncond double step")
     run = os.path.join(root, cfgL.name)
@@ -4669,7 +4705,8 @@ def phase_l2(cfg, root, dev, card):
     state = trainer.fit(state, loader, generator=gen)
     torch.cuda.synchronize()
     check(state.step == 2, f"L2: {state.step} steps, expected 2")
-    print(f"[L2] flagship moe_small, bf16 compute, ema_decay 0.999, warmup "
+    print(f"[L2] flagship moe_small at {L_LAYERS} blocks a scale, bf16 "
+          f"compute, ema_decay 0.999, warmup "
           f"100: 2 train steps at B=32, dropout {cfgL.model.dropout} in "
           f"{time.perf_counter() - t0:.1f} s")
 
@@ -4839,6 +4876,7 @@ def phase_l2(cfg, root, dev, card):
 # ---------------------------------------------------------------------------
 
 M_B, M_LONG, M_SHORT = 32, (150, 196), (40, 100)  # rank 0 long, rank 1 short
+M_LAYERS = 2   # M1's blocks a scale (full width)
 M2_LAYERS = 2  # M2's blocks a scale (full width)
 M_KERNELS = ("favor_qkv", "performer_epilogue", "favor_qkv_bwd",
              "performer_epilogue_bwd")
@@ -4990,42 +5028,49 @@ def m_resident(state) -> dict:
             "ema_shard": -(-every // world)}
 
 
-def m_compare(got, ref, grads, ref_grads, lr, names, tnames) -> dict:
-    """{part: (worst error over its tolerance, the parameter)}, <= 1
-    passing. The gradient, mu and nu by D2's rule for the same f32 math in
-    another order (the flagship's sums over 6,272 tokens cancel, so an
-    entry's error is no fixed share of the largest entry): each
-    parameter's RMS error relative to its RMS, floored at 1e-3 of the RMS
-    of all, within STEP_GRAD_REL_RMS (twice that for nu, a square). A
-    parameter and the EMA after the update within 2e-6 where the gradient
-    is at least 1e-6, within 2 lr elsewhere (Adam's first step moves each
-    by lr g / (|g| + eps))."""
+def rel_rms_rule(pairs, factor=1):
+    """(worst error over tolerance, its index) of D2's rule for the same f32
+    math in another order: each tensor's RMS error relative to its RMS,
+    floored at 1e-3 of the RMS of all, within factor x STEP_GRAD_REL_RMS
+    (the flagship's sums over 6,272 tokens cancel, so an entry's error is
+    no fixed share of the largest entry)."""
     import torch
 
-    def rel_rms_rule(pairs, factor):
-        pairs = list(pairs)
-        floor = 1e-3 * torch.sqrt(torch.stack(
-            [b.float().pow(2).mean() for _, b in pairs]).mean())
-        errs = [float((a - b).float().pow(2).mean().sqrt() / torch.maximum(
-            b.float().pow(2).mean().sqrt(), floor))
-            / (factor * STEP_GRAD_REL_RMS) for a, b in pairs]
-        i = int(np.argmax(errs))
-        return errs[i], i
+    pairs = list(pairs)
+    floor = 1e-3 * torch.sqrt(torch.stack(
+        [b.float().pow(2).mean() for _, b in pairs]).mean())
+    errs = [float((a - b).float().pow(2).mean().sqrt() / torch.maximum(
+        b.float().pow(2).mean().sqrt(), floor))
+        / (factor * STEP_GRAD_REL_RMS) for a, b in pairs]
+    i = int(np.argmax(errs))
+    return errs[i], i
 
-    def step_rule(pairs):
-        errs = []
-        for i, (a, b) in enumerate(pairs):
-            tol = torch.where(ref_grads[i].abs() >= 1e-6,
-                              torch.full_like(b, 2e-6),
-                              torch.full_like(b, 2 * lr))
-            errs.append(float(((a - b).abs() / tol).max()))
-        i = int(np.argmax(errs))
-        return errs[i], i
 
-    out = {"grads": rel_rms_rule(zip(grads, ref_grads), 1),
-           "params": step_rule(zip(got[0], ref[0])),
-           "ema": step_rule(zip(got[3], ref[3])),
-           "mu": rel_rms_rule(zip(got[1], ref[1]), 1),
+def step_rule(pairs, ref_grads, lr):
+    """(worst error over tolerance, its index): a parameter after Adam's
+    first update within 2e-6 where its gradient is at least 1e-6, within 2
+    lr elsewhere (the update moves each by lr g / (|g| + eps))."""
+    import torch
+
+    errs = []
+    for i, (a, b) in enumerate(pairs):
+        tol = torch.where(ref_grads[i].abs() >= 1e-6,
+                          torch.full_like(b, 2e-6),
+                          torch.full_like(b, 2 * lr))
+        errs.append(float(((a - b).abs() / tol).max()))
+    i = int(np.argmax(errs))
+    return errs[i], i
+
+
+def m_compare(got, ref, grads, ref_grads, lr, names, tnames) -> dict:
+    """{part: (worst error over tolerance, the parameter)}, <= 1
+    passing: the gradient, mu and nu by :func:`rel_rms_rule` (twice the
+    tolerance for nu, a square), a parameter and the EMA after the update
+    by :func:`step_rule`."""
+    out = {"grads": rel_rms_rule(zip(grads, ref_grads)),
+           "params": step_rule(zip(got[0], ref[0]), ref_grads, lr),
+           "ema": step_rule(zip(got[3], ref[3]), ref_grads, lr),
+           "mu": rel_rms_rule(zip(got[1], ref[1])),
            "nu": rel_rms_rule(zip(got[2], ref[2]), 2)}
     named = {}
     for part, (err, i) in out.items():
@@ -5045,19 +5090,14 @@ def m_worst(errs) -> float:
 def phase_m(cfg, dev, card):
     """Data-parallel training and ZeRO-1 (see the module doc): M1 the step
     at full width, one rank over NCCL and two ranks on this card over
-    gloo, against the one-process step; M2 tools/train.py as two processes
-    and a one-process resume."""
+    gloo, against the one-process step."""
     import torch
 
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as root:
         phase_m1(cfg, dev, card, root)
-        t1 = time.perf_counter()
-        phase_m2(dev, card, root)
     torch.cuda.empty_cache()
-    now = time.perf_counter()
-    print(f"[M] phase M in {now - t0:.1f} s (M1 {t1 - t0:.1f} s, M2 "
-          f"{now - t1:.1f} s) ({card})")
+    print(f"[M] phase M in {time.perf_counter() - t0:.1f} s ({card})")
 
 
 def phase_m1(cfg, dev, card, root):
@@ -5069,7 +5109,8 @@ def phase_m1(cfg, dev, card, root):
         initialize_distributed)
 
     j = os.path.join
-    cfg32 = m_config(cfg)
+    cfg32 = m_config(dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, num_layers=M_LAYERS)))
     params_path, batch_path = j(root, "m_params.pt"), j(root, "m_batch.npz")
     t0 = time.perf_counter()
     weights = build_flagship(cfg32).state_dict()
@@ -5323,16 +5364,19 @@ def free_port() -> int:
 
 
 def m2_rank(argv):
-    """One rank of M2, where the ranks share one card: join the group that
-    tools/train.py's launch flags in ``argv`` name over gloo (NCCL refuses
-    two ranks on one device), then run the CLI's main on ``argv``, which
-    finds the group made."""
+    """One rank of the train CLI where the ranks share one card (N3, M2):
+    join the group that tools/train.py's launch flags in ``argv`` name over
+    gloo (NCCL refuses two ranks on one device), then run the CLI's main on
+    ``argv``, which finds the group made."""
     import torch
     from motiondiffusion_moe_tpu_torch.parallel.distributed import (
         initialize_distributed)
     from motiondiffusion_moe_tpu_torch.tools import train as train_cli
 
     args = train_cli.build_argparser().parse_args(argv)
+    # the ranks share the host's cores: none oversubscribes them
+    torch.set_num_threads(max(1, (os.cpu_count() or 1)
+                              // max(1, args.num_processes)))
     initialize_distributed(args.coordinator_address, args.num_processes,
                            args.process_id, backend="gloo",
                            device=args.device)
@@ -5342,40 +5386,62 @@ def m2_rank(argv):
         torch.distributed.destroy_process_group()
 
 
-def phase_m2(dev, card, root, devices=None, layers=M2_LAYERS):
-    """tools/train.py as processes on ``devices`` with --data_parallel and
-    --zero1, then a one-process resume of the run dir on ``dev``. By
-    default two ranks on ``dev``, each through :func:`m2_rank` (gloo);
-    ``scripts/dp_cards.py`` gives one card each, and the CLI picks NCCL."""
+def cli_ranks(root, tag, devices, layers, widths=(), parallel=None,
+              address=None):
+    """(base flags, one argv per rank) of tools/train.py as one process a
+    device of ``devices`` with ``parallel`` (default ``--data_parallel N
+    --zero1``) at ``widths`` (flags; default the flagship's), rank 0 at
+    ``address`` (default a free local port): synthetic set, 32 rows, one
+    epoch of one batch, so 2 optimizer steps (cond + uncond), then the
+    save."""
+    n = len(devices)
+    parallel = parallel or ["--data_parallel", str(n), "--zero1"]
+    base = ["--dataset", "synthetic", "--synthetic_size", "32",
+            "--batch_size", "32", "--num_epochs", "1", "--log_every", "1",
+            "--num_layers", str(layers), *widths, "--checkpoint_dir",
+            os.path.join(root, tag.lower())]
+    address = address or f"127.0.0.1:{free_port()}"
+    return base, [[*base, "--device", d, "--num_processes", str(n),
+                   "--process_id", str(r), "--coordinator_address", address,
+                   *parallel] for r, d in enumerate(devices)]
+
+
+def phase_m2(dev, card, root, devices=None, layers=M2_LAYERS, tag="M2",
+             widths=(), parallel=None, ran=None):
+    """tools/train.py as processes on ``devices`` (:func:`cli_ranks`),
+    then a one-process resume of the run dir on ``dev``. By default two
+    ranks on ``dev``; ranks that share a card each start through
+    :func:`m2_rank` (gloo); ``scripts/dp_cards.py`` gives one card each,
+    and the CLI picks NCCL. ``ran``: (base flags, argvs, [(returncode,
+    output)], seconds) of ranks that other processes already ran (phase
+    N's workers run N3 after N2), only checked here."""
     import torch
     from motiondiffusion_moe_tpu_torch.training.checkpoint import (
         CheckpointManager)
 
-    shared = devices is None
     devices = devices or [str(dev)] * 2
     n = len(devices)
-    entry = ([os.path.abspath(__file__), "--m2-rank"] if shared
-             else ["-m", "motiondiffusion_moe_tpu_torch.tools.train"])
+    shared = len(set(devices)) < n
     how = ("over gloo, each rank joined by --m2-rank" if shared
            else "over NCCL, the CLI alone")
     j = os.path.join
-    ck = j(root, "m2")
-    base = ["--dataset", "synthetic", "--synthetic_size", "32",
-            "--batch_size", "32", "--num_epochs", "1", "--log_every", "1",
-            "--num_layers", str(layers), "--checkpoint_dir", ck]
-    port = free_port()
-    t0 = time.perf_counter()
-    outs = spawn_ranks([[*entry, *base, "--device", d,
-                         "--num_processes", str(n), "--process_id", str(r),
-                         "--coordinator_address", f"127.0.0.1:{port}",
-                         "--data_parallel", str(n), "--zero1"]
-                        for r, d in enumerate(devices)])
-    secs = time.perf_counter() - t0
-    for r, (rc, out) in enumerate(outs):
-        print("".join(f"[M2 rank {r}] {line}\n"
-                      for line in out.splitlines() if line.strip()), end="")
+    if ran is None:
+        base, argvs = cli_ranks(root, tag, devices, layers, widths,
+                                parallel)
+        entry = ([os.path.abspath(__file__), "--m2-rank"] if shared
+                 else ["-m", "motiondiffusion_moe_tpu_torch.tools.train"])
+        t0 = time.perf_counter()
+        outs = spawn_ranks([[*entry, *a] for a in argvs], timeout=600)
+        secs = time.perf_counter() - t0
+        for r, (rc, out) in enumerate(outs):
+            print("".join(f"[{tag} rank {r}] {line}\n"
+                          for line in out.splitlines() if line.strip()),
+                  end="")
+    else:
+        base, argvs, outs, secs = ran
+    ck = base[base.index("--checkpoint_dir") + 1]
     check(all(rc == 0 for rc, _ in outs),
-          f"M2 ranks exited with {[rc for rc, _ in outs]}")
+          f"{tag} ranks exited with {[rc for rc, _ in outs]}")
     logs0 = re.findall(r"loss_total: (\S+)", outs[0][1])
     quiet = all("loss_total" not in out and "[train]" not in out
                 for _, out in outs[1:])
@@ -5386,29 +5452,527 @@ def phase_m2(dev, card, root, devices=None, layers=M2_LAYERS):
     ok = (len(logs0) == 2 and quiet
           and files == ["ckpt", "config.json", "meta"]
           and ckpt.all_steps() == [2] and len(payload["rng"]) == n)
-    print(f"[M2] tools/train.py --num_processes {n} --data_parallel {n} "
-          f"--zero1 on {devices} {how}, {layers} blocks "
-          f"a scale (full width): rank 0 logged {len(logs0)} steps "
-          f"{logs0}, the other ranks no log line: {quiet}; the run dir "
-          f"holds {files}, checkpoint steps {ckpt.all_steps()}, "
-          f"{len(payload['rng'])} generator states; {secs:.1f} s with the "
-          f"processes' start ({card}) -> {'ok' if ok else 'FAIL'}")
-    check(ok, "M2 the multi-process run")
+    flags = argvs[0][argvs[0].index("--coordinator_address") + 2:]
+    print(f"[{tag}] tools/train.py --num_processes {n} {' '.join(flags)} "
+          f"{' '.join(widths)} on {devices} {how}, {layers} blocks a scale "
+          f"(full width): rank 0 logged {len(logs0)} steps {logs0}, the "
+          f"other ranks no log line: {quiet}; the run dir holds {files}, "
+          f"checkpoint steps {ckpt.all_steps()}, {len(payload['rng'])} "
+          f"generator states; {secs:.1f} s with the processes' start "
+          f"({card}) -> {'ok' if ok else 'FAIL'}")
+    check(ok, f"{tag} the multi-process run")
+    t0 = time.perf_counter()
     state, log, _ = run_train_cli(base + ["--device", str(dev)])
     same = (state.step == 2
-            and all(same_bits(a, b) for a, b in zip(
-                state.model.state_dict().values(),
-                payload["params"].values()))
+            and all(same_bits(v, payload["params"][k])
+                    for k, v in state.model.state_dict().items())
             and all(same_bits(a, b) for k in ("mu", "nu") for a, b in zip(
                 state.optimizer.state_dict()[k], payload["opt_state"][k])))
     resumed = "resumed from step 2 (epoch 1)" in log
-    print(f"[M2] one process resumes the run dir: {log.count('resumed')} "
-          f"resume line(s), step {state.step}, its parameters and moments "
-          f"the gathered ones bit for bit: {same} -> "
+    print(f"[{tag}] one process resumes the run dir in "
+          f"{time.perf_counter() - t0:.1f} s: {log.count('resumed')} resume "
+          f"line(s), step {state.step}, its parameters and moments the "
+          f"gathered ones bit for bit: {same} -> "
           f"{'ok' if same and resumed else 'FAIL'}")
-    check(same and resumed, "M2 the one-process resume")
+    check(same and resumed, f"{tag} the one-process resume")
     del state
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase N: expert-parallel MoE training (parallel/mesh.py, moe_parallel.py)
+# ---------------------------------------------------------------------------
+
+N_LAYERS = 2   # moe_big's blocks a scale in N (full width)
+N_W = 8        # ranks sharing the card: moe_big's 8 expert partitions
+N_ROWS = 4     # rows of 196 frames a rank (N1; N2's 32 rows over 8 ranks)
+N_CASES = {    # N2: name: (ep, moe_compute, zero1, reference)
+    # moe_big as written: 8 expert partitions, dense_fused (-> dense)
+    "ep8_dense": (8, "dense_fused", False, "dense"),
+    "ep8_dispatch": (8, "dispatch", False, "chunks"),
+    "ep4x2_dispatch_zero1": (4, "dispatch", True, "chunks"),
+    # ZeRO-1, so that eight whole replicas' moments fit beside each other
+    "ep1x8_dispatch_zero1": (1, "dispatch", True, "global")}
+N_LAYER_F32_REL = 1e-5   # N1 f32: rel RMS of output and each gradient
+N_LAYER_BF16_REL = 1e-2  # N1 bf16: the same, bf16 products rounded apart
+N_EMA_ABS = 1e-6         # N2: EMA against 0.999 p0 + 0.001 p1
+N_MU_REL = 1e-6          # N2: mu against 0.1 x the clipped gradient
+N3_FLAGS = ["--latent_dim", "768", "--ff_size", "1024", "--num_heads", "8",
+            "--num_experts", "16"]
+
+
+def n_config(compute="dense_fused", ep=N_W, zero1=False, dtype="float32"):
+    """``ExperimentConfig.moe_big()`` as written (16 experts, 8 expert
+    partitions) at N_LAYERS blocks a scale, dropout 0, no stochastic
+    depth, EMA 0.999, in ``dtype`` compute, with ``compute``, ``ep`` and
+    ``zero1``."""
+    from motiondiffusion_moe_tpu_torch.config import ExperimentConfig
+
+    cfg = m_config(ExperimentConfig.moe_big(), dtype)
+    return dataclasses.replace(
+        cfg, model=dataclasses.replace(cfg.model, num_layers=N_LAYERS,
+                                       moe_compute=compute),
+        parallel=dataclasses.replace(cfg.parallel, num_expert_partitions=ep,
+                                     zero1=zero1))
+
+
+def chunked_dispatch(n: int):
+    """``capacity_dispatch_ffn`` applied to ``n`` equal row chunks of its
+    tokens: the per-chunk capacity of JAX's ``ep_moe_ffn_sharded`` (chunk r
+    is rank r's rows) on one process. A reference only, not a mode of the
+    package."""
+    import torch
+    from motiondiffusion_moe_tpu_torch.models import moe as TM
+
+    one = TM.capacity_dispatch_ffn
+
+    def per_chunk(x, top_idx, top_vals, *w, capacity_factor):
+        m = x.shape[0] // n
+        return torch.cat([one(x[i * m:(i + 1) * m],
+                              top_idx[i * m:(i + 1) * m],
+                              top_vals[i * m:(i + 1) * m], *w,
+                              capacity_factor=capacity_factor)
+                          for i in range(n)])
+
+    return per_chunk
+
+
+def n_counting_drops():
+    """Count the (token, choice) pairs the dispatches drop, through the
+    slots of ``parallel/moe_parallel.py`` and ``models/moe.py``:
+    ({"pairs", "dropped"}, restore)."""
+    from motiondiffusion_moe_tpu_torch.models import moe as TM
+    from motiondiffusion_moe_tpu_torch.parallel import moe_parallel as MP
+
+    seen = {"pairs": 0, "dropped": 0}
+    saved = (MP.capacity_slots, TM.capacity_slots, MP.global_keep)
+
+    def slots(*a):
+        slot, keep = saved[1](*a)
+        seen["pairs"] += keep.numel()
+        seen["dropped"] += int((~keep).sum())
+        return slot, keep
+
+    def keeps(*a):
+        keep = saved[2](*a)
+        seen["pairs"] += keep.numel()
+        seen["dropped"] += int((~keep).sum())
+        return keep
+
+    MP.capacity_slots = TM.capacity_slots = slots
+    MP.global_keep = keeps
+
+    def restore():
+        MP.capacity_slots, TM.capacity_slots, MP.global_keep = saved
+
+    return seen, restore
+
+
+def n_layer_inputs(W, D):
+    """N1's tokens and cotangent, all ranks' in rank order (seeded)."""
+    import torch
+
+    g = torch.Generator().manual_seed(SEED + 70)
+    S = W * N_ROWS * 196
+    return torch.randn(S, D, generator=g), torch.randn(S, D, generator=g)
+
+
+def n_moe_layer(weights, dtype, compute, dev):
+    """moe_big's first MoE layer (16 experts, hidden 1024, cf 2.0) with
+    the seeded weights."""
+    import torch
+    from motiondiffusion_moe_tpu_torch.models.moe import SwitchMoELayer
+
+    pre = next(k for k in weights if k.endswith("_moe.w1"))[:-2]
+    sd = {k[len(pre):]: v for k, v in weights.items() if k.startswith(pre)}
+    E, D, hid = sd["w1"].shape
+    layer = SwitchMoELayer(D, hid, E, 2, getattr(torch, dtype), compute,
+                           2.0)
+    layer.load_state_dict(sd)
+    return layer
+
+
+def n1_reference(weights, dtype, compute, W, dev):
+    """The one-process layer on the card, chunk by chunk (rank r's rows, so
+    the capacity of JAX's chunk r and the router's shapes of the ranks):
+    ``capacity_dispatch_ffn`` routed as the expert-parallel dispatch routes
+    (``ep_routing``), or the layer's ``dense``; the output, the gradients
+    of x, the gate and the experts of ``sum(y * cot)`` and the dropped
+    pairs, on the host."""
+    import torch
+    from motiondiffusion_moe_tpu_torch.models.moe import (
+        capacity_dispatch_ffn)
+
+    layer = n_moe_layer(weights, dtype, compute, dev).to(dev)
+    dt = layer.dtype
+    x_all, cot = (t.to(dev) for t in n_layer_inputs(W, layer.w1.shape[1]))
+    x_all = x_all.to(dt).requires_grad_()
+    seen, restore = n_counting_drops()
+    m = x_all.shape[0] // W
+    outs = []
+    for r in range(W):
+        x = x_all[r * m:(r + 1) * m]
+        if compute == "dispatch":
+            vals, idx = layer.ep_routing(x)
+            w = (p.to(dt) for p in (layer.w1, layer.b1, layer.w2, layer.b2))
+            outs.append(capacity_dispatch_ffn(x, idx, vals.to(dt), *w,
+                                              capacity_factor=2.0))
+        else:
+            outs.append(layer(x))
+    restore()
+    y = torch.cat(outs)
+    (y.float() * cot).sum().backward()
+    out = {"y": y.detach().float().cpu(), "dx": x_all.grad.float().cpu(),
+           "dropped": seen["dropped"]}
+    for name, p in layer.named_parameters():
+        out[name] = p.grad.cpu()
+    del layer
+    torch.cuda.empty_cache()
+    return out
+
+
+def n1_rank(weights, dtype, compute, mesh, dev):
+    """The same layer cut over the expert group, on this rank's rows;
+    gathered to every rank (y, dx) and to rank 0 (the gradients)."""
+    import torch
+    from motiondiffusion_moe_tpu_torch.parallel.mesh import (
+        attach_mesh, shard_experts)
+
+    layer = n_moe_layer(weights, dtype, compute, dev)
+    attach_mesh(layer, mesh)
+    shard_experts(layer)
+    layer.to(dev)
+    dt = layer.dtype
+    x_all, cot = n_layer_inputs(mesh.world, layer.w1.shape[1])
+    m = x_all.shape[0] // mesh.world
+    rows = slice(mesh.rank * m, (mesh.rank + 1) * m)
+    x = x_all[rows].to(dev).to(dt).requires_grad_()
+    seen, restore = n_counting_drops()
+    y = layer(x)
+    restore()
+    (y.float() * cot[rows].to(dev)).sum().backward()
+    out = {"y": mesh.all_gather(y.detach().float()).cpu(),
+           "dx": mesh.all_gather(x.grad.float()).cpu(),
+           "dropped": int(mesh.total(torch.tensor(seen["dropped"])))}
+    for name in ("gate.weight", "gate.bias"):
+        out[name] = mesh.total(layer.get_parameter(name).grad).cpu()
+    experts = mesh.gather_experts([getattr(layer, k).grad for k in
+                                   ("w1", "b1", "w2", "b2")])
+    if experts is not None:
+        out.update(zip(("w1", "b1", "w2", "b2"), experts))
+    del layer
+    torch.cuda.empty_cache()
+    return out
+
+
+def n1_compare(got, ref, dtype) -> dict:
+    tol = N_LAYER_F32_REL if dtype == "float32" else N_LAYER_BF16_REL
+    rel = {k: round(rel_rms(got[k].float(), ref[k].float()), 8)
+           for k in ref if k != "dropped"}
+    return {"rel_rms": rel, "tol": tol,
+            "dropped": (got["dropped"], ref["dropped"]),
+            "ok": max(rel.values()) <= tol
+            and got["dropped"] == ref["dropped"]}
+
+
+def n2_reference(kind, weights, batch_path, dev, W):
+    """The one-process step of the global batch on the card: ``dense``,
+    ``dispatch`` chunk by chunk (``chunks``, W chunks) or over the global
+    batch (``global``); the loss, grad_norm, the gradients (trainable
+    order) and the parameters after the update, on the host."""
+    import torch
+    from motiondiffusion_moe_tpu_torch.diffusion.gaussian import (
+        make_schedule)
+    from motiondiffusion_moe_tpu_torch.models import moe as TM
+    from motiondiffusion_moe_tpu_torch.models.transformer import (
+        MotionTransformer)
+    from motiondiffusion_moe_tpu_torch.training.train_state import (
+        TrainStep, create_train_state)
+
+    cfg = n_config("dense" if kind == "dense" else "dispatch", ep=1)
+    with torch.device(dev):
+        model = MotionTransformer(cfg.model)
+    model.load_state_dict(weights)
+    state = create_train_state(model, cfg)
+    step = TrainStep(make_schedule(
+        schedule_name=cfg.diffusion.beta_schedule,
+        num_timesteps=cfg.diffusion.num_timesteps, device=dev), cfg)
+    batch, noise = m_rows(batch_path, dev)
+    one = TM.capacity_dispatch_ffn
+    if kind == "chunks":
+        TM.capacity_dispatch_ffn = chunked_dispatch(W)
+    try:
+        metrics = step.backward(state, batch, None, noise=noise)
+    finally:
+        TM.capacity_dispatch_ffn = one
+    grads = [p.grad.cpu() for p in state.optimizer.params]
+    metrics = step.apply_update(state, metrics)
+    out = {"loss": float(metrics["loss_total"]),
+           "grad_norm": float(metrics["grad_norm"]), "grads": grads,
+           "params": {k: v.cpu() for k, v in model.state_dict().items()}}
+    del model, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def n2_step(name, weights, batch_path, mesh, dev):
+    """One N2 case on this rank through the Trainer (its mesh, its
+    dense_fused -> dense, its TrainStep): the launches, ms, peak memory and
+    resident expert elements of the step, and on rank 0 the global
+    gradients (caught where the optimizer clips them), the parameters,
+    mu and the EMA after the update, gathered to its host."""
+    import torch
+    from motiondiffusion_moe_tpu_torch.ops import performer as P
+    from motiondiffusion_moe_tpu_torch.parallel.distributed import barrier
+    from motiondiffusion_moe_tpu_torch.parallel.mesh import (
+        gather_whole, is_expert_param, shard_experts, whole_state_dict)
+    from motiondiffusion_moe_tpu_torch.training import train_state as TS
+    from motiondiffusion_moe_tpu_torch.training.trainer import Trainer
+
+    ep, compute, zero1, _ = N_CASES[name]
+    trainer = Trainer(n_config(compute, ep, zero1), device=dev)
+    model = trainer.model
+    model.load_state_dict(weights)
+    shard_experts(model)
+    model.to(dev)
+    state = TS.create_train_state(model, trainer.cfg, dp=trainer.dp)
+    opt = state.optimizer
+    W = mesh.world
+    h = M_B // W
+    batch, noise = m_rows(batch_path, dev, slice(mesh.rank * h,
+                                                 (mesh.rank + 1) * h))
+    counted = [getattr(P, k) for k in M_KERNELS]
+    for c in counted:
+        c.launches = 0
+    caught = {}
+    clip = TS.clip_by_norm_
+
+    def catch(grads, norm, max_norm):  # the reduced gradient, pre-clip
+        t0 = time.perf_counter()
+        whole = (opt.layout.gather(grads) if opt.zero1
+                 else gather_whole(grads, opt.expert, opt.mesh))
+        if mesh.rank == 0:
+            caught["grads"] = [g.detach().cpu().clone() for g in whole]
+        caught["s"] = time.perf_counter() - t0
+        return clip(grads, norm, max_norm)
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.synchronize()
+    barrier()
+    t0 = time.perf_counter()
+    metrics = trainer.train_step.backward(state, batch, None, noise=noise)
+    torch.cuda.synchronize()
+    TS.clip_by_norm_ = catch
+    try:
+        metrics = trainer.train_step.apply_update(state, metrics)
+    finally:
+        TS.clip_by_norm_ = clip
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0 - caught["s"]) * 1e3
+    peak = torch.cuda.max_memory_allocated(dev)
+    launches = {c.__name__: c.launches for c in counted}
+    held = sum(p.numel() for n, p in model.named_parameters()
+               if is_expert_param(n))
+    out = {"ms": ms, "peak_bytes": peak, "launches": launches,
+           "expert_elements": held,
+           "computes": sorted({m.compute for m in model.modules()
+                               if hasattr(m, "capacity_factor")}),
+           "loss": float(metrics["loss_total"]),
+           "grad_norm": float(metrics["grad_norm"])}
+    whole = whole_state_dict(model)
+    # the ZeRO-1 layouts' own gathers; without ZeRO-1 the moments and the
+    # EMA take the parameters' path
+    mu = opt.state_dict()["mu"] if zero1 else None
+    ema = state.ema.state_dict()["params"] if zero1 else None
+    if mesh.rank == 0:
+        names = [n for n, _ in model.named_parameters()]
+        out.update(grads=caught["grads"], names=names,
+                   tnames=[n for n, p in model.named_parameters()
+                           if p.requires_grad],
+                   params={k: v.cpu() for k, v in whole.items()})
+        if zero1:
+            out.update(mu=[m.cpu() for m in mu], ema=[e.cpu() for e in ema])
+    del trainer, model, state, opt, batch, noise
+    torch.cuda.empty_cache()
+    return out
+
+
+def n2_compare(got, ref, weights, lr, dev) -> dict:
+    """Rank 0's checks of one N2 case, on ``dev``: the loss and grad_norm
+    (rtol STEP_LOSS_REL), the gradients (:func:`rel_rms_rule`) and the
+    parameters (:func:`step_rule`) as M1 holds them, and under ZeRO-1 the
+    gathered layout: the EMA within N_EMA_ABS of 0.999 p0 + 0.001 p1, mu
+    within N_MU_REL (rel RMS) of 0.1 x the gradient clipped at
+    grad_norm."""
+    names, tnames = got["names"], got["tnames"]
+    rel = {k: abs(got[k] - ref[k]) / abs(ref[k]) for k in ("loss",
+                                                             "grad_norm")}
+    on = lambda ts: [t.to(dev) for t in ts]  # noqa: E731
+    g_got, g_ref = on(got["grads"]), on(ref["grads"])
+    grads = rel_rms_rule(zip(g_got, g_ref))
+    steps = step_rule(zip(on(got["params"][n] for n in tnames),
+                          on(ref["params"][n] for n in tnames)), g_ref, lr)
+    ema = mu = 0.0
+    if "mu" in got:  # the ZeRO-1 layouts
+        ema = max(float((e.to(dev) - (0.999 * weights[n].to(dev) + 0.001
+                                      * got["params"][n].to(dev)))
+                        .abs().max())
+                  for n, e in zip(names, got["ema"]))
+        scale = min(1.0, 1.0 / got["grad_norm"])
+        mu = max(rel_rms(m.to(dev), 0.1 * g * scale)
+                 for m, g in zip(got["mu"], g_got) if g.abs().max() > 0)
+    ok = (max(rel.values()) <= STEP_LOSS_REL and grads[0] <= 1
+          and steps[0] <= 1 and ema <= N_EMA_ABS and mu <= N_MU_REL)
+    return {"rel": {k: f"{v:.2e}" for k, v in rel.items()},
+            "grads": (round(grads[0], 4), tnames[grads[1]]),
+            "params": (round(steps[0], 4), tnames[steps[1]]),
+            "ema_abs": f"{ema:.2e}", "mu_rel_rms": f"{mu:.2e}", "ok": ok}
+
+
+def n_rank(spec_path, rank):
+    """One of phase N's ranks, over gloo on the one card: N1 and N2, then,
+    in a process group of its own, N3's rank of the train CLI
+    (:func:`m2_rank`); writes ``n_rank<r>.json`` into the spec's out
+    directory and prints its lines."""
+    import torch
+    from motiondiffusion_moe_tpu_torch.parallel.distributed import (
+        barrier, initialize_distributed)
+    from motiondiffusion_moe_tpu_torch.parallel.mesh import ExpertMesh
+
+    with open(spec_path) as fh:
+        spec = json.load(fh)
+    W, dev = spec["world"], torch.device(spec["device"])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    initialize_distributed(spec["init"], W, rank, backend="gloo",
+                           device=dev)
+    mesh = ExpertMesh(W)
+    weights = torch.load(spec["params"], mmap=True, weights_only=True)
+    res = {"n1": {}, "n2": {}}
+    t0 = time.perf_counter()
+    for dtype in ("float32", "bfloat16"):
+        for compute in ("dispatch", "dense"):
+            ref = (n1_reference(weights, dtype, compute, W, dev)
+                   if rank == 0 else None)
+            got = n1_rank(weights, dtype, compute, mesh, dev)
+            if rank == 0:
+                cmp = n1_compare(got, ref, dtype)
+                res["n1"][f"{compute} {dtype}"] = cmp
+                print(f"N1 {compute} {dtype}, E = 16 over ep = {W}, "
+                      f"{N_ROWS} x 196 tokens a rank: {cmp} -> "
+                      f"{'ok' if cmp['ok'] else 'FAIL'}", flush=True)
+    barrier()
+    res["n1_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    refs = {}
+    if rank == 0:  # before the ranks' states take the card
+        for kind in ("dense", "chunks", "global"):
+            refs[kind] = n2_reference(kind, weights, spec["batch"], dev, W)
+        res["refs_s"] = time.perf_counter() - t0
+    barrier()
+    for name, (ep, compute, _, kind) in N_CASES.items():
+        out = n2_step(name, weights, spec["batch"], mesh, dev)
+        whole_experts = sum(v.numel() for k, v in weights.items()
+                            if k.endswith(("_moe.w1", "_moe.b1", "_moe.w2",
+                                           "_moe.b2")))
+        line = {"ms": round(out["ms"], 1),
+                "peak_GiB": round(out["peak_bytes"] / 2 ** 30, 2),
+                "launches": out["launches"],
+                "expert_elements": out["expert_elements"],
+                "one_ep_th": out["expert_elements"] * ep == whole_experts,
+                "computes": out["computes"], "loss": out["loss"]}
+        n_perf = 2 * 2 * N_LAYERS
+        ok = (line["one_ep_th"]
+              and out["launches"] == {k: n_perf for k in M_KERNELS}
+              and out["computes"] == ["dense" if compute == "dense_fused"
+                                      and ep > 1 else compute])
+        if rank == 0:
+            cmp = n2_compare(out, refs[kind], weights, spec["lr"], dev)
+            line["against_reference"] = cmp
+            ok = ok and cmp["ok"]
+        line["ok"] = ok
+        res["n2"][name] = line
+        print(f"N2 {name} (rank {rank}): {line} -> "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        del out
+    torch.distributed.destroy_process_group()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    m2_rank(spec["cli"][rank])  # N3: the train CLI, its own group
+    res["n3_s"] = time.perf_counter() - t0
+    with open(os.path.join(spec["out"], f"n_rank{rank}.json"), "w") as fh:
+        json.dump(res, fh, default=str)
+
+
+def phase_n(dev, card):
+    """Expert-parallel MoE training (see the module doc): N1 and N2 on
+    N_W ranks sharing this card over gloo, each an ``--n-rank`` worker;
+    N3 tools/train.py as N_W processes, then a one-process resume."""
+    import torch
+
+    t0 = time.perf_counter()
+    j = os.path.join
+    with tempfile.TemporaryDirectory() as root:
+        cfg = n_config()
+        weights = build_flagship(cfg).state_dict()
+        n_params = sum(v.numel() for v in weights.values())
+        torch.save(weights, j(root, "n_params.pt"))
+        del weights
+        m_batch(cfg, j(root, "n_batch.npz"))
+        t_write = time.perf_counter() - t0
+        n3 = cli_ranks(root, "N3", [str(dev)] * N_W, N_LAYERS, N3_FLAGS,
+                       ["--expert_parallel", str(N_W), "--data_parallel",
+                        "1", "--zero1"], f"file://{j(root, 'rdv_n3')}")
+        spec = {"init": f"file://{j(root, 'rdv_n')}", "world": N_W,
+                "device": str(dev), "params": j(root, "n_params.pt"),
+                "batch": j(root, "n_batch.npz"), "out": root,
+                "lr": cfg.train.lr, "cli": n3[1]}
+        with open(j(root, "n.json"), "w") as fh:
+            json.dump(spec, fh)
+        print(f"[N] moe_big at {N_LAYERS} blocks a scale (full width, 16 "
+              f"experts): {n_params} parameters seeded and written for the "
+              f"ranks in {t_write:.1f} s")
+        outs = spawn_ranks([[os.path.abspath(__file__), "--n-rank",
+                             j(root, "n.json"), str(r)]
+                            for r in range(N_W)], timeout=1000)
+        for r, (rc, out) in enumerate(outs):
+            print("".join(f"[N rank {r}] {line}\n"
+                          for line in out.splitlines() if line.strip()),
+                  end="")
+        check(all(rc == 0 for rc, _ in outs),
+              f"N ranks exited with {[rc for rc, _ in outs]}")
+        res = [json.load(open(j(root, f"n_rank{r}.json")))
+               for r in range(N_W)]
+        for k, v in res[0]["n1"].items():
+            check(v["ok"], f"N1 {k}: {v}")
+        launches = {}
+        for name in N_CASES:
+            for r, rr in enumerate(res):
+                check(rr["n2"][name]["ok"], f"N2 {name} rank {r}: "
+                                            f"{rr['n2'][name]}")
+            launches[name] = res[0]["n2"][name]["launches"]
+            ms = [rr["n2"][name]["ms"] for rr in res]
+            peak = [rr["n2"][name]["peak_GiB"] for rr in res]
+            print(f"[N2] {name}: every rank ok; ms a step {min(ms)}-"
+                  f"{max(ms)} (eight ranks sharing one card, collectives "
+                  f"staged through the host under gloo: not a speed); "
+                  f"max_memory_allocated {min(peak)}-{max(peak)} GiB a "
+                  f"rank; expert elements a rank "
+                  f"{res[0]['n2'][name]['expert_elements']} ({card})")
+        t1 = time.perf_counter()
+        n3_s = res[0]["n3_s"]
+        print(f"[N] N1 {res[0]['n1_s']:.1f} s, the references "
+              f"{res[0]['refs_s']:.1f} s, N1 + N2 + N3's ranks "
+              f"{t1 - t0 - t_write:.1f} s with the ranks' start, N3's ranks "
+              f"{n3_s:.1f} s of it")
+        phase_m2(dev, card, root, devices=[str(dev)] * N_W,
+                 layers=N_LAYERS, tag="N3", widths=N3_FLAGS,
+                 ran=(*n3, outs, n3_s))
+    torch.cuda.empty_cache()
+    now = time.perf_counter()
+    print(f"[N] phase N in {now - t0:.1f} s (the resume {now - t1:.1f} s) "
+          f"({card})")
+    return launches
 
 
 def main() -> int:
@@ -5500,6 +6064,8 @@ def main() -> int:
     lap("L")
     phase_m(cfg, dev, card)
     lap("M")
+    phase_n(dev, card)
+    lap("N")
 
     csrc = "motiondiffusion_moe_tpu_torch/csrc/"
     ops = "motiondiffusion_moe_tpu/ops/"
@@ -5567,7 +6133,10 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--m1-rank"]:  # one rank of phase M1 (ii)
         m1_rank(sys.argv[2], int(sys.argv[3]))
         sys.exit(0)
-    if sys.argv[1:2] == ["--m2-rank"]:  # one rank of phase M2
+    if sys.argv[1:2] == ["--m2-rank"]:  # one CLI rank of phase N3 (or M2)
         m2_rank(sys.argv[2:])
+        sys.exit(0)
+    if sys.argv[1:2] == ["--n-rank"]:  # one rank of phase N1 and N2
+        n_rank(sys.argv[2], int(sys.argv[3]))
         sys.exit(0)
     sys.exit(main())

@@ -27,8 +27,21 @@ computes of ``ModelConfig.moe_compute`` (``moe.py:124-234``):
 Routing, the aux loss and :func:`moe_metrics` are the same in all three. A
 training forward appends each layer's Switch aux loss to its
 :class:`TrainContext` (the JAX ``sow`` into ``moe_losses``,
-``moe.py:105-109``). The expert-parallel all-to-all (a mesh with an
-``expert`` axis) is not ported.
+``moe.py:105-109``).
+
+Over several processes the layer takes the run's mesh
+(``parallel/mesh.py::attach_mesh``; ``mesh`` in JAX, ``moe.py:178-195``).
+With an expert axis (``ep > 1``) its ``w1``, ``b1``, ``w2``, ``b2`` hold the
+rank's ``E / ep`` experts under the same names (``shard_experts``), and
+``dispatch`` runs ``parallel/moe_parallel.py::ep_moe_ffn`` (the
+all-to-all, the capacity of the rank's own chunk) and ``dense``
+``ep_dense_ffn``; ``dense_fused`` cannot be cut by expert and is refused.
+Under ``dispatch`` the slots are routed as JAX's shard_map body routes
+them, from the logits rounded to the compute dtype (the bf16 array handed
+to ``ep_moe_ffn_sharded``, ``moe.py:187-188``); the aux loss and the metrics
+keep the layer's routing. With data ranks alone (``ep = 1``) ``dispatch``
+takes the global batch's capacity and fill order
+(``global_dispatch_ffn``); the dense computes need nothing.
 
 With ``MOE_FUSED_KERNEL`` set to anything but ``0``, an eval-mode
 ``dense_fused`` layer whose widths are multiples of 128 runs the expert
@@ -128,31 +141,50 @@ def capacity_slots(top_idx: torch.Tensor, num_experts: int, capacity: int
     return torch.stack(slots, 1), torch.stack(keeps, 1)
 
 
+def dispatch_rows(x: torch.Tensor, slot: torch.Tensor, keep: torch.Tensor,
+                  rows: int) -> torch.Tensor:
+    """The experts' input buffer [rows, D]: each kept (token, choice) pair's
+    row at its slot (an ``index_add``), empty slots zero. A dropped pair's
+    row goes to a spare slot past the last that nothing reads."""
+    S, D = x.shape
+    k = slot.shape[1]
+    spare = torch.full_like(slot, rows)
+    src = x[:, None, :].expand(S, k, D).reshape(S * k, D)
+    return x.new_zeros(rows + 1, D).index_add(
+        0, torch.where(keep, slot, spare).reshape(-1), src)[:rows]
+
+
+def expert_ffn(expert_in: torch.Tensor, w1, b1, w2, b2) -> torch.Tensor:
+    """Each expert's FFN on its slots: [E, C, D] -> [E, C, D], the biases
+    added in the compute dtype (empty slots get them too; no token reads
+    them back)."""
+    h = gelu(torch.bmm(expert_in, w1) + b1[:, None, :])
+    return torch.bmm(h, w2) + b2[:, None, :]
+
+
+def combine_rows(y: torch.Tensor, slot: torch.Tensor, keep: torch.Tensor,
+                 top_vals: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The combine: a token's kept slots of ``y`` [rows, D], weighted and
+    summed in f32 (at most k terms), rounded once -> [S, D]."""
+    S, k = slot.shape
+    weight = torch.where(keep, top_vals, 0).float()[..., None]
+    picked = y[torch.where(keep, slot, 0).reshape(-1)].view(S, k, -1)
+    return (weight * picked.float()).sum(1).to(dtype)
+
+
 def capacity_dispatch_ffn(x: torch.Tensor, top_idx: torch.Tensor,
                           top_vals: torch.Tensor, w1, b1, w2, b2, *,
                           capacity_factor: float) -> torch.Tensor:
     """``_capacity_dispatch_ffn`` (``moe.py:201-234``) with index gathers in
     place of the one-hot [S, E, C] tensors: x [S, D] in the compute dtype,
-    top_idx / top_vals [S, k] (the values in the compute dtype) -> [S, D].
-    A dropped pair's row goes to a spare slot past the last expert that no
-    expert reads. Empty slots hold zero rows, as the JAX dispatch leaves
-    them; each expert adds its bias to them too, and no token reads them
-    back."""
+    top_idx / top_vals [S, k] (the values in the compute dtype) -> [S, D]."""
     S, D = x.shape
-    E, _, hid = w1.shape
-    k = top_idx.shape[1]
+    E = w1.shape[0]
     C = expert_capacity(S, E, capacity_factor)
     slot, keep = capacity_slots(top_idx, E, C)
-    spare = torch.full_like(slot, E * C)
-    rows = x[:, None, :].expand(S, k, D).reshape(S * k, D)
-    expert_in = x.new_zeros(E * C + 1, D).index_add(
-        0, torch.where(keep, slot, spare).reshape(-1), rows)[:E * C]
-    h = gelu(torch.bmm(expert_in.view(E, C, D), w1) + b1[:, None, :])
-    y = (torch.bmm(h, w2) + b2[:, None, :]).view(E * C, D)
-    # the combine: a token's kept terms summed in f32, rounded once
-    weight = torch.where(keep, top_vals, 0).float()[..., None]
-    picked = y[torch.where(keep, slot, 0).reshape(-1)].view(S, k, D)
-    return (weight * picked.float()).sum(1).to(x.dtype)
+    y = expert_ffn(dispatch_rows(x, slot, keep, E * C).view(E, C, D),
+                   w1, b1, w2, b2)
+    return combine_rows(y.view(E * C, D), slot, keep, top_vals, x.dtype)
 
 
 class SwitchMoELayer(nn.Module):
@@ -168,10 +200,12 @@ class SwitchMoELayer(nn.Module):
         if compute not in MOE_COMPUTES:
             raise ValueError(f"unknown moe compute mode: {compute}")
         E, D = num_experts, latent_dim
+        self.num_experts = num_experts
         self.top_k = top_k
         self.dtype = dtype
         self.compute = compute
         self.capacity_factor = capacity_factor
+        self.mesh = None  # the run's ExpertMesh (parallel/mesh.py)
         self.gate = Dense(D, E, dtype, init="zeros")
         self.w1 = nn.Parameter(torch.zeros(E, D, hidden_dim))
         self.b1 = nn.Parameter(torch.zeros(E, hidden_dim))
@@ -208,25 +242,53 @@ class SwitchMoELayer(nn.Module):
         shape = x.shape
         x_flat = x.reshape(-1, shape[-1]).to(dt)
         S, D = x_flat.shape
-        E, _, hid = self.w1.shape
+        E = self.num_experts
         probs = torch.softmax(self._router_logits(x_flat), dim=-1)
         top_vals, top_idx = top_k_lowest_index(probs, self.top_k)
         if ctx is not None:
             ctx.moe_balance.append(switch_balance(probs, top_idx[:, 0], E))
         w1, b1, w2, b2 = (p.to(dt) for p in (self.w1, self.b1, self.w2,
                                               self.b2))
+        mesh = self.mesh
+        ep = mesh.ep if mesh is not None else 1
+        over_ranks = mesh is not None and mesh.world > 1
+        if over_ranks:  # not at import: moe_parallel imports this module
+            from motiondiffusion_moe_tpu_torch.parallel import (
+                moe_parallel as MP)
         if self.compute == "dispatch":
-            out = capacity_dispatch_ffn(
-                x_flat, top_idx, top_vals.to(dt), w1, b1, w2, b2,
-                capacity_factor=self.capacity_factor)
+            if ep > 1:
+                vals, idx = self.ep_routing(x_flat)
+                out = MP.ep_moe_ffn(
+                    x_flat, idx, vals.to(dt), w1, b1, w2, b2,
+                    capacity_factor=self.capacity_factor, num_experts=E,
+                    group=mesh.expert)
+            elif over_ranks:
+                out = MP.global_dispatch_ffn(
+                    x_flat, top_idx, top_vals.to(dt), w1, b1, w2, b2,
+                    capacity_factor=self.capacity_factor, group=mesh)
+            else:
+                out = capacity_dispatch_ffn(
+                    x_flat, top_idx, top_vals.to(dt), w1, b1, w2, b2,
+                    capacity_factor=self.capacity_factor)
         else:
             combine = torch.zeros(S, E, dtype=dt, device=x.device
                                   ).scatter_add_(1, top_idx, top_vals.to(dt))
-            out = self._dense(x_flat, combine, w1, b1, w2, b2)
+            out = (MP.ep_dense_ffn(x_flat, combine, w1, b1, w2, b2,
+                                   group=mesh.expert) if ep > 1
+                   else self._dense(x_flat, combine, w1, b1, w2, b2))
         out = out.reshape(shape)
         if with_metrics:
             return out, moe_metrics(probs, top_vals, top_idx)
         return out
+
+    def ep_routing(self, x_flat: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(top_vals, top_idx) of the expert-parallel ``dispatch``: from the
+        logits rounded to the compute dtype, as JAX's shard_map body routes
+        (the same as the layer's routing in f32)."""
+        probs = torch.softmax(self._router_logits(x_flat).to(self.dtype)
+                              .float(), dim=-1)
+        return top_k_lowest_index(probs, self.top_k)
 
     def _dense(self, x_flat, combine, w1, b1, w2, b2) -> torch.Tensor:
         """The two dense computes: [S, D] -> [S, D]."""

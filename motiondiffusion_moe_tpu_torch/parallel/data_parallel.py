@@ -39,8 +39,9 @@ formats and the exports read those names.
 
 Under the gloo backend each collective on CUDA tensors goes through host
 memory: gloo serves ranks that share one card, which NCCL refuses. The
-expert, model, seq and pipe axes of ``mesh.py`` are not ported (ROADMAP,
-queue 1, items 6b and 6c).
+expert axis (``parallel/mesh.py``, ``parallel/moe_parallel.py``) builds on
+these groups; the model, seq and pipe axes of the JAX ``mesh.py`` are not
+ported (ROADMAP, queue 1, item 6c).
 """
 
 from __future__ import annotations
@@ -61,9 +62,10 @@ GATHER_PIECE = 1 << 26  # elements a rank sends at a time to the primary
 
 
 class DataGroup:
-    """The data-parallel processes of a run (the default process group):
-    its size ``world``, this process's ``rank`` and the collectives of the
-    step. Exists only where a process group does, one process included."""
+    """Processes of a run that take part in a collective together (the
+    default process group, or ``group``): its size ``world``, this
+    process's ``rank`` in it and the collectives of the step. Exists only
+    where a process group does, one process included."""
 
     def __init__(self, group=None):
         self.group = group
@@ -108,6 +110,29 @@ class DataGroup:
         n = flat.numel() // self.world
         return self._run(lambda o, i: _all_gather(o, i, group=self.group),
                          flat, flat[self.rank * n:(self.rank + 1) * n])
+
+    def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` cut into W equal blocks on dim 0; block j goes to rank j,
+        and block i of the result came from rank i."""
+        x = x.contiguous()
+        return self._run(lambda o, i: dist.all_to_all_single(
+            o, i, group=self.group), torch.empty_like(x), x)
+
+    def all_gather(self, x: torch.Tensor) -> torch.Tensor:
+        """The ranks' ``x`` laid end to end on dim 0, in rank order."""
+        x = x.contiguous()
+        out = x.new_empty((self.world * x.shape[0],) + x.shape[1:])
+        return self._run(lambda o, i: _all_gather(o, i, group=self.group),
+                         out, x)
+
+    def reduce_scatter(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum over the ranks of ``x`` (W equal blocks on dim 0), this
+        rank's block of it."""
+        x = x.contiguous()
+        out = x.new_empty((x.shape[0] // self.world,) + x.shape[1:])
+        return self._run(lambda o, i: _reduce_scatter(o, i,
+                                                      group=self.group),
+                         out, x)
 
     def gather_to_primary(self, shard: torch.Tensor
                           ) -> Optional[torch.Tensor]:
@@ -233,13 +258,15 @@ class FlatParams(Sharded):
     per dtype, each tensor :data:`ALIGN_BYTES` apart: their ``.grad`` are
     views of a gradient buffer and, under ZeRO-1 (``zero1``), their data
     views of a parameter buffer. The reduction and the gather then run in
-    place on whole buffers."""
+    place on whole buffers. The reduction sums over ``dp`` and divides by
+    ``denom`` (default ``dp.world``: the mean over the ranks)."""
 
     def __init__(self, params: Sequence[torch.Tensor], dp: DataGroup,
-                 zero1: bool):
+                 zero1: bool, denom: Optional[int] = None):
         super().__init__(params, dp, ALIGN_BYTES)
         self.params = list(params)
         self.zero1 = zero1
+        self.denom = denom or dp.world
         self.grads, self.data = [], []
         for idx, part in self.groups:
             group = [self.params[i] for i in idx]
@@ -266,12 +293,12 @@ class FlatParams(Sharded):
     def mean_grads_(self) -> None:
         """Average the gradients over the ranks, in place."""
         for flat in self.grads:
-            self.dp.sum_(flat).div_(self.dp.world)
+            self.dp.sum_(flat).div_(self.denom)
 
     def reduce_scatter_grads_(self) -> List[torch.Tensor]:
         """This rank's shard of the gradients' mean over the ranks, one
         view of each gradient buffer."""
-        return [self.dp.reduce_scatter_(flat).div_(self.dp.world)
+        return [self.dp.reduce_scatter_(flat).div_(self.denom)
                 for flat in self.grads]
 
     def param_shards(self) -> List[torch.Tensor]:
@@ -284,24 +311,3 @@ class FlatParams(Sharded):
         for flat in self.data:
             self.dp.all_gather_(flat)
 
-
-def data_group(cfg) -> Optional[DataGroup]:
-    """The data axis of a run (``Trainer._maybe_make_mesh``'s data half,
-    ``trainer.py:127-169``): None without a process group, else the group,
-    after checking ``num_data_partitions`` (0 means the world size) and that
-    the world size divides each microbatch."""
-    world = dist.get_world_size() if dist.is_initialized() else 1
-    n = cfg.parallel.num_data_partitions
-    if n not in (0, world):
-        raise ValueError(
-            f"num_data_partitions (--data_parallel) {n}, but the run has "
-            f"{world} process{'es' if world > 1 else ''}: launch one "
-            "process per data partition, or pass 0 for the world size")
-    accum = max(1, cfg.train.grad_accum_steps)
-    micro = cfg.train.batch_size // accum
-    if micro % world:
-        raise ValueError(
-            f"microbatch {micro} (batch_size {cfg.train.batch_size} / "
-            f"grad_accum_steps {accum}) not divisible by the {world} data "
-            "ranks; adjust --batch_size / --grad_accum / --data_parallel")
-    return DataGroup() if dist.is_initialized() else None

@@ -129,8 +129,7 @@ def main(argv=None) -> dict:
         raise NotImplementedError(
             f"{', '.join(over)}: the port evaluates on one device; a "
             "generation batch split over devices is not ported yet "
-            "(ROADMAP.md, queue 1, item 6: parallel, 6d; the expert and "
-            "model axes 6b and 6c)")
+            "(ROADMAP.md, queue 1, item 6: parallel, 6d)")
 
     import torch
 

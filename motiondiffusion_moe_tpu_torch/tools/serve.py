@@ -318,8 +318,8 @@ def build_server(argv=None) -> ThreadingHTTPServer:
             raise NotImplementedError(
                 f"--{flag} {getattr(args, flag)}: the port serves on one "
                 "device; a generation batch split over devices is not "
-                "ported yet (ROADMAP.md, queue 1, item 6: parallel, 6d; "
-                "the expert and model axes 6b and 6c)")
+                "ported yet (ROADMAP.md, queue 1, item 6: parallel, "
+                "6d)")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"--device {args.device}: no CUDA device is "

@@ -22,23 +22,28 @@ run goes on saving in the JAX layout, which the JAX package resumes again
 HF checkpoint ``--deberta_ckpt`` when given (grafted at init) and else
 from its random init, with a warning.
 
-Data-parallel training runs one process per device, launched by torchrun::
+Data- and expert-parallel training runs one process per device, launched
+by torchrun::
 
     torchrun --nproc_per_node N -m motiondiffusion_moe_tpu_torch.tools.train \\
-        --data_parallel N [--zero1] ...
+        [--expert_parallel EP] [--data_parallel N/EP] [--zero1] ...
 
 or by starting each process with the JAX CLI's three flags,
 ``--coordinator_address HOST:PORT --num_processes N --process_id R`` (an
 init URL such as ``file:///shared/rendezvous`` also serves as the
-address). Each process takes ``cuda:LOCAL_RANK`` unless ``--device`` names
-a card, and its ``1/N`` of every ``--batch_size`` batch through
-``DistributedSampler``; ``--zero1`` shards the Adam moments and the EMA
-over the processes. The backend follows the device: NCCL for CUDA, gloo
-for the CPU. Only the primary writes
-``config.json``, ``meta/`` and the checkpoints and prints. What the port
-does not run yet raises: the expert, tensor, seq and pipeline axes, and
-``--scan_blocks`` / ``--remat_blocks``, which exist for JAX compilation and
-are not ported.
+address). The N processes form JAX's ``(data, expert)`` mesh, rank ``R = d
+* EP + e``: rank R keeps experts ``[e E / EP, (e + 1) E / EP)`` of every MoE
+layer (``--num_experts`` divisible by EP; ``dense_fused`` runs as
+``dense``), and ``--data_parallel`` 0 means N / EP. Each process takes
+``cuda:LOCAL_RANK`` unless ``--device`` names a card, and rows ``[R B / N,
+(R + 1) B / N)`` of every ``--batch_size`` batch through
+``DistributedSampler`` (N must divide each microbatch); ``--zero1`` shards
+the Adam moments and the EMA over the processes. The backend follows the
+device: NCCL for CUDA, gloo for the CPU. Only the primary writes
+``config.json``, ``meta/`` and the checkpoints (in the global layout) and
+prints. What the port does not run yet raises: the tensor, seq and
+pipeline axes, and ``--scan_blocks`` / ``--remat_blocks``, which exist for
+JAX compilation and are not ported.
 """
 
 from __future__ import annotations
@@ -126,13 +131,17 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--w_acceleration", type=float, default=0.0)
     p.add_argument("--w_structure", type=float, default=0.0)
     p.add_argument("--w_progressive", type=float, default=0.0)
-    for flag in ("expert_parallel", "tensor_parallel", "seq_parallel",
-                 "pipeline_parallel"):
+    p.add_argument("--expert_parallel", type=int, default=1,
+                   help="expert partitions: each process keeps E / N of "
+                        "every MoE layer's experts (the processes launched "
+                        "must be a multiple)")
+    for flag in ("tensor_parallel", "seq_parallel", "pipeline_parallel"):
         p.add_argument(f"--{flag}", type=int, default=1,
                        help="multi-device: raises above 1 (not ported)")
     p.add_argument("--data_parallel", type=int, default=0,
                    help="data-parallel ranks, one process each (0 = the "
-                        "number of processes launched)")
+                        "number of processes launched over "
+                        "--expert_parallel)")
     p.add_argument("--pp_microbatches", type=int, default=0,
                    help="pipeline microbatches (read only with "
                         "--pipeline_parallel)")
@@ -239,6 +248,7 @@ def main(argv=None):
     from motiondiffusion_moe_tpu_torch.parallel.distributed import (
         initialize_distributed, is_primary, local_batch_slice, rank,
         rank_device, world_size)
+    from motiondiffusion_moe_tpu_torch.parallel.mesh import check_mesh
     from motiondiffusion_moe_tpu_torch.training.checkpoint import (
         CheckpointManager)
     from motiondiffusion_moe_tpu_torch.training.trainer import (
@@ -257,6 +267,7 @@ def main(argv=None):
         process_id=args.process_id if args.process_id >= 0 else None,
         device=args.device)
     try:
+        check_mesh(cfg)  # before anything is written
         device = rank_device(args.device)
         primary = is_primary()
         run_dir = os.path.join(cfg.checkpoint_dir, cfg.name)

@@ -44,12 +44,16 @@ when it matches the restored step. (Resuming at the epoch after the
 checkpointed one is this package's own choice, not the reference
 trainer's.)
 
-Under data parallelism (``parallel/``) saving is collective: every rank
-calls :meth:`CheckpointManager.save`, which gathers the ZeRO-1 shards into
-the primary's host memory and every rank's generator state (``rng`` is
-then the list of them, in rank order), the primary writes either format
-and ``epoch_meta.json``, and the others wait at a barrier. Every rank reads a restore whole and keeps its
-shard, so a run saved by W ranks resumes at any W.
+Under data and expert parallelism (``parallel/``) saving is collective:
+every rank calls :meth:`CheckpointManager.save`, which gathers into the
+primary's host memory the ZeRO-1 shards, the expert shards of the
+parameters, moments and EMA (in expert order: the global ``[E, ...]``
+layout a one-process run and the JAX package hold), and every rank's
+generator state (``rng`` is then the list of them, in rank order); the
+primary writes either format and ``epoch_meta.json``, and the others wait
+at a barrier. Every rank reads a restore whole and keeps its experts and
+its shard, so a run saved at one ``(dp, ep)`` resumes at any other, one
+process included.
 """
 
 from __future__ import annotations
@@ -71,6 +75,10 @@ from motiondiffusion_moe_tpu_torch.parallel.distributed import (
     is_primary,
     primary_says,
     world_size,
+)
+from motiondiffusion_moe_tpu_torch.parallel.mesh import (
+    local_state_dict,
+    whole_state_dict,
 )
 from motiondiffusion_moe_tpu_torch.utils import orbax_format
 
@@ -174,16 +182,17 @@ class CheckpointManager:
         path = self._path(step)
         if primary_says(os.path.exists(path)):
             return
+        params = whole_state_dict(state.model)
         opt = state.optimizer.state_dict()
         ema = state.ema.state_dict() if state.ema is not None else None
         rng = None if generator is None else generator.get_state()
         if world_size() > 1 and rng is not None:
             rng = all_gather_objects(rng)
         if is_primary():
-            self._write(path, state, epoch, opt, ema, rng)
+            self._write(path, state, epoch, params, opt, ema, rng)
         barrier()
 
-    def _write(self, path: str, state, epoch: int, opt: dict,
+    def _write(self, path: str, state, epoch: int, params: dict, opt: dict,
                ema: Optional[dict], rng) -> None:
         if self.format == "orbax":
             files = {}
@@ -191,11 +200,11 @@ class CheckpointManager:
                 buf = io.BytesIO()
                 torch.save(rng, buf)
                 files[GENERATOR_FILE] = buf.getvalue()
-            orbax_format.write_step(path, self._jax_tree(state, epoch, opt,
-                                                         ema), files)
+            orbax_format.write_step(path, self._jax_tree(
+                state, epoch, params, opt, ema), files)
         else:
             payload = {
-                "params": state.model.state_dict(),
+                "params": params,
                 "opt_state": opt,
                 "step": int(state.step),
                 "epoch": int(epoch),
@@ -276,7 +285,8 @@ class CheckpointManager:
         if step is None:
             return None
         payload = self.read(step, model=state.model)
-        state.model.load_state_dict(payload["params"])
+        state.model.load_state_dict(local_state_dict(state.model,
+                                                     payload["params"]))
         state.optimizer.load_state_dict(payload["opt_state"])
         state.step = int(payload["step"])
         if state.ema is not None:
@@ -384,11 +394,11 @@ class CheckpointManager:
         self._extras = extras
         return payload
 
-    def _jax_tree(self, state, epoch: int, opt_state: dict,
+    def _jax_tree(self, state, epoch: int, params: dict, opt_state: dict,
                   ema: Optional[dict]) -> dict:
         """The JAX package's checkpoint tree of ``state``, given its
-        optimizer's and EMA's whole state dicts (``CheckpointManager.save``
-        there, ``:40-66``)."""
+        model's, optimizer's and EMA's whole state dicts
+        (``CheckpointManager.save`` there, ``:40-66``)."""
         from motiondiffusion_moe_tpu_torch.models.bridge import (
             state_dict_to_jax)
         from motiondiffusion_moe_tpu_torch.models.moe import SwitchMoELayer
@@ -403,7 +413,7 @@ class CheckpointManager:
         for name, m in model.named_modules():
             if isinstance(m, SwitchMoELayer):
                 where = paths[f"{name}.w1"][:-1]
-                E = m.w1.shape[0]
+                E = m.num_experts
                 _set_path(colls["moe_losses"], where + ("aux",),
                           torch.zeros(()))
                 _set_path(colls["moe_metrics"], where + ("expert_usage",),
@@ -416,7 +426,8 @@ class CheckpointManager:
             sd = dict(zip(trainable, values))
             for n, p in named:   # the frozen parameters: zeros
                 if n not in sd:
-                    sd[n] = torch.zeros(p.shape, dtype=dtype or p.dtype)
+                    sd[n] = torch.zeros(params[n].shape,
+                                        dtype=dtype or p.dtype)
             tree = {"params": state_dict_to_jax(sd, cfg)}
             tree.update(_zeros_tree(colls, dtype))
             return tree
@@ -425,7 +436,7 @@ class CheckpointManager:
         adam = {"count": count, "mu": moments(opt_state["mu"], opt.mu_dtype),
                 "nu": moments(opt_state["nu"], opt.nu_dtype)}
         tree = {
-            "params": {"params": state_dict_to_jax(model.state_dict(), cfg),
+            "params": {"params": state_dict_to_jax(params, cfg),
                        **colls},
             "opt_state": [None, [adam, {"count": count}
                                  if callable(opt.lr) else None]],

@@ -16,14 +16,26 @@ which is what the eager loop runs. Random draws (the noise, dropout masks,
 stochastic-depth coins) come from the ``torch.Generator`` the caller
 passes, never from torch's global RNG.
 
-Data parallelism (``parallel/data_parallel.py``): given a
-``parallel.DataGroup``, each rank's step takes its own rows, its losses are
-its shares of the global batch's, its scalar metrics are averaged over the
-ranks, and :class:`Optimizer` averages the gradients before the clip.
-Under ``ParallelConfig.zero1`` the optimizer's moments and the EMA hold
-only the rank's shard, their ``state_dict`` gathers the whole into the
-primary's host memory (a collective) and ``load_state_dict`` takes the
-whole and keeps the shard.
+Data parallelism (``parallel/data_parallel.py``): given the run's
+``parallel.ExpertMesh`` (a ``DataGroup`` of all W ranks), each rank's step
+takes its own rows, its losses are its shares of the global batch's, its
+scalar metrics are averaged over the ranks, and :class:`Optimizer` averages
+the gradients before the clip. Under ``ParallelConfig.zero1`` the
+optimizer's moments and the EMA hold only the rank's shard, their
+``state_dict`` gathers the whole into the primary's host memory (a
+collective) and ``load_state_dict`` takes the whole and keeps the shard.
+
+With an expert axis (``parallel/mesh.py``, ``ep > 1``) the rank's expert
+tensors are its ``E / ep`` experts. Their gradient already sums the whole
+expert group's losses (through the backward all-to-all or reduce-scatter),
+so it is summed over the data group and divided by W, not by ``dp``: the
+mean of the W ranks' gradients is the global batch's. The clip's norm
+counts each expert once: the replicated tensors' square sum plus the
+expert shards' summed over the expert group. Under ZeRO-1 the replicated
+tensors keep the flat cut over all W ranks and the experts get a second
+one over the data group (``dp`` ways). ``state_dict`` (a collective) gives
+rank 0 the global ``[E, ...]`` layout; ``load_state_dict`` takes it and
+keeps the rank's experts.
 """
 
 from __future__ import annotations
@@ -54,6 +66,12 @@ from motiondiffusion_moe_tpu_torch.models.transformer import (
 from motiondiffusion_moe_tpu_torch.parallel.data_parallel import (
     FlatParams,
     Sharded,
+)
+from motiondiffusion_moe_tpu_torch.parallel.mesh import (
+    ExpertSharded,
+    expert_flags,
+    gather_whole,
+    slice_experts,
 )
 from motiondiffusion_moe_tpu_torch.training import losses as L
 
@@ -170,11 +188,14 @@ class Optimizer:
     flat buffers too and ``mu`` and ``nu`` hold one flat shard per
     parameter dtype: the gradient is reduce-scattered, the clip reads the
     global norm (the ranks' sums of squares added), Adam updates the rank's
-    shard of the parameters, and the shards are all-gathered into them."""
+    shard of the parameters, and the shards are all-gathered into them.
+    Over an expert axis (``dp.ep > 1``; ``expert[i]`` marks an expert
+    shard) the expert tensors have flat buffers of their own over the data
+    group (see the module doc)."""
 
     def __init__(self, params: Sequence[nn.Parameter], cfg: ExperimentConfig,
                  b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
-                 dp=None):
+                 dp=None, expert: Optional[Sequence[bool]] = None):
         tc = cfg.train
         self.params = list(params)
         self.max_norm = tc.grad_clip_norm
@@ -185,19 +206,37 @@ class Optimizer:
         self.compact = self.nu_dtype is not None
         self.count = 0
         self.dp = dp
-        self.flat = (FlatParams(self.params, dp, cfg.parallel.zero1)
-                     if dp is not None else None)
-        self.shards = self.flat if cfg.parallel.zero1 else None
-        like = (self.params if self.shards is None
-                else self.shards.param_shards())
+        zero1 = cfg.parallel.zero1
+        self.mesh = dp if getattr(dp, "ep", 1) > 1 else None
+        self.expert = list(expert or [False] * len(self.params))
+        if self.mesh is not None:
+            # the replicated tensors over all W ranks, the experts over the
+            # data group, summed there and divided by W
+            idx = ([i for i, x in enumerate(self.expert) if not x],
+                   [i for i, x in enumerate(self.expert) if x])
+            self.flats = [FlatParams([self.params[i] for i in idx[0]], dp,
+                                     zero1),
+                          FlatParams([self.params[i] for i in idx[1]],
+                                     dp.data, zero1, denom=dp.world)]
+            self.layout = ExpertSharded(self.params, self.expert, dp,
+                                        *self.flats)
+        elif dp is not None:
+            self.flats = [FlatParams(self.params, dp, zero1)]
+            self.layout = self.flats[0]
+        else:
+            self.flats, self.layout = [], None
+        self.zero1 = zero1 and dp is not None
+        like = ([s for f in self.flats for s in f.param_shards()]
+                if self.zero1 else self.params)
         self.mu = [torch.zeros_like(p, dtype=self.mu_dtype or p.dtype)
                    for p in like]
         self.nu = [torch.zeros_like(p, dtype=self.nu_dtype or p.dtype)
                    for p in like]
 
     def zero_grad(self) -> None:
-        if self.flat is not None:
-            self.flat.zero_grad()
+        if self.flats:
+            for f in self.flats:
+                f.zero_grad()
             return
         for p in self.params:
             p.grad = None
@@ -206,19 +245,30 @@ class Optimizer:
     def step(self) -> torch.Tensor:
         """Clip the parameters' gradients and apply one Adam update;
         returns the gradient norm before clipping."""
-        if self.shards is not None:
-            grads = self.shards.reduce_scatter_grads_()
+        if self.zero1:
+            grads = [g for f in self.flats for g in f.reduce_scatter_grads_()]
             sq = torch.stack([g.float().square().sum() for g in grads]).sum()
             norm = clip_by_norm_(grads, self.dp.total(sq).sqrt(),
                                  self.max_norm)
-            self._adam_(self.shards.param_shards(), grads)
-            self.shards.gather_params_()
+            self._adam_([s for f in self.flats for s in f.param_shards()],
+                        grads)
+            for f in self.flats:
+                f.gather_params_()
             return norm
-        if self.flat is not None:
-            self.flat.mean_grads_()
+        for f in self.flats:
+            f.mean_grads_()
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in self.params]
-        norm = clip_by_grouped_global_norm_(grads, self.max_norm)
+        if self.mesh is None:
+            norm = clip_by_grouped_global_norm_(grads, self.max_norm)
+        else:  # each expert once: its shard's squares over the expert group
+            rest, ex = ([g for g, x in zip(grads, self.expert) if x == e]
+                        for e in (False, True))
+            sq = self.mesh.expert.total(sum(
+                (g.float().square().sum() for g in ex),
+                torch.zeros((), device=grads[0].device)))
+            norm = clip_by_norm_(grads, (grouped_global_norm(rest).square()
+                                         + sq).sqrt(), self.max_norm)
         self._adam_(self.params, grads)
         return norm
 
@@ -254,23 +304,28 @@ class Optimizer:
         torch._foreach_add_(params, upd)
 
     def state_dict(self) -> dict:
-        """The whole state, one moment per parameter. Under ZeRO-1 a
-        collective that every rank calls: the primary's moments are then
-        in host memory, the other ranks' None."""
-        if self.shards is None:
-            return {"count": self.count, "mu": self.mu, "nu": self.nu}
-        return {"count": self.count, "mu": self.shards.gather(self.mu),
-                "nu": self.shards.gather(self.nu)}
+        """The whole state, one moment per parameter (the global layout).
+        Under ZeRO-1 or an expert axis a collective that every rank calls:
+        the primary's moments are then in host memory, the other ranks'
+        None."""
+        if self.zero1:
+            return {"count": self.count, "mu": self.layout.gather(self.mu),
+                    "nu": self.layout.gather(self.nu)}
+        return {"count": self.count,
+                "mu": gather_whole(self.mu, self.expert, self.mesh),
+                "nu": gather_whole(self.nu, self.expert, self.mesh)}
 
     def load_state_dict(self, state: dict) -> None:
-        """From the whole state (under ZeRO-1 the rank keeps its shard)."""
+        """From the whole state (the rank keeps its experts and, under
+        ZeRO-1, its shard)."""
         self.count = int(state["count"])
         for dst, src in ((self.mu, state["mu"]), (self.nu, state["nu"])):
             if len(src) != len(self.params):
                 raise ValueError(f"optimizer state has {len(src)} moments, "
                                  f"the model {len(self.params)} parameters")
-            if self.shards is not None:
-                src = self.shards.local(src)
+            src = slice_experts(src, self.expert, self.mesh)
+            if self.zero1:
+                src = self.layout.local(src)
             for d, s in zip(dst, src):
                 d.copy_(s)
 
@@ -279,14 +334,19 @@ class EMA:
     """Exponential moving average of every parameter (``:368-374``):
     ema = d * ema + (1 - d) * p after each update, starting from a copy of
     the weights (no bias correction). With ``shards`` (a
-    ``parallel.Sharded`` of the model's parameters; ZeRO-1) it holds and
-    updates the rank's shard alone; ``state_dict`` then gathers the whole
-    into the primary's host memory (a collective; None on the other
-    ranks)."""
+    ``parallel.Sharded`` of the model's parameters, or an
+    ``ExpertSharded`` over an expert axis; ZeRO-1) it holds and updates the
+    rank's shard alone. Over an expert axis (``mesh``, ``expert[i]``
+    marking an expert shard) ``state_dict`` gathers the global layout into
+    the primary's host memory (a collective; None on the other ranks), as
+    it does under ZeRO-1, and ``load_state_dict`` keeps the rank's part."""
 
-    def __init__(self, model: nn.Module, decay: float, shards=None):
+    def __init__(self, model: nn.Module, decay: float, shards=None,
+                 mesh=None, expert: Optional[Sequence[bool]] = None):
         self.decay = decay
         self.shards = shards
+        self.mesh = mesh if getattr(mesh, "ep", 1) > 1 else None
+        self.expert = list(expert or [False] * len(list(model.parameters())))
         self.params = self._own(model)
 
     def _own(self, model: nn.Module) -> List[torch.Tensor]:
@@ -309,11 +369,12 @@ class EMA:
 
     def state_dict(self) -> dict:
         if self.shards is None:
-            return {"params": self.params}
+            return {"params": gather_whole(self.params, self.expert,
+                                           self.mesh)}
         return {"params": self.shards.gather(self.params)}
 
     def load_state_dict(self, state: dict) -> None:
-        src = state["params"]
+        src = slice_experts(state["params"], self.expert, self.mesh)
         if self.shards is not None:
             src = self.shards.local(src)
         for d, s in zip(self.params, src):
@@ -336,14 +397,21 @@ def create_train_state(model: nn.Module, cfg: ExperimentConfig,
     """Optimizer over the trainable parameters (the frozen FAVOR
     projections carry ``requires_grad=False``; in JAX their gradient is an
     exact zero, so Adam leaves them unchanged either way) and the EMA, over
-    the data ranks ``dp`` (a ``parallel.DataGroup``) when given."""
-    opt = Optimizer([p for p in model.parameters() if p.requires_grad], cfg,
-                    dp=dp)
+    the run's mesh ``dp`` (a ``parallel.ExpertMesh`` or ``DataGroup``) when
+    given; the model's experts already cut (``parallel.shard_experts``)."""
+    named = list(model.named_parameters())
+    expert = expert_flags([n for n, _ in named], dp)
+    train = [i for i, (_, p) in enumerate(named) if p.requires_grad]
+    opt = Optimizer([named[i][1] for i in train], cfg, dp=dp,
+                    expert=[expert[i] for i in train])
     ema = None
     if cfg.train.ema_decay > 0:
-        shards = (Sharded(list(model.parameters()), dp)
-                  if dp is not None and cfg.parallel.zero1 else None)
-        ema = EMA(model, cfg.train.ema_decay, shards)
+        params = [p for _, p in named]
+        shards = None
+        if dp is not None and cfg.parallel.zero1:
+            shards = (ExpertSharded(params, expert, dp)
+                      if getattr(dp, "ep", 1) > 1 else Sharded(params, dp))
+        ema = EMA(model, cfg.train.ema_decay, shards, mesh=dp, expert=expert)
     return TrainState(model=model, optimizer=opt, ema=ema)
 
 
@@ -363,11 +431,12 @@ class TrainStep:
     microbatches, each drawing its own noise, and the update uses the mean
     of their gradients.
 
-    Over the data ranks ``dp`` (a ``parallel.DataGroup``) the batch is the
-    rank's rows, each microbatch's losses are its shares of the global
-    microbatch's (:meth:`_global`: one collective a microbatch), and the
-    scalar metrics are the global batch's (the mean over the ranks, one
-    collective a step); ``per_sample_mse`` stays the rank's rows."""
+    Over the data ranks ``dp`` (the run's ``parallel.ExpertMesh``) the
+    batch is the rank's rows, each microbatch's losses are its shares of
+    the global microbatch's (:meth:`_global`: one collective a
+    microbatch), and the scalar metrics are the global batch's (the mean
+    over the ranks, one collective a step); ``per_sample_mse`` stays the
+    rank's rows."""
 
     def __init__(self, sched: DiffusionSchedule, cfg: ExperimentConfig,
                  normalizer_stats: Optional[Tuple[np.ndarray,

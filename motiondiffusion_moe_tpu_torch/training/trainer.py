@@ -1,4 +1,4 @@
-"""Training orchestration on one device or over data-parallel ranks.
+"""Training orchestration on one device or over data and expert ranks.
 
 Port of ``motiondiffusion_moe_tpu/training/trainer.py``: the epoch loop, the
 (cond, uncond) double step per batch (``ddpm_trainer.py:319-333``), caption
@@ -13,28 +13,36 @@ Steps run one by one whatever ``steps_per_call`` says (see
 (``trainer.py:326-337``: never draw t from weights a buffered step has not
 updated yet) holds by construction.
 
-Data parallelism (``parallel/``): where a process group is initialised
-(``parallel.initialize_distributed``), each process is one data rank,
-``num_data_partitions`` (0: the world size) must equal the world size, and
-the world size must divide each microbatch (JAX ``_maybe_make_mesh``,
-``trainer.py:127-169``). The loader gives each rank its own rows; the
-losses, gradients and metrics are the global batch's
-(``train_state.py``); ``zero1`` shards the Adam moments and the EMA. Rank
-r's host RNG (t draws, caption dropout) is ``default_rng(seed + 1_000_003
-* r)``, the JAX process r's. Its ``torch.Generator`` (noise, dropout) is
-seeded ``seed + 1 + 1_000_003 * r``: the port's own choice, since JAX draws
-the global batch's noise from one key. Only the primary prints and logs;
-saves are collective (``training/checkpoint.py``). The expert, model, seq
-and pipe axes raise (ROADMAP, queue 1, items 6b and 6c), and so does
-``moe_compute="dispatch"`` on more than one rank: its capacity and fill
-order span the global batch, which needs 6b's cross-rank dispatch. Host
-work per step: draw t from the schedule sampler, tokenize the captions
-(with the tokenizer of the config's text encoder), copy the batch to the
-device from pinned memory.
+Data and expert parallelism (``parallel/``): where a process group is
+initialised (``parallel.initialize_distributed``), each process is one
+rank of the ``(data, expert)`` mesh (``parallel.make_mesh``, JAX
+``_maybe_make_mesh``, ``trainer.py:127-169``): ``num_expert_partitions``
+(ep) must divide the world size and the experts, ``num_data_partitions``
+must be 0 (the world size over ep) or that, and the world size must divide
+each microbatch; in one process, ep > 1 is a mismatch and raises. The
+loader gives rank r rows ``[r B / W, (r + 1) B / W)`` of each batch, JAX's
+token chunk r; the losses, gradients and metrics are the global batch's
+(``train_state.py``); ``zero1`` shards the Adam moments and the EMA. Over
+an expert axis the MoE layers keep the rank's ``E / ep`` experts (cut
+after the whole seeded init, so the weights are the one-process run's)
+and ``dense_fused`` becomes ``dense``, as in JAX (``trainer.py:71-89``; a
+caller's ``dense_fused`` model raises). ``dispatch`` over data ranks alone
+takes the global batch's capacity. Rank r's host RNG (t draws, caption
+dropout) is ``default_rng(seed + 1_000_003 * r)``, the JAX process r's.
+Its ``torch.Generator`` (noise, dropout) is seeded ``seed + 1 + 1_000_003
+* r``: the port's own choice, since JAX draws the global batch's noise
+from one key. Only the primary prints and logs; saves are collective and
+write the global layout (``training/checkpoint.py``). The model, seq and
+pipe axes raise (ROADMAP, queue 1, item 6c).
+
+Host work per step: draw t from the schedule sampler, tokenize the
+captions (with the tokenizer of the config's text encoder), copy the batch
+to the device from pinned memory.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from collections import OrderedDict
 from typing import Dict, Iterable, Optional
@@ -49,11 +57,14 @@ from motiondiffusion_moe_tpu_torch.diffusion.samplers import (
     create_named_schedule_sampler,
 )
 from motiondiffusion_moe_tpu_torch.models.layers import init_weights
-from motiondiffusion_moe_tpu_torch.models.moe import SwitchMoELayer
 from motiondiffusion_moe_tpu_torch.models.text_encoder import get_tokenizer
 from motiondiffusion_moe_tpu_torch.models.transformer import MotionTransformer
-from motiondiffusion_moe_tpu_torch.parallel.data_parallel import data_group
 from motiondiffusion_moe_tpu_torch.parallel.distributed import primary_says
+from motiondiffusion_moe_tpu_torch.parallel.mesh import (
+    attach_mesh,
+    make_mesh,
+    shard_experts,
+)
 from motiondiffusion_moe_tpu_torch.training.checkpoint import (
     CheckpointManager,
     resume_seed,
@@ -67,20 +78,21 @@ from motiondiffusion_moe_tpu_torch.utils.logging import MetricsLogger
 
 
 # the ParallelConfig axes not ported yet, by ROADMAP item
-_UNPORTED_AXES = {"num_expert_partitions": "6b", "num_model_partitions": "6c",
-                  "num_seq_partitions": "6c", "num_pipeline_stages": "6c"}
+_UNPORTED_AXES = {"num_model_partitions": "6c", "num_seq_partitions": "6c",
+                  "num_pipeline_stages": "6c"}
 
 
 def check_parallel_config(cfg: ExperimentConfig) -> None:
     """Raise for a ParallelConfig axis the port does not run: all but the
-    data axis."""
+    data and expert axes."""
     asked = {k: getattr(cfg.parallel, k) for k in _UNPORTED_AXES}
     multi = {k: v for k, v in asked.items() if v > 1}
     if multi:
         items = sorted({_UNPORTED_AXES[k] for k in multi})
         raise NotImplementedError(
-            f"{multi}: the port trains over the data axis only; the other "
-            f"axes are ROADMAP.md queue 1, item {' and '.join(items)}")
+            f"{multi}: the port trains over the data and expert axes only; "
+            f"the other axes are ROADMAP.md queue 1, item "
+            f"{' and '.join(items)}")
 
 
 class Trainer:
@@ -90,27 +102,32 @@ class Trainer:
                  logger: Optional[MetricsLogger] = None,
                  device="cuda"):
         check_parallel_config(cfg)
-        self.dp = data_group(cfg)
+        self.dp = make_mesh(cfg)
         self.world = self.dp.world if self.dp is not None else 1
         self.rank = self.dp.rank if self.dp is not None else 0
         self.primary = self.rank == 0
-        self.cfg = cfg
         self.device = torch.device(device)
         self.accum = max(1, cfg.train.grad_accum_steps)
         if cfg.train.batch_size % self.accum != 0:
             raise ValueError(
                 f"batch_size {cfg.train.batch_size} not divisible by "
                 f"grad_accum_steps {self.accum}")
+        if cfg.parallel.num_expert_partitions > 1 \
+                and cfg.model.moe_compute == "dense_fused":
+            # the fused matmul merges the experts: not expert-shardable
+            if model is not None:
+                raise ValueError(
+                    "caller-supplied model uses moe_compute='dense_fused' "
+                    f"with {cfg.parallel.num_expert_partitions} expert "
+                    "partitions: the fused matmul cannot be expert-sharded. "
+                    "Build the model with moe_compute='dense' (or "
+                    "'dispatch') for expert-parallel runs.")
+            cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+                cfg.model, moe_compute="dense"))
+        self.cfg = cfg
         self.model = model if model is not None else MotionTransformer(
             cfg.model)
-        if self.world > 1 and any(isinstance(m, SwitchMoELayer)
-                                  and m.compute == "dispatch"
-                                  for m in self.model.modules()):
-            raise NotImplementedError(
-                "moe_compute='dispatch' over data-parallel ranks: its "
-                "capacity and fill order span the global batch, which "
-                "needs the cross-rank dispatch of ROADMAP.md queue 1, item "
-                "6b; use dense_fused or dense")
+        attach_mesh(self.model, self.dp)
         self.tokenize = get_tokenizer(cfg.model)
         self.sched = make_schedule(schedule_name=cfg.diffusion.beta_schedule,
                                    num_timesteps=cfg.diffusion.num_timesteps,
@@ -127,7 +144,8 @@ class Trainer:
 
     def init_state(self) -> TrainState:
         """Seeded parameters (``init_weights``, the flax initialisers) on
-        the device, the optimizer and the EMA. A DeBERTa text encoder gets
+        the device (over an expert axis the rank's experts of them), the
+        optimizer and the EMA. A DeBERTa text encoder gets
         the checkpoint ``text_encoder_ckpt`` grafted in (or a warning and
         its random init), as the reference trains from
         ``AutoModel.from_pretrained``. The graft comes before the EMA is
@@ -138,6 +156,7 @@ class Trainer:
             from motiondiffusion_moe_tpu_torch.models.deberta import (
                 graft_pretrained_text_encoder)
             graft_pretrained_text_encoder(self.model, self.cfg.model)
+        shard_experts(self.model)  # the rank's experts of the whole init
         self.model.to(self.device)
         return create_train_state(self.model, self.cfg, dp=self.dp)
 

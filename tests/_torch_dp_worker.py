@@ -18,8 +18,8 @@ Joins a gloo process group of ``spec["world"]`` processes at
   ``save`` writes its state in both checkpoint formats and restores it into
   a fresh state, reporting the round trip.
 - ``units``: the loss-aware sampler's gather, the rank's host RNG, and the
-  errors of a mismatched ``num_data_partitions``, an indivisible
-  microbatch and ``dispatch`` over two ranks (``<out>/units_<rank>.pt``).
+  errors of a mismatched ``num_data_partitions`` and an indivisible
+  microbatch (``<out>/units_<rank>.pt``).
 
 It imports the port and torch, nothing of JAX.
 """
@@ -95,7 +95,8 @@ def run_case(spec, case, dp, arrays):
          "ema": sum(e.numel() for e in state.ema.params),
          "trainable": sum(p.numel() for p in opt.params),
          "all": sum(p.numel() for p in model.parameters()),
-         "padded": sum(part.size for _, part in opt.flat.groups),
+         "padded": sum(part.size for f in opt.flats
+                       for _, part in f.groups),
          "tensors": len(opt.params)})
     out["params"] = model.state_dict()
     out["opt"] = opt.state_dict()
@@ -129,9 +130,9 @@ def save_and_restore(spec, cfg, state, dp):
         payload = ckpt.read()
         opt, ema = fresh.optimizer, fresh.ema
         shards = (all(_same(a, b) for a, b in zip(
-            opt.mu, opt.shards.local(payload["opt_state"]["mu"])))
+            opt.mu, opt.layout.local(payload["opt_state"]["mu"])))
             and all(_same(a, b) for a, b in zip(
-                opt.nu, opt.shards.local(payload["opt_state"]["nu"])))
+                opt.nu, opt.layout.local(payload["opt_state"]["nu"])))
             and all(_same(a, b) for a, b in zip(
                 ema.params,
                 ema.shards.local(payload["ema_params"]["params"]))))
@@ -187,9 +188,7 @@ def run_units(spec, dp):
             ("data_partitions", dict(parallel=ParallelConfig(
                 num_data_partitions=3))),
             ("microbatch", dict(train=dataclasses.replace(
-                cfg.train, batch_size=6, grad_accum_steps=2))),
-            ("dispatch", dict(model=dataclasses.replace(
-                cfg.model, moe_compute="dispatch")))):
+                cfg.train, batch_size=6, grad_accum_steps=2)))):
         try:
             Trainer(dataclasses.replace(cfg, **kw), device="cpu")
             errors[name] = None

@@ -495,6 +495,6 @@ def test_serve_cli_runs_on_the_card_unless_asked(jax_exports):
                                   "--tensor_parallel"])
 def test_serve_cli_multi_device_flags_raise(jax_exports, flag):
     with pytest.raises(NotImplementedError,
-                       match="queue 1, item 6: parallel"):
+                       match="queue 1, item 6: parallel, 6d"):
         build_server(["--export_dir", jax_exports["float32"], flag, "2",
                       "--device", "cpu"])

@@ -445,8 +445,7 @@ def test_rank_host_rng_is_the_jax_process_stream(run):
 
 @pytest.mark.parametrize("name,kind,words", [
     ("data_partitions", "ValueError", "2 processes"),
-    ("microbatch", "ValueError", "not divisible by the 2 data ranks"),
-    ("dispatch", "NotImplementedError", "6b")])
+    ("microbatch", "ValueError", "not divisible by the 2 data ranks")])
 def test_data_parallel_errors(run, name, kind, words):
     for u in run["units"]:
         err = u["errors"][name]

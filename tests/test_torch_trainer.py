@@ -135,26 +135,29 @@ def test_loss_aware_sampler_sees_every_step_and_grad_accum_runs():
 
 
 def test_what_the_port_does_not_run_yet_raises():
-    """The axes other than data (ROADMAP items 6b, 6c) and the JAX
-    compilation flags. The data axis runs (tests/test_torch_parallel.py);
-    in one process, two data partitions or a launch given in part are a
-    mismatch and raise ValueError."""
+    """The model, seq and pipe axes (ROADMAP item 6c) and the JAX
+    compilation flags. The data and expert axes run
+    (tests/test_torch_parallel.py, tests/test_torch_moe_parallel.py); in
+    one process, two data or expert partitions or a launch given in part
+    are a mismatch and raise ValueError."""
     cfg = to_port(tiny_config())
-    for axis in ("num_expert_partitions", "num_model_partitions",
-                 "num_seq_partitions", "num_pipeline_stages"):
-        with pytest.raises(NotImplementedError, match="item 6"):
+    for axis in ("num_model_partitions", "num_seq_partitions",
+                 "num_pipeline_stages"):
+        with pytest.raises(NotImplementedError, match="item 6c"):
             Trainer(dataclasses.replace(
                 cfg, parallel=ParallelConfig(**{axis: 2})), device="cpu")
-    with pytest.raises(ValueError, match="1 process"):
-        Trainer(dataclasses.replace(
-            cfg, parallel=ParallelConfig(num_data_partitions=2)),
-            device="cpu")
+    for axis in ("num_data_partitions", "num_expert_partitions"):
+        with pytest.raises(ValueError, match="1 process"):
+            Trainer(dataclasses.replace(
+                cfg, parallel=ParallelConfig(**{axis: 2})), device="cpu")
     for argv in (["--scan_blocks"],
-                 ["--remat_blocks", "dots"], ["--pipeline_parallel", "2"],
-                 ["--expert_parallel", "2"]):
+                 ["--remat_blocks", "dots"], ["--pipeline_parallel", "2"]):
         with pytest.raises(NotImplementedError):
             train_cli.main(["--dataset", "synthetic", "--device", "cpu"]
                            + argv)
+    with pytest.raises(ValueError, match="1 process"):
+        train_cli.main(["--dataset", "synthetic", "--device", "cpu",
+                        "--expert_parallel", "2"])
     with pytest.raises(ValueError, match="in part"):
         train_cli.main(["--dataset", "synthetic", "--device", "cpu",
                         "--num_processes", "2"])
