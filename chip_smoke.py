@@ -163,9 +163,9 @@ first use) and exits non-zero without one. Phases, each fatal on failure:
          native store: uncropped batches equal the Python path's, every
          crop a window, host ms per batch of 32 native vs Python. H3:
          tools/train.py main() on the corpus at the flagship defaults but
-         2 blocks a scale (full width, bf16, dropout 0.1; H_LAYERS, which
-         pays for phase M's time), 4 optimizer steps: finite losses,
-         kernels 1 and 3 launched 8 x 4 times each, meta/ the dataset's
+         1 block a scale (full width, bf16, dropout 0.1; H_LAYERS, which
+         pays for phases M and O), 4 optimizer steps: finite losses,
+         kernels 1 and 3 launched 4 x 4 times each, meta/ the dataset's
          normalizer, ms/step beside D3's; then 2 steps with
          --no_native_io and 2 on the KIT corpus.
   I      evaluating H3's trained t2m run (kept with H's corpus until I is
@@ -176,7 +176,7 @@ first use) and exits non-zero without one. Phases, each fatal on failure:
          diversity 30, mm 4 x 6, mm times 3, micro-batch 16, joint scores
          over 32 samples; each cut printed): every summary metric finite,
          the log holding each metric's summary, kernels 1 and 2 launched
-         exactly (Performers per forward: 8 at H3's 2 blocks a scale) x
+         exactly (Performers per forward: 4 at H3's 1 block a scale) x
          21 x micro-batches; seconds per replication, s/motion,
          evaluator ms per pool of 32, bytes fetched. I2: the same with
          --device_embeddings, 1 replication: replication 0's Matching
@@ -193,9 +193,9 @@ first use) and exits non-zero without one. Phases, each fatal on failure:
          whatever the denoiser's dtype) in front of the flagship denoiser,
          ExperimentConfig.moe_small() with text_encoder="deberta-v3-large".
          DeBERTa has no Pallas kernel in the JAX package and none here; the
-         denoiser behind it launches kernels 1-4. The denoiser runs at 2
-         blocks a scale (full width; J_LAYERS), which pays for phase M's
-         time, so the launch counts below are 8 a forward. J1: the flagship
+         denoiser behind it launches kernels 1-4. The denoiser runs at 1
+         block a scale (full width; J_LAYERS), which pays for phases M and
+         O, so the launch counts below are 4 a forward. J1: the flagship
          built and
          seeded (the seconds of init_weights printed); the encoder on the
          card against the same module on the CPU over 4 ragged prompts (one
@@ -259,7 +259,7 @@ first use) and exits non-zero without one. Phases, each fatal on failure:
          step and the epoch equal its .npz bit for bit, and
          CheckpointManager.read and load_run equal the bridge of those
          leaves; its width has no kernel instance, so no kernel runs. L2:
-         the flagship at L_LAYERS (2) blocks a scale (full width, bf16
+         the flagship at L_LAYERS (1) block a scale (full width, bf16
          compute, EMA 0.999, warmup 100) trained 2 steps
          at B = 32, dropout 0.1, saved in the JAX layout (plain zarr; the
          bytes, seconds and GB/s of the write and of the read, the file
@@ -275,7 +275,7 @@ first use) and exits non-zero without one. Phases, each fatal on failure:
          JAX-format manager (recorded, not written again: the first save
          wrote that layout).
   M      data-parallel training and ZeRO-1 over torch.distributed
-         (parallel/): the flagship at full width and M_LAYERS (2) blocks
+         (parallel/): the flagship at full width and M_LAYERS (1) block
          a scale, f32 compute,
          dropout 0, EMA 0.999, one global batch of 32 at T = 196 with
          ragged lengths (long on rank 0's rows, short on rank 1's), t and
@@ -288,7 +288,7 @@ first use) and exits non-zero without one. Phases, each fatal on failure:
          through the host, zero1 off and on, each against the one-process
          step that rank 0 runs (tests/test_torch_parallel.py's
          tolerances); per rank: the launches of kernels 1-4 in the step
-         (8 each at M_LAYERS), the resident elements and bytes of the moments and the
+         (4 each at M_LAYERS), the resident elements and bytes of the moments and the
          EMA (under zero1 one shard of each, at most ceil(n / W) plus the
          256-byte alignment of each tensor in the flat buffers),
          max_memory_allocated of the step and ms per step (two ranks
@@ -298,8 +298,8 @@ first use) and exits non-zero without one. Phases, each fatal on failure:
          scripts/dp_cards.py still runs it on N cards.)
   N      expert-parallel MoE training (parallel/mesh.py,
          parallel/moe_parallel.py): ExperimentConfig.moe_big() (latent
-         768, 8 heads of 96, 16 experts of hidden 1024, top-2) at 2 blocks
-         a scale (N_LAYERS; full width; 403.8 M parameters), seeded, on 8
+         768, 8 heads of 96, 16 experts of hidden 1024, top-2) at 1 block
+         a scale (N_LAYERS; full width; 214.7 M parameters), seeded, on 8
          ranks sharing this card over gloo, each a --n-rank worker, the
          CUDA tensors of every collective staged through the host. N1:
          the MoE layer at moe_big's widths (4 rows x 196 frames a rank,
@@ -327,11 +327,41 @@ first use) and exits non-zero without one. Phases, each fatal on failure:
          ms a step (eight ranks on one card, collectives through the
          host: not a speed). N3: tools/train.py --num_processes 8
          --expert_parallel 8 --data_parallel 1 --zero1 at moe_big's widths
-         and 2 blocks a scale as 8 processes on this card (--m2-rank), 2
+         and 1 block a scale as 8 processes on this card (--m2-rank), 2
          optimizer steps and the save: only rank 0 logs and writes, the
          checkpoint holds the global [16, ...] experts; then a one-process
          resume of the run dir starts at step 2 with the gathered state
          bit for bit.
+  O      sampling, serving and evaluation over ranks (GenerationPipeline
+         with a (data, expert, model) mesh, parallel/mesh.py::
+         generation_mesh), ranks sharing this card over gloo, the CUDA
+         tensors of every collective staged through the host; on each rank
+         kernels 1 and 2 counted from just before its main path to just
+         after, max_memory_allocated, the parameter bytes it holds, its
+         expert elements (1 / ep) and split FFN elements (1 / tp), and a
+         SHA-256 of its motions (every rank returns the same). O1: the
+         flagship at full width and depth, f32 compute, bf16 weights, dpm10
+         (O1_STEPS) of 16 prompts x 196 frames (micro-batch 16) on O_W (4)
+         --o1-rank ranks in four layouts (data 4; data 2 x expert 2; expert
+         2 x model 2; dispatch at data 2 x expert 2, capacity factor 4,
+         which drops nothing), each within O1_REL of the one-process
+         pipeline of the function it computes (dense_fused at data ranks
+         alone, else dense). O2: tools/serve.py as 4 processes (--o2-rank;
+         --data_parallel 2 --tensor_parallel 2) from the flagship's bf16
+         export at micro-batch 4, dpm5, 3 seeded requests (1, 3 and 6
+         prompts: the last two micro-batches) each within O2_REL of the
+         one-process server's answer (bf16 compute), then SIGTERM to rank
+         0: every rank exits 0. O3: moe_big as written (12 blocks a scale,
+         16 experts over its 8 expert partitions, 2.29 B parameters) on 8
+         --o3-rank ranks, each seeding its shard leaf by leaf on the card
+         (seeded_state), bf16 weights, f32 compute (o3_config says why),
+         dense, one micro-batch of 2 prompts, dpm with O3_STEPS (5) steps,
+         within O3_REL + O3_FLOOR x (the one process's dense_fused against
+         its dense) of the one-process moe_big of the same weights. O4 (run
+         after phase I, on its run): tools/evaluate.py --data_parallel 2 as
+         two --o4-rank processes (--device_embeddings taking the host path,
+         with the warning), a 16-item split, 1 replication, every metric
+         within O4_REL of the one-process run's.
 
 The last line is {"ok": true, "device": {...}}, printed only when every
 phase passed; the line before it lists the kernels of the paths, each with
@@ -3113,7 +3143,7 @@ def foot_margin(raw_dir, dataset):
     return worst
 
 
-H_LAYERS = 2  # H3's blocks a scale (full width), so I's too
+H_LAYERS = 1  # H3's blocks a scale (full width), so I's and O4's too
 
 
 def phase_h_and_i(card, d3_ms):
@@ -3127,7 +3157,12 @@ def phase_h_and_i(card, d3_ms):
     t2m run on the same corpus; both live in one temporary directory."""
     with tempfile.TemporaryDirectory(prefix="phase_h_") as root:
         h = _phase_h(root, card, d3_ms)
-        return h, phase_i(root, h, card)
+        i = phase_i(root, h, card)
+        t0 = time.perf_counter()
+        phase_o4(root, h, card)
+        print(f"[O4] {time.perf_counter() - t0:.1f} s (phase O's, run "
+              "here, where phase I's run lives)")
+        return h, i
 
 
 def _phase_h(root, card, d3_ms):
@@ -3687,7 +3722,7 @@ def deberta_work(dc, B: int, T: int, out_dim: int, prompts: int):
     return nbytes, flops
 
 
-J_LAYERS = 2  # J's denoiser's blocks a scale (full width)
+J_LAYERS = 1  # J's denoiser's blocks a scale (full width)
 
 
 def phase_j(cfg, dev, card, c_timings, d3_ms):
@@ -4513,7 +4548,7 @@ def phase_k5(root, card):
 # L: a JAX run's orbax checkpoint, read, resumed, served and written
 # ---------------------------------------------------------------------------
 
-L_LAYERS = 2  # L2's blocks a scale (full width)
+L_LAYERS = 1  # L2's blocks a scale (full width)
 ORBAX_FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                              "tests", "fixtures", "jax_orbax_run")
 
@@ -4876,7 +4911,7 @@ def phase_l2(cfg, root, dev, card):
 # ---------------------------------------------------------------------------
 
 M_B, M_LONG, M_SHORT = 32, (150, 196), (40, 100)  # rank 0 long, rank 1 short
-M_LAYERS = 2   # M1's blocks a scale (full width)
+M_LAYERS = 1   # M1's blocks a scale (full width)
 M2_LAYERS = 2  # M2's blocks a scale (full width)
 M_KERNELS = ("favor_qkv", "performer_epilogue", "favor_qkv_bwd",
              "performer_epilogue_bwd")
@@ -5316,11 +5351,11 @@ def m1_rank(spec_path, rank):
     torch.distributed.destroy_process_group()
 
 
-def spawn_ranks(argvs, timeout=300):
+def spawn_ranks(argvs, timeout=300, meanwhile=None):
     """One process per argv (this interpreter, from the repo root), their
-    output in files; waits for all, and kills every one still running
-    ``timeout`` s after the start or 30 s after another failed;
-    [(returncode, output)]."""
+    output in files; runs ``meanwhile()`` here while they start, if given;
+    waits for all, and kills every one still running ``timeout`` s after
+    the start or 30 s after another failed; [(returncode, output)]."""
     here = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
@@ -5335,6 +5370,8 @@ def spawn_ranks(argvs, timeout=300):
         deadline = time.monotonic() + timeout
         killed = ""
         try:
+            if meanwhile is not None:
+                meanwhile()
             while any(p.poll() is None for p in procs):
                 if any(p.poll() not in (None, 0) for p in procs):
                     deadline = min(deadline, time.monotonic() + 30)
@@ -5483,7 +5520,7 @@ def phase_m2(dev, card, root, devices=None, layers=M2_LAYERS, tag="M2",
 # phase N: expert-parallel MoE training (parallel/mesh.py, moe_parallel.py)
 # ---------------------------------------------------------------------------
 
-N_LAYERS = 2   # moe_big's blocks a scale in N (full width)
+N_LAYERS = 1   # moe_big's blocks a scale in N (full width)
 N_W = 8        # ranks sharing the card: moe_big's 8 expert partitions
 N_ROWS = 4     # rows of 196 frames a rank (N1; N2's 32 rows over 8 ranks)
 N_CASES = {    # N2: name: (ep, moe_compute, zero1, reference)
@@ -5526,12 +5563,11 @@ def chunked_dispatch(n: int):
 
     one = TM.capacity_dispatch_ffn
 
-    def per_chunk(x, top_idx, top_vals, *w, capacity_factor):
+    def per_chunk(x, top_idx, top_vals, *w, **kw):
         m = x.shape[0] // n
         return torch.cat([one(x[i * m:(i + 1) * m],
                               top_idx[i * m:(i + 1) * m],
-                              top_vals[i * m:(i + 1) * m], *w,
-                              capacity_factor=capacity_factor)
+                              top_vals[i * m:(i + 1) * m], *w, **kw)
                           for i in range(n)])
 
     return per_chunk
@@ -5975,6 +6011,755 @@ def phase_n(dev, card):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase O: sampling, serving and evaluation over ranks
+# ---------------------------------------------------------------------------
+
+O_W = 4             # O1 and O2: ranks sharing the card
+O_MB = 16           # the micro-batch (16 prompts, one micro-batch in O1)
+O1_STEPS = 10       # O1's DPM-Solver++ steps (the budget's cut: 20 asked)
+O1_LAYOUTS = {      # name: ((dp, ep, tp), moe_compute, capacity factor)
+    "dp4": ((4, 1, 1), "dense_fused", 2.0),
+    "dp2_ep2": ((2, 2, 1), "dense_fused", 2.0),
+    "ep2_tp2": ((1, 2, 2), "dense_fused", 2.0),
+    "dispatch_dp2_ep2": ((2, 2, 1), "dispatch", 4.0)}
+O1_REL = 1e-3       # O1, f32 compute: rel RMS of the motions
+O2_REL = 1e-1       # O2, bf16 compute (routing flips): rel RMS per request
+O2_MB = 4           # O2's serving micro-batch
+O2_STEPS = 5        # O2's DPM-Solver++ steps
+O2_REQUESTS = [(1, 196, 11), (3, 150, 12), (6, 196, 13)]  # n, frames, seed
+O3_W = 8            # moe_big's expert partitions, one rank each
+O3_STEPS = 5        # O3's DPM-Solver++ steps (the only cut)
+# O3, f32 compute: rel RMS of the motions within O3_REL plus O3_FLOOR x the
+# one process's own dense against dense_fused (the same function summed in
+# another order: what the sampler makes of f32 reordering in this model;
+# the 4 was set after a run that failed at 1e-3 alone, so this trajectory
+# check is a loose one)
+O3_REL, O3_FLOOR = 1e-3, 4.0
+# O3's strict check: one denoiser forward (no sampler) of the ranks against
+# the one process's dense, f32 compute: phase K1's f32 tolerance for the
+# same kind of difference (expert sums in another order)
+O3_FWD_REL = 1e-4
+O3_FWD_T = 500      # the timestep of that forward
+O4_REL = 1e-2       # O4: each metric of the one replication, relative
+
+
+def o_prompts(n, frames):
+    return ([f"a person walks in a circle and waves {i}" for i in range(n)],
+            [frames - (i % 3) * 7 for i in range(n)])
+
+
+def o_generate(pipe, prompts, lengths, seed, dev):
+    """``pipe.generate`` with kernels 1 and 2 counted from just before it to
+    just after it; (motions, {seconds, launches, peak GiB})."""
+    import torch
+    from motiondiffusion_moe_tpu_torch.ops import performer as P
+
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    for c in (P.favor_qkv, P.performer_epilogue):
+        c.launches = 0
+    t0 = time.perf_counter()
+    out = pipe.generate(prompts, lengths,
+                        torch.Generator(dev).manual_seed(seed))
+    if cuda:
+        torch.cuda.synchronize(dev)
+    line = {"s": round(time.perf_counter() - t0, 3),
+            "launches": {c.__name__: c.launches
+                         for c in (P.favor_qkv, P.performer_epilogue)},
+            "peak_GiB": round(torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+                              3) if cuda else 0.0,
+            "sha256": hashlib.sha256(b"".join(
+                np.ascontiguousarray(m).tobytes() for m in out)).hexdigest()}
+    return out, line
+
+
+def o_forward(pipe, prompts, lengths, seed, dev):
+    """One denoiser forward of the CFG-doubled micro-batch (the prompts,
+    then as many empty ones) on seeded x_t at timestep O3_FWD_T, as the
+    sampler calls the model but with no sampler around it: [2B, T, F]
+    float32 on the host. Under a mesh of data degree 1 every rank runs
+    every row."""
+    import torch
+
+    m, B = pipe.cfg.model, len(prompts)
+    ids = torch.as_tensor(pipe.tokenize(list(prompts) + [""] * B)).to(dev)
+    x = torch.randn((2 * B, m.max_frames, m.input_feats),
+                    generator=torch.Generator(dev).manual_seed(seed),
+                    device=dev)
+    t = torch.full((2 * B,), O3_FWD_T, dtype=torch.long, device=dev)
+    lens = torch.as_tensor(list(lengths) * 2, dtype=torch.long, device=dev)
+    with torch.inference_mode():
+        enc = pipe.model.encode_text(ids)
+        out = pipe.model(x, t, lens, xf_proj=enc.pooled, xf_out=enc.tokens)
+    return out.float().cpu()
+
+
+def o_holding(pipe) -> dict:
+    """What the rank holds: its parameters' elements and bytes, of which its
+    experts' elements and its split FFN columns' (the leaves the model axis
+    cuts), and the MoE computes its layers run."""
+    from motiondiffusion_moe_tpu_torch.parallel.mesh import (
+        is_expert_param, model_dim)
+
+    shapes = getattr(pipe, "_global_shapes", {})
+    out = {"params": 0, "param_bytes": 0, "experts": 0, "split": 0}
+    for n, p in pipe.model.named_parameters():
+        out["params"] += p.numel()
+        out["param_bytes"] += p.numel() * p.element_size()
+        if is_expert_param(n):
+            out["experts"] += p.numel()
+        elif model_dim(n, shapes.get(n, p.shape), 2) is not None:
+            out["split"] += p.numel()
+    out["computes"] = sorted({m.compute for m in pipe.model.modules()
+                              if hasattr(m, "model_split")})
+    return out
+
+
+def o_share(sd, ep, tp) -> dict:
+    """The experts' and split columns' elements a rank should hold of the
+    global state ``sd`` (name -> shape): 1 / ep of each expert tensor, and
+    1 / tp of w1, b1, w2 and of the FFN pairs' split leaves."""
+    from motiondiffusion_moe_tpu_torch.parallel.mesh import (
+        is_expert_param, model_dim)
+
+    out = {"experts": 0, "split": 0}
+    for n, shape in sd.items():
+        k = int(np.prod(shape))
+        cut = model_dim(n, shape, tp) is not None
+        if is_expert_param(n):
+            out["experts"] += k // ep // (tp if cut else 1)
+        elif model_dim(n, shape, 2) is not None:
+            out["split"] += k // (tp if cut else 1)
+    return out
+
+
+def o_join(spec, rank):
+    """A phase-O rank: TF32 off, its share of the host's threads, the gloo
+    group of the spec joined, the CUDA context made (all ranks at once,
+    before any load in turn)."""
+    import torch
+    from motiondiffusion_moe_tpu_torch.parallel.distributed import (
+        initialize_distributed)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(spec["device"])
+    # the ranks share the host's cores: none oversubscribes them
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // spec["world"]))
+    initialize_distributed(spec["init"], spec["world"], rank,
+                           backend="gloo", device=dev)
+    torch.zeros(1, device=dev)
+    return dev
+
+
+def o1_rank(spec_path, rank):
+    """One of O1's ranks: each layout of O1_LAYOUTS, the ranks loading the
+    flagship's global state in turn and cutting their shards; writes
+    ``o1_rank<r>.json`` (and rank 0 the motions)."""
+    import torch
+    from motiondiffusion_moe_tpu_torch.config import ExperimentConfig
+    from motiondiffusion_moe_tpu_torch.parallel.distributed import (
+        barrier, in_turn)
+    from motiondiffusion_moe_tpu_torch.parallel.mesh import generation_mesh
+    from motiondiffusion_moe_tpu_torch.pipeline import GenerationPipeline
+
+    with open(spec_path) as fh:
+        spec = json.load(fh)
+    dev = o_join(spec, rank)
+    cfg = ExperimentConfig.from_dict(spec["cfg"])
+    weights = torch.load(spec["params"], mmap=True, weights_only=True)
+    prompts, lengths = spec["prompts"]
+    res = {}
+    for name, ((dp, ep, tp), compute, cf) in O1_LAYOUTS.items():
+        mesh = generation_mesh(dp, ep, tp)
+        c = dataclasses.replace(cfg, model=dataclasses.replace(
+            cfg.model, moe_compute=compute, moe_capacity_factor=cf))
+        t0 = time.perf_counter()
+        pipe = in_turn(lambda: GenerationPipeline(
+            c, params=weights, sampler="dpm", num_inference_steps=O1_STEPS,
+            micro_batch=O_MB, param_dtype="bfloat16", device=dev,
+            mesh=mesh), os.path.getsize(spec["params"]))
+        load_s = time.perf_counter() - t0
+        barrier()
+        out, line = o_generate(pipe, prompts, lengths, spec["seed"], dev)
+        line.update(o_holding(pipe), load_s=round(load_s, 2))
+        if rank == 0:
+            np.savez(os.path.join(spec["out"], f"o1_{name}.npz"), *out)
+        res[name] = line
+        print(f"O1 {name} rank {rank}: {line}", flush=True)
+        del pipe, out
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        barrier()
+    torch.distributed.destroy_process_group()
+    with open(os.path.join(spec["out"], f"o1_rank{rank}.json"), "w") as fh:
+        json.dump(res, fh)
+
+
+def o_motions(motions):
+    import torch
+
+    return torch.from_numpy(np.concatenate([np.asarray(m) for m in motions]))
+
+
+def o_compare(name, got, ref, tol, card):
+    """rel RMS of two lists of motions, checked against ``tol``."""
+    import torch
+
+    a, b = o_motions(got), o_motions(ref)
+    check(a.shape == b.shape and bool(torch.isfinite(a).all()),
+          f"{name}: shapes {tuple(a.shape)} vs {tuple(b.shape)} or "
+          "non-finite")
+    rel = rel_rms(a, b)
+    print(f"[{name}] against the one-process pipeline: rel RMS {rel:.3e}, "
+          f"max abs {float((a - b).abs().max()):.3e} of max "
+          f"{float(b.abs().max()):.3e}; tol {tol:g} -> "
+          f"{'ok' if rel <= tol else 'FAIL'} ({card})")
+    check(rel <= tol, f"{name}: rel RMS {rel:.3e} > {tol:g}")
+    return rel
+
+
+def phase_o1(cfg, dev, card, root):
+    """The flagship at full width and depth, f32 compute and bf16 weights,
+    dpm with O1_STEPS steps of 16 prompts at 196 frames (micro-batch 16):
+    the one-process pipeline in dense_fused and dense, then O_W ranks on
+    this card over gloo in the four layouts of O1_LAYOUTS, each held to the
+    one-process motions of its function (dense_fused at data ranks alone,
+    else dense: dispatch at cf 4 drops nothing)."""
+    import torch
+    from motiondiffusion_moe_tpu_torch.pipeline import GenerationPipeline
+
+    j = os.path.join
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, dtype="float32"))
+    sd = build_flagship(cfg).state_dict()
+    torch.save(sd, j(root, "o1_params.pt"))
+    shapes = {n: tuple(v.shape) for n, v in sd.items()}
+    prompts, lengths = o_prompts(O_MB, cfg.model.max_frames)
+    seed = SEED + 90
+    refs, ref_lines = {}, {}
+
+    def references():  # while the ranks start
+        for compute in ("dense_fused", "dense"):
+            c = dataclasses.replace(cfg, model=dataclasses.replace(
+                cfg.model, moe_compute=compute))
+            pipe = GenerationPipeline(c, params=sd, sampler="dpm",
+                                      num_inference_steps=O1_STEPS,
+                                      micro_batch=O_MB,
+                                      param_dtype="bfloat16", device=dev)
+            refs[compute], ref_lines[compute] = o_generate(
+                pipe, prompts, lengths, seed, dev)
+            ref_lines[compute].update(o_holding(pipe))
+            del pipe
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        ref_lines["s"] = time.perf_counter() - t1
+
+    spec = {"init": f"file://{j(root, 'rdv_o1')}", "world": O_W,
+            "device": str(dev), "params": j(root, "o1_params.pt"),
+            "out": root, "cfg": cfg.to_dict(), "prompts": [prompts, lengths],
+            "seed": seed}
+    with open(j(root, "o1.json"), "w") as fh:
+        json.dump(spec, fh)
+    t1 = time.perf_counter()
+    outs = spawn_ranks([[os.path.abspath(__file__), "--o1-rank",
+                         j(root, "o1.json"), str(r)] for r in range(O_W)],
+                       timeout=600, meanwhile=references)
+    del sd
+    t_ref = ref_lines.pop("s")
+    for k, v in ref_lines.items():
+        print(f"[O1] one process, {k} (run while the ranks start): {v}")
+    for r, (rc, out) in enumerate(outs):
+        print("".join(f"[O1 rank {r}] {line}\n"
+                      for line in out.splitlines() if line.strip()), end="")
+    check(all(rc == 0 for rc, _ in outs),
+          f"O1 ranks exited with {[rc for rc, _ in outs]}")
+    res = [json.load(open(j(root, f"o1_rank{r}.json"))) for r in range(O_W)]
+    n_fwd = (O1_STEPS + 1) * 2 * 2 * cfg.model.num_layers  # a micro-batch
+    launches = {}
+    for name, ((dp, ep, tp), compute, _) in O1_LAYOUTS.items():
+        lines = [rr[name] for rr in res]
+        # dispatch at cf 4 drops nothing: dense's function, summed apart
+        ref = "dense" if ep * tp > 1 else "dense_fused"
+        got = np.load(j(root, f"o1_{name}.npz"))
+        o_compare(f"O1 {name}", [got[k] for k in got.files], refs[ref],
+                  O1_REL, card)
+        want = o_share(shapes, ep, tp)
+        for r, line in enumerate(lines):
+            check(line["launches"] == {"favor_qkv": n_fwd,
+                                       "performer_epilogue": n_fwd},
+                  f"O1 {name} rank {r} launches {line['launches']}, "
+                  f"expected {n_fwd} each")
+            check(line["experts"] == want["experts"]
+                  and line["split"] == want["split"],
+                  f"O1 {name} rank {r} holds {line['experts']} expert / "
+                  f"{line['split']} split elements, expected {want}")
+            check(line["sha256"] == lines[0]["sha256"],
+                  f"O1 {name}: rank {r}'s motions differ from rank 0's")
+            want_compute = "dispatch" if compute == "dispatch" else ref
+            check(line["computes"] == [want_compute],
+                  f"O1 {name} rank {r} computes {line['computes']}")
+        launches[name] = lines[0]["launches"]
+        print(f"[O1] {name} (data {dp} x expert {ep} x model {tp}, "
+              f"{compute} -> {lines[0]['computes'][0]}): every rank the "
+              f"same motions; launches a rank {lines[0]['launches']}; "
+              f"expert elements a rank {lines[0]['experts']} (of "
+              f"{ref_lines[ref]['experts']}), split FFN elements "
+              f"{lines[0]['split']} (of {ref_lines[ref]['split']}); "
+              f"parameter bytes a rank {lines[0]['param_bytes']} (one "
+              f"process {ref_lines[ref]['param_bytes']}); "
+              f"max_memory_allocated a rank "
+              f"{[ln['peak_GiB'] for ln in lines]} GiB (one process "
+              f"{ref_lines[ref]['peak_GiB']}); generate "
+              f"{[ln['s'] for ln in lines]} s (one process "
+              f"{ref_lines[ref]['s']}; four ranks sharing one card, "
+              f"collectives through the host: not a speed) ({card})")
+    print(f"[O1] the flagship's state {t1 - t0:.1f} s, the one-process "
+          f"references {t_ref:.1f} s while the ranks started, the ranks "
+          f"{time.perf_counter() - t1:.1f} s with their start")
+    return launches
+
+
+def o_cli_rank(cli, argv):
+    """One rank of a serve / evaluate CLI where the ranks share one card
+    (O2, O4): join the group that the CLI's launch flags in ``argv`` name
+    over gloo (NCCL refuses two ranks on one device), as m2_rank does, the
+    host's cores split between the ranks; then the CLI's main on ``argv``,
+    which finds the group made, with kernels 1 and 2 counted over its whole
+    run (no warm-up), printed as it exits. Returns what main returns."""
+    import torch
+    from motiondiffusion_moe_tpu_torch.ops import performer as P
+    from motiondiffusion_moe_tpu_torch.parallel.distributed import (
+        initialize_distributed)
+
+    args = cli.build_argparser().parse_args(argv)
+    torch.set_num_threads(max(1, (os.cpu_count() or 1)
+                              // max(1, args.num_processes)))
+    initialize_distributed(args.coordinator_address, args.num_processes,
+                           args.process_id, backend="gloo",
+                           device=args.device)
+    for c in (P.favor_qkv, P.performer_epilogue):
+        c.launches = 0
+    res = cli.main(argv)
+    print("O_LAUNCHES " + json.dumps({c.__name__: c.launches for c in (
+        P.favor_qkv, P.performer_epilogue)}), flush=True)
+    return res
+
+
+
+def phase_o2(cfg, dev, card, root):
+    """tools/serve.py as O_W processes (--data_parallel 2
+    --tensor_parallel 2, gloo) from the flagship's bf16 export (G1's:
+    export_model of the seeded flagship), micro-batch O2_MB, answering
+    O2_REQUESTS (the last spans two micro-batches), each seeded, against
+    the one-process server's answers; SIGTERM to rank 0 stops every
+    rank."""
+    import signal
+
+    import torch
+    from motiondiffusion_moe_tpu_torch.data.normalizer import (
+        MotionNormalizer)
+    from motiondiffusion_moe_tpu_torch.tools.export import export_model
+    from motiondiffusion_moe_tpu_torch.tools.serve import build_server
+
+    j = os.path.join
+    export = j(root, "o2_export")
+    export_model(build_flagship(cfg), cfg, export, dtype="bfloat16",
+                 normalizer=MotionNormalizer.identity(cfg.data.dim_pose))
+    argv = ["--export_dir", export, "--sampler", "dpm", "--steps",
+            str(O2_STEPS), "--micro_batch", str(O2_MB), "--no_denormalize",
+            "--device", str(dev.type)]
+    requests = []
+    for n, frames, seed in O2_REQUESTS:
+        texts, lengths = o_prompts(n, min(frames, cfg.model.max_frames))
+        requests.append({"texts": texts, "lengths": lengths, "seed": seed})
+
+    def one_process():  # the one-process server's answers
+        srv = build_server(argv + ["--port", "0"])
+        threading.Thread(target=srv.serve_forever, daemon=True).start()
+        url = f"http://127.0.0.1:{srv.server_address[1]}"
+        try:
+            return [_post(url + "/generate", r)[1]["motions"]
+                    for r in requests]
+        finally:
+            srv.shutdown()
+            srv.server_close()
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+
+    port = free_port()
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        x for x in (here, env.get("PYTHONPATH")) if x)
+    t0 = time.perf_counter()
+    with contextlib.ExitStack() as stack:
+        logs = [stack.enter_context(tempfile.TemporaryFile("w+"))
+                for _ in range(O_W)]
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--o2-rank", *argv,
+             "--port", str(port), "--data_parallel", "2",
+             "--tensor_parallel", "2", "--coordinator_address",
+             f"file://{j(root, 'rdv_o2')}", "--num_processes", str(O_W),
+             "--process_id", str(r)],
+            cwd=here, env=env, stdout=log, stderr=subprocess.STDOUT,
+            text=True) for r, log in enumerate(logs)]
+        try:
+            one = one_process()  # while the ranks start
+            health = None
+            while health is None:
+                try:
+                    with urllib.request.urlopen(
+                            f"http://127.0.0.1:{port}/healthz",
+                            timeout=10) as r:
+                        health = json.loads(r.read())
+                except OSError:
+                    check(all(p.poll() is None for p in procs),
+                          "O2: a serving rank exited before rank 0 bound")
+                    check(time.perf_counter() - t0 < 600,
+                          "O2: rank 0 did not bind within 600 s")
+                    time.sleep(1.0)
+            t_up = time.perf_counter() - t0
+            t1 = time.perf_counter()
+            got = [_post(f"http://127.0.0.1:{port}/generate", r)
+                   for r in requests]
+            t_req = time.perf_counter() - t1
+            procs[0].send_signal(signal.SIGTERM)
+            t2 = time.perf_counter()
+            for p in procs:
+                p.wait(timeout=180)
+            t_stop = time.perf_counter() - t2
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        outs = []
+        for p, log in zip(procs, logs):
+            log.seek(0)
+            outs.append((p.returncode, log.read()))
+    for r, (rc, out) in enumerate(outs):
+        print("".join(f"[O2 rank {r}] {line}\n"
+                      for line in out.splitlines()[-6:] if line.strip()),
+              end="")
+    check(all(rc == 0 for rc, _ in outs),
+          f"O2 serving ranks exited with {[rc for rc, _ in outs]}")
+    check(health.get("ok") is True and health.get("micro_batch") == O2_MB,
+          f"O2 /healthz {health}")
+    n_fwd = (O2_STEPS + 1) * 2 * 2 * cfg.model.num_layers * sum(
+        -(-len(r["texts"]) // O2_MB) for r in requests)
+    launches = []
+    for r, (_, out) in enumerate(outs):
+        found = [json.loads(line.split(" ", 1)[1]) for line in
+                 out.splitlines() if line.startswith("O_LAUNCHES ")]
+        check(found == [{"favor_qkv": n_fwd, "performer_epilogue": n_fwd}],
+              f"O2 rank {r} launches {found}, expected {n_fwd} each")
+        launches.append(found[0])
+    for i, ((status, body), want) in enumerate(zip(got, one)):
+        check(status == 200, f"O2 request {i}: {status}")
+        o_compare(f"O2 request {i} ({len(want)} prompts)",
+                  [np.asarray(m, np.float32) for m in body["motions"]],
+                  [np.asarray(m, np.float32) for m in want], O2_REL, card)
+    print(f"[O2] serve as {O_W} processes (data 2 x model 2, gloo on this "
+          f"card): up in {t_up:.1f} s, {len(requests)} requests in "
+          f"{t_req:.1f} s, every rank exited 0 {t_stop:.1f} s after "
+          f"SIGTERM to rank 0; launches a rank {launches[0]} ({card})")
+    return launches[0]
+
+
+def o3_config(cfg=None):
+    """moe_big as written (12 blocks a scale, 16 experts over 8 expert
+    partitions), computing dense both in one process and over ranks, in f32
+    (its bf16 weights kept): in bf16 compute the seeded moe_big's motions
+    move by O(1) between any two summation orders (routing flips at near
+    ties, carried by the sampler), the one process's dense against its
+    dense_fused included, so only f32 compute can hold the ranks to one
+    process."""
+    from motiondiffusion_moe_tpu_torch.config import ExperimentConfig
+
+    cfg = cfg or ExperimentConfig.moe_big()
+    return dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, moe_compute="dense", dtype="float32"))
+
+
+def seeded_state(cfg, dev, keep=None):
+    """A seeded state of the denoiser drawn leaf by leaf on ``dev`` (each
+    leaf from its own generator, so every process draws the same values),
+    each leaf cut at once by ``keep(name, tensor)`` and stored as served in
+    bf16 (the FAVOR+ projections f32): no process ever holds the whole
+    model in f32. Kernels scaled by 1/sqrt(fan in), norms' scales near 1,
+    biases and gates small, projections standard normal."""
+    import torch
+    from motiondiffusion_moe_tpu_torch.models.transformer import (
+        MotionTransformer)
+    from motiondiffusion_moe_tpu_torch.parallel.mesh import is_expert_param
+    from motiondiffusion_moe_tpu_torch.pipeline import serving_dtype
+
+    with torch.device("meta"):
+        shapes = [(n, tuple(p.shape)) for n, p in
+                  MotionTransformer(cfg.model).named_parameters()]
+    out = {}
+    for i, (name, shape) in enumerate(shapes):
+        g = torch.Generator(dev).manual_seed(SEED + 1000 + i)
+        x = torch.randn(shape, generator=g, device=dev)
+        if "projection" in name:
+            pass
+        elif len(shape) == 1:
+            norm = name.endswith(("norm.weight", "norm_scale"))
+            x = 1.0 + 0.1 * x if norm else 0.02 * x
+        else:
+            fan_in = (shape[1] if is_expert_param(name)
+                      else int(np.prod(shape[1:])))
+            x = x / math.sqrt(fan_in)
+        if keep is not None:
+            x = keep(name, x)
+        out[name] = x.to(serving_dtype(name, torch.float32,
+                                       torch.bfloat16)).contiguous()
+    return out
+
+
+def o3_rank(spec_path, rank):
+    """One of O3's ranks: its shard of moe_big seeded on the card, dpm of 2
+    prompts through the expert mesh, then one forward (o_forward); writes
+    ``o3_rank<r>.json`` (and rank 0 the motions and the forward)."""
+    import torch
+    from motiondiffusion_moe_tpu_torch.config import ExperimentConfig
+    from motiondiffusion_moe_tpu_torch.parallel.distributed import barrier
+    from motiondiffusion_moe_tpu_torch.parallel.mesh import generation_mesh
+    from motiondiffusion_moe_tpu_torch.pipeline import GenerationPipeline
+
+    with open(spec_path) as fh:
+        spec = json.load(fh)
+    dev = o_join(spec, rank)
+    cfg = ExperimentConfig.from_dict(spec["cfg"])
+    mesh = generation_mesh(1, spec["world"], 1)
+    t0 = time.perf_counter()
+    local = seeded_state(cfg, dev, keep=mesh.local_leaf)
+    pipe = GenerationPipeline(cfg, params=local, sampler="dpm",
+                              num_inference_steps=O3_STEPS, micro_batch=2,
+                              param_dtype="bfloat16", device=dev, mesh=mesh)
+    del local
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    load_s = time.perf_counter() - t0
+    barrier()
+    prompts, lengths = spec["prompts"]
+    out, line = o_generate(pipe, prompts, lengths, spec["seed"], dev)
+    fwd = o_forward(pipe, prompts, lengths, spec["seed"] + 1, dev)
+    line.update(o_holding(pipe), load_s=round(load_s, 2),
+                fwd_sha256=hashlib.sha256(fwd.numpy().tobytes()).hexdigest())
+    if rank == 0:
+        np.savez(os.path.join(spec["out"], "o3.npz"), *out)
+        torch.save(fwd, os.path.join(spec["out"], "o3_forward.pt"))
+    print(f"O3 rank {rank}: {line}", flush=True)
+    torch.distributed.destroy_process_group()
+    with open(os.path.join(spec["out"], f"o3_rank{rank}.json"), "w") as fh:
+        json.dump(line, fh)
+
+
+def phase_o3(dev, card, root, cfg=None):
+    """moe_big as written at 12 blocks a scale on O3_W ranks (its 8 expert
+    partitions), bf16 weights, f32 compute (o3_config), one micro-batch of
+    2 prompts: one forward (o_forward) and dpm with O3_STEPS steps, each
+    against the one-process moe_big of the same seeded weights (computed
+    while the ranks start)."""
+    import torch
+    from motiondiffusion_moe_tpu_torch.pipeline import GenerationPipeline
+
+    j = os.path.join
+    cfg = o3_config(cfg)
+    prompts, lengths = o_prompts(2, cfg.model.max_frames)
+    seed = SEED + 91
+    refs, fwds, shapes = {}, {}, {}
+
+    def references():  # while the ranks start and seed their shards
+        whole = seeded_state(cfg, dev)
+        shapes.update((n, tuple(v.shape)) for n, v in whole.items())
+        for compute in ("dense", "dense_fused"):
+            c = dataclasses.replace(cfg, model=dataclasses.replace(
+                cfg.model, moe_compute=compute))
+            pipe = GenerationPipeline(c, params=whole, sampler="dpm",
+                                      num_inference_steps=O3_STEPS,
+                                      micro_batch=2, param_dtype="bfloat16",
+                                      device=dev)
+            refs[compute] = o_generate(pipe, prompts, lengths, seed, dev)
+            fwds[compute] = o_forward(pipe, prompts, lengths, seed + 1, dev)
+            if compute == "dense":
+                refs[compute][1].update(o_holding(pipe))
+            del pipe
+        del whole
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        refs["s"] = time.perf_counter() - t1
+
+    spec = {"init": f"file://{j(root, 'rdv_o3')}", "world": O3_W,
+            "device": str(dev), "out": root, "cfg": cfg.to_dict(),
+            "prompts": [prompts, lengths], "seed": seed}
+    with open(j(root, "o3.json"), "w") as fh:
+        json.dump(spec, fh)
+    t1 = time.perf_counter()
+    outs = spawn_ranks([[os.path.abspath(__file__), "--o3-rank",
+                         j(root, "o3.json"), str(r)] for r in range(O3_W)],
+                       timeout=600, meanwhile=references)
+    t_ref = refs.pop("s")
+    ref, ref_line = refs["dense"]
+    floor = rel_rms(o_motions(refs["dense_fused"][0]), o_motions(ref))
+    fwd_floor = rel_rms(fwds["dense_fused"], fwds["dense"])
+    print(f"[O3] moe_big as written ({cfg.model.num_layers} blocks a scale, "
+          f"{ref_line['params']} parameters, {ref_line['experts']} of them "
+          f"experts), one process: {ref_line} in {t_ref:.1f} s with the "
+          f"seeding, while the ranks started; its dense_fused against its "
+          f"dense: rel RMS {fwd_floor:.3e} after one forward, {floor:.3e} "
+          f"after dpm{O3_STEPS}")
+    for r, (rc, out) in enumerate(outs):
+        print("".join(f"[O3 rank {r}] {line}\n"
+                      for line in out.splitlines() if line.strip()), end="")
+    check(all(rc == 0 for rc, _ in outs),
+          f"O3 ranks exited with {[rc for rc, _ in outs]}")
+    lines = [json.load(open(j(root, f"o3_rank{r}.json")))
+             for r in range(O3_W)]
+    fwd = torch.load(j(root, "o3_forward.pt"))
+    a, b = fwd, fwds["dense"]
+    check(a.shape == b.shape and bool(torch.isfinite(a).all()),
+          f"O3 forward: shapes {tuple(a.shape)} vs {tuple(b.shape)} or "
+          "non-finite")
+    rel = rel_rms(a, b)
+    print(f"[O3 moe_big over 8 expert ranks, one forward at t = {O3_FWD_T}] "
+          f"against the one process's dense: rel RMS {rel:.3e}, max abs "
+          f"{float((a - b).abs().max()):.3e} of max "
+          f"{float(b.abs().max()):.3e}; tol {O3_FWD_REL:g} -> "
+          f"{'ok' if rel <= O3_FWD_REL else 'FAIL'} ({card})")
+    check(rel <= O3_FWD_REL, f"O3 forward: rel RMS {rel:.3e} > "
+          f"{O3_FWD_REL:g}")
+    got = np.load(j(root, "o3.npz"))
+    o_compare(f"O3 moe_big over 8 expert ranks, dpm{O3_STEPS}",
+              [got[k] for k in got.files], ref, O3_REL + O3_FLOOR * floor,
+              card)
+    n_fwd = (O3_STEPS + 1) * 2 * 2 * cfg.model.num_layers
+    want = o_share(shapes, O3_W, 1)
+    for r, line in enumerate(lines):
+        check(line["launches"] == {"favor_qkv": n_fwd,
+                                   "performer_epilogue": n_fwd},
+              f"O3 rank {r} launches {line['launches']}, expected {n_fwd}")
+        check(line["experts"] == want["experts"],
+              f"O3 rank {r} holds {line['experts']} expert elements, "
+              f"expected {want['experts']}")
+        check(line["sha256"] == lines[0]["sha256"]
+              and line["fwd_sha256"] == lines[0]["fwd_sha256"],
+              f"O3: rank {r}'s motions or forward differ from rank 0's")
+    peak = [ln["peak_GiB"] for ln in lines]
+    print(f"[O3] {O3_W} ranks on this card over gloo: every rank the same "
+          f"motions; launches a rank {lines[0]['launches']}; parameters a "
+          f"rank {lines[0]['params']} ({lines[0]['param_bytes']} bytes; "
+          f"experts {lines[0]['experts']} of {ref_line['experts']}); "
+          f"max_memory_allocated a rank {peak} GiB, "
+          f"{sum(peak):.2f} GiB in all (one process "
+          f"{ref_line['peak_GiB']}); generate {[ln['s'] for ln in lines]} s "
+          f"(one process {ref_line['s']}; not a speed); the ranks "
+          f"{time.perf_counter() - t1:.1f} s with their start ({card})")
+    return lines[0]["launches"]
+
+
+def phase_o(cfg, dev, card):
+    """O1-O3 (O4 runs inside phase I, where its run lives)."""
+    t = {}
+    with tempfile.TemporaryDirectory(prefix="phase_o_") as root:
+        t0 = time.perf_counter()
+        o1 = phase_o1(cfg, dev, card, root)
+        t["O1"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        o2 = phase_o2(cfg, dev, card, root)
+        t["O2"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        o3 = phase_o3(dev, card, root)
+        t["O3"] = time.perf_counter() - t0
+    print(f"[O] seconds {({k: round(v, 1) for k, v in t.items()})}")
+    return {"o1": o1, "o2": o2, "o3": o3}
+
+
+def o_eval_rank(out_path, argv):
+    """One rank of O4's evaluate CLI (o_cli_rank); rank 0 saves the CLI's
+    result to ``out_path``."""
+    import torch
+    from motiondiffusion_moe_tpu_torch.tools import evaluate
+
+    res = o_cli_rank(evaluate, argv)
+    if res is not None:
+        torch.save(res, out_path)
+
+
+O4_PROTOCOL = ["--sampler", "dpm", "--steps", "20", "--batch_size", "8",
+               "--max_samples", "16", "--protocol_batch_size", "8",
+               "--diversity_times", "6", "--mm_num_samples", "4",
+               "--mm_num_repeats", "3", "--mm_num_times", "2",
+               "--replication_times", "1", "--score_samples", "8"]
+
+
+def phase_o4(root, h, card, dev="cuda"):
+    """tools/evaluate.py --data_parallel 2 on phase I's run (its corpus,
+    finest.tar and GloVe fixture; a few items, 1 replication) as two
+    processes on this card over gloo, against the one-process run."""
+    import torch
+    from motiondiffusion_moe_tpu_torch.tools import evaluate
+
+    j = os.path.join
+    base = ["--run_dir", h["run_dir"], "--device", str(dev),
+            "--evaluator_ckpt", j(root, "finest.tar"), "--glove_dir", GLOVE,
+            *O4_PROTOCOL]
+    res = {}
+
+    def one_process():  # while the ranks start
+        t0 = time.perf_counter()
+        res["one"] = evaluate.main(base + ["--log_file",
+                                           j(root, "o4_one.log")])
+        res["s"] = time.perf_counter() - t0
+
+    t1 = time.perf_counter()
+    outs = spawn_ranks([[os.path.abspath(__file__), "--o4-rank",
+                         j(root, "o4.pt"), *base, "--log_file",
+                         j(root, "o4_mesh.log"), "--data_parallel", "2",
+                         "--device_embeddings", "--coordinator_address",
+                         f"file://{j(root, 'rdv_o4')}", "--num_processes",
+                         "2", "--process_id", str(r)] for r in range(2)],
+                       timeout=600, meanwhile=one_process)
+    one, t_one = res["one"], res["s"]
+    t_mesh = time.perf_counter() - t1
+    for r, (rc, out) in enumerate(outs):
+        print("".join(f"[O4 rank {r}] {line}\n" for line in
+                      out.splitlines()[-4:] if line.strip()), end="")
+    check(all(rc == 0 for rc, _ in outs),
+          f"O4 ranks exited with {[rc for rc, _ in outs]}")
+    check("--device_embeddings unsupported under a mesh" in outs[0][1],
+          "O4: rank 0 did not warn that --device_embeddings takes the host "
+          "path")
+    launches = [[json.loads(line.split(" ", 1)[1])
+                 for line in out.splitlines()
+                 if line.startswith("O_LAUNCHES ")] for _, out in outs]
+    check(launches[0] == launches[1] and len(launches[0]) == 1
+          and min(launches[0][0].values()) > 0,
+          f"O4 launches a rank {launches}")
+    got = torch.load(j(root, "o4.pt"), weights_only=False)
+    worst = 0.0
+    for key, per_model in one["per_replication"].items():
+        for model, values in per_model.items():
+            a = np.asarray(got["per_replication"][key][model], np.float64)
+            b = np.asarray(values, np.float64)
+            rel = float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-12))
+            worst = max(worst, rel)
+            check(rel <= O4_REL, f"O4 {key} [{model}]: {a} vs {b}")
+    print(f"[O4] evaluate --data_parallel 2 (two processes, gloo) against "
+          f"one process: every metric of the replication within "
+          f"{worst:.3e} relative (tol {O4_REL:g}); launches a rank "
+          f"{launches[0][0]}; one process {t_one:.1f} s while the ranks "
+          f"started, the ranks "
+          f"{t_mesh:.1f} s with their start ({card})")
+    return launches[0][0]
+
+
 def main() -> int:
     import torch
 
@@ -6066,6 +6851,8 @@ def main() -> int:
     lap("M")
     phase_n(dev, card)
     lap("N")
+    phase_o(cfg, dev, card)
+    lap("O")
 
     csrc = "motiondiffusion_moe_tpu_torch/csrc/"
     ops = "motiondiffusion_moe_tpu/ops/"
@@ -6138,5 +6925,18 @@ if __name__ == "__main__":
         sys.exit(0)
     if sys.argv[1:2] == ["--n-rank"]:  # one rank of phase N1 and N2
         n_rank(sys.argv[2], int(sys.argv[3]))
+        sys.exit(0)
+    if sys.argv[1:2] == ["--o1-rank"]:  # one rank of phase O1
+        o1_rank(sys.argv[2], int(sys.argv[3]))
+        sys.exit(0)
+    if sys.argv[1:2] == ["--o2-rank"]:  # one serve CLI rank of phase O2
+        from motiondiffusion_moe_tpu_torch.tools import serve
+        o_cli_rank(serve, sys.argv[2:])
+        sys.exit(0)
+    if sys.argv[1:2] == ["--o3-rank"]:  # one rank of phase O3
+        o3_rank(sys.argv[2], int(sys.argv[3]))
+        sys.exit(0)
+    if sys.argv[1:2] == ["--o4-rank"]:  # one evaluate CLI rank of phase O4
+        o_eval_rank(sys.argv[2], sys.argv[3:])
         sys.exit(0)
     sys.exit(main())

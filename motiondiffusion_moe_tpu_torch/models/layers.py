@@ -109,11 +109,24 @@ class Dense(nn.Module):
         self.bias = nn.Parameter(torch.zeros(out_features))
         self.dtype = dtype
         self.init = init
+        # tensor parallelism (parallel/mesh.py::attach_mesh): "column" holds
+        # the rank's output columns, "row" its input columns and sums the
+        # model ranks' partial products
+        self.split: Optional[str] = None
+        self.mesh = None
 
     def forward(self, x: torch.Tensor,
                 activation: Optional[str] = None) -> torch.Tensor:
         dt = self.dtype
         x, w, b = x.to(dt), self.weight.to(dt), self.bias.to(dt)
+        if self.split == "row":
+            from motiondiffusion_moe_tpu_torch.parallel.moe_parallel import (
+                row_parallel_sum)
+            # the product in dt (a partial sum over the rank's columns), the
+            # ranks' sum and the bias, once, in f32, rounded once
+            y = row_parallel_sum(F.linear(x, w), b, self.mesh, True)
+            return y if activation is None else getattr(activations,
+                                                        activation)(y)
         if dt == torch.float32:  # one f32 rounding apart from flax's two
             y = F.linear(x, w, b)
             return y if activation is None else getattr(activations,

@@ -41,7 +41,13 @@ them, from the logits rounded to the compute dtype (the bf16 array handed
 to ``ep_moe_ffn_sharded``, ``moe.py:187-188``); the aux loss and the metrics
 keep the layer's routing. With data ranks alone (``ep = 1``) ``dispatch``
 takes the global batch's capacity and fill order
-(``global_dispatch_ffn``); the dense computes need nothing.
+(``global_dispatch_ffn``); the dense computes need nothing. In generation
+(``mesh.rows_replicated``) the ranks of a data index hold the same tokens:
+``dense`` runs ``replicated_dense_ffn`` and ``dispatch`` over an expert
+axis ``replicated_ep_moe_ffn``, which cuts them into JAX's chunks; with a
+model axis (``model_split``: the hidden width cut as JAX's Megatron rule
+cuts it) the experts' second product is summed over the model ranks before
+``b2`` (``expert_ffn_tp``).
 
 With ``MOE_FUSED_KERNEL`` set to anything but ``0``, an eval-mode
 ``dense_fused`` layer whose widths are multiples of 128 runs the expert
@@ -55,6 +61,7 @@ each step; in f32 the two agree.
 
 from __future__ import annotations
 
+import functools
 import os
 from typing import Dict, Optional, Tuple
 
@@ -174,15 +181,17 @@ def combine_rows(y: torch.Tensor, slot: torch.Tensor, keep: torch.Tensor,
 
 def capacity_dispatch_ffn(x: torch.Tensor, top_idx: torch.Tensor,
                           top_vals: torch.Tensor, w1, b1, w2, b2, *,
-                          capacity_factor: float) -> torch.Tensor:
+                          capacity_factor: float, ffn=expert_ffn
+                          ) -> torch.Tensor:
     """``_capacity_dispatch_ffn`` (``moe.py:201-234``) with index gathers in
     place of the one-hot [S, E, C] tensors: x [S, D] in the compute dtype,
-    top_idx / top_vals [S, k] (the values in the compute dtype) -> [S, D]."""
+    top_idx / top_vals [S, k] (the values in the compute dtype), ``ffn`` the
+    experts' FFN -> [S, D]."""
     S, D = x.shape
     E = w1.shape[0]
     C = expert_capacity(S, E, capacity_factor)
     slot, keep = capacity_slots(top_idx, E, C)
-    y = expert_ffn(dispatch_rows(x, slot, keep, E * C).view(E, C, D),
+    y = ffn(dispatch_rows(x, slot, keep, E * C).view(E, C, D),
                    w1, b1, w2, b2)
     return combine_rows(y.view(E * C, D), slot, keep, top_vals, x.dtype)
 
@@ -206,6 +215,7 @@ class SwitchMoELayer(nn.Module):
         self.compute = compute
         self.capacity_factor = capacity_factor
         self.mesh = None  # the run's ExpertMesh (parallel/mesh.py)
+        self.model_split = False  # hidden width cut over the model axis
         self.gate = Dense(D, E, dtype, init="zeros")
         self.w1 = nn.Parameter(torch.zeros(E, D, hidden_dim))
         self.b1 = nn.Parameter(torch.zeros(E, hidden_dim))
@@ -252,30 +262,46 @@ class SwitchMoELayer(nn.Module):
         mesh = self.mesh
         ep = mesh.ep if mesh is not None else 1
         over_ranks = mesh is not None and mesh.world > 1
+        ffn, gen = expert_ffn, False
         if over_ranks:  # not at import: moe_parallel imports this module
             from motiondiffusion_moe_tpu_torch.parallel import (
                 moe_parallel as MP)
+            gen = mesh.rows_replicated  # the generation layout
+            if self.model_split:
+                ffn = functools.partial(MP.expert_ffn_tp, mesh=mesh)
         if self.compute == "dispatch":
-            if ep > 1:
+            if ep > 1 and gen:
+                out = MP.replicated_ep_moe_ffn(
+                    x_flat, self.ep_routing, w1, b1, w2, b2,
+                    capacity_factor=self.capacity_factor, num_experts=E,
+                    mesh=mesh, model_split=self.model_split)
+            elif ep > 1:
                 vals, idx = self.ep_routing(x_flat)
                 out = MP.ep_moe_ffn(
                     x_flat, idx, vals.to(dt), w1, b1, w2, b2,
                     capacity_factor=self.capacity_factor, num_experts=E,
                     group=mesh.expert)
-            elif over_ranks:
+            elif over_ranks and mesh.dp > 1:
                 out = MP.global_dispatch_ffn(
                     x_flat, top_idx, top_vals.to(dt), w1, b1, w2, b2,
-                    capacity_factor=self.capacity_factor, group=mesh)
+                    capacity_factor=self.capacity_factor, group=mesh.data,
+                    ffn=ffn)
             else:
                 out = capacity_dispatch_ffn(
                     x_flat, top_idx, top_vals.to(dt), w1, b1, w2, b2,
-                    capacity_factor=self.capacity_factor)
+                    capacity_factor=self.capacity_factor, ffn=ffn)
         else:
             combine = torch.zeros(S, E, dtype=dt, device=x.device
                                   ).scatter_add_(1, top_idx, top_vals.to(dt))
-            out = (MP.ep_dense_ffn(x_flat, combine, w1, b1, w2, b2,
-                                   group=mesh.expert) if ep > 1
-                   else self._dense(x_flat, combine, w1, b1, w2, b2))
+            if over_ranks and gen and (ep > 1 or self.model_split):
+                out = MP.replicated_dense_ffn(
+                    x_flat, combine, w1, b1, w2, b2, mesh=mesh,
+                    model_split=self.model_split)
+            elif ep > 1:
+                out = MP.ep_dense_ffn(x_flat, combine, w1, b1, w2, b2,
+                                      group=mesh.expert)
+            else:
+                out = self._dense(x_flat, combine, w1, b1, w2, b2)
         out = out.reshape(shape)
         if with_metrics:
             return out, moe_metrics(probs, top_vals, top_idx)

@@ -1,15 +1,22 @@
-"""Multi-device training: the data and expert axes of the JAX package's
-``parallel/`` over ``torch.distributed``, one process per device (data
-parallelism and ZeRO-1, ``data_parallel.py``; the ``(data, expert)`` mesh
-and the expert shards, ``mesh.py``; the expert-parallel MoE FFN,
-``moe_parallel.py``). The model, seq and pipe axes (``mesh.py``'s other
-axes, ``pipeline_parallel.py``) are not ported."""
+"""Multi-device training and generation: the data, expert and model axes of
+the JAX package's ``parallel/`` over ``torch.distributed``, one process per
+device (data parallelism and ZeRO-1, ``data_parallel.py``; the ``(data,
+expert, model)`` mesh, the expert shards and the Megatron FFN split,
+``mesh.py``; the expert-parallel and tensor-parallel MoE FFN and the
+row-parallel sums, ``moe_parallel.py``; the launch and the job channel of
+serving and evaluation, ``distributed.py``). The model axis runs in
+generation only; training over it, and the seq and pipe axes
+(``pipeline_parallel.py``), are not ported (ROADMAP item 6c)."""
 
 from motiondiffusion_moe_tpu_torch.parallel.distributed import (  # noqa: F401
+    JobLeader,
+    barrier,
+    broadcast_job,
+    follow_jobs,
+    in_turn,
     initialize_distributed,
     is_primary,
     local_batch_slice,
-    barrier,
 )
 from motiondiffusion_moe_tpu_torch.parallel.data_parallel import (  # noqa: F401
     DataGroup,
@@ -18,7 +25,10 @@ from motiondiffusion_moe_tpu_torch.parallel.data_parallel import (  # noqa: F401
 )
 from motiondiffusion_moe_tpu_torch.parallel.mesh import (  # noqa: F401
     ExpertMesh,
+    generation_mesh,
     is_expert_param,
+    launch_generation,
     make_mesh,
+    model_dim,
     shard_experts,
 )

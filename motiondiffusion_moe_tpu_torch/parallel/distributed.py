@@ -19,13 +19,25 @@ The JAX module's ``coordination_barrier`` and ``compile_synced`` have no
 counterpart: they keep one process's collective from timing out while
 another still compiles the program. Eager PyTorch compiles nothing before
 its first collective, so :func:`barrier` is a plain collective.
+
+Serving and evaluation over ranks (one JAX process drives every device;
+here one process a device) go through a job channel: rank 0 broadcasts each
+job (:class:`JobLeader`), the other ranks wait in :func:`follow_jobs`. While
+rank 0 is idle its leader sends a ping every ``HEARTBEAT_S`` seconds, so a
+waiting rank stays inside the group's timeout, which still ends every rank
+with an error when one dies. :func:`in_turn` runs a step in turns of as
+many ranks as the host's memory holds, by the least of the ranks' readings
+so that every rank takes the same turns (a large model's load, whose host
+memory would otherwise be W times one copy).
 """
 
 from __future__ import annotations
 
 import datetime
 import os
-from typing import List, Optional, Tuple
+import threading
+import time
+from typing import Any, Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -151,3 +163,117 @@ def primary_says(flag: bool) -> bool:
     """The primary's ``flag`` on every process: a decision that the
     processes must take alike (for example, whether a step is saved)."""
     return bool(all_gather_objects(bool(flag))[0])
+
+
+LOAD_FACTOR = 3  # host bytes a load holds at its peak, per byte loaded
+
+
+def loads_at_once(nbytes: int) -> int:
+    """How many ranks may load ``nbytes`` each at once: as many as the
+    host's available memory holds at ``LOAD_FACTOR`` times that (the file,
+    its tree, the rank's cut), at least one; one when either is unknown."""
+    try:
+        with open("/proc/meminfo") as fh:
+            avail = next(int(line.split()[1]) * 1024 for line in fh
+                         if line.startswith("MemAvailable:"))
+    except (OSError, StopIteration, ValueError):
+        return 1
+    return max(1, avail // (LOAD_FACTOR * nbytes)) if nbytes > 0 else 1
+
+
+def in_turn(fn: Callable[[], Any], nbytes: int = 0) -> Any:
+    """``fn()`` on every rank, in turns of k ranks in rank order (a
+    collective: every rank calls it): a load of ``nbytes`` that W ranks at
+    once would need W times the host memory of. k is the least of the
+    ranks' :func:`loads_at_once`, gathered first, so that every rank takes
+    the same turns (each reads its host's memory at its own moment).
+    Returns this rank's result."""
+    k = min(all_gather_objects(loads_at_once(nbytes)))
+    out = None
+    for turn in range(0, world_size(), k):
+        if turn <= rank() < turn + k:
+            out = fn()
+        barrier()
+    return out
+
+
+PING = {"kind": "ping"}
+HEARTBEAT_S = 30.0  # rank 0's idle ping, well inside DEFAULT_TIMEOUT_S
+
+
+def broadcast_job(job=None):
+    """Rank 0's ``job`` (a picklable object; None is the stop) on every
+    rank: rank 0 passes it, the others receive it."""
+    box = [job]
+    dist.broadcast_object_list(box, src=0)
+    return box[0]
+
+
+class JobLeader:
+    """Rank 0's end of the job channel. :meth:`run` sends a job and runs
+    rank 0's part of it under one lock, so that no ping falls between the
+    collectives of a job; a daemon thread pings the other ranks whenever no
+    job was sent for ``HEARTBEAT_S`` seconds; :meth:`stop` sends the stop.
+    An error inside a job leaves the ranks out of step: the leader then
+    sends nothing more (``failed``) and calls ``on_failure(error)``."""
+
+    def __init__(self):
+        self.failed: Optional[BaseException] = None
+        self.on_failure: Optional[Callable[[BaseException], None]] = None
+        self._lock = threading.Lock()
+        self._last = time.monotonic()
+        self._stopped = False
+        threading.Thread(target=self._beat, daemon=True).start()
+
+    def run(self, job, fn: Callable[[], Any]) -> Any:
+        with self._lock:
+            if self._stopped or self.failed is not None:
+                raise RuntimeError(f"the ranks are stopped "
+                                   f"({self.failed or 'stop sent'})")
+            try:
+                broadcast_job(job)
+                return fn()
+            except BaseException as e:
+                self.failed = e
+                if self.on_failure is not None:
+                    self.on_failure(e)
+                raise
+            finally:
+                self._last = time.monotonic()
+
+    def stop(self) -> None:
+        """Send the stop (once; nothing after a failure)."""
+        with self._lock:
+            if not self._stopped and self.failed is None:
+                self._stopped = True
+                broadcast_job(None)
+
+    def _beat(self) -> None:
+        while True:
+            time.sleep(1.0)
+            with self._lock:
+                if self._stopped or self.failed is not None:
+                    return
+                if time.monotonic() - self._last >= HEARTBEAT_S:
+                    try:
+                        broadcast_job(PING)
+                    except BaseException as e:  # a rank died
+                        self.failed = e
+                        if self.on_failure is not None:
+                            self.on_failure(e)
+                        return
+                    self._last = time.monotonic()
+
+
+def follow_jobs(handle: Callable[[Any], None]) -> int:
+    """The other ranks' end: ``handle(job)`` for each job rank 0 sends,
+    pings skipped, until the stop; returns the number of jobs run."""
+    n = 0
+    while True:
+        job = broadcast_job()
+        if job is None:
+            return n
+        if job == PING:
+            continue
+        handle(job)
+        n += 1

@@ -1,35 +1,50 @@
-"""The data and expert axes of the JAX package's ``parallel/mesh.py`` over
-``torch.distributed``: the rank layout, the process subgroups, and where
-the expert parameters live.
+"""The data, expert and model axes of the JAX package's ``parallel/mesh.py``
+over ``torch.distributed``: the rank layout, the process subgroups, and where
+the expert and FFN parameters live.
 
-JAX lays ``W = dp x ep`` devices out as a ``(data, expert)`` mesh with the
-data axis major (``make_mesh`` :45-76): device ``i = d * ep + e``. The port
-runs one process per device with the same numbering, rank ``r = d * ep +
-e``, and:
+JAX lays ``W = dp x ep x tp`` devices out as a ``(data, expert, model)``
+mesh with the model axis minor (``make_mesh`` :45-76): device ``i = (d * ep
++ e) * tp + m``. The port runs one process per device with the same
+numbering, rank ``r = (d * ep + e) * tp + m`` (``r = d * ep + e`` at ``tp =
+1``), and:
 
 - every rank makes every subgroup, in the same order: the expert groups
-  (ranks ``d * ep .. d * ep + ep - 1``, which share a data index: the
-  all-to-all of ``dispatch`` and the all-gather / reduce-scatter of
-  ``dense`` run among them) and the data groups (ranks ``e, e + ep, ...``,
-  which hold the same experts: their expert gradients are summed over it
-  and, under ZeRO-1, their expert moments and EMA cut over it);
+  (the ranks that share ``(d, m)``: the all-to-all of ``dispatch`` and the
+  collectives of ``dense`` run among them), the data groups (the ranks that
+  share ``(e, m)``, which hold the same parameters: their expert gradients
+  are summed over it and, under ZeRO-1, their expert moments and EMA cut
+  over it), and with ``tp > 1`` the model groups (the ranks that share
+  ``(d, e)``: the row-parallel sums) and the shard groups (the ranks that
+  share ``d``: the sum of ``dense``'s partial products);
 - an expert parameter (:func:`is_expert_param`: ``w1``, ``b1``, ``w2``,
   ``b2`` of a ``SwitchMoELayer``, JAX ``_is_expert_param`` :83) holds the
   rank's ``E / ep`` experts on dim 0, experts ``[e E / ep, (e + 1) E /
-  ep)`` (``_param_spec`` :100-139); everything else is replicated;
-- rank r holds rows ``[r B / W, (r + 1) B / W)`` of each microbatch, which
-  are token chunk r of JAX's ``P((data, expert))`` layout, so a capacity
-  counted on the rank's own tokens is JAX's per-chunk capacity.
+  ep)``; with ``tp > 1`` JAX's Megatron split (``_param_spec`` :89-139,
+  :func:`model_dim`) cuts ``w1`` and ``b1`` on the hidden columns, ``w2`` on
+  its hidden rows, a ``DenseFFN``'s ``branch_i_fc1`` and a
+  ``CrossAttentionBlock``'s ``ffn_0`` on their output columns (weight and
+  bias) and ``branch_i_fc2`` / ``ffn_1`` on their input columns (the
+  weight; the bias stays whole and joins the sum once). A leaf whose dim
+  ``tp`` does not divide stays whole, as JAX's ``div()`` leaves it;
+  everything else is replicated;
+- in training (``tp = 1``) rank r holds rows ``[r B / W, (r + 1) B / W)``
+  of each microbatch, which are token chunk r of JAX's ``P((data,
+  expert))`` layout, so a capacity counted on the rank's own tokens is
+  JAX's per-chunk capacity; in generation (``rows_replicated``, the
+  layout of JAX's ``GenerationPipeline`` under a mesh, ``P('data')``) the
+  ranks of one data index hold the same rows of the CFG-doubled batch, and
+  ``dispatch`` cuts their tokens into JAX's chunks itself
+  (``parallel/moe_parallel.py``).
 
 A checkpoint holds JAX's global ``[E, ...]`` layout: :meth:`ExpertMesh.
 gather_experts` and :meth:`ExpertMesh.gather_expert_shards` bring the
 shards to rank 0's host in expert order, and :func:`local_state_dict`
-slices a whole state for any ``(dp, ep)``.
+cuts a whole state for any ``(dp, ep, tp)``.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -50,29 +65,67 @@ def is_expert_param(name: str) -> bool:
     return leaf in EXPERT_LEAVES and module.endswith("_moe")
 
 
-class ExpertMesh(DataGroup):
-    """The run's ``(data, expert)`` mesh: the world's collectives (this
-    class is the world's :class:`DataGroup`), the rank's expert index
-    ``e`` and data index ``d``, and its two subgroups, ``expert`` (None at
-    ``ep = 1``) and ``data`` (the world itself at ``ep = 1``)."""
+def model_dim(name: str, shape: Sequence[int], tp: int) -> Optional[int]:
+    """The dim of a (torch-layout) parameter that JAX's Megatron rule cuts
+    over ``tp`` model ranks, or None (replicated over the model axis):
+    ``_param_spec`` :89-139 on the port's names, flax's ``[in, out]``
+    kernels being the transposes of the torch weights here."""
+    module, _, leaf = name.rpartition(".")
+    dim = None
+    if is_expert_param(name):
+        dim = {"w1": 2, "b1": 1, "w2": 1}.get(leaf)  # b2 stays whole
+    elif module.endswith("_fc1") or module.endswith("ffn_0"):
+        dim = 0  # column-parallel: the output columns, weight and bias
+    elif (module.endswith("_fc2") or module.endswith("ffn_1")) \
+            and leaf == "weight":
+        dim = 1  # row-parallel: the input columns; the bias joins once
+    if dim is None or tp < 2 or dim >= len(shape) or shape[dim] % tp:
+        return None
+    return dim
 
-    def __init__(self, ep: int = 1):
+
+class ExpertMesh(DataGroup):
+    """The run's ``(data, expert, model)`` mesh: the world's collectives
+    (this class is the world's :class:`DataGroup`), the rank's indices ``d``,
+    ``e``, ``m`` and its subgroups: ``expert`` (None at ``ep = 1``),
+    ``data`` (the world itself at ``ep = tp = 1``), ``model`` and ``shard``
+    (None at ``tp = 1``; ``shard`` is ``expert`` then). ``rows_replicated``
+    marks the generation layout (see the module doc)."""
+
+    def __init__(self, ep: int = 1, tp: int = 1,
+                 rows_replicated: bool = False):
         super().__init__()
-        if ep < 1 or self.world % ep:
-            raise ValueError(f"{ep} expert partitions do not divide the "
-                             f"{self.world} processes")
-        self.ep, self.dp = ep, self.world // ep
-        self.e, self.d = self.rank % ep, self.rank // ep
-        self.expert = self.data = None
+        if ep < 1 or tp < 1 or self.world % (ep * tp):
+            raise ValueError(f"{ep} expert x {tp} model partitions do not "
+                             f"divide the {self.world} processes")
+        self.ep, self.tp, self.dp = ep, tp, self.world // (ep * tp)
+        self.rows_replicated = rows_replicated
+        self.m = self.rank % tp
+        self.e = self.rank // tp % ep
+        self.d = self.rank // (tp * ep)
+
+        def rank(d, e, m):
+            return (d * ep + e) * tp + m
+
+        self.expert = self.model = self.shard = None
+        self.data = self
         if ep > 1:
             self.expert = self._subgroup(
-                [[d * ep + i for i in range(ep)] for d in range(self.dp)],
-                self.d)
+                [[rank(d, i, m) for i in range(ep)] for d in range(self.dp)
+                 for m in range(tp)], self.d * tp + self.m)
+        if ep * tp > 1:
             self.data = self._subgroup(
-                [[e + d * ep for d in range(self.dp)] for e in range(ep)],
-                self.e)
+                [[rank(d, e, m) for d in range(self.dp)] for e in range(ep)
+                 for m in range(tp)], self.e * tp + self.m)
+        if tp > 1:
+            self.model = self._subgroup(
+                [[rank(d, e, i) for i in range(tp)] for d in range(self.dp)
+                 for e in range(ep)], self.d * ep + self.e)
+            self.shard = self._subgroup(
+                [list(range(d * ep * tp, (d + 1) * ep * tp))
+                 for d in range(self.dp)], self.d) if ep > 1 else self.model
         else:
-            self.data = self
+            self.shard = self.expert
 
     def _subgroup(self, families: List[List[int]], mine: int) -> DataGroup:
         if len(families) == 1:
@@ -88,6 +141,32 @@ class ExpertMesh(DataGroup):
         """The experts this rank holds."""
         n = num_experts // self.ep
         return slice(self.e * n, (self.e + 1) * n)
+
+    def rows(self, n: int) -> slice:
+        """The rows of an ``n``-row batch that this rank's data index holds
+        in the generation layout."""
+        k = n // self.dp
+        return slice(self.d * k, (self.d + 1) * k)
+
+    def local_shape(self, name: str, shape: Sequence[int]) -> List[int]:
+        """The shape the rank holds of the global parameter ``name``."""
+        shape = list(shape)
+        if self.ep > 1 and is_expert_param(name):
+            shape[0] //= self.ep
+        dim = model_dim(name, shape, self.tp)
+        if dim is not None:
+            shape[dim] //= self.tp
+        return shape
+
+    def local_leaf(self, name: str, x: torch.Tensor) -> torch.Tensor:
+        """The rank's cut (a view) of the global parameter ``name``."""
+        if self.ep > 1 and is_expert_param(name):
+            x = x[self.expert_slice(x.shape[0])]
+        dim = model_dim(name, x.shape, self.tp)
+        if dim is not None:
+            n = x.shape[dim] // self.tp
+            x = x.narrow(dim, self.m * n, n)
+        return x
 
     def gather_experts(self, tensors: Sequence[torch.Tensor]
                        ) -> Optional[List[torch.Tensor]]:
@@ -215,32 +294,45 @@ def moe_layers(model: nn.Module):
 
 
 def model_mesh(model: nn.Module) -> Optional[ExpertMesh]:
-    """The expert mesh the model's MoE layers were sharded over, or None
-    (no MoE layer, no mesh, or ``ep = 1``)."""
-    for _, m in moe_layers(model):
-        if m.mesh is not None and m.mesh.ep > 1:
-            return m.mesh
+    """The mesh the model's parameters were cut over, or None (no mesh, or
+    one that cuts nothing: ``ep = tp = 1``)."""
+    for m in model.modules():
+        mesh = getattr(m, "mesh", None)
+        if isinstance(mesh, ExpertMesh) and mesh.ep * mesh.tp > 1:
+            return mesh
     return None
 
 
 def attach_mesh(model: nn.Module, mesh: Optional[ExpertMesh]) -> None:
-    """Give every MoE layer the run's mesh (its collectives); the weights
-    stay whole until :func:`shard_experts`. Under an expert axis a layer
-    must compute ``dense`` or ``dispatch``: ``dense_fused`` merges the
-    experts into one matmul, which cannot be cut by expert (JAX
-    ``trainer.py:71-89``)."""
+    """Give every MoE layer the run's mesh (its collectives), and with a
+    model axis every FFN pair its split (``Dense.split``, the MoE layer's
+    ``model_split``: only where :func:`model_dim` cuts the hidden width);
+    the weights stay whole until :func:`shard_experts` or a pipeline's
+    :meth:`~pipeline.GenerationPipeline.set_params`. Under an expert or a
+    model axis a layer must compute ``dense`` or ``dispatch``:
+    ``dense_fused`` merges the experts into one matmul, which cannot be
+    cut (JAX ``trainer.py:71-89``)."""
+    from motiondiffusion_moe_tpu_torch.models.layers import Dense
+
+    tp = mesh.tp if mesh is not None else 1
     for name, m in moe_layers(model):
-        if mesh is not None and mesh.ep > 1:
+        if mesh is not None and mesh.ep * tp > 1:
             if m.compute == "dense_fused":
                 raise ValueError(
                     f"{name} computes 'dense_fused' under {mesh.ep} expert "
-                    "partitions: the fused matmul cannot be expert-sharded. "
-                    "Build the model with moe_compute='dense' (or "
-                    "'dispatch') for expert-parallel runs.")
+                    f"x {tp} model partitions: the fused matmul cannot be "
+                    "sharded. Build the model with moe_compute='dense' (or "
+                    "'dispatch') for expert- or tensor-parallel runs.")
             if m.num_experts % mesh.ep:
                 raise ValueError(f"{name}: {m.num_experts} experts over "
                                  f"{mesh.ep} expert partitions")
         m.mesh = mesh
+        m.model_split = model_dim(f"{name}.w1", m.w1.shape, tp) is not None
+    for name, m in model.named_modules():
+        if isinstance(m, Dense):
+            dim = model_dim(f"{name}.weight", m.weight.shape, tp)
+            m.split = None if dim is None else ("row" if dim else "column")
+            m.mesh = mesh if m.split else None
 
 
 @torch.no_grad()
@@ -281,12 +373,41 @@ def whole_state_dict(model: nn.Module) -> Optional[Dict[str, torch.Tensor]]:
 
 def local_state_dict(model: nn.Module, sd: Dict[str, torch.Tensor]
                      ) -> Dict[str, torch.Tensor]:
-    """A global state dict cut to the model's shapes: each expert tensor
-    to the rank's experts."""
+    """A global state dict cut to the model's shapes: each tensor to the
+    rank's part of it (:meth:`ExpertMesh.local_leaf`)."""
     mesh = model_mesh(model)
-    names = list(sd)
-    return dict(zip(names, slice_experts([sd[n] for n in names],
-                                         expert_flags(names, mesh), mesh)))
+    if mesh is None:
+        return dict(sd)
+    return {n: mesh.local_leaf(n, v) for n, v in sd.items()}
+
+
+def generation_mesh(data_parallel: int = 1, expert_parallel: int = 1,
+                    tensor_parallel: int = 1) -> Optional[ExpertMesh]:
+    """The ``(data, expert, model)`` mesh of ``GenerationPipeline`` and the
+    serve / evaluate CLIs, in the generation layout: None when every degree
+    is 1 and no process group exists. Raises unless the process group has
+    ``dp x ep x tp`` ranks (``data_parallel`` 0 means the world over ``ep x
+    tp``), and, with degrees above 1, unless it exists."""
+    dp, ep, tp = data_parallel, expert_parallel, tensor_parallel
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if min(ep, tp) < 1 or dp < 0:
+        raise ValueError(f"parallel degrees data {dp}, expert {ep}, model "
+                         f"{tp}: each at least 1 (data 0 = the rest)")
+    want = (dp or max(1, world // (ep * tp))) * ep * tp
+    if want > 1 and not dist.is_initialized():
+        raise ValueError(
+            f"--data_parallel {dp} --expert_parallel {ep} --tensor_parallel "
+            f"{tp} asks for {want} devices, but this is one process: launch "
+            f"one process per device ({want}), with torchrun or "
+            "--coordinator_address / --num_processes / --process_id")
+    if world != want:
+        raise ValueError(
+            f"data {dp or world // (ep * tp)} x expert {ep} x model {tp} = "
+            f"{want} ranks, but the process group has {world}: launch "
+            "data x expert x model processes, one per device")
+    if not dist.is_initialized():
+        return None
+    return ExpertMesh(ep, tp, rows_replicated=True)
 
 
 def make_mesh(cfg) -> Optional[ExpertMesh]:
@@ -328,3 +449,52 @@ def check_mesh(cfg) -> None:
             f"microbatch {micro} (batch_size {cfg.train.batch_size} / "
             f"grad_accum_steps {accum}) not divisible by the {world} data "
             "ranks; adjust --batch_size / --grad_accum / --data_parallel")
+
+
+def add_launch_flags(p) -> None:
+    """The serve / evaluate CLIs' multi-device flags (an argparse parser):
+    the JAX CLIs' three degrees and the launch of one process per device
+    (``tools/train.py``'s flags, or torchrun's environment)."""
+    p.add_argument("--data_parallel", type=int, default=1,
+                   help="split each generation's batch over this many "
+                        "ranks (micro_batch must divide by it)")
+    p.add_argument("--expert_parallel", type=int, default=1,
+                   help="cut the MoE experts over this many ranks")
+    p.add_argument("--tensor_parallel", type=int, default=1,
+                   help="Megatron FFN split over this many ranks")
+    p.add_argument("--coordinator_address", default="",
+                   help="multi-process: HOST:PORT of rank 0 (or an init "
+                        "URL, e.g. file:///shared/rendezvous)")
+    p.add_argument("--num_processes", type=int, default=0,
+                   help="multi-process: the number of processes")
+    p.add_argument("--process_id", type=int, default=-1,
+                   help="multi-process: this process's rank")
+
+
+def launch_generation(args) -> Tuple[Optional[ExpertMesh], torch.device]:
+    """(mesh, device) of a serve / evaluate process: joins the process group
+    that :func:`add_launch_flags`' launch flags or torchrun's environment
+    name, then :func:`generation_mesh` of the three degrees (which raises
+    for degrees above 1 in one process) and the device: ``--device`` in
+    one process, else this rank's (``cuda:LOCAL_RANK`` unless ``--device``
+    names one)."""
+    from motiondiffusion_moe_tpu_torch.parallel.distributed import (
+        initialize_distributed, rank_device)
+
+    initialize_distributed(
+        coordinator_address=args.coordinator_address or None,
+        num_processes=args.num_processes or None,
+        process_id=args.process_id if args.process_id >= 0 else None,
+        device=args.device)
+    mesh = generation_mesh(args.data_parallel, args.expert_parallel,
+                           args.tensor_parallel)
+    if torch.device(args.device).type == "cuda" and \
+            not torch.cuda.is_available():
+        raise RuntimeError(f"--device {args.device}: no CUDA device is "
+                           "available (pass --device cpu for the CPU)")
+    if mesh is None:
+        return None, torch.device(args.device)
+    device = rank_device(args.device)
+    if device.type == "cuda":
+        torch.zeros(1, device=device)  # the context now, not in turn
+    return mesh, device

@@ -28,11 +28,40 @@ partitioner makes of the ``dense`` einsums on an ``expert`` axis.
   replicated and a token's output reads only its own slots, so no token
   moves: each rank runs its kept pairs in a buffer of its own, and nothing
   crosses ranks in the backward.
+
+In the generation layout (``ExpertMesh.rows_replicated``: the ranks of one
+data index hold the same rows of the CFG-doubled batch, JAX's
+``GenerationPipeline`` under a mesh, ``pipeline.py:228-242``) and with the
+model axis (JAX's Megatron split, ``parallel/mesh.py:113-133``):
+
+- :func:`replicated_dense_ffn` (``dense``): each rank runs its experts'
+  hidden columns on every token of its data index, weights its experts'
+  partial outputs in f32, and one f32 all-reduce over the shard group (the
+  ranks of the data index) sums them; ``combine . b2`` joins the sum once
+  (:func:`row_parallel_sum`), rounded once.
+- :func:`replicated_ep_moe_ffn` (``dispatch``, ``ep > 1``): expert rank e
+  takes token chunk e of its data index's flat tokens, which is chunk ``d
+  ep + e`` of JAX's ``P((data, expert))`` layout (``ep_moe_ffn_sharded``
+  :220-230), so capacity and drops are JAX's per chunk; then the
+  all-to-all of :func:`ep_moe_ffn`, its experts' second product closed by
+  the sum over the model group before ``b2`` (JAX
+  ``_ep_moe_body_from_logits`` :176-180, :func:`expert_ffn_tp`), and an
+  all-gather over the expert group gives every rank the data index's
+  tokens again.
+- ``dispatch`` at ``ep = 1``: :func:`global_dispatch_ffn` over the data
+  group (JAX's global capacity), or one rank's whole batch, each with the
+  expert FFN of :func:`expert_ffn_tp` under a model split.
+- the row-parallel ``Dense`` layers (``models/layers.py``) close their
+  products with :func:`row_parallel_sum`.
+
+The partial products are rounded to the compute dtype (JAX's partitioner
+gives each model rank a partial product in that dtype) and summed in f32.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict
+import functools
+from typing import Callable, Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -83,12 +112,12 @@ class _ReduceScatter(torch.autograd.Function):
 
 def ep_moe_ffn(x: torch.Tensor, top_idx: torch.Tensor,
                top_vals: torch.Tensor, w1, b1, w2, b2, *,
-               capacity_factor: float, num_experts: int, group
-               ) -> torch.Tensor:
+               capacity_factor: float, num_experts: int, group,
+               ffn=expert_ffn) -> torch.Tensor:
     """x [S_loc, D] (this rank's tokens, compute dtype), top_idx / top_vals
     [S_loc, k] (the values in the compute dtype), ``w1`` ... the rank's
-    ``E / ep`` experts; ``group`` the expert group (a ``DataGroup``) ->
-    [S_loc, D]."""
+    ``E / ep`` experts; ``group`` the expert group (a ``DataGroup``);
+    ``ffn`` the experts' FFN -> [S_loc, D]."""
     S, D = x.shape
     ep, E = group.world, num_experts
     e_local = w1.shape[0]
@@ -102,7 +131,7 @@ def ep_moe_ffn(x: torch.Tensor, top_idx: torch.Tensor,
     expert_in = _AllToAll.apply(expert_in, group)
     expert_in = expert_in.view(ep, e_local, C, D).transpose(0, 1).reshape(
         e_local, ep * C, D)
-    y = expert_ffn(expert_in, w1, b1, w2, b2)
+    y = ffn(expert_in, w1, b1, w2, b2)
     y = y.view(e_local, ep, C, D).transpose(0, 1).reshape(E * C, D)
     y = _AllToAll.apply(y, group)  # this rank's slots of every expert
     return combine_rows(y, slot, keep, top_vals, x.dtype)
@@ -149,7 +178,8 @@ def global_keep(top_idx: torch.Tensor, num_experts: int, capacity: int,
 
 def global_dispatch_ffn(x: torch.Tensor, top_idx: torch.Tensor,
                         top_vals: torch.Tensor, w1, b1, w2, b2, *,
-                        capacity_factor: float, group) -> torch.Tensor:
+                        capacity_factor: float, group,
+                        ffn=expert_ffn) -> torch.Tensor:
     """``dispatch`` over data ranks with replicated experts: the global
     batch's capacity and fill order (see the module doc)."""
     S, D = x.shape
@@ -169,9 +199,92 @@ def global_dispatch_ffn(x: torch.Tensor, top_idx: torch.Tensor,
         slots.append(e * c_local + pos)
     slot = torch.stack(slots, 1)
     expert_in = dispatch_rows(x, slot, keep, E * c_local)
-    y = expert_ffn(expert_in.view(E, c_local, D), w1, b1, w2, b2)
+    y = ffn(expert_in.view(E, c_local, D), w1, b1, w2, b2)
     return combine_rows(y.view(E * c_local, D), slot, keep, top_vals,
                         x.dtype)
+
+
+def adds_bias(mesh) -> bool:
+    """Whether this rank's partial sum carries a bias that is replicated
+    over the model axis: on the first model rank only, so that the sum over
+    the axis counts it once (JAX adds it after its psum)."""
+    return mesh.m == 0
+
+
+def row_parallel_sum(partial: torch.Tensor, bias: Optional[torch.Tensor],
+                     mesh, model_split: bool = True, group=None,
+                     dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """The close of a row-parallel product: ``partial`` (this rank's part of
+    a sum over the hidden width) summed over ``group`` (default the model
+    group; None: this rank alone) with ``bias`` joining once, in f32,
+    rounded once to ``dtype`` (default ``partial``'s). With
+    ``model_split`` False the hidden width is whole on every model rank and
+    each rank adds its own bias term (the sum then runs over the expert
+    axis alone)."""
+    t = partial.float()
+    if bias is not None and (not model_split or adds_bias(mesh)):
+        t = t + bias.float()
+    group = mesh.model if group is None and model_split else group
+    if group is not None:
+        group.sum_(t)
+    return t.to(dtype or partial.dtype)
+
+
+def expert_ffn_tp(expert_in: torch.Tensor, w1, b1, w2, b2, *, mesh
+                  ) -> torch.Tensor:
+    """``models/moe.py::expert_ffn`` with the hidden width cut over the
+    model axis: the rank's columns of ``w1`` / ``b1`` and rows of ``w2``,
+    the second product summed over the model group, then ``b2``."""
+    h = gelu(torch.bmm(expert_in, w1) + b1[:, None, :])
+    return row_parallel_sum(torch.bmm(h, w2), b2[:, None, :], mesh)
+
+
+def replicated_dense_ffn(x: torch.Tensor, combine: torch.Tensor, w1, b1, w2,
+                         b2, *, mesh, model_split: bool) -> torch.Tensor:
+    """``dense`` in the generation layout: x [S, D] and combine [S, E] (the
+    data index's tokens, the same on the ranks of its shard group), the
+    rank's experts (its hidden columns with ``model_split``) -> [S, D] (see
+    the module doc)."""
+    e_local, D, hid = w1.shape
+    S = x.shape[0]
+    lo = mesh.e * e_local if mesh.ep > 1 else 0
+    w1m = w1.permute(1, 0, 2).reshape(D, e_local * hid)
+    h = gelu(x @ w1m, b1.reshape(e_local * hid)).view(S, e_local, hid)
+    y = torch.bmm(h.transpose(0, 1), w2)
+    c = combine[:, lo:lo + e_local].float()
+    if model_split:  # y is a partial sum: b2 joins the sum once
+        bias = c @ b2.float()
+    else:  # whole experts: b2 in the compute dtype, as one process adds it
+        y, bias = y + b2[:, None, :], None
+    part = torch.einsum("esd,se->sd", y.float(), c)
+    return row_parallel_sum(part, bias, mesh, model_split,
+                            mesh.shard if model_split else mesh.expert,
+                            x.dtype)
+
+
+def replicated_ep_moe_ffn(x: torch.Tensor, routing, w1, b1, w2, b2, *,
+                          capacity_factor: float, num_experts: int, mesh,
+                          model_split: bool) -> torch.Tensor:
+    """``dispatch`` over the expert axis in the generation layout: x [S, D]
+    (the data index's tokens), ``routing(x_chunk) -> (top_vals, top_idx)``
+    -> [S, D] on every rank of the expert group (see the module doc)."""
+    S, D = x.shape
+    ep = mesh.ep
+    if S % ep:
+        raise ValueError(
+            f"{S} tokens a data rank not divisible by {ep} expert "
+            "partitions (JAX's ep_moe_ffn_sharded needs data x expert to "
+            "divide the tokens): change micro_batch, the frame count or "
+            "--expert_parallel")
+    n = S // ep
+    chunk = x[mesh.e * n:(mesh.e + 1) * n]
+    vals, idx = routing(chunk)
+    ffn = (functools.partial(expert_ffn_tp, mesh=mesh) if model_split
+           else expert_ffn)
+    y = ep_moe_ffn(chunk, idx, vals.to(x.dtype), w1, b1, w2, b2,
+                   capacity_factor=capacity_factor, num_experts=num_experts,
+                   group=mesh.expert, ffn=ffn)
+    return mesh.expert.all_gather(y)
 
 
 def make_ep_moe_layer(mesh, num_experts: int, top_k: int = 2,

@@ -40,14 +40,37 @@ Randomness comes from ``torch.Generator``s on ``device``; the micro-batch
 sampler :meth:`GenerationPipeline.sample` also takes injected ``noise`` (and
 per-step ``step_noise`` for DDPM) so a test can hand the JAX package and the
 port the same draws.
+
+Under a mesh (``mesh=``, a ``parallel.mesh.ExpertMesh`` in the generation
+layout from ``parallel.mesh.generation_mesh``: one process per device, the
+JAX pipeline's ``mesh``, ``pipeline.py:66-78, 143-173, 228-242``):
+
+- ``micro_batch`` must divide by the data axis; under an expert or a model
+  axis a ``dense_fused`` model computes ``dense`` (JAX's trainer makes the
+  same swap; its pipeline lets XLA gather the experts: the same function);
+- each rank keeps its cut of every parameter (``ExpertMesh.local_leaf``:
+  its experts, its FFN columns), from a global state or one already cut;
+- every rank runs every micro-batch and every forward (lockstep) and calls
+  :meth:`GenerationPipeline.generate` with the same prompts and a generator
+  in the same state: every rank draws the whole micro-batch's noise, so a
+  motion does not depend on the layout. Data rank d runs the denoiser on
+  rows ``[d 2B / dp, (d + 1) 2B / dp)`` of the CFG-doubled batch (its
+  conditional rows over its unconditional ones, JAX's chunks of ``P('data')``
+  and, for ``dispatch``, of ``P((data, expert))``), and an all-gather over
+  the data group gives every rank the whole output for the guidance
+  combine and the sampler step;
+- :class:`MeshLeader` lets rank 0 drive the others (the serve and evaluate
+  CLIs): each ``generate`` goes to them as a job
+  (``parallel/distributed.py::JobLeader``), and they run
+  :meth:`GenerationPipeline.follow_jobs` until the stop.
 """
 
 from __future__ import annotations
 
+import copy
+import dataclasses
 from collections import deque
 from typing import List, Mapping, Optional, Sequence
-
-import copy
 
 import numpy as np
 import torch
@@ -102,12 +125,24 @@ class GenerationPipeline:
                  sampler: str = "ddpm", num_inference_steps: Optional[int] = None,
                  eta: float = 0.0, micro_batch: int = 8,
                  param_dtype: Optional[str] = None, fetch_window: int = 2,
-                 graft_pretrained_text: bool = False, device="cuda"):
+                 graft_pretrained_text: bool = False, device="cuda",
+                 mesh=None):
         if param_dtype not in (None, "bfloat16"):
             raise ValueError(f"param_dtype {param_dtype!r}: None or "
                              "'bfloat16'")
         if model is None and params is None:
             raise ValueError("give a model that holds its weights, or params")
+        self.mesh = mesh
+        if mesh is not None:
+            if micro_batch % mesh.dp:
+                raise ValueError(
+                    f"micro_batch {micro_batch} not divisible by the mesh "
+                    f"data axis ({mesh.dp})")
+            if mesh.ep * mesh.tp > 1 and cfg.model.moe_compute == \
+                    "dense_fused":
+                # the fused matmul merges the experts: not shardable
+                cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+                    cfg.model, moe_compute="dense"))
         self.cfg = cfg
         self.device = torch.device(device)
         self.param_dtype = (torch.bfloat16 if param_dtype == "bfloat16"
@@ -117,7 +152,11 @@ class GenerationPipeline:
             with torch.device("meta"):  # set_params gives every parameter
                 model = MotionTransformer(cfg.model)
         else:
+            if mesh is not None and params is None:
+                params = model.state_dict()  # cut by set_params below
             model = copy.deepcopy(model)
+        if mesh is not None:
+            self._shard_model(model)
         if params is None:
             if self.param_dtype is not None:
                 cast_params_(model, self.param_dtype)
@@ -137,6 +176,28 @@ class GenerationPipeline:
         self.clip_denoised = cfg.diffusion.clip_denoised
         self.normalizer = None
         self._set_sampler(sampler, num_inference_steps, eta)
+
+    def _shard_model(self, model: MotionTransformer) -> None:
+        """Give the model the mesh (``parallel.mesh.attach_mesh``) and
+        parameters of the rank's shapes, on the meta device until
+        :meth:`set_params` fills them; the global shapes stay in
+        ``self._global_shapes``."""
+        from motiondiffusion_moe_tpu_torch.models.moe import SwitchMoELayer
+        from motiondiffusion_moe_tpu_torch.parallel.mesh import attach_mesh
+
+        for m in model.modules():
+            if isinstance(m, SwitchMoELayer):
+                m.compute = self.cfg.model.moe_compute
+        attach_mesh(model, self.mesh)
+        self._global_shapes = {}
+        for name, p in list(model.named_parameters()):
+            self._global_shapes[name] = tuple(p.shape)
+            owner, _, leaf = name.rpartition(".")
+            module = model.get_submodule(owner)
+            module._parameters[leaf] = torch.nn.Parameter(
+                torch.empty(self.mesh.local_shape(name, p.shape),
+                            dtype=p.dtype, device="meta"),
+                requires_grad=p.requires_grad)
 
     def _set_sampler(self, sampler: str, num_inference_steps: Optional[int],
                      eta: float) -> None:
@@ -181,7 +242,8 @@ class GenerationPipeline:
         micro_batch, param_dtype, device, ...)."""
         from motiondiffusion_moe_tpu_torch.tools.export import load_export
 
-        cfg, params, normalizer = load_export(export_dir)
+        cfg, params, normalizer = load_export(export_dir,
+                                              mesh=kwargs.get("mesh"))
         pipe = cls(cfg, params=params, **kwargs)
         pipe.normalizer = normalizer
         return pipe
@@ -199,12 +261,26 @@ class GenerationPipeline:
 
         if any(isinstance(v, Mapping) for v in params.values()):
             params = jax_to_state_dict(params)
-        placed = {name: x.to(self.device, serving_dtype(
+        placed = {name: self._local(name, x).to(self.device, serving_dtype(
             name, x.dtype, self.param_dtype), copy=True).contiguous()
             for name, x in params.items()}
         # assign: the model's parameters become these copies, dtype and all
         # (strict: every parameter covered, every shape checked)
         self.model.load_state_dict(placed, strict=True, assign=True)
+
+    def _local(self, name: str, x: torch.Tensor) -> torch.Tensor:
+        """The rank's cut of parameter ``name`` given whole, or ``x`` as it
+        is when it has the rank's shape already (or there is no mesh)."""
+        if self.mesh is None or name not in self._global_shapes:
+            return x
+        want = list(self.mesh.local_shape(name, self._global_shapes[name]))
+        if tuple(x.shape) == self._global_shapes[name]:
+            x = self.mesh.local_leaf(name, x)
+        if list(x.shape) != want:
+            raise ValueError(f"{name}: shape {list(x.shape)}, neither the "
+                             f"global {list(self._global_shapes[name])} nor "
+                             f"this rank's {want}")
+        return x
 
     def tokenize(self, texts: Sequence[str]) -> np.ndarray:
         return self._tokenize(list(texts))
@@ -230,16 +306,29 @@ class GenerationPipeline:
         per-step draws) replace draws from ``generator``."""
         dev = self.device
         model = self.model
+        mesh = self.mesh
         B = ids_c.shape[0]
         T, F = self.cfg.model.max_frames, self.cfg.model.input_feats
-        enc_c = model.encode_text(ids_c.to(dev))
-        enc_u = model.encode_text(ids_u.to(dev))
-        xf_proj = torch.cat([enc_c.pooled, enc_u.pooled])
-        xf_out = torch.cat([enc_c.tokens, enc_u.tokens])
-        length2 = torch.cat([lengths, lengths]).to(dev)
+        # the rows of the doubled batch this rank runs: all, or its data
+        # index's (see the module doc)
+        rows = mesh.rows(2 * B) if mesh is not None else slice(0, 2 * B)
+        encs = []
+        if rows.start < B:
+            encs.append(model.encode_text(
+                ids_c[rows.start:min(rows.stop, B)].to(dev)))
+        if rows.stop > B:
+            encs.append(model.encode_text(
+                ids_u[max(rows.start - B, 0):rows.stop - B].to(dev)))
+        xf_proj = torch.cat([e.pooled for e in encs])
+        xf_out = torch.cat([e.tokens for e in encs])
+        length2 = torch.cat([lengths, lengths]).to(dev)[rows]
 
         def model_doubled(x2, t2):
-            return model(x2, t2, length2, xf_proj=xf_proj, xf_out=xf_out)
+            out = model(x2[rows], t2[rows], length2, xf_proj=xf_proj,
+                        xf_out=xf_out)
+            if mesh is not None and mesh.dp > 1:
+                out = mesh.data.all_gather(out)
+            return out
 
         if noise is None:
             noise = torch.randn((B, T, F), generator=generator, device=dev)
@@ -368,3 +457,53 @@ class GenerationPipeline:
             captions, m_lens, generator, embed)]
         return (np.concatenate(rows, axis=0) if rows
                 else np.zeros((0, wrapper.embed_dim), np.float32))
+
+    def follow_jobs(self) -> int:
+        """The ranks other than 0 under a :class:`MeshLeader`: run each
+        ``generate`` that rank 0 sends, with the prompts, lengths and
+        generator state it sends, until the stop; returns the number run
+        (``parallel/distributed.py::follow_jobs``)."""
+        from motiondiffusion_moe_tpu_torch.parallel.distributed import (
+            follow_jobs)
+
+        def handle(job):
+            generator = torch.Generator(self.device)
+            generator.set_state(job["state"])
+            self.generate(job["captions"], job["m_lens"], generator)
+
+        return follow_jobs(handle)
+
+
+class MeshLeader:
+    """Rank 0's handle on a pipeline under a mesh, for a front end that
+    runs on rank 0 alone (``tools/serve.py``, ``tools/evaluate.py``):
+    :meth:`generate` sends the call (prompts, lengths, the generator's
+    state) to the other ranks, which run it in
+    :meth:`GenerationPipeline.follow_jobs`, and runs rank 0's part; the
+    lengths are checked before anything is sent. Every other attribute is
+    the pipeline's. :meth:`stop` releases the other ranks."""
+
+    def __init__(self, pipe: GenerationPipeline):
+        from motiondiffusion_moe_tpu_torch.parallel.distributed import (
+            JobLeader)
+
+        self.pipe = pipe
+        self.leader = JobLeader()
+
+    def __getattr__(self, name):
+        return getattr(self.pipe, name)
+
+    def generate(self, captions: Sequence[str], m_lens: Sequence[int],
+                 generator: Optional[torch.Generator] = None
+                 ) -> List[np.ndarray]:
+        self.pipe._check_lengths(captions, m_lens)
+        if generator is None:
+            generator = torch.Generator(self.pipe.device).manual_seed(0)
+        job = {"captions": list(captions),
+               "m_lens": [int(n) for n in m_lens],
+               "state": generator.get_state()}
+        return self.leader.run(job, lambda: self.pipe.generate(
+            captions, m_lens, generator))
+
+    def stop(self) -> None:
+        self.leader.stop()

@@ -20,8 +20,18 @@ was sampled and fetches only the co-embeddings); the metric math is numpy.
 Without the released ``finest.tar`` the metrics come from a random-init
 evaluator, and without the GloVe files from hashed word vectors: the
 pipeline is exercised, but the values are not comparable to published
-numbers, and the log says so. The multi-device flags raise above 1: data
-parallelism for evaluation is ROADMAP queue 1, item 6d.
+numbers, and the log says so.
+
+Over several devices (``--data_parallel``, ``--expert_parallel``,
+``--tensor_parallel``, the JAX CLI's mesh, ``tools/evaluate.py:155-173``
+of the JAX package) the port runs one process per device, launched as
+``tools/serve.py`` says; in one process a degree above 1 raises
+``ValueError``. Each rank loads its shard of the run (in turns of as many
+ranks as host memory holds); rank 0 runs
+the protocol, its host RNG and the metrics and drives every generation on
+all ranks as one job (``pipeline.MeshLeader``); the other ranks sample
+with it until rank 0 stops them. ``--device_embeddings`` under a mesh
+prints the JAX CLI's warning and takes the host path.
 """
 
 from __future__ import annotations
@@ -30,6 +40,8 @@ import argparse
 import os
 
 import numpy as np
+
+from motiondiffusion_moe_tpu_torch.parallel.mesh import add_launch_flags
 
 
 def build_eval_samples(dataset, max_samples: int = 0) -> list:
@@ -112,25 +124,67 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="embed each generated micro-batch with the "
                         "evaluator's motion encoder on the device and fetch "
                         "512-d rows instead of raw motions")
-    for flag in ("data_parallel", "expert_parallel", "tensor_parallel"):
-        p.add_argument(f"--{flag}", type=int, default=1,
-                       help="multi-device: raises above 1 (not ported)")
+    add_launch_flags(p)
     return p
 
 
 def main(argv=None) -> dict:
     """Run the protocol; returns {"summary", "per_replication", "joint"
-    ((MAE [n], velocity error, jerk error) or None), "log_file"}."""
-    args = build_argparser().parse_args(argv)
-    over = [f"--{f} {getattr(args, f)}" for f in
-            ("data_parallel", "expert_parallel", "tensor_parallel")
-            if getattr(args, f) > 1]
-    if over:
-        raise NotImplementedError(
-            f"{', '.join(over)}: the port evaluates on one device; a "
-            "generation batch split over devices is not ported yet "
-            "(ROADMAP.md, queue 1, item 6: parallel, 6d)")
+    ((MAE [n], velocity error, jerk error) or None), "log_file"} (None on
+    a rank other than 0 of a mesh, once rank 0 stops it)."""
+    import torch.distributed as dist
 
+    args = build_argparser().parse_args(argv)
+    try:
+        return _main(args)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _main(args):
+    from motiondiffusion_moe_tpu_torch.parallel.distributed import in_turn
+    from motiondiffusion_moe_tpu_torch.parallel.mesh import (
+        launch_generation)
+    from motiondiffusion_moe_tpu_torch.pipeline import (
+        GenerationPipeline, MeshLeader)
+    from motiondiffusion_moe_tpu_torch.tools.export import (
+        artifact_bytes, load_run)
+
+    mesh, device = launch_generation(args)
+
+    def load():
+        cfg, params, step, normalizer = load_run(
+            args.run_dir, use_ema=args.use_ema, mesh=mesh)
+        pipe = GenerationPipeline(cfg, params=params, sampler=args.sampler,
+                                  num_inference_steps=args.steps or None,
+                                  micro_batch=args.batch_size, device=device,
+                                  mesh=mesh)
+        return cfg, pipe, step, normalizer
+
+    cfg, pipe, step, normalizer = (
+        load() if mesh is None else in_turn(load,
+                                            artifact_bytes(args.run_dir)))
+    print(f"[evaluate] restored step {step} (ema={args.use_ema}) on "
+          f"{device}" + (f", rank {mesh.rank} of data {mesh.dp} x expert "
+                         f"{mesh.ep} x model {mesh.tp}" if mesh else ""))
+    if mesh is not None and mesh.rank:
+        n = pipe.follow_jobs()
+        print(f"[evaluate] rank {mesh.rank}: {n} generations, stopped by "
+              "rank 0")
+        return None
+    if mesh is None:
+        return _evaluate(args, cfg, pipe, normalizer, device)
+    leader = MeshLeader(pipe)
+    try:
+        return _evaluate(args, cfg, leader, normalizer, device)
+    finally:
+        leader.stop()
+
+
+def _evaluate(args, cfg, pipe, normalizer, device):
+    """The protocol on rank 0 (or the one process) with ``pipe`` (a
+    pipeline or a ``MeshLeader``)."""
     import torch
 
     from motiondiffusion_moe_tpu_torch.data.dataset import (
@@ -143,18 +197,8 @@ def main(argv=None) -> dict:
     from motiondiffusion_moe_tpu_torch.eval.word_vectorizer import (
         HashedWordVectorizer)
     from motiondiffusion_moe_tpu_torch.motion.recover import recover_from_ric
-    from motiondiffusion_moe_tpu_torch.pipeline import GenerationPipeline
-    from motiondiffusion_moe_tpu_torch.tools.export import load_run
+    from motiondiffusion_moe_tpu_torch.pipeline import MeshLeader
 
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"--device {args.device}: no CUDA device is "
-                           "available (pass --device cpu to evaluate on the "
-                           "CPU)")
-    cfg, params, step, normalizer = load_run(args.run_dir,
-                                             use_ema=args.use_ema)
-    print(f"[evaluate] restored step {step} (ema={args.use_ema}) on "
-          f"{device}")
     if normalizer is None:
         normalizer = MotionNormalizer.identity(cfg.data.dim_pose)
 
@@ -167,11 +211,6 @@ def main(argv=None) -> dict:
                                 normalizer=normalizer, use_native=False)
         samples = build_eval_samples(ds, args.max_samples)
     print(f"[evaluate] {len(samples)} eval samples")
-
-    pipe = GenerationPipeline(cfg, params=params, sampler=args.sampler,
-                              num_inference_steps=args.steps or None,
-                              micro_batch=args.batch_size, device=device)
-    del params
 
     def seeded(seed: int) -> torch.Generator:
         return torch.Generator(device).manual_seed(seed)
@@ -209,7 +248,10 @@ def main(argv=None) -> dict:
         max_motion_length=cfg.data.max_motion_length,
         max_text_len=cfg.data.max_text_len)
     embed_generate = None
-    if args.device_embeddings:
+    if args.device_embeddings and isinstance(pipe, MeshLeader):
+        print("[evaluate] WARNING: --device_embeddings unsupported under a "
+              "mesh; using the host path")
+    elif args.device_embeddings:
         def embed_generate(captions, lens, seed):
             return pipe.generate_motion_embeddings(
                 captions, lens, wrapper, generator=seeded(seed))

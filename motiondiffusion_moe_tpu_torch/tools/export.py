@@ -54,12 +54,34 @@ def cast_serving_dtype(sd: Mapping[str, torch.Tensor],
     return {k: v.to(serving_dtype(k, v.dtype, dtype)) for k, v in sd.items()}
 
 
+def local_shard(sd: Mapping[str, torch.Tensor], mesh
+                ) -> Dict[str, torch.Tensor]:
+    """The rank's cut of a global state_dict under ``mesh`` (an
+    ``ExpertMesh``; None: ``sd`` itself), each cut copied so that the whole
+    can be freed."""
+    if mesh is None:
+        return dict(sd)
+    return {n: mesh.local_leaf(n, v).clone() for n, v in sd.items()}
+
+
+def artifact_bytes(path: str) -> int:
+    """The bytes on disk of an export (its ``params.msgpack``) or of a run
+    dir's checkpoints (everything under ``ckpt/``)."""
+    blob = os.path.join(path, "params.msgpack")
+    if os.path.isfile(blob):
+        return os.path.getsize(blob)
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(os.path.join(path, "ckpt"))
+               for f in files)
+
+
 def load_run(run_dir: str, step: Optional[int] = None,
-             use_ema: bool = False):
+             use_ema: bool = False, mesh=None):
     """A run dir of either package's ``tools/train.py`` -> (cfg, state_dict
     on the CPU, step, normalizer or None): the checkpoint at ``step``
     (default the newest; the port's format or a JAX run's orbax steps), its
-    EMA weights with ``use_ema``."""
+    EMA weights with ``use_ema``; under ``mesh`` the rank's shard of the
+    state_dict (:func:`local_shard`)."""
     from motiondiffusion_moe_tpu_torch.models.transformer import (
         MotionTransformer)
     from motiondiffusion_moe_tpu_torch.training.checkpoint import (
@@ -91,7 +113,7 @@ def load_run(run_dir: str, step: Optional[int] = None,
         sd = dict(zip(names, ema))
     meta = os.path.join(run_dir, "meta")
     normalizer = MotionNormalizer.load(meta) if os.path.isdir(meta) else None
-    return cfg, sd, int(payload["step"]), normalizer
+    return cfg, local_shard(sd, mesh), int(payload["step"]), normalizer
 
 
 def export_model(model, cfg: ExperimentConfig, out_dir: str, *,
@@ -131,11 +153,12 @@ def export_run(run_dir: str, out_dir: str = "", *, step=None,
                         use_ema=use_ema)
 
 
-def load_export(export_dir: str):
+def load_export(export_dir: str, mesh=None):
     """An export dir of either package -> (cfg, params, normalizer):
     ``params`` is the file's tree (``{"params": flax tree}``; bf16 leaves as
-    ``torch.bfloat16`` tensors), the normalizer the identity when the
-    export has no ``meta/``."""
+    ``torch.bfloat16`` tensors), or under ``mesh`` the rank's shard of it as
+    a state_dict (:func:`local_shard`); the normalizer the identity when
+    the export has no ``meta/``."""
     from motiondiffusion_moe_tpu_torch.utils.flax_msgpack import (
         msgpack_restore)
 
@@ -151,6 +174,11 @@ def load_export(export_dir: str):
                 raise OSError(f"{path}: short read")
             got += n
     params = msgpack_restore(buf)
+    if mesh is not None:
+        from motiondiffusion_moe_tpu_torch.models.bridge import (
+            jax_to_state_dict)
+
+        params = local_shard(jax_to_state_dict(params), mesh)
     meta = os.path.join(export_dir, "meta")
     normalizer = (MotionNormalizer.load(meta) if os.path.isdir(meta)
                   else MotionNormalizer.identity(cfg.data.dim_pose))

@@ -24,20 +24,39 @@ or a run dir of either package's ``tools/train.py``, on the card unless
         --sampler dpm --steps 20 --micro_batch 16
 
 :func:`build_server` builds the pipeline and the unstarted server from the
-arguments; :func:`main` serves it until interrupted. The multi-device flags
-above 1 raise: the port serves on one device.
+arguments; :func:`main` serves it until interrupted (SIGINT or SIGTERM).
+
+Over several devices (``--data_parallel``, ``--expert_parallel``,
+``--tensor_parallel``: the JAX CLI's mesh, ``tools/serve.py:300-322`` of
+the JAX package) the port runs one process per device, launched by
+torchrun or with ``--coordinator_address / --num_processes /
+--process_id`` (the backend follows the device: NCCL on CUDA); the
+process group must have ``dp x ep x tp`` ranks, and in one process a
+degree above 1 raises ``ValueError``. Each rank loads its shard of the
+export or run dir, in turns of as many ranks as host memory holds
+(``parallel/distributed.py::in_turn``). Rank 0
+binds the HTTP front end and runs the batcher; every generation (a merged
+batch or a seeded request) goes to all ranks as one job
+(``pipeline.MeshLeader``), which they sample together. A deadline that
+passes while a job runs answers 504 on rank 0 and the ranks finish the job;
+a request still queued is cancelled before it is sent. ``/healthz`` is
+rank 0's. Stopping rank 0 stops every rank; a rank that fails stops rank
+0's server, which then exits non-zero.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import signal
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
 import torch
+
+from motiondiffusion_moe_tpu_torch.parallel.mesh import add_launch_flags
 
 
 class _Batcher:
@@ -293,56 +312,69 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="return normalized feature space")
     p.add_argument("--warmup", action="store_true",
                    help="run one generation before binding")
-    p.add_argument("--data_parallel", type=int, default=1,
-                   help="raises above 1: the port serves on one device")
-    p.add_argument("--expert_parallel", type=int, default=1,
-                   help="raises above 1: the port serves on one device")
-    p.add_argument("--tensor_parallel", type=int, default=1,
-                   help="raises above 1: the port serves on one device")
     p.add_argument("--device", default="cuda",
                    help="torch device to serve on (cuda by default; cpu "
                         "only when asked)")
+    add_launch_flags(p)
     return p
 
 
-def build_server(argv=None) -> ThreadingHTTPServer:
-    """The pipeline and the unstarted HTTP server for the command line
-    ``argv`` (see :func:`build_argparser`); the server's pipeline is
-    ``server.pipe``."""
+def build_pipeline(args, mesh, device):
+    """The pipeline of the parsed arguments on ``device``; under a mesh the
+    rank's shard of it, the ranks loading in turn."""
     from motiondiffusion_moe_tpu_torch.pipeline import GenerationPipeline
-    from motiondiffusion_moe_tpu_torch.tools.export import load_run
+    from motiondiffusion_moe_tpu_torch.tools.export import (
+        artifact_bytes, load_run)
 
-    args = build_argparser().parse_args(argv)
-    for flag in ("data_parallel", "expert_parallel", "tensor_parallel"):
-        if getattr(args, flag) > 1:
-            raise NotImplementedError(
-                f"--{flag} {getattr(args, flag)}: the port serves on one "
-                "device; a generation batch split over devices is not "
-                "ported yet (ROADMAP.md, queue 1, item 6: parallel, "
-                "6d)")
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"--device {args.device}: no CUDA device is "
-                           "available (pass --device cpu to serve on the "
-                           "CPU)")
     kw = dict(sampler=args.sampler, num_inference_steps=args.steps or None,
               micro_batch=args.micro_batch,
-              param_dtype=args.param_dtype or None, device=device)
-    if args.export_dir:
-        pipe = GenerationPipeline.from_export(args.export_dir, **kw)
-    else:
+              param_dtype=args.param_dtype or None, device=device, mesh=mesh)
+
+    def load():
+        if args.export_dir:
+            return GenerationPipeline.from_export(args.export_dir, **kw)
         from motiondiffusion_moe_tpu_torch.data.normalizer import (
             MotionNormalizer)
 
         cfg, sd, step, normalizer = load_run(args.run_dir,
-                                             use_ema=args.use_ema)
+                                             use_ema=args.use_ema, mesh=mesh)
         pipe = GenerationPipeline(cfg, params=sd, **kw)
         pipe.normalizer = normalizer or MotionNormalizer.identity(
             cfg.data.dim_pose)
         print(f"[serve] {args.run_dir} step {step} (ema={args.use_ema})")
+        return pipe
+
+    if mesh is None:
+        return load()
+    from motiondiffusion_moe_tpu_torch.parallel.distributed import in_turn
+
+    return in_turn(load, artifact_bytes(args.export_dir or args.run_dir))
+
+
+def build_server(argv=None) -> ThreadingHTTPServer | None:
+    """The pipeline and the unstarted HTTP server for the command line
+    ``argv`` (see :func:`build_argparser`); the server's pipeline is
+    ``server.pipe`` (under a mesh a ``pipeline.MeshLeader``, whose
+    ``stop()`` releases the other ranks). On a rank other than 0 it runs
+    the jobs rank 0 sends and returns None once rank 0 stops."""
+    from motiondiffusion_moe_tpu_torch.parallel.mesh import (
+        launch_generation)
+    from motiondiffusion_moe_tpu_torch.pipeline import MeshLeader
+
+    args = build_argparser().parse_args(argv)
+    mesh, device = launch_generation(args)
+    pipe = build_pipeline(args, mesh, device)
     print(f"[serve] device {device}"
           + (f" ({torch.cuda.get_device_name(device)})"
-             if device.type == "cuda" else ""))
+             if device.type == "cuda" else "")
+          + (f"; rank {mesh.rank} of data {mesh.dp} x expert {mesh.ep} x "
+             f"model {mesh.tp}" if mesh is not None else ""))
+    if mesh is not None and mesh.rank:
+        n = pipe.follow_jobs()
+        print(f"[serve] rank {mesh.rank}: {n} jobs, stopped by rank 0")
+        return None
+    if mesh is not None:
+        pipe = MeshLeader(pipe)
     if args.warmup:
         t0 = time.perf_counter()
         pipe.generate(["warmup"], [min(16, pipe.cfg.model.max_frames)])
@@ -355,19 +387,40 @@ def build_server(argv=None) -> ThreadingHTTPServer:
     return server
 
 
+def _interrupt(signum, frame):
+    raise KeyboardInterrupt
+
+
 def main(argv=None) -> None:
-    server = build_server(argv)
-    pipe = server.pipe
-    print(f"[serve] listening on http://{server.server_address[0]}:"
-          f"{server.server_address[1]} (sampler={pipe.sampler}, "
-          f"steps={pipe.num_inference_steps}, "
-          f"micro_batch={pipe.micro_batch})")
+    import torch.distributed as dist
+
     try:
-        server.serve_forever()
-    except KeyboardInterrupt:  # pragma: no cover
-        print("[serve] shutting down")
+        server = build_server(argv)
+        if server is None:  # a rank other than 0, stopped
+            return
+        pipe = server.pipe
+        leader = getattr(pipe, "leader", None)
+        if leader is not None:  # a failed rank stops the front end
+            leader.on_failure = lambda e: threading.Thread(
+                target=server.shutdown, daemon=True).start()
+        signal.signal(signal.SIGTERM, _interrupt)
+        print(f"[serve] listening on http://{server.server_address[0]}:"
+              f"{server.server_address[1]} (sampler={pipe.sampler}, "
+              f"steps={pipe.num_inference_steps}, "
+              f"micro_batch={pipe.micro_batch})", flush=True)
+        try:
+            server.serve_forever()
+        except KeyboardInterrupt:
+            print("[serve] shutting down")
+        finally:
+            server.server_close()
+            if leader is not None:
+                leader.stop()
+        if leader is not None and leader.failed is not None:
+            raise RuntimeError(f"[serve] a rank failed: {leader.failed!r}")
     finally:
-        server.server_close()
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -143,7 +143,8 @@ def test_real_corpus(tmp_path, capsys):
 @pytest.mark.parametrize("flag", ["--data_parallel", "--expert_parallel",
                                   "--tensor_parallel"])
 def test_multi_device_flags_raise(flag):
-    with pytest.raises(NotImplementedError, match="one device.*6d"):
+    """In one process a degree above 1 raises: one process per device."""
+    with pytest.raises(ValueError, match="one process per device"):
         eval_main(["--run_dir", "/nonexistent", flag, "2"])
 
 

@@ -494,7 +494,7 @@ def test_serve_cli_runs_on_the_card_unless_asked(jax_exports):
 @pytest.mark.parametrize("flag", ["--data_parallel", "--expert_parallel",
                                   "--tensor_parallel"])
 def test_serve_cli_multi_device_flags_raise(jax_exports, flag):
-    with pytest.raises(NotImplementedError,
-                       match="queue 1, item 6: parallel, 6d"):
+    """In one process a degree above 1 raises: one process per device."""
+    with pytest.raises(ValueError, match="one process per device"):
         build_server(["--export_dir", jax_exports["float32"], flag, "2",
                       "--device", "cpu"])
