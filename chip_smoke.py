@@ -332,6 +332,34 @@ first use) and exits non-zero without one. Phases, each fatal on failure:
          checkpoint holds the global [16, ...] experts; then a one-process
          resume of the run dir starts at step 2 with the gathered state
          bit for bit.
+  P      tensor-parallel training (the model axis's Megatron split:
+         parallel/mesh.py, parallel/moe_parallel.py's column inputs and
+         row-parallel sums, training/train_state.py's gradient groups):
+         the flagship at full width (latent 512, 4 heads of 128, 4 experts
+         of hidden 256, the cross-attention MLP 2048) at 1 block a scale
+         (P_LAYERS), seeded, on P_W (4) ranks sharing this card over gloo,
+         each a --p-rank worker, the two model ranks of a row-holder on the
+         same 16 rows of M1's batch. P1: one train step through the Trainer
+         in two layouts, data 2 x model 2 computing dense and expert 2 x
+         model 2 computing dispatch with ZeRO-1; rank 0 first runs the
+         one-process steps (dense; dispatch with chunked_dispatch(2), the
+         per-chunk capacity of the two row-holders). Each layout: the loss
+         and grad_norm within STEP_LOSS_REL of the one-process step's, the
+         gradients (caught where the optimizer clips them, gathered) by
+         N2's rule and by the tests' (each within 1e-4 of its leaf's
+         largest entry plus 1e-7), and the one-process optimizer applied
+         to that gradient giving the gathered parameters and EMA within
+         P_STEP_ABS and mu within P_MU_REL of its largest entry (the
+         update rule of tests/test_torch_moe_parallel.py); per rank:
+         kernels 1-4 launched 4 times a step, 1 / tp of every leaf JAX's
+         rule cuts (and 1 / ep of the experts), its row-holder index,
+         max_memory_allocated, ms a step (not a speed). P2:
+         tools/train.py --num_processes 4 --tensor_parallel 2 --zero1 at
+         the flagship's widths and 1 block a scale as 4 processes
+         (--m2-rank), 2 optimizer steps and the save: only rank 0 logs and
+         writes, the checkpoint holds the global layout and one generator
+         state a row-holder; then a one-process resume of the run dir
+         starts at step 2 with the gathered state bit for bit.
   O      sampling, serving and evaluation over ranks (GenerationPipeline
          with a (data, expert, model) mesh, parallel/mesh.py::
          generation_mesh), ranks sharing this card over gloo, the CUDA
@@ -340,7 +368,7 @@ first use) and exits non-zero without one. Phases, each fatal on failure:
          after, max_memory_allocated, the parameter bytes it holds, its
          expert elements (1 / ep) and split FFN elements (1 / tp), and a
          SHA-256 of its motions (every rank returns the same). O1: the
-         flagship at full width and depth, f32 compute, bf16 weights, dpm10
+         flagship at full width and depth, f32 compute, bf16 weights, dpm5
          (O1_STEPS) of 16 prompts x 196 frames (micro-batch 16) on O_W (4)
          --o1-rank ranks in four layouts (data 4; data 2 x expert 2; expert
          2 x model 2; dispatch at data 2 x expert 2, capacity factor 4,
@@ -5444,14 +5472,16 @@ def cli_ranks(root, tag, devices, layers, widths=(), parallel=None,
 
 
 def phase_m2(dev, card, root, devices=None, layers=M2_LAYERS, tag="M2",
-             widths=(), parallel=None, ran=None):
+             widths=(), parallel=None, ran=None, holders=None):
     """tools/train.py as processes on ``devices`` (:func:`cli_ranks`),
     then a one-process resume of the run dir on ``dev``. By default two
     ranks on ``dev``; ranks that share a card each start through
     :func:`m2_rank` (gloo); ``scripts/dp_cards.py`` gives one card each,
     and the CLI picks NCCL. ``ran``: (base flags, argvs, [(returncode,
     output)], seconds) of ranks that other processes already ran (phase
-    N's workers run N3 after N2), only checked here."""
+    N's workers run N3 after N2), only checked here. ``holders``: the
+    generator states the save holds, one a row-holder (default one a
+    rank)."""
     import torch
     from motiondiffusion_moe_tpu_torch.training.checkpoint import (
         CheckpointManager)
@@ -5488,7 +5518,8 @@ def phase_m2(dev, card, root, devices=None, layers=M2_LAYERS, tag="M2",
     payload = ckpt.read()
     ok = (len(logs0) == 2 and quiet
           and files == ["ckpt", "config.json", "meta"]
-          and ckpt.all_steps() == [2] and len(payload["rng"]) == n)
+          and ckpt.all_steps() == [2]
+          and len(payload["rng"]) == (holders or n))
     flags = argvs[0][argvs[0].index("--coordinator_address") + 2:]
     print(f"[{tag}] tools/train.py --num_processes {n} {' '.join(flags)} "
           f"{' '.join(widths)} on {devices} {how}, {layers} blocks a scale "
@@ -5672,11 +5703,11 @@ def n1_rank(weights, dtype, compute, mesh, dev):
     gathered to every rank (y, dx) and to rank 0 (the gradients)."""
     import torch
     from motiondiffusion_moe_tpu_torch.parallel.mesh import (
-        attach_mesh, shard_experts)
+        Cut, attach_mesh, shard_params)
 
     layer = n_moe_layer(weights, dtype, compute, dev)
     attach_mesh(layer, mesh)
-    shard_experts(layer)
+    shard_params(layer)
     layer.to(dev)
     dt = layer.dtype
     x_all, cot = n_layer_inputs(mesh.world, layer.w1.shape[1])
@@ -5692,8 +5723,9 @@ def n1_rank(weights, dtype, compute, mesh, dev):
            "dropped": int(mesh.total(torch.tensor(seen["dropped"])))}
     for name in ("gate.weight", "gate.bias"):
         out[name] = mesh.total(layer.get_parameter(name).grad).cpu()
-    experts = mesh.gather_experts([getattr(layer, k).grad for k in
-                                   ("w1", "b1", "w2", "b2")])
+    experts = mesh.gather_blocks([getattr(layer, k).grad for k in
+                                  ("w1", "b1", "w2", "b2")],
+                                 [Cut(expert=True)] * 4)
     if experts is not None:
         out.update(zip(("w1", "b1", "w2", "b2"), experts))
     del layer
@@ -5711,10 +5743,11 @@ def n1_compare(got, ref, dtype) -> dict:
             and got["dropped"] == ref["dropped"]}
 
 
-def n2_reference(kind, weights, batch_path, dev, W):
+def n2_reference(kind, weights, batch_path, dev, W, config=None):
     """The one-process step of the global batch on the card: ``dense``,
     ``dispatch`` chunk by chunk (``chunks``, W chunks) or over the global
-    batch (``global``); the loss, grad_norm, the gradients (trainable
+    batch (``global``), of ``config(compute, ep=1)`` (default
+    :func:`n_config`); the loss, grad_norm, the gradients (trainable
     order) and the parameters after the update, on the host."""
     import torch
     from motiondiffusion_moe_tpu_torch.diffusion.gaussian import (
@@ -5725,7 +5758,8 @@ def n2_reference(kind, weights, batch_path, dev, W):
     from motiondiffusion_moe_tpu_torch.training.train_state import (
         TrainStep, create_train_state)
 
-    cfg = n_config("dense" if kind == "dense" else "dispatch", ep=1)
+    cfg = (config or n_config)("dense" if kind == "dense" else "dispatch",
+                               ep=1)
     with torch.device(dev):
         model = MotionTransformer(cfg.model)
     model.load_state_dict(weights)
@@ -5761,7 +5795,7 @@ def n2_step(name, weights, batch_path, mesh, dev):
     from motiondiffusion_moe_tpu_torch.ops import performer as P
     from motiondiffusion_moe_tpu_torch.parallel.distributed import barrier
     from motiondiffusion_moe_tpu_torch.parallel.mesh import (
-        gather_whole, is_expert_param, shard_experts, whole_state_dict)
+        gather_whole, is_expert_param, shard_params, whole_state_dict)
     from motiondiffusion_moe_tpu_torch.training import train_state as TS
     from motiondiffusion_moe_tpu_torch.training.trainer import Trainer
 
@@ -5769,7 +5803,7 @@ def n2_step(name, weights, batch_path, mesh, dev):
     trainer = Trainer(n_config(compute, ep, zero1), device=dev)
     model = trainer.model
     model.load_state_dict(weights)
-    shard_experts(model)
+    shard_params(model)
     model.to(dev)
     state = TS.create_train_state(model, trainer.cfg, dp=trainer.dp)
     opt = state.optimizer
@@ -5786,7 +5820,7 @@ def n2_step(name, weights, batch_path, mesh, dev):
     def catch(grads, norm, max_norm):  # the reduced gradient, pre-clip
         t0 = time.perf_counter()
         whole = (opt.layout.gather(grads) if opt.zero1
-                 else gather_whole(grads, opt.expert, opt.mesh))
+                 else gather_whole(grads, opt.cuts, opt.mesh))
         if mesh.rank == 0:
             caught["grads"] = [g.detach().cpu().clone() for g in whole]
         caught["s"] = time.perf_counter() - t0
@@ -6012,12 +6046,301 @@ def phase_n(dev, card):
 
 
 # ---------------------------------------------------------------------------
+# phase P: tensor-parallel training (the model axis's Megatron split)
+# ---------------------------------------------------------------------------
+
+P_LAYERS = 1   # the flagship's blocks a scale in P (full width)
+P_W = 4        # ranks sharing the card: two model groups of two
+P_CASES = {    # name: (ep, moe_compute, zero1, reference)
+    "dp2tp2_dense": (1, "dense", False, "dense"),
+    "ep2tp2_dispatch_zero1": (2, "dispatch", True, "chunks")}
+P_STEP_ABS = 2e-6   # the update of the gathered gradient, and the EMA
+P_MU_REL = 1e-5     # mu against the one-process Adam's, of its largest
+
+
+def p_config(compute="dense_fused", ep=1, zero1=False, tp=2):
+    """The flagship at P_LAYERS blocks a scale (M1's config: dropout 0, no
+    stochastic depth, EMA 0.999, f32 compute) with ``compute`` over ``ep``
+    expert x ``tp`` model partitions."""
+    from motiondiffusion_moe_tpu_torch.config import ExperimentConfig
+
+    cfg = m_config(ExperimentConfig.moe_small())
+    return dataclasses.replace(
+        cfg, model=dataclasses.replace(cfg.model, num_layers=P_LAYERS,
+                                       moe_compute=compute),
+        parallel=dataclasses.replace(cfg.parallel, num_expert_partitions=ep,
+                                     num_model_partitions=tp, zero1=zero1))
+
+
+def p_step(name, weights, batch_path, dev):
+    """One P1 case on this rank through the Trainer (its (data, expert,
+    model) mesh, its TrainStep): on every rank the launches, ms, peak
+    memory and the elements it holds of each leaf that JAX's rule cuts;
+    on rank 0 the global gradient (caught where the optimizer clips it),
+    the parameters, mu and the EMA after the update."""
+    import torch
+    from motiondiffusion_moe_tpu_torch.ops import performer as P
+    from motiondiffusion_moe_tpu_torch.parallel.distributed import barrier
+    from motiondiffusion_moe_tpu_torch.parallel.mesh import (
+        gather_whole, is_expert_param, model_dim, shard_params,
+        whole_state_dict)
+    from motiondiffusion_moe_tpu_torch.training import train_state as TS
+    from motiondiffusion_moe_tpu_torch.training.trainer import Trainer
+
+    ep, compute, zero1, _ = P_CASES[name]
+    trainer = Trainer(p_config(compute, ep, zero1), device=dev)
+    mesh, model = trainer.dp, trainer.model
+    model.load_state_dict(weights)
+    shard_params(model)
+    model.to(dev)
+    state = TS.create_train_state(model, trainer.cfg, dp=mesh)
+    opt = state.optimizer
+    h = M_B // mesh.holders  # the model ranks of a row-holder share rows
+    batch, noise = m_rows(batch_path, dev, slice(mesh.q * h,
+                                                 (mesh.q + 1) * h))
+    counted = [getattr(P, k) for k in M_KERNELS]
+    for c in counted:
+        c.launches = 0
+    caught = {}
+    clip = TS.clip_by_norm_
+
+    def catch(grads, norm, max_norm):  # the reduced gradient, pre-clip
+        t0 = time.perf_counter()
+        whole = (opt.layout.gather(grads) if opt.zero1
+                 else gather_whole(grads, opt.cuts, opt.mesh))
+        if mesh.rank == 0:
+            caught["grads"] = [g.detach().cpu().clone() for g in whole]
+        caught["s"] = time.perf_counter() - t0
+        return clip(grads, norm, max_norm)
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.synchronize()
+    barrier()
+    t0 = time.perf_counter()
+    metrics = trainer.train_step.backward(state, batch, None, noise=noise)
+    torch.cuda.synchronize()
+    TS.clip_by_norm_ = catch
+    try:
+        metrics = trainer.train_step.apply_update(state, metrics)
+    finally:
+        TS.clip_by_norm_ = clip
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0 - caught["s"]) * 1e3
+    shares = {}  # each cut leaf: the global elements over the rank's
+    for n, p in model.named_parameters():
+        div = ep if ep > 1 and is_expert_param(n) else 1
+        if model_dim(n, weights[n].shape, mesh.tp) is not None:
+            div *= mesh.tp
+        if div > 1:
+            shares[n] = (weights[n].numel() / p.numel(), div)
+    out = {"ms": ms, "peak_bytes": torch.cuda.max_memory_allocated(dev),
+           "launches": {c.__name__: c.launches for c in counted},
+           "shares_ok": all(a == b for a, b in shares.values()),
+           "cut_leaves": len(shares),
+           "computes": sorted({m.compute for m in model.modules()
+                               if hasattr(m, "capacity_factor")}),
+           "row_holder": (mesh.q, mesh.holders),
+           "loss": float(metrics["loss_total"]),
+           "grad_norm": float(metrics["grad_norm"])}
+    whole = whole_state_dict(model)
+    mu = opt.state_dict()["mu"]
+    ema = state.ema.state_dict()["params"]
+    if mesh.rank == 0:
+        out.update(grads=caught["grads"],
+                   tnames=[n for n, p in model.named_parameters()
+                           if p.requires_grad],
+                   names=[n for n, _ in model.named_parameters()],
+                   params={k: v.cpu() for k, v in whole.items()},
+                   mu=[m.cpu() for m in mu], ema=[e.cpu() for e in ema])
+    del trainer, model, state, opt, batch, noise
+    torch.cuda.empty_cache()
+    return out
+
+
+def p_compare(got, ref, weights, dev) -> dict:
+    """Rank 0's checks of one P1 case, on ``dev``: the loss and grad_norm
+    against the one-process step's (rtol STEP_LOSS_REL), the gradients by
+    :func:`rel_rms_rule` (N2's rule) and by the tests' rule (each within
+    1e-4 of its leaf's largest entry plus 1e-7), and, as
+    tests/test_torch_moe_parallel holds the update, the one-process
+    optimizer applied to the gathered gradient: the parameters and the EMA
+    within P_STEP_ABS, mu within P_MU_REL of its largest entry."""
+    import torch
+    from motiondiffusion_moe_tpu_torch.models.transformer import (
+        MotionTransformer)
+    from motiondiffusion_moe_tpu_torch.training.train_state import (
+        create_train_state)
+
+    rel = {k: abs(got[k] - ref[k]) / abs(ref[k]) for k in ("loss",
+                                                             "grad_norm")}
+    on = lambda ts: [t.to(dev) for t in ts]  # noqa: E731
+    grads = rel_rms_rule(zip(on(got["grads"]), on(ref["grads"])))
+    tests_rule = max(float((a.to(dev) - b).abs().max()
+                           / (1e-4 * b.abs().max() + 1e-7))
+                     for a, b in zip(got["grads"], on(ref["grads"])))
+    cfg = p_config(tp=1)
+    with torch.device(dev):
+        model = MotionTransformer(cfg.model)
+    model.load_state_dict(weights)
+    state = create_train_state(model, cfg)
+    for p, g in zip(state.optimizer.params, got["grads"]):
+        p.grad = g.to(dev)
+    state.optimizer.step()
+    state.ema.update(model)
+    want = model.state_dict()
+    params = max(float((got["params"][n].to(dev) - want[n]).abs().max())
+                 for n in got["tnames"])
+    ema = max(float((e.to(dev) - w).abs().max())
+              for e, w in zip(got["ema"], state.ema.params))
+    mu = max(float((m.to(dev) - w).abs().max())
+             / max(float(w.abs().max()), 1e-30)
+             for m, w in zip(got["mu"], state.optimizer.mu))
+    ok = (max(rel.values()) <= STEP_LOSS_REL and grads[0] <= 1
+          and tests_rule <= 1
+          and params <= P_STEP_ABS and ema <= P_STEP_ABS and mu <= P_MU_REL)
+    del model, state
+    torch.cuda.empty_cache()
+    return {"rel": {k: f"{v:.2e}" for k, v in rel.items()},
+            "grads": (round(grads[0], 4), got["tnames"][grads[1]]),
+            "grads, tests' rule": f"{tests_rule:.2e}",
+            "params_abs": f"{params:.2e}", "ema_abs": f"{ema:.2e}",
+            "mu_rel": f"{mu:.2e}", "ok": ok}
+
+
+def p_rank(spec_path, rank):
+    """One of phase P's ranks, over gloo on the one card: P1, then, in a
+    process group of its own, P2's rank of the train CLI
+    (:func:`m2_rank`); writes ``p_rank<r>.json`` into the spec's out
+    directory and prints its lines."""
+    import torch
+    from motiondiffusion_moe_tpu_torch.parallel.distributed import (
+        barrier, initialize_distributed)
+
+    with open(spec_path) as fh:
+        spec = json.load(fh)
+    W, dev = spec["world"], torch.device(spec["device"])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // W))
+    initialize_distributed(spec["init"], W, rank, backend="gloo",
+                           device=dev)
+    weights = torch.load(spec["params"], mmap=True, weights_only=True)
+    res = {"p1": {}}
+    t0 = time.perf_counter()
+    refs = {}
+    if rank == 0:  # before the ranks' states take the card
+        for kind in ("dense", "chunks"):
+            refs[kind] = n2_reference(kind, weights, spec["batch"], dev, 2,
+                                      config=p_config)
+        res["refs_s"] = time.perf_counter() - t0
+    barrier()
+    n_perf = 2 * 2 * P_LAYERS
+    for name, (ep, compute, _, kind) in P_CASES.items():
+        out = p_step(name, weights, spec["batch"], dev)
+        line = {"ms": round(out["ms"], 1),
+                "peak_GiB": round(out["peak_bytes"] / 2 ** 30, 2),
+                "launches": out["launches"], "shares_ok": out["shares_ok"],
+                "cut_leaves": out["cut_leaves"],
+                "row_holder": out["row_holder"],
+                "computes": out["computes"], "loss": out["loss"]}
+        ok = (out["shares_ok"] and out["cut_leaves"] > 0
+              and out["launches"] == {k: n_perf for k in M_KERNELS}
+              and out["computes"] == [compute]
+              and out["row_holder"] == (rank // 2, 2))
+        if rank == 0:
+            cmp = p_compare(out, refs[kind], weights, dev)
+            line["against_reference"] = cmp
+            ok = ok and cmp["ok"]
+        line["ok"] = ok
+        res["p1"][name] = line
+        print(f"P1 {name} (rank {rank}): {line} -> "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        del out
+    res["p1_s"] = time.perf_counter() - t0
+    torch.distributed.destroy_process_group()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    m2_rank(spec["cli"][rank])  # P2: the train CLI, its own group
+    res["p2_s"] = time.perf_counter() - t0
+    with open(os.path.join(spec["out"], f"p_rank{rank}.json"), "w") as fh:
+        json.dump(res, fh, default=str)
+
+
+def phase_p(dev, card):
+    """Tensor-parallel training (see the module doc): P1 on P_W ranks
+    sharing this card over gloo, each a ``--p-rank`` worker; P2
+    tools/train.py --tensor_parallel 2 as P_W processes, then a
+    one-process resume. Returns the launches of kernels 1-4 a rank a
+    step in each layout."""
+    import torch
+
+    t0 = time.perf_counter()
+    j = os.path.join
+    with tempfile.TemporaryDirectory() as root:
+        cfg = p_config()
+        weights = build_flagship(cfg).state_dict()
+        n_params = sum(v.numel() for v in weights.values())
+        torch.save(weights, j(root, "p_params.pt"))
+        del weights
+        m_batch(cfg, j(root, "p_batch.npz"))
+        t_write = time.perf_counter() - t0
+        p2 = cli_ranks(root, "P2", [str(dev)] * P_W, P_LAYERS, (),
+                       ["--tensor_parallel", "2", "--zero1"],
+                       f"file://{j(root, 'rdv_p2')}")
+        spec = {"init": f"file://{j(root, 'rdv_p')}", "world": P_W,
+                "device": str(dev), "params": j(root, "p_params.pt"),
+                "batch": j(root, "p_batch.npz"), "out": root,
+                "cli": p2[1]}
+        with open(j(root, "p.json"), "w") as fh:
+            json.dump(spec, fh)
+        print(f"[P] the flagship at {P_LAYERS} block a scale (full width): "
+              f"{n_params} parameters seeded and written for the ranks in "
+              f"{t_write:.1f} s")
+        outs = spawn_ranks([[os.path.abspath(__file__), "--p-rank",
+                             j(root, "p.json"), str(r)]
+                            for r in range(P_W)], timeout=600)
+        for r, (rc, out) in enumerate(outs):
+            print("".join(f"[P rank {r}] {line}\n"
+                          for line in out.splitlines() if line.strip()),
+                  end="")
+        check(all(rc == 0 for rc, _ in outs),
+              f"P ranks exited with {[rc for rc, _ in outs]}")
+        res = [json.load(open(j(root, f"p_rank{r}.json")))
+               for r in range(P_W)]
+        launches = {}
+        for name in P_CASES:
+            for r, rr in enumerate(res):
+                check(rr["p1"][name]["ok"], f"P1 {name} rank {r}: "
+                                            f"{rr['p1'][name]}")
+            launches[name] = res[0]["p1"][name]["launches"]
+            ms = [rr["p1"][name]["ms"] for rr in res]
+            peak = [rr["p1"][name]["peak_GiB"] for rr in res]
+            print(f"[P1] {name}: every rank ok; kernels 1-4 a rank "
+                  f"{launches[name]}; ms a step {min(ms)}-{max(ms)} (four "
+                  f"ranks sharing one card, collectives staged through the "
+                  f"host under gloo: not a speed); max_memory_allocated "
+                  f"{min(peak)}-{max(peak)} GiB a rank ({card})")
+        t1 = time.perf_counter()
+        print(f"[P] the references {res[0]['refs_s']:.1f} s, P1 "
+              f"{res[0]['p1_s']:.1f} s, P2's ranks {res[0]['p2_s']:.1f} s, "
+              f"all with the ranks' start {t1 - t0 - t_write:.1f} s")
+        phase_m2(dev, card, root, devices=[str(dev)] * P_W,
+                 layers=P_LAYERS, tag="P2", ran=(*p2, outs, res[0]["p2_s"]),
+                 holders=P_W // 2)
+    torch.cuda.empty_cache()
+    now = time.perf_counter()
+    print(f"[P] phase P in {now - t0:.1f} s (the resume {now - t1:.1f} s) "
+          f"({card})")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # phase O: sampling, serving and evaluation over ranks
 # ---------------------------------------------------------------------------
 
 O_W = 4             # O1 and O2: ranks sharing the card
 O_MB = 16           # the micro-batch (16 prompts, one micro-batch in O1)
-O1_STEPS = 10       # O1's DPM-Solver++ steps (the budget's cut: 20 asked)
+O1_STEPS = 5        # O1's DPM-Solver++ steps (the budget's cut: 20 asked)
 O1_LAYOUTS = {      # name: ((dp, ep, tp), moe_compute, capacity factor)
     "dp4": ((4, 1, 1), "dense_fused", 2.0),
     "dp2_ep2": ((2, 2, 1), "dense_fused", 2.0),
@@ -6351,6 +6674,16 @@ def o_cli_rank(cli, argv):
 
 
 
+def listening_port(log) -> int | None:
+    """The port a serve CLI writing to the file ``log`` said it listens
+    on, or None yet; read without moving the file's offset, at which the
+    process goes on writing."""
+    fd = log.fileno()
+    text = os.pread(fd, os.fstat(fd).st_size, 0).decode(errors="replace")
+    found = re.search(r"\[serve\] listening on http://[^:\s]+:(\d+)", text)
+    return int(found.group(1)) if found else None
+
+
 def phase_o2(cfg, dev, card, root):
     """tools/serve.py as O_W processes (--data_parallel 2
     --tensor_parallel 2, gloo) from the flagship's bf16 export (G1's:
@@ -6391,7 +6724,6 @@ def phase_o2(cfg, dev, card, root):
             if dev.type == "cuda":
                 torch.cuda.empty_cache()
 
-    port = free_port()
     here = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
@@ -6400,29 +6732,49 @@ def phase_o2(cfg, dev, card, root):
     with contextlib.ExitStack() as stack:
         logs = [stack.enter_context(tempfile.TemporaryFile("w+"))
                 for _ in range(O_W)]
+        # rank 0 binds a port of its own choosing and prints it: a port
+        # picked here first may be taken by the ranks' gloo connections
         procs = [subprocess.Popen(
             [sys.executable, os.path.abspath(__file__), "--o2-rank", *argv,
-             "--port", str(port), "--data_parallel", "2",
+             "--port", "0", "--data_parallel", "2",
              "--tensor_parallel", "2", "--coordinator_address",
              f"file://{j(root, 'rdv_o2')}", "--num_processes", str(O_W),
              "--process_id", str(r)],
             cwd=here, env=env, stdout=log, stderr=subprocess.STDOUT,
             text=True) for r, log in enumerate(logs)]
+        failed = None
         try:
             one = one_process()  # while the ranks start
-            health = None
+            port = health = None
             while health is None:
+                port = port or listening_port(logs[0])
                 try:
-                    with urllib.request.urlopen(
-                            f"http://127.0.0.1:{port}/healthz",
-                            timeout=10) as r:
-                        health = json.loads(r.read())
+                    if port is not None:
+                        with urllib.request.urlopen(
+                                f"http://127.0.0.1:{port}/healthz",
+                                timeout=10) as r:
+                            health = json.loads(r.read())
+                        break
                 except OSError:
-                    check(all(p.poll() is None for p in procs),
-                          "O2: a serving rank exited before rank 0 bound")
-                    check(time.perf_counter() - t0 < 600,
-                          "O2: rank 0 did not bind within 600 s")
-                    time.sleep(1.0)
+                    pass
+                if any(p.poll() is not None for p in procs):
+                    failed = "a serving rank exited before rank 0 bound"
+                elif time.perf_counter() - t0 > 600:
+                    failed = "rank 0 did not bind within 600 s"
+                if failed:
+                    break
+                time.sleep(1.0)
+            if failed:  # the ranks' own words first
+                for p in procs:
+                    if p.poll() is None:
+                        p.kill()
+                        p.wait()
+                for r, (p, log) in enumerate(zip(procs, logs)):
+                    log.seek(0)
+                    print("".join(f"[O2 rank {r}, exit {p.returncode}] "
+                                  f"{line}\n" for line in
+                                  log.read().splitlines()[-40:]), end="")
+                check(False, f"O2: {failed}")
             t_up = time.perf_counter() - t0
             t1 = time.perf_counter()
             got = [_post(f"http://127.0.0.1:{port}/generate", r)
@@ -6851,6 +7203,8 @@ def main() -> int:
     lap("M")
     phase_n(dev, card)
     lap("N")
+    phase_p(dev, card)
+    lap("P")
     phase_o(cfg, dev, card)
     lap("O")
 
@@ -6925,6 +7279,9 @@ if __name__ == "__main__":
         sys.exit(0)
     if sys.argv[1:2] == ["--n-rank"]:  # one rank of phase N1 and N2
         n_rank(sys.argv[2], int(sys.argv[3]))
+        sys.exit(0)
+    if sys.argv[1:2] == ["--p-rank"]:  # one rank of phase P1 and P2
+        p_rank(sys.argv[2], int(sys.argv[3]))
         sys.exit(0)
     if sys.argv[1:2] == ["--o1-rank"]:  # one rank of phase O1
         o1_rank(sys.argv[2], int(sys.argv[3]))

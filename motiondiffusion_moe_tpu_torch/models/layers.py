@@ -62,11 +62,15 @@ class TrainContext:
 
 
 def dropout(x: torch.Tensor, rate: float, training: bool,
-            ctx: Optional[TrainContext]) -> torch.Tensor:
+            ctx: Optional[TrainContext],
+            columns: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """``flax.linen.Dropout(rate)(x, deterministic=not training)``: keep
     each element with probability 1 - rate and scale the kept ones by
     1 / (1 - rate). The mask is drawn from ``ctx.generator``; a training
-    forward with dropout and no generator raises."""
+    forward with dropout and no generator raises. ``columns = (m, tp)``:
+    ``x`` is block m of ``tp`` equal blocks of the last dim (a column-split
+    hidden); the whole width's mask is drawn, as one process draws it, and
+    block m of it kept, so the model ranks' generators stay in step."""
     if not training or rate <= 0.0:
         return x
     if ctx is None or ctx.generator is None:
@@ -74,8 +78,10 @@ def dropout(x: torch.Tensor, rate: float, training: bool,
                          "with a torch.Generator")
     if rate >= 1.0:
         return torch.zeros_like(x)
-    keep = torch.empty(x.shape, device=x.device).bernoulli_(
-        1.0 - rate, generator=ctx.generator)
+    m, tp = columns or (0, 1)
+    n = x.shape[-1]
+    keep = torch.empty(x.shape[:-1] + (n * tp,), device=x.device).bernoulli_(
+        1.0 - rate, generator=ctx.generator)[..., m * n:(m + 1) * n]
     return torch.where(keep.bool(), x / (1.0 - rate), torch.zeros_like(x))
 
 
@@ -119,14 +125,17 @@ class Dense(nn.Module):
                 activation: Optional[str] = None) -> torch.Tensor:
         dt = self.dtype
         x, w, b = x.to(dt), self.weight.to(dt), self.bias.to(dt)
-        if self.split == "row":
-            from motiondiffusion_moe_tpu_torch.parallel.moe_parallel import (
-                row_parallel_sum)
-            # the product in dt (a partial sum over the rank's columns), the
-            # ranks' sum and the bias, once, in f32, rounded once
-            y = row_parallel_sum(F.linear(x, w), b, self.mesh, True)
-            return y if activation is None else getattr(activations,
-                                                        activation)(y)
+        if self.split is not None:
+            from motiondiffusion_moe_tpu_torch.parallel import (
+                moe_parallel as MP)
+            if self.split == "column":  # x's gradient summed over the ranks
+                x = MP.column_input(x, self.mesh)
+            else:
+                # the product in dt (a partial sum over the rank's columns),
+                # the ranks' sum and the bias, once, in f32, rounded once
+                y = MP.row_parallel_sum(F.linear(x, w), b, self.mesh, True)
+                return y if activation is None else getattr(activations,
+                                                            activation)(y)
         if dt == torch.float32:  # one f32 rounding apart from flax's two
             y = F.linear(x, w, b)
             return y if activation is None else getattr(activations,

@@ -32,10 +32,11 @@ training forward appends each layer's Switch aux loss to its
 Over several processes the layer takes the run's mesh
 (``parallel/mesh.py::attach_mesh``; ``mesh`` in JAX, ``moe.py:178-195``).
 With an expert axis (``ep > 1``) its ``w1``, ``b1``, ``w2``, ``b2`` hold the
-rank's ``E / ep`` experts under the same names (``shard_experts``), and
+rank's ``E / ep`` experts under the same names (``shard_params``), and
 ``dispatch`` runs ``parallel/moe_parallel.py::ep_moe_ffn`` (the
 all-to-all, the capacity of the rank's own chunk) and ``dense``
-``ep_dense_ffn``; ``dense_fused`` cannot be cut by expert and is refused.
+``sharded_dense_ffn``; ``dense_fused`` cannot be cut by expert and is
+refused.
 Under ``dispatch`` the slots are routed as JAX's shard_map body routes
 them, from the logits rounded to the compute dtype (the bf16 array handed
 to ``ep_moe_ffn_sharded``, ``moe.py:187-188``); the aux loss and the metrics
@@ -44,10 +45,13 @@ takes the global batch's capacity and fill order
 (``global_dispatch_ffn``); the dense computes need nothing. In generation
 (``mesh.rows_replicated``) the ranks of a data index hold the same tokens:
 ``dense`` runs ``replicated_dense_ffn`` and ``dispatch`` over an expert
-axis ``replicated_ep_moe_ffn``, which cuts them into JAX's chunks; with a
+axis ``replicated_ep_moe_ffn``, which cuts them into JAX's chunks. With a
 model axis (``model_split``: the hidden width cut as JAX's Megatron rule
-cuts it) the experts' second product is summed over the model ranks before
-``b2`` (``expert_ffn_tp``).
+cuts it; the model ranks hold the same tokens) the experts' second product
+is summed over the model ranks before ``b2`` (``expert_ffn_tp`` under
+``dispatch``, ``sharded_dense_ffn`` under ``dense`` in training), and the
+experts' input takes the model ranks' summed gradient (``column_input``);
+the gate reads the whole, replicated input.
 
 With ``MOE_FUSED_KERNEL`` set to anything but ``0``, an eval-mode
 ``dense_fused`` layer whose widths are multiples of 128 runs the expert
@@ -280,7 +284,7 @@ class SwitchMoELayer(nn.Module):
                 out = MP.ep_moe_ffn(
                     x_flat, idx, vals.to(dt), w1, b1, w2, b2,
                     capacity_factor=self.capacity_factor, num_experts=E,
-                    group=mesh.expert)
+                    group=mesh.expert, ffn=ffn)
             elif over_ranks and mesh.dp > 1:
                 out = MP.global_dispatch_ffn(
                     x_flat, top_idx, top_vals.to(dt), w1, b1, w2, b2,
@@ -297,9 +301,10 @@ class SwitchMoELayer(nn.Module):
                 out = MP.replicated_dense_ffn(
                     x_flat, combine, w1, b1, w2, b2, mesh=mesh,
                     model_split=self.model_split)
-            elif ep > 1:
-                out = MP.ep_dense_ffn(x_flat, combine, w1, b1, w2, b2,
-                                      group=mesh.expert)
+            elif ep > 1 or self.model_split:
+                out = MP.sharded_dense_ffn(x_flat, combine, w1, b1, w2, b2,
+                                           mesh=mesh,
+                                           model_split=self.model_split)
             else:
                 out = self._dense(x_flat, combine, w1, b1, w2, b2)
         out = out.reshape(shape)
@@ -390,7 +395,8 @@ class DenseFFN(nn.Module):
         out = 0.0
         for i in range(self.num_branches):
             h = getattr(self, f"branch_{i}_norm")(x)
-            h = getattr(self, f"branch_{i}_fc1")(h, "gelu")
-            h = dropout(h, self.dropout, self.training, ctx)
+            fc1 = getattr(self, f"branch_{i}_fc1")
+            h = dropout(fc1(h, "gelu"), self.dropout, self.training, ctx,
+                        (fc1.mesh.m, fc1.mesh.tp) if fc1.split else None)
             out = out + getattr(self, f"branch_{i}_fc2")(h)
         return x + self.proj_out(out / self.num_branches, emb, ctx=ctx)

@@ -4,9 +4,8 @@ device (data parallelism and ZeRO-1, ``data_parallel.py``; the ``(data,
 expert, model)`` mesh, the expert shards and the Megatron FFN split,
 ``mesh.py``; the expert-parallel and tensor-parallel MoE FFN and the
 row-parallel sums, ``moe_parallel.py``; the launch and the job channel of
-serving and evaluation, ``distributed.py``). The model axis runs in
-generation only; training over it, and the seq and pipe axes
-(``pipeline_parallel.py``), are not ported (ROADMAP item 6c)."""
+serving and evaluation, ``distributed.py``). The seq and pipe axes
+(``pipeline_parallel.py``) are not ported (ROADMAP items 6c1b and 6c2)."""
 
 from motiondiffusion_moe_tpu_torch.parallel.distributed import (  # noqa: F401
     JobLeader,
@@ -30,5 +29,5 @@ from motiondiffusion_moe_tpu_torch.parallel.mesh import (  # noqa: F401
     launch_generation,
     make_mesh,
     model_dim,
-    shard_experts,
+    shard_params,
 )

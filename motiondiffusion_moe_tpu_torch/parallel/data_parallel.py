@@ -39,10 +39,9 @@ formats and the exports read those names.
 
 Under the gloo backend each collective on CUDA tensors goes through host
 memory: gloo serves ranks that share one card, which NCCL refuses. The
-expert axis (``parallel/mesh.py``, ``parallel/moe_parallel.py``) builds on
-these groups, and the model axis (generation only) on its subgroups; the
-seq and pipe axes of the JAX ``mesh.py`` and training over the model axis
-are not ported (ROADMAP, queue 1, item 6c).
+expert and model axes (``parallel/mesh.py``, ``parallel/moe_parallel.py``)
+build on these groups and their subgroups; the seq and pipe axes of the JAX
+``mesh.py`` are not ported (ROADMAP, queue 1, items 6c1b and 6c2).
 """
 
 from __future__ import annotations

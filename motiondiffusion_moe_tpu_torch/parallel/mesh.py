@@ -11,11 +11,11 @@ numbering, rank ``r = (d * ep + e) * tp + m`` (``r = d * ep + e`` at ``tp =
 - every rank makes every subgroup, in the same order: the expert groups
   (the ranks that share ``(d, m)``: the all-to-all of ``dispatch`` and the
   collectives of ``dense`` run among them), the data groups (the ranks that
-  share ``(e, m)``, which hold the same parameters: their expert gradients
-  are summed over it and, under ZeRO-1, their expert moments and EMA cut
-  over it), and with ``tp > 1`` the model groups (the ranks that share
-  ``(d, e)``: the row-parallel sums) and the shard groups (the ranks that
-  share ``d``: the sum of ``dense``'s partial products);
+  share ``(e, m)``), and with ``tp > 1`` the model groups (the ranks that
+  share ``(d, e)``: the row-parallel sums and the column inputs' gradient
+  sums) and the shard groups (the ranks that share ``d``); with both axes
+  also the ranks that share ``m`` and those that share ``e``
+  (:attr:`ExpertMesh.blocks`);
 - an expert parameter (:func:`is_expert_param`: ``w1``, ``b1``, ``w2``,
   ``b2`` of a ``SwitchMoELayer``, JAX ``_is_expert_param`` :83) holds the
   rank's ``E / ep`` experts on dim 0, experts ``[e E / ep, (e + 1) E /
@@ -26,25 +26,31 @@ numbering, rank ``r = (d * ep + e) * tp + m`` (``r = d * ep + e`` at ``tp =
   bias) and ``branch_i_fc2`` / ``ffn_1`` on their input columns (the
   weight; the bias stays whole and joins the sum once). A leaf whose dim
   ``tp`` does not divide stays whole, as JAX's ``div()`` leaves it;
-  everything else is replicated;
-- in training (``tp = 1``) rank r holds rows ``[r B / W, (r + 1) B / W)``
-  of each microbatch, which are token chunk r of JAX's ``P((data,
-  expert))`` layout, so a capacity counted on the rank's own tokens is
-  JAX's per-chunk capacity; in generation (``rows_replicated``, the
-  layout of JAX's ``GenerationPipeline`` under a mesh, ``P('data')``) the
-  ranks of one data index hold the same rows of the CFG-doubled batch, and
-  ``dispatch`` cuts their tokens into JAX's chunks itself
-  (``parallel/moe_parallel.py``).
+  everything else is replicated. :class:`Cut` says how a rank holds a
+  leaf, :func:`leaf_cuts` reads it off a model's modules;
+- in training the ``tp`` ranks of a model group hold the same rows:
+  row-holder ``q = d ep + e`` (:attr:`ExpertMesh.q`, ``dp ep`` of them)
+  holds rows ``[q B / (dp ep), (q + 1) B / (dp ep))`` of each microbatch,
+  which are token chunk q of JAX's ``P((data, expert))`` layout, so a
+  capacity counted on the rank's own tokens is JAX's per-chunk capacity;
+  in generation (``rows_replicated``, the layout of JAX's
+  ``GenerationPipeline`` under a mesh, ``P('data')``) the ranks of one
+  data index hold the same rows of the CFG-doubled batch, and ``dispatch``
+  cuts their tokens into JAX's chunks itself (``parallel/moe_parallel.py``).
 
-A checkpoint holds JAX's global ``[E, ...]`` layout: :meth:`ExpertMesh.
-gather_experts` and :meth:`ExpertMesh.gather_expert_shards` bring the
-shards to rank 0's host in expert order, and :func:`local_state_dict`
-cuts a whole state for any ``(dp, ep, tp)``.
+A leaf's gradient is summed over the ranks that hold the same block of it
+(:attr:`ExpertMesh.blocks`): a replicated leaf over the world, a model-cut
+one over the ranks that share ``m``, an expert over those that share ``e``
+(and ``m`` when it is model-cut too), so every holder of a block gets the
+same bits. A checkpoint holds JAX's global layout: :func:`gather_whole` and
+:meth:`CutSharded.gather` bring the blocks to rank 0's host, experts laid
+in order on dim 0 and model blocks on their model dim, and
+:func:`local_state_dict` cuts a whole state for any ``(dp, ep, tp)``.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -53,6 +59,7 @@ from torch import nn
 from motiondiffusion_moe_tpu_torch.parallel.data_parallel import (
     DataGroup,
     Sharded,
+    by_dtype,
 )
 
 EXPERT_LEAVES = ("w1", "b1", "w2", "b2")
@@ -65,32 +72,53 @@ def is_expert_param(name: str) -> bool:
     return leaf in EXPERT_LEAVES and module.endswith("_moe")
 
 
+# the dims JAX's Megatron rule cuts, by the kind of FFN leaf: the experts'
+# hidden width (b2 stays whole), a column-parallel Dense's output columns
+# (weight and bias), a row-parallel Dense's input columns (the bias joins
+# the sum once)
+SPLIT_DIMS = {"expert": {"w1": 2, "b1": 1, "w2": 1},
+              "column": {"weight": 0, "bias": 0}, "row": {"weight": 1}}
+
+
 def model_dim(name: str, shape: Sequence[int], tp: int) -> Optional[int]:
     """The dim of a (torch-layout) parameter that JAX's Megatron rule cuts
     over ``tp`` model ranks, or None (replicated over the model axis):
     ``_param_spec`` :89-139 on the port's names, flax's ``[in, out]``
-    kernels being the transposes of the torch weights here."""
+    kernels being the transposes of the torch weights here. A dim that
+    ``tp`` does not divide stays whole, as JAX's ``div()`` leaves it."""
     module, _, leaf = name.rpartition(".")
-    dim = None
-    if is_expert_param(name):
-        dim = {"w1": 2, "b1": 1, "w2": 1}.get(leaf)  # b2 stays whole
-    elif module.endswith("_fc1") or module.endswith("ffn_0"):
-        dim = 0  # column-parallel: the output columns, weight and bias
-    elif (module.endswith("_fc2") or module.endswith("ffn_1")) \
-            and leaf == "weight":
-        dim = 1  # row-parallel: the input columns; the bias joins once
+    kind = ("expert" if is_expert_param(name)
+            else "column" if module.endswith(("_fc1", "ffn_0"))
+            else "row" if module.endswith(("_fc2", "ffn_1")) else None)
+    dim = SPLIT_DIMS[kind].get(leaf) if kind else None
     if dim is None or tp < 2 or dim >= len(shape) or shape[dim] % tp:
         return None
     return dim
 
 
+class Cut(NamedTuple):
+    """How a rank holds a leaf: only its ``E / ep`` experts on dim 0
+    (``expert``) and/or its ``1 / tp`` of dim ``dim`` (the model axis)."""
+
+    expert: bool = False
+    dim: Optional[int] = None
+
+    @property
+    def key(self) -> Tuple[bool, bool]:
+        """(cut by expert, cut over the model axis): which ranks hold the
+        same block (:attr:`ExpertMesh.blocks`)."""
+        return self.expert, self.dim is not None
+
+
 class ExpertMesh(DataGroup):
     """The run's ``(data, expert, model)`` mesh: the world's collectives
     (this class is the world's :class:`DataGroup`), the rank's indices ``d``,
-    ``e``, ``m`` and its subgroups: ``expert`` (None at ``ep = 1``),
-    ``data`` (the world itself at ``ep = tp = 1``), ``model`` and ``shard``
-    (None at ``tp = 1``; ``shard`` is ``expert`` then). ``rows_replicated``
-    marks the generation layout (see the module doc)."""
+    ``e``, ``m``, its row-holder index ``q`` (of ``holders``) and its
+    subgroups: ``expert`` (None at ``ep = 1``), ``data`` (the world itself
+    at ``ep = tp = 1``), ``model`` and ``shard`` (None at ``tp = 1``;
+    ``shard`` is ``expert`` then), and ``blocks[Cut.key]``, the ranks that
+    hold the same block of a leaf cut so. ``rows_replicated`` marks the
+    generation layout (see the module doc)."""
 
     def __init__(self, ep: int = 1, tp: int = 1,
                  rows_replicated: bool = False):
@@ -103,10 +131,9 @@ class ExpertMesh(DataGroup):
         self.m = self.rank % tp
         self.e = self.rank // tp % ep
         self.d = self.rank // (tp * ep)
+        self.q, self.holders = self.rank // tp, self.dp * ep
 
-        def rank(d, e, m):
-            return (d * ep + e) * tp + m
-
+        rank = self.rank_of
         self.expert = self.model = self.shard = None
         self.data = self
         if ep > 1:
@@ -126,6 +153,17 @@ class ExpertMesh(DataGroup):
                  for d in range(self.dp)], self.d) if ep > 1 else self.model
         else:
             self.shard = self.expert
+        self.blocks = {(False, False): self, (True, True): self.data}
+        for key, cut, left in (((True, False), ep, tp),
+                               ((False, True), tp, ep)):
+            if cut == 1:  # nothing to share: every rank holds it
+                self.blocks[key] = self
+            elif left == 1:  # the other axis is one wide: the data group
+                self.blocks[key] = self.data
+            else:  # the ranks that share e, or m
+                self.blocks[key] = self._subgroup(
+                    [self.members(key, e, m) for e, m in self.blocks_of(key)],
+                    self.e if key[0] else self.m)
 
     def _subgroup(self, families: List[List[int]], mine: int) -> DataGroup:
         if len(families) == 1:
@@ -136,6 +174,28 @@ class ExpertMesh(DataGroup):
 
     def __deepcopy__(self, memo):
         return self  # a copied module keeps the process groups
+
+    def rank_of(self, d: int, e: int, m: int) -> int:
+        return (d * self.ep + e) * self.tp + m
+
+    @property
+    def batch(self) -> DataGroup:
+        """The row-holders at this model index (the ranks that share
+        ``m``): together they hold each row of the global batch once."""
+        return self.blocks[(False, True)]
+
+    def blocks_of(self, key: Tuple[bool, bool]) -> List[Tuple[int, int]]:
+        """The blocks ``(e, m)`` of a leaf cut as ``key`` (``Cut.key``)."""
+        return [(e, m) for e in (range(self.ep) if key[0] else [0])
+                for m in (range(self.tp) if key[1] else [0])]
+
+    def members(self, key: Tuple[bool, bool], e: int, m: int) -> List[int]:
+        """The ranks, in rank order, that hold block ``(e, m)`` of a leaf
+        cut as ``key``: those that share its ``e`` (if cut by expert) and
+        its ``m`` (if cut over the model axis)."""
+        return [r for r in range(self.world)
+                if (not key[0] or r // self.tp % self.ep == e)
+                and (not key[1] or r % self.tp == m)]
 
     def expert_slice(self, num_experts: int) -> slice:
         """The experts this rank holds."""
@@ -160,126 +220,136 @@ class ExpertMesh(DataGroup):
 
     def local_leaf(self, name: str, x: torch.Tensor) -> torch.Tensor:
         """The rank's cut (a view) of the global parameter ``name``."""
-        if self.ep > 1 and is_expert_param(name):
+        return self.take(x, Cut(self.ep > 1 and is_expert_param(name),
+                                model_dim(name, x.shape, self.tp)))
+
+    def take(self, x: torch.Tensor, cut: Cut) -> torch.Tensor:
+        """The rank's block (a view) of a global leaf cut as ``cut``."""
+        if cut.expert:
             x = x[self.expert_slice(x.shape[0])]
-        dim = model_dim(name, x.shape, self.tp)
-        if dim is not None:
-            n = x.shape[dim] // self.tp
-            x = x.narrow(dim, self.m * n, n)
+        if cut.dim is not None:
+            n = x.shape[cut.dim] // self.tp
+            x = x.narrow(cut.dim, self.m * n, n)
         return x
 
-    def gather_experts(self, tensors: Sequence[torch.Tensor]
-                       ) -> Optional[List[torch.Tensor]]:
-        """The global ``[E, ...]`` tensors of the ranks' expert shards
-        ``tensors`` (one dtype), in host memory on rank 0 and None on the
-        others: every rank sends its flat through the world's gather in
-        pieces, and rank 0 keeps the expert group of data index 0."""
-        flat = torch.cat([t.detach().reshape(-1) for t in tensors])
-        every = self.gather_to_primary(flat)
-        if every is None:
-            return None
-        n = flat.numel()
-        sizes = [t.numel() for t in tensors]
-        per_e = [every[e * n:(e + 1) * n].split(sizes)
-                 for e in range(self.ep)]
-        return [torch.cat([p[i].view(t.shape) for p in per_e])
-                for i, t in enumerate(tensors)]
+    def assemble(self, block: Dict[Tuple[int, int], torch.Tensor],
+                 cut: Cut) -> torch.Tensor:
+        """A global leaf from its blocks ``{(e, m): tensor}``: the model
+        blocks laid on ``cut.dim``, then the experts on dim 0."""
+        rows = []
+        for e in (range(self.ep) if cut.expert else [0]):
+            parts = [block[(e, m)] for m in
+                     (range(self.tp) if cut.dim is not None else [0])]
+            rows.append(parts[0] if len(parts) == 1
+                        else torch.cat(parts, cut.dim))
+        return rows[0] if len(rows) == 1 else torch.cat(rows)
 
-    def gather_expert_shards(self, sharded: Sharded,
-                             shards: Sequence[torch.Tensor]
-                             ) -> Optional[List[torch.Tensor]]:
-        """The global ``[E, ...]`` tensors from every rank's ZeRO-1
-        ``shards`` of its expert tensors, cut by ``sharded`` over its data
-        group: on rank 0's host, None on the others (a collective)."""
-        out: List[Optional[List[torch.Tensor]]] = [None] * len(
-            sharded.shapes)
-        for (idx, part), shard in zip(sharded.groups, shards):
-            every = self.gather_to_primary(shard)
+    def gather_blocks(self, tensors: Sequence[torch.Tensor],
+                      cuts: Sequence[Cut]) -> Optional[List[torch.Tensor]]:
+        """The global leaves of the ranks' blocks ``tensors`` (cut as
+        ``cuts``), in host memory on rank 0 and None on the others: every
+        rank sends its flat of each dtype through the world's gather in
+        pieces, and rank 0 assembles each leaf from the ranks of data index
+        0."""
+        out: List[Optional[torch.Tensor]] = [None] * len(tensors)
+        for idx in by_dtype(tensors):
+            flat = torch.cat([tensors[i].detach().reshape(-1) for i in idx])
+            every = self.gather_to_primary(flat)
             if every is None:
                 continue
-            n = shard.numel()
-            for e in range(self.ep):
-                # expert index e's flat: its data group's shards in order
-                flat = torch.cat([every[(d * self.ep + e) * n:
-                                        (d * self.ep + e + 1) * n]
-                                  for d in range(self.dp)])
-                for i, v in zip(idx, part.split(flat)):
-                    out[i] = (out[i] or []) + [v.view(sharded.shapes[i])]
-        if self.rank:
-            return None
-        return [torch.cat(parts) for parts in out]
+            n = flat.numel()
+            mine = [every[r * n:(r + 1) * n].split(
+                [tensors[i].numel() for i in idx]) for r in range(self.world)]
+            for j, i in enumerate(idx):
+                out[i] = self.assemble(
+                    {b: mine[self.rank_of(0, *b)][j].view(tensors[i].shape)
+                     for b in self.blocks_of(cuts[i].key)}, cuts[i])
+        return None if self.rank else out
 
 
-class ExpertSharded:
-    """:class:`Sharded`'s interface for a list of tensors of which some are
-    expert shards (``expert[i]``): the rest cut over all W ranks (the flat
-    cut of ``data_parallel.py``), the experts over the rank's data group,
-    ``dp`` ways. Each dtype of each part has one shard; :meth:`local` takes
-    the tensors at the rank's shapes and :meth:`gather` returns the global
-    ones."""
+class CutSharded:
+    """:class:`Sharded`'s interface for a list of tensors cut as ``cuts``
+    (the rank's blocks) over a mesh: the tensors of each ``Cut.key`` cut
+    flat over the ranks that hold the same blocks (``mesh.blocks``), one
+    :class:`Sharded` per key in the order of ``KEYS`` (or ``make(idx,
+    key)``'s part for the indices ``idx`` cut as ``key``). :meth:`local`
+    takes the tensors at the rank's shapes, one shard per dtype of each
+    part; :meth:`gather` returns the global ones."""
+
+    KEYS = ((False, False), (False, True), (True, False), (True, True))
 
     def __init__(self, tensors: Sequence[torch.Tensor],
-                 expert: Sequence[bool], mesh: ExpertMesh,
-                 rest: Optional[Sharded] = None,
-                 experts: Optional[Sharded] = None):
-        self.mesh = mesh
-        self.rest_idx = [i for i, x in enumerate(expert) if not x]
-        self.expert_idx = [i for i, x in enumerate(expert) if x]
-        self.rest = rest or Sharded([tensors[i] for i in self.rest_idx],
-                                    mesh)
-        self.experts = experts or Sharded(
-            [tensors[i] for i in self.expert_idx], mesh.data)
+                 cuts: Sequence[Cut], mesh: ExpertMesh,
+                 make: Optional[Callable[[List[int], Tuple[bool, bool]],
+                                         Sharded]] = None):
+        self.mesh, self.cuts = mesh, list(cuts)
+        self.idx = [idx for idx in ([i for i, c in enumerate(cuts)
+                                     if c.key == key] for key in self.KEYS)
+                    if idx]
+        make = make or (lambda idx, key: Sharded(
+            [tensors[i] for i in idx], mesh.blocks[key]))
+        self.parts = [make(idx, key) for idx, key in self.keyed()]
+
+    def keyed(self) -> List[Tuple[List[int], Tuple[bool, bool]]]:
+        """(indices, ``Cut.key``) of the tensors cut alike, in the order
+        of ``KEYS``."""
+        return [(idx, self.cuts[idx[0]].key) for idx in self.idx]
 
     def local(self, tensors: Sequence[torch.Tensor]) -> List[torch.Tensor]:
-        return (self.rest.local([tensors[i] for i in self.rest_idx])
-                + self.experts.local([tensors[i] for i in self.expert_idx]))
+        return [s for idx, part in zip(self.idx, self.parts)
+                for s in part.local([tensors[i] for i in idx])]
 
     def gather(self, shards: Sequence[torch.Tensor]
                ) -> Optional[List[torch.Tensor]]:
-        n = len(self.rest.groups)
-        rest = self.rest.gather(shards[:n])
-        experts = self.mesh.gather_expert_shards(self.experts, shards[n:])
-        if rest is None:
-            return None
-        return place(len(self.rest_idx) + len(self.expert_idx),
-                     (self.rest_idx, rest), (self.expert_idx, experts))
+        mesh = self.mesh
+        out = [None] * len(self.cuts)
+        shards = iter(shards)
+        for idx, part in zip(self.idx, self.parts):
+            key = self.cuts[idx[0]].key
+            blocks: Dict[int, dict] = {i: {} for i in idx}
+            for group, part_flat in part.groups:
+                shard = next(shards)
+                every = mesh.gather_to_primary(shard)
+                if every is None:
+                    continue
+                n = shard.numel()
+                for b in mesh.blocks_of(key):
+                    # block b's flat: the shards of its ranks, in order
+                    flat = torch.cat([every[r * n:(r + 1) * n]
+                                      for r in mesh.members(key, *b)])
+                    for j, v in zip(group, part_flat.split(flat)):
+                        blocks[idx[j]][b] = v.view(part.shapes[j])
+            if mesh.rank == 0:
+                for i in idx:
+                    out[i] = mesh.assemble(blocks[i], self.cuts[i])
+        return None if mesh.rank else out
 
 
-def place(n: int, *parts) -> list:
-    """A list of ``n`` from ``(indices, values)`` parts."""
-    out = [None] * n
-    for idx, values in parts:
-        for i, v in zip(idx, values):
-            out[i] = v
-    return out
-
-
-def gather_whole(tensors: Sequence[torch.Tensor], expert: Sequence[bool],
+def gather_whole(tensors: Sequence[torch.Tensor], cuts: Sequence[Cut],
                  mesh: Optional[ExpertMesh]) -> Optional[list]:
-    """The global form of ``tensors`` (the rank's shapes; ``expert[i]``
-    marks a shard): on rank 0 the replicated ones as they are and the
-    experts gathered to its host, None on the other ranks (a collective).
-    Without an expert axis, ``tensors`` itself."""
-    if mesh is None or mesh.ep == 1:
+    """The global form of ``tensors`` (the rank's blocks, cut as ``cuts``):
+    on rank 0 the replicated ones as they are and the cut ones gathered to
+    its host, None on the other ranks (a collective). Without a cut,
+    ``tensors`` itself."""
+    idx = [i for i, c in enumerate(cuts) if c.key != (False, False)]
+    if mesh is None or not idx:
         return list(tensors)
-    idx = [i for i, x in enumerate(expert) if x]
-    experts = mesh.gather_experts([tensors[i] for i in idx]) if idx else []
-    if mesh.rank:
+    whole = mesh.gather_blocks([tensors[i] for i in idx],
+                               [cuts[i] for i in idx])
+    if whole is None:
         return None
     out = list(tensors)
-    for i, v in zip(idx, experts):
+    for i, v in zip(idx, whole):
         out[i] = v
     return out
 
 
-def slice_experts(tensors: Sequence[torch.Tensor], expert: Sequence[bool],
-                  mesh: Optional[ExpertMesh]) -> List[torch.Tensor]:
-    """The rank's part of global ``tensors``: its experts of each expert
-    tensor (``expert[i]``), the others as they are."""
-    if mesh is None or mesh.ep == 1:
+def local_leaves(tensors: Sequence[torch.Tensor], cuts: Sequence[Cut],
+                 mesh: Optional[ExpertMesh]) -> List[torch.Tensor]:
+    """The rank's blocks of the global ``tensors`` cut as ``cuts``."""
+    if mesh is None:
         return list(tensors)
-    return [t[mesh.expert_slice(t.shape[0])] if x else t
-            for t, x in zip(tensors, expert)]
+    return [mesh.take(t, c) for t, c in zip(tensors, cuts)]
 
 
 # ---------------------------------------------------------------------------
@@ -307,7 +377,7 @@ def attach_mesh(model: nn.Module, mesh: Optional[ExpertMesh]) -> None:
     """Give every MoE layer the run's mesh (its collectives), and with a
     model axis every FFN pair its split (``Dense.split``, the MoE layer's
     ``model_split``: only where :func:`model_dim` cuts the hidden width);
-    the weights stay whole until :func:`shard_experts` or a pipeline's
+    the weights stay whole until :func:`shard_params` or a pipeline's
     :meth:`~pipeline.GenerationPipeline.set_params`. Under an expert or a
     model axis a layer must compute ``dense`` or ``dispatch``:
     ``dense_fused`` merges the experts into one matmul, which cannot be
@@ -335,39 +405,57 @@ def attach_mesh(model: nn.Module, mesh: Optional[ExpertMesh]) -> None:
             m.mesh = mesh if m.split else None
 
 
+def leaf_cuts(model: nn.Module) -> Dict[str, Cut]:
+    """How the rank holds each parameter of ``model`` (by name) under the
+    mesh :func:`attach_mesh` gave it: its experts under an expert axis, the
+    dims of :data:`SPLIT_DIMS` of a split FFN pair's leaves (the modules'
+    splits, which :func:`model_dim` set); every leaf whole without a
+    mesh."""
+    from motiondiffusion_moe_tpu_torch.models.layers import Dense
+    from motiondiffusion_moe_tpu_torch.models.moe import SwitchMoELayer
+
+    mesh = model_mesh(model)
+    ep = mesh.ep if mesh is not None else 1
+    cuts = {}
+    for mname, mod in model.named_modules():
+        moe = isinstance(mod, SwitchMoELayer)
+        kind = ("expert" if moe and mod.model_split
+                else mod.split if isinstance(mod, Dense) else None)
+        dims = SPLIT_DIMS[kind] if kind else {}
+        for leaf, _ in mod.named_parameters(recurse=False):
+            cuts[f"{mname}.{leaf}" if mname else leaf] = Cut(
+                ep > 1 and moe and leaf in EXPERT_LEAVES, dims.get(leaf))
+    return cuts
+
+
 @torch.no_grad()
-def shard_experts(model: nn.Module) -> None:
-    """Keep only the rank's experts of every expert parameter of the
-    model's MoE layers (after a whole init, so that the weights are the
-    one-process run's)."""
-    for _, m in moe_layers(model):
-        mesh = m.mesh
-        if mesh is None or mesh.ep == 1 or m.w1.shape[0] != m.num_experts:
-            continue
-        keep = mesh.expert_slice(m.num_experts)
-        for leaf in EXPERT_LEAVES:
-            p = getattr(m, leaf)
-            setattr(m, leaf, nn.Parameter(p[keep].clone(),
-                                          requires_grad=p.requires_grad))
-
-
-def expert_flags(names: Sequence[str], mesh: Optional[ExpertMesh]
-                 ) -> List[bool]:
-    """Which of ``names`` are expert shards under ``mesh`` (an
-    :class:`ExpertMesh`, a plain ``DataGroup`` or None)."""
-    sharded = getattr(mesh, "ep", 1) > 1
-    return [sharded and is_expert_param(n) for n in names]
+def shard_params(model: nn.Module) -> None:
+    """Keep only the rank's block of every cut parameter
+    (:func:`leaf_cuts`): its experts, and its ``1 / tp`` of each split FFN
+    leaf. Once, on whole weights (after the whole seeded init, so that the
+    weights are the one-process run's)."""
+    mesh = model_mesh(model)
+    if mesh is None:
+        return
+    cuts = leaf_cuts(model)
+    for mname, mod in model.named_modules():
+        for leaf, p in list(mod.named_parameters(recurse=False)):
+            cut = cuts[f"{mname}.{leaf}" if mname else leaf]
+            if cut.key != (False, False):
+                setattr(mod, leaf, nn.Parameter(
+                    mesh.take(p, cut).clone(), requires_grad=p.requires_grad))
 
 
 def whole_state_dict(model: nn.Module) -> Optional[Dict[str, torch.Tensor]]:
     """The model's ``state_dict`` in the global layout: on rank 0 with the
-    experts gathered (host memory), None on the other ranks (a
-    collective); the state dict itself without an expert axis."""
+    cut leaves gathered (host memory), None on the other ranks (a
+    collective); the state dict itself without a cut."""
     sd = model.state_dict()
-    mesh = model_mesh(model)
+    cuts = leaf_cuts(model)
     names = list(sd)
-    whole = gather_whole([sd[n] for n in names], expert_flags(names, mesh),
-                         mesh)
+    whole = gather_whole([sd[n] for n in names],
+                         [cuts.get(n, Cut()) for n in names],
+                         model_mesh(model))
     return None if whole is None else dict(zip(names, whole))
 
 
@@ -413,42 +501,55 @@ def generation_mesh(data_parallel: int = 1, expert_parallel: int = 1,
 def make_mesh(cfg) -> Optional[ExpertMesh]:
     """The run's mesh (JAX ``Trainer._maybe_make_mesh``,
     ``trainer.py:127-169``): None without a process group, else the
-    :class:`ExpertMesh` of ``num_expert_partitions``, after
-    :func:`check_mesh`."""
+    :class:`ExpertMesh` of ``num_expert_partitions`` and
+    ``num_model_partitions``, after :func:`check_mesh`."""
     check_mesh(cfg)
-    return (ExpertMesh(cfg.parallel.num_expert_partitions)
+    return (ExpertMesh(cfg.parallel.num_expert_partitions,
+                       cfg.parallel.num_model_partitions)
             if dist.is_initialized() else None)
 
 
 def check_mesh(cfg) -> None:
-    """Raise unless the expert partitions divide the world and the
-    experts, ``num_data_partitions`` is 0 (the world over ``ep``) or that,
-    and the world divides each microbatch (JAX needs ``W | B * T`` alone;
-    the port gives each rank whole rows)."""
+    """Raise unless the expert x model partitions divide the world and the
+    expert partitions the experts, ``num_data_partitions`` is 0 (the world
+    over ``ep x tp``) or that, and the row-holders (``dp x ep``: the ranks
+    of a model group share their rows) divide each microbatch (JAX needs
+    its data axis to divide it; the port gives each row-holder whole
+    rows)."""
     world = dist.get_world_size() if dist.is_initialized() else 1
     ep = cfg.parallel.num_expert_partitions
+    tp = cfg.parallel.num_model_partitions
     procs = f"{world} process{'es' if world > 1 else ''}"
     if ep < 1 or world % ep:
         raise ValueError(
             f"num_expert_partitions (--expert_parallel) {ep}, but the run "
             f"has {procs}: launch a multiple of {ep} processes, one per "
             "device")
+    if tp < 1 or world % (ep * tp):
+        raise ValueError(
+            f"num_model_partitions (--tensor_parallel) {tp} x "
+            f"num_expert_partitions {ep}, but the run has {procs}: launch a "
+            f"multiple of {ep * tp} processes, one per device")
     if cfg.model.use_moe and cfg.model.num_experts % ep:
         raise ValueError(f"num_experts {cfg.model.num_experts} not "
                          f"divisible by {ep} expert partitions")
     n = cfg.parallel.num_data_partitions
-    if n not in (0, world // ep):
+    if n not in (0, world // (ep * tp)):
         raise ValueError(
             f"num_data_partitions (--data_parallel) {n}, but the run has "
-            f"{procs} over {ep} expert partition{'s' if ep > 1 else ''}: "
-            "launch data x expert processes, or pass 0")
+            f"{procs} over {ep} expert partition{'s' if ep > 1 else ''}"
+            + (f" x {tp} model partitions" if tp > 1 else "")
+            + ": launch data x expert x model processes, or pass 0")
     accum = max(1, cfg.train.grad_accum_steps)
     micro = cfg.train.batch_size // accum
-    if micro % world:
+    holders = world // (ep * tp) * ep
+    if micro % holders:
         raise ValueError(
             f"microbatch {micro} (batch_size {cfg.train.batch_size} / "
-            f"grad_accum_steps {accum}) not divisible by the {world} data "
-            "ranks; adjust --batch_size / --grad_accum / --data_parallel")
+            f"grad_accum_steps {accum}) not divisible by the {holders} data "
+            "ranks" + (f" ({world} processes over {tp} model partitions, "
+                       "whose ranks share their rows)" if tp > 1 else "")
+            + "; adjust --batch_size / --grad_accum / --data_parallel")
 
 
 def add_launch_flags(p) -> None:

@@ -12,13 +12,15 @@ partitioner makes of the ``dense`` einsums on an ``expert`` axis.
   reads each token's kept slots. The all-to-all is an autograd Function
   whose backward is the same all-to-all (with equal blocks, its own
   transpose).
-- :func:`ep_dense_ffn` (``dense``, ``ep > 1``): each rank runs its experts
-  on every token of its expert group (an all-gather of the tokens and the
-  combine weights), weights its experts' outputs in f32, and a
-  reduce-scatter of those f32 partial sums gives each rank its tokens,
-  rounded once, as the one-device ``_dense`` rounds (``models/moe.py``).
-  The all-gather's backward is a reduce-scatter and the reduce-scatter's
-  an all-gather.
+- :func:`sharded_dense_ffn` (``dense`` in training, ``ep > 1`` or a
+  model split): each rank runs its experts (its hidden columns with a model
+  split) on every token of its expert group (an all-gather of the tokens
+  and the combine weights), weights its experts' outputs in f32, the model
+  group's f32 sum closes a split hidden width (``combine . b2`` joining it
+  once), and a reduce-scatter of those f32 partial sums gives each rank its
+  tokens, rounded once, as the one-device ``_dense`` rounds
+  (``models/moe.py``). The all-gather's backward is a reduce-scatter and
+  the reduce-scatter's an all-gather.
 - :func:`global_dispatch_ffn` (``dispatch``, ``ep = 1`` over data ranks):
   JAX runs ``_capacity_dispatch_ffn`` on the global token array (capacity
   ``ceil(S_global cf / E)``, the fill in global row order). Here a slot's
@@ -29,10 +31,25 @@ partitioner makes of the ``dense`` einsums on an ``expert`` axis.
   moves: each rank runs its kept pairs in a buffer of its own, and nothing
   crosses ranks in the backward.
 
+With the model axis (JAX's Megatron split, ``parallel/mesh.py:113-133``)
+the model ranks hold the same tokens, and two autograd Functions carry what
+XLA's partitioner inserts around a split pair:
+
+- :func:`column_input`, at the input of a column-parallel product (a split
+  ``Dense``'s ``x``, the experts' input and the combine weights of a split
+  hidden width): the identity forward; backward, the sum over the model
+  group of the input's gradient, which each rank holds for its own columns
+  only;
+- :func:`row_parallel_sum`, the close of a row-parallel product: forward,
+  the f32 sum over the model group with the replicated bias added once (on
+  model rank 0, :func:`adds_bias`), rounded once; backward, the identity to
+  each rank's partial product, and the bias's gradient on every model rank
+  (the sum's gradient, as JAX's bias after its psum gets it), so that the
+  replicated bias stays replicated.
+
 In the generation layout (``ExpertMesh.rows_replicated``: the ranks of one
 data index hold the same rows of the CFG-doubled batch, JAX's
-``GenerationPipeline`` under a mesh, ``pipeline.py:228-242``) and with the
-model axis (JAX's Megatron split, ``parallel/mesh.py:113-133``):
+``GenerationPipeline`` under a mesh, ``pipeline.py:228-242``):
 
 - :func:`replicated_dense_ffn` (``dense``): each rank runs its experts'
   hidden columns on every token of its data index, weights its experts'
@@ -51,8 +68,6 @@ model axis (JAX's Megatron split, ``parallel/mesh.py:113-133``):
 - ``dispatch`` at ``ep = 1``: :func:`global_dispatch_ffn` over the data
   group (JAX's global capacity), or one rank's whole batch, each with the
   expert FFN of :func:`expert_ffn_tp` under a model split.
-- the row-parallel ``Dense`` layers (``models/layers.py``) close their
-  products with :func:`row_parallel_sum`.
 
 The partial products are rounded to the compute dtype (JAX's partitioner
 gives each model rank a partial product in that dtype) and summed in f32.
@@ -137,21 +152,34 @@ def ep_moe_ffn(x: torch.Tensor, top_idx: torch.Tensor,
     return combine_rows(y, slot, keep, top_vals, x.dtype)
 
 
-def ep_dense_ffn(x: torch.Tensor, combine: torch.Tensor, w1, b1, w2, b2,
-                 *, group) -> torch.Tensor:
-    """``dense`` with the experts cut over the expert group: x [S_loc, D],
-    combine [S_loc, E] (compute dtype), the rank's experts -> [S_loc, D]."""
+def sharded_dense_ffn(x: torch.Tensor, combine: torch.Tensor, w1, b1, w2,
+                      b2, *, mesh, model_split: bool) -> torch.Tensor:
+    """``dense`` in training with the experts cut over the expert group
+    and, with ``model_split``, the hidden width over the model group: x
+    [S_loc, D], combine [S_loc, E] (compute dtype), the rank's experts ->
+    [S_loc, D] (see the module doc)."""
     e_local, D, hid = w1.shape
-    xg = _AllGather.apply(x, group)
-    cg = _AllGather.apply(combine, group)
-    lo = group.rank * e_local
+    ep = mesh.ep
+    xg = _AllGather.apply(x, mesh.expert) if ep > 1 else x
+    cg = _AllGather.apply(combine, mesh.expert) if ep > 1 else combine
+    lo = mesh.e * e_local if ep > 1 else 0
+    c = cg[:, lo:lo + e_local]
     S = xg.shape[0]
     w1m = w1.permute(1, 0, 2).reshape(D, e_local * hid)
+    if model_split:
+        xg = column_input(xg, mesh)
     h = gelu(xg @ w1m, b1.reshape(e_local * hid)).view(S, e_local, hid)
-    y = torch.bmm(h.transpose(0, 1), w2) + b2[:, None, :]
-    part = torch.einsum("esd,se->sd", y.float(),
-                        cg[:, lo:lo + e_local].float())
-    return _ReduceScatter.apply(part, group).to(x.dtype)
+    y = torch.bmm(h.transpose(0, 1), w2)
+    if model_split:  # y is a partial sum: b2 joins the model sum once
+        part = torch.einsum("esd,se->sd", y.float(),
+                            column_input(c, mesh).float())
+        part = row_parallel_sum(part, c.float() @ b2.float(), mesh)
+    else:
+        part = torch.einsum("esd,se->sd", (y + b2[:, None, :]).float(),
+                            c.float())
+    if ep > 1:
+        part = _ReduceScatter.apply(part, mesh.expert)
+    return part.to(x.dtype)
 
 
 def global_keep(top_idx: torch.Tensor, num_experts: int, capacity: int,
@@ -211,6 +239,43 @@ def adds_bias(mesh) -> bool:
     return mesh.m == 0
 
 
+class _ColumnInput(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.group.sum_(g.clone()), None
+
+
+def column_input(x: torch.Tensor, mesh) -> torch.Tensor:
+    """``x`` as the input of a column-parallel product over the model group
+    (see the module doc): its gradient summed over the group."""
+    return _ColumnInput.apply(x, mesh.model)
+
+
+class _RowClose(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, partial, bias, add_bias, group, dtype):
+        ctx.dtypes = partial.dtype, None if bias is None else bias.dtype
+        ctx.bias_shape = None if bias is None else bias.shape
+        t = partial.to(torch.float32, copy=True)
+        if add_bias:
+            t += bias.float()
+        if group is not None:
+            group.sum_(t)
+        return t.to(dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        dp, db = ctx.dtypes
+        grad_bias = (None if db is None
+                     else g.sum_to_size(ctx.bias_shape).to(db))
+        return g.to(dp), grad_bias, None, None, None
+
+
 def row_parallel_sum(partial: torch.Tensor, bias: Optional[torch.Tensor],
                      mesh, model_split: bool = True, group=None,
                      dtype: Optional[torch.dtype] = None) -> torch.Tensor:
@@ -220,22 +285,20 @@ def row_parallel_sum(partial: torch.Tensor, bias: Optional[torch.Tensor],
     rounded once to ``dtype`` (default ``partial``'s). With
     ``model_split`` False the hidden width is whole on every model rank and
     each rank adds its own bias term (the sum then runs over the expert
-    axis alone)."""
-    t = partial.float()
-    if bias is not None and (not model_split or adds_bias(mesh)):
-        t = t + bias.float()
+    axis alone). The backward passes the output's gradient to ``partial``
+    and to ``bias`` on every rank (see the module doc)."""
     group = mesh.model if group is None and model_split else group
-    if group is not None:
-        group.sum_(t)
-    return t.to(dtype or partial.dtype)
+    add = bias is not None and (not model_split or adds_bias(mesh))
+    return _RowClose.apply(partial, bias, add, group, dtype or partial.dtype)
 
 
 def expert_ffn_tp(expert_in: torch.Tensor, w1, b1, w2, b2, *, mesh
                   ) -> torch.Tensor:
     """``models/moe.py::expert_ffn`` with the hidden width cut over the
-    model axis: the rank's columns of ``w1`` / ``b1`` and rows of ``w2``,
-    the second product summed over the model group, then ``b2``."""
-    h = gelu(torch.bmm(expert_in, w1) + b1[:, None, :])
+    model axis: the rank's columns of ``w1`` / ``b1`` and rows of ``w2``
+    (the input's gradient summed over the model group), the second product
+    summed over the model group, then ``b2``."""
+    h = gelu(torch.bmm(column_input(expert_in, mesh), w1) + b1[:, None, :])
     return row_parallel_sum(torch.bmm(h, w2), b2[:, None, :], mesh)
 
 

@@ -22,28 +22,34 @@ run goes on saving in the JAX layout, which the JAX package resumes again
 HF checkpoint ``--deberta_ckpt`` when given (grafted at init) and else
 from its random init, with a warning.
 
-Data- and expert-parallel training runs one process per device, launched
-by torchrun::
+Data-, expert- and tensor-parallel training runs one process per device,
+launched by torchrun::
 
-    torchrun --nproc_per_node N -m motiondiffusion_moe_tpu_torch.tools.train \\
-        [--expert_parallel EP] [--data_parallel N/EP] [--zero1] ...
+    torchrun --nproc_per_node N -m motiondiffusion_moe_tpu_torch.tools.train \
+        [--expert_parallel EP] [--tensor_parallel TP] \
+        [--data_parallel N/(EP TP)] [--zero1] ...
 
 or by starting each process with the JAX CLI's three flags,
 ``--coordinator_address HOST:PORT --num_processes N --process_id R`` (an
 init URL such as ``file:///shared/rendezvous`` also serves as the
-address). The N processes form JAX's ``(data, expert)`` mesh, rank ``R = d
-* EP + e``: rank R keeps experts ``[e E / EP, (e + 1) E / EP)`` of every MoE
-layer (``--num_experts`` divisible by EP; ``dense_fused`` runs as
-``dense``), and ``--data_parallel`` 0 means N / EP. Each process takes
-``cuda:LOCAL_RANK`` unless ``--device`` names a card, and rows ``[R B / N,
-(R + 1) B / N)`` of every ``--batch_size`` batch through
-``DistributedSampler`` (N must divide each microbatch); ``--zero1`` shards
-the Adam moments and the EMA over the processes. The backend follows the
-device: NCCL for CUDA, gloo for the CPU. Only the primary writes
-``config.json``, ``meta/`` and the checkpoints (in the global layout) and
-prints. What the port does not run yet raises: the tensor, seq and
-pipeline axes, and ``--scan_blocks`` / ``--remat_blocks``, which exist for
-JAX compilation and are not ported.
+address). The N processes form JAX's ``(data, expert, model)`` mesh, rank
+``R = (d * EP + e) * TP + m``: rank R keeps experts ``[e E / EP, (e + 1) E /
+EP)`` of every MoE layer (``--num_experts`` divisible by EP) and its
+``1 / TP`` of JAX's Megatron split of the FFN pairs (the experts' hidden
+width, the dense FFN branches, the cross-attention MLP); attention, norms,
+embeddings and the gate stay whole on every rank; ``dense_fused`` runs as
+``dense`` under EP or TP, and ``--data_parallel`` 0 means N / (EP TP). The
+TP ranks of a model group hold the same rows: row-holder ``q = R // TP``
+takes rows ``[q B / Q, (q + 1) B / Q)`` of every ``--batch_size`` batch
+through ``DistributedSampler``, ``Q = N / TP`` (Q must divide each
+microbatch). Each process takes ``cuda:LOCAL_RANK`` unless ``--device``
+names a card; ``--zero1`` shards the Adam moments and the EMA over the
+processes that reduce each gradient. The backend follows the device: NCCL
+for CUDA, gloo for the CPU. Only the primary writes ``config.json``,
+``meta/`` and the checkpoints (in the global layout) and prints. What the
+port does not run yet raises: the seq and pipeline axes, and
+``--scan_blocks`` / ``--remat_blocks``, which exist for JAX compilation and
+are not ported.
 """
 
 from __future__ import annotations
@@ -135,19 +141,23 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="expert partitions: each process keeps E / N of "
                         "every MoE layer's experts (the processes launched "
                         "must be a multiple)")
-    for flag in ("tensor_parallel", "seq_parallel", "pipeline_parallel"):
+    p.add_argument("--tensor_parallel", type=int, default=1,
+                   help="model partitions: JAX's Megatron split of the FFN "
+                        "pairs, each process keeping 1 / N of their hidden "
+                        "width; the ranks of a model group share their rows")
+    for flag in ("seq_parallel", "pipeline_parallel"):
         p.add_argument(f"--{flag}", type=int, default=1,
                        help="multi-device: raises above 1 (not ported)")
     p.add_argument("--data_parallel", type=int, default=0,
                    help="data-parallel ranks, one process each (0 = the "
                         "number of processes launched over "
-                        "--expert_parallel)")
+                        "--expert_parallel x --tensor_parallel)")
     p.add_argument("--pp_microbatches", type=int, default=0,
                    help="pipeline microbatches (read only with "
                         "--pipeline_parallel)")
     p.add_argument("--zero1", action="store_true",
-                   help="shard the Adam moments and the EMA over the data "
-                        "ranks (ZeRO-1)")
+                   help="shard the Adam moments and the EMA over the ranks "
+                        "that reduce each gradient (ZeRO-1)")
     p.add_argument("--synthetic_size", type=int, default=256,
                    help="synthetic dataset size (dataset=synthetic)")
     p.add_argument("--no_native_io", action="store_true",
@@ -246,8 +256,7 @@ def main(argv=None):
     from motiondiffusion_moe_tpu_torch.data.loader import (
         DataLoader, DistributedSampler)
     from motiondiffusion_moe_tpu_torch.parallel.distributed import (
-        initialize_distributed, is_primary, local_batch_slice, rank,
-        rank_device, world_size)
+        initialize_distributed, is_primary, rank_device, world_size)
     from motiondiffusion_moe_tpu_torch.parallel.mesh import check_mesh
     from motiondiffusion_moe_tpu_torch.training.checkpoint import (
         CheckpointManager)
@@ -289,15 +298,17 @@ def main(argv=None):
                                          seed=cfg.train.seed)
         if primary:
             dataset.normalizer.save(os.path.join(run_dir, "meta"))
-        # each process its own rows of every global batch
-        sampler = DistributedSampler(len(dataset), num_replicas=world_size(),
-                                     rank=rank(), seed=cfg.train.seed)
-        loader = DataLoader(dataset,
-                            batch_size=local_batch_slice(cfg.train.batch_size),
-                            sampler=sampler, seed=cfg.train.seed)
         norm = dataset.normalizer
         trainer = Trainer(cfg, normalizer_stats=(norm.mean, norm.std),
                           device=device)
+        # each row-holder its own rows of every global batch (the ranks of
+        # a model group the same rows; check_mesh: Q divides the batch)
+        sampler = DistributedSampler(len(dataset),
+                                     num_replicas=trainer.holders,
+                                     rank=trainer.q, seed=cfg.train.seed)
+        loader = DataLoader(dataset,
+                            batch_size=cfg.train.batch_size // trainer.holders,
+                            sampler=sampler, seed=cfg.train.seed)
         state = trainer.init_state()
         ckpt = CheckpointManager(os.path.join(run_dir, "ckpt"), cfg=cfg)
         state = trainer.fit(state, loader, checkpoints=ckpt)

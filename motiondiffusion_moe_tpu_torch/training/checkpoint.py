@@ -44,16 +44,17 @@ when it matches the restored step. (Resuming at the epoch after the
 checkpointed one is this package's own choice, not the reference
 trainer's.)
 
-Under data and expert parallelism (``parallel/``) saving is collective:
-every rank calls :meth:`CheckpointManager.save`, which gathers into the
-primary's host memory the ZeRO-1 shards, the expert shards of the
-parameters, moments and EMA (in expert order: the global ``[E, ...]``
-layout a one-process run and the JAX package hold), and every rank's
-generator state (``rng`` is then the list of them, in rank order); the
-primary writes either format and ``epoch_meta.json``, and the others wait
-at a barrier. Every rank reads a restore whole and keeps its experts and
-its shard, so a run saved at one ``(dp, ep)`` resumes at any other, one
-process included.
+Under data, expert and model parallelism (``parallel/``) saving is
+collective: every rank calls :meth:`CheckpointManager.save`, which gathers
+into the primary's host memory the ZeRO-1 shards, the expert and model
+blocks of the parameters, moments and EMA (experts in order on dim 0,
+model blocks on the dim JAX's Megatron rule cuts: the global layout a
+one-process run and the JAX package hold), and the generator state of each
+row-holder (the ranks of a model group draw alike; ``rng`` is then the list
+of them, in row-holder order); the primary writes either format and
+``epoch_meta.json``, and the others wait at a barrier. Every rank reads a
+restore whole and keeps its blocks and its shard, so a run saved at one
+``(dp, ep, tp)`` resumes at any other, one process included.
 """
 
 from __future__ import annotations
@@ -78,6 +79,7 @@ from motiondiffusion_moe_tpu_torch.parallel.distributed import (
 )
 from motiondiffusion_moe_tpu_torch.parallel.mesh import (
     local_state_dict,
+    model_mesh,
     whole_state_dict,
 )
 from motiondiffusion_moe_tpu_torch.utils import orbax_format
@@ -187,7 +189,9 @@ class CheckpointManager:
         ema = state.ema.state_dict() if state.ema is not None else None
         rng = None if generator is None else generator.get_state()
         if world_size() > 1 and rng is not None:
-            rng = all_gather_objects(rng)
+            # one a row-holder: the ranks of a model group draw alike
+            mesh = model_mesh(state.model)
+            rng = all_gather_objects(rng)[::mesh.tp if mesh else 1]
         if is_primary():
             self._write(path, state, epoch, params, opt, ema, rng)
         barrier()

@@ -26,16 +26,23 @@ optimizer's moments and the EMA hold only the rank's shard, their
 collective) and ``load_state_dict`` takes the whole and keeps the shard.
 
 With an expert axis (``parallel/mesh.py``, ``ep > 1``) the rank's expert
-tensors are its ``E / ep`` experts. Their gradient already sums the whole
-expert group's losses (through the backward all-to-all or reduce-scatter),
-so it is summed over the data group and divided by W, not by ``dp``: the
-mean of the W ranks' gradients is the global batch's. The clip's norm
-counts each expert once: the replicated tensors' square sum plus the
-expert shards' summed over the expert group. Under ZeRO-1 the replicated
-tensors keep the flat cut over all W ranks and the experts get a second
-one over the data group (``dp`` ways). ``state_dict`` (a collective) gives
-rank 0 the global ``[E, ...]`` layout; ``load_state_dict`` takes it and
-keeps the rank's experts.
+tensors are its ``E / ep`` experts; with a model axis (``tp > 1``) the
+rank's split FFN leaves are its ``1 / tp`` of JAX's Megatron cut, and the
+``tp`` ranks of a model group hold the same rows (the row-holders, ``dp x
+ep`` of them, are the ranks of :attr:`ExpertMesh.batch`). The losses are
+shares of the global batch's over the row-holders. Each leaf's gradient is
+summed over the ranks that hold the same block of it (``ExpertMesh.
+blocks``): a replicated leaf over all W ranks (its tp copies of each
+row-holder's gradient are the same), a model-cut one over the ranks that
+share ``m``, an expert over the data group (its gradient already sums the
+expert group's losses through the backward all-to-all or reduce-scatter)
+and, when it is not model-cut (``b2``), the model ranks too; each is
+divided by the number of row-holders times the copies it sums, so the mean
+is the global batch's and every holder of a block gets the same bits. The
+clip's norm counts each block once. Under ZeRO-1 each of these (up to
+four) flat buffers is cut over the ranks that reduce it. ``state_dict`` (a
+collective) gives rank 0 the global layout; ``load_state_dict`` takes it
+and keeps the rank's blocks.
 """
 
 from __future__ import annotations
@@ -68,10 +75,12 @@ from motiondiffusion_moe_tpu_torch.parallel.data_parallel import (
     Sharded,
 )
 from motiondiffusion_moe_tpu_torch.parallel.mesh import (
-    ExpertSharded,
-    expert_flags,
+    Cut,
+    CutSharded,
+    ExpertMesh,
     gather_whole,
-    slice_experts,
+    leaf_cuts,
+    local_leaves,
 )
 from motiondiffusion_moe_tpu_torch.training import losses as L
 
@@ -189,13 +198,14 @@ class Optimizer:
     parameter dtype: the gradient is reduce-scattered, the clip reads the
     global norm (the ranks' sums of squares added), Adam updates the rank's
     shard of the parameters, and the shards are all-gathered into them.
-    Over an expert axis (``dp.ep > 1``; ``expert[i]`` marks an expert
-    shard) the expert tensors have flat buffers of their own over the data
-    group (see the module doc)."""
+    Over an expert or a model axis (``dp`` a ``parallel.ExpertMesh``;
+    ``cuts[i]`` how the rank holds parameter i, ``parallel.mesh.Cut``) the
+    parameters cut alike share a flat buffer over the ranks that hold the
+    same blocks (see the module doc)."""
 
     def __init__(self, params: Sequence[nn.Parameter], cfg: ExperimentConfig,
                  b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
-                 dp=None, expert: Optional[Sequence[bool]] = None):
+                 dp=None, cuts: Optional[Sequence[Cut]] = None):
         tc = cfg.train
         self.params = list(params)
         self.max_norm = tc.grad_clip_norm
@@ -207,19 +217,19 @@ class Optimizer:
         self.count = 0
         self.dp = dp
         zero1 = cfg.parallel.zero1
-        self.mesh = dp if getattr(dp, "ep", 1) > 1 else None
-        self.expert = list(expert or [False] * len(self.params))
+        self.cuts = list(cuts or [Cut()] * len(self.params))
+        self.mesh = dp if isinstance(dp, ExpertMesh) else None
         if self.mesh is not None:
-            # the replicated tensors over all W ranks, the experts over the
-            # data group, summed there and divided by W
-            idx = ([i for i, x in enumerate(self.expert) if not x],
-                   [i for i, x in enumerate(self.expert) if x])
-            self.flats = [FlatParams([self.params[i] for i in idx[0]], dp,
-                                     zero1),
-                          FlatParams([self.params[i] for i in idx[1]],
-                                     dp.data, zero1, denom=dp.world)]
-            self.layout = ExpertSharded(self.params, self.expert, dp,
-                                        *self.flats)
+            # one buffer per way of cutting, over the ranks holding the
+            # same blocks, divided by the row-holders times the copies of
+            # each row-holder's gradient that the sum takes
+            mesh = self.mesh
+            self.layout = CutSharded(
+                self.params, self.cuts, mesh,
+                lambda idx, key: FlatParams(
+                    [self.params[i] for i in idx], mesh.blocks[key], zero1,
+                    denom=mesh.holders * (1 if key[1] else mesh.tp)))
+            self.flats = self.layout.parts
         elif dp is not None:
             self.flats = [FlatParams(self.params, dp, zero1)]
             self.layout = self.flats[0]
@@ -259,16 +269,23 @@ class Optimizer:
             f.mean_grads_()
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in self.params]
-        if self.mesh is None:
+        parts = self.layout.keyed() if self.mesh is not None else []
+        if self.mesh is None or [key for _, key in parts] == [(False, False)]:
             norm = clip_by_grouped_global_norm_(grads, self.max_norm)
-        else:  # each expert once: its shard's squares over the expert group
-            rest, ex = ([g for g, x in zip(grads, self.expert) if x == e]
-                        for e in (False, True))
-            sq = self.mesh.expert.total(sum(
-                (g.float().square().sum() for g in ex),
-                torch.zeros((), device=grads[0].device)))
-            norm = clip_by_norm_(grads, (grouped_global_norm(rest).square()
-                                         + sq).sqrt(), self.max_norm)
+        else:  # each block once: its squares over the ranks of other blocks
+            mesh = self.mesh
+            across = {(False, True): mesh.model, (True, False): mesh.expert,
+                      (True, True): mesh.shard}
+            sq = torch.zeros((), device=grads[0].device)
+            for idx, key in parts:
+                if key == (False, False):  # whole on every rank
+                    sq = sq + grouped_global_norm(
+                        [grads[i] for i in idx]).square()
+                else:
+                    sq = sq + across[key].total(sum(
+                        (grads[i].float().square().sum() for i in idx),
+                        torch.zeros((), device=grads[0].device)))
+            norm = clip_by_norm_(grads, sq.sqrt(), self.max_norm)
         self._adam_(self.params, grads)
         return norm
 
@@ -312,18 +329,18 @@ class Optimizer:
             return {"count": self.count, "mu": self.layout.gather(self.mu),
                     "nu": self.layout.gather(self.nu)}
         return {"count": self.count,
-                "mu": gather_whole(self.mu, self.expert, self.mesh),
-                "nu": gather_whole(self.nu, self.expert, self.mesh)}
+                "mu": gather_whole(self.mu, self.cuts, self.mesh),
+                "nu": gather_whole(self.nu, self.cuts, self.mesh)}
 
     def load_state_dict(self, state: dict) -> None:
-        """From the whole state (the rank keeps its experts and, under
+        """From the whole state (the rank keeps its blocks and, under
         ZeRO-1, its shard)."""
         self.count = int(state["count"])
         for dst, src in ((self.mu, state["mu"]), (self.nu, state["nu"])):
             if len(src) != len(self.params):
                 raise ValueError(f"optimizer state has {len(src)} moments, "
                                  f"the model {len(self.params)} parameters")
-            src = slice_experts(src, self.expert, self.mesh)
+            src = local_leaves(src, self.cuts, self.mesh)
             if self.zero1:
                 src = self.layout.local(src)
             for d, s in zip(dst, src):
@@ -334,19 +351,19 @@ class EMA:
     """Exponential moving average of every parameter (``:368-374``):
     ema = d * ema + (1 - d) * p after each update, starting from a copy of
     the weights (no bias correction). With ``shards`` (a
-    ``parallel.Sharded`` of the model's parameters, or an
-    ``ExpertSharded`` over an expert axis; ZeRO-1) it holds and updates the
-    rank's shard alone. Over an expert axis (``mesh``, ``expert[i]``
-    marking an expert shard) ``state_dict`` gathers the global layout into
-    the primary's host memory (a collective; None on the other ranks), as
-    it does under ZeRO-1, and ``load_state_dict`` keeps the rank's part."""
+    ``parallel.Sharded`` of the model's parameters, or a ``CutSharded``
+    over an expert or a model axis; ZeRO-1) it holds and updates the rank's
+    shard alone. Over such an axis (``mesh``, ``cuts[i]`` how the rank
+    holds parameter i) ``state_dict`` gathers the global layout into the
+    primary's host memory (a collective; None on the other ranks), as it
+    does under ZeRO-1, and ``load_state_dict`` keeps the rank's part."""
 
     def __init__(self, model: nn.Module, decay: float, shards=None,
-                 mesh=None, expert: Optional[Sequence[bool]] = None):
+                 mesh=None, cuts: Optional[Sequence[Cut]] = None):
         self.decay = decay
         self.shards = shards
-        self.mesh = mesh if getattr(mesh, "ep", 1) > 1 else None
-        self.expert = list(expert or [False] * len(list(model.parameters())))
+        self.mesh = mesh if isinstance(mesh, ExpertMesh) else None
+        self.cuts = list(cuts or [Cut()] * len(list(model.parameters())))
         self.params = self._own(model)
 
     def _own(self, model: nn.Module) -> List[torch.Tensor]:
@@ -369,12 +386,12 @@ class EMA:
 
     def state_dict(self) -> dict:
         if self.shards is None:
-            return {"params": gather_whole(self.params, self.expert,
+            return {"params": gather_whole(self.params, self.cuts,
                                            self.mesh)}
         return {"params": self.shards.gather(self.params)}
 
     def load_state_dict(self, state: dict) -> None:
-        src = slice_experts(state["params"], self.expert, self.mesh)
+        src = local_leaves(state["params"], self.cuts, self.mesh)
         if self.shards is not None:
             src = self.shards.local(src)
         for d, s in zip(self.params, src):
@@ -398,20 +415,21 @@ def create_train_state(model: nn.Module, cfg: ExperimentConfig,
     projections carry ``requires_grad=False``; in JAX their gradient is an
     exact zero, so Adam leaves them unchanged either way) and the EMA, over
     the run's mesh ``dp`` (a ``parallel.ExpertMesh`` or ``DataGroup``) when
-    given; the model's experts already cut (``parallel.shard_experts``)."""
+    given; the model's leaves already cut (``parallel.shard_params``)."""
     named = list(model.named_parameters())
-    expert = expert_flags([n for n, _ in named], dp)
+    by_name = leaf_cuts(model)
+    cuts = [by_name[n] for n, _ in named]
     train = [i for i, (_, p) in enumerate(named) if p.requires_grad]
     opt = Optimizer([named[i][1] for i in train], cfg, dp=dp,
-                    expert=[expert[i] for i in train])
+                    cuts=[cuts[i] for i in train])
     ema = None
     if cfg.train.ema_decay > 0:
         params = [p for _, p in named]
         shards = None
         if dp is not None and cfg.parallel.zero1:
-            shards = (ExpertSharded(params, expert, dp)
-                      if getattr(dp, "ep", 1) > 1 else Sharded(params, dp))
-        ema = EMA(model, cfg.train.ema_decay, shards, mesh=dp, expert=expert)
+            shards = (CutSharded(params, cuts, dp)
+                      if isinstance(dp, ExpertMesh) else Sharded(params, dp))
+        ema = EMA(model, cfg.train.ema_decay, shards, mesh=dp, cuts=cuts)
     return TrainState(model=model, optimizer=opt, ema=ema)
 
 
@@ -432,11 +450,11 @@ class TrainStep:
     of their gradients.
 
     Over the data ranks ``dp`` (the run's ``parallel.ExpertMesh``) the
-    batch is the rank's rows, each microbatch's losses are its shares of
-    the global microbatch's (:meth:`_global`: one collective a
-    microbatch), and the scalar metrics are the global batch's (the mean
-    over the ranks, one collective a step); ``per_sample_mse`` stays the
-    rank's rows."""
+    batch is the rank's row-holder's rows, each microbatch's losses are its
+    shares of the global microbatch's (:meth:`_global`: one collective a
+    microbatch over the row-holders, ``ExpertMesh.batch``), and the scalar
+    metrics are the global batch's (the mean over the row-holders, one
+    collective a step); ``per_sample_mse`` stays the rank's rows."""
 
     def __init__(self, sched: DiffusionSchedule, cfg: ExperimentConfig,
                  normalizer_stats: Optional[Tuple[np.ndarray,
@@ -520,17 +538,20 @@ class TrainStep:
     def _global(self, dens: List[torch.Tensor], ctx: TrainContext):
         """(the masked means' denominators, the MoE aux loss, the scale of
         the means' numerators). In one process: ``dens``, the layers' aux
-        losses, 1. Over W ranks, one all-reduce of ``dens`` and of every
-        MoE layer's expert shares f gives the global batch's: then a rank's
-        numerator x W over the global denominator, and E sum f P with the
-        global f (which has no gradient) and the rank's P, average over
-        the ranks to the global batch's losses and gradients, since each
-        rank holds as many rows."""
+        losses, 1. Over Q row-holders (the ranks of ``ExpertMesh.batch``;
+        the model ranks of a row-holder compute the same values), one
+        all-reduce of ``dens`` and of every MoE layer's expert shares f
+        gives the global batch's: then a rank's numerator x Q over the
+        global denominator, and E sum f P with the global f (which has no
+        gradient) and the rank's P, average over the row-holders to the
+        global batch's losses and gradients, since each holds as many
+        rows."""
         if self.dp is None:
             return dens, sum_moe_aux_losses(ctx), 1
-        W, k = self.dp.world, len(dens)
+        holders = getattr(self.dp, "batch", self.dp)
+        W, k = holders.world, len(dens)
         fs = [f for f, _ in ctx.moe_balance]
-        flat = self.dp.total(torch.cat([torch.stack(dens).float()]
+        flat = holders.total(torch.cat([torch.stack(dens).float()]
                                        + [f.float() for f in fs]))
         aux, off = [], k
         for f, mean_p in ctx.moe_balance:
@@ -566,10 +587,11 @@ class TrainStep:
             k: (torch.cat([m[k] for m in parts]) if k == "per_sample_mse"
                 else torch.stack([m[k] for m in parts]).mean())
             for k in parts[0]}
-        if self.dp is not None:  # the global batch's: the ranks' mean
+        if self.dp is not None:  # the global batch's: the row-holders' mean
+            holders = getattr(self.dp, "batch", self.dp)
             names = [k for k in metrics if k != "per_sample_mse"]
-            mean = self.dp.total(torch.stack([metrics[k] for k in names]))
-            metrics.update(zip(names, (mean / self.dp.world).unbind()))
+            mean = holders.total(torch.stack([metrics[k] for k in names]))
+            metrics.update(zip(names, (mean / holders.world).unbind()))
         return metrics
 
     def apply_update(self, state: TrainState,

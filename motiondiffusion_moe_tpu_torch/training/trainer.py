@@ -1,4 +1,5 @@
-"""Training orchestration on one device or over data and expert ranks.
+"""Training orchestration on one device or over data, expert and model
+ranks.
 
 Port of ``motiondiffusion_moe_tpu/training/trainer.py``: the epoch loop, the
 (cond, uncond) double step per batch (``ddpm_trainer.py:319-333``), caption
@@ -13,27 +14,35 @@ Steps run one by one whatever ``steps_per_call`` says (see
 (``trainer.py:326-337``: never draw t from weights a buffered step has not
 updated yet) holds by construction.
 
-Data and expert parallelism (``parallel/``): where a process group is
-initialised (``parallel.initialize_distributed``), each process is one
-rank of the ``(data, expert)`` mesh (``parallel.make_mesh``, JAX
+Data, expert and model parallelism (``parallel/``): where a process group
+is initialised (``parallel.initialize_distributed``), each process is one
+rank of the ``(data, expert, model)`` mesh (``parallel.make_mesh``, JAX
 ``_maybe_make_mesh``, ``trainer.py:127-169``): ``num_expert_partitions``
-(ep) must divide the world size and the experts, ``num_data_partitions``
-must be 0 (the world size over ep) or that, and the world size must divide
-each microbatch; in one process, ep > 1 is a mismatch and raises. The
-loader gives rank r rows ``[r B / W, (r + 1) B / W)`` of each batch, JAX's
-token chunk r; the losses, gradients and metrics are the global batch's
-(``train_state.py``); ``zero1`` shards the Adam moments and the EMA. Over
-an expert axis the MoE layers keep the rank's ``E / ep`` experts (cut
-after the whole seeded init, so the weights are the one-process run's)
-and ``dense_fused`` becomes ``dense``, as in JAX (``trainer.py:71-89``; a
+(ep) x ``num_model_partitions`` (tp) must divide the world size and ep the
+experts, ``num_data_partitions`` must be 0 (the world size over ep x tp)
+or that, and the row-holders (dp x ep: the tp ranks of a model group hold
+the same rows) must divide each microbatch; in one process, ep or tp > 1
+is a mismatch and raises. The loader gives row-holder q = rank // tp rows
+``[q B / (dp ep), (q + 1) B / (dp ep))`` of each batch, JAX's token chunk
+q; the losses, gradients and metrics are the global batch's
+(``train_state.py``); ``zero1`` shards the Adam moments and the EMA. The
+model keeps the rank's ``E / ep`` experts and its ``1 / tp`` of each
+Megatron-split FFN leaf (cut after the whole seeded init, so the weights
+are the one-process run's); attention, norms, embeddings and the gate run
+whole on every model rank, as in JAX. Under an expert or a model axis
+``dense_fused`` becomes ``dense``, as in JAX (``trainer.py:71-91``; a
 caller's ``dense_fused`` model raises). ``dispatch`` over data ranks alone
-takes the global batch's capacity. Rank r's host RNG (t draws, caption
-dropout) is ``default_rng(seed + 1_000_003 * r)``, the JAX process r's.
-Its ``torch.Generator`` (noise, dropout) is seeded ``seed + 1 + 1_000_003
-* r``: the port's own choice, since JAX draws the global batch's noise
-from one key. Only the primary prints and logs; saves are collective and
-write the global layout (``training/checkpoint.py``). The model, seq and
-pipe axes raise (ROADMAP, queue 1, item 6c).
+takes the global batch's capacity. Row-holder q's host RNG (t draws,
+caption dropout) is ``default_rng(seed + 1_000_003 * q)``, the JAX process
+q's. Its ``torch.Generator`` (noise, dropout) is seeded ``seed + 1 +
+1_000_003 * q``: the port's own choice, since JAX draws the global batch's
+noise from one key. The ranks of a model group thus draw the same noise and
+masks, and their replicated activations stay the same (a dropout on a
+column-split hidden draws the whole width's mask and keeps the rank's
+columns). Only the primary prints and logs; saves are collective and write
+the global layout with one generator state a row-holder
+(``training/checkpoint.py``). The seq and pipe axes raise (ROADMAP, queue
+1, items 6c1b and 6c2).
 
 Host work per step: draw t from the schedule sampler, tokenize the
 captions (with the tokenizer of the config's text encoder), copy the batch
@@ -63,7 +72,7 @@ from motiondiffusion_moe_tpu_torch.parallel.distributed import primary_says
 from motiondiffusion_moe_tpu_torch.parallel.mesh import (
     attach_mesh,
     make_mesh,
-    shard_experts,
+    shard_params,
 )
 from motiondiffusion_moe_tpu_torch.training.checkpoint import (
     CheckpointManager,
@@ -78,20 +87,20 @@ from motiondiffusion_moe_tpu_torch.utils.logging import MetricsLogger
 
 
 # the ParallelConfig axes not ported yet, by ROADMAP item
-_UNPORTED_AXES = {"num_model_partitions": "6c", "num_seq_partitions": "6c",
-                  "num_pipeline_stages": "6c"}
+_UNPORTED_AXES = {"num_seq_partitions": "6c1b",
+                  "num_pipeline_stages": "6c2"}
 
 
 def check_parallel_config(cfg: ExperimentConfig) -> None:
-    """Raise for a ParallelConfig axis the port does not run: all but the
-    data and expert axes."""
+    """Raise for a ParallelConfig axis the port does not run: the seq and
+    pipe axes."""
     asked = {k: getattr(cfg.parallel, k) for k in _UNPORTED_AXES}
     multi = {k: v for k, v in asked.items() if v > 1}
     if multi:
         items = sorted({_UNPORTED_AXES[k] for k in multi})
         raise NotImplementedError(
-            f"{multi}: the port trains over the data and expert axes only; "
-            f"the other axes are ROADMAP.md queue 1, item "
+            f"{multi}: the port trains over the data, expert and model axes "
+            f"only; the other axes are ROADMAP.md queue 1, item "
             f"{' and '.join(items)}")
 
 
@@ -105,6 +114,9 @@ class Trainer:
         self.dp = make_mesh(cfg)
         self.world = self.dp.world if self.dp is not None else 1
         self.rank = self.dp.rank if self.dp is not None else 0
+        # the row-holder: the ranks of a model group share rows and draws
+        self.q = self.dp.q if self.dp is not None else 0
+        self.holders = self.dp.holders if self.dp is not None else 1
         self.primary = self.rank == 0
         self.device = torch.device(device)
         self.accum = max(1, cfg.train.grad_accum_steps)
@@ -112,16 +124,18 @@ class Trainer:
             raise ValueError(
                 f"batch_size {cfg.train.batch_size} not divisible by "
                 f"grad_accum_steps {self.accum}")
-        if cfg.parallel.num_expert_partitions > 1 \
-                and cfg.model.moe_compute == "dense_fused":
-            # the fused matmul merges the experts: not expert-shardable
+        ep = cfg.parallel.num_expert_partitions
+        tp = cfg.parallel.num_model_partitions
+        if max(ep, tp) > 1 and cfg.model.moe_compute == "dense_fused":
+            # the fused matmul merges the experts and the hidden widths:
+            # cut by neither
             if model is not None:
                 raise ValueError(
                     "caller-supplied model uses moe_compute='dense_fused' "
-                    f"with {cfg.parallel.num_expert_partitions} expert "
-                    "partitions: the fused matmul cannot be expert-sharded. "
-                    "Build the model with moe_compute='dense' (or "
-                    "'dispatch') for expert-parallel runs.")
+                    f"with {ep} expert x {tp} model partitions: the fused "
+                    "matmul cannot be expert- or tensor-sharded. Build the "
+                    "model with moe_compute='dense' (or 'dispatch') for "
+                    "EP/TP runs.")
             cfg = dataclasses.replace(cfg, model=dataclasses.replace(
                 cfg.model, moe_compute="dense"))
         self.cfg = cfg
@@ -138,13 +152,13 @@ class Trainer:
                                     dp=self.dp)
         self.logger = logger or MetricsLogger(cfg.train.log_every)
         # host RNG: schedule-sampler t draws and caption dropout, JAX
-        # process r's stream on rank r
+        # process q's stream on row-holder q
         self._np_rng = np.random.default_rng(
-            cfg.train.seed + 1_000_003 * self.rank)
+            cfg.train.seed + 1_000_003 * self.q)
 
     def init_state(self) -> TrainState:
         """Seeded parameters (``init_weights``, the flax initialisers) on
-        the device (over an expert axis the rank's experts of them), the
+        the device (over an expert or a model axis the rank's blocks), the
         optimizer and the EMA. A DeBERTa text encoder gets
         the checkpoint ``text_encoder_ckpt`` grafted in (or a warning and
         its random init), as the reference trains from
@@ -156,7 +170,7 @@ class Trainer:
             from motiondiffusion_moe_tpu_torch.models.deberta import (
                 graft_pretrained_text_encoder)
             graft_pretrained_text_encoder(self.model, self.cfg.model)
-        shard_experts(self.model)  # the rank's experts of the whole init
+        shard_params(self.model)  # the rank's blocks of the whole init
         self.model.to(self.device)
         return create_train_state(self.model, self.cfg, dp=self.dp)
 
@@ -196,7 +210,7 @@ class Trainer:
             start_epoch: int = 0) -> TrainState:
         cfg = self.cfg
         say = print if self.primary else (lambda *a, **k: None)
-        offset = 1_000_003 * self.rank
+        offset = 1_000_003 * self.q
         if generator is None:
             generator = torch.Generator(self.device).manual_seed(
                 cfg.train.seed + 1 + offset)
@@ -206,19 +220,19 @@ class Trainer:
                 state, start_epoch, rng_state = restored
                 saved = (rng_state if isinstance(rng_state, list) else
                          [] if rng_state is None else [rng_state])
-                if len(saved) == self.world:
-                    generator.set_state(saved[self.rank])
+                if len(saved) == self.holders:
+                    generator.set_state(saved[self.q])
                 elif saved or checkpoints.format == "orbax":
                     seed = resume_seed(cfg.train.seed, state.step)
                     generator.manual_seed((seed + offset) % 2 ** 64)
                     why = (f"it holds {len(saved)} ranks' generator "
-                           f"states, this run has {self.world}" if saved
+                           f"states, this run has {self.holders}" if saved
                            else "it holds no torch generator state (a JAX "
                            "run's key cannot become one)")
                     say(f"[trainer] step {state.step}: {why}; generator "
                         f"seeded with {seed} = resume_seed(seed="
                         f"{cfg.train.seed}, step={state.step}), plus "
-                        "1_000_003 x rank")
+                        "1_000_003 x row-holder")
                 say(f"[trainer] resumed from step {state.step} "
                     f"(epoch {start_epoch})")
 

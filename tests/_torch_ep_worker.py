@@ -43,14 +43,15 @@ def _whole_grads(model, mesh, denom_experts):
     the replicated ones averaged over the world, the expert shards summed
     over the data group, divided by ``denom_experts`` and gathered."""
     from motiondiffusion_moe_tpu_torch.parallel.mesh import (
-        expert_flags, gather_whole)
+        gather_whole, leaf_cuts)
 
     named = list(model.named_parameters())
-    flags = expert_flags([n for n, _ in named], mesh)
+    cuts = leaf_cuts(model)
+    flags = [cuts[n] for n, _ in named]
     grads = []
     for (_, p), x in zip(named, flags):
         g = (p.grad if p.grad is not None else torch.zeros_like(p)).clone()
-        if x:
+        if x.expert:
             mesh.data.sum_(g).div_(denom_experts)
         else:
             mesh.sum_(g).div_(mesh.world)
@@ -60,6 +61,7 @@ def _whole_grads(model, mesh, denom_experts):
 
 
 def run_layer(spec, case, mesh, arrays):
+    from motiondiffusion_moe_tpu_torch.parallel.mesh import Cut
     from motiondiffusion_moe_tpu_torch.parallel.moe_parallel import (
         make_ep_moe_layer)
 
@@ -84,7 +86,7 @@ def run_layer(spec, case, mesh, arrays):
         out[f"unheld_{k}"] = float(torch.cat([g[:keep.start],
                                               g[keep.stop:]]).abs().sum())
         experts.append(mesh.data.sum_(g[keep].clone()))
-    whole = mesh.gather_experts(experts)
+    whole = mesh.gather_blocks(experts, [Cut(expert=True)] * 4)
     if r == 0:
         out.update(zip(("dw1", "db1", "dw2", "db2"), whole))
         torch.save(out, os.path.join(spec["out"], f"{case['name']}.pt"))
@@ -93,7 +95,7 @@ def run_layer(spec, case, mesh, arrays):
 def run_bf16(spec, case, mesh, arrays):
     from motiondiffusion_moe_tpu_torch.models.moe import SwitchMoELayer
     from motiondiffusion_moe_tpu_torch.parallel.mesh import (
-        attach_mesh, shard_experts)
+        attach_mesh, shard_params)
 
     r, W = mesh.rank, mesh.world
     sd = torch.load(spec["layer_sd"], weights_only=True)
@@ -102,7 +104,7 @@ def run_bf16(spec, case, mesh, arrays):
                            case["cf"])
     layer.load_state_dict(sd)
     attach_mesh(layer, mesh)
-    shard_experts(layer)
+    shard_params(layer)
     x_all = _t(arrays["x"])
     n = x_all.shape[0] // W
     x = x_all[r * n:(r + 1) * n].to(torch.bfloat16)
@@ -166,12 +168,12 @@ def _model(cfg, mesh, sd, local_capacity=False):
     from motiondiffusion_moe_tpu_torch.models.transformer import (
         MotionTransformer)
     from motiondiffusion_moe_tpu_torch.parallel.mesh import (
-        attach_mesh, shard_experts)
+        attach_mesh, shard_params)
 
     model = MotionTransformer(cfg.model)
     model.load_state_dict(sd)
     attach_mesh(model, None if local_capacity else mesh)
-    shard_experts(model)
+    shard_params(model)
     return model
 
 
@@ -237,21 +239,21 @@ def _held_as_sliced(state, payload, mesh) -> bool:
     """The rank's parameters, moments and EMA equal its part of the whole
     ``payload``, bit for bit."""
     from motiondiffusion_moe_tpu_torch.parallel.mesh import (
-        local_state_dict, slice_experts)
+        local_leaves, local_state_dict)
 
     opt, ema = state.optimizer, state.ema
 
     def part(whole, flags, shards):
-        mine = slice_experts(whole, flags, mesh)
+        mine = local_leaves(whole, flags, mesh)
         return mine if shards is None else shards.local(mine)
 
     want = local_state_dict(state.model, payload["params"])
     ok = all(_same(v, want[k]) for k, v in state.model.state_dict().items())
     shards = opt.layout if opt.zero1 else None
     for mine, whole, flags, sh in (
-            (opt.mu, payload["opt_state"]["mu"], opt.expert, shards),
-            (opt.nu, payload["opt_state"]["nu"], opt.expert, shards),
-            (ema.params, payload["ema_params"]["params"], ema.expert,
+            (opt.mu, payload["opt_state"]["mu"], opt.cuts, shards),
+            (opt.nu, payload["opt_state"]["nu"], opt.cuts, shards),
+            (ema.params, payload["ema_params"]["params"], ema.cuts,
              ema.shards)):
         ok = ok and all(_same(a, b) for a, b in
                         zip(mine, part(whole, flags, sh)))

@@ -581,7 +581,7 @@ def test_a_one_process_save_resumes_at_ep2(run):
     ("experts", "ValueError", "num_experts 3 not divisible by 2"),
     ("data_partitions", "ValueError", "2 processes over 2 expert"),
     ("caller_dense_fused", "ValueError", "dense_fused"),
-    ("tensor", "NotImplementedError", "6c")])
+    ("tensor", "ValueError", "launch a multiple of 4 processes")])
 def test_expert_parallel_errors(run, name, kind, words):
     err = run["got"]["units"][name]
     assert err is not None and err[0] == kind and words in err[1], err

@@ -34,7 +34,8 @@ Held against the JAX package:
   FFN columns: JAX's ``param_shardings`` per device, leaf by leaf summed;
 - the errors: ``micro_batch % dp``, a world that is not ``dp ep tp``,
   ``E % ep``, a degree above 1 in one process, and training with
-  ``num_model_partitions = 2`` (still ROADMAP item 6c).
+  ``num_model_partitions = 2`` in one process (a mismatch:
+  ``tests/test_torch_tensor_parallel.py`` trains over the model axis).
 """
 
 import dataclasses
@@ -396,5 +397,5 @@ def test_training_over_the_model_axis_still_raises():
     cfg = to_port(_cfg())
     cfg = dataclasses.replace(cfg, parallel=dataclasses.replace(
         cfg.parallel, num_model_partitions=2))
-    with pytest.raises(NotImplementedError, match="6c"):
+    with pytest.raises(ValueError, match="1 process: launch a multiple of 2"):
         Trainer(cfg, device="cpu")
