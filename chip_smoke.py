@@ -24,6 +24,13 @@ first use) and exits non-zero without one. Phases, each fatal on failure:
          PRs 1-5's design, its time at 1, 2, 4 and 8 CTAs per (b, h) at
          B*H = 128 and at a serving batch of B*H = 8, and under
          FAVOR_MXU_BF16=1 against the plain version with bf16 operands.
+         favor_qkv also in its two seq launches (favor_qkv_moments and
+         favor_qkv_apply) at T = 196 cut as 98 / 98 and 50 / 50 / 48 / 48
+         (ExpertMesh.frames), bf16 and f32: each cut's moments summed on
+         the card, each cut's apply, concatenated, against the whole kernel
+         and against the plain split; both launches timed in bf16 at a seq
+         4 rank's 50 frames beside their bounds; kernel 8's two launches
+         likewise against favor_attention (f32).
          performer_epilogue (kernel 2) is fed scale and shift as the style
          block feeds them, strided views of one [B, 2D] tensor; it also
          prints the same bits on a second call, its time per call under
@@ -370,17 +377,19 @@ first use) and exits non-zero without one. Phases, each fatal on failure:
          SHA-256 of its motions (every rank returns the same). O1: the
          flagship at full width and depth, f32 compute, bf16 weights, dpm5
          (O1_STEPS) of 16 prompts x 196 frames (micro-batch 16) on O_W (4)
-         --o1-rank ranks in four layouts (data 4; data 2 x expert 2; expert
-         2 x model 2; dispatch at data 2 x expert 2, capacity factor 4,
-         which drops nothing), each within O1_REL of the one-process
-         pipeline of the function it computes (dense_fused at data ranks
-         alone, else dense). O2: tools/serve.py as 4 processes (--o2-rank;
+         --o1-rank ranks in five layouts (data 2 x seq 2; expert 2 x model
+         2; dispatch at data 2 x expert 2, capacity factor 4, which drops
+         nothing; seq 4, T cut 50 / 50 / 48 / 48; seq 2 x expert 2), each
+         within O1_REL of the one-process pipeline of the function it
+         computes (dense_fused at data and seq ranks alone, else dense); a
+         seq rank launches kernel 1's moments and apply once a Performer
+         each and the whole kernel 1 never. O2: tools/serve.py as 4 processes (--o2-rank;
          --data_parallel 2 --tensor_parallel 2) from the flagship's bf16
          export at micro-batch 4, dpm5, 3 seeded requests (1, 3 and 6
          prompts: the last two micro-batches) each within O2_REL of the
          one-process server's answer (bf16 compute), then SIGTERM to rank
-         0: every rank exits 0. O3: moe_big as written (12 blocks a scale,
-         16 experts over its 8 expert partitions, 2.29 B parameters) on 8
+         0: every rank exits 0. O3: moe_big at full width, O3_LAYERS (1) of
+         its 12 blocks a scale (16 experts over its 8 expert partitions) on 8
          --o3-rank ranks, each seeding its shard leaf by leaf on the card
          (seeded_state), bf16 weights, f32 compute (o3_config says why),
          dense, one micro-batch of 2 prompts, dpm with O3_STEPS (5) steps,
@@ -922,6 +931,7 @@ def phase_a(dev, card):
         for dtype in (torch.bfloat16, torch.float32):
             results[("performer_epilogue", dtype, T)] = epilogue_case(
                 dev, card, t, report, B, T, latent, dtype)
+    results.update(favor_split_case(dev, card, t, report, rng, B, H, D, m))
     epilogue_launch_costs(dev, card, t, B, latent)
     # registers and spills of kernel 2, as ptxas reported them in this
     # run's build: none may spill at D = 512
@@ -992,6 +1002,120 @@ def phase_a(dev, card):
               f"({b_by}) ({card})")
         results[f"{name}_grad"] = (err, k_ms, p_ms, b_ms, b_by, None)
     return results
+
+
+SPLIT_T = 196   # the flagship's frames, cut over 2 and 4 seq ranks in A
+
+
+def favor_split_case(dev, card, t, report, rng, B, H, D, m):
+    """Kernel 1 in its two seq launches at the flagship's shapes: T =
+    SPLIT_T cut over 2 and 4 seq ranks (ExpertMesh.frames: 98 / 98 and
+    50 / 50 / 48 / 48), bf16 and f32, the ragged mask. Each cut's moments
+    are summed on the card, each cut's apply reads the sum, and the cuts'
+    outputs, concatenated, are held to the whole kernel 1 and to the plain
+    split of the same cuts by phase A's rule (``report``). Both launches
+    are timed in bf16 at the 4-way cut's first shape (50 frames, O1's seq
+    4 rank) against their plain versions and their bounds (three TF32 passes: the moments' two products, the k
+    logits and phi(k)^T v; the apply's three, the q and k logits and phi(q)
+    kv). Then kernel 8's two launches against favor_attention over the same
+    cuts (f32, no mask: its masked rows divide by eps, and their size would
+    set the tolerance). Returns {(name, dtype, T_cut): (max abs err, ms,
+    plain ms, bound ms, bound by, None)}."""
+    import torch
+    from types import SimpleNamespace
+    from motiondiffusion_moe_tpu_torch.ops import performer as P
+    from motiondiffusion_moe_tpu_torch.parallel.mesh import ExpertMesh
+
+    T = SPLIT_T
+    mask = ragged_mask(rng, B, T, dev)
+    scale, bias = t(D, s=0.1, off=1.0), t(D, s=0.1)
+    proj = t(D, m, s=D ** -0.25)
+    ln = (scale, bias, proj)
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        qkv = t(B, T, 3 * H * D).to(dtype)
+        whole = P.favor_qkv(qkv, *ln, mask)
+        el = qkv.element_size()
+        for sp in (2, 4):
+            cuts = [ExpertMesh.frames(SimpleNamespace(sp=sp), T, s)
+                    for s in range(sp)]
+            parts = [(qkv[:, a:b].contiguous(), mask[:, a:b].contiguous())
+                     for a, b in cuts]
+            with torch.inference_mode():
+                kv = sum(P.favor_qkv_moments(x, *ln, mk) for x, mk in parts)
+                got = torch.cat([P.favor_qkv_apply(x, kv, *ln, mk)
+                                 for x, mk in parts], 1)
+                kv_p = sum(P.favor_qkv_moments_plain(x, *ln, mk)
+                           for x, mk in parts)
+                plain = torch.cat([P.favor_qkv_apply_plain(x, kv_p, *ln, mk)
+                                   for x, mk in parts], 1)
+            torch.cuda.synchronize()
+            sizes = "/".join(str(b - a) for a, b in cuts)
+            report(f"favor_qkv split {sizes} vs whole favor_qkv", dtype, T,
+                   got, whole)
+            err = report(f"favor_qkv split {sizes} vs plain split", dtype, T,
+                         got, plain)
+            if sp != 4 or dtype != torch.bfloat16:
+                continue
+            x, mk = parts[0]
+            Tc = x.shape[1]
+            kvc = kv.contiguous()
+            fns = {
+                "favor_qkv_moments": (
+                    lambda: P.favor_qkv_moments(x, *ln, mk),
+                    lambda: P.favor_qkv_moments_plain(x, *ln, mk),
+                    # k, v read; kv written; two products
+                    B * Tc * 2 * H * D * el + B * H * m * D * 4,
+                    2 * 2 * B * H * Tc * D * m),
+                "favor_qkv_apply": (
+                    lambda: P.favor_qkv_apply(x, kvc, *ln, mk),
+                    lambda: P.favor_qkv_apply_plain(x, kvc, *ln, mk),
+                    # q, k and kv read; the output written; three products
+                    B * Tc * 3 * H * D * el + B * H * m * D * 4,
+                    3 * 2 * B * H * Tc * D * m)}
+            for name, (kernel, plain_fn, nbytes, flops) in fns.items():
+                with torch.inference_mode():
+                    k_ms, p_ms = paired_ms(kernel, plain_fn)
+                    dev_k, dev_p = device_ms(kernel), device_ms(plain_fn)
+                b_ms, b_by, _ = favor_bound(
+                    nbytes + (2 * D + D * m + B * Tc) * 4, flops)
+                print(f"[A] {name} {str(dtype)[6:]} B={B} T={Tc} (a rank of "
+                      f"{sizes}; {cluster_s(B * H, dev, 2)}): kernel "
+                      f"{k_ms:.4f} ms, plain {p_ms:.4f} ms per call (CUDA "
+                      f"events); device time kernel {dev_k}, plain {dev_p} "
+                      f"(torch.profiler); bound {b_ms:.4f} ms ({b_by}, "
+                      f"3xTF32 on the tensor cores); no PyTorch call "
+                      f"computes it ({card})")
+                out[(name, dtype, Tc)] = (err, k_ms, p_ms, b_ms, b_by, None)
+
+    # kernel 8 (the unfused Performer's core) in the same two launches
+    q, k, v = (t(B, H, T, D) for _ in range(3))
+    q, k = (x / x.norm(dim=-1, keepdim=True) for x in (q, k))
+    whole = P.favor_attention(q, k, v, proj)
+    for sp in (2, 4):
+        cuts = [ExpertMesh.frames(SimpleNamespace(sp=sp), T, s)
+                for s in range(sp)]
+        parts = [tuple(x[:, :, a:b].contiguous() for x in (q, k, v))
+                 + (None,) for a, b in cuts]
+        with torch.inference_mode():
+            kv = sum(P.favor_attention_moments(kc, vc, proj, mc)
+                     for _, kc, vc, mc in parts)
+            got = torch.cat([P.favor_attention_apply(qc, kc, kv, proj, mc)
+                             for qc, kc, _, mc in parts], 2)
+        torch.cuda.synchronize()
+        sizes = "/".join(str(b - a) for a, b in cuts)
+        report(f"favor_attention split {sizes} vs whole favor_attention",
+               torch.float32, T, got, whole)
+        qc, kc, vc, mc = parts[0]
+        with torch.inference_mode():
+            m_ms = time_ms(lambda: P.favor_attention_moments(kc, vc, proj,
+                                                             mc))
+            a_ms = time_ms(lambda: P.favor_attention_apply(qc, kc, kv, proj,
+                                                           mc))
+        print(f"[A] favor_attention_moments / _apply float32 B={B} "
+              f"T={qc.shape[2]} (a rank of {sizes}): {m_ms:.4f} / "
+              f"{a_ms:.4f} ms per call (CUDA events) ({card})")
+    return out
 
 
 def build_flagship(cfg):
@@ -6341,18 +6465,23 @@ def phase_p(dev, card):
 O_W = 4             # O1 and O2: ranks sharing the card
 O_MB = 16           # the micro-batch (16 prompts, one micro-batch in O1)
 O1_STEPS = 5        # O1's DPM-Solver++ steps (the budget's cut: 20 asked)
-O1_LAYOUTS = {      # name: ((dp, ep, tp), moe_compute, capacity factor)
-    "dp4": ((4, 1, 1), "dense_fused", 2.0),
-    "dp2_ep2": ((2, 2, 1), "dense_fused", 2.0),
-    "ep2_tp2": ((1, 2, 2), "dense_fused", 2.0),
-    "dispatch_dp2_ep2": ((2, 2, 1), "dispatch", 4.0)}
+# (data 2 x expert 2 in dense gave way to sp2_ep2, the dense expert split,
+# and dispatch_dp2_ep2, the data x expert rows; dispatch at seq 2 x expert
+# 2, 25 s of host-staged gathers a run, to the CPU tests)
+O1_LAYOUTS = {      # name: ((dp, ep, tp, sp), moe_compute, capacity factor)
+    "dp2_sp2": ((2, 1, 1, 2), "dense_fused", 2.0),
+    "ep2_tp2": ((1, 2, 2, 1), "dense_fused", 2.0),
+    "dispatch_dp2_ep2": ((2, 2, 1, 1), "dispatch", 4.0),
+    "sp4": ((1, 1, 1, 4), "dense_fused", 2.0),           # 50/50/48/48 frames
+    "sp2_ep2": ((1, 2, 1, 2), "dense_fused", 2.0)}
 O1_REL = 1e-3       # O1, f32 compute: rel RMS of the motions
 O2_REL = 1e-1       # O2, bf16 compute (routing flips): rel RMS per request
 O2_MB = 4           # O2's serving micro-batch
 O2_STEPS = 5        # O2's DPM-Solver++ steps
 O2_REQUESTS = [(1, 196, 11), (3, 150, 12), (6, 196, 13)]  # n, frames, seed
 O3_W = 8            # moe_big's expert partitions, one rank each
-O3_STEPS = 5        # O3's DPM-Solver++ steps (the only cut)
+O3_STEPS = 5        # O3's DPM-Solver++ steps
+O3_LAYERS = 1       # O3's blocks a scale (moe_big has 12; full width)
 # O3, f32 compute: rel RMS of the motions within O3_REL plus O3_FLOOR x the
 # one process's own dense against dense_fused (the same function summed in
 # another order: what the sampler makes of f32 reordering in this model;
@@ -6373,8 +6502,9 @@ def o_prompts(n, frames):
 
 
 def o_generate(pipe, prompts, lengths, seed, dev):
-    """``pipe.generate`` with kernels 1 and 2 counted from just before it to
-    just after it; (motions, {seconds, launches, peak GiB})."""
+    """``pipe.generate`` with kernels 1 (whole, and its two seq launches)
+    and 2 counted from just before it to just after it; (motions, {seconds,
+    launches, peak GiB})."""
     import torch
     from motiondiffusion_moe_tpu_torch.ops import performer as P
 
@@ -6382,7 +6512,9 @@ def o_generate(pipe, prompts, lengths, seed, dev):
     if cuda:
         torch.cuda.synchronize(dev)
         torch.cuda.reset_peak_memory_stats(dev)
-    for c in (P.favor_qkv, P.performer_epilogue):
+    counted = (P.favor_qkv, P.favor_qkv_moments, P.favor_qkv_apply,
+               P.performer_epilogue)
+    for c in counted:
         c.launches = 0
     t0 = time.perf_counter()
     out = pipe.generate(prompts, lengths,
@@ -6390,8 +6522,7 @@ def o_generate(pipe, prompts, lengths, seed, dev):
     if cuda:
         torch.cuda.synchronize(dev)
     line = {"s": round(time.perf_counter() - t0, 3),
-            "launches": {c.__name__: c.launches
-                         for c in (P.favor_qkv, P.performer_epilogue)},
+            "launches": {c.__name__: c.launches for c in counted},
             "peak_GiB": round(torch.cuda.max_memory_allocated(dev) / 2 ** 30,
                               3) if cuda else 0.0,
             "sha256": hashlib.sha256(b"".join(
@@ -6496,8 +6627,8 @@ def o1_rank(spec_path, rank):
     weights = torch.load(spec["params"], mmap=True, weights_only=True)
     prompts, lengths = spec["prompts"]
     res = {}
-    for name, ((dp, ep, tp), compute, cf) in O1_LAYOUTS.items():
-        mesh = generation_mesh(dp, ep, tp)
+    for name, ((dp, ep, tp, sp), compute, cf) in O1_LAYOUTS.items():
+        mesh = generation_mesh(dp, ep, tp, sp)
         c = dataclasses.replace(cfg, model=dataclasses.replace(
             cfg.model, moe_compute=compute, moe_capacity_factor=cf))
         t0 = time.perf_counter()
@@ -6549,9 +6680,12 @@ def phase_o1(cfg, dev, card, root):
     """The flagship at full width and depth, f32 compute and bf16 weights,
     dpm with O1_STEPS steps of 16 prompts at 196 frames (micro-batch 16):
     the one-process pipeline in dense_fused and dense, then O_W ranks on
-    this card over gloo in the four layouts of O1_LAYOUTS, each held to the
-    one-process motions of its function (dense_fused at data ranks alone,
-    else dense: dispatch at cf 4 drops nothing)."""
+    this card over gloo in the layouts of O1_LAYOUTS, each held to the
+    one-process motions of its function (dense_fused at data and seq ranks
+    alone, else dense: dispatch at cf 4 drops nothing). The seq layouts cut
+    T = 196 into 98 / 98 or 50 / 50 / 48 / 48 frames (``ExpertMesh.frames``)
+    and run kernel 1 as its moments and apply launches around the seq
+    all-reduce of kv."""
     import torch
     from motiondiffusion_moe_tpu_torch.pipeline import GenerationPipeline
 
@@ -6604,7 +6738,7 @@ def phase_o1(cfg, dev, card, root):
     res = [json.load(open(j(root, f"o1_rank{r}.json"))) for r in range(O_W)]
     n_fwd = (O1_STEPS + 1) * 2 * 2 * cfg.model.num_layers  # a micro-batch
     launches = {}
-    for name, ((dp, ep, tp), compute, _) in O1_LAYOUTS.items():
+    for name, ((dp, ep, tp, sp), compute, _) in O1_LAYOUTS.items():
         lines = [rr[name] for rr in res]
         # dispatch at cf 4 drops nothing: dense's function, summed apart
         ref = "dense" if ep * tp > 1 else "dense_fused"
@@ -6612,11 +6746,14 @@ def phase_o1(cfg, dev, card, root):
         o_compare(f"O1 {name}", [got[k] for k in got.files], refs[ref],
                   O1_REL, card)
         want = o_share(shapes, ep, tp)
+        # a seq rank runs kernel 1 as its two launches, never whole
+        whole, split = (0, n_fwd) if sp > 1 else (n_fwd, 0)
+        expect = {"favor_qkv": whole, "favor_qkv_moments": split,
+                  "favor_qkv_apply": split, "performer_epilogue": n_fwd}
         for r, line in enumerate(lines):
-            check(line["launches"] == {"favor_qkv": n_fwd,
-                                       "performer_epilogue": n_fwd},
+            check(line["launches"] == expect,
                   f"O1 {name} rank {r} launches {line['launches']}, "
-                  f"expected {n_fwd} each")
+                  f"expected {expect}")
             check(line["experts"] == want["experts"]
                   and line["split"] == want["split"],
                   f"O1 {name} rank {r} holds {line['experts']} expert / "
@@ -6627,7 +6764,8 @@ def phase_o1(cfg, dev, card, root):
             check(line["computes"] == [want_compute],
                   f"O1 {name} rank {r} computes {line['computes']}")
         launches[name] = lines[0]["launches"]
-        print(f"[O1] {name} (data {dp} x expert {ep} x model {tp}, "
+        print(f"[O1] {name} (data {dp} x seq {sp} x expert {ep} x model "
+              f"{tp}, "
               f"{compute} -> {lines[0]['computes'][0]}): every rank the "
               f"same motions; launches a rank {lines[0]['launches']}; "
               f"expert elements a rank {lines[0]['experts']} (of "
@@ -6824,8 +6962,9 @@ def phase_o2(cfg, dev, card, root):
 
 
 def o3_config(cfg=None):
-    """moe_big as written (12 blocks a scale, 16 experts over 8 expert
-    partitions), computing dense both in one process and over ranks, in f32
+    """moe_big at its full width, O3_LAYERS blocks a scale (16 experts over
+    8 expert partitions), computing dense both in one process and over
+    ranks, in f32
     (its bf16 weights kept): in bf16 compute the seeded moe_big's motions
     move by O(1) between any two summation orders (routing flips at near
     ties, carried by the sampler), the one process's dense against its
@@ -6835,7 +6974,8 @@ def o3_config(cfg=None):
 
     cfg = cfg or ExperimentConfig.moe_big()
     return dataclasses.replace(cfg, model=dataclasses.replace(
-        cfg.model, moe_compute="dense", dtype="float32"))
+        cfg.model, moe_compute="dense", dtype="float32",
+        num_layers=min(O3_LAYERS, cfg.model.num_layers)))
 
 
 def seeded_state(cfg, dev, keep=None):
@@ -6914,8 +7054,9 @@ def o3_rank(spec_path, rank):
 
 
 def phase_o3(dev, card, root, cfg=None):
-    """moe_big as written at 12 blocks a scale on O3_W ranks (its 8 expert
-    partitions), bf16 weights, f32 compute (o3_config), one micro-batch of
+    """moe_big at full width, O3_LAYERS blocks a scale, on O3_W ranks (its
+    8 expert partitions), bf16 weights, f32 compute (o3_config), one
+    micro-batch of
     2 prompts: one forward (o_forward) and dpm with O3_STEPS steps, each
     against the one-process moe_big of the same seeded weights (computed
     while the ranks start)."""
@@ -6961,7 +7102,8 @@ def phase_o3(dev, card, root, cfg=None):
     ref, ref_line = refs["dense"]
     floor = rel_rms(o_motions(refs["dense_fused"][0]), o_motions(ref))
     fwd_floor = rel_rms(fwds["dense_fused"], fwds["dense"])
-    print(f"[O3] moe_big as written ({cfg.model.num_layers} blocks a scale, "
+    print(f"[O3] moe_big at full width ({cfg.model.num_layers} blocks a "
+          f"scale, "
           f"{ref_line['params']} parameters, {ref_line['experts']} of them "
           f"experts), one process: {ref_line} in {t_ref:.1f} s with the "
           f"seeding, while the ranks started; its dense_fused against its "
@@ -6995,6 +7137,8 @@ def phase_o3(dev, card, root, cfg=None):
     want = o_share(shapes, O3_W, 1)
     for r, line in enumerate(lines):
         check(line["launches"] == {"favor_qkv": n_fwd,
+                                   "favor_qkv_moments": 0,
+                                   "favor_qkv_apply": 0,
                                    "performer_epilogue": n_fwd},
               f"O3 rank {r} launches {line['launches']}, expected {n_fwd}")
         check(line["experts"] == want["experts"],
@@ -7205,7 +7349,7 @@ def main() -> int:
     lap("N")
     phase_p(dev, card)
     lap("P")
-    phase_o(cfg, dev, card)
+    o_launches = phase_o(cfg, dev, card)
     lap("O")
 
     csrc = "motiondiffusion_moe_tpu_torch/csrc/"
@@ -7216,6 +7360,14 @@ def main() -> int:
         ("favor_qkv", "favor_qkv.cu", ops + "performer_pallas.py:358",
          launches["favor_qkv"],
          a[("favor_qkv", torch.bfloat16, 196)] + (None,)),
+        # kernel 1's two launches on a seq rank: launches on O1's seq 4
+        # ranks (each), numbers at the first rank's 50 frames
+        ("favor_qkv_moments", "favor_qkv.cu", ops + "performer_pallas.py:358",
+         o_launches["o1"]["sp4"]["favor_qkv_moments"],
+         a[("favor_qkv_moments", torch.bfloat16, 50)]),
+        ("favor_qkv_apply", "favor_qkv.cu", ops + "performer_pallas.py:358",
+         o_launches["o1"]["sp4"]["favor_qkv_apply"],
+         a[("favor_qkv_apply", torch.bfloat16, 50)]),
         ("performer_epilogue", "performer_epilogue.cu",
          ops + "performer_pallas.py:657", launches["performer_epilogue"],
          a[("performer_epilogue", torch.bfloat16, 196)]),

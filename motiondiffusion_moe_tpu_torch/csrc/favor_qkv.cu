@@ -28,6 +28,18 @@
 // base pointers) and in whether the normalisation steps are compiled in
 // (kNorm).
 //
+// Under a seq mesh each rank holds its own frames of T, and kv is the only
+// sum over T. So kernels 1 and 8 also run in two launches (kMode), with the
+// seq ranks' all-reduce of kv between them (models/attention.py):
+//   moments  pass 1 on the rank's rows without q: phi(k) (masked), its
+//            share of kv, the cluster sum times 0.1, written to kv_buf
+//            [B, H, M, D] f32. The 0.1 falls on each rank's partial sum
+//            (linear: only the rounding differs from scaling the total).
+//   apply    pass 1 without v and kv: phi(q) and the denominator (phi(k)
+//            of its own rows again) to the scratch; then kv_buf, the seq
+//            ranks' summed kv, in place of the projection; then pass 2.
+// The whole-T kernels (kMode kWhole) are the instances they were.
+//
 // What bounds it on the card: its products. At the flagship shape
 // (B = 32, H = 4, T = 196, D = m = 128) the four [T, 128] x [128, 128]
 // products of every (b, h) (phi(q) and phi(k) logits, kv, phi(q) kv) are
@@ -105,13 +117,19 @@ struct FavorLayout {
   long long out_batch, out_head, out_row;
 };
 
+// kMode: what one launch runs (see the file's head).
+constexpr int kWhole = 0;    // both passes
+constexpr int kMoments = 1;  // pass 1's kv alone, to kv_buf
+constexpr int kApply = 2;    // pass 1 without kv, kv from kv_buf, pass 2
+
 // kNorm: kernels 1 and 10 (normalisation and output LayerNorm in the
 // kernel); else kernel 8. kBf16: FAVOR_MXU_BF16 products. phi_buf [B*H, T,
 // M] and den_buf [B*H, T]: scratch that carries phi(q) and the denominators
 // from pass 1 to pass 2 (the CTA reads back only what it wrote). logits_q /
 // logits_k, when not null, receive the raw feature logits [B, T, H, M] of
-// the valid rows (the card tests hold the backward's to them).
-template <typename T, int D, int M, bool kNorm, bool kBf16>
+// the valid rows (the card tests hold the backward's to them). kv_buf [B*H,
+// M, D] f32: kMoments writes it, kApply reads it, kWhole ignores it.
+template <typename T, int D, int M, bool kNorm, bool kBf16, int kMode>
 __global__ void __launch_bounds__(kThreads, D <= 128 ? 2 : 1)
     favor_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const float* __restrict__ ln_scale,
@@ -120,8 +138,8 @@ __global__ void __launch_bounds__(kThreads, D <= 128 ? 2 : 1)
                  const float* __restrict__ mask, T* __restrict__ out,
                  float* __restrict__ phi_buf, float* __restrict__ den_buf,
                  float* __restrict__ logits_q, float* __restrict__ logits_k,
-                 FavorLayout lay, int seq_len, int num_heads, float eps,
-                 float pre_scale) {
+                 float* __restrict__ kv_buf, FavorLayout lay, int seq_len,
+                 int num_heads, float eps, float pre_scale) {
   static_assert(D % 32 == 0 && M % 32 == 0, "D and M must be multiples of 32");
   static_assert(M == 16 * kWarps, "kv, logits: 16 rows / columns a warp");
   using S = FavorSmem<D, M>;
@@ -219,17 +237,17 @@ __global__ void __launch_bounds__(kThreads, D <= 128 ? 2 : 1)
   for (int tile = tile0; tile < tile1; ++tile) {
     const int t0 = tile * kRows;
     Rows xq, xk, xv;
-    load(q_base, t0, xq);
+    if constexpr (kMode != kMoments) load(q_base, t0, xq);
     load(k_base, t0, xk);
-    load(v_base, t0, xv);
+    if constexpr (kMode != kApply) load(v_base, t0, xv);
     if (threadIdx.x < kRows) {
       const int t = t0 + threadIdx.x;
       s_mask[threadIdx.x] =
           t < seq_len ? (mask_row == nullptr ? 1.f : mask_row[t]) : 0.f;
     }
-    finish(xq, t0, true, s_q, S::kLdX);
+    if constexpr (kMode != kMoments) finish(xq, t0, true, s_q, S::kLdX);
     finish(xk, t0, true, s_k, S::kLdX);
-    finish(xv, t0, false, s_v, S::kLdV);
+    if constexpr (kMode != kApply) finish(xv, t0, false, s_v, S::kLdV);
     __syncthreads();
     {
       // columns 16 warp .. + 16 of the q and k logits (common.cuh::
@@ -237,7 +255,10 @@ __global__ void __launch_bounds__(kThreads, D <= 128 ? 2 : 1)
       // s_pk, and this warp's part of each row's sum_m phi(q) phi(k)
       const int n0 = 16 * warp;
       float lq[2][4], lk[2][4];
-      feature_logits<kBf16, D, 2>(s_q, S::kLdX, s_p, S::kLdP, n0, lq, lane);
+      if constexpr (kMode != kMoments) {
+        feature_logits<kBf16, D, 2>(s_q, S::kLdX, s_p, S::kLdP, n0, lq,
+                                    lane);
+      }
       feature_logits<kBf16, D, 2>(s_k, S::kLdX, s_p, S::kLdP, n0, lk, lane);
       float part[2] = {0.f, 0.f};  // rows gq, gq + 8
 #pragma unroll
@@ -247,50 +268,79 @@ __global__ void __launch_bounds__(kThreads, D <= 128 ? 2 : 1)
           const int row = gq + (e >> 1) * 8;
           const int col = n0 + 8 * j + 2 * tq + (e & 1);
           const int t = t0 + row;
-          const float pq = feature(lq[j][e]);
           const float pk = feature(lk[j][e]) * s_mask[row];
           s_pk[row * S::kLdPk + col] = pk;
-          part[e >> 1] = fmaf(pq, pk, part[e >> 1]);
-          if (t < seq_len) {
-            phi_rows[size_t(t) * M + col] = pq;
-            if (logits_q != nullptr) *raw_out(logits_q, t, col) = lq[j][e];
-            if (logits_k != nullptr) *raw_out(logits_k, t, col) = lk[j][e];
+          if constexpr (kMode != kMoments) {
+            const float pq = feature(lq[j][e]);
+            part[e >> 1] = fmaf(pq, pk, part[e >> 1]);
+            if (t < seq_len) {
+              phi_rows[size_t(t) * M + col] = pq;
+              if (logits_q != nullptr) *raw_out(logits_q, t, col) = lq[j][e];
+              if (logits_k != nullptr) *raw_out(logits_k, t, col) = lk[j][e];
+            }
           }
         }
       }
+      if constexpr (kMode != kMoments) {
 #pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        part[r] += __shfl_xor_sync(0xffffffffu, part[r], 1);
-        part[r] += __shfl_xor_sync(0xffffffffu, part[r], 2);
-      }
-      if (tq == 0) {
-        s_den_part[warp * kRows + gq] = part[0];
-        s_den_part[warp * kRows + gq + 8] = part[1];
+        for (int r = 0; r < 2; ++r) {
+          part[r] += __shfl_xor_sync(0xffffffffu, part[r], 1);
+          part[r] += __shfl_xor_sync(0xffffffffu, part[r], 2);
+        }
+        if (tq == 0) {
+          s_den_part[warp * kRows + gq] = part[0];
+          s_den_part[warp * kRows + gq + 8] = part[1];
+        }
       }
     }
     __syncthreads();
-    if (threadIdx.x < kRows) {  // warps' parts in order: a fixed sum
-      const int t = t0 + threadIdx.x;
-      float d = 0.f;
-      for (int w = 0; w < kWarps; ++w) d += s_den_part[w * kRows + threadIdx.x];
-      if (t < seq_len) den_row[t] = fmaxf(d, eps);
+    if constexpr (kMode != kMoments) {
+      if (threadIdx.x < kRows) {  // warps' parts in order: a fixed sum
+        const int t = t0 + threadIdx.x;
+        float d = 0.f;
+        for (int w = 0; w < kWarps; ++w) {
+          d += s_den_part[w * kRows + threadIdx.x];
+        }
+        if (t < seq_len) den_row[t] = fmaxf(d, eps);
+      }
     }
-    warp_product<kBf16, NKV, true, false>(kv, s_pk + 16 * warp, S::kLdPk,
-                                          s_v, S::kLdV, kRows, lane);
+    if constexpr (kMode != kApply) {
+      warp_product<kBf16, NKV, true, false>(kv, s_pk + 16 * warp, S::kLdPk,
+                                            s_v, S::kLdV, kRows, lane);
+    }
     __syncthreads();
   }
   // kv replaces the projection (a CTA without a tile has not waited for
-  // its staging yet): the cluster's sum, times 0.1
+  // its staging yet)
   __syncthreads();
+  if constexpr (kMode == kApply) {
+    // the seq ranks' summed kv (each partial times 0.1 already)
+    const float4* src =
+        reinterpret_cast<const float4*>(kv_buf + size_t(bh) * M * D);
+    for (int i = threadIdx.x; i < M * D / 4; i += kThreads) {
+      const int e = 4 * i;
+      *reinterpret_cast<float4*>(s_kv + (e / D) * S::kLdKv + e % D) = src[i];
+    }
+    __syncthreads();
+  } else {
+    // the cluster's sum, times 0.1
 #pragma unroll
-  for (int j = 0; j < NKV; ++j) {
+    for (int j = 0; j < NKV; ++j) {
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      s_kv[(16 * warp + gq + (e >> 1) * 8) * S::kLdKv + 8 * j + 2 * tq +
-           (e & 1)] = kv[j][e];
+      for (int e = 0; e < 4; ++e) {
+        s_kv[(16 * warp + gq + (e >> 1) * 8) * S::kLdKv + 8 * j + 2 * tq +
+             (e & 1)] = kv[j][e];
+      }
+    }
+    if constexpr (kMode == kMoments) {
+      // each CTA writes its slice of the sum: the rank's kv, and done
+      cluster_sum(s_kv, S::kLdKv, M, D, 0.1f, false,
+                  kv_buf + size_t(bh) * M * D);
+      return;
+    } else {
+      cluster_sum(s_kv, S::kLdKv, M, D, 0.1f, true, nullptr);
     }
   }
-  cluster_sum(s_kv, S::kLdKv, M, D, 0.1f, true, nullptr);
 
   // ---- pass 2: every row of the CTA's share of the output ----------------
   for (int tile = tile0; tile < tile1; ++tile) {
@@ -361,17 +411,19 @@ __global__ void __launch_bounds__(kThreads, D <= 128 ? 2 : 1)
   }
 }
 
-template <typename T, int D, int M, bool kNorm, bool kBf16>
+template <typename T, int D, int M, bool kNorm, bool kBf16,
+          int kMode = kWhole>
 cudaError_t launch_favor(const void* q, const void* k, const void* v,
                          const void* ln_scale, const void* ln_bias,
                          const void* proj, const void* mask, void* out,
                          float* scratch, float* logits_q, float* logits_k,
                          const FavorLayout& lay, int batch, int seq_len,
                          int num_heads, float eps, float pre_scale,
-                         int cluster, cudaStream_t stream) {
+                         int cluster, cudaStream_t stream,
+                         float* kv_buf = nullptr) {
   if (cluster < 1 || cluster > 8) return cudaErrorInvalidValue;
   constexpr size_t smem = FavorSmem<D, M>::kBytes;
-  auto kernel = favor_kernel<T, D, M, kNorm, kBf16>;
+  auto kernel = favor_kernel<T, D, M, kNorm, kBf16, kMode>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return err;
@@ -392,8 +444,9 @@ cudaError_t launch_favor(const void* q, const void* k, const void* v,
       static_cast<const T*>(v), static_cast<const float*>(ln_scale),
       static_cast<const float*>(ln_bias), static_cast<const float*>(proj),
       static_cast<const float*>(mask), static_cast<T*>(out), scratch,
-      scratch + size_t(batch) * num_heads * seq_len * M, logits_q, logits_k,
-      lay, seq_len, num_heads, eps, pre_scale);
+      scratch == nullptr ? nullptr
+                         : scratch + size_t(batch) * num_heads * seq_len * M,
+      logits_q, logits_k, kv_buf, lay, seq_len, num_heads, eps, pre_scale);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -424,6 +477,33 @@ cudaError_t launch_favor_rows(const void* q, const void* k, const void* v,
       q, merged ? base + hd : k, merged ? base + 2 * hd : v, ln_scale,
       ln_bias, proj, mask, out, scratch, logits_q, logits_k, lay, batch,
       seq_len, num_heads, eps, pre_scale, cluster, stream);
+}
+
+// Kernel 1 in two launches (kMode kMoments or kApply) on the merged panel:
+// kv_buf [B, H, M, D] f32 is the moments' output and the apply's input;
+// out and scratch are the apply's (null for the moments).
+template <int D, int M, bool kBf16, int kMode>
+cudaError_t launch_favor_split(const void* qkv, float* kv_buf,
+                               const void* ln_scale, const void* ln_bias,
+                               const void* proj, const void* mask, void* out,
+                               float* scratch, int batch, int seq_len,
+                               int num_heads, int is_bf16, float eps,
+                               float pre_scale, int cluster,
+                               cudaStream_t stream) {
+  const long long hd = (long long)num_heads * D;
+  const FavorLayout lay{seq_len * 3 * hd, D, 3 * hd, seq_len * hd, D, hd};
+  if (is_bf16) {
+    const __nv_bfloat16* base = static_cast<const __nv_bfloat16*>(qkv);
+    return launch_favor<__nv_bfloat16, D, M, true, kBf16, kMode>(
+        qkv, base + hd, base + 2 * hd, ln_scale, ln_bias, proj, mask, out,
+        scratch, nullptr, nullptr, lay, batch, seq_len, num_heads, eps,
+        pre_scale, cluster, stream, kv_buf);
+  }
+  const float* base = static_cast<const float*>(qkv);
+  return launch_favor<float, D, M, true, kBf16, kMode>(
+      qkv, base + hd, base + 2 * hd, ln_scale, ln_bias, proj, mask, out,
+      scratch, nullptr, nullptr, lay, batch, seq_len, num_heads, eps,
+      pre_scale, cluster, stream, kv_buf);
 }
 
 }  // namespace
@@ -520,6 +600,121 @@ extern "C" int mdm_favor_attention(const void* q, const void* k,
         q, k, v, nullptr, nullptr, proj, mask, out,                         \
         static_cast<float*>(scratch), nullptr, nullptr, lay, batch,         \
         seq_len, num_heads, eps, 1.f, cluster, s));                         \
+  }
+  MDM_FAVOR_SHAPES(MDM_FAVOR_CASE)
+#undef MDM_FAVOR_CASE
+  return int(cudaErrorInvalidValue);
+}
+
+// C entries for ctypes, kernel 1 in two launches around the seq ranks'
+// all-reduce of kv (see the file's head). mdm_favor_qkv_moments: qkv, mask
+// (the rank's rows: [B, T_rank, 3*H*D] and [B, T_rank] or null), ln_scale,
+// ln_bias, proj, mxu_bf16 and cluster as for mdm_favor_qkv; kv: f32 [B, H,
+// M, D], written. mdm_favor_qkv_apply: the same inputs and kv (the seq
+// ranks' sum), out [B, T_rank, H*D] in qkv's dtype, scratch as for
+// mdm_favor_qkv. Both return the CUDA error code of the launch.
+extern "C" int mdm_favor_qkv_moments(const void* qkv, const void* ln_scale,
+                                     const void* ln_bias, const void* proj,
+                                     const void* mask, void* kv, int batch,
+                                     int seq_len, int num_heads,
+                                     int head_dim, int num_features,
+                                     int is_bf16, int mxu_bf16,
+                                     float pre_scale, int cluster,
+                                     void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* kvp = static_cast<float*>(kv);
+#define MDM_FAVOR_CASE(D_, M_)                                              \
+  if (head_dim == D_ && num_features == M_) {                               \
+    return int(mxu_bf16                                                     \
+                   ? mdm::launch_favor_split<D_, M_, true, mdm::kMoments>(  \
+                         qkv, kvp, ln_scale, ln_bias, proj, mask, nullptr,  \
+                         nullptr, batch, seq_len, num_heads, is_bf16,       \
+                         1e-6f, pre_scale, cluster, s)                      \
+                   : mdm::launch_favor_split<D_, M_, false, mdm::kMoments>( \
+                         qkv, kvp, ln_scale, ln_bias, proj, mask, nullptr,  \
+                         nullptr, batch, seq_len, num_heads, is_bf16,       \
+                         1e-6f, pre_scale, cluster, s));                    \
+  }
+  MDM_FAVOR_SHAPES(MDM_FAVOR_CASE)
+#undef MDM_FAVOR_CASE
+  return int(cudaErrorInvalidValue);
+}
+
+extern "C" int mdm_favor_qkv_apply(const void* qkv, const void* kv,
+                                   const void* ln_scale, const void* ln_bias,
+                                   const void* proj, const void* mask,
+                                   void* out, void* scratch, int batch,
+                                   int seq_len, int num_heads, int head_dim,
+                                   int num_features, int is_bf16,
+                                   int mxu_bf16, float eps, float pre_scale,
+                                   int cluster, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* kvp = static_cast<float*>(const_cast<void*>(kv));
+  float* sc = static_cast<float*>(scratch);
+#define MDM_FAVOR_CASE(D_, M_)                                              \
+  if (head_dim == D_ && num_features == M_) {                               \
+    return int(mxu_bf16                                                     \
+                   ? mdm::launch_favor_split<D_, M_, true, mdm::kApply>(    \
+                         qkv, kvp, ln_scale, ln_bias, proj, mask, out, sc,  \
+                         batch, seq_len, num_heads, is_bf16, eps,           \
+                         pre_scale, cluster, s)                             \
+                   : mdm::launch_favor_split<D_, M_, false, mdm::kApply>(   \
+                         qkv, kvp, ln_scale, ln_bias, proj, mask, out, sc,  \
+                         batch, seq_len, num_heads, is_bf16, eps,           \
+                         pre_scale, cluster, s));                           \
+  }
+  MDM_FAVOR_SHAPES(MDM_FAVOR_CASE)
+#undef MDM_FAVOR_CASE
+  return int(cudaErrorInvalidValue);
+}
+
+// C entries for ctypes, kernel 8 in the same two launches: k, v (and the
+// apply's q) [B, H, T_rank, D] f32, normalised by the caller; proj; mask
+// [B, 1, T_rank] or null; kv f32 [B, H, M, D]; the apply's out [B, H,
+// T_rank, D] f32 and scratch as for mdm_favor_attention.
+extern "C" int mdm_favor_attention_moments(const void* k, const void* v,
+                                           const void* proj,
+                                           const void* mask, void* kv,
+                                           int batch, int num_heads,
+                                           int seq_len, int head_dim,
+                                           int num_features, int cluster,
+                                           void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long td = (long long)seq_len * head_dim;
+  const mdm::FavorLayout lay{num_heads * td, td, head_dim,
+                             num_heads * td, td, head_dim};
+#define MDM_FAVOR_CASE(D_, M_)                                              \
+  if (head_dim == D_ && num_features == M_) {                               \
+    return int(mdm::launch_favor<float, D_, M_, false, false,               \
+                                 mdm::kMoments>(                            \
+        nullptr, k, v, nullptr, nullptr, proj, mask, nullptr, nullptr,      \
+        nullptr, nullptr, lay, batch, seq_len, num_heads, 1e-6f, 1.f,       \
+        cluster, s, static_cast<float*>(kv)));                              \
+  }
+  MDM_FAVOR_SHAPES(MDM_FAVOR_CASE)
+#undef MDM_FAVOR_CASE
+  return int(cudaErrorInvalidValue);
+}
+
+extern "C" int mdm_favor_attention_apply(const void* q, const void* k,
+                                         const void* kv, const void* proj,
+                                         const void* mask, void* out,
+                                         void* scratch, int batch,
+                                         int num_heads, int seq_len,
+                                         int head_dim, int num_features,
+                                         float eps, int cluster,
+                                         void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long td = (long long)seq_len * head_dim;
+  const mdm::FavorLayout lay{num_heads * td, td, head_dim,
+                             num_heads * td, td, head_dim};
+#define MDM_FAVOR_CASE(D_, M_)                                              \
+  if (head_dim == D_ && num_features == M_) {                               \
+    return int(mdm::launch_favor<float, D_, M_, false, false, mdm::kApply>( \
+        q, k, nullptr, nullptr, nullptr, proj, mask, out,                   \
+        static_cast<float*>(scratch), nullptr, nullptr, lay, batch,         \
+        seq_len, num_heads, eps, 1.f, cluster, s,                           \
+        static_cast<float*>(const_cast<void*>(kv))));                       \
   }
   MDM_FAVOR_SHAPES(MDM_FAVOR_CASE)
 #undef MDM_FAVOR_CASE

@@ -18,6 +18,15 @@ epilogue whenever dropout is active, as JAX does.
 ``CrossAttentionBlock(use_fast_xattn=True)`` runs its attention through
 ``ops/flash_attention.py::xattn_fastlayout`` whenever dropout is inactive
 (the JAX ``use_fast_xattn`` path).
+
+On a rank of a seq mesh (``seq``, the seq ranks' group, set by
+``parallel/mesh.py::attach_mesh``) a Performer holds its own frames of T,
+and the FAVOR+ kv, the one sum over T, is closed across the ranks: the
+moments of its frames (``favor_qkv_moments``, or kernel 8's), an f32
+all-reduce over ``seq``, then the apply (``favor_qkv_apply``), kernels or
+plain versions as ``use_kernels`` / ``use_pallas`` say. Everything else in
+a block is per position or over the text tokens. That path runs without
+grad only (generation): under grad it raises (ROADMAP item 6c1b-ii).
 """
 
 from __future__ import annotations
@@ -48,8 +57,16 @@ from motiondiffusion_moe_tpu_torch.ops.flash_attention import (
 )
 from motiondiffusion_moe_tpu_torch.ops.performer import (
     favor_attention,
+    favor_attention_apply,
+    favor_attention_apply_plain,
+    favor_attention_moments,
+    favor_attention_moments_plain,
     favor_attention_plain,
     favor_qkv,
+    favor_qkv_apply,
+    favor_qkv_apply_plain,
+    favor_qkv_moments,
+    favor_qkv_moments_plain,
     favor_qkv_plain,
 )
 
@@ -65,6 +82,14 @@ def orthogonal_feature_init(d: int, m: int,
     w = q[:d, :m]
     w = w / torch.linalg.vector_norm(w, dim=0, keepdim=True)
     return (w * d ** -0.25).float()
+
+
+def check_seq_no_grad() -> None:
+    """The seq ranks' FAVOR+ split runs without grad only."""
+    if torch.is_grad_enabled():
+        raise NotImplementedError(
+            "a Performer over a seq mesh runs without grad (generation); "
+            "training over seq is ROADMAP.md queue 1, item 6c1b-ii")
 
 
 def _l2_compute_dtype(x: torch.Tensor) -> torch.Tensor:
@@ -97,6 +122,7 @@ class FastAttention(nn.Module):
         self.projection = nn.Parameter(torch.zeros(head_dim, num_features),
                                        requires_grad=False)
         self.dtype = dtype
+        self.seq = None  # the seq ranks' group under a seq mesh
 
     @torch.no_grad()
     def _init_own(self, g: torch.Generator) -> None:
@@ -114,10 +140,19 @@ class FastAttention(nn.Module):
             elif mask.dim() == 2:                         # [B, T]
                 mask = mask[:, None, :]
             mask = mask.contiguous()
-        fn = favor_attention if self.use_pallas else favor_attention_plain
-        out = fn(q.float().contiguous(), k.float().contiguous(),
-                 v.float().contiguous(), self.projection.float(), mask,
-                 self.eps)
+        q, k, v = (t.float().contiguous() for t in (q, k, v))
+        proj = self.projection.float()
+        if self.seq is not None:  # kv closed over the seq ranks
+            check_seq_no_grad()
+            moments, apply = ((favor_attention_moments, favor_attention_apply)
+                              if self.use_pallas
+                              else (favor_attention_moments_plain,
+                                    favor_attention_apply_plain))
+            kv = self.seq.sum_(moments(k, v, proj, mask))
+            out = apply(q, k, kv, proj, mask, self.eps)
+        else:
+            fn = favor_attention if self.use_pallas else favor_attention_plain
+            out = fn(q, k, v, proj, mask, self.eps)
         return self.norm(out.to(self.dtype))
 
 
@@ -142,6 +177,7 @@ class PerformerSelfAttention(nn.Module):
         self.dtype = dtype
         self.dropout = dropout
         self.fused = fused
+        self.seq = None  # the seq ranks' group under a seq mesh
         xav = ("xavier", 0.1)  # fast_attention.py:155-158
         self.pre_norm = LayerNorm(D, dtype)
         if fused:
@@ -202,10 +238,19 @@ class PerformerSelfAttention(nn.Module):
         h = self.pre_norm(x)
         if self.fused:
             qkv = grad_clamp(self.qkv(h))
-            favor = favor_qkv if self.use_kernels else favor_qkv_plain
-            attn = favor(qkv, self.fa_norm_scale.float(),
-                         self.fa_norm_bias.float(),
-                         self.fa_projection.float(), src_mask)
+            ln = (self.fa_norm_scale.float(), self.fa_norm_bias.float(),
+                  self.fa_projection.float())
+            if self.seq is not None:  # kv closed over the seq ranks
+                check_seq_no_grad()
+                moments, apply = ((favor_qkv_moments, favor_qkv_apply)
+                                  if self.use_kernels
+                                  else (favor_qkv_moments_plain,
+                                        favor_qkv_apply_plain))
+                kv = self.seq.sum_(moments(qkv, *ln, src_mask))
+                attn = apply(qkv, kv, *ln, src_mask)
+            else:
+                favor = favor_qkv if self.use_kernels else favor_qkv_plain
+                attn = favor(qkv, *ln, src_mask)
             attn = dropout(attn, p, training, ctx)
         else:
             attn = self._unfused_attention(h, src_mask, ctx)

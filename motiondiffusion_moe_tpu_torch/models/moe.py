@@ -45,7 +45,12 @@ takes the global batch's capacity and fill order
 (``global_dispatch_ffn``); the dense computes need nothing. In generation
 (``mesh.rows_replicated``) the ranks of a data index hold the same tokens:
 ``dense`` runs ``replicated_dense_ffn`` and ``dispatch`` over an expert
-axis ``replicated_ep_moe_ffn``, which cuts them into JAX's chunks. With a
+axis ``replicated_ep_moe_ffn``, which cuts them into JAX's chunks. A seq
+rank holds its own frames of its rows: the dense computes are per token,
+and ``dispatch``, whose chunks and capacity JAX counts on the flattened
+``[B * T]`` tokens of whole T, gathers the seq ranks' frames first
+(``ExpertMesh.gather_frames``), routes and dispatches as above, and keeps
+its own frames of the output. With a
 model axis (``model_split``: the hidden width cut as JAX's Megatron rule
 cuts it; the model ranks hold the same tokens) the experts' second product
 is summed over the model ranks before ``b2`` (``expert_ffn_tp`` under
@@ -253,6 +258,13 @@ class SwitchMoELayer(nn.Module):
         layer's :func:`switch_balance`, which makes its aux loss, is
         appended to ``ctx.moe_balance``."""
         dt = self.dtype
+        mesh = self.mesh
+        seq_cut = (self.compute == "dispatch" and mesh is not None
+                   and mesh.sp > 1)
+        if seq_cut:  # JAX's chunks are of whole T: gather the frames
+            sizes = mesh.frame_sizes(x.shape[1], x.device)
+            lo = sum(sizes[:mesh.s])
+            x = mesh.gather_frames(x, sizes)
         shape = x.shape
         x_flat = x.reshape(-1, shape[-1]).to(dt)
         S, D = x_flat.shape
@@ -263,7 +275,6 @@ class SwitchMoELayer(nn.Module):
             ctx.moe_balance.append(switch_balance(probs, top_idx[:, 0], E))
         w1, b1, w2, b2 = (p.to(dt) for p in (self.w1, self.b1, self.w2,
                                               self.b2))
-        mesh = self.mesh
         ep = mesh.ep if mesh is not None else 1
         over_ranks = mesh is not None and mesh.world > 1
         ffn, gen = expert_ffn, False
@@ -308,6 +319,8 @@ class SwitchMoELayer(nn.Module):
             else:
                 out = self._dense(x_flat, combine, w1, b1, w2, b2)
         out = out.reshape(shape)
+        if seq_cut:
+            out = out[:, lo:lo + sizes[mesh.s]]
         if with_metrics:
             return out, moe_metrics(probs, top_vals, top_idx)
         return out

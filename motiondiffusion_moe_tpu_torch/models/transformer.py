@@ -13,11 +13,21 @@ mask and the per-block stochastic-depth coin (survival probabilities
 392-406``), and collects the MoE aux losses: ``forward(..., ctx=ctx)``
 leaves each MoE layer's balance statistics in ``ctx.moe_balance``, whose
 terms ``ctx.aux_losses`` :func:`sum_moe_aux_losses` adds up.
+
+On a rank of a seq mesh (``seq``, set by ``parallel/mesh.py::attach_mesh``)
+``forward`` takes x cut to the rank's frames ``[t0, t1)`` of T
+(``frames``, ``ExpertMesh.frames``: t0 even) and the global lengths, and
+returns those frames: the sequence embedding and both source masks are
+taken at the rank's offsets, the down-sampling's 'SAME' pad of an odd T
+falls on the last rank's odd share alone, and the up-sampling's crop is to
+the rank's own frames (JAX's seq axis, ``transformer.py:326-335``, with the
+Performers' kv closed over the ranks, ``models/attention.py``). Nothing
+gathers T here; ``dispatch`` gathers it for its chunks (``models/moe.py``).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -64,9 +74,11 @@ def sum_moe_aux_losses(ctx: TrainContext) -> torch.Tensor:
     return torch.stack(losses).sum()
 
 
-def generate_src_mask(T: int, length: torch.Tensor) -> torch.Tensor:
-    """[B, T] float mask, 1 where frame index < length."""
-    return (torch.arange(T, device=length.device)[None, :]
+def generate_src_mask(T: int, length: torch.Tensor,
+                      start: int = 0) -> torch.Tensor:
+    """[B, T] float mask of frames ``start .. start + T - 1``, 1 where the
+    frame index < length."""
+    return (torch.arange(start, start + T, device=length.device)[None, :]
             < length[:, None]).float()
 
 
@@ -142,6 +154,7 @@ class MotionTransformer(nn.Module):
         self.out = Dense(D, cfg.input_feats, dtype, init="zeros")
         self.survival_probs = [float(p) for p in np.linspace(
             1.0, cfg.stochastic_depth_min, cfg.num_layers)]
+        self.seq = None  # the seq ranks' group under a seq mesh
 
     @torch.no_grad()
     def _init_own(self, g: torch.Generator) -> None:
@@ -195,11 +208,14 @@ class MotionTransformer(nn.Module):
                 length: torch.Tensor, text_ids: Optional[torch.Tensor] = None,
                 xf_proj: Optional[torch.Tensor] = None,
                 xf_out: Optional[torch.Tensor] = None,
-                ctx: Optional[TrainContext] = None) -> torch.Tensor:
+                ctx: Optional[TrainContext] = None,
+                frames: Optional[Tuple[int, int]] = None) -> torch.Tensor:
         """In training mode ``ctx`` supplies the generator of every random
-        draw and collects the MoE aux losses (see the module doc)."""
+        draw and collects the MoE aux losses; on a rank of a seq mesh x
+        holds the global ``frames`` ``[t0, t1)`` (see the module doc)."""
         dt = self.dtype
         B, T, _ = x.shape
+        t0 = self._frame_offset(T, frames)
         if xf_proj is None or xf_out is None:
             xf_proj, xf_out = self.encode_text(text_ids, ctx)
         xf_proj = self.text_proj(xf_proj.to(dt))
@@ -209,11 +225,12 @@ class MotionTransformer(nn.Module):
         t_h = self.time_embed_1(self.time_embed_0(time_emb, "silu"))
         fused_emb = self.gated_fusion(self.time_proj(t_h), xf_proj)
 
-        h = self.joint_embed(x.to(dt)) + self.sequence_embedding[None, :T].to(dt)
-        src_mask = generate_src_mask(T, length)
+        h = (self.joint_embed(x.to(dt))
+             + self.sequence_embedding[None, t0:t0 + T].to(dt))
+        src_mask = generate_src_mask(T, length, t0)
 
         h_low = self._conv(self.downsample, h)
-        mask_low = generate_src_mask(h_low.shape[1], length // 2)
+        mask_low = generate_src_mask(h_low.shape[1], length // 2, t0 // 2)
         h_low = self._run_blocks(self.blocks_low, h_low, xf_out, fused_emb,
                                  mask_low, ctx)
         up = self._conv(self.upsample, h_low)[:, :T]
@@ -221,6 +238,23 @@ class MotionTransformer(nn.Module):
         h = self._run_blocks(self.blocks_high, h, xf_out, fused_emb, src_mask,
                              ctx)
         return self.out(h).float()
+
+    def _frame_offset(self, T: int, frames) -> int:
+        """t0 of the frames x holds (0 without a seq mesh); raises unless
+        ``frames`` comes with a seq mesh and fits x."""
+        if (frames is None) != (self.seq is None):
+            raise ValueError(
+                "a seq rank's forward takes frames=(t0, t1), the frames x "
+                "holds (ExpertMesh.frames); without a seq mesh, none"
+                if frames is None else
+                f"frames={frames}, but the model has no seq mesh")
+        if frames is None:
+            return 0
+        t0, t1 = frames
+        if t0 % 2 or t1 - t0 != T:
+            raise ValueError(f"frames {frames} for x of {T} frames: t0 must "
+                             "be even and t1 - t0 the frames of x")
+        return t0
 
     def _run_blocks(self, blocks, h, xf, emb, mask, ctx):
         for block, p in zip(blocks, self.survival_probs):

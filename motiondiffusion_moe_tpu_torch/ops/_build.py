@@ -181,6 +181,24 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
                                         + [i] * 5    # B H T D M
                                         + [f, i, vp])  # eps cluster stream
     lib.mdm_favor_attention.restype = i
+    lib.mdm_favor_qkv_moments.argtypes = ([vp] * 6   # qkv LN proj mask kv
+                                          + [i] * 7  # B T H D M bf16 mxu
+                                          + [f, i, vp])  # pre cluster s
+    lib.mdm_favor_qkv_moments.restype = i
+    lib.mdm_favor_qkv_apply.argtypes = ([vp] * 8     # qkv kv LN proj mask
+                                        #            out scratch
+                                        + [i] * 7    # B T H D M bf16 mxu
+                                        + [f, f, i, vp])  # eps pre C s
+    lib.mdm_favor_qkv_apply.restype = i
+    lib.mdm_favor_attention_moments.argtypes = ([vp] * 5  # k v proj mask kv
+                                                + [i] * 6  # B H T D M C
+                                                + [vp])    # stream
+    lib.mdm_favor_attention_moments.restype = i
+    lib.mdm_favor_attention_apply.argtypes = ([vp] * 7  # q k kv proj mask
+                                              #           out scratch
+                                              + [i] * 5  # B H T D M
+                                              + [f, i, vp])  # eps C stream
+    lib.mdm_favor_attention_apply.restype = i
     lib.mdm_favor_attention_full.argtypes = ([vp] * 9    # tensors, scratch
                                              + [i] * 6   # B T H D M bf16
                                              + [f, f, i, vp])  # eps pre C s

@@ -27,6 +27,15 @@ only the inputs and recompute the rest. The TPU kernels behind
 :func:`favor_attention` and :func:`favor_attention_full` have no backward
 kernel: their backward is autograd through the plain version.
 
+On a seq rank's frames (``models/attention.py``) kernel 1 runs as two
+launches of its template, :func:`favor_qkv_moments` (kv of the rank's rows)
+and :func:`favor_qkv_apply` (the output from the seq ranks' summed kv), and
+kernel 8 as :func:`favor_attention_moments` / :func:`favor_attention_apply`;
+their plain versions (``*_moments_plain``, ``*_apply_plain``) are the steps
+:func:`favor_full_plain` and :func:`favor_attention_plain` are built from.
+The JAX package has no such split: it turns its kernels off under a seq
+axis. Forward only.
+
 ``FAVOR_MXU_BF16=1`` (the JAX package's switch, read once per call of
 :func:`favor_qkv`, as ``performer_pallas.py`` reads it for kernel 1) runs
 the products of kernel 1 on bf16 operands with f32 accumulation, and its
@@ -158,6 +167,69 @@ class _Product(torch.autograd.Function):
 # plain versions
 # ---------------------------------------------------------------------------
 
+def _favor_rows(x: torch.Tensor, D: int, ln_scale: torch.Tensor,
+                ln_bias: torch.Tensor, pre_scale: float,
+                l2: bool) -> torch.Tensor:
+    """[B, T, H*D] -> [B, T, H, D] f32: times ``pre_scale``, the shared
+    LayerNorm, and with ``l2`` the L2 normalisation (q and k)."""
+    B, T, HD = x.shape
+    h = _ln(x.reshape(B, T, HD // D, D).float() * pre_scale, ln_scale,
+            ln_bias)
+    return _l2(h) if l2 else h
+
+
+def _mm(a, b, scale, product):
+    return _Product.apply(a, b, scale, product)
+
+
+def _logits(x: torch.Tensor, proj: torch.Tensor,
+            product: Optional[Callable]) -> torch.Tensor:
+    """The feature logits x @ proj of rows [B, T, H, D]."""
+    if product is None:
+        return torch.einsum("bthd,dm->bthm", x, proj)
+    return _mm(x, proj, 1.0, product)
+
+
+def _phi(lin: torch.Tensor) -> torch.Tensor:
+    """The feature map exp(clip(logits, -15, 15)) * 0.1."""
+    return torch.exp(torch.clamp(lin, -15, 15)) * 0.1
+
+
+def _features(x: torch.Tensor, proj: torch.Tensor,
+              product: Optional[Callable]) -> torch.Tensor:
+    return _phi(_logits(x, proj, product))
+
+
+def _masked(k_proj: torch.Tensor,
+            mask: Optional[torch.Tensor]) -> torch.Tensor:
+    return k_proj if mask is None else k_proj * mask.float()[:, :, None, None]
+
+
+def _kv_moments(k_proj: torch.Tensor, vh: torch.Tensor,
+                product: Optional[Callable]) -> torch.Tensor:
+    """kv = phi(k)^T v * 0.1 over the given rows: [B, H, m, D] f32. The
+    0.1 falls on each partial sum: a sum over seq ranks adds scaled
+    partials, which differs from scaling the sum only in the rounding."""
+    if product is None:
+        return torch.einsum("bthm,bthd->bhmd", k_proj, vh) * 0.1
+    return _mm(k_proj.permute(0, 2, 3, 1), vh.permute(0, 2, 1, 3), 0.1,
+               product)
+
+
+def _kv_apply(q_proj: torch.Tensor, k_proj: torch.Tensor, kv: torch.Tensor,
+              ln_scale: torch.Tensor, ln_bias: torch.Tensor, eps: float,
+              product: Optional[Callable]) -> torch.Tensor:
+    """LN(phi(q) kv * 0.1 / max(sum_m phi(q) phi(k), eps)): [B, T, H, D]
+    f32, the denominator at each row's own position."""
+    if product is None:
+        out = torch.einsum("bthm,bhmd->bthd", q_proj, kv) * 0.1
+    else:
+        out = _mm(q_proj.permute(0, 2, 1, 3), kv, 0.1,
+                  product).permute(0, 2, 1, 3)
+    den = (q_proj * k_proj).sum(-1, keepdim=True).clamp_min(eps)
+    return _ln(out / den, ln_scale, ln_bias)
+
+
 def favor_full_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      ln_scale: torch.Tensor, ln_bias: torch.Tensor,
                      projection: torch.Tensor,
@@ -169,39 +241,62 @@ def favor_full_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     or None. Returns [B, T, H*D] in q's dtype; everything inside runs in
     f32. ``product`` (e.g. :func:`bf16_operand_product`) takes the four
     products (the two feature logits, kv, phi(q) kv) and their backward in
-    its own arithmetic, at the JAX kernel's points; None: f32 products."""
+    its own arithmetic, at the JAX kernel's points; None: f32 products.
+
+    It is :func:`favor_full_apply_plain` of :func:`favor_full_moments_plain`
+    on the whole T, from the same steps, with phi(k) computed once (in the
+    order that keeps autograd's sums, and so the backward's bits, as
+    they were before the split)."""
     B, T, HD = q.shape
     D = projection.shape[0]
-    H = HD // D
-
-    def heads(x):
-        return x.reshape(B, T, H, D).float() * pre_scale
-
-    qh = _l2(_ln(heads(q), ln_scale, ln_bias))
-    kh = _l2(_ln(heads(k), ln_scale, ln_bias))
-    vh = _ln(heads(v), ln_scale, ln_bias)
+    qh, kh = (_favor_rows(x, D, ln_scale, ln_bias, pre_scale, True)
+              for x in (q, k))
+    vh = _favor_rows(v, D, ln_scale, ln_bias, pre_scale, False)
     proj = projection.float()
+    q_lin, k_lin = _logits(qh, proj, product), _logits(kh, proj, product)
+    q_proj, k_proj = _phi(q_lin), _masked(_phi(k_lin), mask)
+    kv = _kv_moments(k_proj, vh, product)
+    out = _kv_apply(q_proj, k_proj, kv, ln_scale, ln_bias, eps, product)
+    return out.reshape(B, T, HD).to(q.dtype)
 
-    def mm(a, b, scale=1.0):
-        return _Product.apply(a, b, scale, product)
 
-    if product is None:
-        q_lin = torch.einsum("bthd,dm->bthm", qh, proj)
-        k_lin = torch.einsum("bthd,dm->bthm", kh, proj)
-    else:
-        q_lin, k_lin = mm(qh, proj), mm(kh, proj)
-    q_proj = torch.exp(torch.clamp(q_lin, -15, 15)) * 0.1
-    k_proj = torch.exp(torch.clamp(k_lin, -15, 15)) * 0.1
-    if mask is not None:
-        k_proj = k_proj * mask.float()[:, :, None, None]
-    if product is None:
-        kv = torch.einsum("bthm,bthd->bhmd", k_proj, vh) * 0.1
-        out = torch.einsum("bthm,bhmd->bthd", q_proj, kv) * 0.1
-    else:
-        kv = mm(k_proj.permute(0, 2, 3, 1), vh.permute(0, 2, 1, 3), 0.1)
-        out = mm(q_proj.permute(0, 2, 1, 3), kv, 0.1).permute(0, 2, 1, 3)
-    den = (q_proj * k_proj).sum(-1, keepdim=True).clamp_min(eps)
-    out = _ln(out / den, ln_scale, ln_bias)
+def favor_full_moments_plain(k: torch.Tensor, v: torch.Tensor,
+                             ln_scale: torch.Tensor, ln_bias: torch.Tensor,
+                             projection: torch.Tensor,
+                             mask: Optional[torch.Tensor] = None,
+                             pre_scale: float = 0.1,
+                             product: Optional[Callable] = None
+                             ) -> torch.Tensor:
+    """The kv moments of :func:`favor_full_plain` over the rows given (a
+    seq rank's frames, its frame mask): phi(k)^T v * 0.1, [B, H, m, D] f32.
+    Summed over the ranks that hold the rest of T, they are the whole T's
+    kv."""
+    D = projection.shape[0]
+    kh = _favor_rows(k, D, ln_scale, ln_bias, pre_scale, True)
+    vh = _favor_rows(v, D, ln_scale, ln_bias, pre_scale, False)
+    k_proj = _masked(_features(kh, projection.float(), product), mask)
+    return _kv_moments(k_proj, vh, product)
+
+
+def favor_full_apply_plain(q: torch.Tensor, k: torch.Tensor,
+                           kv: torch.Tensor, ln_scale: torch.Tensor,
+                           ln_bias: torch.Tensor, projection: torch.Tensor,
+                           mask: Optional[torch.Tensor] = None,
+                           eps: float = 1e-6, pre_scale: float = 0.1,
+                           product: Optional[Callable] = None
+                           ) -> torch.Tensor:
+    """The output of :func:`favor_full_plain` on the rows given from the
+    whole T's ``kv`` [B, H, m, D] f32: phi(q) kv * 0.1 over the
+    same-position denominator (phi(k) of the same rows, masked), then the
+    output LayerNorm. [B, T, H*D] in q's dtype."""
+    B, T, HD = q.shape
+    D = projection.shape[0]
+    proj = projection.float()
+    kh = _favor_rows(k, D, ln_scale, ln_bias, pre_scale, True)
+    k_proj = _masked(_features(kh, proj, product), mask)
+    qh = _favor_rows(q, D, ln_scale, ln_bias, pre_scale, True)
+    out = _kv_apply(_features(qh, proj, product), k_proj, kv.float(),
+                    ln_scale, ln_bias, eps, product)
     return out.reshape(B, T, HD).to(q.dtype)
 
 
@@ -215,6 +310,33 @@ def favor_qkv_plain(qkv: torch.Tensor, ln_scale: torch.Tensor,
     return favor_full_plain(*qkv.split(qkv.shape[-1] // 3, dim=-1), ln_scale,
                             ln_bias, projection, mask, eps, pre_scale,
                             product)
+
+
+def favor_qkv_moments_plain(qkv: torch.Tensor, ln_scale: torch.Tensor,
+                            ln_bias: torch.Tensor, projection: torch.Tensor,
+                            mask: Optional[torch.Tensor] = None,
+                            pre_scale: float = 0.1,
+                            product: Optional[Callable] = None
+                            ) -> torch.Tensor:
+    """:func:`favor_full_moments_plain` on the merged panel: kv [B, H, m,
+    D] f32 of the rows given."""
+    _, k, v = qkv.split(qkv.shape[-1] // 3, dim=-1)
+    return favor_full_moments_plain(k, v, ln_scale, ln_bias, projection,
+                                    mask, pre_scale, product)
+
+
+def favor_qkv_apply_plain(qkv: torch.Tensor, kv: torch.Tensor,
+                          ln_scale: torch.Tensor, ln_bias: torch.Tensor,
+                          projection: torch.Tensor,
+                          mask: Optional[torch.Tensor] = None,
+                          eps: float = 1e-6, pre_scale: float = 0.1,
+                          product: Optional[Callable] = None
+                          ) -> torch.Tensor:
+    """:func:`favor_full_apply_plain` on the merged panel: [B, T, H*D] in
+    qkv's dtype."""
+    q, k, _ = qkv.split(qkv.shape[-1] // 3, dim=-1)
+    return favor_full_apply_plain(q, k, kv, ln_scale, ln_bias, projection,
+                                  mask, eps, pre_scale, product)
 
 
 def favor_qkv_logits_plain(qkv: torch.Tensor, ln_scale: torch.Tensor,
@@ -231,6 +353,26 @@ def favor_qkv_logits_plain(qkv: torch.Tensor, ln_scale: torch.Tensor,
         for x in (q, k))
 
 
+def _core_features(x: torch.Tensor, proj: torch.Tensor,
+                   mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """phi of rows [B, H, T, D] (f32), times a [B, 1, T] mask if given."""
+    f = torch.exp(torch.clamp(
+        torch.einsum("bhtd,dm->bhtm", x.float(), proj), -15, 15)) * 0.1
+    return f if mask is None else f * mask.float()[..., None]
+
+
+def _core_kv(k_proj, v):
+    """phi(k)^T v * 0.1 of rows [B, H, T, *], f32."""
+    return torch.einsum("bhtm,bhtd->bhmd", k_proj, v.float()) * 0.1
+
+
+def _core_apply(q_proj, k_proj, kv, eps):
+    """phi(q) kv * 0.1 over the same-position denominator, f32."""
+    out = torch.einsum("bhtm,bhmd->bhtd", q_proj, kv) * 0.1
+    den = (q_proj * k_proj).sum(-1, keepdim=True)
+    return out / den.clamp_min(eps)
+
+
 def favor_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           projection: torch.Tensor,
                           mask: Optional[torch.Tensor] = None,
@@ -238,18 +380,33 @@ def favor_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """The FAVOR+ core alone (``favor_attention_reference``, the Pallas
     ``_favor_kernel``) on q, k, v [B, H, T, D] that the caller normalised,
     widened to f32; projection [D, m]; mask [B, 1, T] or None. Returns f32
-    [B, H, T, D]."""
+    [B, H, T, D]: :func:`favor_attention_apply_plain` of
+    :func:`favor_attention_moments_plain` on the whole T, phi(k) computed
+    once."""
     proj = projection.float()
-    q_proj = torch.exp(torch.clamp(
-        torch.einsum("bhtd,dm->bhtm", q.float(), proj), -15, 15)) * 0.1
-    k_proj = torch.exp(torch.clamp(
-        torch.einsum("bhtd,dm->bhtm", k.float(), proj), -15, 15)) * 0.1
-    if mask is not None:
-        k_proj = k_proj * mask.float()[..., None]
-    kv = torch.einsum("bhtm,bhtd->bhmd", k_proj, v.float()) * 0.1
-    out = torch.einsum("bhtm,bhmd->bhtd", q_proj, kv) * 0.1
-    den = (q_proj * k_proj).sum(-1, keepdim=True)
-    return out / den.clamp_min(eps)
+    q_proj = _core_features(q, proj)
+    k_proj = _core_features(k, proj, mask)
+    return _core_apply(q_proj, k_proj, _core_kv(k_proj, v), eps)
+
+
+def favor_attention_moments_plain(k: torch.Tensor, v: torch.Tensor,
+                                  projection: torch.Tensor,
+                                  mask: Optional[torch.Tensor] = None
+                                  ) -> torch.Tensor:
+    """The kv moments of :func:`favor_attention_plain` over the rows given:
+    phi(k)^T v * 0.1, [B, H, m, D] f32."""
+    return _core_kv(_core_features(k, projection.float(), mask), v)
+
+
+def favor_attention_apply_plain(q: torch.Tensor, k: torch.Tensor,
+                                kv: torch.Tensor, projection: torch.Tensor,
+                                mask: Optional[torch.Tensor] = None,
+                                eps: float = 1e-6) -> torch.Tensor:
+    """The output of :func:`favor_attention_plain` on the rows given from
+    the whole T's ``kv`` [B, H, m, D] f32: f32 [B, H, T, D]."""
+    proj = projection.float()
+    return _core_apply(_core_features(q, proj), _core_features(k, proj, mask),
+                       kv.float(), eps)
 
 
 def performer_epilogue_plain(y: torch.Tensor, scale: torch.Tensor,
@@ -613,6 +770,156 @@ def favor_qkv(qkv: torch.Tensor, ln_scale: torch.Tensor,
 favor_qkv.launches = 0
 
 
+# ---------------------------------------------------------------------------
+# kernel 1 in two launches, for a seq rank's frames: the moments, the seq
+# ranks' all-reduce of kv (the caller's), the apply. Forward only: under
+# grad they raise (training over seq is ROADMAP item 6c1b-ii)
+# ---------------------------------------------------------------------------
+
+_SPLIT_FNS: dict = {}  # C entry name -> the library's function, taken once
+
+
+def _split_entry(name: str):
+    fn = _SPLIT_FNS.get(name)
+    if fn is None:
+        from motiondiffusion_moe_tpu_torch.ops._build import library
+
+        fn = _SPLIT_FNS[name] = getattr(library(), name)
+    return fn
+
+
+def _no_grad_split(op: str, *xs) -> None:
+    if torch.is_grad_enabled() and any(
+            x is not None and x.requires_grad for x in xs):
+        raise NotImplementedError(
+            f"{op}: the seq split of the FAVOR+ kernel runs without grad "
+            "(generation); training over seq is ROADMAP.md queue 1, item "
+            "6c1b-ii")
+
+
+def _split_ok(qkv, ln_scale, ln_bias, projection, mask, kv) -> bool:
+    """What :func:`_check_favor` and the kv check of :func:`_check_split`
+    check, in one pass of plain comparisons with no message built: the
+    launch path's check, as kernel 2's."""
+    if not (qkv.is_cuda and qkv.dim() == 3 and qkv.is_contiguous()
+            and qkv.dtype in _KERNEL_DTYPES and projection.dim() == 2):
+        return False
+    B, T, HD3 = qkv.shape
+    D, m = projection.shape
+    if not favor_kernel_ok(D, m) or HD3 % (3 * D) or not B or not T:
+        return False
+    index = qkv.get_device()
+    f32 = torch.float32
+    wants = [(projection, (D, m)), (ln_scale, (D,)), (ln_bias, (D,))]
+    if mask is not None:
+        wants.append((mask, (B, T)))
+    if kv is not None:
+        wants.append((kv, (B, HD3 // (3 * D), m, D)))
+    return all(t.dtype is f32 and t.get_device() == index
+               and t.shape == shape and t.is_contiguous()
+               for t, shape in wants)
+
+
+def _check_split(op, qkv, ln_scale, ln_bias, projection, mask, kv):
+    """The detailed check behind :func:`_split_ok`: raises with the reason
+    of the first input the kernel does not take."""
+    B, T, H, D, m = _check_favor(op, qkv, ln_scale, ln_bias, projection,
+                                 mask)
+    if kv is not None:
+        _require(kv.device == qkv.device and kv.dtype == torch.float32
+                 and kv.shape == (B, H, m, D) and kv.is_contiguous(),
+                 f"{op}: kv must be a contiguous float32 [{B}, {H}, {m}, "
+                 f"{D}] tensor on {qkv.device}, got {kv.dtype} "
+                 f"{tuple(kv.shape)} on {kv.device}")
+    raise ValueError(f"{op}: inputs the kernel does not take")
+
+
+def favor_qkv_moments(qkv: torch.Tensor, ln_scale: torch.Tensor,
+                      ln_bias: torch.Tensor, projection: torch.Tensor,
+                      mask: Optional[torch.Tensor] = None,
+                      pre_scale: float = 0.1) -> torch.Tensor:
+    """Kernel 1's first launch on a seq rank's frames: qkv [B, T_rank,
+    3*H*D], mask [B, T_rank] -> kv [B, H, m, D] f32, phi(k)^T v * 0.1 of
+    these rows; summed over the seq ranks it is the whole T's kv. CPU
+    tensors take :func:`favor_qkv_moments_plain`; CUDA tensors launch
+    ``mdm_favor_qkv_moments`` of ``csrc/favor_qkv.cu`` (the inputs as for
+    :func:`favor_qkv`). ``FAVOR_MXU_BF16=1`` as for :func:`favor_qkv`.
+    Forward only: raises under grad."""
+    _no_grad_split("favor_qkv_moments", qkv, ln_scale, ln_bias)
+    bf16 = mxu_bf16()
+    if qkv.is_cpu:
+        return favor_qkv_moments_plain(
+            qkv, ln_scale, ln_bias, projection, mask, pre_scale,
+            bf16_operand_product if bf16 else None)
+    if not _split_ok(qkv, ln_scale, ln_bias, projection, mask, None):
+        _check_split("favor_qkv_moments", qkv, ln_scale, ln_bias, projection,
+                     mask, None)
+    B, T, HD3 = qkv.shape
+    D, m = projection.shape
+    H = HD3 // (3 * D)
+    index = qkv.get_device()
+    kv = torch.empty((B, H, m, D), dtype=torch.float32, device=qkv.device)
+    args = (qkv.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(),
+            projection.data_ptr(), _ptr(mask), kv.data_ptr(), B, T, H, D, m,
+            _KERNEL_DTYPES[qkv.dtype], int(bf16), pre_scale,
+            favor_cluster(B * H, qkv.device, favor_per_sm(D)))
+    with torch.cuda.device(index):
+        rc = _split_entry("mdm_favor_qkv_moments")(
+            *args, torch._C._cuda_getCurrentRawStream(index))
+    if rc != 0:
+        raise RuntimeError(
+            f"favor_qkv_moments kernel launch failed: CUDA error {rc}")
+    favor_qkv_moments.launches += 1
+    return kv
+
+
+favor_qkv_moments.launches = 0
+
+
+def favor_qkv_apply(qkv: torch.Tensor, kv: torch.Tensor,
+                    ln_scale: torch.Tensor, ln_bias: torch.Tensor,
+                    projection: torch.Tensor,
+                    mask: Optional[torch.Tensor] = None, eps: float = 1e-6,
+                    pre_scale: float = 0.1) -> torch.Tensor:
+    """Kernel 1's second launch on a seq rank's frames: the output [B,
+    T_rank, H*D] in qkv's dtype from ``kv`` [B, H, m, D] f32, the seq ranks'
+    summed moments (:func:`favor_qkv_moments`). CPU tensors take
+    :func:`favor_qkv_apply_plain`; CUDA tensors launch
+    ``mdm_favor_qkv_apply`` of ``csrc/favor_qkv.cu``. Forward only: raises
+    under grad."""
+    _no_grad_split("favor_qkv_apply", qkv, ln_scale, ln_bias)
+    bf16 = mxu_bf16()
+    if qkv.is_cpu:
+        return favor_qkv_apply_plain(
+            qkv, kv, ln_scale, ln_bias, projection, mask, eps, pre_scale,
+            bf16_operand_product if bf16 else None)
+    if not _split_ok(qkv, ln_scale, ln_bias, projection, mask, kv):
+        _check_split("favor_qkv_apply", qkv, ln_scale, ln_bias, projection,
+                     mask, kv)
+    B, T, HD3 = qkv.shape
+    D, m = projection.shape
+    H = HD3 // (3 * D)
+    index = qkv.get_device()
+    out = torch.empty((B, T, H * D), dtype=qkv.dtype, device=qkv.device)
+    scratch = _favor_scratch(B, T, H, m, qkv.device)
+    args = (qkv.data_ptr(), kv.data_ptr(), ln_scale.data_ptr(),
+            ln_bias.data_ptr(), projection.data_ptr(), _ptr(mask),
+            out.data_ptr(), scratch.data_ptr(), B, T, H, D, m,
+            _KERNEL_DTYPES[qkv.dtype], int(bf16), eps, pre_scale,
+            favor_cluster(B * H, qkv.device, favor_per_sm(D)))
+    with torch.cuda.device(index):
+        rc = _split_entry("mdm_favor_qkv_apply")(
+            *args, torch._C._cuda_getCurrentRawStream(index))
+    if rc != 0:
+        raise RuntimeError(
+            f"favor_qkv_apply kernel launch failed: CUDA error {rc}")
+    favor_qkv_apply.launches += 1
+    return out
+
+
+favor_qkv_apply.launches = 0
+
+
 _EPILOGUE_SLOTS: dict = {}  # (device index, D, dtype) -> blocks at once
 _EPILOGUE_FN = None  # the C entry, taken from the library once
 
@@ -892,6 +1199,100 @@ def favor_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 favor_attention.launches = 0
+
+
+def _check_core_split(op, x, projection, mask, kv, parts):
+    """Validate kernel 8's split inputs (``parts``: the [B, H, T, D]
+    tensors, each f32 and contiguous like ``x``); returns (B, H, T, D,
+    m)."""
+    _require(x.dim() == 4 and x.device.type == "cuda",
+             f"{op}: expected [B, H, T, D] CUDA tensors, got "
+             f"{tuple(x.shape)} on {x.device}")
+    B, H, T, D = x.shape
+    dev = x.device
+    Dp, m = _check_projection(op, projection, dev)
+    _require(Dp == D and B > 0 and H > 0 and T > 0,
+             f"{op}: projection is [{Dp}, {m}] for head dim {D}")
+    for name, t in parts:
+        _require(t.device == dev and t.dtype == torch.float32
+                 and t.shape == x.shape and t.is_contiguous(),
+                 f"{op}: {name} must be a contiguous float32 {list(x.shape)}"
+                 f" tensor on {dev}, got {t.dtype} {tuple(t.shape)}")
+    if mask is not None:
+        _require(mask.device == dev and mask.dtype == torch.float32
+                 and mask.shape == (B, 1, T) and mask.is_contiguous(),
+                 f"{op}: mask must be a contiguous float32 [{B}, 1, {T}] "
+                 f"tensor on {dev}, got {mask.dtype} {tuple(mask.shape)}")
+    if kv is not None:
+        _require(kv.device == dev and kv.dtype == torch.float32
+                 and kv.shape == (B, H, m, D) and kv.is_contiguous(),
+                 f"{op}: kv must be a contiguous float32 [{B}, {H}, {m}, "
+                 f"{D}] tensor on {dev}, got {kv.dtype} {tuple(kv.shape)}")
+    return B, H, T, D, m
+
+
+def favor_attention_moments(k: torch.Tensor, v: torch.Tensor,
+                            projection: torch.Tensor,
+                            mask: Optional[torch.Tensor] = None
+                            ) -> torch.Tensor:
+    """Kernel 8's first launch on a seq rank's frames (the unfused
+    Performer's core): k, v [B, H, T_rank, D] f32, mask [B, 1, T_rank] ->
+    kv [B, H, m, D] f32. CPU tensors take
+    :func:`favor_attention_moments_plain`; CUDA tensors launch
+    ``mdm_favor_attention_moments``. Forward only: raises under grad."""
+    _no_grad_split("favor_attention_moments", k, v)
+    if k.is_cpu:
+        return favor_attention_moments_plain(k, v, projection, mask)
+    B, H, T, D, m = _check_core_split("favor_attention_moments", k,
+                                      projection, mask, None,
+                                      (("k", k), ("v", v)))
+    dev = k.device
+    kv = torch.empty((B, H, m, D), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        rc = _split_entry("mdm_favor_attention_moments")(
+            k.data_ptr(), v.data_ptr(), projection.data_ptr(), _ptr(mask),
+            kv.data_ptr(), B, H, T, D, m,
+            favor_cluster(B * H, dev, favor_per_sm(D)), _stream(dev))
+    if rc != 0:
+        raise RuntimeError(
+            f"favor_attention_moments kernel launch failed: CUDA error {rc}")
+    favor_attention_moments.launches += 1
+    return kv
+
+
+favor_attention_moments.launches = 0
+
+
+def favor_attention_apply(q: torch.Tensor, k: torch.Tensor, kv: torch.Tensor,
+                          projection: torch.Tensor,
+                          mask: Optional[torch.Tensor] = None,
+                          eps: float = 1e-6) -> torch.Tensor:
+    """Kernel 8's second launch: f32 [B, H, T_rank, D] from q, k of the
+    rank's frames and ``kv``, the seq ranks' summed moments. CPU tensors
+    take :func:`favor_attention_apply_plain`; CUDA tensors launch
+    ``mdm_favor_attention_apply``. Forward only: raises under grad."""
+    _no_grad_split("favor_attention_apply", q, k)
+    if q.is_cpu:
+        return favor_attention_apply_plain(q, k, kv, projection, mask, eps)
+    B, H, T, D, m = _check_core_split("favor_attention_apply", q,
+                                      projection, mask, kv,
+                                      (("q", q), ("k", k)))
+    dev = q.device
+    out = torch.empty_like(q)
+    scratch = _favor_scratch(B, T, H, m, dev)
+    with torch.cuda.device(dev):
+        rc = _split_entry("mdm_favor_attention_apply")(
+            q.data_ptr(), k.data_ptr(), kv.data_ptr(), projection.data_ptr(),
+            _ptr(mask), out.data_ptr(), scratch.data_ptr(), B, H, T, D, m,
+            eps, favor_cluster(B * H, dev, favor_per_sm(D)), _stream(dev))
+    if rc != 0:
+        raise RuntimeError(
+            f"favor_attention_apply kernel launch failed: CUDA error {rc}")
+    favor_attention_apply.launches += 1
+    return out
+
+
+favor_attention_apply.launches = 0
 
 
 def _launch_favor_full(q, k, v, ln_scale, ln_bias, projection, mask, eps,

@@ -1,6 +1,7 @@
-"""The data, expert and model axes of the JAX package's ``parallel/mesh.py``
-over ``torch.distributed``: the rank layout, the process subgroups, and where
-the expert and FFN parameters live.
+"""The data, seq, expert and model axes of the JAX package's
+``parallel/mesh.py`` over ``torch.distributed``: the rank layout, the process
+subgroups, where the expert and FFN parameters live, and the frames a seq
+rank holds.
 
 JAX lays ``W = dp x ep x tp`` devices out as a ``(data, expert, model)``
 mesh with the model axis minor (``make_mesh`` :45-76): device ``i = (d * ep
@@ -37,6 +38,15 @@ numbering, rank ``r = (d * ep + e) * tp + m`` (``r = d * ep + e`` at ``tp =
   ``GenerationPipeline`` under a mesh, ``P('data')``) the ranks of one
   data index hold the same rows of the CFG-doubled batch, and ``dispatch``
   cuts their tokens into JAX's chunks itself (``parallel/moe_parallel.py``).
+
+The seq axis (generation only: ``generation_mesh(..., seq_parallel=sp)``)
+follows JAX's ``(data, seq, expert, model)`` layout (``make_mesh`` :45-76),
+rank ``r = ((d sp + s) ep + e) tp + m``; the numbering above is its ``sp =
+1`` case. The seq ranks of one ``(d, e, m)`` (the ``seq`` subgroup) hold the
+same rows, each its own frames of T (:meth:`ExpertMesh.frames`: cut points
+on even frames, so that the stride-2 down / up convolutions cut cleanly);
+the expert, data, model and shard groups are those of one ``s``. No leaf is
+cut over seq. Training over seq raises (ROADMAP item 6c1b-ii).
 
 A leaf's gradient is summed over the ranks that hold the same block of it
 (:attr:`ExpertMesh.blocks`): a replicated leaf over the world, a model-cut
@@ -111,59 +121,77 @@ class Cut(NamedTuple):
 
 
 class ExpertMesh(DataGroup):
-    """The run's ``(data, expert, model)`` mesh: the world's collectives
-    (this class is the world's :class:`DataGroup`), the rank's indices ``d``,
-    ``e``, ``m``, its row-holder index ``q`` (of ``holders``) and its
-    subgroups: ``expert`` (None at ``ep = 1``), ``data`` (the world itself
-    at ``ep = tp = 1``), ``model`` and ``shard`` (None at ``tp = 1``;
-    ``shard`` is ``expert`` then), and ``blocks[Cut.key]``, the ranks that
-    hold the same block of a leaf cut so. ``rows_replicated`` marks the
-    generation layout (see the module doc)."""
+    """The run's ``(data, [seq,] expert, model)`` mesh: the world's
+    collectives (this class is the world's :class:`DataGroup`), the rank's
+    indices ``d``, ``s``, ``e``, ``m``, its row-holder index ``q`` (of
+    ``holders``) and its subgroups: ``expert`` (None at ``ep = 1``),
+    ``data`` (the world itself at ``sp = ep = tp = 1``), ``model`` and
+    ``shard`` (None at ``tp = 1``; ``shard`` is ``expert`` then), ``seq``
+    (None at ``sp = 1``), and ``blocks[Cut.key]``, the ranks that hold the
+    same block of a leaf cut so. ``rows_replicated`` marks the generation
+    layout (see the module doc), the only one a seq axis takes."""
 
     def __init__(self, ep: int = 1, tp: int = 1,
-                 rows_replicated: bool = False):
+                 rows_replicated: bool = False, sp: int = 1):
         super().__init__()
-        if ep < 1 or tp < 1 or self.world % (ep * tp):
-            raise ValueError(f"{ep} expert x {tp} model partitions do not "
-                             f"divide the {self.world} processes")
-        self.ep, self.tp, self.dp = ep, tp, self.world // (ep * tp)
+        if min(ep, tp, sp) < 1 or self.world % (sp * ep * tp):
+            raise ValueError(f"{sp} seq x {ep} expert x {tp} model "
+                             f"partitions do not divide the {self.world} "
+                             "processes")
+        if sp > 1 and not rows_replicated:
+            raise NotImplementedError(
+                f"{sp} seq partitions: the port runs the seq axis in "
+                "generation only; training over seq is ROADMAP.md queue 1, "
+                "item 6c1b-ii")
+        self.ep, self.tp, self.sp = ep, tp, sp
+        self.dp = self.world // (sp * ep * tp)
         self.rows_replicated = rows_replicated
         self.m = self.rank % tp
         self.e = self.rank // tp % ep
-        self.d = self.rank // (tp * ep)
-        self.q, self.holders = self.rank // tp, self.dp * ep
+        self.s = self.rank // (tp * ep) % sp
+        self.d = self.rank // (tp * ep * sp)
+        self.q, self.holders = self.d * ep + self.e, self.dp * ep
 
         rank = self.rank_of
-        self.expert = self.model = self.shard = None
+        dsp = [(d, s) for d in range(self.dp) for s in range(sp)]
+        mine = self.d * sp + self.s
+        self.expert = self.model = self.shard = self.seq = None
         self.data = self
         if ep > 1:
             self.expert = self._subgroup(
-                [[rank(d, i, m) for i in range(ep)] for d in range(self.dp)
-                 for m in range(tp)], self.d * tp + self.m)
-        if ep * tp > 1:
+                [[rank(d, i, m, s) for i in range(ep)] for d, s in dsp
+                 for m in range(tp)], mine * tp + self.m)
+        if sp * ep * tp > 1:
             self.data = self._subgroup(
-                [[rank(d, e, m) for d in range(self.dp)] for e in range(ep)
-                 for m in range(tp)], self.e * tp + self.m)
+                [[rank(d, e, m, s) for d in range(self.dp)]
+                 for s in range(sp) for e in range(ep) for m in range(tp)],
+                (self.s * ep + self.e) * tp + self.m)
         if tp > 1:
             self.model = self._subgroup(
-                [[rank(d, e, i) for i in range(tp)] for d in range(self.dp)
-                 for e in range(ep)], self.d * ep + self.e)
+                [[rank(d, e, i, s) for i in range(tp)] for d, s in dsp
+                 for e in range(ep)], mine * ep + self.e)
             self.shard = self._subgroup(
-                [list(range(d * ep * tp, (d + 1) * ep * tp))
-                 for d in range(self.dp)], self.d) if ep > 1 else self.model
+                [list(range(i * ep * tp, (i + 1) * ep * tp))
+                 for i in range(len(dsp))], mine) if ep > 1 else self.model
         else:
             self.shard = self.expert
-        self.blocks = {(False, False): self, (True, True): self.data}
-        for key, cut, left in (((True, False), ep, tp),
-                               ((False, True), tp, ep)):
+        self.blocks = {(False, False): self}
+        for key in ((True, False), (False, True), (True, True)):
+            cut = (ep if key[0] else 1) * (tp if key[1] else 1)
             if cut == 1:  # nothing to share: every rank holds it
                 self.blocks[key] = self
-            elif left == 1:  # the other axis is one wide: the data group
+            elif cut * self.dp == self.world:  # only the data axis left
                 self.blocks[key] = self.data
-            else:  # the ranks that share e, or m
+            else:  # the ranks that share e, or m, or both
                 self.blocks[key] = self._subgroup(
                     [self.members(key, e, m) for e, m in self.blocks_of(key)],
-                    self.e if key[0] else self.m)
+                    self.blocks_of(key).index(
+                        (self.e if key[0] else 0, self.m if key[1] else 0)))
+        if sp > 1:
+            self.seq = self._subgroup(
+                [[rank(d, e, m, i) for i in range(sp)] for d in range(self.dp)
+                 for e in range(ep) for m in range(tp)],
+                (self.d * ep + self.e) * tp + self.m)
 
     def _subgroup(self, families: List[List[int]], mine: int) -> DataGroup:
         if len(families) == 1:
@@ -175,8 +203,46 @@ class ExpertMesh(DataGroup):
     def __deepcopy__(self, memo):
         return self  # a copied module keeps the process groups
 
-    def rank_of(self, d: int, e: int, m: int) -> int:
-        return (d * self.ep + e) * self.tp + m
+    def rank_of(self, d: int, e: int, m: int, s: int = 0) -> int:
+        return ((d * self.sp + s) * self.ep + e) * self.tp + m
+
+    def frames(self, T: int, s: Optional[int] = None) -> Tuple[int, int]:
+        """``[t0, t1)``, the frames of T that seq rank ``s`` (default this
+        rank's) holds: the ``ceil(T / 2)`` frame pairs cut as evenly as
+        they go, the lower ranks taking one more (T = 196 at ``sp = 4``:
+        50 / 50 / 48 / 48; T = 14: 4 / 4 / 4 / 2). Cut points fall on even
+        frames, so its frames at the half-rate scale are ``[t0 / 2,
+        ceil(t1 / 2))``; an odd T leaves the last rank's last pair one
+        frame short, the frame 'SAME' pads. Raises for T < 2 sp."""
+        s = self.s if s is None else s
+        if T < 2 * self.sp:
+            raise ValueError(
+                f"{T} frames over {self.sp} seq partitions: each needs at "
+                f"least 2 frames (T >= {2 * self.sp})")
+        pairs = -(-T // 2)
+        n, extra = divmod(pairs, self.sp)
+        p0 = s * n + min(s, extra)
+        return 2 * p0, min(T, 2 * (p0 + n + (s < extra)))
+
+    def frame_sizes(self, n: int, device) -> List[int]:
+        """Every seq rank's ``n`` (its frames at some scale), in seq order:
+        one small all-gather."""
+        return self.seq.all_gather(torch.tensor([n], device=device)).tolist()
+
+    def gather_frames(self, x: torch.Tensor,
+                      sizes: Sequence[int]) -> torch.Tensor:
+        """The seq ranks' ``x`` [B, L_s, ...] (each its own frames, ``L_s =
+        sizes[s]``) laid end to end on dim 1 in seq order: the whole T of
+        their rows, the cuts uneven or not."""
+        L = x.shape[1]
+        top = max(sizes)
+        if L < top:
+            x = torch.cat([x, x.new_zeros((x.shape[0], top - L)
+                                          + x.shape[2:])], 1)
+        every = self.seq.all_gather(x.transpose(0, 1))   # [sp top, B, ...]
+        return torch.cat([every[i * top:i * top + n]
+                          for i, n in enumerate(sizes)]).transpose(0, 1
+                                                                ).contiguous()
 
     @property
     def batch(self) -> DataGroup:
@@ -381,8 +447,14 @@ def attach_mesh(model: nn.Module, mesh: Optional[ExpertMesh]) -> None:
     :meth:`~pipeline.GenerationPipeline.set_params`. Under an expert or a
     model axis a layer must compute ``dense`` or ``dispatch``:
     ``dense_fused`` merges the experts into one matmul, which cannot be
-    cut (JAX ``trainer.py:71-89``)."""
+    cut (JAX ``trainer.py:71-89``). Under a seq axis the denoiser and its
+    Performers get the seq group (their ``seq``: frames cut, kv closed
+    across the ranks)."""
+    from motiondiffusion_moe_tpu_torch.models.attention import (
+        FastAttention, PerformerSelfAttention)
     from motiondiffusion_moe_tpu_torch.models.layers import Dense
+    from motiondiffusion_moe_tpu_torch.models.transformer import (
+        MotionTransformer)
 
     tp = mesh.tp if mesh is not None else 1
     for name, m in moe_layers(model):
@@ -398,11 +470,15 @@ def attach_mesh(model: nn.Module, mesh: Optional[ExpertMesh]) -> None:
                                  f"{mesh.ep} expert partitions")
         m.mesh = mesh
         m.model_split = model_dim(f"{name}.w1", m.w1.shape, tp) is not None
+    seq = mesh.seq if mesh is not None else None
     for name, m in model.named_modules():
         if isinstance(m, Dense):
             dim = model_dim(f"{name}.weight", m.weight.shape, tp)
             m.split = None if dim is None else ("row" if dim else "column")
             m.mesh = mesh if m.split else None
+        elif isinstance(m, (MotionTransformer, PerformerSelfAttention,
+                            FastAttention)):
+            m.seq = seq
 
 
 def leaf_cuts(model: nn.Module) -> Dict[str, Cut]:
@@ -470,32 +546,40 @@ def local_state_dict(model: nn.Module, sd: Dict[str, torch.Tensor]
 
 
 def generation_mesh(data_parallel: int = 1, expert_parallel: int = 1,
-                    tensor_parallel: int = 1) -> Optional[ExpertMesh]:
-    """The ``(data, expert, model)`` mesh of ``GenerationPipeline`` and the
-    serve / evaluate CLIs, in the generation layout: None when every degree
-    is 1 and no process group exists. Raises unless the process group has
-    ``dp x ep x tp`` ranks (``data_parallel`` 0 means the world over ``ep x
-    tp``), and, with degrees above 1, unless it exists."""
-    dp, ep, tp = data_parallel, expert_parallel, tensor_parallel
+                    tensor_parallel: int = 1, seq_parallel: int = 1
+                    ) -> Optional[ExpertMesh]:
+    """The ``(data, [seq,] expert, model)`` mesh of ``GenerationPipeline``
+    and the serve / evaluate CLIs, in the generation layout: None when
+    every degree is 1 and no process group exists. Raises unless the
+    process group has ``dp x sp x ep x tp`` ranks (``data_parallel`` 0
+    means the world over ``sp x ep x tp``), and, with degrees above 1,
+    unless it exists."""
+    dp, ep, tp, sp = data_parallel, expert_parallel, tensor_parallel, \
+        seq_parallel
     world = dist.get_world_size() if dist.is_initialized() else 1
-    if min(ep, tp) < 1 or dp < 0:
-        raise ValueError(f"parallel degrees data {dp}, expert {ep}, model "
-                         f"{tp}: each at least 1 (data 0 = the rest)")
-    want = (dp or max(1, world // (ep * tp))) * ep * tp
+    if min(ep, tp, sp) < 1 or dp < 0:
+        raise ValueError(f"parallel degrees data {dp}, seq {sp}, expert "
+                         f"{ep}, model {tp}: each at least 1 (data 0 = the "
+                         "rest)")
+    rest = sp * ep * tp
+    want = (dp or max(1, world // rest)) * rest
+    seq = f" --seq_parallel {sp}" if sp > 1 else ""
     if want > 1 and not dist.is_initialized():
         raise ValueError(
-            f"--data_parallel {dp} --expert_parallel {ep} --tensor_parallel "
-            f"{tp} asks for {want} devices, but this is one process: launch "
-            f"one process per device ({want}), with torchrun or "
-            "--coordinator_address / --num_processes / --process_id")
+            f"--data_parallel {dp}{seq} --expert_parallel {ep} "
+            f"--tensor_parallel {tp} asks for {want} devices, but this is "
+            f"one process: launch one process per device ({want}), with "
+            "torchrun or --coordinator_address / --num_processes / "
+            "--process_id")
     if world != want:
         raise ValueError(
-            f"data {dp or world // (ep * tp)} x expert {ep} x model {tp} = "
-            f"{want} ranks, but the process group has {world}: launch "
-            "data x expert x model processes, one per device")
+            f"data {dp or world // rest}{f' x seq {sp}' if sp > 1 else ''} "
+            f"x expert {ep} x model {tp} = {want} ranks, but the process "
+            f"group has {world}: launch data x seq x expert x model "
+            "processes, one per device")
     if not dist.is_initialized():
         return None
-    return ExpertMesh(ep, tp, rows_replicated=True)
+    return ExpertMesh(ep, tp, rows_replicated=True, sp=sp)
 
 
 def make_mesh(cfg) -> Optional[ExpertMesh]:
@@ -510,12 +594,18 @@ def make_mesh(cfg) -> Optional[ExpertMesh]:
 
 
 def check_mesh(cfg) -> None:
-    """Raise unless the expert x model partitions divide the world and the
+    """Raise for a seq axis (training over it is not ported), and unless
+    the expert x model partitions divide the world and the
     expert partitions the experts, ``num_data_partitions`` is 0 (the world
     over ``ep x tp``) or that, and the row-holders (``dp x ep``: the ranks
     of a model group share their rows) divide each microbatch (JAX needs
     its data axis to divide it; the port gives each row-holder whole
     rows)."""
+    if cfg.parallel.num_seq_partitions > 1:
+        raise NotImplementedError(
+            f"num_seq_partitions {cfg.parallel.num_seq_partitions}: the port "
+            "runs the seq axis in generation only (generation_mesh); "
+            "training over seq is ROADMAP.md queue 1, item 6c1b-ii")
     world = dist.get_world_size() if dist.is_initialized() else 1
     ep = cfg.parallel.num_expert_partitions
     tp = cfg.parallel.num_model_partitions

@@ -59,6 +59,12 @@ JAX pipeline's ``mesh``, ``pipeline.py:66-78, 143-173, 228-242``):
   and, for ``dispatch``, of ``P((data, expert))``), and an all-gather over
   the data group gives every rank the whole output for the guidance
   combine and the sampler step;
+- with a seq axis (``generation_mesh(..., seq_parallel=sp)``, JAX's
+  ``(data, seq, expert, model)`` mesh) seq rank s runs the denoiser on its
+  frames ``ExpertMesh.frames(T)`` of those rows (cut points on even
+  frames, as evenly as they go), and an all-gather over the seq group on T
+  (the cuts may be uneven) comes before the one over the data group;
+  ``micro_batch`` asks nothing of ``sp``, the frames at least 2 a rank;
 - :class:`MeshLeader` lets rank 0 drive the others (the serve and evaluate
   CLIs): each ``generate`` goes to them as a job
   (``parallel/distributed.py::JobLeader``), and they run
@@ -138,6 +144,8 @@ class GenerationPipeline:
                 raise ValueError(
                     f"micro_batch {micro_batch} not divisible by the mesh "
                     f"data axis ({mesh.dp})")
+            if mesh.sp > 1:
+                mesh.frames(cfg.model.max_frames)  # raises if too few
             if mesh.ep * mesh.tp > 1 and cfg.model.moe_compute == \
                     "dense_fused":
                 # the fused matmul merges the experts: not shardable
@@ -322,10 +330,18 @@ class GenerationPipeline:
         xf_proj = torch.cat([e.pooled for e in encs])
         xf_out = torch.cat([e.tokens for e in encs])
         length2 = torch.cat([lengths, lengths]).to(dev)[rows]
+        # a seq rank's frames of T, and every seq rank's count of them
+        frames, cols = None, slice(None)
+        if mesh is not None and mesh.sp > 1:
+            frames, cols = mesh.frames(T), slice(*mesh.frames(T))
+            sizes = [b - a for a, b in (mesh.frames(T, s)
+                                        for s in range(mesh.sp))]
 
         def model_doubled(x2, t2):
-            out = model(x2[rows], t2[rows], length2, xf_proj=xf_proj,
-                        xf_out=xf_out)
+            out = model(x2[rows, cols], t2[rows], length2, xf_proj=xf_proj,
+                        xf_out=xf_out, frames=frames)
+            if frames:
+                out = mesh.gather_frames(out, sizes)
             if mesh is not None and mesh.dp > 1:
                 out = mesh.data.all_gather(out)
             return out

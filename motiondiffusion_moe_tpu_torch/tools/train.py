@@ -145,9 +145,11 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="model partitions: JAX's Megatron split of the FFN "
                         "pairs, each process keeping 1 / N of their hidden "
                         "width; the ranks of a model group share their rows")
-    for flag in ("seq_parallel", "pipeline_parallel"):
-        p.add_argument(f"--{flag}", type=int, default=1,
-                       help="multi-device: raises above 1 (not ported)")
+    p.add_argument("--seq_parallel", type=int, default=1,
+                   help="multi-device: raises above 1 (generation runs over "
+                        "a seq axis; training over it is not ported)")
+    p.add_argument("--pipeline_parallel", type=int, default=1,
+                   help="multi-device: raises above 1 (not ported)")
     p.add_argument("--data_parallel", type=int, default=0,
                    help="data-parallel ranks, one process each (0 = the "
                         "number of processes launched over "

@@ -42,7 +42,8 @@ column-split hidden draws the whole width's mask and keeps the rank's
 columns). Only the primary prints and logs; saves are collective and write
 the global layout with one generator state a row-holder
 (``training/checkpoint.py``). The seq and pipe axes raise (ROADMAP, queue
-1, items 6c1b and 6c2).
+1, items 6c1b-ii and 6c2; generation runs over seq,
+``parallel/mesh.py::generation_mesh``).
 
 Host work per step: draw t from the schedule sampler, tokenize the
 captions (with the tokenizer of the config's text encoder), copy the batch
@@ -87,13 +88,13 @@ from motiondiffusion_moe_tpu_torch.utils.logging import MetricsLogger
 
 
 # the ParallelConfig axes not ported yet, by ROADMAP item
-_UNPORTED_AXES = {"num_seq_partitions": "6c1b",
+_UNPORTED_AXES = {"num_seq_partitions": "6c1b-ii",
                   "num_pipeline_stages": "6c2"}
 
 
 def check_parallel_config(cfg: ExperimentConfig) -> None:
-    """Raise for a ParallelConfig axis the port does not run: the seq and
-    pipe axes."""
+    """Raise for a ParallelConfig axis the port does not train over: the
+    seq axis (generation runs over it) and the pipe axis."""
     asked = {k: getattr(cfg.parallel, k) for k in _UNPORTED_AXES}
     multi = {k: v for k, v in asked.items() if v > 1}
     if multi:

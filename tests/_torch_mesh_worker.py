@@ -5,8 +5,9 @@
 
 Joins a gloo process group of ``spec["world"]`` processes at
 ``spec["init"]`` (a ``file://`` URL), then runs ``spec["cases"]`` in
-order, each on its own ``parallel.mesh.generation_mesh(dp, ep, tp)`` over
-the whole world:
+order, each on its own ``parallel.mesh.generation_mesh(*layout)`` over
+the whole world (``(dp, ep, tp)``, or ``(dp, ep, tp, sp)`` with a seq
+axis; ``test_torch_seq_parallel.py`` runs the seq cases):
 
 - ``sample``: ``GenerationPipeline(mesh=...).sample`` of one micro-batch
   (``inputs.npz``: token ids, lengths, the injected noise) from the global
@@ -15,7 +16,12 @@ the whole world:
   adds the row-parallel biases on every model rank;
 - ``generate``: ``GenerationPipeline.generate`` of ``spec["prompts"]``
   from a generator seeded with ``spec["seed"]``;
-- ``units``: the errors of the mesh's checks.
+- ``units``: the errors of the mesh's checks;
+- ``forward``: one denoiser forward of the inputs ``<prefix>_x``, ``_t``,
+  ``_length``, ``_ids`` (``case["prefix"]``) under no grad, each rank on
+  its rows and frames, gathered over the seq and data groups; with
+  ``control`` "grad" the same forward under grad (its error);
+- ``seq_units``: the seq axis's errors, and each rank's mesh indices.
 
 Every rank reports the elements it holds (its expert tensors, its split
 FFN columns, all of them); rank 0 writes ``<out>/<name>.pt``. It imports
@@ -41,8 +47,8 @@ def _pipeline(spec, case, mesh):
                          weights_only=True)
     return GenerationPipeline(
         cfg, params=weights, sampler=case.get("sampler", "ddim"),
-        num_inference_steps=spec["steps"], micro_batch=spec["micro_batch"],
-        device="cpu", mesh=mesh)
+        num_inference_steps=case.get("steps", spec["steps"]),
+        micro_batch=spec["micro_batch"], device="cpu", mesh=mesh)
 
 
 def _elements(pipe):
@@ -108,6 +114,55 @@ def run_units(spec, case, W):
     return got
 
 
+def run_forward(spec, case, mesh, arrays):
+    pipe = _pipeline(spec, case, mesh)
+    x, t, length, ids = (torch.from_numpy(arrays[f"{case['prefix']}_{k}"])
+                         for k in ("x", "t", "length", "ids"))
+    B, T = x.shape[:2]
+    rows, frames = mesh.rows(B), mesh.frames(T)
+    sizes = [b - a for a, b in (mesh.frames(T, s) for s in range(mesh.sp))]
+    args = (x[rows, frames[0]:frames[1]], t[rows], length[rows])
+    kw = dict(text_ids=ids[rows], frames=frames)
+    res = {}
+    if case.get("control") == "grad":
+        try:
+            pipe.model(*args, **kw)
+            res["grad"] = "no error"
+        except NotImplementedError as e:
+            res["grad"] = str(e)
+        return res, pipe
+    with torch.no_grad():
+        out = mesh.gather_frames(pipe.model(*args, **kw), sizes)
+        if mesh.dp > 1:
+            out = mesh.data.all_gather(out)
+    res.update(out=out, computes=sorted({
+        m.compute for m in pipe.model.modules() if hasattr(m, "model_split")
+    }))
+    return res, pipe
+
+
+def run_seq_units(spec, case, W):
+    """The seq axis's errors (or 'no error'), and (d, s, e, m) of this
+    rank on the mesh of ``case["layout"]``."""
+    from motiondiffusion_moe_tpu_torch.parallel.mesh import (
+        ExpertMesh, generation_mesh)
+
+    def message(fn):
+        try:
+            fn()
+        except (ValueError, NotImplementedError) as e:
+            return f"{type(e).__name__}: {e}"
+        return "no error"
+
+    got = {"training_layout": message(lambda: ExpertMesh(1, 1, sp=2)),
+           "world": message(lambda: generation_mesh(1, 1, 1, 3))}
+    mesh = generation_mesh(*case["layout"])
+    got["index"] = (mesh.d, mesh.s, mesh.e, mesh.m)
+    got["short"] = message(lambda: _pipeline(spec, dict(
+        case, model={"max_frames": 2 * mesh.sp - 1}), mesh))
+    return got
+
+
 def main(spec_path, rank):
     from motiondiffusion_moe_tpu_torch.parallel.distributed import (
         all_gather_objects, initialize_distributed)
@@ -123,6 +178,11 @@ def main(spec_path, rank):
     for case in spec["cases"]:
         if case["kind"] == "units":
             res, pipe = run_units(spec, case, W), None
+        elif case["kind"] == "seq_units":
+            res, pipe = all_gather_objects(run_seq_units(spec, case, W)), None
+        elif case["kind"] == "forward":
+            res, pipe = run_forward(spec, case, generation_mesh(
+                *case["layout"]), arrays)
         else:
             mesh = generation_mesh(*case["layout"])
             res, pipe = (run_sample(spec, case, mesh, arrays)
