@@ -66,7 +66,12 @@ first use) and exits non-zero without one. Phases, each fatal on failure:
          with the same bits on a second call, its blocks per batch row
          (the thread-block cluster), the device time of each of its two
          launches, and ptxas's registers and spills of its main kernel
-         (none may spill at D = 512). D2: one
+         (none may spill at D = 512). favor_qkv_bwd also in its three seq
+         launches (favor_qkv_bwd_kv, _q, _k) at T = 196 cut as 98 / 98 and
+         50 / 50 / 48 / 48, bf16 and f32: kv and g_kv summed on the card
+         between them, against the whole kernel and the plain split; each
+         launch timed in bf16 at a seq 4 rank's 50 frames beside its
+         bound. D2: one
          full-width train step in f32 compute (dropout 0, no stochastic
          depth) through the kernels and with use_kernels=False on the same
          batch, noise and t: equal losses, a finite gradient for every
@@ -339,16 +344,21 @@ first use) and exits non-zero without one. Phases, each fatal on failure:
          checkpoint holds the global [16, ...] experts; then a one-process
          resume of the run dir starts at step 2 with the gathered state
          bit for bit.
-  P      tensor-parallel training (the model axis's Megatron split:
-         parallel/mesh.py, parallel/moe_parallel.py's column inputs and
-         row-parallel sums, training/train_state.py's gradient groups):
+  P      tensor-parallel and seq-parallel training (the model axis's
+         Megatron split: parallel/mesh.py, parallel/moe_parallel.py's
+         column inputs and row-parallel sums, training/train_state.py's
+         gradient groups; the seq axis: each rank its frames, kernels 1
+         and 3 in their split launches around the kv and g_kv sums):
          the flagship at full width (latent 512, 4 heads of 128, 4 experts
          of hidden 256, the cross-attention MLP 2048) at 1 block a scale
          (P_LAYERS), seeded, on P_W (4) ranks sharing this card over gloo,
-         each a --p-rank worker, the two model ranks of a row-holder on the
-         same 16 rows of M1's batch. P1: one train step through the Trainer
-         in two layouts, data 2 x model 2 computing dense and expert 2 x
-         model 2 computing dispatch with ZeRO-1; rank 0 first runs the
+         each a --p-rank worker, the model and seq ranks of a row-holder on
+         the same rows of M1's batch. P1: one train step through the
+         Trainer in three layouts, seq 2 x model 2 and seq 4 (cut 50 / 50 /
+         48 / 48) computing dense, and expert 2 x model 2 computing
+         dispatch with ZeRO-1 (the seq ranks launch favor_qkv_moments /
+         _apply and favor_qkv_bwd_kv / _q / _k once a Performer each, and
+         never the whole favor_qkv or favor_qkv_bwd); rank 0 first runs the
          one-process steps (dense; dispatch with chunked_dispatch(2), the
          per-chunk capacity of the two row-holders). Each layout: the loss
          and grad_norm within STEP_LOSS_REL of the one-process step's, the
@@ -375,7 +385,7 @@ first use) and exits non-zero without one. Phases, each fatal on failure:
          after, max_memory_allocated, the parameter bytes it holds, its
          expert elements (1 / ep) and split FFN elements (1 / tp), and a
          SHA-256 of its motions (every rank returns the same). O1: the
-         flagship at full width and depth, f32 compute, bf16 weights, dpm5
+         flagship at full width and depth, f32 compute, bf16 weights, dpm2
          (O1_STEPS) of 16 prompts x 196 frames (micro-batch 16) on O_W (4)
          --o1-rank ranks in five layouts (data 2 x seq 2; expert 2 x model
          2; dispatch at data 2 x expert 2, capacity factor 4, which drops
@@ -385,14 +395,14 @@ first use) and exits non-zero without one. Phases, each fatal on failure:
          seq rank launches kernel 1's moments and apply once a Performer
          each and the whole kernel 1 never. O2: tools/serve.py as 4 processes (--o2-rank;
          --data_parallel 2 --tensor_parallel 2) from the flagship's bf16
-         export at micro-batch 4, dpm5, 3 seeded requests (1, 3 and 6
+         export at micro-batch 4, dpm2, 3 seeded requests (1, 3 and 6
          prompts: the last two micro-batches) each within O2_REL of the
          one-process server's answer (bf16 compute), then SIGTERM to rank
          0: every rank exits 0. O3: moe_big at full width, O3_LAYERS (1) of
          its 12 blocks a scale (16 experts over its 8 expert partitions) on 8
          --o3-rank ranks, each seeding its shard leaf by leaf on the card
          (seeded_state), bf16 weights, f32 compute (o3_config says why),
-         dense, one micro-batch of 2 prompts, dpm with O3_STEPS (5) steps,
+         dense, one micro-batch of 2 prompts, dpm with O3_STEPS (3) steps,
          within O3_REL + O3_FLOOR x (the one process's dense_fused against
          its dense) of the one-process moe_big of the same weights. O4 (run
          after phase I, on its run): tools/evaluate.py --data_parallel 2 as
@@ -1562,6 +1572,8 @@ def phase_d1(dev, card):
               f"{device_ms_by_kernel(kernel, 10)} (torch.profiler) ({card})")
         results[("performer_epilogue_bwd", T)] = (err, k_ms, p_ms, b_ms,
                                                   b_by)
+    results.update(favor_bwd_split_case(dev, card, t, compare, rng, B, H,
+                                        D, m))
     # registers and spills of the main kernel, as ptxas reported them in
     # this run's build: none may spill at D = 512
     from motiondiffusion_moe_tpu_torch.ops import _build
@@ -1575,6 +1587,127 @@ def phase_d1(dev, card):
               if "Li16E" in u and " 0 bytes spill stores" not in u]
     check(not spills, "performer_epilogue_bwd_kernel spills at D = 512")
     return results
+
+
+def favor_bwd_split_case(dev, card, t, compare, rng, B, H, D, m):
+    """Kernel 3 in its three seq launches at the training shapes: T =
+    SPLIT_T cut over 2 and 4 seq ranks (98 / 98 and 50 / 50 / 48 / 48),
+    bf16 and f32, the ragged mask, d(proj) asked for. Each cut's kv is
+    summed on the card, each cut's q launch reads the sum, their g_kv are
+    summed, each cut's k launch reads that; d(qkv) concatenated and d(ln),
+    d(proj) summed are held to the whole kernel 3 and to the plain split of
+    the same cuts by D1's rule (``compare``). The three launches are timed
+    in bf16 at a seq 4 rank's 50 frames (d(proj) not asked for, as in
+    training) against their plain steps and their bounds. Returns
+    {(name, T_cut): (max abs err, ms, plain ms, bound ms, bound by,
+    None)}."""
+    import torch
+    from types import SimpleNamespace
+    from motiondiffusion_moe_tpu_torch.ops import performer as P
+    from motiondiffusion_moe_tpu_torch.parallel.mesh import ExpertMesh
+
+    T = SPLIT_T
+    mask = ragged_mask(rng, B, T, dev)
+    scale, bias = t(D, s=0.1, off=1.0), t(D, s=0.1)
+    proj = t(D, m, s=D ** -0.25)
+    ln = (scale, bias, proj)
+
+    def total(ts):  # the seq ranks' sum, on the card
+        return torch.stack(list(ts)).sum(0)
+
+    def kernels(parts):
+        kvs, splits = zip(*(P.favor_qkv_bwd_kv(x, *ln, mk)
+                            for x, mk, _ in parts))
+        kv = total(kvs)
+        g_kv = total(P.favor_qkv_bwd_q(sp, kv, gc)
+                     for sp, (_, _, gc) in zip(splits, parts))
+        outs = [P.favor_qkv_bwd_k(sp, g_kv) for sp in splits]
+        return (torch.cat([o[0] for o in outs], 1),
+                *(total(o[i] for o in outs) for i in (1, 2, 3)))
+
+    def plain(parts):
+        kv = total(P.favor_qkv_bwd_kv_plain(x, *ln, mk) for x, mk, _ in parts)
+        qs = [P.favor_qkv_bwd_q_plain(x, kv, *ln, mk, gc)
+              for x, mk, gc in parts]
+        g_kv = total(q[0] for q in qs)
+        outs = [P.favor_qkv_bwd_k_plain(x, g_kv, *ln, mk, q[1])
+                for (x, mk, _), q in zip(parts, qs)]
+        return (torch.cat([o[0] for o in outs], 1),
+                *(total(o[i] for o in outs) for i in (1, 2, 3)))
+
+    out = {}
+    f32 = torch.float32
+    for dtype in (torch.bfloat16, f32):
+        qkv = t(B, T, 3 * H * D).to(dtype)
+        g = t(B, T, H * D).to(dtype)
+        whole = P.favor_qkv_bwd(qkv, *ln, mask, g)
+        el = qkv.element_size()
+        for sp in (2, 4):
+            cuts = [ExpertMesh.frames(SimpleNamespace(sp=sp), T, s)
+                    for s in range(sp)]
+            parts = [(qkv[:, a:b].contiguous(), mask[:, a:b].contiguous(),
+                      g[:, a:b].contiguous()) for a, b in cuts]
+            got = kernels(parts)
+            torch.cuda.synchronize()
+            ref = plain(parts)
+            sizes = "/".join(str(b - a) for a, b in cuts)
+            dts = (dtype, f32, f32, f32)
+            compare(f"favor_qkv_bwd split {sizes} {str(dtype)[6:]} vs whole "
+                    "favor_qkv_bwd", got, whole, dts)
+            err = compare(f"favor_qkv_bwd split {sizes} {str(dtype)[6:]} vs "
+                          "plain split", got, ref, dts)
+            if sp != 4 or dtype != torch.bfloat16:
+                continue
+            x, mk, gc = parts[0]
+            Tc = x.shape[1]
+            no = dict(need_dproj=False)
+            kv = total(P.favor_qkv_bwd_kv_plain(y, *ln, c)
+                       for y, c, _ in parts)
+            _, split = P.favor_qkv_bwd_kv(x, *ln, mk, **no)
+            g_kv = P.favor_qkv_bwd_q(split, kv, gc)
+            part = P.favor_qkv_bwd_q_plain(x, kv, *ln, mk, gc, **no)[1]
+            # the bytes each launch's function must move: its rows, kv and
+            # g_kv; the scratch and the accumulators that this design hands
+            # between launches are not counted
+            rows, kvb = B * Tc * H * D * el, B * H * m * D * 4
+            fns = {  # kernel, plain, bytes, products
+                # k, v read; kv written; two products
+                "favor_qkv_bwd_kv": (
+                    lambda: P.favor_qkv_bwd_kv(x, *ln, mk, **no),
+                    lambda: P.favor_qkv_bwd_kv_plain(x, *ln, mk),
+                    2 * rows + kvb, 2),
+                # q, k, g and kv read; d(q) and g_kv written; five products
+                "favor_qkv_bwd_q": (
+                    lambda: P.favor_qkv_bwd_q(split, kv, gc),
+                    lambda: P.favor_qkv_bwd_q_plain(x, kv, *ln, mk, gc,
+                                                    **no),
+                    4 * rows + 2 * kvb, 5),
+                # k, v and g_kv read; d(k), d(v) and d(ln) written; three
+                "favor_qkv_bwd_k": (
+                    lambda: P.favor_qkv_bwd_k(split, g_kv),
+                    lambda: P.favor_qkv_bwd_k_plain(x, g_kv, *ln, mk, part,
+                                                    **no),
+                    4 * rows + kvb + 2 * D * 4, 3)}
+            for name, (kernel, plain_fn, nbytes, products) in fns.items():
+                k_ms, p_ms = paired_ms(kernel, plain_fn, iters=10)
+                b_ms, b_by, _ = favor_bound(
+                    nbytes + (2 * D + D * m + B * Tc) * 4,
+                    products * 2 * B * H * Tc * D * m)
+                print(f"[D1] {name} {str(dtype)[6:]} B={B} T={Tc} (a rank "
+                      f"of {sizes}; {cluster_s(B * H, dev, 1)}): kernel "
+                      f"{k_ms:.4f} ms, plain {p_ms:.4f} ms per call (CUDA "
+                      f"events); device time kernel {device_ms(kernel, 10)}"
+                      f", plain {device_ms(plain_fn, 10)} (torch.profiler); "
+                      f"bound {b_ms:.4f} ms ({b_by}, 3xTF32 on the tensor "
+                      f"cores); no PyTorch call computes it ({card})")
+                out[(name, Tc)] = (err, k_ms, p_ms, b_ms, b_by, None)
+            whole_c = lambda: P.favor_qkv_bwd(  # noqa: E731
+                x, *ln, mk, gc, need_dproj=False)
+            print(f"[D1] the whole favor_qkv_bwd on the same 50 frames (one "
+                  f"rank's rows, kv and g_kv not summed): "
+                  f"{time_ms(whole_c, 10):.4f} ms per call (CUDA events) "
+                  f"({card})")
+    return out
 
 
 def synthetic_batch(cfg, dev, B=32, seed=SEED + 20):
@@ -6175,17 +6308,22 @@ def phase_n(dev, card):
 
 P_LAYERS = 1   # the flagship's blocks a scale in P (full width)
 P_W = 4        # ranks sharing the card: two model groups of two
-P_CASES = {    # name: (ep, moe_compute, zero1, reference)
-    "dp2tp2_dense": (1, "dense", False, "dense"),
-    "ep2tp2_dispatch_zero1": (2, "dispatch", True, "chunks")}
+P_CASES = {    # name: (ep, tp, sp, moe_compute, zero1, reference)
+    "sp2tp2_dense": (1, 2, 2, "dense", False, "dense"),
+    "sp4_dense": (1, 1, 4, "dense", False, "dense"),
+    "ep2tp2_dispatch_zero1": (2, 2, 1, "dispatch", True, "chunks")}
+# kernels 1 and 3 on a seq rank: the split's launches
+SPLIT_KERNELS = ("favor_qkv_moments", "favor_qkv_apply", "favor_qkv_bwd_kv",
+                 "favor_qkv_bwd_q", "favor_qkv_bwd_k")
+P_KERNELS = M_KERNELS + SPLIT_KERNELS
 P_STEP_ABS = 2e-6   # the update of the gathered gradient, and the EMA
 P_MU_REL = 1e-5     # mu against the one-process Adam's, of its largest
 
 
-def p_config(compute="dense_fused", ep=1, zero1=False, tp=2):
+def p_config(compute="dense_fused", ep=1, zero1=False, tp=2, sp=1):
     """The flagship at P_LAYERS blocks a scale (M1's config: dropout 0, no
-    stochastic depth, EMA 0.999, f32 compute) with ``compute`` over ``ep``
-    expert x ``tp`` model partitions."""
+    stochastic depth, EMA 0.999, f32 compute) with ``compute`` over ``sp``
+    seq x ``ep`` expert x ``tp`` model partitions."""
     from motiondiffusion_moe_tpu_torch.config import ExperimentConfig
 
     cfg = m_config(ExperimentConfig.moe_small())
@@ -6193,7 +6331,8 @@ def p_config(compute="dense_fused", ep=1, zero1=False, tp=2):
         cfg, model=dataclasses.replace(cfg.model, num_layers=P_LAYERS,
                                        moe_compute=compute),
         parallel=dataclasses.replace(cfg.parallel, num_expert_partitions=ep,
-                                     num_model_partitions=tp, zero1=zero1))
+                                     num_model_partitions=tp,
+                                     num_seq_partitions=sp, zero1=zero1))
 
 
 def p_step(name, weights, batch_path, dev):
@@ -6211,18 +6350,20 @@ def p_step(name, weights, batch_path, dev):
     from motiondiffusion_moe_tpu_torch.training import train_state as TS
     from motiondiffusion_moe_tpu_torch.training.trainer import Trainer
 
-    ep, compute, zero1, _ = P_CASES[name]
-    trainer = Trainer(p_config(compute, ep, zero1), device=dev)
+    ep, tp, sp, compute, zero1, _ = P_CASES[name]
+    trainer = Trainer(p_config(compute, ep, zero1, tp, sp), device=dev)
     mesh, model = trainer.dp, trainer.model
     model.load_state_dict(weights)
     shard_params(model)
     model.to(dev)
     state = TS.create_train_state(model, trainer.cfg, dp=mesh)
     opt = state.optimizer
-    h = M_B // mesh.holders  # the model ranks of a row-holder share rows
+    # the model and seq ranks of a row-holder share rows (a seq rank's step
+    # takes its frames)
+    h = M_B // mesh.holders
     batch, noise = m_rows(batch_path, dev, slice(mesh.q * h,
                                                  (mesh.q + 1) * h))
-    counted = [getattr(P, k) for k in M_KERNELS]
+    counted = [getattr(P, k) for k in P_KERNELS]
     for c in counted:
         c.launches = 0
     caught = {}
@@ -6359,18 +6500,26 @@ def p_rank(spec_path, rank):
         res["refs_s"] = time.perf_counter() - t0
     barrier()
     n_perf = 2 * 2 * P_LAYERS
-    for name, (ep, compute, _, kind) in P_CASES.items():
+    for name, (ep, tp, sp, compute, _, kind) in P_CASES.items():
         out = p_step(name, weights, spec["batch"], dev)
+        # a seq rank launches kernels 1 and 3 split, never whole
+        split = set(SPLIT_KERNELS) if sp > 1 else {"favor_qkv",
+                                                    "favor_qkv_bwd"}
+        runs = (set(P_KERNELS) - {"favor_qkv", "favor_qkv_bwd"}
+                - set(SPLIT_KERNELS)) | split
+        d, e = rank // (tp * ep * sp), rank // tp % ep
+        holders = W // (sp * ep * tp) * ep
         line = {"ms": round(out["ms"], 1),
                 "peak_GiB": round(out["peak_bytes"] / 2 ** 30, 2),
                 "launches": out["launches"], "shares_ok": out["shares_ok"],
                 "cut_leaves": out["cut_leaves"],
                 "row_holder": out["row_holder"],
                 "computes": out["computes"], "loss": out["loss"]}
-        ok = (out["shares_ok"] and out["cut_leaves"] > 0
-              and out["launches"] == {k: n_perf for k in M_KERNELS}
+        ok = (out["shares_ok"] and (out["cut_leaves"] > 0) == (tp > 1)
+              and out["launches"] == {k: n_perf if k in runs else 0
+                                      for k in P_KERNELS}
               and out["computes"] == [compute]
-              and out["row_holder"] == (rank // 2, 2))
+              and out["row_holder"] == (d * ep + e, holders))
         if rank == 0:
             cmp = p_compare(out, refs[kind], weights, dev)
             line["against_reference"] = cmp
@@ -6464,7 +6613,7 @@ def phase_p(dev, card):
 
 O_W = 4             # O1 and O2: ranks sharing the card
 O_MB = 16           # the micro-batch (16 prompts, one micro-batch in O1)
-O1_STEPS = 5        # O1's DPM-Solver++ steps (the budget's cut: 20 asked)
+O1_STEPS = 2        # O1's DPM-Solver++ steps (the budget's cut: 20 asked)
 # (data 2 x expert 2 in dense gave way to sp2_ep2, the dense expert split,
 # and dispatch_dp2_ep2, the data x expert rows; dispatch at seq 2 x expert
 # 2, 25 s of host-staged gathers a run, to the CPU tests)
@@ -6477,10 +6626,10 @@ O1_LAYOUTS = {      # name: ((dp, ep, tp, sp), moe_compute, capacity factor)
 O1_REL = 1e-3       # O1, f32 compute: rel RMS of the motions
 O2_REL = 1e-1       # O2, bf16 compute (routing flips): rel RMS per request
 O2_MB = 4           # O2's serving micro-batch
-O2_STEPS = 5        # O2's DPM-Solver++ steps
+O2_STEPS = 2        # O2's DPM-Solver++ steps (the budget's cut)
 O2_REQUESTS = [(1, 196, 11), (3, 150, 12), (6, 196, 13)]  # n, frames, seed
 O3_W = 8            # moe_big's expert partitions, one rank each
-O3_STEPS = 5        # O3's DPM-Solver++ steps
+O3_STEPS = 3        # O3's DPM-Solver++ steps (the budget's cut)
 O3_LAYERS = 1       # O3's blocks a scale (moe_big has 12; full width)
 # O3, f32 compute: rel RMS of the motions within O3_REL plus O3_FLOOR x the
 # one process's own dense against dense_fused (the same function summed in
@@ -7347,7 +7496,7 @@ def main() -> int:
     lap("M")
     phase_n(dev, card)
     lap("N")
-    phase_p(dev, card)
+    p_launches = phase_p(dev, card)
     lap("P")
     o_launches = phase_o(cfg, dev, card)
     lap("O")
@@ -7374,6 +7523,12 @@ def main() -> int:
         ("favor_qkv_bwd", "favor_qkv_bwd.cu",
          ops + "performer_pallas_bwd.py:70", d3_launches["favor_qkv_bwd"],
          d1[("favor_qkv_bwd", 196)] + (None,)),
+        # kernel 3's three launches on a seq rank: launches on P1's seq 4
+        # ranks (each), numbers at the first rank's 50 frames
+        *((k, "favor_qkv_bwd_split.cu", ops + "performer_pallas_bwd.py:70",
+           p_launches["sp4_dense"][k], d1[(k, 50)])
+          for k in ("favor_qkv_bwd_kv", "favor_qkv_bwd_q",
+                    "favor_qkv_bwd_k")),
         ("performer_epilogue_bwd", "performer_epilogue_bwd.cu",
          ops + "performer_pallas_bwd.py:272",
          d4_launches["performer_epilogue_bwd"],

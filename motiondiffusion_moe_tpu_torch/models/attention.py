@@ -24,9 +24,12 @@ On a rank of a seq mesh (``seq``, the seq ranks' group, set by
 and the FAVOR+ kv, the one sum over T, is closed across the ranks: the
 moments of its frames (``favor_qkv_moments``, or kernel 8's), an f32
 all-reduce over ``seq``, then the apply (``favor_qkv_apply``), kernels or
-plain versions as ``use_kernels`` / ``use_pallas`` say. Everything else in
-a block is per position or over the text tokens. That path runs without
-grad only (generation): under grad it raises (ROADMAP item 6c1b-ii).
+plain versions as ``use_kernels`` / ``use_pallas`` say
+(``ops/performer.py::favor_qkv_split``, ``favor_attention_split`` and
+their plain forms). Under grad the backward closes kv and g_kv over the
+ranks the same way (kernel 3 in three launches). Everything else in a block
+is per position or over the text tokens; a dropout on the rank's frames
+draws the whole T's mask (``models/layers.py::dropout``, ``ctx.frames``).
 """
 
 from __future__ import annotations
@@ -57,17 +60,13 @@ from motiondiffusion_moe_tpu_torch.ops.flash_attention import (
 )
 from motiondiffusion_moe_tpu_torch.ops.performer import (
     favor_attention,
-    favor_attention_apply,
-    favor_attention_apply_plain,
-    favor_attention_moments,
-    favor_attention_moments_plain,
     favor_attention_plain,
+    favor_attention_split,
+    favor_attention_split_plain,
     favor_qkv,
-    favor_qkv_apply,
-    favor_qkv_apply_plain,
-    favor_qkv_moments,
-    favor_qkv_moments_plain,
     favor_qkv_plain,
+    favor_qkv_split,
+    favor_qkv_split_plain,
 )
 
 
@@ -82,14 +81,6 @@ def orthogonal_feature_init(d: int, m: int,
     w = q[:d, :m]
     w = w / torch.linalg.vector_norm(w, dim=0, keepdim=True)
     return (w * d ** -0.25).float()
-
-
-def check_seq_no_grad() -> None:
-    """The seq ranks' FAVOR+ split runs without grad only."""
-    if torch.is_grad_enabled():
-        raise NotImplementedError(
-            "a Performer over a seq mesh runs without grad (generation); "
-            "training over seq is ROADMAP.md queue 1, item 6c1b-ii")
 
 
 def _l2_compute_dtype(x: torch.Tensor) -> torch.Tensor:
@@ -143,13 +134,9 @@ class FastAttention(nn.Module):
         q, k, v = (t.float().contiguous() for t in (q, k, v))
         proj = self.projection.float()
         if self.seq is not None:  # kv closed over the seq ranks
-            check_seq_no_grad()
-            moments, apply = ((favor_attention_moments, favor_attention_apply)
-                              if self.use_pallas
-                              else (favor_attention_moments_plain,
-                                    favor_attention_apply_plain))
-            kv = self.seq.sum_(moments(k, v, proj, mask))
-            out = apply(q, k, kv, proj, mask, self.eps)
+            split = (favor_attention_split if self.use_pallas
+                     else favor_attention_split_plain)
+            out = split(q, k, v, proj, mask, self.seq, self.eps)
         else:
             fn = favor_attention if self.use_pallas else favor_attention_plain
             out = fn(q, k, v, proj, mask, self.eps)
@@ -241,13 +228,9 @@ class PerformerSelfAttention(nn.Module):
             ln = (self.fa_norm_scale.float(), self.fa_norm_bias.float(),
                   self.fa_projection.float())
             if self.seq is not None:  # kv closed over the seq ranks
-                check_seq_no_grad()
-                moments, apply = ((favor_qkv_moments, favor_qkv_apply)
-                                  if self.use_kernels
-                                  else (favor_qkv_moments_plain,
-                                        favor_qkv_apply_plain))
-                kv = self.seq.sum_(moments(qkv, *ln, src_mask))
-                attn = apply(qkv, kv, *ln, src_mask)
+                split = (favor_qkv_split if self.use_kernels
+                         else favor_qkv_split_plain)
+                attn = split(qkv, *ln, src_mask, self.seq)
             else:
                 favor = favor_qkv if self.use_kernels else favor_qkv_plain
                 attn = favor(qkv, *ln, src_mask)

@@ -32,7 +32,7 @@ from __future__ import annotations
 import functools
 import math
 from dataclasses import dataclass, field
-from typing import List, Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -43,22 +43,38 @@ from motiondiffusion_moe_tpu_torch.ops import activations
 LN_EPS = 1e-6
 
 
+class MoEBalance(NamedTuple):
+    """One MoE layer's balance statistics in a training forward: ``f``
+    and ``p`` (``moe.py::switch_balance``) over the ``tokens`` it routed,
+    and whether this rank's are the ones a global batch counts (``once``:
+    False on the seq ranks but the first where every seq rank routed the
+    same whole T, as ``dispatch`` does)."""
+
+    f: torch.Tensor
+    p: torch.Tensor
+    tokens: int
+    once: bool = True
+
+
 @dataclass
 class TrainContext:
     """What one training forward threads through the modules: the generator
     every random draw comes from (on the activations' device), and each
-    MoE layer's balance statistics (f, P) (``moe.py::switch_balance``),
-    from which :attr:`aux_losses` are its Switch aux losses."""
+    MoE layer's balance statistics (:class:`MoEBalance`), from which
+    :attr:`aux_losses` are its Switch aux losses."""
 
     generator: Optional[torch.Generator] = None
-    moe_balance: List[Tuple[torch.Tensor, torch.Tensor]] = field(
-        default_factory=list)
+    moe_balance: List[MoEBalance] = field(default_factory=list)
+    # on a seq rank, (t0, t1, T): the frames of T that the activations at
+    # the scale being run hold (set by the denoiser; None without a seq
+    # mesh)
+    frames: Optional[Tuple[int, int, int]] = None
 
     @property
     def aux_losses(self) -> List[torch.Tensor]:
         """The MoE aux losses the forward collected, E * sum_i f_i P_i a
         layer."""
-        return [f.numel() * torch.sum(f * p) for f, p in self.moe_balance]
+        return [b.f.numel() * torch.sum(b.f * b.p) for b in self.moe_balance]
 
 
 def dropout(x: torch.Tensor, rate: float, training: bool,
@@ -69,8 +85,11 @@ def dropout(x: torch.Tensor, rate: float, training: bool,
     1 / (1 - rate). The mask is drawn from ``ctx.generator``; a training
     forward with dropout and no generator raises. ``columns = (m, tp)``:
     ``x`` is block m of ``tp`` equal blocks of the last dim (a column-split
-    hidden); the whole width's mask is drawn, as one process draws it, and
-    block m of it kept, so the model ranks' generators stay in step."""
+    hidden). While ``ctx.frames = (t0, t1, T)`` is set (a seq rank's
+    denoiser blocks in training), dim -2 of ``x`` is T and holds frames t0
+    .. t1 - 1 of it. The whole mask is drawn, as one process draws it, and
+    the rank's block of it kept, so that the generators of the ranks that
+    share rows stay in step."""
     if not training or rate <= 0.0:
         return x
     if ctx is None or ctx.generator is None:
@@ -80,8 +99,14 @@ def dropout(x: torch.Tensor, rate: float, training: bool,
         return torch.zeros_like(x)
     m, tp = columns or (0, 1)
     n = x.shape[-1]
-    keep = torch.empty(x.shape[:-1] + (n * tp,), device=x.device).bernoulli_(
+    shape = x.shape[:-1] + (n * tp,)
+    if ctx.frames is not None:
+        t0, t1, T = ctx.frames
+        shape = x.shape[:-2] + (T, n * tp)
+    keep = torch.empty(shape, device=x.device).bernoulli_(
         1.0 - rate, generator=ctx.generator)[..., m * n:(m + 1) * n]
+    if shape[:-1] != x.shape[:-1]:
+        keep = keep[..., t0:t1, :]
     return torch.where(keep.bool(), x / (1.0 - rate), torch.zeros_like(x))
 
 

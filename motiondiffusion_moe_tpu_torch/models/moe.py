@@ -49,8 +49,11 @@ axis ``replicated_ep_moe_ffn``, which cuts them into JAX's chunks. A seq
 rank holds its own frames of its rows: the dense computes are per token,
 and ``dispatch``, whose chunks and capacity JAX counts on the flattened
 ``[B * T]`` tokens of whole T, gathers the seq ranks' frames first
-(``ExpertMesh.gather_frames``), routes and dispatches as above, and keeps
-its own frames of the output. With a
+(``ExpertMesh.gather_frames``; in training its backward sums each frame's
+gradient over the seq ranks), routes and dispatches as above, and keeps
+its own frames of the output; every seq rank then holds the same whole-T
+balance statistics, which the first of them counts (``MoEBalance.once``).
+With a
 model axis (``model_split``: the hidden width cut as JAX's Megatron rule
 cuts it; the model ranks hold the same tokens) the experts' second product
 is summed over the model ranks before ``b2`` (``expert_ffn_tp`` under
@@ -82,6 +85,7 @@ from motiondiffusion_moe_tpu_torch.models.embeddings import StylizationBlock
 from motiondiffusion_moe_tpu_torch.models.layers import (
     Dense,
     LayerNorm,
+    MoEBalance,
     TrainContext,
     dropout,
     lecun_normal_,
@@ -256,7 +260,7 @@ class SwitchMoELayer(nn.Module):
         """x: [..., D] -> same shape; with ``with_metrics`` also returns
         :func:`moe_metrics` of this call's routing. With a ``ctx`` the
         layer's :func:`switch_balance`, which makes its aux loss, is
-        appended to ``ctx.moe_balance``."""
+        appended to ``ctx.moe_balance`` (a ``MoEBalance``)."""
         dt = self.dtype
         mesh = self.mesh
         seq_cut = (self.compute == "dispatch" and mesh is not None
@@ -264,15 +268,18 @@ class SwitchMoELayer(nn.Module):
         if seq_cut:  # JAX's chunks are of whole T: gather the frames
             sizes = mesh.frame_sizes(x.shape[1], x.device)
             lo = sum(sizes[:mesh.s])
-            x = mesh.gather_frames(x, sizes)
+            # backward: each frame's gradient summed over the seq ranks
+            x = mesh.gather_frames(x, sizes, backward="sum")
         shape = x.shape
         x_flat = x.reshape(-1, shape[-1]).to(dt)
         S, D = x_flat.shape
         E = self.num_experts
         probs = torch.softmax(self._router_logits(x_flat), dim=-1)
         top_vals, top_idx = top_k_lowest_index(probs, self.top_k)
-        if ctx is not None:
-            ctx.moe_balance.append(switch_balance(probs, top_idx[:, 0], E))
+        if ctx is not None:  # whole-T statistics count on one seq rank
+            ctx.moe_balance.append(MoEBalance(
+                *switch_balance(probs, top_idx[:, 0], E), S,
+                not seq_cut or mesh.s == 0))
         w1, b1, w2, b2 = (p.to(dt) for p in (self.w1, self.b1, self.w2,
                                               self.b2))
         ep = mesh.ep if mesh is not None else 1

@@ -23,6 +23,10 @@ falls on the last rank's odd share alone, and the up-sampling's crop is to
 the rank's own frames (JAX's seq axis, ``transformer.py:326-335``, with the
 Performers' kv closed over the ranks, ``models/attention.py``). Nothing
 gathers T here; ``dispatch`` gathers it for its chunks (``models/moe.py``).
+A training forward takes ``frames=(t0, t1, T)``: ``ctx.frames`` then holds
+each scale's frames (``[t0 / 2, ceil(t1 / 2))`` of ``ceil(T / 2)`` at the
+low one), from which a dropout on the rank's frames draws the whole T's
+mask and keeps its own (``models/layers.py::dropout``).
 """
 
 from __future__ import annotations
@@ -209,10 +213,11 @@ class MotionTransformer(nn.Module):
                 xf_proj: Optional[torch.Tensor] = None,
                 xf_out: Optional[torch.Tensor] = None,
                 ctx: Optional[TrainContext] = None,
-                frames: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+                frames: Optional[Tuple[int, ...]] = None) -> torch.Tensor:
         """In training mode ``ctx`` supplies the generator of every random
         draw and collects the MoE aux losses; on a rank of a seq mesh x
-        holds the global ``frames`` ``[t0, t1)`` (see the module doc)."""
+        holds the global ``frames`` ``[t0, t1)`` (``(t0, t1, T)`` in
+        training; see the module doc)."""
         dt = self.dtype
         B, T, _ = x.shape
         t0 = self._frame_offset(T, frames)
@@ -231,13 +236,33 @@ class MotionTransformer(nn.Module):
 
         h_low = self._conv(self.downsample, h)
         mask_low = generate_src_mask(h_low.shape[1], length // 2, t0 // 2)
+        whole = self._scale_frames(ctx, frames)
+        if whole is not None:  # the low scale's frames of ceil(T / 2)
+            ctx.frames = (t0 // 2, t0 // 2 + h_low.shape[1], -(-whole // 2))
         h_low = self._run_blocks(self.blocks_low, h_low, xf_out, fused_emb,
                                  mask_low, ctx)
         up = self._conv(self.upsample, h_low)[:, :T]
         h = round_keeping_f32(up.float() + h, dt)
+        if whole is not None:
+            ctx.frames = (t0, t0 + T, whole)
         h = self._run_blocks(self.blocks_high, h, xf_out, fused_emb, src_mask,
                              ctx)
+        if whole is not None:
+            ctx.frames = None
         return self.out(h).float()
+
+    def _scale_frames(self, ctx: Optional[TrainContext],
+                      frames) -> Optional[int]:
+        """The whole T of a seq rank's training forward (None otherwise):
+        its dropout masks are the whole T's, so it needs ``frames=(t0, t1,
+        T)``."""
+        if frames is None or ctx is None or not self.training:
+            return None
+        if len(frames) != 3:
+            raise ValueError(
+                f"frames={tuple(frames)}: a seq rank's training forward "
+                "takes frames=(t0, t1, T), T the whole sequence's frames")
+        return frames[2]
 
     def _frame_offset(self, T: int, frames) -> int:
         """t0 of the frames x holds (0 without a seq mesh); raises unless
@@ -250,8 +275,8 @@ class MotionTransformer(nn.Module):
                 f"frames={frames}, but the model has no seq mesh")
         if frames is None:
             return 0
-        t0, t1 = frames
-        if t0 % 2 or t1 - t0 != T:
+        t0, t1 = frames[:2]
+        if t0 % 2 or t1 - t0 != T or (len(frames) == 3 and t1 > frames[2]):
             raise ValueError(f"frames {frames} for x of {T} frames: t0 must "
                              "be even and t1 - t0 the frames of x")
         return t0

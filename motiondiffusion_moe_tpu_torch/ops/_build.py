@@ -199,6 +199,23 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
                                               + [i] * 5  # B H T D M
                                               + [f, i, vp])  # eps C stream
     lib.mdm_favor_attention_apply.restype = i
+    lib.mdm_favor_qkv_bwd_split_scratch_floats.argtypes = [i] * 7
+    lib.mdm_favor_qkv_bwd_split_scratch_floats.restype = ctypes.c_longlong
+    lib.mdm_favor_qkv_bwd_kv.argtypes = ([vp] * 7    # qkv LN proj mask kv
+                                         #             scratch
+                                         + [i] * 7   # B T H D M bf16 mxu
+                                         + [f, i, i, vp])  # pre dp C s
+    lib.mdm_favor_qkv_bwd_kv.restype = i
+    lib.mdm_favor_qkv_bwd_q.argtypes = ([vp] * 10    # qkv LN proj mask g
+                                        #              kv dqkv g_kv scratch
+                                        + [i] * 7    # B T H D M bf16 mxu
+                                        + [f, f, i, i, vp])  # eps pre dp C s
+    lib.mdm_favor_qkv_bwd_q.restype = i
+    lib.mdm_favor_qkv_bwd_k.argtypes = ([vp] * 11    # qkv LN proj mask g_kv
+                                        #              dqkv d_ln d_proj sc
+                                        + [i] * 7    # B T H D M bf16 mxu
+                                        + [f, f, i, vp])  # eps pre C s
+    lib.mdm_favor_qkv_bwd_k.restype = i
     lib.mdm_favor_attention_full.argtypes = ([vp] * 9    # tensors, scratch
                                              + [i] * 6   # B T H D M bf16
                                              + [f, f, i, vp])  # eps pre C s

@@ -33,8 +33,16 @@ and :func:`favor_qkv_apply` (the output from the seq ranks' summed kv), and
 kernel 8 as :func:`favor_attention_moments` / :func:`favor_attention_apply`;
 their plain versions (``*_moments_plain``, ``*_apply_plain``) are the steps
 :func:`favor_full_plain` and :func:`favor_attention_plain` are built from.
-The JAX package has no such split: it turns its kernels off under a seq
-axis. Forward only.
+Kernel 3 runs as three launches, :func:`favor_qkv_bwd_kv` (kv of the
+rank's rows again), :func:`favor_qkv_bwd_q` (d(q) and g_kv of the rank's
+rows from the summed kv) and :func:`favor_qkv_bwd_k` (d(k), d(v) and the
+rank's share of d(ln), d(proj) from the summed g_kv), with plain versions
+``favor_qkv_bwd_{kv,q,k}_plain``. :func:`favor_qkv_split` is the
+differentiable whole of it (moments, the seq all-reduce of kv, apply;
+backward: kv, all-reduce, q, all-reduce of g_kv, k), and
+:func:`favor_attention_split` kernel 8's, its backward through the plain
+steps. The JAX package has no such split: it turns its kernels off under a
+seq axis.
 
 ``FAVOR_MXU_BF16=1`` (the JAX package's switch, read once per call of
 :func:`favor_qkv`, as ``performer_pallas.py`` reads it for kernel 1) runs
@@ -446,6 +454,74 @@ def favor_qkv_bwd_plain(qkv: torch.Tensor, ln_scale: torch.Tensor,
     return (*grads[:3], grads[3] if need_dproj else None)
 
 
+def _split_leaves(qkv, ln_scale, ln_bias, projection, need_dproj):
+    """The leaves a plain step of kernel 3's split differentiates: qkv in
+    f32 (its two steps' shares add up before the one rounding to its dtype,
+    as the whole backward's do), the LayerNorm vectors and the projection
+    (with ``need_dproj``)."""
+    xs = [t.detach().float().requires_grad_()
+          for t in (qkv, ln_scale, ln_bias)]
+    return xs + ([projection.detach().float().requires_grad_()]
+                 if need_dproj else [])
+
+
+def favor_qkv_bwd_kv_plain(qkv: torch.Tensor, ln_scale: torch.Tensor,
+                           ln_bias: torch.Tensor, projection: torch.Tensor,
+                           mask: Optional[torch.Tensor] = None,
+                           pre_scale: float = 0.1,
+                           product: Optional[Callable] = None
+                           ) -> torch.Tensor:
+    """Kernel 3's first step on a seq rank's rows: their kv [B, H, m, D]
+    f32, times 0.1 (:func:`favor_qkv_moments_plain`); the seq ranks' sum of
+    it is the whole T's."""
+    with torch.no_grad():
+        return favor_qkv_moments_plain(qkv, ln_scale, ln_bias, projection,
+                                       mask, pre_scale, product)
+
+
+def favor_qkv_bwd_q_plain(qkv: torch.Tensor, kv: torch.Tensor,
+                          ln_scale: torch.Tensor, ln_bias: torch.Tensor,
+                          projection: torch.Tensor,
+                          mask: Optional[torch.Tensor], g: torch.Tensor,
+                          eps: float = 1e-6, pre_scale: float = 0.1,
+                          need_dproj: bool = True,
+                          product: Optional[Callable] = None):
+    """Kernel 3's second step on a seq rank's rows, from ``kv`` (the seq
+    ranks' sum) and the output's gradient ``g``: (g_kv [B, H, m, D] f32,
+    the gradient of ``kv`` from these rows; ``part``, what this step adds
+    to d(qkv) (f32), d(ln_scale), d(ln_bias) and d(proj)). The seq ranks'
+    sum of g_kv goes to :func:`favor_qkv_bwd_k_plain` with ``part``."""
+    with torch.enable_grad():
+        xs = _split_leaves(qkv, ln_scale, ln_bias, projection, need_dproj)
+        kv = kv.detach().float().requires_grad_()
+        out = favor_qkv_apply_plain(xs[0], kv, xs[1], xs[2],
+                                    xs[3] if need_dproj else projection,
+                                    mask, eps, pre_scale, product)
+        grads = torch.autograd.grad(out, [kv] + xs, g.float())
+    return grads[0], grads[1:]
+
+
+def favor_qkv_bwd_k_plain(qkv: torch.Tensor, g_kv: torch.Tensor,
+                          ln_scale: torch.Tensor, ln_bias: torch.Tensor,
+                          projection: torch.Tensor,
+                          mask: Optional[torch.Tensor], part,
+                          pre_scale: float = 0.1, need_dproj: bool = True,
+                          product: Optional[Callable] = None):
+    """Kernel 3's third step on a seq rank's rows, from ``g_kv`` (the seq
+    ranks' sum) and the second step's ``part``: (d qkv in qkv's dtype, the
+    rows' shares of d ln_scale, d ln_bias and d projection or None), as
+    :func:`favor_qkv_bwd_plain` returns them; summed over the seq ranks the
+    last three are the whole T's."""
+    with torch.enable_grad():
+        xs = _split_leaves(qkv, ln_scale, ln_bias, projection, need_dproj)
+        kv = favor_qkv_moments_plain(xs[0], xs[1], xs[2],
+                                     xs[3] if need_dproj else projection,
+                                     mask, pre_scale, product)
+        grads = torch.autograd.grad(kv, xs, g_kv.float())
+    dqkv, ds, dc, *dp = (a + b for a, b in zip(part, grads))
+    return dqkv.to(qkv.dtype), ds, dc, dp[0] if need_dproj else None
+
+
 def performer_epilogue_bwd_plain(y: torch.Tensor, scale: torch.Tensor,
                                  shift: torch.Tensor, post_scale: torch.Tensor,
                                  post_bias: torch.Tensor,
@@ -772,8 +848,7 @@ favor_qkv.launches = 0
 
 # ---------------------------------------------------------------------------
 # kernel 1 in two launches, for a seq rank's frames: the moments, the seq
-# ranks' all-reduce of kv (the caller's), the apply. Forward only: under
-# grad they raise (training over seq is ROADMAP item 6c1b-ii)
+# ranks' all-reduce of kv (the caller's), the apply
 # ---------------------------------------------------------------------------
 
 _SPLIT_FNS: dict = {}  # C entry name -> the library's function, taken once
@@ -786,15 +861,6 @@ def _split_entry(name: str):
 
         fn = _SPLIT_FNS[name] = getattr(library(), name)
     return fn
-
-
-def _no_grad_split(op: str, *xs) -> None:
-    if torch.is_grad_enabled() and any(
-            x is not None and x.requires_grad for x in xs):
-        raise NotImplementedError(
-            f"{op}: the seq split of the FAVOR+ kernel runs without grad "
-            "(generation); training over seq is ROADMAP.md queue 1, item "
-            "6c1b-ii")
 
 
 def _split_ok(qkv, ln_scale, ln_bias, projection, mask, kv) -> bool:
@@ -844,8 +910,7 @@ def favor_qkv_moments(qkv: torch.Tensor, ln_scale: torch.Tensor,
     tensors take :func:`favor_qkv_moments_plain`; CUDA tensors launch
     ``mdm_favor_qkv_moments`` of ``csrc/favor_qkv.cu`` (the inputs as for
     :func:`favor_qkv`). ``FAVOR_MXU_BF16=1`` as for :func:`favor_qkv`.
-    Forward only: raises under grad."""
-    _no_grad_split("favor_qkv_moments", qkv, ln_scale, ln_bias)
+    No gradient: :func:`favor_qkv_split` is the differentiable whole."""
     bf16 = mxu_bf16()
     if qkv.is_cpu:
         return favor_qkv_moments_plain(
@@ -885,9 +950,8 @@ def favor_qkv_apply(qkv: torch.Tensor, kv: torch.Tensor,
     T_rank, H*D] in qkv's dtype from ``kv`` [B, H, m, D] f32, the seq ranks'
     summed moments (:func:`favor_qkv_moments`). CPU tensors take
     :func:`favor_qkv_apply_plain`; CUDA tensors launch
-    ``mdm_favor_qkv_apply`` of ``csrc/favor_qkv.cu``. Forward only: raises
-    under grad."""
-    _no_grad_split("favor_qkv_apply", qkv, ln_scale, ln_bias)
+    ``mdm_favor_qkv_apply`` of ``csrc/favor_qkv.cu``. No gradient (see
+    :func:`favor_qkv_moments`)."""
     bf16 = mxu_bf16()
     if qkv.is_cpu:
         return favor_qkv_apply_plain(
@@ -918,6 +982,247 @@ def favor_qkv_apply(qkv: torch.Tensor, kv: torch.Tensor,
 
 
 favor_qkv_apply.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# kernel 3 in three launches, for a seq rank's frames: kv, the seq ranks'
+# all-reduce of kv, the q side and g_kv, the all-reduce of g_kv, the k and
+# v side (the all-reduces are the caller's)
+# ---------------------------------------------------------------------------
+
+class FavorBwdSplit:
+    """What the three launches of kernel 3's split share: the inputs, the
+    flags and, on the card, one scratch, d(qkv) (each launch writes its
+    thirds), the cluster size (all three take the same grid) and the
+    shapes; on the CPU the second step's ``part``."""
+
+    def __init__(self, qkv, ln_scale, ln_bias, projection, mask, pre_scale,
+                 need_dproj, bf16_products):
+        self.inputs = (qkv, ln_scale, ln_bias, projection, mask)
+        self.pre_scale, self.need_dproj = pre_scale, need_dproj
+        self.bf16 = bf16_products
+        self.product = bf16_operand_product if bf16_products else None
+        self.part = self.scratch = self.dqkv = None
+        if qkv.is_cpu:
+            return
+        B, T, HD3 = qkv.shape
+        D, m = projection.shape
+        H = HD3 // (3 * D)
+        self.dims = (B, T, H, D, m)
+        self.cluster = favor_cluster(B * H, qkv.device, 1)
+        self.scratch = torch.empty(
+            _split_entry("mdm_favor_qkv_bwd_split_scratch_floats")(
+                B, T, H, D, m, int(need_dproj), self.cluster),
+            dtype=torch.float32, device=qkv.device)
+        self.dqkv = torch.empty_like(qkv)
+
+    def head(self):
+        """The C entries' leading arguments: the inputs' pointers."""
+        qkv, ln_scale, ln_bias, projection, mask = self.inputs
+        return (qkv.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(),
+                projection.data_ptr(), _ptr(mask))
+
+    def tail(self):
+        """The shapes and the dtype flags."""
+        return (*self.dims, _KERNEL_DTYPES[self.inputs[0].dtype],
+                int(self.bf16))
+
+
+def _split_run(op: str, entry: str, index: int, args) -> None:
+    """Launch the C entry ``entry`` on card ``index``'s current stream, as
+    kernel 2 launches: no device context when it is the current card."""
+    fn = _split_entry(entry)
+    if index == torch.cuda.current_device():
+        rc = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(index):
+            rc = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    if rc != 0:
+        raise RuntimeError(f"{op} kernel launch failed: CUDA error {rc}")
+
+
+def favor_qkv_bwd_kv(qkv: torch.Tensor, ln_scale: torch.Tensor,
+                     ln_bias: torch.Tensor, projection: torch.Tensor,
+                     mask: Optional[torch.Tensor] = None,
+                     pre_scale: float = 0.1, need_dproj: bool = True,
+                     bf16_products: Optional[bool] = None):
+    """Kernel 3's first launch on a seq rank's frames: (kv [B, H, m, D]
+    f32 of these rows, times 0.1; the :class:`FavorBwdSplit` the next two
+    launches take). ``bf16_products`` as for :func:`favor_qkv_bwd`. CPU
+    tensors take :func:`favor_qkv_bwd_kv_plain`; CUDA tensors launch
+    ``mdm_favor_qkv_bwd_kv`` of ``csrc/favor_qkv_bwd_split.cu`` (the inputs
+    as for :func:`favor_qkv`)."""
+    if bf16_products is None:
+        bf16_products = mxu_bf16()
+    if qkv.is_cpu:
+        split = FavorBwdSplit(qkv, ln_scale, ln_bias, projection, mask,
+                              pre_scale, need_dproj, bf16_products)
+        return favor_qkv_bwd_kv_plain(qkv, ln_scale, ln_bias, projection,
+                                      mask, pre_scale, split.product), split
+    if not _split_ok(qkv, ln_scale, ln_bias, projection, mask, None):
+        _check_split("favor_qkv_bwd_kv", qkv, ln_scale, ln_bias, projection,
+                     mask, None)
+    split = FavorBwdSplit(qkv, ln_scale, ln_bias, projection, mask,
+                          pre_scale, need_dproj, bf16_products)
+    B, _, H, D, m = split.dims
+    kv = torch.empty((B, H, m, D), dtype=torch.float32, device=qkv.device)
+    _split_run("favor_qkv_bwd_kv", "mdm_favor_qkv_bwd_kv", qkv.get_device(),
+               (*split.head(), kv.data_ptr(), split.scratch.data_ptr(),
+                *split.tail(), pre_scale, int(need_dproj), split.cluster))
+    favor_qkv_bwd_kv.launches += 1
+    return kv, split
+
+
+favor_qkv_bwd_kv.launches = 0
+
+
+def favor_qkv_bwd_q(split: FavorBwdSplit, kv: torch.Tensor,
+                    g: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """Kernel 3's second launch: from ``kv`` (the seq ranks' sum of
+    :func:`favor_qkv_bwd_kv`'s) and the output's gradient ``g`` [B,
+    T_rank, H*D] (contiguous, in qkv's dtype), d(q) of the rank's rows and
+    their g_kv [B, H, m, D] f32, times 0.1, which it returns. CPU tensors
+    take :func:`favor_qkv_bwd_q_plain`; CUDA tensors launch
+    ``mdm_favor_qkv_bwd_q``."""
+    qkv, ln_scale, ln_bias, projection, mask = split.inputs
+    split.eps = eps
+    if qkv.is_cpu:
+        g_kv, split.part = favor_qkv_bwd_q_plain(
+            qkv, kv, ln_scale, ln_bias, projection, mask, g, eps,
+            split.pre_scale, split.need_dproj, split.product)
+        return g_kv
+    B, T, H, D, m = split.dims
+    if not (_split_ok(qkv, ln_scale, ln_bias, projection, mask, kv)
+            and g.dtype is qkv.dtype and g.shape == (B, T, H * D)
+            and g.is_contiguous() and g.get_device() == qkv.get_device()):
+        _require(g.device == qkv.device and g.dtype == qkv.dtype
+                 and g.shape == (B, T, H * D) and g.is_contiguous(),
+                 f"favor_qkv_bwd_q: g must be a contiguous {qkv.dtype} "
+                 f"[{B}, {T}, {H * D}] tensor on {qkv.device}, got "
+                 f"{g.dtype} {tuple(g.shape)} on {g.device}")
+        _check_split("favor_qkv_bwd_q", qkv, ln_scale, ln_bias, projection,
+                     mask, kv)
+    g_kv = torch.empty_like(kv)
+    _split_run("favor_qkv_bwd_q", "mdm_favor_qkv_bwd_q", qkv.get_device(),
+               (*split.head(), g.data_ptr(), kv.data_ptr(),
+                split.dqkv.data_ptr(), g_kv.data_ptr(),
+                split.scratch.data_ptr(), *split.tail(), eps,
+                split.pre_scale, int(split.need_dproj), split.cluster))
+    favor_qkv_bwd_q.launches += 1
+    return g_kv
+
+
+favor_qkv_bwd_q.launches = 0
+
+
+def favor_qkv_bwd_k(split: FavorBwdSplit, g_kv: torch.Tensor):
+    """Kernel 3's third launch: from ``g_kv`` (the seq ranks' sum of
+    :func:`favor_qkv_bwd_q`'s), (d qkv of the rank's rows, and these rows'
+    shares of d ln_scale, d ln_bias, d projection or None), as
+    :func:`favor_qkv_bwd` returns the whole T's. CPU tensors take
+    :func:`favor_qkv_bwd_k_plain`; CUDA tensors launch
+    ``mdm_favor_qkv_bwd_k``."""
+    qkv, ln_scale, ln_bias, projection, mask = split.inputs
+    if qkv.is_cpu:
+        return favor_qkv_bwd_k_plain(
+            qkv, g_kv, ln_scale, ln_bias, projection, mask, split.part,
+            split.pre_scale, split.need_dproj, split.product)
+    B, T, H, D, m = split.dims
+    if not _split_ok(qkv, ln_scale, ln_bias, projection, mask, g_kv):
+        _check_split("favor_qkv_bwd_k", qkv, ln_scale, ln_bias, projection,
+                     mask, g_kv)
+    f32 = dict(dtype=torch.float32, device=qkv.device)
+    ds, dc = torch.empty(D, **f32), torch.empty(D, **f32)
+    dp = torch.empty((D, m), **f32) if split.need_dproj else None
+    _split_run("favor_qkv_bwd_k", "mdm_favor_qkv_bwd_k", qkv.get_device(),
+               (*split.head(), g_kv.data_ptr(), split.dqkv.data_ptr(),
+                ds.data_ptr(), dc.data_ptr(), _ptr(dp),
+                split.scratch.data_ptr(), *split.tail(), split.eps,
+                split.pre_scale, split.cluster))
+    favor_qkv_bwd_k.launches += 1
+    return split.dqkv, ds, dc, dp
+
+
+favor_qkv_bwd_k.launches = 0
+
+
+class _FavorQKVSplit(torch.autograd.Function):
+    """Kernel 1 over the seq ranks (``group``, a ``DataGroup``), with its
+    backward kernel: forward, :func:`favor_qkv_moments`, the f32 sum of kv
+    over the group, :func:`favor_qkv_apply`; backward, kernel 3's three
+    launches with the sums of kv and of g_kv between them. Saves only the
+    inputs, as :class:`_FavorQKV`. Every seq rank runs the same sums in
+    the same order."""
+
+    @staticmethod
+    def forward(ctx, qkv, ln_scale, ln_bias, projection, mask, group, eps,
+                pre_scale):
+        ctx.save_for_backward(qkv, ln_scale, ln_bias, projection, mask)
+        ctx.group, ctx.eps, ctx.pre_scale = group, eps, pre_scale
+        ctx.bf16_products = mxu_bf16()
+        kv = group.sum_(favor_qkv_moments(qkv, ln_scale, ln_bias, projection,
+                                          mask, pre_scale))
+        return favor_qkv_apply(qkv, kv, ln_scale, ln_bias, projection, mask,
+                               eps, pre_scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        qkv, ln_scale, ln_bias, projection, mask = ctx.saved_tensors
+        kv, split = favor_qkv_bwd_kv(
+            qkv, ln_scale, ln_bias, projection, mask, ctx.pre_scale,
+            need_dproj=ctx.needs_input_grad[3],
+            bf16_products=ctx.bf16_products)
+        g_kv = favor_qkv_bwd_q(split, ctx.group.sum_(kv), g.contiguous(),
+                               ctx.eps)
+        dq, ds, dc, dp = favor_qkv_bwd_k(split, ctx.group.sum_(g_kv))
+        return dq, ds, dc, dp, None, None, None, None
+
+
+def favor_qkv_split(qkv: torch.Tensor, ln_scale: torch.Tensor,
+                    ln_bias: torch.Tensor, projection: torch.Tensor,
+                    mask: Optional[torch.Tensor], group, eps: float = 1e-6,
+                    pre_scale: float = 0.1) -> torch.Tensor:
+    """:func:`favor_qkv` on a seq rank's frames (qkv [B, T_rank, 3*H*D],
+    mask [B, T_rank]), the kv sum closed over ``group`` (the seq ranks'
+    ``DataGroup``): the rank's rows of the whole T's output, differentiable
+    (:class:`_FavorQKVSplit`). The kernels on CUDA tensors, the plain steps
+    on the CPU."""
+    return _FavorQKVSplit.apply(qkv, ln_scale, ln_bias, projection, mask,
+                                group, eps, pre_scale)
+
+
+class _SeqSum(torch.autograd.Function):
+    """The f32 sum over the seq ranks (``group``) of a partial sum over T
+    (kv): each rank's gradient is the sum of the ranks' gradients of the
+    total."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return group.sum_(x.clone())
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.group.sum_(g.clone()), None
+
+
+def seq_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` summed over the seq ranks of ``group``, differentiable."""
+    return _SeqSum.apply(x, group)
+
+
+def favor_qkv_split_plain(qkv: torch.Tensor, ln_scale: torch.Tensor,
+                          ln_bias: torch.Tensor, projection: torch.Tensor,
+                          mask: Optional[torch.Tensor], group,
+                          eps: float = 1e-6, pre_scale: float = 0.1,
+                          product: Optional[Callable] = None
+                          ) -> torch.Tensor:
+    """:func:`favor_qkv_split` in plain PyTorch: the moments, their sum
+    over ``group`` (:func:`seq_sum`), the apply; autograd sums g_kv."""
+    kv = seq_sum(favor_qkv_moments_plain(qkv, ln_scale, ln_bias, projection,
+                                         mask, pre_scale, product), group)
+    return favor_qkv_apply_plain(qkv, kv, ln_scale, ln_bias, projection,
+                                 mask, eps, pre_scale, product)
 
 
 _EPILOGUE_SLOTS: dict = {}  # (device index, D, dtype) -> blocks at once
@@ -1239,8 +1544,8 @@ def favor_attention_moments(k: torch.Tensor, v: torch.Tensor,
     Performer's core): k, v [B, H, T_rank, D] f32, mask [B, 1, T_rank] ->
     kv [B, H, m, D] f32. CPU tensors take
     :func:`favor_attention_moments_plain`; CUDA tensors launch
-    ``mdm_favor_attention_moments``. Forward only: raises under grad."""
-    _no_grad_split("favor_attention_moments", k, v)
+    ``mdm_favor_attention_moments``. No gradient:
+    :func:`favor_attention_split` is the differentiable whole."""
     if k.is_cpu:
         return favor_attention_moments_plain(k, v, projection, mask)
     B, H, T, D, m = _check_core_split("favor_attention_moments", k,
@@ -1270,8 +1575,7 @@ def favor_attention_apply(q: torch.Tensor, k: torch.Tensor, kv: torch.Tensor,
     """Kernel 8's second launch: f32 [B, H, T_rank, D] from q, k of the
     rank's frames and ``kv``, the seq ranks' summed moments. CPU tensors
     take :func:`favor_attention_apply_plain`; CUDA tensors launch
-    ``mdm_favor_attention_apply``. Forward only: raises under grad."""
-    _no_grad_split("favor_attention_apply", q, k)
+    ``mdm_favor_attention_apply``. No gradient."""
     if q.is_cpu:
         return favor_attention_apply_plain(q, k, kv, projection, mask, eps)
     B, H, T, D, m = _check_core_split("favor_attention_apply", q,
@@ -1293,6 +1597,50 @@ def favor_attention_apply(q: torch.Tensor, k: torch.Tensor, kv: torch.Tensor,
 
 
 favor_attention_apply.launches = 0
+
+
+def favor_attention_split_plain(q: torch.Tensor, k: torch.Tensor,
+                                v: torch.Tensor, projection: torch.Tensor,
+                                mask: Optional[torch.Tensor], group,
+                                eps: float = 1e-6) -> torch.Tensor:
+    """:func:`favor_attention_plain` on a seq rank's frames (q, k, v [B, H,
+    T_rank, D], mask [B, 1, T_rank]), the kv sum closed over ``group`` by
+    :func:`seq_sum`: differentiable through autograd."""
+    kv = seq_sum(favor_attention_moments_plain(k, v, projection, mask),
+                 group)
+    return favor_attention_apply_plain(q, k, kv, projection, mask, eps)
+
+
+class _FavorAttentionSplit(torch.autograd.Function):
+    """Kernel 8 over the seq ranks: forward, :func:`favor_attention_moments`,
+    the f32 sum of kv over ``group``, :func:`favor_attention_apply`;
+    backward through :func:`favor_attention_split_plain` (kv again and its
+    sum, then autograd, which sums g_kv), as :class:`_FavorAttention`'s
+    goes through the plain version: the TPU kernel has no backward
+    kernel."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, projection, mask, group, eps):
+        ctx.save_for_backward(q, k, v, projection, mask)
+        ctx.group, ctx.eps = group, eps
+        kv = group.sum_(favor_attention_moments(k, v, projection, mask))
+        return favor_attention_apply(q, k, kv, projection, mask, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (*plain_vjp(favor_attention_split_plain, ctx.saved_tensors,
+                           ctx.needs_input_grad, g, ctx.group, ctx.eps),
+                None, None)
+
+
+def favor_attention_split(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          projection: torch.Tensor,
+                          mask: Optional[torch.Tensor], group,
+                          eps: float = 1e-6) -> torch.Tensor:
+    """:func:`favor_attention` on a seq rank's frames with the kv sum closed
+    over ``group``: differentiable (:class:`_FavorAttentionSplit`), the
+    kernels on CUDA tensors and the plain steps on the CPU."""
+    return _FavorAttentionSplit.apply(q, k, v, projection, mask, group, eps)
 
 
 def _launch_favor_full(q, k, v, ln_scale, ln_bias, projection, mask, eps,

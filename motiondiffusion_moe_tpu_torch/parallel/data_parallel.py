@@ -39,11 +39,10 @@ formats and the exports read those names.
 
 Under the gloo backend each collective on CUDA tensors goes through host
 memory: gloo serves ranks that share one card, which NCCL refuses. The
-expert and model axes (``parallel/mesh.py``, ``parallel/moe_parallel.py``)
-build on these groups and their subgroups; the seq axis of the JAX
-``mesh.py`` runs in generation (``mesh.py::generation_mesh``) and raises in
-training (ROADMAP, queue 1, item 6c1b-ii); the pipe axis is not ported
-(item 6c2).
+seq, expert and model axes (``parallel/mesh.py``,
+``parallel/moe_parallel.py``) build on these groups and their subgroups,
+in generation and in training; the pipe axis is not ported (ROADMAP, queue
+1, item 6c2).
 """
 
 from __future__ import annotations

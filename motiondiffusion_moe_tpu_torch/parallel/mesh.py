@@ -39,14 +39,21 @@ numbering, rank ``r = (d * ep + e) * tp + m`` (``r = d * ep + e`` at ``tp =
   data index hold the same rows of the CFG-doubled batch, and ``dispatch``
   cuts their tokens into JAX's chunks itself (``parallel/moe_parallel.py``).
 
-The seq axis (generation only: ``generation_mesh(..., seq_parallel=sp)``)
-follows JAX's ``(data, seq, expert, model)`` layout (``make_mesh`` :45-76),
-rank ``r = ((d sp + s) ep + e) tp + m``; the numbering above is its ``sp =
-1`` case. The seq ranks of one ``(d, e, m)`` (the ``seq`` subgroup) hold the
-same rows, each its own frames of T (:meth:`ExpertMesh.frames`: cut points
-on even frames, so that the stride-2 down / up convolutions cut cleanly);
-the expert, data, model and shard groups are those of one ``s``. No leaf is
-cut over seq. Training over seq raises (ROADMAP item 6c1b-ii).
+The seq axis (``generation_mesh(..., seq_parallel=sp)``, or
+``num_seq_partitions`` in training) follows JAX's ``(data, seq, expert,
+model)`` layout (``make_mesh`` :45-76), rank ``r = ((d sp + s) ep + e) tp +
+m``; the numbering above is its ``sp = 1`` case. The seq ranks of one ``(d,
+e, m)`` (the ``seq`` subgroup) hold the same rows, each its own frames of T
+(:meth:`ExpertMesh.frames`: cut points on even frames, so that the stride-2
+down / up convolutions cut cleanly); the expert, data, model and shard
+groups are those of one ``s``. No leaf is cut over seq: in training the
+seq ranks' gradients are partial sums over their frames, summed with the
+rest of a leaf's holders (:attr:`ExpertMesh.blocks` take in every ``s``),
+and the row-holder ``q = d ep + e`` stays the ranks' of every ``s`` and
+``m``. :meth:`ExpertMesh.gather_frames` lays the seq ranks' frames end to
+end, with no gradient or with one of two backward rules (``"sum"`` for a
+computation every seq rank runs on the whole T and keeps its frames of,
+``"keep"`` for a value every seq rank computes alike from the whole T).
 
 A leaf's gradient is summed over the ranks that hold the same block of it
 (:attr:`ExpertMesh.blocks`): a replicated leaf over the world, a model-cut
@@ -129,7 +136,7 @@ class ExpertMesh(DataGroup):
     ``shard`` (None at ``tp = 1``; ``shard`` is ``expert`` then), ``seq``
     (None at ``sp = 1``), and ``blocks[Cut.key]``, the ranks that hold the
     same block of a leaf cut so. ``rows_replicated`` marks the generation
-    layout (see the module doc), the only one a seq axis takes."""
+    layout (see the module doc)."""
 
     def __init__(self, ep: int = 1, tp: int = 1,
                  rows_replicated: bool = False, sp: int = 1):
@@ -138,11 +145,6 @@ class ExpertMesh(DataGroup):
             raise ValueError(f"{sp} seq x {ep} expert x {tp} model "
                              f"partitions do not divide the {self.world} "
                              "processes")
-        if sp > 1 and not rows_replicated:
-            raise NotImplementedError(
-                f"{sp} seq partitions: the port runs the seq axis in "
-                "generation only; training over seq is ROADMAP.md queue 1, "
-                "item 6c1b-ii")
         self.ep, self.tp, self.sp = ep, tp, sp
         self.dp = self.world // (sp * ep * tp)
         self.rows_replicated = rows_replicated
@@ -229,11 +231,18 @@ class ExpertMesh(DataGroup):
         one small all-gather."""
         return self.seq.all_gather(torch.tensor([n], device=device)).tolist()
 
-    def gather_frames(self, x: torch.Tensor,
-                      sizes: Sequence[int]) -> torch.Tensor:
+    def gather_frames(self, x: torch.Tensor, sizes: Sequence[int],
+                      backward: Optional[str] = None) -> torch.Tensor:
         """The seq ranks' ``x`` [B, L_s, ...] (each its own frames, ``L_s =
         sizes[s]``) laid end to end on dim 1 in seq order: the whole T of
-        their rows, the cuts uneven or not."""
+        their rows, the cuts uneven or not. ``backward``: None, no gradient;
+        ``"sum"``, the rank's frames of the seq ranks' summed gradient (for
+        a computation each seq rank runs on the whole T and keeps its own
+        frames of, as ``dispatch`` does); ``"keep"``, the rank's frames of
+        its own gradient (for a value every seq rank computes alike from
+        the whole T, counted once: the losses on the whole T's x0)."""
+        if backward is not None:
+            return _GatherFrames.apply(x, self, tuple(sizes), backward)
         L = x.shape[1]
         top = max(sizes)
         if L < top:
@@ -331,6 +340,24 @@ class ExpertMesh(DataGroup):
                     {b: mine[self.rank_of(0, *b)][j].view(tensors[i].shape)
                      for b in self.blocks_of(cuts[i].key)}, cuts[i])
         return None if self.rank else out
+
+
+class _GatherFrames(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, sizes, rule):
+        if rule not in ("sum", "keep"):
+            raise ValueError(f"gather_frames backward {rule!r}: 'sum' or "
+                             "'keep'")
+        ctx.mesh, ctx.sizes, ctx.rule = mesh, sizes, rule
+        return mesh.gather_frames(x, sizes)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, sizes = ctx.mesh, ctx.sizes
+        if ctx.rule == "sum":  # every frame's gradient from every seq rank
+            g = mesh.seq.sum_(g.contiguous().clone())
+        lo = sum(sizes[:mesh.s])
+        return g[:, lo:lo + sizes[mesh.s]], None, None, None
 
 
 class CutSharded:
@@ -585,30 +612,28 @@ def generation_mesh(data_parallel: int = 1, expert_parallel: int = 1,
 def make_mesh(cfg) -> Optional[ExpertMesh]:
     """The run's mesh (JAX ``Trainer._maybe_make_mesh``,
     ``trainer.py:127-169``): None without a process group, else the
-    :class:`ExpertMesh` of ``num_expert_partitions`` and
-    ``num_model_partitions``, after :func:`check_mesh`."""
+    :class:`ExpertMesh` of ``num_expert_partitions``,
+    ``num_model_partitions`` and ``num_seq_partitions``, after
+    :func:`check_mesh`."""
     check_mesh(cfg)
-    return (ExpertMesh(cfg.parallel.num_expert_partitions,
-                       cfg.parallel.num_model_partitions)
+    par = cfg.parallel
+    return (ExpertMesh(par.num_expert_partitions, par.num_model_partitions,
+                       sp=par.num_seq_partitions)
             if dist.is_initialized() else None)
 
 
 def check_mesh(cfg) -> None:
-    """Raise for a seq axis (training over it is not ported), and unless
-    the expert x model partitions divide the world and the
-    expert partitions the experts, ``num_data_partitions`` is 0 (the world
-    over ``ep x tp``) or that, and the row-holders (``dp x ep``: the ranks
-    of a model group share their rows) divide each microbatch (JAX needs
-    its data axis to divide it; the port gives each row-holder whole
-    rows)."""
-    if cfg.parallel.num_seq_partitions > 1:
-        raise NotImplementedError(
-            f"num_seq_partitions {cfg.parallel.num_seq_partitions}: the port "
-            "runs the seq axis in generation only (generation_mesh); "
-            "training over seq is ROADMAP.md queue 1, item 6c1b-ii")
+    """Raise unless the seq x expert x model partitions divide the world
+    and the expert partitions the experts, ``num_data_partitions`` is 0
+    (the world over ``sp x ep x tp``) or that, the row-holders (``dp x
+    ep``: the ranks of a model group and of a seq group share their rows)
+    divide each microbatch (JAX needs its data axis to divide it; the port
+    gives each row-holder whole rows), and every seq rank gets at least 2
+    frames of ``data.max_motion_length``."""
     world = dist.get_world_size() if dist.is_initialized() else 1
     ep = cfg.parallel.num_expert_partitions
     tp = cfg.parallel.num_model_partitions
+    sp = cfg.parallel.num_seq_partitions
     procs = f"{world} process{'es' if world > 1 else ''}"
     if ep < 1 or world % ep:
         raise ValueError(
@@ -620,26 +645,43 @@ def check_mesh(cfg) -> None:
             f"num_model_partitions (--tensor_parallel) {tp} x "
             f"num_expert_partitions {ep}, but the run has {procs}: launch a "
             f"multiple of {ep * tp} processes, one per device")
+    if sp < 1 or world % (sp * ep * tp):
+        raise ValueError(
+            f"num_seq_partitions (--seq_parallel) {sp} x "
+            f"num_expert_partitions {ep} x num_model_partitions {tp}, but "
+            f"the run has {procs}: launch a multiple of {sp * ep * tp} "
+            "processes, one per device")
     if cfg.model.use_moe and cfg.model.num_experts % ep:
         raise ValueError(f"num_experts {cfg.model.num_experts} not "
                          f"divisible by {ep} expert partitions")
     n = cfg.parallel.num_data_partitions
-    if n not in (0, world // (ep * tp)):
+    rest = sp * ep * tp
+    if n not in (0, world // rest):
         raise ValueError(
             f"num_data_partitions (--data_parallel) {n}, but the run has "
-            f"{procs} over {ep} expert partition{'s' if ep > 1 else ''}"
+            f"{procs} over"
+            + (f" {sp} seq partitions x" if sp > 1 else "")
+            + f" {ep} expert partition{'s' if ep > 1 else ''}"
             + (f" x {tp} model partitions" if tp > 1 else "")
-            + ": launch data x expert x model processes, or pass 0")
+            + ": launch data x seq x expert x model processes, or pass 0")
     accum = max(1, cfg.train.grad_accum_steps)
     micro = cfg.train.batch_size // accum
-    holders = world // (ep * tp) * ep
+    holders = world // rest * ep
     if micro % holders:
+        share = " and ".join(w for w, k in (("model", tp), ("seq", sp))
+                             if k > 1)
         raise ValueError(
             f"microbatch {micro} (batch_size {cfg.train.batch_size} / "
             f"grad_accum_steps {accum}) not divisible by the {holders} data "
-            "ranks" + (f" ({world} processes over {tp} model partitions, "
-                       "whose ranks share their rows)" if tp > 1 else "")
+            "ranks" + (f" ({world} processes over {rest // ep} {share} "
+                       "partitions, whose ranks share their rows)"
+                       if share else "")
             + "; adjust --batch_size / --grad_accum / --data_parallel")
+    T = cfg.data.max_motion_length
+    if sp > 1 and T < 2 * sp:
+        raise ValueError(
+            f"data.max_motion_length {T} over {sp} seq partitions: each "
+            f"needs at least 2 frames (max_motion_length >= {2 * sp})")
 
 
 def add_launch_flags(p) -> None:

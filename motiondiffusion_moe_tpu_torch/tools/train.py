@@ -22,32 +22,37 @@ run goes on saving in the JAX layout, which the JAX package resumes again
 HF checkpoint ``--deberta_ckpt`` when given (grafted at init) and else
 from its random init, with a warning.
 
-Data-, expert- and tensor-parallel training runs one process per device,
-launched by torchrun::
+Data-, seq-, expert- and tensor-parallel training runs one process per
+device, launched by torchrun::
 
     torchrun --nproc_per_node N -m motiondiffusion_moe_tpu_torch.tools.train \
-        [--expert_parallel EP] [--tensor_parallel TP] \
-        [--data_parallel N/(EP TP)] [--zero1] ...
+        [--seq_parallel SP] [--expert_parallel EP] [--tensor_parallel TP] \
+        [--data_parallel N/(SP EP TP)] [--zero1] ...
 
 or by starting each process with the JAX CLI's three flags,
 ``--coordinator_address HOST:PORT --num_processes N --process_id R`` (an
 init URL such as ``file:///shared/rendezvous`` also serves as the
-address). The N processes form JAX's ``(data, expert, model)`` mesh, rank
-``R = (d * EP + e) * TP + m``: rank R keeps experts ``[e E / EP, (e + 1) E /
+address). The N processes form JAX's ``(data, seq, expert, model)`` mesh,
+rank ``R = ((d * SP + s) * EP + e) * TP + m``: rank R trains on frames
+``ExpertMesh.frames(T, s)`` of its rows (the Performers' kv and its
+gradient closed over the seq ranks, kernel 3 in three launches), keeps
+experts ``[e E / EP, (e + 1) E /
 EP)`` of every MoE layer (``--num_experts`` divisible by EP) and its
 ``1 / TP`` of JAX's Megatron split of the FFN pairs (the experts' hidden
 width, the dense FFN branches, the cross-attention MLP); attention, norms,
 embeddings and the gate stay whole on every rank; ``dense_fused`` runs as
-``dense`` under EP or TP, and ``--data_parallel`` 0 means N / (EP TP). The
-TP ranks of a model group hold the same rows: row-holder ``q = R // TP``
-takes rows ``[q B / Q, (q + 1) B / Q)`` of every ``--batch_size`` batch
-through ``DistributedSampler``, ``Q = N / TP`` (Q must divide each
-microbatch). Each process takes ``cuda:LOCAL_RANK`` unless ``--device``
-names a card; ``--zero1`` shards the Adam moments and the EMA over the
-processes that reduce each gradient. The backend follows the device: NCCL
+``dense`` under EP or TP, and ``--data_parallel`` 0 means N / (SP EP TP).
+The TP ranks of a model group and the SP ranks of a seq group hold the
+same rows: row-holder ``q = d * EP + e`` takes rows ``[q B / Q, (q + 1) B /
+Q)`` of every ``--batch_size`` batch through ``DistributedSampler``, ``Q =
+N / (SP TP)`` (Q must divide each microbatch, and the data's
+``max_motion_length`` be at least 2 SP). Each process takes
+``cuda:LOCAL_RANK`` unless ``--device`` names a card; ``--zero1`` shards
+the Adam moments and the EMA over the processes that reduce each
+gradient. The backend follows the device: NCCL
 for CUDA, gloo for the CPU. Only the primary writes ``config.json``,
 ``meta/`` and the checkpoints (in the global layout) and prints. What the
-port does not run yet raises: the seq and pipeline axes, and
+port does not run yet raises: the pipeline axis, and
 ``--scan_blocks`` / ``--remat_blocks``, which exist for JAX compilation and
 are not ported.
 """
@@ -146,14 +151,15 @@ def build_argparser() -> argparse.ArgumentParser:
                         "pairs, each process keeping 1 / N of their hidden "
                         "width; the ranks of a model group share their rows")
     p.add_argument("--seq_parallel", type=int, default=1,
-                   help="multi-device: raises above 1 (generation runs over "
-                        "a seq axis; training over it is not ported)")
+                   help="seq partitions: each process trains on its 1 / N of "
+                        "every motion's frames; the ranks of a seq group "
+                        "share their rows")
     p.add_argument("--pipeline_parallel", type=int, default=1,
                    help="multi-device: raises above 1 (not ported)")
     p.add_argument("--data_parallel", type=int, default=0,
                    help="data-parallel ranks, one process each (0 = the "
-                        "number of processes launched over "
-                        "--expert_parallel x --tensor_parallel)")
+                        "number of processes launched over --seq_parallel "
+                        "x --expert_parallel x --tensor_parallel)")
     p.add_argument("--pp_microbatches", type=int, default=0,
                    help="pipeline microbatches (read only with "
                         "--pipeline_parallel)")

@@ -44,17 +44,20 @@ when it matches the restored step. (Resuming at the epoch after the
 checkpointed one is this package's own choice, not the reference
 trainer's.)
 
-Under data, expert and model parallelism (``parallel/``) saving is
+Under data, seq, expert and model parallelism (``parallel/``) saving is
 collective: every rank calls :meth:`CheckpointManager.save`, which gathers
 into the primary's host memory the ZeRO-1 shards, the expert and model
 blocks of the parameters, moments and EMA (experts in order on dim 0,
 model blocks on the dim JAX's Megatron rule cuts: the global layout a
 one-process run and the JAX package hold), and the generator state of each
-row-holder (the ranks of a model group draw alike; ``rng`` is then the list
-of them, in row-holder order); the primary writes either format and
-``epoch_meta.json``, and the others wait at a barrier. Every rank reads a
-restore whole and keeps its blocks and its shard, so a run saved at one
-``(dp, ep, tp)`` resumes at any other, one process included.
+row-holder (the ranks of a model group and of a seq group draw alike: the
+states of the ranks with ``s = m = 0``; ``rng`` is then the list of them,
+in row-holder order, whatever ``sp`` and ``tp``); the primary writes either
+format and ``epoch_meta.json``, and the others wait at a barrier. Every
+rank reads a restore whole and keeps its blocks and its shard, so a run
+saved at one ``(dp, sp, ep, tp)`` resumes at any other, one process
+included, and a run with as many row-holders takes their generator
+states.
 """
 
 from __future__ import annotations
@@ -79,7 +82,6 @@ from motiondiffusion_moe_tpu_torch.parallel.distributed import (
 )
 from motiondiffusion_moe_tpu_torch.parallel.mesh import (
     local_state_dict,
-    model_mesh,
     whole_state_dict,
 )
 from motiondiffusion_moe_tpu_torch.utils import orbax_format
@@ -189,9 +191,13 @@ class CheckpointManager:
         ema = state.ema.state_dict() if state.ema is not None else None
         rng = None if generator is None else generator.get_state()
         if world_size() > 1 and rng is not None:
-            # one a row-holder: the ranks of a model group draw alike
-            mesh = model_mesh(state.model)
-            rng = all_gather_objects(rng)[::mesh.tp if mesh else 1]
+            # one a row-holder, in q order: the ranks of a model group and
+            # of a seq group draw alike
+            mesh = state.optimizer.mesh
+            rng = all_gather_objects(rng)
+            if mesh is not None:
+                rng = [rng[mesh.rank_of(d, e, 0)] for d in range(mesh.dp)
+                       for e in range(mesh.ep)]
         if is_primary():
             self._write(path, state, epoch, params, opt, ema, rng)
         barrier()

@@ -43,6 +43,17 @@ clip's norm counts each block once. Under ZeRO-1 each of these (up to
 four) flat buffers is cut over the ranks that reduce it. ``state_dict`` (a
 collective) gives rank 0 the global layout; ``load_state_dict`` takes it
 and keeps the rank's blocks.
+
+With a seq axis (``sp > 1``) the seq ranks of a row-holder hold its rows,
+each its own frames of T (``ExpertMesh.frames``): the model runs on those
+frames, their per-frame losses are partial sums of the row-holder's, and so
+are their gradients. They are summed with the rest of a leaf's holders and
+divided by the same row-holders x copies, never averaged over seq: the
+ranks' losses add up to Q times the global batch's, Q the row-holders
+(:meth:`TrainStep._global`). The losses on x0 read the whole T and are
+computed alike on every seq rank from the gathered output, whose gradient
+each rank takes for its own frames; their denominators, their metrics and
+a ``dispatch`` layer's balance statistics count once.
 """
 
 from __future__ import annotations
@@ -453,8 +464,10 @@ class TrainStep:
     batch is the rank's row-holder's rows, each microbatch's losses are its
     shares of the global microbatch's (:meth:`_global`: one collective a
     microbatch over the row-holders, ``ExpertMesh.batch``), and the scalar
-    metrics are the global batch's (the mean over the row-holders, one
-    collective a step); ``per_sample_mse`` stays the rank's rows."""
+    metrics are the global batch's (the ranks' shares summed over the
+    row-holders and their seq ranks, divided by the row-holders: one
+    collective a step); ``per_sample_mse`` stays the rank's rows (on a seq
+    rank each row's over its whole T, the same on every seq rank)."""
 
     def __init__(self, sched: DiffusionSchedule, cfg: ExperimentConfig,
                  normalizer_stats: Optional[Tuple[np.ndarray,
@@ -478,88 +491,132 @@ class TrainStep:
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """(total loss, metrics) of one forward in training mode on the
         given noise: the JAX ``loss_fn``; over the data ranks, this rank's
-        share of the global microbatch's (:meth:`_global`)."""
+        share of the global microbatch's (:meth:`_global`). On a seq rank
+        the model runs on the rank's frames of ``motion`` and the noise
+        (both drawn whole), the per-frame loss is the frames' share, and the
+        losses on x0 are the whole T's: the output gathered over the seq
+        ranks (its gradient the rank's frames of theirs, ``"keep"``),
+        computed alike on every seq rank and counted once."""
         tc = self.cfg.train
         ctx = TrainContext(generator=generator)
         x_start, t = batch["motion"], batch["t"]
         x_t = q_sample(self.sched, x_start, t, noise)
-        out = model(x_t, t, batch["length"], text_ids=batch["text_ids"],
-                    ctx=ctx)
-        terms = training_loss_terms(self.sched, out, x_start, x_t, t, noise,
-                                    mean_type=self.mean_type,
-                                    var_type=self.var_type,
-                                    loss_type=self.loss_type)
-        src_mask = generate_src_mask(x_start.shape[1], batch["length"])
-        # (name, weight, the masked sums of its mean or means)
+        T = x_start.shape[1]
+        mesh = self.dp if getattr(self.dp, "sp", 1) > 1 else None
+        t0, t1 = mesh.frames(T) if mesh is not None else (0, T)
+        first = 1.0 if mesh is None or mesh.s == 0 else 0.0
+        out = model(x_t[:, t0:t1], t, batch["length"],
+                    text_ids=batch["text_ids"], ctx=ctx,
+                    frames=None if mesh is None else (t0, t1, T))
+        terms = training_loss_terms(
+            self.sched, out, x_start[:, t0:t1], x_t[:, t0:t1], t,
+            noise[:, t0:t1], mean_type=self.mean_type,
+            var_type=self.var_type, loss_type=self.loss_type)
+        src_mask = generate_src_mask(t1 - t0, batch["length"], t0)
+        # (name, weight, the masked sums of its mean or means, whether
+        # every seq rank computes it whole)
         parts = [("loss_mot_rec", 1.0, L.frame_mse_sums(
-            terms["pred"], terms["target"], src_mask, batch.get("t_weight")))]
+            terms["pred"], terms["target"], src_mask, batch.get("t_weight")),
+            False)]
         if (tc.w_velocity > 0 or tc.w_acceleration > 0 or tc.w_structure > 0
                 or tc.w_progressive > 0):
-            pred_x0 = (pred_xstart_from_eps(self.sched, x_t, t, terms["pred"])
-                       if self.mean_type == ModelMeanType.EPSILON
-                       else terms["pred"])
+            pred, whole_mask = terms["pred"], src_mask
+            if mesh is not None:  # the whole T's, from the seq ranks
+                pred = mesh.gather_frames(
+                    pred, [b - a for a, b in (mesh.frames(T, s)
+                                              for s in range(mesh.sp))],
+                    backward="keep")
+                whole_mask = generate_src_mask(T, batch["length"])
+            pred_x0 = (pred_xstart_from_eps(self.sched, x_t, t, pred)
+                       if self.mean_type == ModelMeanType.EPSILON else pred)
+            whole = mesh is not None
             if tc.w_velocity > 0:
                 parts.append(("loss_velocity", tc.w_velocity,
-                              L.velocity_sums(pred_x0, x_start, src_mask)))
+                              L.velocity_sums(pred_x0, x_start, whole_mask),
+                              whole))
             if tc.w_acceleration > 0:
                 parts.append(("loss_acceleration", tc.w_acceleration,
                               L.acceleration_sums(pred_x0, x_start,
-                                                  src_mask)))
+                                                  whole_mask), whole))
             if tc.w_progressive > 0:
                 parts.append(("loss_progressive", tc.w_progressive,
                               L.progressive_sums(pred_x0, x_start,
-                                                 src_mask)))
+                                                 whole_mask), whole))
             if tc.w_structure > 0:
                 mean, std = (torch.as_tensor(a, device=x_start.device)
                              for a in self.norm_stats)
                 parts.append(("loss_structure", tc.w_structure,
                               L.structure_sums(pred_x0 * std + mean,
-                                               x_start * std + mean, src_mask,
-                                               self.cfg.data.num_joints)))
+                                               x_start * std + mean,
+                                               whole_mask,
+                                               self.cfg.data.num_joints),
+                              whole))
+        # a whole-T term's denominators count on one seq rank
         dens, moe_aux, scale = self._global(
-            [den for _, _, sums in parts for _, den in sums], ctx)
+            [den * first if whole else den for _, _, sums, whole in parts
+             for _, den in sums], ctx)
         dens = iter(dens)
         values = [L.mean_of([(num, next(dens)) for num, _ in sums], scale)
-                  for _, _, sums in parts]
+                  for _, _, sums, _ in parts]
         loss_rec = values[0]
         moe_loss = (moe_aux.to(loss_rec.device)
                     * self.cfg.model.moe_aux_loss_weight)
-        total = loss_rec + moe_loss
+        total = shown = loss_rec + moe_loss
         metrics = {"loss_mot_rec": loss_rec, "loss_moe": moe_loss}
-        for (name, w, _), value in zip(parts[1:], values[1:]):
+        for (name, w, _, whole), value in zip(parts[1:], values[1:]):
             total = total + w * value
-            metrics[name] = value
-        metrics["loss_total"] = total
+            # the metrics are summed over the ranks: a whole term once
+            metrics[name] = value * first if whole else value
+            shown = shown + w * metrics[name]
+        metrics["loss_total"] = shown
         per_frame = ((terms["pred"] - terms["target"]) ** 2).mean(-1)
-        metrics["per_sample_mse"] = ((per_frame * src_mask).sum(1)
-                                     / src_mask.sum(1).clamp(min=1.0))
+        num, den = (per_frame * src_mask).sum(1), src_mask.sum(1)
+        if mesh is not None:  # each row's frames on every seq rank
+            num, den = mesh.seq.total(torch.stack([num, den])).unbind()
+        metrics["per_sample_mse"] = num / den.clamp(min=1.0)
         return total, {k: v.detach() for k, v in metrics.items()}
 
     def _global(self, dens: List[torch.Tensor], ctx: TrainContext):
         """(the masked means' denominators, the MoE aux loss, the scale of
         the means' numerators). In one process: ``dens``, the layers' aux
-        losses, 1. Over Q row-holders (the ranks of ``ExpertMesh.batch``;
-        the model ranks of a row-holder compute the same values), one
-        all-reduce of ``dens`` and of every MoE layer's expert shares f
-        gives the global batch's: then a rank's numerator x Q over the
-        global denominator, and E sum f P with the global f (which has no
-        gradient) and the rank's P, average over the row-holders to the
-        global batch's losses and gradients, since each holds as many
-        rows."""
+        losses, 1. Over the ranks of ``ExpertMesh.batch`` (the Q
+        row-holders and their seq ranks, each holding distinct frames of
+        distinct rows; the model ranks of a row-holder compute the same
+        values), one all-reduce of ``dens``, of every MoE layer's expert
+        shares f, each rank's weighted by the tokens it routed (under a
+        seq axis, whose cuts may be uneven; else alike), and of those
+        weights gives the global batch's: then a rank's numerator x Q over
+        the global denominator, and E sum f P with the global f (which has
+        no gradient) and the rank's P weighted by its share of the
+        weights (times Q), add up over the ranks to Q times the global
+        batch's losses; the optimizer's sum over the ranks, divided by Q,
+        is then the global batch's gradient. A layer's statistics that
+        every seq rank holds alike (``MoEBalance.once``) count once."""
         if self.dp is None:
             return dens, sum_moe_aux_losses(ctx), 1
         holders = getattr(self.dp, "batch", self.dp)
-        W, k = holders.world, len(dens)
-        fs = [f for f, _ in ctx.moe_balance]
-        flat = holders.total(torch.cat([torch.stack(dens).float()]
-                                       + [f.float() for f in fs]))
+        Q = getattr(self.dp, "holders", holders.world)
+        k, bal = len(dens), ctx.moe_balance
+        # each rank's weight in a layer's means: its tokens under a seq
+        # axis (the cuts may be uneven), else 1 (every rank routes as
+        # many); 0 where another seq rank counts the same statistics
+        seq = getattr(self.dp, "sp", 1) > 1
+        weights = [float(b.tokens if seq else 1) if b.once else 0.0
+                   for b in bal]
+        dev = dens[0].device
+        flat = holders.total(torch.cat(
+            [torch.stack(dens).float()]
+            + [b.f.float() * w for b, w in zip(bal, weights)]
+            + [torch.tensor(weights, dtype=torch.float32, device=dev)]))
         aux, off = [], k
-        for f, mean_p in ctx.moe_balance:
-            f_all = (flat[off:off + f.numel()] / W).to(f.dtype)
-            aux.append(f.numel() * torch.sum(f_all * mean_p))
-            off += f.numel()
+        every = flat[flat.numel() - len(bal):]
+        for b, w, total in zip(bal, weights, every):
+            f_all = (flat[off:off + b.f.numel()] / total).to(b.f.dtype)
+            aux.append(b.f.numel() * torch.sum(f_all * b.p)
+                       * (Q * w / total))
+            off += b.f.numel()
         aux = torch.stack(aux).sum() if aux else torch.zeros(())
-        return list(flat[:k].unbind()), aux, W
+        return list(flat[:k].unbind()), aux, Q
 
     def backward(self, state: TrainState, batch: Batch,
                  generator: Optional[torch.Generator],
@@ -587,11 +644,12 @@ class TrainStep:
             k: (torch.cat([m[k] for m in parts]) if k == "per_sample_mse"
                 else torch.stack([m[k] for m in parts]).mean())
             for k in parts[0]}
-        if self.dp is not None:  # the global batch's: the row-holders' mean
+        if self.dp is not None:  # the global batch's: the ranks' shares
             holders = getattr(self.dp, "batch", self.dp)
             names = [k for k in metrics if k != "per_sample_mse"]
             mean = holders.total(torch.stack([metrics[k] for k in names]))
-            metrics.update(zip(names, (mean / holders.world).unbind()))
+            Q = getattr(self.dp, "holders", holders.world)
+            metrics.update(zip(names, (mean / Q).unbind()))
         return metrics
 
     def apply_update(self, state: TrainState,

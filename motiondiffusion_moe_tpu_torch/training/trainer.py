@@ -14,15 +14,18 @@ Steps run one by one whatever ``steps_per_call`` says (see
 (``trainer.py:326-337``: never draw t from weights a buffered step has not
 updated yet) holds by construction.
 
-Data, expert and model parallelism (``parallel/``): where a process group
-is initialised (``parallel.initialize_distributed``), each process is one
-rank of the ``(data, expert, model)`` mesh (``parallel.make_mesh``, JAX
-``_maybe_make_mesh``, ``trainer.py:127-169``): ``num_expert_partitions``
-(ep) x ``num_model_partitions`` (tp) must divide the world size and ep the
-experts, ``num_data_partitions`` must be 0 (the world size over ep x tp)
-or that, and the row-holders (dp x ep: the tp ranks of a model group hold
-the same rows) must divide each microbatch; in one process, ep or tp > 1
-is a mismatch and raises. The loader gives row-holder q = rank // tp rows
+Data, seq, expert and model parallelism (``parallel/``): where a process
+group is initialised (``parallel.initialize_distributed``), each process is
+one rank of the ``(data, seq, expert, model)`` mesh (``parallel.make_mesh``,
+JAX ``_maybe_make_mesh``, ``trainer.py:127-169``): ``num_seq_partitions``
+(sp) x ``num_expert_partitions`` (ep) x ``num_model_partitions`` (tp) must
+divide the world size and ep the experts, ``num_data_partitions`` must be 0
+(the world size over sp x ep x tp) or that, the row-holders (dp x ep: the
+tp ranks of a model group and the sp ranks of a seq group hold the same
+rows) must divide each microbatch, and every seq rank needs 2 frames of
+``max_motion_length``; in one process, sp, ep or tp > 1 is a mismatch and
+raises. A seq rank trains on its frames of its row-holder's rows
+(``train_state.py``). The loader gives row-holder q = d ep + e rows
 ``[q B / (dp ep), (q + 1) B / (dp ep))`` of each batch, JAX's token chunk
 q; the losses, gradients and metrics are the global batch's
 (``train_state.py``); ``zero1`` shards the Adam moments and the EMA. The
@@ -36,14 +39,14 @@ takes the global batch's capacity. Row-holder q's host RNG (t draws,
 caption dropout) is ``default_rng(seed + 1_000_003 * q)``, the JAX process
 q's. Its ``torch.Generator`` (noise, dropout) is seeded ``seed + 1 +
 1_000_003 * q``: the port's own choice, since JAX draws the global batch's
-noise from one key. The ranks of a model group thus draw the same noise and
-masks, and their replicated activations stay the same (a dropout on a
-column-split hidden draws the whole width's mask and keeps the rank's
-columns). Only the primary prints and logs; saves are collective and write
-the global layout with one generator state a row-holder
-(``training/checkpoint.py``). The seq and pipe axes raise (ROADMAP, queue
-1, items 6c1b-ii and 6c2; generation runs over seq,
-``parallel/mesh.py::generation_mesh``).
+noise from one key. The ranks of a model group and of a seq group thus draw
+the same noise and masks, and their replicated activations stay the same (a
+dropout on a column-split hidden or on the rank's frames draws the whole
+mask and keeps the rank's block of it), and their samplers see the same
+per-sample losses. Only the primary prints and logs; saves are collective
+and write the global layout with one generator state a row-holder
+(``training/checkpoint.py``). The pipe axis raises (ROADMAP, queue 1, item
+6c2).
 
 Host work per step: draw t from the schedule sampler, tokenize the
 captions (with the tokenizer of the config's text encoder), copy the batch
@@ -88,20 +91,19 @@ from motiondiffusion_moe_tpu_torch.utils.logging import MetricsLogger
 
 
 # the ParallelConfig axes not ported yet, by ROADMAP item
-_UNPORTED_AXES = {"num_seq_partitions": "6c1b-ii",
-                  "num_pipeline_stages": "6c2"}
+_UNPORTED_AXES = {"num_pipeline_stages": "6c2"}
 
 
 def check_parallel_config(cfg: ExperimentConfig) -> None:
     """Raise for a ParallelConfig axis the port does not train over: the
-    seq axis (generation runs over it) and the pipe axis."""
+    pipe axis."""
     asked = {k: getattr(cfg.parallel, k) for k in _UNPORTED_AXES}
     multi = {k: v for k, v in asked.items() if v > 1}
     if multi:
         items = sorted({_UNPORTED_AXES[k] for k in multi})
         raise NotImplementedError(
-            f"{multi}: the port trains over the data, expert and model axes "
-            f"only; the other axes are ROADMAP.md queue 1, item "
+            f"{multi}: the port trains over the data, seq, expert and model "
+            f"axes only; the pipe axis is ROADMAP.md queue 1, item "
             f"{' and '.join(items)}")
 
 
@@ -196,9 +198,13 @@ class Trainer:
 
     def _update_sampler(self, batch, metrics) -> None:
         if isinstance(self.sampler, LossAwareSampler):
-            self.sampler.update_with_local_losses(
-                batch["t"].cpu().numpy(),
-                metrics["per_sample_mse"].float().cpu().numpy())
+            ts = batch["t"].cpu().numpy()
+            losses = metrics["per_sample_mse"].float().cpu().numpy()
+            if self.dp is not None and (self.dp.s or self.dp.m):
+                # a row-holder's pairs count once, from its rank with s = m
+                # = 0: the samplers gather the row-holders' in q order
+                ts, losses = ts[:0], losses[:0]
+            self.sampler.update_with_local_losses(ts, losses)
 
     @staticmethod
     def _scalars(metrics) -> "OrderedDict[str, float]":

@@ -23,6 +23,24 @@ axis; ``test_torch_seq_parallel.py`` runs the seq cases):
   ``control`` "grad" the same forward under grad (its error);
 - ``seq_units``: the seq axis's errors, and each rank's mesh indices.
 
+Training over the seq axis (``test_torch_seq_training.py``), each case on
+the training mesh of ``parallel.mesh.make_mesh`` of ``spec["train_cfg"]``
+with the case's ``model`` / ``train`` fields and ``layout`` ``(dp, ep, tp,
+sp)``:
+
+- ``train_step``: one ``TrainStep`` update of the weights
+  ``spec["weights"][case["weights"]]`` on the row-holder's rows of the batch
+  ``<prefix>_*`` (``case["prefix"]``) with its injected noise; the
+  metrics, the whole parameters and Adam's first moment, each rank's
+  ``per_sample_mse``, its calls of kernels 1 and 3, whole and split, and
+  the pairs its expert-parallel ``dispatch`` dropped; with ``save``, a save
+  at this mesh (every rank's generator state gathered beside it);
+- ``train_fit``: ``Trainer.fit`` of the seeded init on the batches of
+  ``spec["fit"]`` (the whole parameters, each rank's sampler state);
+- ``train_resume``: a restore of the save at ``case["path"]`` at this mesh,
+  held to the save bit for bit;
+- ``train_units``: the training mesh's errors.
+
 Every rank reports the elements it holds (its expert tensors, its split
 FFN columns, all of them); rank 0 writes ``<out>/<name>.pt``. It imports
 the port and torch, nothing of JAX.
@@ -163,6 +181,192 @@ def run_seq_units(spec, case, W):
     return got
 
 
+def _train_config(spec, case):
+    from motiondiffusion_moe_tpu_torch.config import ExperimentConfig
+
+    cfg = ExperimentConfig.from_dict(spec["train_cfg"])
+    dp, ep, tp, sp = case["layout"]
+    return dataclasses.replace(
+        cfg,
+        model=dataclasses.replace(cfg.model, **case.get("model", {})),
+        train=dataclasses.replace(cfg.train, **case.get("train", {})),
+        data=dataclasses.replace(cfg.data, **case.get("data", {})),
+        diffusion=dataclasses.replace(cfg.diffusion,
+                                      **case.get("diffusion", {})),
+        parallel=dataclasses.replace(
+            cfg.parallel, num_data_partitions=dp, num_expert_partitions=ep,
+            num_model_partitions=tp, num_seq_partitions=sp,
+            zero1=case.get("zero1", False)))
+
+
+def _train_model(cfg, mesh, sd):
+    from motiondiffusion_moe_tpu_torch.models.transformer import (
+        MotionTransformer)
+    from motiondiffusion_moe_tpu_torch.parallel.mesh import (
+        attach_mesh, shard_params)
+
+    model = MotionTransformer(cfg.model)
+    model.load_state_dict(sd)
+    attach_mesh(model, mesh)
+    shard_params(model)
+    return model
+
+
+def run_train_step(spec, case, arrays):
+    """One update at the case's mesh (see the module doc)."""
+    from motiondiffusion_moe_tpu_torch.diffusion.gaussian import (
+        make_schedule)
+    from motiondiffusion_moe_tpu_torch.ops import performer as PF
+    from motiondiffusion_moe_tpu_torch.parallel import moe_parallel as MP
+    from motiondiffusion_moe_tpu_torch.parallel.distributed import (
+        all_gather_objects)
+    from motiondiffusion_moe_tpu_torch.parallel.mesh import (
+        make_mesh, whole_state_dict)
+    from motiondiffusion_moe_tpu_torch.training.checkpoint import (
+        CheckpointManager)
+    from motiondiffusion_moe_tpu_torch.training.train_state import (
+        TrainStep, create_train_state)
+
+    cfg = _train_config(spec, case)
+    mesh = make_mesh(cfg)
+    sd = torch.load(spec["weights"][case.get("weights", "train")],
+                    weights_only=True)
+    model = _train_model(cfg, mesh, sd)
+    state = create_train_state(model, cfg, dp=mesh)
+    stats = ((arrays["norm_mean"], arrays["norm_std"])
+             if cfg.train.w_structure > 0 else None)
+    step = TrainStep(make_schedule(
+        schedule_name=cfg.diffusion.beta_schedule,
+        num_timesteps=cfg.diffusion.num_timesteps), cfg, stats, dp=mesh)
+    pre = case["prefix"]
+    n = arrays[f"{pre}_motion"].shape[0] // mesh.holders
+    rows = slice(mesh.q * n, (mesh.q + 1) * n)
+    batch = {k: torch.from_numpy(np.array(arrays[f"{pre}_{k}"][rows]))
+             for k in ("motion", "length", "text_ids", "t", "t_weight")}
+    for k in ("length", "text_ids", "t"):
+        batch[k] = batch[k].long()
+    noise = torch.from_numpy(np.array(arrays[f"{pre}_noise"][rows]))
+    # the whole kernel 1 and 3 (their forms the autograd Function calls
+    # on the CPU) and the split's steps
+    names = ("favor_qkv_plain", "favor_qkv_bwd", "favor_qkv_moments",
+             "favor_qkv_apply", "favor_qkv_bwd_kv", "favor_qkv_bwd_q",
+             "favor_qkv_bwd_k")
+    calls = dict.fromkeys(names, 0)
+    wrapped = {n: getattr(PF, n) for n in names}
+
+    def counting(name):
+        def call(*a, **k):
+            calls[name] += 1
+            return wrapped[name](*a, **k)
+        return call
+
+    for name in names:
+        setattr(PF, name, counting(name))
+    slots, dropped = MP.capacity_slots, [0]
+
+    def counting_slots(*a):  # the pairs the expert-parallel dispatch drops
+        slot, keep = slots(*a)
+        dropped[0] += int((~keep).sum())
+        return slot, keep
+
+    MP.capacity_slots = counting_slots
+    try:
+        metrics = step.apply_update(state, step.backward(
+            state, batch, None, noise=noise))
+    finally:
+        for name in names:
+            setattr(PF, name, wrapped[name])
+        MP.capacity_slots = slots
+    mu = state.optimizer.state_dict()["mu"]  # the global layout, rank 0
+    res = {"metrics": {k: float(v) for k, v in metrics.items()
+                       if v.dim() == 0},
+           "params": whole_state_dict(model),
+           "mu": mu and dict(zip((n for n, p in model.named_parameters()
+                                  if p.requires_grad), mu)),
+           "per_sample": all_gather_objects(
+               metrics["per_sample_mse"].tolist()),
+           "calls": all_gather_objects(calls),
+           "dropped": all_gather_objects(dropped[0])}
+    if case.get("save"):
+        gen = torch.Generator().manual_seed(100 + mesh.q)
+        torch.randn(3, generator=gen)
+        CheckpointManager(case["save"], cfg=cfg).save(state.step, state, 0,
+                                                      gen)
+        res["rng"] = all_gather_objects(gen.get_state())
+    return res
+
+
+def run_train_fit(spec, case):
+    """``Trainer.fit`` of the seeded init (see the module doc)."""
+    from motiondiffusion_moe_tpu_torch.parallel.distributed import (
+        all_gather_objects)
+    from motiondiffusion_moe_tpu_torch.parallel.mesh import whole_state_dict
+    from motiondiffusion_moe_tpu_torch.training.trainer import Trainer
+
+    cfg = _train_config(spec, case)
+    trainer = Trainer(cfg, device="cpu")
+    batches = [(caps, np.asarray(m, np.float32), lens)
+               for caps, m, lens in spec["fit"]]
+    state = trainer.fit(trainer.init_state(), batches)
+    sampler = trainer.sampler
+    return {"params": whole_state_dict(state.model),
+            "sampler": all_gather_objects(
+                (sampler._loss_history.tolist(),
+                 sampler._loss_counts.tolist())),
+            "step": state.step}
+
+
+def run_train_resume(spec, case):
+    """A restore of ``case["path"]`` at this mesh, held to the save: each
+    rank's (parameters, moments and EMA its part of the saved ones bit for
+    bit, the generator state it gets)."""
+    from motiondiffusion_moe_tpu_torch.parallel.distributed import (
+        all_gather_objects)
+    from motiondiffusion_moe_tpu_torch.parallel.mesh import (
+        local_leaves, local_state_dict, make_mesh)
+    from motiondiffusion_moe_tpu_torch.training.checkpoint import (
+        CheckpointManager)
+    from motiondiffusion_moe_tpu_torch.training.train_state import (
+        create_train_state)
+
+    cfg = _train_config(spec, case)
+    mesh = make_mesh(cfg)
+    sd = torch.load(spec["weights"][case.get("weights", "train")],
+                    weights_only=True)
+    state = create_train_state(_train_model(cfg, mesh, sd), cfg, dp=mesh)
+    ckpt = CheckpointManager(case["path"], cfg=cfg)
+    _, epoch, rng = ckpt.restore_with_rng(state)
+    payload = ckpt.read()
+    want = local_state_dict(state.model, payload["params"])
+    ok = all(torch.equal(v, want[k])
+             for k, v in state.model.state_dict().items())
+    opt = state.optimizer
+    for mine, whole in ((opt.mu, payload["opt_state"]["mu"]),
+                        (opt.nu, payload["opt_state"]["nu"])):
+        part = local_leaves(whole, opt.cuts, mesh)
+        if opt.zero1:
+            part = opt.layout.local(part)
+        ok = ok and all(torch.equal(a, b) for a, b in zip(mine, part))
+    got = rng[mesh.q] if isinstance(rng, list) else rng
+    return {"held": all_gather_objects((ok, state.step, epoch)),
+            "rng": all_gather_objects(got)}
+
+
+def run_train_units(spec, case):
+    """The training mesh's errors (or 'no error')."""
+    from motiondiffusion_moe_tpu_torch.training.trainer import Trainer
+
+    got = {}
+    for name, layout, fields in case["checks"]:
+        c = _train_config(spec, dict(case, layout=layout, **fields))
+        try:
+            Trainer(c, device="cpu")
+            got[name] = "no error"
+        except (ValueError, NotImplementedError) as e:
+            got[name] = f"{type(e).__name__}: {e}"
+    return got
+
+
 def main(spec_path, rank):
     from motiondiffusion_moe_tpu_torch.parallel.distributed import (
         all_gather_objects, initialize_distributed)
@@ -180,6 +384,14 @@ def main(spec_path, rank):
             res, pipe = run_units(spec, case, W), None
         elif case["kind"] == "seq_units":
             res, pipe = all_gather_objects(run_seq_units(spec, case, W)), None
+        elif case["kind"] == "train_step":
+            res, pipe = run_train_step(spec, case, arrays), None
+        elif case["kind"] == "train_fit":
+            res, pipe = run_train_fit(spec, case), None
+        elif case["kind"] == "train_resume":
+            res, pipe = run_train_resume(spec, case), None
+        elif case["kind"] == "train_units":
+            res, pipe = run_train_units(spec, case), None
         elif case["kind"] == "forward":
             res, pipe = run_forward(spec, case, generation_mesh(
                 *case["layout"]), arrays)

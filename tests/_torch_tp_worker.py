@@ -241,7 +241,7 @@ def run_units(spec, case, mesh):
                 cfg, parallel=tp, train=dataclasses.replace(
                     cfg.train, batch_size=3)), None),
             ("seq", dataclasses.replace(cfg, parallel=dataclasses.replace(
-                tp, num_seq_partitions=2)), None),
+                tp, num_seq_partitions=3)), None),
             ("pipe", dataclasses.replace(cfg, parallel=dataclasses.replace(
                 tp, num_pipeline_stages=2)), None),
             ("caller_dense_fused", dataclasses.replace(cfg, parallel=tp),

@@ -33,9 +33,9 @@ Held against the JAX package:
   JAX ``make_mesh(8, seq_parallel=2, expert_parallel=2)``, and each rank's
   indices on the four ranks' mesh against ``make_mesh(4, ...)``'s;
 - the frames a seq rank holds (``ExpertMesh.frames``) and the errors: T <
-  2 sp, the seq axis outside the generation layout, a world that is not
-  data x seq x expert x model, training with ``num_seq_partitions`` 2 (ROADMAP
-  item 6c1b-ii), and the split under grad.
+  2 sp, a world that is not data x seq x expert x model, two seq partitions
+  in one process; the training layout and the split under grad run
+  (training over seq: ``tests/test_torch_seq_training.py``).
 """
 
 import dataclasses
@@ -311,13 +311,24 @@ def test_split_sums_to_the_whole_kernel_8(T, cuts):
 
 
 def test_split_raises_under_grad():
+    """Under grad the split no longer raises: the moments and the apply
+    are the steps of the differentiable ``favor_qkv_split``, whose
+    gradient on one seq rank (a group whose sum is the identity) is
+    ``favor_qkv``'s (the seq ranks' training,
+    tests/test_torch_seq_training.py)."""
     qkv, ln, mask, _ = _split_case(8, [0, 8], 1)
-    qkv.requires_grad_()
-    with pytest.raises(NotImplementedError, match="6c1b-ii"):
-        PF.favor_qkv_moments(qkv, *ln, mask)
-    kv = PF.favor_qkv_moments_plain(qkv.detach(), *ln, mask)
-    with pytest.raises(NotImplementedError, match="6c1b-ii"):
-        PF.favor_qkv_apply(qkv, kv, *ln, mask)
+    one = SimpleNamespace(sum_=lambda t: t)
+    grads = []
+    for fn in (lambda x: PF.favor_qkv(x, *ln, mask),
+               lambda x: PF.favor_qkv_split(x, *ln, mask, one)):
+        x = qkv.clone().requires_grad_()
+        fn(x).sum().backward()
+        grads.append(x.grad)
+    assert _rel(grads[1], grads[0]) <= SPLIT_REL
+    x = qkv.clone().requires_grad_()
+    kv = PF.favor_qkv_moments(x, *ln, mask)
+    assert _rel(PF.favor_qkv_apply(x, kv, *ln, mask).detach(),
+                PF.favor_qkv_plain(qkv, *ln, mask)) <= SPLIT_REL
 
 
 # ------------------------------------------------ the frames, the numbering
@@ -382,15 +393,19 @@ def test_pipeline_over_seq_matches_jax(run, name):
 
 
 def test_seq_errors(run):
+    """The errors of the seq axis; the training layout and a forward under
+    grad run (training over seq, tests/test_torch_seq_training.py)."""
     units = run["got"]["seq_units"][0]
-    assert units["training_layout"].startswith("NotImplementedError")
-    assert "6c1b-ii" in units["training_layout"]
+    assert units["training_layout"] == "no error"
     assert "but the process group has 4" in units["world"]
     assert "3 frames over 2 seq partitions" in units["short"]
-    assert "6c1b-ii" in run["got"]["sp4_grad"]["grad"]
+    assert run["got"]["sp4_grad"]["grad"] == "no error"
 
 
 def test_seq_in_one_process_and_training_raise():
+    """Two seq partitions in one process: generation and training raise
+    (a mismatch; the seq ranks train over several,
+    tests/test_torch_seq_training.py)."""
     from motiondiffusion_moe_tpu_torch.training.trainer import Trainer
 
     with pytest.raises(ValueError, match="one process per device"):
@@ -398,5 +413,5 @@ def test_seq_in_one_process_and_training_raise():
     cfg = to_port(_cfg())
     cfg = dataclasses.replace(cfg, parallel=dataclasses.replace(
         cfg.parallel, num_seq_partitions=2))
-    with pytest.raises(NotImplementedError, match="item 6c1b-ii"):
+    with pytest.raises(ValueError, match="launch a multiple of 2"):
         Trainer(cfg, device="cpu")

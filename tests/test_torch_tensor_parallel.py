@@ -289,7 +289,7 @@ def test_the_jax_manager_restores_a_tp2_save(run):
     ("ep_tp_divide", "ValueError", "launch a multiple of 8 processes"),
     ("data_partitions", "ValueError", "x 2 model partitions"),
     ("microbatch", "ValueError", "not divisible by the 2 data ranks"),
-    ("seq", "NotImplementedError", "item 6c1b"),
+    ("seq", "ValueError", "launch a multiple of 6 processes"),
     ("pipe", "NotImplementedError", "item 6c2"),
     ("caller_dense_fused", "ValueError", "expert- or tensor-sharded")])
 def test_tensor_parallel_errors(run, name, kind, words):
