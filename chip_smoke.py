@@ -358,9 +358,17 @@ first use) and exits non-zero without one. Phases, each fatal on failure:
          48 / 48) computing dense, and expert 2 x model 2 computing
          dispatch with ZeRO-1 (the seq ranks launch favor_qkv_moments /
          _apply and favor_qkv_bwd_kv / _q / _k once a Performer each, and
-         never the whole favor_qkv or favor_qkv_bwd); rank 0 first runs the
+         never the whole favor_qkv or favor_qkv_bwd), and data 2 x pipe 2
+         (parallel/pipeline_parallel.py's GPipe ring) at P3_LAYERS (2)
+         blocks a scale, one a stage, P3_M (4) microbatches, dense_fused
+         (each stage launches kernels 1-4 for its own block once a
+         microbatch, 16 each a step; its loss within P3_LOSS_REL of the one
+         process; the replicated leaves' SHA-256 the same on the four
+         ranks; each rank's block bytes half of all blocks'; the stage
+         memory report beside max_memory_allocated); rank 0 first runs the
          one-process steps (dense; dispatch with chunked_dispatch(2), the
-         per-chunk capacity of the two row-holders). Each layout: the loss
+         per-chunk capacity of the two row-holders; p3_reference, the
+         balance term over the ring's chunks). Each layout: the loss
          and grad_norm within STEP_LOSS_REL of the one-process step's, the
          gradients (caught where the optimizer clips them, gathered) by
          N2's rule and by the tests' (each within 1e-4 of its leaf's
@@ -389,11 +397,13 @@ first use) and exits non-zero without one. Phases, each fatal on failure:
          (O1_STEPS) of 16 prompts x 196 frames (micro-batch 16) on O_W (4)
          --o1-rank ranks in five layouts (data 2 x seq 2; expert 2 x model
          2; dispatch at data 2 x expert 2, capacity factor 4, which drops
-         nothing; seq 4, T cut 50 / 50 / 48 / 48; seq 2 x expert 2), each
-         within O1_REL of the one-process pipeline of the function it
-         computes (dense_fused at data and seq ranks alone, else dense); a
-         seq rank launches kernel 1's moments and apply once a Performer
-         each and the whole kernel 1 never. O2: tools/serve.py as 4 processes (--o2-rank;
+         nothing; seq 4, T cut 50 / 50 / 48 / 48; data 2 x pipe 2, 4 blocks
+         a stage, 4 microbatches), each within O1_REL of the one-process
+         pipeline of the function it computes (dense_fused at data, seq and
+         pipe ranks alone, else dense); a seq rank launches kernel 1's
+         moments and apply once a Performer each and the whole kernel 1
+         never; a pipe rank its own blocks' kernels once a microbatch, and
+         holds half the expert and split elements. O2: tools/serve.py as 4 processes (--o2-rank;
          --data_parallel 2 --tensor_parallel 2) from the flagship's bf16
          export at micro-batch 4, dpm2, 3 seeded requests (1, 3 and 6
          prompts: the last two micro-batches) each within O2_REL of the
@@ -6308,10 +6318,15 @@ def phase_n(dev, card):
 
 P_LAYERS = 1   # the flagship's blocks a scale in P (full width)
 P_W = 4        # ranks sharing the card: two model groups of two
-P_CASES = {    # name: (ep, tp, sp, moe_compute, zero1, reference)
-    "sp2tp2_dense": (1, 2, 2, "dense", False, "dense"),
-    "sp4_dense": (1, 1, 4, "dense", False, "dense"),
-    "ep2tp2_dispatch_zero1": (2, 2, 1, "dispatch", True, "chunks")}
+P_CASES = {    # name: (ep, tp, sp, moe_compute, zero1, reference, pp)
+    "sp2tp2_dense": (1, 2, 2, "dense", False, "dense", 1),
+    "sp4_dense": (1, 1, 4, "dense", False, "dense", 1),
+    "ep2tp2_dispatch_zero1": (2, 2, 1, "dispatch", True, "chunks", 1),
+    # data 2 x pipe 2: its own model, P3_LAYERS blocks a scale
+    "dp2pp2_dense_fused": (1, 1, 1, "dense_fused", False, "pipe", 2)}
+P3_LAYERS = 2  # the pipe case's blocks a scale (one a stage)
+P3_M = 4       # its microbatches: 16 rows a data rank, 4 a microbatch
+P3_LOSS_REL = 1e-6  # its loss against the one process's
 # kernels 1 and 3 on a seq rank: the split's launches
 SPLIT_KERNELS = ("favor_qkv_moments", "favor_qkv_apply", "favor_qkv_bwd_kv",
                  "favor_qkv_bwd_q", "favor_qkv_bwd_k")
@@ -6320,19 +6335,76 @@ P_STEP_ABS = 2e-6   # the update of the gathered gradient, and the EMA
 P_MU_REL = 1e-5     # mu against the one-process Adam's, of its largest
 
 
-def p_config(compute="dense_fused", ep=1, zero1=False, tp=2, sp=1):
+def p_config(compute="dense_fused", ep=1, zero1=False, tp=2, sp=1, pp=1):
     """The flagship at P_LAYERS blocks a scale (M1's config: dropout 0, no
     stochastic depth, EMA 0.999, f32 compute) with ``compute`` over ``sp``
-    seq x ``ep`` expert x ``tp`` model partitions."""
+    seq x ``ep`` expert x ``tp`` model partitions; with ``pp`` (the pipe
+    case, one process at pp 1 below it) at P3_LAYERS blocks a scale and
+    P3_M microbatches over ``pp`` stages."""
     from motiondiffusion_moe_tpu_torch.config import ExperimentConfig
 
     cfg = m_config(ExperimentConfig.moe_small())
     return dataclasses.replace(
-        cfg, model=dataclasses.replace(cfg.model, num_layers=P_LAYERS,
-                                       moe_compute=compute),
+        cfg, model=dataclasses.replace(
+            cfg.model, num_layers=P_LAYERS if pp == 1 else P3_LAYERS,
+            moe_compute=compute, pipeline_microbatches=P3_M),
         parallel=dataclasses.replace(cfg.parallel, num_expert_partitions=ep,
                                      num_model_partitions=tp,
-                                     num_seq_partitions=sp, zero1=zero1))
+                                     num_seq_partitions=sp,
+                                     num_pipeline_stages=pp, zero1=zero1))
+
+
+def p3_reference(weights, batch_path, dev):
+    """The pipe case's one-process step on the card (P3_LAYERS blocks a
+    scale): the losses of the whole batch plus the MoE balance term as the
+    ring counts it (JAX's PP estimate: each layer's Switch aux on each of
+    the ring's 2 x P3_M chunks of M_B / (2 P3_M) rows, averaged over them,
+    each chunk one more forward here); the loss, grad_norm and the
+    gradients (trainable order), on the host."""
+    import torch
+    from motiondiffusion_moe_tpu_torch.diffusion.gaussian import (
+        make_schedule, q_sample)
+    from motiondiffusion_moe_tpu_torch.models.layers import TrainContext
+    from motiondiffusion_moe_tpu_torch.models.transformer import (
+        MotionTransformer)
+    from motiondiffusion_moe_tpu_torch.training.train_state import (
+        TrainStep, create_train_state, grouped_global_norm)
+
+    cfg = p_config(tp=1, pp=2)
+    cfg = dataclasses.replace(cfg, parallel=dataclasses.replace(
+        cfg.parallel, num_pipeline_stages=1))
+    w = cfg.model.moe_aux_loss_weight
+    with torch.device(dev):
+        model = MotionTransformer(cfg.model)
+    model.load_state_dict(weights)
+    state = create_train_state(model, cfg)
+    rec = TrainStep(make_schedule(
+        schedule_name=cfg.diffusion.beta_schedule,
+        num_timesteps=cfg.diffusion.num_timesteps, device=dev),
+        dataclasses.replace(cfg, model=dataclasses.replace(
+            cfg.model, moe_aux_loss_weight=0.0)))
+    batch, noise = m_rows(batch_path, dev)
+    model.train()
+    state.optimizer.zero_grad()
+    total, _ = rec.loss(model, batch, noise)
+    x_t = q_sample(rec.sched, batch["motion"], batch["t"], noise)
+    chunks = 2 * P3_M
+    c = M_B // chunks
+    aux = torch.zeros((), device=dev)
+    for k in range(chunks):
+        rows = slice(k * c, (k + 1) * c)
+        ctx = TrainContext()
+        model(x_t[rows], batch["t"][rows], batch["length"][rows],
+              text_ids=batch["text_ids"][rows], ctx=ctx)
+        aux = aux + torch.stack(ctx.aux_losses).sum()
+    loss = total + w * aux / chunks
+    loss.backward()
+    grads = [p.grad.detach().cpu() for p in state.optimizer.params]
+    out = {"loss": float(loss), "grads": grads,
+           "grad_norm": float(grouped_global_norm(grads))}
+    del model, state
+    torch.cuda.empty_cache()
+    return out
 
 
 def p_step(name, weights, batch_path, dev):
@@ -6345,13 +6417,15 @@ def p_step(name, weights, batch_path, dev):
     from motiondiffusion_moe_tpu_torch.ops import performer as P
     from motiondiffusion_moe_tpu_torch.parallel.distributed import barrier
     from motiondiffusion_moe_tpu_torch.parallel.mesh import (
-        gather_whole, is_expert_param, model_dim, shard_params,
-        whole_state_dict)
+        gather_whole, is_expert_param, leaf_cuts, model_dim, shard_params,
+        whole_model, whole_state_dict)
+    from motiondiffusion_moe_tpu_torch.parallel.pipeline_parallel import (
+        format_pp_memory_report, pp_stage_memory_report)
     from motiondiffusion_moe_tpu_torch.training import train_state as TS
     from motiondiffusion_moe_tpu_torch.training.trainer import Trainer
 
-    ep, tp, sp, compute, zero1, _ = P_CASES[name]
-    trainer = Trainer(p_config(compute, ep, zero1, tp, sp), device=dev)
+    ep, tp, sp, compute, zero1, _, pp = P_CASES[name]
+    trainer = Trainer(p_config(compute, ep, zero1, tp, sp, pp), device=dev)
     mesh, model = trainer.dp, trainer.model
     model.load_state_dict(weights)
     shard_params(model)
@@ -6407,14 +6481,36 @@ def p_step(name, weights, batch_path, dev):
            "row_holder": (mesh.q, mesh.holders),
            "loss": float(metrics["loss_total"]),
            "grad_norm": float(metrics["grad_norm"])}
+    if pp > 1:  # the stage's blocks held, the stage report, the copies
+        cuts = leaf_cuts(model)
+        held = {n: p for n, p in model.named_parameters()}
+        report = pp_stage_memory_report(
+            list(whole_model(model).named_parameters()), pp, ema=True,
+            batch=M_B // mesh.dp, num_microbatches=P3_M,
+            max_frames=trainer.cfg.model.max_frames,
+            latent_dim=trainer.cfg.model.latent_dim)
+        digest = hashlib.sha256()
+        for n, p in held.items():
+            if not cuts[n].stage:
+                digest.update(p.detach().cpu().numpy().tobytes())
+        out.update(
+            stage=mesh.p, block_bytes=sum(
+                p.numel() * p.element_size() for n, p in held.items()
+                if cuts[n].stage),
+            blocks_held=sorted({".".join(n.split(".")[:2]) for n in held
+                                if cuts[n].stage}),
+            report_stage_bytes=report["stage_state_bytes"],
+            report_block_bytes=report["param_bytes_blocks"],
+            report=format_pp_memory_report(report),
+            replicated_sha256=digest.hexdigest())
     whole = whole_state_dict(model)
     mu = opt.state_dict()["mu"]
     ema = state.ema.state_dict()["params"]
     if mesh.rank == 0:
+        named = list(whole_model(model).named_parameters())
         out.update(grads=caught["grads"],
-                   tnames=[n for n, p in model.named_parameters()
-                           if p.requires_grad],
-                   names=[n for n, _ in model.named_parameters()],
+                   tnames=[n for n, p in named if p.requires_grad],
+                   names=[n for n, _ in named],
                    params={k: v.cpu() for k, v in whole.items()},
                    mu=[m.cpu() for m in mu], ema=[e.cpu() for e in ema])
     del trainer, model, state, opt, batch, noise
@@ -6422,7 +6518,7 @@ def p_step(name, weights, batch_path, dev):
     return out
 
 
-def p_compare(got, ref, weights, dev) -> dict:
+def p_compare(got, ref, weights, dev, cfg=None) -> dict:
     """Rank 0's checks of one P1 case, on ``dev``: the loss and grad_norm
     against the one-process step's (rtol STEP_LOSS_REL), the gradients by
     :func:`rel_rms_rule` (N2's rule) and by the tests' rule (each within
@@ -6443,7 +6539,7 @@ def p_compare(got, ref, weights, dev) -> dict:
     tests_rule = max(float((a.to(dev) - b).abs().max()
                            / (1e-4 * b.abs().max() + 1e-7))
                      for a, b in zip(got["grads"], on(ref["grads"])))
-    cfg = p_config(tp=1)
+    cfg = cfg or p_config(tp=1)
     with torch.device(dev):
         model = MotionTransformer(cfg.model)
     model.load_state_dict(weights)
@@ -6490,6 +6586,7 @@ def p_rank(spec_path, rank):
     initialize_distributed(spec["init"], W, rank, backend="gloo",
                            device=dev)
     weights = torch.load(spec["params"], mmap=True, weights_only=True)
+    weights3 = torch.load(spec["params3"], mmap=True, weights_only=True)
     res = {"p1": {}}
     t0 = time.perf_counter()
     refs = {}
@@ -6497,18 +6594,23 @@ def p_rank(spec_path, rank):
         for kind in ("dense", "chunks"):
             refs[kind] = n2_reference(kind, weights, spec["batch"], dev, 2,
                                       config=p_config)
+        refs["pipe"] = p3_reference(weights3, spec["batch"], dev)
         res["refs_s"] = time.perf_counter() - t0
     barrier()
-    n_perf = 2 * 2 * P_LAYERS
-    for name, (ep, tp, sp, compute, _, kind) in P_CASES.items():
-        out = p_step(name, weights, spec["batch"], dev)
+    for name, (ep, tp, sp, compute, _, kind, pp) in P_CASES.items():
+        out = p_step(name, weights3 if pp > 1 else weights, spec["batch"],
+                     dev)
         # a seq rank launches kernels 1 and 3 split, never whole
         split = set(SPLIT_KERNELS) if sp > 1 else {"favor_qkv",
                                                     "favor_qkv_bwd"}
         runs = (set(P_KERNELS) - {"favor_qkv", "favor_qkv_bwd"}
                 - set(SPLIT_KERNELS)) | split
-        d, e = rank // (tp * ep * sp), rank // tp % ep
-        holders = W // (sp * ep * tp) * ep
+        # 2 Performers a block, 2 scales; a stage its own blocks alone,
+        # once a microbatch
+        n_perf = (2 * 2 * P_LAYERS if pp == 1
+                  else 2 * 2 * (P3_LAYERS // pp) * P3_M)
+        d, e = rank // (tp * ep * sp * pp), rank // tp % ep
+        holders = W // (sp * ep * tp * pp) * ep
         line = {"ms": round(out["ms"], 1),
                 "peak_GiB": round(out["peak_bytes"] / 2 ** 30, 2),
                 "launches": out["launches"], "shares_ok": out["shares_ok"],
@@ -6520,8 +6622,25 @@ def p_rank(spec_path, rank):
                                       for k in P_KERNELS}
               and out["computes"] == [compute]
               and out["row_holder"] == (d * ep + e, holders))
+        if pp > 1:
+            k = P3_LAYERS // pp
+            line.update({x: out[x] for x in (
+                "stage", "blocks_held", "block_bytes", "report_stage_bytes",
+                "replicated_sha256")})
+            print(f"P1 {name} rank {rank}: {out['report']}", flush=True)
+            ok = (ok and out["block_bytes"] * pp == out["report_block_bytes"]
+                  and out["blocks_held"] == sorted(
+                      f"{s}.{i}" for s in ("blocks_low", "blocks_high")
+                      for i in range(out["stage"] * k,
+                                     (out["stage"] + 1) * k)))
         if rank == 0:
-            cmp = p_compare(out, refs[kind], weights, dev)
+            cmp = p_compare(out, refs[kind], weights3 if pp > 1 else weights,
+                            dev, p_config(tp=1, pp=2) if pp > 1 else None)
+            if pp > 1:  # the loss to 1e-6 against the one process's
+                loss_rel = abs(out["loss"] - refs[kind]["loss"]) / abs(
+                    refs[kind]["loss"])
+                cmp["loss_rel"] = f"{loss_rel:.2e}"
+                cmp["ok"] = cmp["ok"] and loss_rel <= P3_LOSS_REL
             line["against_reference"] = cmp
             ok = ok and cmp["ok"]
         line["ok"] = ok
@@ -6555,6 +6674,8 @@ def phase_p(dev, card):
         n_params = sum(v.numel() for v in weights.values())
         torch.save(weights, j(root, "p_params.pt"))
         del weights
+        torch.save(build_flagship(p_config(tp=1, pp=2)).state_dict(),
+                   j(root, "p3_params.pt"))
         m_batch(cfg, j(root, "p_batch.npz"))
         t_write = time.perf_counter() - t0
         p2 = cli_ranks(root, "P2", [str(dev)] * P_W, P_LAYERS, (),
@@ -6562,6 +6683,7 @@ def phase_p(dev, card):
                        f"file://{j(root, 'rdv_p2')}")
         spec = {"init": f"file://{j(root, 'rdv_p')}", "world": P_W,
                 "device": str(dev), "params": j(root, "p_params.pt"),
+                "params3": j(root, "p3_params.pt"),
                 "batch": j(root, "p_batch.npz"), "out": root,
                 "cli": p2[1]}
         with open(j(root, "p.json"), "w") as fh:
@@ -6586,6 +6708,20 @@ def phase_p(dev, card):
                 check(rr["p1"][name]["ok"], f"P1 {name} rank {r}: "
                                             f"{rr['p1'][name]}")
             launches[name] = res[0]["p1"][name]["launches"]
+            if P_CASES[name][6] > 1:  # the replicated leaves, every rank
+                shas = {rr["p1"][name]["replicated_sha256"] for rr in res}
+                check(len(shas) == 1, f"P1 {name}: the ranks' replicated "
+                                      f"leaves differ after the step")
+                print(f"[P1] {name}: the replicated leaves bit for bit the "
+                      "same on the four ranks; blocks a rank "
+                      f"{[rr['p1'][name]['blocks_held'] for rr in res]}, "
+                      f"block bytes a rank "
+                      f"{[rr['p1'][name]['block_bytes'] for rr in res]}; "
+                      f"pp_stage_memory_report's train state a stage "
+                      f"{res[0]['p1'][name]['report_stage_bytes'] / 2**30:.3f}"
+                      f" GiB beside max_memory_allocated "
+                      f"{[rr['p1'][name]['peak_GiB'] for rr in res]} GiB a "
+                      f"rank (the step's activations included) ({card})")
             ms = [rr["p1"][name]["ms"] for rr in res]
             peak = [rr["p1"][name]["peak_GiB"] for rr in res]
             print(f"[P1] {name}: every rank ok; kernels 1-4 a rank "
@@ -6617,12 +6753,14 @@ O1_STEPS = 2        # O1's DPM-Solver++ steps (the budget's cut: 20 asked)
 # (data 2 x expert 2 in dense gave way to sp2_ep2, the dense expert split,
 # and dispatch_dp2_ep2, the data x expert rows; dispatch at seq 2 x expert
 # 2, 25 s of host-staged gathers a run, to the CPU tests)
-O1_LAYOUTS = {      # name: ((dp, ep, tp, sp), moe_compute, capacity factor)
-    "dp2_sp2": ((2, 1, 1, 2), "dense_fused", 2.0),
-    "ep2_tp2": ((1, 2, 2, 1), "dense_fused", 2.0),
-    "dispatch_dp2_ep2": ((2, 2, 1, 1), "dispatch", 4.0),
-    "sp4": ((1, 1, 1, 4), "dense_fused", 2.0),           # 50/50/48/48 frames
-    "sp2_ep2": ((1, 2, 1, 2), "dense_fused", 2.0)}
+# (sp2_ep2 gave way to dp2_pp2: its seq cut stays in dp2_sp2 and sp4, its
+# dense expert split in ep2_tp2)
+O1_LAYOUTS = {      # name: ((dp, ep, tp, sp, pp), moe_compute, capacity
+    "dp2_sp2": ((2, 1, 1, 2, 1), "dense_fused", 2.0),    # factor)
+    "ep2_tp2": ((1, 2, 2, 1, 1), "dense_fused", 2.0),
+    "dispatch_dp2_ep2": ((2, 2, 1, 1, 1), "dispatch", 4.0),
+    "sp4": ((1, 1, 1, 4, 1), "dense_fused", 2.0),        # 50/50/48/48 frames
+    "dp2_pp2": ((2, 1, 1, 1, 2), "dense_fused", 2.0)}    # 4 blocks a stage
 O1_REL = 1e-3       # O1, f32 compute: rel RMS of the motions
 O2_REL = 1e-1       # O2, bf16 compute (routing flips): rel RMS per request
 O2_MB = 4           # O2's serving micro-batch
@@ -6721,16 +6859,17 @@ def o_holding(pipe) -> dict:
     return out
 
 
-def o_share(sd, ep, tp) -> dict:
+def o_share(sd, ep, tp, pp=1) -> dict:
     """The experts' and split columns' elements a rank should hold of the
     global state ``sd`` (name -> shape): 1 / ep of each expert tensor, and
-    1 / tp of w1, b1, w2 and of the FFN pairs' split leaves."""
+    1 / tp of w1, b1, w2 and of the FFN pairs' split leaves; of a block's,
+    1 / pp (a stage's blocks)."""
     from motiondiffusion_moe_tpu_torch.parallel.mesh import (
         is_expert_param, model_dim)
 
     out = {"experts": 0, "split": 0}
     for n, shape in sd.items():
-        k = int(np.prod(shape))
+        k = int(np.prod(shape)) // (pp if n.startswith("blocks_") else 1)
         cut = model_dim(n, shape, tp) is not None
         if is_expert_param(n):
             out["experts"] += k // ep // (tp if cut else 1)
@@ -6776,8 +6915,8 @@ def o1_rank(spec_path, rank):
     weights = torch.load(spec["params"], mmap=True, weights_only=True)
     prompts, lengths = spec["prompts"]
     res = {}
-    for name, ((dp, ep, tp, sp), compute, cf) in O1_LAYOUTS.items():
-        mesh = generation_mesh(dp, ep, tp, sp)
+    for name, ((dp, ep, tp, sp, pp), compute, cf) in O1_LAYOUTS.items():
+        mesh = generation_mesh(dp, ep, tp, sp, pp)
         c = dataclasses.replace(cfg, model=dataclasses.replace(
             cfg.model, moe_compute=compute, moe_capacity_factor=cf))
         t0 = time.perf_counter()
@@ -6836,6 +6975,8 @@ def phase_o1(cfg, dev, card, root):
     and run kernel 1 as its moments and apply launches around the seq
     all-reduce of kv."""
     import torch
+    from motiondiffusion_moe_tpu_torch.parallel.pipeline_parallel import (
+        pp_num_microbatches)
     from motiondiffusion_moe_tpu_torch.pipeline import GenerationPipeline
 
     j = os.path.join
@@ -6887,18 +7028,21 @@ def phase_o1(cfg, dev, card, root):
     res = [json.load(open(j(root, f"o1_rank{r}.json"))) for r in range(O_W)]
     n_fwd = (O1_STEPS + 1) * 2 * 2 * cfg.model.num_layers  # a micro-batch
     launches = {}
-    for name, ((dp, ep, tp, sp), compute, _) in O1_LAYOUTS.items():
+    for name, ((dp, ep, tp, sp, pp), compute, _) in O1_LAYOUTS.items():
         lines = [rr[name] for rr in res]
         # dispatch at cf 4 drops nothing: dense's function, summed apart
         ref = "dense" if ep * tp > 1 else "dense_fused"
         got = np.load(j(root, f"o1_{name}.npz"))
         o_compare(f"O1 {name}", [got[k] for k in got.files], refs[ref],
                   O1_REL, card)
-        want = o_share(shapes, ep, tp)
-        # a seq rank runs kernel 1 as its two launches, never whole
-        whole, split = (0, n_fwd) if sp > 1 else (n_fwd, 0)
+        want = o_share(shapes, ep, tp, pp)
+        # a seq rank runs kernel 1 as its two launches, never whole; a
+        # stage its own blocks' kernels, once a microbatch
+        n = n_fwd // pp * (pp_num_microbatches(
+            cfg.model.pipeline_microbatches, pp) if pp > 1 else 1)
+        whole, split = (0, n) if sp > 1 else (n, 0)
         expect = {"favor_qkv": whole, "favor_qkv_moments": split,
-                  "favor_qkv_apply": split, "performer_epilogue": n_fwd}
+                  "favor_qkv_apply": split, "performer_epilogue": n}
         for r, line in enumerate(lines):
             check(line["launches"] == expect,
                   f"O1 {name} rank {r} launches {line['launches']}, "
@@ -6913,8 +7057,8 @@ def phase_o1(cfg, dev, card, root):
             check(line["computes"] == [want_compute],
                   f"O1 {name} rank {r} computes {line['computes']}")
         launches[name] = lines[0]["launches"]
-        print(f"[O1] {name} (data {dp} x seq {sp} x expert {ep} x model "
-              f"{tp}, "
+        print(f"[O1] {name} (data {dp} x seq {sp} x pipe {pp} x expert {ep}"
+              f" x model {tp}, "
               f"{compute} -> {lines[0]['computes'][0]}): every rank the "
               f"same motions; launches a rank {lines[0]['launches']}; "
               f"expert elements a rank {lines[0]['experts']} (of "

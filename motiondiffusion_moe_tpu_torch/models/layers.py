@@ -69,6 +69,9 @@ class TrainContext:
     # the scale being run hold (set by the denoiser; None without a seq
     # mesh)
     frames: Optional[Tuple[int, int, int]] = None
+    # on a pipe rank, each ring's aux: its stage's MoE aux losses summed
+    # over its microbatches, over M (parallel/pipeline_parallel.py)
+    stage_aux: List[torch.Tensor] = field(default_factory=list)
 
     @property
     def aux_losses(self) -> List[torch.Tensor]:

@@ -2,9 +2,18 @@
 
 Port of ``motiondiffusion_moe_tpu/models/transformer.py`` (``MoEDecoderLayer``
 and ``MotionTransformer``, named layout), without the JAX-only machinery
-(``scan_blocks``, remat policies, the GPipe runner, sequence-parallel
-constraints). Block ``i`` of a scale is ``blocks_low[i]`` /
-``blocks_high[i]`` (flax ``block_low_i`` / ``block_high_i``).
+(``scan_blocks``, remat policies, sequence-parallel constraints). Block
+``i`` of a scale is ``blocks_low[i]`` / ``blocks_high[i]`` (flax
+``block_low_i`` / ``block_high_i``).
+
+On a rank of a pipe mesh (``pipe``, set by ``parallel/mesh.py::
+attach_mesh``) each scale's blocks run as the GPipe ring of
+``parallel/pipeline_parallel.py`` (JAX's ``_run_blocks_pp``,
+``transformer.py:337-376``): the rank holds only its stage's blocks, the
+rest of the forward runs alike on every pipe rank, and a training forward
+draws the rings' coins and dropout seeds before the first
+(``pipeline_parallel.ring_draws``) and leaves each ring's aux in
+``ctx.stage_aux``.
 
 Training: ``model.train()`` is the JAX ``deterministic=False``. A training
 forward takes a :class:`TrainContext` whose generator drives every dropout
@@ -62,6 +71,7 @@ from motiondiffusion_moe_tpu_torch.models.text_encoder import (
     TextEncoding,
     make_text_encoder,
 )
+from motiondiffusion_moe_tpu_torch.parallel import pipeline_parallel
 
 
 def compute_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -159,6 +169,7 @@ class MotionTransformer(nn.Module):
         self.survival_probs = [float(p) for p in np.linspace(
             1.0, cfg.stochastic_depth_min, cfg.num_layers)]
         self.seq = None  # the seq ranks' group under a seq mesh
+        self.pipe = None  # the run's mesh under a pipe axis
 
     @torch.no_grad()
     def _init_own(self, g: torch.Generator) -> None:
@@ -239,14 +250,17 @@ class MotionTransformer(nn.Module):
         whole = self._scale_frames(ctx, frames)
         if whole is not None:  # the low scale's frames of ceil(T / 2)
             ctx.frames = (t0 // 2, t0 // 2 + h_low.shape[1], -(-whole // 2))
+        draws = None
+        if self.pipe is not None and self.training:  # before the rings
+            draws = pipeline_parallel.ring_draws(self, ctx, h.device)
         h_low = self._run_blocks(self.blocks_low, h_low, xf_out, fused_emb,
-                                 mask_low, ctx)
+                                 mask_low, ctx, draws)
         up = self._conv(self.upsample, h_low)[:, :T]
         h = round_keeping_f32(up.float() + h, dt)
         if whole is not None:
             ctx.frames = (t0, t0 + T, whole)
         h = self._run_blocks(self.blocks_high, h, xf_out, fused_emb, src_mask,
-                             ctx)
+                             ctx, draws)
         if whole is not None:
             ctx.frames = None
         return self.out(h).float()
@@ -281,7 +295,11 @@ class MotionTransformer(nn.Module):
                              "be even and t1 - t0 the frames of x")
         return t0
 
-    def _run_blocks(self, blocks, h, xf, emb, mask, ctx):
+    def _run_blocks(self, blocks, h, xf, emb, mask, ctx, draws=None):
+        if self.pipe is not None:  # the scale's GPipe ring
+            return pipeline_parallel.run_ring(
+                self, int(blocks is self.blocks_high), h, xf, emb, mask, ctx,
+                draws)
         for block, p in zip(blocks, self.survival_probs):
             h = stochastic_depth(
                 lambda x, block=block: block(x, xf, emb, mask, ctx), h, p,

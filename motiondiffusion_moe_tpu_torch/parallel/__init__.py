@@ -1,12 +1,12 @@
-"""Multi-device training and generation: the data, seq, expert and model
-axes of the JAX package's ``parallel/`` over ``torch.distributed``, one
-process per device (data parallelism and ZeRO-1, ``data_parallel.py``; the
-``(data, seq, expert, model)`` mesh, the expert shards, the Megatron FFN
-split and the seq ranks' frames, ``mesh.py``; the expert-parallel and
-tensor-parallel MoE FFN and the row-parallel sums, ``moe_parallel.py``; the
-launch and the job channel of serving and evaluation, ``distributed.py``).
-The pipe axis (``pipeline_parallel.py``) is not ported (ROADMAP item
-6c2)."""
+"""Multi-device training and generation: the data, seq, pipe, expert and
+model axes of the JAX package's ``parallel/`` over ``torch.distributed``,
+one process per device (data parallelism and ZeRO-1, ``data_parallel.py``;
+the ``(data, seq, pipe, expert, model)`` mesh, the expert shards, the
+Megatron FFN split, the seq ranks' frames and the pipe stages' blocks,
+``mesh.py``; the GPipe ring of the pipe stages, ``pipeline_parallel.py``;
+the expert-parallel and tensor-parallel MoE FFN and the row-parallel sums,
+``moe_parallel.py``; the launch and the job channel of serving and
+evaluation, ``distributed.py``)."""
 
 from motiondiffusion_moe_tpu_torch.parallel.distributed import (  # noqa: F401
     JobLeader,
@@ -22,6 +22,13 @@ from motiondiffusion_moe_tpu_torch.parallel.data_parallel import (  # noqa: F401
     DataGroup,
     FlatPartition,
     Sharded,
+)
+from motiondiffusion_moe_tpu_torch.parallel.pipeline_parallel import (  # noqa: F401,E501
+    format_pp_memory_report,
+    gpipe,
+    pp_num_microbatches,
+    pp_stage_memory_report,
+    validate_pp_layout,
 )
 from motiondiffusion_moe_tpu_torch.parallel.mesh import (  # noqa: F401
     ExpertMesh,

@@ -38,11 +38,12 @@ The model is not wrapped in ``DistributedDataParallel``: that renames every
 formats and the exports read those names.
 
 Under the gloo backend each collective on CUDA tensors goes through host
-memory: gloo serves ranks that share one card, which NCCL refuses. The
-seq, expert and model axes (``parallel/mesh.py``,
+memory: gloo serves ranks that share one card, which NCCL refuses, and
+its sends and receives (:meth:`DataGroup.isend`, :meth:`DataGroup.recv`)
+take host tensors too. The seq, pipe, expert and model axes
+(``parallel/mesh.py``, ``parallel/pipeline_parallel.py``,
 ``parallel/moe_parallel.py``) build on these groups and their subgroups,
-in generation and in training; the pipe axis is not ported (ROADMAP, queue
-1, item 6c2).
+in generation and in training.
 """
 
 from __future__ import annotations
@@ -135,6 +136,30 @@ class DataGroup:
                                                       group=self.group),
                          out, x)
 
+    def broadcast_(self, t: torch.Tensor, src: int) -> torch.Tensor:
+        """``t`` of the rank ``src`` (a global rank of the group) on every
+        rank, in place."""
+        return self._run(lambda o: dist.broadcast(o, src, group=self.group),
+                         t)
+
+    def isend(self, t: torch.Tensor, dst: int) -> "Sent":
+        """Start sending ``t`` to the global rank ``dst`` of the group;
+        :meth:`Sent.wait` ends it. Under gloo a host copy is sent (kept
+        until then); under NCCL the tensor itself, on the card."""
+        t = t.detach()
+        t = t.to("cpu", copy=True) if self.staged else t.contiguous()
+        return Sent(dist.isend(t, dst, group=self.group), t)
+
+    def recv(self, out: torch.Tensor, src: int) -> torch.Tensor:
+        """Fill ``out`` with the tensor the global rank ``src`` of the
+        group sends (through host memory under gloo)."""
+        if not self.staged:
+            dist.recv(out, src, group=self.group)
+            return out
+        host = torch.empty(out.shape, dtype=out.dtype)
+        dist.recv(host, src, group=self.group)
+        return out.copy_(host)
+
     def gather_to_primary(self, shard: torch.Tensor
                           ) -> Optional[torch.Tensor]:
         """The ranks' ``shard`` laid end to end in rank order, in host
@@ -155,6 +180,18 @@ class DataGroup:
                 for r, p in enumerate(parts):
                     out[r * n + a:r * n + a + p.numel()].copy_(p)
         return out
+
+
+class Sent:
+    """A send in flight (:meth:`DataGroup.isend`): its work and the
+    tensor it sends, which must live until :meth:`wait`."""
+
+    def __init__(self, work, tensor: torch.Tensor):
+        self.work, self.tensor = work, tensor
+
+    def wait(self) -> None:
+        self.work.wait()
+        self.tensor = None
 
 
 def by_dtype(tensors: Sequence[torch.Tensor]) -> List[List[int]]:

@@ -13,7 +13,8 @@ then torchrun's environment (``MASTER_ADDR`` / ``MASTER_PORT``,
 ``nccl`` for CUDA, ``gloo`` for the CPU, unless the caller names one. An
 explicit configuration that fails to initialise raises: a degraded run of
 one process would train on another batch, silently. A finite timeout ends
-a run whose peer died, with an error, instead of waiting for ever.
+a run whose peer died, with an error, instead of waiting for ever. A group
+that its joiner leaves open is ended at the interpreter's exit.
 
 The JAX module's ``coordination_barrier`` and ``compile_synced`` have no
 counterpart: they keep one process's collective from timing out while
@@ -33,6 +34,7 @@ memory would otherwise be W times one copy).
 
 from __future__ import annotations
 
+import atexit
 import datetime
 import os
 import threading
@@ -108,7 +110,18 @@ def initialize_distributed(coordinator_address: Optional[str] = None,
     dist.init_process_group(backend, init_method=method, world_size=world,
                             rank=r,
                             timeout=datetime.timedelta(seconds=timeout_s))
+    atexit.register(_leave_group)
     return True
+
+
+def _leave_group() -> None:
+    """At the interpreter's exit, end the process group if its joiner has
+    not: its backend's threads are then joined while the interpreter still
+    runs. A process that exits with them live can abort in its teardown
+    ("terminate called without an active exception"), a rank of a run that
+    had finished."""
+    if dist.is_initialized():
+        dist.destroy_process_group()
 
 
 def world_size() -> int:

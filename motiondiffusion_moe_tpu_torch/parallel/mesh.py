@@ -55,14 +55,28 @@ end, with no gradient or with one of two backward rules (``"sum"`` for a
 computation every seq rank runs on the whole T and keeps its frames of,
 ``"keep"`` for a value every seq rank computes alike from the whole T).
 
+The pipe axis (``generation_mesh(..., pipeline_parallel=pp)``, or
+``num_pipeline_stages`` in training) follows JAX's ``(data, seq, pipe,
+expert, model)`` numbering, rank ``r = (((d sp + s) pp + p) ep + e) tp +
+m``, and composes with the data axis alone, as in JAX (``check_pipe_axes``):
+rank ``d pp + p``. The pipe ranks of one ``d`` (the ``pipe`` subgroup) hold
+the same rows, each its stage's blocks (``Cut.stage``,
+``parallel/pipeline_parallel.py``); the data group is the ranks of one
+stage, which hold its blocks (``blocks[STAGE]``); the row-holder is ``q =
+d``. A stage's leaves are gathered from the stages' ranks of data index 0
+and laid in the one-process order (:func:`expand_stages`), and a global
+list is cut to a stage's (:func:`contract_stages`).
+
 A leaf's gradient is summed over the ranks that hold the same block of it
 (:attr:`ExpertMesh.blocks`): a replicated leaf over the world, a model-cut
 one over the ranks that share ``m``, an expert over those that share ``e``
 (and ``m`` when it is model-cut too), so every holder of a block gets the
-same bits. A checkpoint holds JAX's global layout: :func:`gather_whole` and
-:meth:`CutSharded.gather` bring the blocks to rank 0's host, experts laid
-in order on dim 0 and model blocks on their model dim, and
-:func:`local_state_dict` cuts a whole state for any ``(dp, ep, tp)``.
+same bits (a stage's blocks over its data ranks). A checkpoint holds JAX's
+global layout: :func:`gather_whole` and :meth:`CutSharded.gather` bring
+the blocks to rank 0's host, experts laid in order on dim 0, model blocks
+on their model dim and the stages' blocks under their one-process names,
+and :func:`local_state_dict` cuts a whole state for any ``(dp, pp, ep,
+tp)``.
 """
 
 from __future__ import annotations
@@ -77,6 +91,10 @@ from motiondiffusion_moe_tpu_torch.parallel.data_parallel import (
     DataGroup,
     Sharded,
     by_dtype,
+)
+from motiondiffusion_moe_tpu_torch.parallel.pipeline_parallel import (
+    DISPATCH_IN_RING,
+    SCALES,
 )
 
 EXPERT_LEAVES = ("w1", "b1", "w2", "b2")
@@ -113,18 +131,36 @@ def model_dim(name: str, shape: Sequence[int], tp: int) -> Optional[int]:
     return dim
 
 
+# the key of a leaf only one pipe stage's ranks hold (a block's)
+STAGE = (False, False, True)
+
+
 class Cut(NamedTuple):
     """How a rank holds a leaf: only its ``E / ep`` experts on dim 0
-    (``expert``) and/or its ``1 / tp`` of dim ``dim`` (the model axis)."""
+    (``expert``) and/or its ``1 / tp`` of dim ``dim`` (the model axis); or,
+    under a pipe axis, only on the ranks of one stage (``stage``: 1 for a
+    ``blocks_low`` leaf, 2 for a ``blocks_high`` one; each stage holds its
+    own blocks of the scale, whole)."""
 
     expert: bool = False
     dim: Optional[int] = None
+    stage: int = 0
 
     @property
-    def key(self) -> Tuple[bool, bool]:
-        """(cut by expert, cut over the model axis): which ranks hold the
-        same block (:attr:`ExpertMesh.blocks`)."""
-        return self.expert, self.dim is not None
+    def key(self) -> Tuple[bool, ...]:
+        """(cut by expert, cut over the model axis), or :data:`STAGE`:
+        which ranks hold the same block (:attr:`ExpertMesh.blocks`)."""
+        return STAGE if self.stage else (self.expert, self.dim is not None)
+
+
+def check_pipe_axes(sp: int, ep: int, tp: int) -> None:
+    """JAX's rule (``transformer.py:268-273``): the pipe axis composes with
+    the data axis alone."""
+    for axis, n in (("seq", sp), ("expert", ep), ("model", tp)):
+        if n > 1:
+            raise ValueError(
+                f"pipeline parallelism composes with 'data' only; mesh has "
+                f"{axis}={n}")
 
 
 class ExpertMesh(DataGroup):
@@ -139,35 +175,40 @@ class ExpertMesh(DataGroup):
     layout (see the module doc)."""
 
     def __init__(self, ep: int = 1, tp: int = 1,
-                 rows_replicated: bool = False, sp: int = 1):
+                 rows_replicated: bool = False, sp: int = 1, pp: int = 1):
         super().__init__()
-        if min(ep, tp, sp) < 1 or self.world % (sp * ep * tp):
-            raise ValueError(f"{sp} seq x {ep} expert x {tp} model "
-                             f"partitions do not divide the {self.world} "
-                             "processes")
-        self.ep, self.tp, self.sp = ep, tp, sp
-        self.dp = self.world // (sp * ep * tp)
+        if min(ep, tp, sp, pp) < 1 or self.world % (sp * pp * ep * tp):
+            raise ValueError(
+                f"{sp} seq x {pp} pipe x {ep} expert x {tp} model "
+                f"partitions do not divide the {self.world} processes")
+        if pp > 1:
+            check_pipe_axes(sp, ep, tp)
+        self.ep, self.tp, self.sp, self.pp = ep, tp, sp, pp
+        self.dp = self.world // (sp * pp * ep * tp)
         self.rows_replicated = rows_replicated
         self.m = self.rank % tp
         self.e = self.rank // tp % ep
-        self.s = self.rank // (tp * ep) % sp
-        self.d = self.rank // (tp * ep * sp)
+        self.p = self.rank // (tp * ep) % pp
+        self.s = self.rank // (tp * ep * pp) % sp
+        self.d = self.rank // (tp * ep * pp * sp)
         self.q, self.holders = self.d * ep + self.e, self.dp * ep
 
         rank = self.rank_of
         dsp = [(d, s) for d in range(self.dp) for s in range(sp)]
         mine = self.d * sp + self.s
         self.expert = self.model = self.shard = self.seq = None
+        self.pipe = None
         self.data = self
         if ep > 1:
             self.expert = self._subgroup(
                 [[rank(d, i, m, s) for i in range(ep)] for d, s in dsp
                  for m in range(tp)], mine * tp + self.m)
-        if sp * ep * tp > 1:
+        if sp * pp * ep * tp > 1:
             self.data = self._subgroup(
-                [[rank(d, e, m, s) for d in range(self.dp)]
-                 for s in range(sp) for e in range(ep) for m in range(tp)],
-                (self.s * ep + self.e) * tp + self.m)
+                [[rank(d, e, m, s, p) for d in range(self.dp)]
+                 for s in range(sp) for p in range(pp) for e in range(ep)
+                 for m in range(tp)],
+                ((self.s * pp + self.p) * ep + self.e) * tp + self.m)
         if tp > 1:
             self.model = self._subgroup(
                 [[rank(d, e, i, s) for i in range(tp)] for d, s in dsp
@@ -194,6 +235,11 @@ class ExpertMesh(DataGroup):
                 [[rank(d, e, m, i) for i in range(sp)] for d in range(self.dp)
                  for e in range(ep) for m in range(tp)],
                 (self.d * ep + self.e) * tp + self.m)
+        if pp > 1:  # a stage's blocks: held by the data ranks of its stage
+            self.blocks[STAGE] = self.data
+            self.pipe = self._subgroup(
+                [[rank(d, 0, 0, 0, i) for i in range(pp)]
+                 for d in range(self.dp)], self.d)
 
     def _subgroup(self, families: List[List[int]], mine: int) -> DataGroup:
         if len(families) == 1:
@@ -205,8 +251,21 @@ class ExpertMesh(DataGroup):
     def __deepcopy__(self, memo):
         return self  # a copied module keeps the process groups
 
-    def rank_of(self, d: int, e: int, m: int, s: int = 0) -> int:
-        return ((d * self.sp + s) * self.ep + e) * self.tp + m
+    def rank_of(self, d: int, e: int, m: int, s: int = 0, p: int = 0
+                ) -> int:
+        """JAX's device numbering on ``(data, seq, pipe, expert, model)``
+        (read off any object with the degrees; ``pp`` 1 if it has none)."""
+        pp = getattr(self, "pp", 1)
+        return (((d * self.sp + s) * pp + p) * self.ep + e) * self.tp + m
+
+    def copies(self, key) -> int:
+        """The ranks of a row-holder whose gradients of a leaf cut as
+        ``key`` are copies of one another, which the sum over
+        ``blocks[key]`` takes: its model ranks unless the leaf is cut over
+        the model axis, and its pipe ranks for a leaf every stage holds
+        (each runs the same replicated work on the same rows)."""
+        return ((1 if key[1] else self.tp)
+                * (self.pp if key == (False, False) else 1))
 
     def frames(self, T: int, s: Optional[int] = None) -> Tuple[int, int]:
         """``[t0, t1)``, the frames of T that seq rank ``s`` (default this
@@ -256,8 +315,9 @@ class ExpertMesh(DataGroup):
     @property
     def batch(self) -> DataGroup:
         """The row-holders at this model index (the ranks that share
-        ``m``): together they hold each row of the global batch once."""
-        return self.blocks[(False, True)]
+        ``m``) and, under a pipe axis, at this stage: together they hold
+        each row of the global batch once."""
+        return self.data if self.pp > 1 else self.blocks[(False, True)]
 
     def blocks_of(self, key: Tuple[bool, bool]) -> List[Tuple[int, int]]:
         """The blocks ``(e, m)`` of a leaf cut as ``key`` (``Cut.key``)."""
@@ -341,6 +401,78 @@ class ExpertMesh(DataGroup):
                      for b in self.blocks_of(cuts[i].key)}, cuts[i])
         return None if self.rank else out
 
+    def stage_ranks(self, p: int) -> List[int]:
+        """The ranks of stage ``p``, in data order (its data group)."""
+        return [self.rank_of(d, 0, 0, 0, p) for d in range(self.dp)]
+
+    def gather_stages(self, tensors: Sequence[torch.Tensor]
+                      ) -> Optional[Dict[int, List[torch.Tensor]]]:
+        """Every stage's ``tensors`` (the rank's leaves of its stage, of
+        the same shapes on every stage), from the ranks of data index 0 (a
+        gather over their pipe group, rank 0's), in host memory on rank 0
+        as ``{p: tensors}``; None on the others."""
+        if self.d:
+            return None
+        out = {p: [None] * len(tensors) for p in range(self.pp)}
+        for idx in by_dtype(tensors):
+            flat = torch.cat([tensors[i].detach().reshape(-1) for i in idx])
+            every = self.pipe.gather_to_primary(flat)
+            if every is None:
+                continue
+            n = flat.numel()
+            for p in range(self.pp):
+                for i, v in zip(idx, every[p * n:(p + 1) * n].split(
+                        [tensors[i].numel() for i in idx])):
+                    out[p][i] = v.view(tensors[i].shape)
+        return None if self.rank else out
+
+
+def _stage_runs(cuts: Sequence[Cut]) -> List[Tuple[int, int]]:
+    """``[i, j)`` of each run of consecutive leaves of one scale's stage."""
+    runs, i = [], 0
+    while i < len(cuts):
+        j = i + 1
+        if cuts[i].stage:
+            while j < len(cuts) and cuts[j].stage == cuts[i].stage:
+                j += 1
+            runs.append((i, j))
+        i = j
+    return runs
+
+
+def expand_stages(held: Sequence, cuts: Sequence[Cut],
+                  stages: Dict[int, Sequence]) -> list:
+    """The global list of a pipe rank's list ``held`` (cut as ``cuts``):
+    each run of one scale's stage leaves becomes every stage's run, in
+    stage order (the one-process order: every block of a scale in turn),
+    ``stages[p]`` holding stage p's values of the stage leaves in the
+    held order."""
+    out, k, last = [], 0, 0
+    for i, j in _stage_runs(cuts):
+        out.extend(held[last:i])
+        for p in sorted(stages):
+            out.extend(stages[p][k:k + j - i])
+        k, last = k + j - i, j
+    out.extend(held[last:])
+    return out
+
+
+def contract_stages(whole: Sequence, cuts: Sequence[Cut], pp: int,
+                    p: int) -> list:
+    """Stage p's list, cut as ``cuts``, of a global list (the inverse of
+    :func:`expand_stages`)."""
+    out, g, last = [], 0, 0
+    for i, j in _stage_runs(cuts):
+        out.extend(whole[g:g + i - last])
+        g += i - last
+        out.extend(whole[g + p * (j - i):g + (p + 1) * (j - i)])
+        g, last = g + pp * (j - i), j
+    out.extend(whole[g:])
+    if len(out) != len(cuts):
+        raise ValueError(f"a global list of {len(whole)} leaves for "
+                         f"{len(cuts)} held over {pp} pipe stages")
+    return out
+
 
 class _GatherFrames(torch.autograd.Function):
     @staticmethod
@@ -369,7 +501,8 @@ class CutSharded:
     takes the tensors at the rank's shapes, one shard per dtype of each
     part; :meth:`gather` returns the global ones."""
 
-    KEYS = ((False, False), (False, True), (True, False), (True, True))
+    KEYS = ((False, False), (False, True), (True, False), (True, True),
+            STAGE)
 
     def __init__(self, tensors: Sequence[torch.Tensor],
                  cuts: Sequence[Cut], mesh: ExpertMesh,
@@ -400,22 +533,34 @@ class CutSharded:
         for idx, part in zip(self.idx, self.parts):
             key = self.cuts[idx[0]].key
             blocks: Dict[int, dict] = {i: {} for i in idx}
+            # a stage's leaves: its block b = p, held by its data ranks
+            owners = ([(p, mesh.stage_ranks(p)) for p in range(mesh.pp)]
+                      if key == STAGE else
+                      [(b, mesh.members(key, *b))
+                       for b in mesh.blocks_of(key)])
             for group, part_flat in part.groups:
                 shard = next(shards)
                 every = mesh.gather_to_primary(shard)
                 if every is None:
                     continue
                 n = shard.numel()
-                for b in mesh.blocks_of(key):
+                for b, ranks in owners:
                     # block b's flat: the shards of its ranks, in order
                     flat = torch.cat([every[r * n:(r + 1) * n]
-                                      for r in mesh.members(key, *b)])
+                                      for r in ranks])
                     for j, v in zip(group, part_flat.split(flat)):
                         blocks[idx[j]][b] = v.view(part.shapes[j])
             if mesh.rank == 0:
                 for i in idx:
-                    out[i] = mesh.assemble(blocks[i], self.cuts[i])
-        return None if mesh.rank else out
+                    out[i] = (blocks[i] if key == STAGE else
+                              mesh.assemble(blocks[i], self.cuts[i]))
+        if mesh.rank:
+            return None
+        if mesh.pp == 1:
+            return out
+        stage = [i for i, c in enumerate(self.cuts) if c.stage]
+        return expand_stages(out, self.cuts, {
+            p: [out[i][p] for i in stage] for p in range(mesh.pp)})
 
 
 def gather_whole(tensors: Sequence[torch.Tensor], cuts: Sequence[Cut],
@@ -427,6 +572,10 @@ def gather_whole(tensors: Sequence[torch.Tensor], cuts: Sequence[Cut],
     idx = [i for i, c in enumerate(cuts) if c.key != (False, False)]
     if mesh is None or not idx:
         return list(tensors)
+    if mesh.pp > 1:  # each stage's blocks from its ranks of data index 0
+        stages = mesh.gather_stages([tensors[i] for i in idx])
+        return (None if stages is None
+                else expand_stages(list(tensors), cuts, stages))
     whole = mesh.gather_blocks([tensors[i] for i in idx],
                                [cuts[i] for i in idx])
     if whole is None:
@@ -439,9 +588,12 @@ def gather_whole(tensors: Sequence[torch.Tensor], cuts: Sequence[Cut],
 
 def local_leaves(tensors: Sequence[torch.Tensor], cuts: Sequence[Cut],
                  mesh: Optional[ExpertMesh]) -> List[torch.Tensor]:
-    """The rank's blocks of the global ``tensors`` cut as ``cuts``."""
+    """The rank's blocks of the global ``tensors`` cut as ``cuts`` (under a
+    pipe axis, its stage's leaves of them)."""
     if mesh is None:
         return list(tensors)
+    if mesh.pp > 1:
+        return contract_stages(tensors, cuts, mesh.pp, mesh.p)
     return [mesh.take(t, c) for t, c in zip(tensors, cuts)]
 
 
@@ -458,10 +610,10 @@ def moe_layers(model: nn.Module):
 
 def model_mesh(model: nn.Module) -> Optional[ExpertMesh]:
     """The mesh the model's parameters were cut over, or None (no mesh, or
-    one that cuts nothing: ``ep = tp = 1``)."""
+    one that cuts nothing: ``ep = tp = pp = 1``)."""
     for m in model.modules():
-        mesh = getattr(m, "mesh", None)
-        if isinstance(mesh, ExpertMesh) and mesh.ep * mesh.tp > 1:
+        mesh = getattr(m, "mesh", None) or getattr(m, "pipe", None)
+        if isinstance(mesh, ExpertMesh) and mesh.ep * mesh.tp * mesh.pp > 1:
             return mesh
     return None
 
@@ -476,7 +628,10 @@ def attach_mesh(model: nn.Module, mesh: Optional[ExpertMesh]) -> None:
     ``dense_fused`` merges the experts into one matmul, which cannot be
     cut (JAX ``trainer.py:71-89``). Under a seq axis the denoiser and its
     Performers get the seq group (their ``seq``: frames cut, kv closed
-    across the ranks)."""
+    across the ranks). Under a pipe axis the denoiser gets the mesh (its
+    ``pipe``: each scale's blocks run as a GPipe ring over the stages,
+    ``parallel/pipeline_parallel.py``), and a ``dispatch`` layer raises, as
+    in JAX (``transformer.py:274-279``)."""
     from motiondiffusion_moe_tpu_torch.models.attention import (
         FastAttention, PerformerSelfAttention)
     from motiondiffusion_moe_tpu_torch.models.layers import Dense
@@ -484,7 +639,10 @@ def attach_mesh(model: nn.Module, mesh: Optional[ExpertMesh]) -> None:
         MotionTransformer)
 
     tp = mesh.tp if mesh is not None else 1
+    pipe = mesh if mesh is not None and mesh.pp > 1 else None
     for name, m in moe_layers(model):
+        if pipe is not None and m.compute == "dispatch":
+            raise ValueError(DISPATCH_IN_RING)
         if mesh is not None and mesh.ep * tp > 1:
             if m.compute == "dense_fused":
                 raise ValueError(
@@ -506,28 +664,35 @@ def attach_mesh(model: nn.Module, mesh: Optional[ExpertMesh]) -> None:
         elif isinstance(m, (MotionTransformer, PerformerSelfAttention,
                             FastAttention)):
             m.seq = seq
+            if isinstance(m, MotionTransformer):
+                m.pipe = pipe
 
 
 def leaf_cuts(model: nn.Module) -> Dict[str, Cut]:
     """How the rank holds each parameter of ``model`` (by name) under the
     mesh :func:`attach_mesh` gave it: its experts under an expert axis, the
     dims of :data:`SPLIT_DIMS` of a split FFN pair's leaves (the modules'
-    splits, which :func:`model_dim` set); every leaf whole without a
+    splits, which :func:`model_dim` set); under a pipe axis the blocks'
+    leaves as its stage's (``Cut.stage``); every leaf whole without a
     mesh."""
     from motiondiffusion_moe_tpu_torch.models.layers import Dense
     from motiondiffusion_moe_tpu_torch.models.moe import SwitchMoELayer
 
     mesh = model_mesh(model)
     ep = mesh.ep if mesh is not None else 1
+    pipe = mesh is not None and mesh.pp > 1
     cuts = {}
     for mname, mod in model.named_modules():
         moe = isinstance(mod, SwitchMoELayer)
         kind = ("expert" if moe and mod.model_split
                 else mod.split if isinstance(mod, Dense) else None)
         dims = SPLIT_DIMS[kind] if kind else {}
+        stage = (SCALES.index(mname.partition(".")[0]) + 1
+                 if pipe and mname.partition(".")[0] in SCALES else 0)
         for leaf, _ in mod.named_parameters(recurse=False):
             cuts[f"{mname}.{leaf}" if mname else leaf] = Cut(
-                ep > 1 and moe and leaf in EXPERT_LEAVES, dims.get(leaf))
+                ep > 1 and moe and leaf in EXPERT_LEAVES, dims.get(leaf),
+                stage)
     return cuts
 
 
@@ -535,10 +700,16 @@ def leaf_cuts(model: nn.Module) -> Dict[str, Cut]:
 def shard_params(model: nn.Module) -> None:
     """Keep only the rank's block of every cut parameter
     (:func:`leaf_cuts`): its experts, and its ``1 / tp`` of each split FFN
-    leaf. Once, on whole weights (after the whole seeded init, so that the
-    weights are the one-process run's)."""
+    leaf; under a pipe axis, only its stage's blocks
+    (``pipeline_parallel.keep_stage``). Once, on whole weights (after the
+    whole seeded init, so that the weights are the one-process run's)."""
     mesh = model_mesh(model)
     if mesh is None:
+        return
+    if mesh.pp > 1:
+        from motiondiffusion_moe_tpu_torch.parallel.pipeline_parallel import (
+            keep_stage)
+        keep_stage(model, mesh)
         return
     cuts = leaf_cuts(model)
     for mname, mod in model.named_modules():
@@ -554,86 +725,124 @@ def whole_state_dict(model: nn.Module) -> Optional[Dict[str, torch.Tensor]]:
     cut leaves gathered (host memory), None on the other ranks (a
     collective); the state dict itself without a cut."""
     sd = model.state_dict()
-    cuts = leaf_cuts(model)
+    by_name = leaf_cuts(model)
     names = list(sd)
-    whole = gather_whole([sd[n] for n in names],
-                         [cuts.get(n, Cut()) for n in names],
-                         model_mesh(model))
-    return None if whole is None else dict(zip(names, whole))
+    cuts = [by_name.get(n, Cut()) for n in names]
+    mesh = model_mesh(model)
+    whole = gather_whole([sd[n] for n in names], cuts, mesh)
+    if whole is None:
+        return None
+    if mesh is not None and mesh.pp > 1:  # every stage's block names
+        from motiondiffusion_moe_tpu_torch.parallel.pipeline_parallel import (
+            stage_name)
+        k = model.config.num_layers // mesh.pp
+        names = expand_stages(names, cuts, {
+            p: [stage_name(n, (p - mesh.p) * k)
+                for n, c in zip(names, cuts) if c.stage]
+            for p in range(mesh.pp)})
+    return dict(zip(names, whole))
+
+
+def whole_model(model: nn.Module) -> nn.Module:
+    """``model``, or for a pipe rank's denoiser (its stage's blocks alone)
+    the whole model's structure on the meta device: the one-process
+    parameters' names, order and modules, as a checkpoint in JAX's layout
+    needs them."""
+    mesh = model_mesh(model)
+    if mesh is None or mesh.pp == 1:
+        return model
+    from motiondiffusion_moe_tpu_torch.models.transformer import (
+        MotionTransformer)
+    with torch.device("meta"):
+        return MotionTransformer(model.config, use_kernels=False)
 
 
 def local_state_dict(model: nn.Module, sd: Dict[str, torch.Tensor]
                      ) -> Dict[str, torch.Tensor]:
     """A global state dict cut to the model's shapes: each tensor to the
-    rank's part of it (:meth:`ExpertMesh.local_leaf`)."""
+    rank's part of it (:meth:`ExpertMesh.local_leaf`), under a pipe axis
+    only the tensors of the rank's stage and the replicated ones."""
     mesh = model_mesh(model)
     if mesh is None:
         return dict(sd)
+    if mesh.pp > 1:  # the blocks of its stage
+        held = model.state_dict()
+        return {n: v for n, v in sd.items() if n in held}
     return {n: mesh.local_leaf(n, v) for n, v in sd.items()}
 
 
 def generation_mesh(data_parallel: int = 1, expert_parallel: int = 1,
-                    tensor_parallel: int = 1, seq_parallel: int = 1
-                    ) -> Optional[ExpertMesh]:
-    """The ``(data, [seq,] expert, model)`` mesh of ``GenerationPipeline``
-    and the serve / evaluate CLIs, in the generation layout: None when
-    every degree is 1 and no process group exists. Raises unless the
-    process group has ``dp x sp x ep x tp`` ranks (``data_parallel`` 0
-    means the world over ``sp x ep x tp``), and, with degrees above 1,
-    unless it exists."""
-    dp, ep, tp, sp = data_parallel, expert_parallel, tensor_parallel, \
-        seq_parallel
+                    tensor_parallel: int = 1, seq_parallel: int = 1,
+                    pipeline_parallel: int = 1) -> Optional[ExpertMesh]:
+    """The ``(data, [seq,] [pipe,] expert, model)`` mesh of
+    ``GenerationPipeline`` and the serve / evaluate CLIs, in the generation
+    layout: None when every degree is 1 and no process group exists.
+    Raises unless the process group has ``dp x sp x pp x ep x tp`` ranks
+    (``data_parallel`` 0 means the world over ``sp x pp x ep x tp``), with
+    degrees above 1 unless it exists, and for a pipe axis beside a seq,
+    expert or model axis (JAX's rule)."""
+    dp, ep, tp, sp, pp = (data_parallel, expert_parallel, tensor_parallel,
+                          seq_parallel, pipeline_parallel)
     world = dist.get_world_size() if dist.is_initialized() else 1
-    if min(ep, tp, sp) < 1 or dp < 0:
-        raise ValueError(f"parallel degrees data {dp}, seq {sp}, expert "
-                         f"{ep}, model {tp}: each at least 1 (data 0 = the "
-                         "rest)")
-    rest = sp * ep * tp
+    if min(ep, tp, sp, pp) < 1 or dp < 0:
+        raise ValueError(f"parallel degrees data {dp}, seq {sp}, pipe {pp}, "
+                         f"expert {ep}, model {tp}: each at least 1 (data 0 "
+                         "= the rest)")
+    if pp > 1:
+        check_pipe_axes(sp, ep, tp)
+    rest = sp * pp * ep * tp
     want = (dp or max(1, world // rest)) * rest
     seq = f" --seq_parallel {sp}" if sp > 1 else ""
     if want > 1 and not dist.is_initialized():
         raise ValueError(
             f"--data_parallel {dp}{seq} --expert_parallel {ep} "
-            f"--tensor_parallel {tp} asks for {want} devices, but this is "
+            f"--tensor_parallel {tp}"
+            + (f" and pipeline_parallel {pp}" if pp > 1 else "")
+            + f" asks for {want} devices, but this is "
             f"one process: launch one process per device ({want}), with "
             "torchrun or --coordinator_address / --num_processes / "
             "--process_id")
     if world != want:
         raise ValueError(
-            f"data {dp or world // rest}{f' x seq {sp}' if sp > 1 else ''} "
+            f"data {dp or world // rest}{f' x seq {sp}' if sp > 1 else ''}"
+            f"{f' x pipe {pp}' if pp > 1 else ''} "
             f"x expert {ep} x model {tp} = {want} ranks, but the process "
-            f"group has {world}: launch data x seq x expert x model "
+            f"group has {world}: launch data x seq x pipe x expert x model "
             "processes, one per device")
     if not dist.is_initialized():
         return None
-    return ExpertMesh(ep, tp, rows_replicated=True, sp=sp)
+    return ExpertMesh(ep, tp, rows_replicated=True, sp=sp, pp=pp)
 
 
 def make_mesh(cfg) -> Optional[ExpertMesh]:
     """The run's mesh (JAX ``Trainer._maybe_make_mesh``,
     ``trainer.py:127-169``): None without a process group, else the
     :class:`ExpertMesh` of ``num_expert_partitions``,
-    ``num_model_partitions`` and ``num_seq_partitions``, after
-    :func:`check_mesh`."""
+    ``num_model_partitions``, ``num_seq_partitions`` and
+    ``num_pipeline_stages``, after :func:`check_mesh`."""
     check_mesh(cfg)
     par = cfg.parallel
     return (ExpertMesh(par.num_expert_partitions, par.num_model_partitions,
-                       sp=par.num_seq_partitions)
+                       sp=par.num_seq_partitions,
+                       pp=par.num_pipeline_stages)
             if dist.is_initialized() else None)
 
 
 def check_mesh(cfg) -> None:
-    """Raise unless the seq x expert x model partitions divide the world
-    and the expert partitions the experts, ``num_data_partitions`` is 0
-    (the world over ``sp x ep x tp``) or that, the row-holders (``dp x
-    ep``: the ranks of a model group and of a seq group share their rows)
-    divide each microbatch (JAX needs its data axis to divide it; the port
-    gives each row-holder whole rows), and every seq rank gets at least 2
-    frames of ``data.max_motion_length``."""
+    """Raise unless the seq x pipe x expert x model partitions divide the
+    world and the expert partitions the experts, ``num_data_partitions`` is
+    0 (the world over ``sp x pp x ep x tp``) or that, the row-holders (``dp
+    x ep``: the ranks of a model group, of a seq group and of a pipe group
+    share their rows) divide each microbatch (JAX needs its data axis to
+    divide it; the port gives each row-holder whole rows), every seq rank
+    gets at least 2 frames of ``data.max_motion_length``, and, with a pipe
+    axis, JAX's rules for it: data alone beside it, no ``dispatch``, and
+    the GPipe layout of each microbatch (``validate_pp_layout``)."""
     world = dist.get_world_size() if dist.is_initialized() else 1
     ep = cfg.parallel.num_expert_partitions
     tp = cfg.parallel.num_model_partitions
     sp = cfg.parallel.num_seq_partitions
+    pp = cfg.parallel.num_pipeline_stages
     procs = f"{world} process{'es' if world > 1 else ''}"
     if ep < 1 or world % ep:
         raise ValueError(
@@ -651,25 +860,33 @@ def check_mesh(cfg) -> None:
             f"num_expert_partitions {ep} x num_model_partitions {tp}, but "
             f"the run has {procs}: launch a multiple of {sp * ep * tp} "
             "processes, one per device")
+    if pp < 1 or world % (sp * pp * ep * tp):
+        raise ValueError(
+            f"num_pipeline_stages (--pipeline_parallel) {pp} x "
+            f"num_seq_partitions {sp} x num_expert_partitions {ep} x "
+            f"num_model_partitions {tp}, but the run has {procs}: launch a "
+            f"multiple of {sp * pp * ep * tp} processes, one per device")
     if cfg.model.use_moe and cfg.model.num_experts % ep:
         raise ValueError(f"num_experts {cfg.model.num_experts} not "
                          f"divisible by {ep} expert partitions")
     n = cfg.parallel.num_data_partitions
-    rest = sp * ep * tp
+    rest = sp * pp * ep * tp
     if n not in (0, world // rest):
         raise ValueError(
             f"num_data_partitions (--data_parallel) {n}, but the run has "
             f"{procs} over"
             + (f" {sp} seq partitions x" if sp > 1 else "")
+            + (f" {pp} pipeline stages x" if pp > 1 else "")
             + f" {ep} expert partition{'s' if ep > 1 else ''}"
             + (f" x {tp} model partitions" if tp > 1 else "")
-            + ": launch data x seq x expert x model processes, or pass 0")
+            + ": launch data x seq x pipe x expert x model processes, or "
+            "pass 0")
     accum = max(1, cfg.train.grad_accum_steps)
     micro = cfg.train.batch_size // accum
     holders = world // rest * ep
     if micro % holders:
-        share = " and ".join(w for w, k in (("model", tp), ("seq", sp))
-                             if k > 1)
+        share = " and ".join(w for w, k in (("model", tp), ("seq", sp),
+                                            ("pipe", pp)) if k > 1)
         raise ValueError(
             f"microbatch {micro} (batch_size {cfg.train.batch_size} / "
             f"grad_accum_steps {accum}) not divisible by the {holders} data "
@@ -682,6 +899,18 @@ def check_mesh(cfg) -> None:
         raise ValueError(
             f"data.max_motion_length {T} over {sp} seq partitions: each "
             f"needs at least 2 frames (max_motion_length >= {2 * sp})")
+    if pp > 1:
+        from motiondiffusion_moe_tpu_torch.parallel.pipeline_parallel import (
+            validate_pp_layout)
+        check_pipe_axes(sp, ep, tp)
+        if cfg.model.use_moe and cfg.model.moe_compute == "dispatch":
+            raise ValueError(DISPATCH_IN_RING)
+        # under accumulation the ring sees one microbatch (B / A) at a time
+        validate_pp_layout(
+            pp, world // rest, cfg.model.num_layers, micro,
+            cfg.model.pipeline_microbatches,
+            fix_hint=("; adjust --batch_size / --grad_accum / "
+                      "--pp_microbatches / --num_layers"))
 
 
 def add_launch_flags(p) -> None:

@@ -65,6 +65,14 @@ JAX pipeline's ``mesh``, ``pipeline.py:66-78, 143-173, 228-242``):
   frames, as evenly as they go), and an all-gather over the seq group on T
   (the cuts may be uneven) comes before the one over the data group;
   ``micro_batch`` asks nothing of ``sp``, the frames at least 2 a rank;
+- with a pipe axis (``generation_mesh(dp, pipeline_parallel=pp)``, JAX's
+  ``(data, pipe)`` mesh, rank ``d * pp + p``) each rank holds its stage's
+  blocks alone and the denoiser runs each scale as the GPipe ring of
+  ``parallel/pipeline_parallel.py`` on the data rank's rows, every pipe
+  rank getting the last stage's output; JAX's layout check on the
+  CFG-doubled micro-batch runs at construction (``num_layers`` % pp, and
+  ``2 micro_batch`` in ``pipeline_microbatches`` microbatches divisible by
+  the data ranks);
 - :class:`MeshLeader` lets rank 0 drive the others (the serve and evaluate
   CLIs): each ``generate`` goes to them as a job
   (``parallel/distributed.py::JobLeader``), and they run
@@ -146,6 +154,16 @@ class GenerationPipeline:
                     f"data axis ({mesh.dp})")
             if mesh.sp > 1:
                 mesh.frames(cfg.model.max_frames)  # raises if too few
+            if mesh.pp > 1:
+                from motiondiffusion_moe_tpu_torch.parallel.pipeline_parallel \
+                    import validate_pp_layout
+                # the ring cuts each data rank's rows of the CFG-doubled
+                # batch into its microbatches (JAX pipeline.py:63-79)
+                validate_pp_layout(
+                    mesh.pp, mesh.dp, cfg.model.num_layers, 2 * micro_batch,
+                    cfg.model.pipeline_microbatches,
+                    batch_desc="CFG-doubled micro_batch",
+                    fix_hint="; adjust micro_batch or pipeline_microbatches")
             if mesh.ep * mesh.tp > 1 and cfg.model.moe_compute == \
                     "dense_fused":
                 # the fused matmul merges the experts: not shardable
@@ -197,6 +215,10 @@ class GenerationPipeline:
             if isinstance(m, SwitchMoELayer):
                 m.compute = self.cfg.model.moe_compute
         attach_mesh(model, self.mesh)
+        if self.mesh.pp > 1:  # the rank's stage's blocks alone
+            from motiondiffusion_moe_tpu_torch.parallel.pipeline_parallel \
+                import keep_stage
+            keep_stage(model, self.mesh)
         self._global_shapes = {}
         for name, p in list(model.named_parameters()):
             self._global_shapes[name] = tuple(p.shape)
@@ -269,6 +291,9 @@ class GenerationPipeline:
 
         if any(isinstance(v, Mapping) for v in params.values()):
             params = jax_to_state_dict(params)
+        if self.mesh is not None and self.mesh.pp > 1:  # its stage's blocks
+            params = {n: x for n, x in params.items()
+                      if n in self._global_shapes}
         placed = {name: self._local(name, x).to(self.device, serving_dtype(
             name, x.dtype, self.param_dtype), copy=True).contiguous()
             for name, x in params.items()}

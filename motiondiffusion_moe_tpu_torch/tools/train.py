@@ -22,12 +22,14 @@ run goes on saving in the JAX layout, which the JAX package resumes again
 HF checkpoint ``--deberta_ckpt`` when given (grafted at init) and else
 from its random init, with a warning.
 
-Data-, seq-, expert- and tensor-parallel training runs one process per
-device, launched by torchrun::
+Data-, seq-, pipeline-, expert- and tensor-parallel training runs one
+process per device, launched by torchrun::
 
     torchrun --nproc_per_node N -m motiondiffusion_moe_tpu_torch.tools.train \
         [--seq_parallel SP] [--expert_parallel EP] [--tensor_parallel TP] \
         [--data_parallel N/(SP EP TP)] [--zero1] ...
+    torchrun --nproc_per_node N -m motiondiffusion_moe_tpu_torch.tools.train \
+        --pipeline_parallel PP [--pp_microbatches M] [--zero1] ...
 
 or by starting each process with the JAX CLI's three flags,
 ``--coordinator_address HOST:PORT --num_processes N --process_id R`` (an
@@ -51,10 +53,19 @@ N / (SP TP)`` (Q must divide each microbatch, and the data's
 the Adam moments and the EMA over the processes that reduce each
 gradient. The backend follows the device: NCCL
 for CUDA, gloo for the CPU. Only the primary writes ``config.json``,
-``meta/`` and the checkpoints (in the global layout) and prints. What the
-port does not run yet raises: the pipeline axis, and
-``--scan_blocks`` / ``--remat_blocks``, which exist for JAX compilation and
-are not ported.
+``meta/`` and the checkpoints (in the global layout) and prints.
+
+``--pipeline_parallel PP`` (with ``--data_parallel`` alone beside it, as in
+JAX) makes the N processes a ``(data, pipe)`` mesh, rank ``R = d * PP +
+p``: rank R keeps blocks ``[p L / PP, (p + 1) L / PP)`` of each scale
+(``--num_layers`` divisible by PP) and runs them as a GPipe ring of
+``--pp_microbatches`` microbatches (0: 2 PP; each data rank's rows of a
+microbatch must divide into them); the PP ranks of a pipe group hold the
+same rows, ``Q = N / PP``. JAX needs ``--scan_blocks`` for it; the port
+has no stacked layout and needs none: ``--scan_blocks`` and
+``--remat_blocks``, which exist for JAX compilation, raise. A pipeline
+run's saves hold the named layout, which any layout of the port resumes
+and the JAX package's named-layout runs restore.
 """
 
 from __future__ import annotations
@@ -128,7 +139,8 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="JAX rematerialisation policy: not ported, raises "
                         "unless empty")
     p.add_argument("--scan_blocks", action="store_true",
-                   help="JAX stacked-block layout: not ported, raises")
+                   help="JAX stacked-block layout: not ported, raises "
+                        "(--pipeline_parallel needs no --scan_blocks here)")
     p.add_argument("--ema_decay", type=float, default=0.0,
                    help="weight-EMA decay (0 = off; e.g. 0.9999)")
     p.add_argument("--lr_schedule", default="constant",
@@ -155,13 +167,18 @@ def build_argparser() -> argparse.ArgumentParser:
                         "every motion's frames; the ranks of a seq group "
                         "share their rows")
     p.add_argument("--pipeline_parallel", type=int, default=1,
-                   help="multi-device: raises above 1 (not ported)")
+                   help="pipeline stages: each process keeps num_layers / N "
+                        "contiguous blocks of each scale and runs them as a "
+                        "GPipe ring; the ranks of a pipe group share their "
+                        "rows (composes with --data_parallel alone)")
     p.add_argument("--data_parallel", type=int, default=0,
                    help="data-parallel ranks, one process each (0 = the "
                         "number of processes launched over --seq_parallel "
-                        "x --expert_parallel x --tensor_parallel)")
+                        "x --pipeline_parallel x --expert_parallel x "
+                        "--tensor_parallel)")
     p.add_argument("--pp_microbatches", type=int, default=0,
-                   help="pipeline microbatches (read only with "
+                   help="microbatches of the pipeline ring (0 = 2 x "
+                        "--pipeline_parallel; read only with "
                         "--pipeline_parallel)")
     p.add_argument("--zero1", action="store_true",
                    help="shard the Adam moments and the EMA over the ranks "
@@ -187,7 +204,10 @@ def check_supported(args: argparse.Namespace) -> None:
     if args.scan_blocks or args.remat_blocks:
         raise NotImplementedError(
             "--scan_blocks / --remat_blocks exist for JAX compilation and "
-            "are not ported")
+            "are not ported; the port's --pipeline_parallel needs no "
+            "--scan_blocks (each rank keeps its stage's named blocks, and "
+            "saves the named layout, which a JAX --scan_blocks run does not "
+            "restore)")
 
 
 def config_from_args(args: argparse.Namespace):
@@ -268,10 +288,8 @@ def main(argv=None):
     from motiondiffusion_moe_tpu_torch.parallel.mesh import check_mesh
     from motiondiffusion_moe_tpu_torch.training.checkpoint import (
         CheckpointManager)
-    from motiondiffusion_moe_tpu_torch.training.trainer import (
-        Trainer, check_parallel_config)
+    from motiondiffusion_moe_tpu_torch.training.trainer import Trainer
 
-    check_parallel_config(cfg)
     if (torch.device(args.device).type == "cuda"
             and not torch.cuda.is_available()):
         raise RuntimeError(f"--device {args.device}: no CUDA device is "

@@ -44,18 +44,19 @@ when it matches the restored step. (Resuming at the epoch after the
 checkpointed one is this package's own choice, not the reference
 trainer's.)
 
-Under data, seq, expert and model parallelism (``parallel/``) saving is
-collective: every rank calls :meth:`CheckpointManager.save`, which gathers
+Under data, seq, pipe, expert and model parallelism (``parallel/``) saving
+is collective: every rank calls :meth:`CheckpointManager.save`, which gathers
 into the primary's host memory the ZeRO-1 shards, the expert and model
 blocks of the parameters, moments and EMA (experts in order on dim 0,
-model blocks on the dim JAX's Megatron rule cuts: the global layout a
-one-process run and the JAX package hold), and the generator state of each
-row-holder (the ranks of a model group and of a seq group draw alike: the
-states of the ranks with ``s = m = 0``; ``rng`` is then the list of them,
+model blocks on the dim JAX's Megatron rule cuts, every pipe stage's blocks
+under their one-process names: the global layout a one-process run and the
+JAX package hold), and the generator state of each row-holder (the ranks
+of a model group, of a seq group and of a pipe group draw alike: the states
+of the ranks with ``s = p = m = 0``; ``rng`` is then the list of them,
 in row-holder order, whatever ``sp`` and ``tp``); the primary writes either
 format and ``epoch_meta.json``, and the others wait at a barrier. Every
 rank reads a restore whole and keeps its blocks and its shard, so a run
-saved at one ``(dp, sp, ep, tp)`` resumes at any other, one process
+saved at one ``(dp, sp, pp, ep, tp)`` resumes at any other, one process
 included, and a run with as many row-holders takes their generator
 states.
 """
@@ -82,6 +83,7 @@ from motiondiffusion_moe_tpu_torch.parallel.distributed import (
 )
 from motiondiffusion_moe_tpu_torch.parallel.mesh import (
     local_state_dict,
+    whole_model,
     whole_state_dict,
 )
 from motiondiffusion_moe_tpu_torch.utils import orbax_format
@@ -294,7 +296,7 @@ class CheckpointManager:
         step = step if step is not None else self.latest_step()
         if step is None:
             return None
-        payload = self.read(step, model=state.model)
+        payload = self.read(step, model=whole_model(state.model))
         state.model.load_state_dict(local_state_dict(state.model,
                                                      payload["params"]))
         state.optimizer.load_state_dict(payload["opt_state"])
@@ -413,7 +415,7 @@ class CheckpointManager:
             state_dict_to_jax)
         from motiondiffusion_moe_tpu_torch.models.moe import SwitchMoELayer
 
-        model, opt = state.model, state.optimizer
+        model, opt = whole_model(state.model), state.optimizer
         cfg = model.config
         named = list(model.named_parameters())
         trainable = [n for n, p in named if p.requires_grad]

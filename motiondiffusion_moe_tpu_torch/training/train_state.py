@@ -54,6 +54,21 @@ ranks' losses add up to Q times the global batch's, Q the row-holders
 computed alike on every seq rank from the gathered output, whose gradient
 each rank takes for its own frames; their denominators, their metrics and
 a ``dispatch`` layer's balance statistics count once.
+
+With a pipe axis (``pp > 1``, composing with the data axis alone) the pipe
+ranks of a row-holder hold its rows and each its stage's blocks
+(``parallel/pipeline_parallel.py``): every pipe rank computes the same
+losses on the ring's output, and the ring's backward leaves each the same
+whole gradient of every replicated leaf (a copy) and of its own blocks. A
+replicated leaf is then summed over the world and divided by Q x pp, a
+block's over its stage's data ranks and divided by Q; the clip counts
+each stage's blocks once (their squares summed over the pipe group). The
+MoE balance term is JAX's PP approximation: the mean over the
+(microbatch, data rank) chunks of the stages' Switch aux. Each rank's
+loss takes its own stage's term (the mean over its microbatches), whose
+gradient the ring's backward carries to the earlier stages; ``loss_moe``
+and ``loss_total`` show the sum over the stages, as JAX sows
+``pp_aux_*``.
 """
 
 from __future__ import annotations
@@ -86,6 +101,7 @@ from motiondiffusion_moe_tpu_torch.parallel.data_parallel import (
     Sharded,
 )
 from motiondiffusion_moe_tpu_torch.parallel.mesh import (
+    STAGE,
     Cut,
     CutSharded,
     ExpertMesh,
@@ -239,7 +255,7 @@ class Optimizer:
                 self.params, self.cuts, mesh,
                 lambda idx, key: FlatParams(
                     [self.params[i] for i in idx], mesh.blocks[key], zero1,
-                    denom=mesh.holders * (1 if key[1] else mesh.tp)))
+                    denom=mesh.holders * mesh.copies(key)))
             self.flats = self.layout.parts
         elif dp is not None:
             self.flats = [FlatParams(self.params, dp, zero1)]
@@ -286,7 +302,7 @@ class Optimizer:
         else:  # each block once: its squares over the ranks of other blocks
             mesh = self.mesh
             across = {(False, True): mesh.model, (True, False): mesh.expert,
-                      (True, True): mesh.shard}
+                      (True, True): mesh.shard, STAGE: mesh.pipe}
             sq = torch.zeros((), device=grads[0].device)
             for idx, key in parts:
                 if key == (False, False):  # whole on every rank
@@ -348,9 +364,11 @@ class Optimizer:
         ZeRO-1, its shard)."""
         self.count = int(state["count"])
         for dst, src in ((self.mu, state["mu"]), (self.nu, state["nu"])):
-            if len(src) != len(self.params):
+            staged = self.mesh is not None and self.mesh.pp > 1
+            if len(src) != len(self.params) and not staged:
                 raise ValueError(f"optimizer state has {len(src)} moments, "
                                  f"the model {len(self.params)} parameters")
+            # (a pipe rank's: its stage's, which raises unless they fit)
             src = local_leaves(src, self.cuts, self.mesh)
             if self.zero1:
                 src = self.layout.local(src)
@@ -561,7 +579,11 @@ class TrainStep:
         loss_rec = values[0]
         moe_loss = (moe_aux.to(loss_rec.device)
                     * self.cfg.model.moe_aux_loss_weight)
-        total = shown = loss_rec + moe_loss
+        total = loss_rec + moe_loss
+        pipe = getattr(self.dp, "pipe", None)
+        if pipe is not None:  # the stages' terms: the data rank's whole
+            moe_loss = pipe.total(moe_loss)
+        shown = loss_rec + moe_loss
         metrics = {"loss_mot_rec": loss_rec, "loss_moe": moe_loss}
         for (name, w, _, whole), value in zip(parts[1:], values[1:]):
             total = total + w * value
@@ -591,11 +613,20 @@ class TrainStep:
         weights (times Q), add up over the ranks to Q times the global
         batch's losses; the optimizer's sum over the ranks, divided by Q,
         is then the global batch's gradient. A layer's statistics that
-        every seq rank holds alike (``MoEBalance.once``) count once."""
+        every seq rank holds alike (``MoEBalance.once``) count once. Under
+        a pipe axis the aux is JAX's PP estimate instead: the rank's
+        stage's rings' terms (``ctx.stage_aux``), each the mean over its
+        microbatches of its blocks' aux on the chunk."""
         if self.dp is None:
             return dens, sum_moe_aux_losses(ctx), 1
         holders = getattr(self.dp, "batch", self.dp)
         Q = getattr(self.dp, "holders", holders.world)
+        if getattr(self.dp, "pp", 1) > 1:
+            # JAX's PP aux: each stage's mean over its microbatches, the
+            # rank's term of the data rank's whole (see the module doc)
+            aux = torch.stack(ctx.stage_aux).sum()
+            return list(holders.total(torch.stack(dens).float()).unbind()), \
+                aux, Q
         k, bal = len(dens), ctx.moe_balance
         # each rank's weight in a layer's means: its tokens under a seq
         # axis (the cuts may be uneven), else 1 (every rank routes as

@@ -14,18 +14,24 @@ Steps run one by one whatever ``steps_per_call`` says (see
 (``trainer.py:326-337``: never draw t from weights a buffered step has not
 updated yet) holds by construction.
 
-Data, seq, expert and model parallelism (``parallel/``): where a process
-group is initialised (``parallel.initialize_distributed``), each process is
-one rank of the ``(data, seq, expert, model)`` mesh (``parallel.make_mesh``,
-JAX ``_maybe_make_mesh``, ``trainer.py:127-169``): ``num_seq_partitions``
-(sp) x ``num_expert_partitions`` (ep) x ``num_model_partitions`` (tp) must
-divide the world size and ep the experts, ``num_data_partitions`` must be 0
-(the world size over sp x ep x tp) or that, the row-holders (dp x ep: the
-tp ranks of a model group and the sp ranks of a seq group hold the same
-rows) must divide each microbatch, and every seq rank needs 2 frames of
-``max_motion_length``; in one process, sp, ep or tp > 1 is a mismatch and
-raises. A seq rank trains on its frames of its row-holder's rows
-(``train_state.py``). The loader gives row-holder q = d ep + e rows
+Data, seq, pipe, expert and model parallelism (``parallel/``): where a
+process group is initialised (``parallel.initialize_distributed``), each
+process is one rank of the ``(data, seq, pipe, expert, model)`` mesh
+(``parallel.make_mesh``, JAX ``_maybe_make_mesh``, ``trainer.py:127-169``):
+``num_seq_partitions`` (sp) x ``num_pipeline_stages`` (pp) x
+``num_expert_partitions`` (ep) x ``num_model_partitions`` (tp) must divide
+the world size and ep the experts, ``num_data_partitions`` must be 0 (the
+world size over sp x pp x ep x tp) or that, the row-holders (dp x ep: the
+tp ranks of a model group, the sp ranks of a seq group and the pp ranks of
+a pipe group hold the same rows) must divide each microbatch, and every seq
+rank needs 2 frames of ``max_motion_length``; in one process, sp, pp, ep
+or tp > 1 is a mismatch and raises. The pipe axis takes JAX's rules
+besides (data alone beside it, no ``dispatch``, ``num_layers`` % pp and
+each microbatch in ``pipeline_microbatches`` microbatches divisible by the
+data ranks; ``dense_fused`` runs as it is). A seq rank trains on its
+frames of its row-holder's rows, a pipe rank holds its stage's blocks and
+runs them in the GPipe ring (``train_state.py``,
+``parallel/pipeline_parallel.py``). The loader gives row-holder q = d ep + e rows
 ``[q B / (dp ep), (q + 1) B / (dp ep))`` of each batch, JAX's token chunk
 q; the losses, gradients and metrics are the global batch's
 (``train_state.py``); ``zero1`` shards the Adam moments and the EMA. The
@@ -39,14 +45,16 @@ takes the global batch's capacity. Row-holder q's host RNG (t draws,
 caption dropout) is ``default_rng(seed + 1_000_003 * q)``, the JAX process
 q's. Its ``torch.Generator`` (noise, dropout) is seeded ``seed + 1 +
 1_000_003 * q``: the port's own choice, since JAX draws the global batch's
-noise from one key. The ranks of a model group and of a seq group thus draw
-the same noise and masks, and their replicated activations stay the same (a
-dropout on a column-split hidden or on the rank's frames draws the whole
-mask and keeps the rank's block of it), and their samplers see the same
-per-sample losses. Only the primary prints and logs; saves are collective
-and write the global layout with one generator state a row-holder
-(``training/checkpoint.py``). The pipe axis raises (ROADMAP, queue 1, item
-6c2).
+noise from one key. The ranks of a model group, of a seq group and of a
+pipe group thus draw the same noise and masks, and their replicated
+activations stay the same (a dropout on a column-split hidden or on the
+rank's frames draws the whole mask and keeps the rank's block of it; the
+pipe ranks draw the rings' coins and seeds alike), and their samplers see
+the same per-sample losses. Only the primary prints and logs; saves are
+collective and write the global layout (every stage's blocks under their
+one-process names) with one generator state a row-holder, from its ranks
+with s = p = m = 0 (``training/checkpoint.py``), so a run resumes at any
+other layout.
 
 Host work per step: draw t from the schedule sampler, tokenize the
 captions (with the tokenizer of the config's text encoder), copy the batch
@@ -90,22 +98,6 @@ from motiondiffusion_moe_tpu_torch.training.train_state import (
 from motiondiffusion_moe_tpu_torch.utils.logging import MetricsLogger
 
 
-# the ParallelConfig axes not ported yet, by ROADMAP item
-_UNPORTED_AXES = {"num_pipeline_stages": "6c2"}
-
-
-def check_parallel_config(cfg: ExperimentConfig) -> None:
-    """Raise for a ParallelConfig axis the port does not train over: the
-    pipe axis."""
-    asked = {k: getattr(cfg.parallel, k) for k in _UNPORTED_AXES}
-    multi = {k: v for k, v in asked.items() if v > 1}
-    if multi:
-        items = sorted({_UNPORTED_AXES[k] for k in multi})
-        raise NotImplementedError(
-            f"{multi}: the port trains over the data, seq, expert and model "
-            f"axes only; the pipe axis is ROADMAP.md queue 1, item "
-            f"{' and '.join(items)}")
-
 
 class Trainer:
     def __init__(self, cfg: ExperimentConfig,
@@ -113,7 +105,6 @@ class Trainer:
                  normalizer_stats=None,
                  logger: Optional[MetricsLogger] = None,
                  device="cuda"):
-        check_parallel_config(cfg)
         self.dp = make_mesh(cfg)
         self.world = self.dp.world if self.dp is not None else 1
         self.rank = self.dp.rank if self.dp is not None else 0
@@ -200,9 +191,10 @@ class Trainer:
         if isinstance(self.sampler, LossAwareSampler):
             ts = batch["t"].cpu().numpy()
             losses = metrics["per_sample_mse"].float().cpu().numpy()
-            if self.dp is not None and (self.dp.s or self.dp.m):
+            if self.dp is not None and (self.dp.s or self.dp.m
+                                        or self.dp.p):
                 # a row-holder's pairs count once, from its rank with s = m
-                # = 0: the samplers gather the row-holders' in q order
+                # = p = 0: the samplers gather the row-holders' in q order
                 ts, losses = ts[:0], losses[:0]
             self.sampler.update_with_local_losses(ts, losses)
 

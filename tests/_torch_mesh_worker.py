@@ -41,6 +41,24 @@ sp)``:
   held to the save bit for bit;
 - ``train_units``: the training mesh's errors.
 
+The pipe axis (``test_torch_pipeline_parallel.py``), each case on its own
+``(data, pipe)`` mesh (``layout`` ``(dp, ep, tp, sp, pp)`` for the
+training and generation kinds above):
+
+- ``pipe_gpipe``: ``parallel.pipeline_parallel.gpipe`` of a toy stage
+  (``tanh(h @ w_l)`` for each of the stage's layers of ``<prefix>_w``, or
+  with ``context`` the ring plus the microbatch's context) on ``<prefix>_x``
+  in ``case["M"]`` microbatches; the output, the loss's gradient of each
+  stage's layers, and the aux;
+- ``pipe_forward``: one denoiser forward of ``<prefix>_*`` under no grad
+  on the data rank's rows, gathered over the data group, with each rank's
+  held parameters;
+- ``pipe_fit``: ``Trainer.fit`` at the case's mesh recording, after each
+  step, the loss and a digest of every replicated leaf, and each forward's
+  coins and dropout seeds (``pipeline_parallel.ring_draws``);
+- ``pipe_memory``: the rank's held bytes (parameters, gradients, Adam's
+  moments, the EMA) beside ``pp_stage_memory_report`` of the whole model.
+
 Every rank reports the elements it holds (its expert tensors, its split
 FFN columns, all of them); rank 0 writes ``<out>/<name>.pt``. It imports
 the port and torch, nothing of JAX.
@@ -185,7 +203,7 @@ def _train_config(spec, case):
     from motiondiffusion_moe_tpu_torch.config import ExperimentConfig
 
     cfg = ExperimentConfig.from_dict(spec["train_cfg"])
-    dp, ep, tp, sp = case["layout"]
+    dp, ep, tp, sp, pp = (tuple(case["layout"]) + (1,))[:5]
     return dataclasses.replace(
         cfg,
         model=dataclasses.replace(cfg.model, **case.get("model", {})),
@@ -196,7 +214,7 @@ def _train_config(spec, case):
         parallel=dataclasses.replace(
             cfg.parallel, num_data_partitions=dp, num_expert_partitions=ep,
             num_model_partitions=tp, num_seq_partitions=sp,
-            zero1=case.get("zero1", False)))
+            num_pipeline_stages=pp, zero1=case.get("zero1", False)))
 
 
 def _train_model(cfg, mesh, sd):
@@ -221,7 +239,7 @@ def run_train_step(spec, case, arrays):
     from motiondiffusion_moe_tpu_torch.parallel.distributed import (
         all_gather_objects)
     from motiondiffusion_moe_tpu_torch.parallel.mesh import (
-        make_mesh, whole_state_dict)
+        make_mesh, whole_model, whole_state_dict)
     from motiondiffusion_moe_tpu_torch.training.checkpoint import (
         CheckpointManager)
     from motiondiffusion_moe_tpu_torch.training.train_state import (
@@ -281,8 +299,8 @@ def run_train_step(spec, case, arrays):
     res = {"metrics": {k: float(v) for k, v in metrics.items()
                        if v.dim() == 0},
            "params": whole_state_dict(model),
-           "mu": mu and dict(zip((n for n, p in model.named_parameters()
-                                  if p.requires_grad), mu)),
+           "mu": mu and dict(zip((n for n, p in whole_model(
+               model).named_parameters() if p.requires_grad), mu)),
            "per_sample": all_gather_objects(
                metrics["per_sample_mse"].tolist()),
            "calls": all_gather_objects(calls),
@@ -367,6 +385,128 @@ def run_train_units(spec, case):
     return got
 
 
+def run_pipe_gpipe(case, arrays):
+    """A toy stage through the ring (see the module doc)."""
+    from motiondiffusion_moe_tpu_torch.parallel.distributed import (
+        all_gather_objects)
+    from motiondiffusion_moe_tpu_torch.parallel.mesh import ExpertMesh
+    from motiondiffusion_moe_tpu_torch.parallel.pipeline_parallel import (
+        gpipe, stage_range)
+
+    mesh = ExpertMesh(pp=case["S"])
+    pre = case["prefix"]
+    w = torch.from_numpy(arrays[f"{pre}_w"])
+    x = torch.from_numpy(arrays[f"{pre}_x"])
+    held = stage_range(w.shape[0], mesh.pp, mesh.p)
+    w_local = w[held.start:held.stop].clone().requires_grad_()
+    context = {"c": x} if case.get("context") else {}
+
+    def stage_fn(h, c, m):
+        for wl in w_local:
+            h = h + c["c"] if context else torch.tanh(h @ wl)
+        return h, h.mean()
+
+    out, aux = gpipe(mesh, stage_fn, x, context, case["M"])
+    (out ** 2).sum().backward()
+    grad = (w_local.grad if w_local.grad is not None  # the context's
+            else torch.zeros_like(w_local))
+    return {"out": out.detach(),
+            "aux": all_gather_objects(float(aux.detach())),
+            "grads": all_gather_objects((mesh.d, mesh.p, grad.clone()))}
+
+
+def run_pipe_forward(spec, case, arrays):
+    """A denoiser forward on the data rank's rows, gathered."""
+    from motiondiffusion_moe_tpu_torch.parallel.distributed import (
+        all_gather_objects)
+    from motiondiffusion_moe_tpu_torch.parallel.mesh import generation_mesh
+
+    mesh = generation_mesh(*case["layout"])
+    pipe = _pipeline(spec, case, mesh)
+    x, t, length, ids = (torch.from_numpy(arrays[f"{case['prefix']}_{k}"])
+                         for k in ("x", "t", "length", "ids"))
+    rows = mesh.rows(x.shape[0])
+    with torch.no_grad():
+        out = pipe.model(x[rows], t[rows], length[rows],
+                         text_ids=ids[rows])
+        if mesh.dp > 1:
+            out = mesh.data.all_gather(out)
+    return {"out": out, "held": all_gather_objects(sorted(
+        n for n, _ in pipe.model.named_parameters()))}
+
+
+def run_pipe_fit(spec, case):
+    """``Trainer.fit`` with the replicated leaves and the draws recorded
+    after each step (see the module doc)."""
+    import hashlib
+
+    from motiondiffusion_moe_tpu_torch.parallel import pipeline_parallel as PPL
+    from motiondiffusion_moe_tpu_torch.parallel.distributed import (
+        all_gather_objects)
+    from motiondiffusion_moe_tpu_torch.parallel.mesh import leaf_cuts
+    from motiondiffusion_moe_tpu_torch.training.trainer import Trainer
+
+    cfg = _train_config(spec, case)
+    trainer = Trainer(cfg, device="cpu")
+    state = trainer.init_state()
+    cuts = leaf_cuts(state.model)
+    steps, draws = [], []
+    update, drawing = trainer.train_step.apply_update, PPL.ring_draws
+
+    def recording_update(st, metrics):
+        out = update(st, metrics)
+        digest = hashlib.sha256()
+        for n, p in st.model.named_parameters():
+            if not cuts[n].stage:
+                digest.update(p.detach().numpy().tobytes())
+        steps.append((float(out["loss_total"]), digest.hexdigest()))
+        return out
+
+    def recording_draws(*a, **k):
+        coins, seeds = drawing(*a, **k)
+        draws.append((None if coins is None else coins.tolist(), seeds))
+        return coins, seeds
+
+    trainer.train_step.apply_update = recording_update
+    PPL.ring_draws = recording_draws
+    try:
+        n = len(spec["fit"][0][0]) // trainer.holders
+        rows = slice(trainer.q * n, (trainer.q + 1) * n)
+        batches = [(caps[rows], np.asarray(m, np.float32)[rows], lens[rows])
+                   for caps, m, lens in spec["fit"]]
+        trainer.fit(state, batches)
+    finally:
+        PPL.ring_draws = drawing
+    return {"steps": all_gather_objects(steps),
+            "draws": all_gather_objects(draws),
+            "mesh": all_gather_objects((trainer.dp.d, trainer.dp.p))}
+
+
+def run_pipe_memory(spec, case):
+    """The rank's held bytes beside the stage memory report."""
+    from motiondiffusion_moe_tpu_torch.parallel.distributed import (
+        all_gather_objects)
+    from motiondiffusion_moe_tpu_torch.parallel.mesh import whole_model
+    from motiondiffusion_moe_tpu_torch.parallel.pipeline_parallel import (
+        pp_stage_memory_report)
+    from motiondiffusion_moe_tpu_torch.training.trainer import Trainer
+
+    cfg = _train_config(spec, case)
+    trainer = Trainer(cfg, device="cpu")
+    state = trainer.init_state()
+    nbytes = lambda ts: sum(t.numel() * t.element_size()  # noqa: E731
+                            for t in ts)
+    params = list(state.model.parameters())
+    held = (nbytes(params)
+            + nbytes(p.grad for p in params if p.requires_grad)
+            + nbytes(state.optimizer.mu) + nbytes(state.optimizer.nu)
+            + nbytes(state.ema.params))
+    report = pp_stage_memory_report(
+        list(whole_model(state.model).named_parameters()),
+        cfg.parallel.num_pipeline_stages, ema=True, hbm_bytes=1 << 40)
+    return {"held": all_gather_objects(held), "report": report}
+
+
 def main(spec_path, rank):
     from motiondiffusion_moe_tpu_torch.parallel.distributed import (
         all_gather_objects, initialize_distributed)
@@ -392,6 +532,14 @@ def main(spec_path, rank):
             res, pipe = run_train_resume(spec, case), None
         elif case["kind"] == "train_units":
             res, pipe = run_train_units(spec, case), None
+        elif case["kind"] == "pipe_gpipe":
+            res, pipe = run_pipe_gpipe(case, arrays), None
+        elif case["kind"] == "pipe_forward":
+            res, pipe = run_pipe_forward(spec, case, arrays), None
+        elif case["kind"] == "pipe_fit":
+            res, pipe = run_pipe_fit(spec, case), None
+        elif case["kind"] == "pipe_memory":
+            res, pipe = run_pipe_memory(spec, case), None
         elif case["kind"] == "forward":
             res, pipe = run_forward(spec, case, generation_mesh(
                 *case["layout"]), arrays)

@@ -53,7 +53,7 @@ the metrics count each token once.
   moving, JAX's ``test_seq_only_mesh_two_steps``).
 - The errors: fewer than 2 frames a seq rank, a microbatch that the data
   ranks do not divide, a world that seq x expert x model does not divide,
-  the pipe axis (ROADMAP item 6c2).
+  the pipe axis beside the seq axis or in one process.
 """
 
 import contextlib
@@ -88,6 +88,7 @@ from motiondiffusion_moe_tpu_torch.models.transformer import (
     MotionTransformer,
 )
 from motiondiffusion_moe_tpu_torch.ops import performer as PF
+from motiondiffusion_moe_tpu_torch.parallel.mesh import generation_mesh
 from motiondiffusion_moe_tpu_torch.tools import train as train_cli
 from motiondiffusion_moe_tpu_torch.training.checkpoint import (
     CheckpointManager,
@@ -541,11 +542,15 @@ def test_seq_training_errors(run):
 
 
 def test_pipe_axis_still_raises():
+    """The pipe axis trains (tests/test_torch_pipeline_parallel.py); beside
+    the seq axis, or in one process, it raises."""
     cfg = to_port(tiny_config())
-    with pytest.raises(NotImplementedError, match="item 6c2"):
+    with pytest.raises(ValueError, match="1 process"):
         Trainer(dataclasses.replace(
             cfg, parallel=ParallelConfig(num_pipeline_stages=2)),
             device="cpu")
-    with pytest.raises(NotImplementedError, match="6c2"):
+    with pytest.raises(ValueError, match="1 process"):
         train_cli.main(["--dataset", "synthetic", "--device", "cpu",
                         "--pipeline_parallel", "2"])
+    with pytest.raises(ValueError, match="mesh has seq=2"):
+        generation_mesh(1, 1, 1, 2, 2)

@@ -290,7 +290,7 @@ def test_the_jax_manager_restores_a_tp2_save(run):
     ("data_partitions", "ValueError", "x 2 model partitions"),
     ("microbatch", "ValueError", "not divisible by the 2 data ranks"),
     ("seq", "ValueError", "launch a multiple of 6 processes"),
-    ("pipe", "NotImplementedError", "item 6c2"),
+    ("pipe", "ValueError", "composes with 'data' only; mesh has model=2"),
     ("caller_dense_fused", "ValueError", "expert- or tensor-sharded")])
 def test_tensor_parallel_errors(run, name, kind, words):
     err = run["got"]["units"][name]

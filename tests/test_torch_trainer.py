@@ -135,24 +135,21 @@ def test_loss_aware_sampler_sees_every_step_and_grad_accum_runs():
 
 
 def test_what_the_port_does_not_run_yet_raises():
-    """The pipe axis (ROADMAP item 6c2) and the JAX compilation flags. The
-    data, seq, expert and model axes run (tests/test_torch_parallel.py,
-    tests/test_torch_seq_training.py, tests/test_torch_moe_parallel.py,
-    tests/test_torch_tensor_parallel.py); in one process, two data, seq,
-    expert or model partitions or a launch given in part are a mismatch and
-    raise ValueError."""
+    """The JAX compilation flags. The data, seq, pipe, expert and model
+    axes run (tests/test_torch_parallel.py, tests/test_torch_seq_training.
+    py, tests/test_torch_pipeline_parallel.py, tests/test_torch_moe_parallel.
+    py, tests/test_torch_tensor_parallel.py); in one process, two data,
+    seq, pipe, expert or model partitions or a launch given in part are a
+    mismatch and raise ValueError."""
     cfg = to_port(tiny_config())
-    with pytest.raises(NotImplementedError, match="item 6c"):
-        Trainer(dataclasses.replace(
-            cfg, parallel=ParallelConfig(num_pipeline_stages=2)),
-            device="cpu")
     for axis in ("num_data_partitions", "num_expert_partitions",
-                 "num_model_partitions", "num_seq_partitions"):
+                 "num_model_partitions", "num_seq_partitions",
+                 "num_pipeline_stages"):
         with pytest.raises(ValueError, match="1 process"):
             Trainer(dataclasses.replace(
                 cfg, parallel=ParallelConfig(**{axis: 2})), device="cpu")
-    for argv in (["--scan_blocks"],
-                 ["--remat_blocks", "dots"], ["--pipeline_parallel", "2"]):
+    for argv in (["--scan_blocks"], ["--remat_blocks", "dots"],
+                 ["--pipeline_parallel", "2", "--scan_blocks"]):
         with pytest.raises(NotImplementedError):
             train_cli.main(["--dataset", "synthetic", "--device", "cpu"]
                            + argv)
